@@ -1,0 +1,86 @@
+"""Scene presets.
+
+Counterpart of ``python_fluid_simulation_tpu.engine.scenes``.  The
+reference (notebook cell 10, :650-812) builds one scene — the 3D
+viscous-buckling funnel; the dam break is a small scene for the golden
+regression.  Scenes map a SimConfig to a SimState on ``device``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from python_fluid_simulation_tpu_torch.config import (
+    GridConfig3D,
+    PhysicsConfig,
+    SimConfig,
+    SolverConfig,
+)
+from python_fluid_simulation_tpu_torch.ops.sdf import RigidBodySet
+from python_fluid_simulation_tpu_torch.state import (
+    SimState,
+    make_particles,
+    make_solid_state,
+    seed_particle_box,
+)
+
+
+def buckling_rigid_bodies() -> RigidBodySet:
+    """Flipped box container + 4 tilted boxes forming a funnel hole.
+
+    Reference: cell 10 :682-689 (obs_height = 0.7).
+    """
+    rbs = RigidBodySet()
+    rbs.add("cube", "box", [0.5, 0.8, 0.5], flip=True, center=[0, 0.5, 0], axis=[0, 1, 0], angle=0)
+    h = 0.7
+    rbs.add("cube1", "box", [0.67, 0.1, 1.0], center=[-0.34, h, 0], axis=[0, 0, 1], angle=-45)
+    rbs.add("cube2", "box", [0.67, 0.1, 1.0], center=[0.34, h, 0], axis=[0, 0, 1], angle=45)
+    rbs.add("cube3", "box", [1.0, 0.1, 0.7], center=[0, h, -0.3], axis=[1, 0, 0], angle=45)
+    rbs.add("cube4", "box", [1.0, 0.1, 0.7], center=[0, h, 0.3], axis=[1, 0, 0], angle=-45)
+    return rbs
+
+
+def buckling_config(dx: float = 0.0125, mu: float = 1.0, viscosity_mode: str = "apic", dt_mode: str = "cfl") -> SimConfig:
+    """The reference scene: domain 0.6x1.0x0.6, GRES 48x80x48 at default dx."""
+    return SimConfig(
+        grid=GridConfig3D(bound_min=(-0.3, 0.0, -0.3), bound_size=(0.6, 1.0, 0.6), dx=dx),
+        physics=PhysicsConfig(rho=1000.0, mu=mu, dt=1.0 / 300.0),
+        solver=SolverConfig(viscosity_mode=viscosity_mode),
+        particle_dx=dx / 2.0,
+        dt_mode=dt_mode,
+        duration=3.0,
+    )
+
+
+def _state(cfg, rbs, center, size, seed, device):
+    solid = make_solid_state(cfg, rbs, device=device)
+    pos = seed_particle_box(center=center, size=size, dx=cfg.particle_dx, rb_table=solid.rb, seed=seed)
+    return SimState(
+        particles=make_particles(pos, cfg.physics.rho, cfg.particle_dx, device=device),
+        solid=solid,
+        t=torch.zeros((), dtype=torch.float32, device=device),
+        step_idx=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def buckling_scene(cfg: SimConfig | None = None, seed: int = 0, device="cuda") -> SimState:
+    """Reference scene state: fluid = jittered 0.3^3 box at (0, 0.65, 0)."""
+    cfg = cfg or buckling_config()
+    return _state(cfg, buckling_rigid_bodies(), [0.0, 0.65, 0.0], [0.3, 0.3, 0.3], seed, device)
+
+
+def dam_break_scene(cfg: SimConfig | None = None, seed: int = 0, device="cuda") -> SimState:
+    """A simple 3D dam break in a flipped-box container."""
+    cfg = cfg or SimConfig(
+        grid=GridConfig3D(bound_min=(0.0, 0.0, 0.0), bound_size=(1.0, 1.0, 1.0), dx=1 / 48),
+        physics=PhysicsConfig(mu=0.0),
+        particle_dx=1 / 96,
+        duration=2.0,
+    )
+    g = cfg.grid
+    rbs = RigidBodySet()
+    c = [m + 0.5 * s for m, s in zip(g.bound_min, g.bound_size)]
+    rbs.add("container", "box", [s - 4 * g.dx for s in g.bound_size], flip=True, center=c)
+    lo = [m + 2.5 * g.dx for m in g.bound_min]
+    size = [0.35 * s for s in g.bound_size]
+    return _state(cfg, rbs, [lo[i] + 0.5 * size[i] for i in range(3)], size, seed, device)

@@ -1,0 +1,204 @@
+"""The time step: ``step_3d(state, cfg) -> (state, metrics)``.
+
+Counterpart of ``python_fluid_simulation_tpu.engine.step`` for the
+single-device 'apic' step with static solids (the reference's notebook
+cell 13, :4552-4693).  Step order follows cell 13:
+  dt (CFL, :4572-4576) -> advect + SDF project (:4582-4584)
+  -> sort + level set -> density solve (:4587-4590) -> sort + level set
+  again (:4593-4594) -> merged P2G + fluid-volume classes (:4597)
+  -> gravity (:4608) -> viscosity (:4623) -> pressure (:4648)
+  -> extrapolate 2 iters (:4652) -> boundary condition (:4655)
+  -> G2P (:4660) -> viscosity-preconditioner hysteresis flag.
+
+The three solves run as CUDA kernels when the state lives on the GPU
+(``ops/cuda_stencils.py``, ``ops/cuda_cg.py``), and the step makes no
+host sync inside a solve.  Not yet ported (they raise): the 'unet' /
+'unet_warm' viscosity modes, moving solids, MG preconditioners, meshes
+and bucketing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from python_fluid_simulation_tpu_torch.config import SimConfig
+from python_fluid_simulation_tpu_torch.ops import sdf as sdf3d
+from python_fluid_simulation_tpu_torch.ops.boundary import apply_boundary_condition
+from python_fluid_simulation_tpu_torch.ops.extrapolate import extrapolate
+from python_fluid_simulation_tpu_torch.ops.fractions import compute_solid_frac_3d
+from python_fluid_simulation_tpu_torch.ops.indexing import const, split_parity
+from python_fluid_simulation_tpu_torch.ops.levelset import compute_fluid_levelset
+from python_fluid_simulation_tpu_torch.ops.transfers import g2p_all, make_sort_info, p2g_all
+from python_fluid_simulation_tpu_torch.solvers.density import density_solve_3d
+from python_fluid_simulation_tpu_torch.solvers.pressure import pressure_solve_3d
+from python_fluid_simulation_tpu_torch.solvers.viscosity import viscosity_solve_3d
+from python_fluid_simulation_tpu_torch.state import Particles, SimState
+
+_FACE_BIAS = ((0.0, 0.5, 0.5), (0.5, 0.0, 0.5), (0.5, 0.5, 0.0))
+
+
+@dataclasses.dataclass
+class GeomCache:
+    """Static solid geometry derived from the solid level set: the 2^3
+    parity classes of sphi and sv and the cut-cell face weights.  Build
+    it once while the rigid bodies do not move."""
+
+    sphi_c: dict
+    sv_c: Tuple[dict, ...]
+    w_faces: Tuple[torch.Tensor, ...]
+
+
+def build_geom_cache(solid) -> GeomCache:
+    sphi_c = split_parity(solid.phi, 3)
+    sv_c = tuple(split_parity(solid.v[..., c], 3) for c in range(3))
+    return GeomCache(sphi_c=sphi_c, sv_c=sv_c, w_faces=tuple(compute_solid_frac_3d(sphi_c)))
+
+
+def _check_supported(cfg: SimConfig):
+    sol = cfg.solver
+    if cfg.moving_solid:
+        raise NotImplementedError("moving solids are not ported yet")
+    if sol.viscosity_mode != "apic":
+        raise NotImplementedError(f"viscosity_mode={sol.viscosity_mode!r} is not ported yet")
+    if sol.precond != "jacobi" or sol.viscosity_precond != "jacobi" or not sol.jacobi_precond:
+        raise NotImplementedError("only Jacobi preconditioning is ported")
+    if sol.pressure_dt_scaled:
+        raise NotImplementedError("the dt-scaled pressure assembly is not ported")
+
+
+def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> Tuple[SimState, Dict[str, torch.Tensor]]:
+    """One 'apic' step on the device of the state's tensors."""
+    _check_supported(cfg)
+    g, ph, sol = cfg.grid, cfg.physics, cfg.solver
+    p = state.particles
+    dev = p.x.device
+    f32 = torch.float32
+    if geom is None:
+        geom = build_geom_cache(state.solid)
+
+    # -- dt selection (cell 13 :4572-4576)
+    if cfg.dt_mode == "cfl":
+        vmax = torch.amax(torch.sqrt(torch.sum(p.v**2, dim=-1)))
+        cfl_dt = g.dx / torch.clamp(vmax, min=1e-10)
+        dt = torch.clamp(torch.minimum(cfl_dt, torch.clamp(cfg.duration - state.t, min=1e-6)), max=ph.dt)
+    else:
+        dt = const(ph.dt, f32, dev)
+
+    # -- advect + project out of solids (:4582-4584)
+    px = sdf3d.project(state.solid.rb, p.x + p.v * dt)
+
+    # -- density/position projection (:4587-4590): one bias-0 cell sort
+    #    serves the level set, the mass/volume scatter and the
+    #    displacement broadcast
+    sort1 = make_sort_info(px, p.m, g.res, g.bound_min, g.cell_size)
+    lphi = compute_fluid_levelset(px, g.res, g.bound_min, g.cell_size, g.dx, pm=p.m, sort_info=sort1)
+    dres = density_solve_3d(
+        ph.rho, dt, px, p.m, cfg.particle_dx**3, geom.sphi_c, lphi, geom.w_faces,
+        g.bound_min, g.cell_size, tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter,
+        wz_bug=sol.density_wz_bug, sort_info=sort1,
+    )
+    px = dres.px
+
+    # -- level-set rebuild (:4593) + merged P2G and fluid-volume classes
+    #    (:4597-4604) over one shared sort, reused by G2P
+    shared_sort = make_sort_info(px, p.m, g.res, g.bound_min, g.cell_size)
+    lphi = compute_fluid_levelset(px, g.res, g.bound_min, g.cell_size, g.dx, pm=p.m, sort_info=shared_sort)
+    fshapes = [tuple(n + (1 if i == a else 0) for i, n in enumerate(g.res)) for a in range(3)]
+    # faces carrying < 1e-7 of one particle mass are numerically empty
+    mass_floor = 1e-7 * ph.rho * cfg.particle_dx**3
+    gm, gv, lvol, sort_info = p2g_all(
+        px, p.m, p.v, p.c, g.res, fshapes, _FACE_BIAS, g.bound_min, g.cell_size,
+        volume=(cfg.particle_dx**3, g.dual_cell_size), with_sort_info=True,
+        sort_info=shared_sort, mass_floor=mass_floor,
+    )
+    gv = list(gv)
+
+    # -- gravity (:4608)
+    gv[1] = gv[1] + ph.gravity * dt
+
+    # -- viscosity (:4611-4642)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    visc_iters, visc_resid = zero_i, torch.zeros((), dtype=f32, device=dev)
+    visc_rel, visc_conv = visc_resid, torch.ones((), dtype=torch.bool, device=dev)
+    if ph.mu > 0:
+        vres = viscosity_solve_3d(
+            dt, ph.mu, ph.rho, tuple(gv), geom.sphi_c, lvol, g.cell_vol,
+            tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter,
+        )
+        gv = list(vres.v_faces)
+        visc_iters = vres.stats.iters
+        visc_resid = vres.stats.residual
+        visc_rel = vres.stats.residual / torch.clamp(vres.stats.initial_residual, min=1e-30)
+        visc_conv = vres.stats.converged
+
+    # -- pressure projection (:4648)
+    pres = pressure_solve_3d(
+        tuple(gv), geom.sv_c, lphi, geom.w_faces, g.cell_size,
+        tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter,
+    )
+    gv = list(pres.v_faces)
+
+    # -- extrapolate 2 iterations, valid = mass > 0 (:4652)
+    for a in range(3):
+        gv[a], _ = extrapolate(gv[a], gm[a] > 0, 2)
+
+    # -- boundary conditions (:4655)
+    gv = apply_boundary_condition(gv, gm, geom.sphi_c, geom.sv_c, g.dx, mass_floor=mass_floor)
+
+    # -- G2P (:4660) over P2G's cell sort (positions unchanged since)
+    pv, pc = g2p_all(gv, g.res, _FACE_BIAS, g.bound_min, g.cell_size, sort_info)
+
+    # -- viscosity-preconditioner hysteresis (0 Jacobi, 1 MG entered on
+    #    cost, 2 MG entered on non-convergence, sticky)
+    visc_mg = torch.as_tensor(state.visc_mg, dtype=torch.int32, device=dev)
+    fallback = max(16, sol.viscosity_auto_iters // 12)
+    new_visc_mg = torch.where(
+        visc_mg > 0,
+        torch.where((visc_mg == 1) & (visc_iters < fallback), 0, visc_mg),
+        torch.where(~visc_conv, 2, torch.where(visc_iters >= sol.viscosity_auto_iters, 1, 0)),
+    ).to(torch.int32)
+
+    new_state = SimState(
+        particles=Particles(x=px, v=pv, c=pc, m=p.m),
+        solid=state.solid,
+        t=state.t + dt,
+        step_idx=state.step_idx + 1,
+        visc_mg=new_visc_mg,
+    )
+
+    def _rel(stats):
+        return stats.residual / torch.clamp(stats.initial_residual, min=1e-30)
+
+    metrics = {
+        "dt": dt,
+        "max_speed": torch.amax(torch.sqrt(torch.sum(pv**2, dim=-1))),
+        "density_iters": dres.stats.iters,
+        "density_residual": dres.stats.residual,
+        "density_rel_residual": _rel(dres.stats),
+        "density_converged": dres.stats.converged,
+        "viscosity_iters": visc_iters,
+        "viscosity_residual": visc_resid,
+        "viscosity_rel_residual": visc_rel,
+        "viscosity_converged": visc_conv,
+        "pressure_iters": pres.stats.iters,
+        "pressure_residual": pres.stats.residual,
+        "pressure_rel_residual": _rel(pres.stats),
+        "pressure_converged": pres.stats.converged,
+    }
+    return new_state, metrics
+
+
+def simulate(state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | None = None):
+    """Run `num_steps` steps; the static geometry is built once.
+    Returns (final_state, metrics) with each metric stacked over steps."""
+    if geom is None:
+        geom = build_geom_cache(state.solid)
+    history = []
+    for _ in range(num_steps):
+        state, m = step_3d(state, cfg, geom=geom)
+        history.append(m)
+    metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]} if history else {}
+    return state, metrics

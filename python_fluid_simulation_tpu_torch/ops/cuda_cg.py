@@ -1,0 +1,243 @@
+"""Coupled viscosity Jacobi-PCG: CUDA kernel + plain version.
+
+Replaces ``python_fluid_simulation_tpu/ops/pallas_cg.py::
+make_fused_coupled_cg_geom`` (``_make_geom_matvec`` + ``_make_bc_passes``
++ ``_make_driver``): the coupled 3-field (vx, vy, vz) viscosity solve,
+with the 42 couplings and 3 diagonals recomputed in the matvec from the
+10 parity-class geometry fields (7 vol classes, 3 sphi classes) instead
+of 45 materialised coefficient fields.
+
+On Hopper the whole solve is one cooperative persistent kernel
+(``csrc/coupled_visc_pcg.cu``): the CG state of the three face arrays is
+one concatenated vector, the loop runs on the device with grid barriers
+between the matvec, update and direction phases, and the scalars never
+reach the host.  What bounds it on the H100: the device-memory bytes are
+small (at the flagship grid the 10 geometry classes, b, x0 and pd read
+once and x written once: 16.5 MB, ~5 us at 3.35 TB/s) and all of it
+stays in the 50 MB L2; an iteration is bound by ~50 L1/L2 loads a face
+for the recomputed stencil and by its three grid barriers.
+
+The stencil plan — for each axis, which geometry class and offset feeds
+the active test, the 7 diagonal volumes and the 14 couplings — is built
+here once per grid from ``solvers.viscosity._terms_for_axis``; the
+kernel receives it by value in its ``__grid_constant__`` parameter and
+`coupled_matvec_plain` walks the same plan, so both follow
+``viscosity_term_fields``' fp32 product order.
+
+Routing: CUDA tensors launch the kernel; CPU tensors run
+`coupled_visc_pcg_plain`.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
+from python_fluid_simulation_tpu_torch.ops.indexing import face_parity, sample
+from python_fluid_simulation_tpu_torch.solvers.cg import cg
+
+VOL_CLASSES = ((0, 0, 1), (0, 1, 0), (0, 1, 1), (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1))
+SPHI_CLASSES = ((0, 1, 1), (1, 0, 1), (1, 1, 0))
+_PART_CAP = 3 * 8192
+
+
+def _dual(parity, off):
+    q = [p + o for p, o in zip(parity, off)]
+    return tuple(c % 2 for c in q), tuple((c - c % 2) // 2 for c in q)
+
+
+@functools.cache
+def stencil_plan():
+    """Per axis: {'active': sphi class, 'diag': [(vol class, k, factor)],
+    'terms': [(field, voff, sphi class, ck, vol class, vk, sign*factor)]}
+    with classes as parity tuples and k the shift within the class."""
+    from python_fluid_simulation_tpu_torch.solvers.viscosity import _terms_for_axis
+
+    plan = []
+    for a in range(3):
+        pa = face_parity(a, 3)
+        diag = [(*_dual(pa, (0, 0, 0)), None)]
+        for ax in range(3):
+            for sgn in (+1, -1):
+                off = [0, 0, 0]
+                off[ax] = sgn
+                diag.append((*_dual(pa, tuple(off)), 2.0 if ax == a else 1.0))
+        terms = []
+        for cond, field, voff, voloff, factor, sign in _terms_for_axis(a, 3):
+            ccls, ck = _dual(pa, cond)
+            vcls, vk = _dual(pa, voloff)
+            terms.append((field, tuple(voff), ccls, ck, vcls, vk, sign * factor))
+        plan.append({"active": _dual(pa, (0, 0, 0))[0], "diag": diag, "terms": terms})
+    return tuple(plan)
+
+
+def _class_ids():
+    return {("vol", c): i for i, c in enumerate(VOL_CLASSES)} | {
+        ("sphi", c): len(VOL_CLASSES) + i for i, c in enumerate(SPHI_CLASSES)
+    }
+
+
+def class_shape(cls, n):
+    return tuple(int(k) + 1 - p for k, p in zip(n, cls))
+
+
+@functools.cache
+def plan_words(n: tuple) -> np.ndarray:
+    """The stencil plan packed as the kernel's `Plan` struct (4-byte
+    words; floats stored by bit pattern) for cell resolution n.  Cached
+    per grid and read-only."""
+    ids = _class_ids()
+    words = []
+
+    def f32(v):
+        return int(np.array(v, np.float32).view(np.int32))
+
+    for ax in stencil_plan():
+        words.append(ids[("sphi", ax["active"])])
+        words += [ids[("vol", c)] for c, _, _ in ax["diag"]]
+        for _, k, _ in ax["diag"]:
+            words += list(k)
+        words += [f32(0.0 if f is None else f) for _, _, f in ax["diag"]]
+        for field, voff, ccls, ck, vcls, vk, sf in ax["terms"]:
+            words += [field, *voff, ids[("sphi", ccls)], *ck, ids[("vol", vcls)], *vk, f32(sf)]
+    classes = list(VOL_CLASSES) + list(SPHI_CLASSES)
+    dims = [class_shape(c, n) for c in classes]
+    for dm in dims:
+        words += list(dm)
+    off = 0
+    for dm in dims:
+        words.append(off)
+        off += int(np.prod(dm))
+    words += [0] * len(VOL_CLASSES) + [1] * len(SPHI_CLASSES)
+    words += [int(k) for k in n]
+    sizes = [int(np.prod(s)) for s in _face_shapes(n)]
+    words += [0, sizes[0], sizes[0] + sizes[1], sum(sizes)]
+    out = np.asarray(words, dtype=np.int32)
+    out.flags.writeable = False
+    return out
+
+
+def _face_shapes(n):
+    return [tuple(int(k) + (1 if i == a else 0) for i, k in enumerate(n)) for a in range(3)]
+
+
+def coupled_matvec_plain(sphi_c, vol_c, s_mu, vs):
+    """A v with coefficients rebuilt from the geometry classes by the
+    stencil plan; vs = (vx, vy, vz) face arrays."""
+    out = []
+    for a, ax in enumerate(stencil_plan()):
+        shape = tuple(vs[a].shape)
+        interior = torch.ones(shape, dtype=torch.bool, device=vs[a].device)
+        for i, s in enumerate(shape):
+            idx = torch.arange(s, device=vs[a].device)
+            bshape = [1, 1, 1]
+            bshape[i] = s
+            interior = interior & ((idx >= 1) & (idx <= s - 2)).reshape(bshape)
+        active = interior & (sample(sphi_c[ax["active"]], (0, 0, 0), shape, -1.0) >= 0)
+        (ccls, ck, _), rest = ax["diag"][0], ax["diag"][1:]
+        center = sample(vol_c[ccls], ck, shape, 0.0)
+        extra = torch.zeros_like(center)
+        for vcls, vk, factor in rest:
+            extra = extra + factor * sample(vol_c[vcls], vk, shape, 0.0)
+        diag_raw = center + s_mu * extra
+        acc = torch.where(active, diag_raw, 0.0) * vs[a]
+        for field, voff, ccls, ck, vcls, vk, sf in ax["terms"]:
+            w = sf * s_mu
+            fluid = sample(sphi_c[ccls], ck, shape, -1.0) >= 0
+            coef = torch.where(active & fluid, w * sample(vol_c[vcls], vk, shape, 0.0), 0.0)
+            acc = acc + coef * sample(vs[field], voff, shape, 0.0)
+        out.append(acc)
+    return tuple(out)
+
+
+def squared_tols(tol: float, rel_tol: float):
+    """fp32 tol^2 and rel_tol^2 as the TPU driver rounds them
+    (``jnp.asarray(tol, f32) ** 2`` and ``f32(rel_tol ** 2)``)."""
+    return float(np.float32(tol) ** 2), float(np.float32(rel_tol**2))
+
+
+def coupled_visc_pcg_plain(b, x0, pd, sphi_c, vol_c, s_mu, *, tol, rel_tol, max_iter):
+    """Plain PyTorch version: returns (x, iters, res, res0, thresh, r)
+    with x and r tuples of the three face arrays (r the final residual)."""
+    tol2, rel2 = squared_tols(tol, rel_tol)
+    x, stats, thresh, r = cg(
+        lambda v: coupled_matvec_plain(sphi_c, vol_c, s_mu, v),
+        tuple(b), tuple(x0), tol2=tol2, rel2=rel2, max_iter=max_iter,
+        precond=lambda rr: tuple(ri / p for ri, p in zip(rr, pd)),
+    )
+    return x, stats.iters, stats.residual, stats.initial_residual, thresh, r
+
+
+def _flat(ts):
+    return torch.cat([t.reshape(-1) for t in ts])
+
+
+def _split(flat, shapes):
+    out, o = [], 0
+    for s in shapes:
+        n = int(np.prod(s))
+        out.append(flat[o : o + n].view(s))
+        o += n
+    return tuple(out)
+
+
+def coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, *, tol, rel_tol, max_iter):
+    """Coupled viscosity Jacobi-PCG from x0 on the three face arrays.
+
+    b, x0, pd: (vx, vy, vz)-shaped tuples; sphi_c / vol_c: parity-class
+    dicts (vol already normalised); s_mu: 0-dim float32 tensor.
+    Returns (x, iters, res, res0, thresh, r) on b's device; the CUDA
+    route makes no host sync.
+    """
+    dev = b[0].device
+    if dev.type == "cpu":
+        return coupled_visc_pcg_plain(b, x0, pd, sphi_c, vol_c, s_mu, tol=tol, rel_tol=rel_tol, max_iter=max_iter)
+    if dev.type != "cuda":
+        raise ValueError(f"coupled_visc_pcg: unsupported device {dev}")
+    n = (int(b[1].shape[0]), int(b[0].shape[1]), int(b[0].shape[2]))
+    shapes = _face_shapes(n)
+    tensors = []
+    for name, group in (("b", b), ("x0", x0), ("pd", pd)):
+        for a in range(3):
+            tensors.append((f"{name}[{a}]", group[a], shapes[a]))
+    for c in VOL_CLASSES:
+        tensors.append((f"vol{c}", vol_c[c], class_shape(c, n)))
+    for c in SPHI_CLASSES:
+        tensors.append((f"sphi{c}", sphi_c[c], class_shape(c, n)))
+    tensors.append(("s_mu", s_mu, ()))
+    for name, t, shape in tensors:
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"coupled_visc_pcg: {name} must be float32 {tuple(shape)} on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    lib = cb.LIB.get()
+    plan = plan_words(n)
+    geom = _flat([vol_c[c] for c in VOL_CLASSES] + [sphi_c[c] for c in SPHI_CLASSES])
+    bf, x0f, pdf = _flat(b), _flat(x0), _flat(pd)
+    x = torch.empty_like(bf)
+    r = torch.empty_like(bf)
+    d = torch.empty_like(bf)
+    q = torch.empty_like(bf)
+    part = torch.empty(_PART_CAP, dtype=torch.float32, device=dev)
+    iters = torch.empty((), dtype=torch.int32, device=dev)
+    res = torch.empty((), dtype=torch.float32, device=dev)
+    res0 = torch.empty((), dtype=torch.float32, device=dev)
+    thresh = torch.empty((), dtype=torch.float32, device=dev)
+    s_mu = s_mu.contiguous()
+    tol2, rel2 = squared_tols(tol, rel_tol)
+    err = lib.pfs_coupled_visc_pcg(
+        plan.ctypes.data, plan.nbytes, geom.data_ptr(), bf.data_ptr(), x0f.data_ptr(), pdf.data_ptr(),
+        s_mu.data_ptr(), x.data_ptr(), r.data_ptr(), d.data_ptr(), q.data_ptr(),
+        part.data_ptr(), _PART_CAP, iters.data_ptr(), res.data_ptr(), res0.data_ptr(),
+        thresh.data_ptr(), tol2, rel2, int(max_iter), cb.stream_of(bf),
+    )
+    cb.check(err, "coupled_visc_pcg launch")
+    coupled_visc_pcg.launches += 1
+    return _split(x, shapes), iters, res, res0, thresh, _split(r, shapes)
+
+
+coupled_visc_pcg.launches = 0

@@ -1,0 +1,161 @@
+"""Variational cut-cell pressure projection (3D), matrix-free.
+
+Counterpart of ``python_fluid_simulation_tpu.solvers.pressure`` (the
+reference's ``solver/PressureCGSolver3D.py``): the 7-point ghost-fluid
+system, its RHS and the velocity update are PyTorch stencils (shifts +
+where); the Jacobi-PCG solve is the cell-Poisson kernel
+(``ops/cuda_stencils.py``).
+
+Solution convention matches the reference: x = -pressure * dt / (rho V)
+(PressureCGSolver3D.py:225).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from python_fluid_simulation_tpu_torch.ops.cuda_stencils import cell_poisson_pcg
+from python_fluid_simulation_tpu_torch.ops.fractions import edge_in_fraction
+from python_fluid_simulation_tpu_torch.ops.indexing import (
+    dual_sample,
+    face_parity,
+    interior_mask,
+    sample,
+    shift,
+)
+from python_fluid_simulation_tpu_torch.solvers.cg import SolveStats
+
+_GHOST_CLIP = (0.01, 1.0)  # frac = clamp(phi/(phi-nphi), 0.01, 1)
+
+
+def _ghost_frac(phi, nphi):
+    denom = phi - nphi
+    safe = torch.where(denom == 0, 1.0, denom)
+    return torch.clamp(phi / safe, *_GHOST_CLIP)
+
+
+def _sv_component(sv, a):
+    """sv is the raw (dual..., d) array or a per-component tuple of
+    parity-class dicts."""
+    return sv[a] if isinstance(sv, (list, tuple)) else sv[..., a]
+
+
+def _face_w_v(arr, axis, side, cell_shape):
+    """Face-array value seen from cells: side=+1 the high face (idx+1),
+    side=-1 the low face (idx)."""
+    off = [0] * len(cell_shape)
+    if side > 0:
+        off[axis] = 1
+    return sample(arr, tuple(off), cell_shape, 0.0)
+
+
+def _offset(d, a, side):
+    off = [0] * d
+    off[a] = side
+    return tuple(off)
+
+
+def pressure_rhs_3d(v_faces, sv, lphi, w_faces, cell_size) -> torch.Tensor:
+    """Divergence RHS with solid-velocity flux correction.
+
+    Reference: initialize_solver_kernel (PressureCGSolver3D.py:6-50).
+    """
+    shape = tuple(lphi.shape)
+    d = len(shape)
+    b = torch.zeros(shape, dtype=v_faces[0].dtype, device=lphi.device)
+    for a in range(d):
+        h = cell_size[a]
+        for side in (+1, -1):
+            w = _face_w_v(w_faces[a], a, side, shape)
+            v = _face_w_v(v_faces[a], a, side, shape)
+            sgn = 1.0 if side > 0 else -1.0
+            b = b + sgn * w * v / h
+            svf = dual_sample(_sv_component(sv, a), (1,) * d, _offset(d, a, side), shape, 0.0)
+            b = b - torch.where(w < 1, sgn * w * svf / h, 0.0)
+    active = interior_mask(shape, device=lphi.device) & (lphi < 0)
+    return torch.where(active, b, 0.0)
+
+
+def pressure_coefficients(w_faces, lphi):
+    """Loop-invariant stencil coefficient fields: (diag, [(off, coef)],
+    precond_diag), coefficient offsets in the order +x, -x, +y, -y, +z, -z.
+    The diagonal accumulates w (or w/frac at a ghost-fluid face)."""
+    shape = tuple(lphi.shape)
+    d = len(shape)
+    active = interior_mask(shape, device=lphi.device) & (lphi < 0)
+    diag = torch.zeros(shape, dtype=lphi.dtype, device=lphi.device)
+    coefs = []
+    for a in range(d):
+        for side in (+1, -1):
+            off = _offset(d, a, side)
+            nphi = shift(lphi, off, 1.0)
+            w = _face_w_v(w_faces[a], a, side, shape)
+            fluid_n = nphi < 0
+            frac = _ghost_frac(lphi, nphi)
+            diag = diag + torch.where(fluid_n, w, w / frac)
+            coefs.append((off, torch.where(active & fluid_n, -w, 0.0)))
+    diag = torch.where(active, diag, 0.0)
+    precond_diag = torch.where(active & (diag > 0), diag, 1.0)
+    return diag, coefs, precond_diag
+
+
+def apply_pressure_3d(v_faces, p, w_faces, sv, lphi, cell_size) -> Tuple[torch.Tensor, ...]:
+    """Velocity update v += grad(x) h / theta with solid-velocity blending.
+
+    Reference: apply_pressure_kernel (PressureCGSolver3D.py:132-153);
+    the trailing face plane (index gres) is never updated (:135).
+    """
+    gres = tuple(lphi.shape)
+    d = len(gres)
+    out = []
+    for a in range(d):
+        fshape = tuple(v_faces[a].shape)
+        off_m = _offset(d, a, -1)
+        phi_c = sample(lphi, (0,) * d, fshape, 1.0)
+        phi_m = sample(lphi, off_m, fshape, 1.0)
+        p_c = sample(p, (0,) * d, fshape, 0.0)
+        p_m = sample(p, off_m, fshape, 0.0)
+        theta = torch.clamp(edge_in_fraction(phi_c, phi_m), *_GHOST_CLIP)
+        new_v = v_faces[a] + (p_c - p_m) * cell_size[a] / theta
+        w = w_faces[a]
+        svf = dual_sample(_sv_component(sv, a), face_parity(a, d), (0,) * d, fshape, 0.0)
+        blended = w * new_v + (1.0 - w) * svf
+        active = interior_mask(fshape, active_hi=gres, device=lphi.device) & ((phi_c < 0) | (phi_m < 0))
+        out.append(torch.where(active, blended, v_faces[a]))
+    return tuple(out)
+
+
+def solve_cell_poisson(b, coefficients, *, tol: float, rel_tol: float, max_iter: int):
+    """Jacobi-PCG solve of a cell-centred ghost-fluid system (pressure or
+    density) from x0 = 0 through the cell-Poisson kernel.
+
+    ``coefficients`` is (diag, [(off, coef)], precond_diag) from
+    `pressure_coefficients` or ``density.density_coefficients``.
+    Returns (x, SolveStats).
+    """
+    diag, coefs, precond_diag = coefficients
+    x, iters, res, res0, thresh = cell_poisson_pcg(
+        b, diag, coefs, precond_diag, tol=tol, rel_tol=rel_tol, max_iter=max_iter,
+    )
+    return x, SolveStats(iters=iters, residual=res, initial_residual=res0, converged=res < thresh)
+
+
+class PressureResult(NamedTuple):
+    v_faces: Tuple[torch.Tensor, ...]
+    pressure: torch.Tensor  # x = -p dt/(rho Vcell)
+    stats: SolveStats
+
+
+def pressure_solve_3d(
+    v_faces: Sequence[torch.Tensor], sv, lphi, w_faces, cell_size, *,
+    tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
+) -> PressureResult:
+    """Full projection: RHS -> PCG -> apply (PressureCGSolver3D.solve
+    :192-226, initial guess x = 0)."""
+    b = pressure_rhs_3d(v_faces, sv, lphi, w_faces, cell_size)
+    x, stats = solve_cell_poisson(
+        b, pressure_coefficients(w_faces, lphi), tol=tol, rel_tol=rel_tol, max_iter=max_iter,
+    )
+    return PressureResult(apply_pressure_3d(v_faces, x, w_faces, sv, lphi, cell_size), x, stats)

@@ -1,0 +1,218 @@
+"""Variational implicit viscosity (3D): the coupled (vx, vy, vz) solve.
+
+Counterpart of ``python_fluid_simulation_tpu.solvers.viscosity`` (the
+reference's ``solver/ViscosityCGSolver3D.py``): per axis 6 same-field +
+8 cross-field couplings, with control volumes sampled from the
+dual-lattice fluid-volume field.  The three per-axis operators come from
+ONE term table exploiting the operator's cyclic symmetry; in
+dual-lattice offsets from a face site (e_k = one dual step along axis k):
+
+  diag  = vol(0) + s*( 2*vol(+e_a) + 2*vol(-e_a) + sum_{t!=a} vol(+e_t)+vol(-e_t) )
+  same-field a-dir:  cond +-2e_a  -> -2s*vol(+-e_a)*v_a(+-1_a)
+  same-field t-dir:  cond +-2e_t  -> -s*vol(+-e_t)*v_a(+-1_t)
+  cross-field t, hi: cond  e_a+e_t -> -s*vol(+e_t)*v_t(+1_t)
+                     cond -e_a+e_t -> +s*vol(+e_t)*v_t(+1_t,-1_a)
+  cross-field t, lo: cond  e_a-e_t -> +s*vol(-e_t)*v_t(0)
+                     cond -e_a-e_t -> -s*vol(-e_t)*v_t(-1_a)
+
+The matvec couples where the neighbour face site is fluid (sphi >= 0 in
+3D); the RHS moves solid (Dirichlet) neighbour contributions to b,
+evaluated on velocities first extrapolated 3 Jacobi layers into the
+solid (solve :573).  scale = dt/(cell_vol*rho); vol = lvol/(cell_vol/8)
+(solve :567-568).  The Jacobi-PCG solve is the coupled kernel
+(``ops/cuda_cg.py``), which rebuilds the couplings from the geometry.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from python_fluid_simulation_tpu_torch.ops.cuda_cg import coupled_visc_pcg
+from python_fluid_simulation_tpu_torch.ops.extrapolate import extrapolate
+from python_fluid_simulation_tpu_torch.ops.indexing import (
+    dual_sample,
+    face_parity,
+    interior_mask,
+    sample,
+    split_parity,
+)
+from python_fluid_simulation_tpu_torch.solvers.cg import SolveStats
+
+
+def _terms_for_axis(a: int, d: int = 3):
+    """(cond_dual_offset, field, v_face_offset, vol_dual_offset, factor, sign)
+
+    sign/factor are the MATVEC convention: val += sign*factor*s*vol*v.
+    The RHS uses -sign with the solid-side condition.
+    """
+    terms = []
+
+    def e(k, n=1):
+        v = [0] * d
+        v[k] = n
+        return tuple(v)
+
+    def plus(u, v):
+        return tuple(x + y for x, y in zip(u, v))
+
+    def neg(u):
+        return tuple(-x for x in u)
+
+    # same-field, face-axis direction (factor 2)
+    for sgn in (+1, -1):
+        terms.append((e(a, 2 * sgn), a, e(a, sgn), e(a, sgn), 2.0, -1.0))
+    # same-field, transverse directions
+    for t in range(d):
+        if t == a:
+            continue
+        for sgn in (+1, -1):
+            terms.append((e(t, 2 * sgn), a, e(t, sgn), e(t, sgn), 1.0, -1.0))
+    # cross-field couplings
+    for t in range(d):
+        if t == a:
+            continue
+        ea, et = e(a), e(t)
+        # hi side (+e_t volume)
+        terms.append((plus(ea, et), t, et, et, 1.0, -1.0))
+        terms.append((plus(neg(ea), et), t, plus(et, neg(ea)), et, 1.0, +1.0))
+        # lo side (-e_t volume)
+        terms.append((plus(ea, neg(et)), t, (0,) * d, neg(et), 1.0, +1.0))
+        terms.append((plus(neg(ea), neg(et)), t, neg(ea), neg(et), 1.0, -1.0))
+    return terms
+
+
+def _is_fluid(sphi_vals):
+    """3D convention: fluid = sphi >= 0 (ViscosityCGSolver3D.py:272)."""
+    return sphi_vals >= 0
+
+
+def _active(a, sphi, shape):
+    d = len(shape)
+    sph0 = dual_sample(sphi, face_parity(a, d), (0,) * d, shape, -1.0)
+    return interior_mask(shape, device=sph0.device) & _is_fluid(sph0)
+
+
+def _diag_axis(a, s_mu, vol, shape):
+    d = len(shape)
+    p = face_parity(a, d)
+    acc = dual_sample(vol, p, (0,) * d, shape, 0.0)
+    extra = torch.zeros(shape, dtype=acc.dtype, device=acc.device)
+    for k in range(d):
+        factor = 2.0 if k == a else 1.0
+        for sgn in (+1, -1):
+            off = [0] * d
+            off[k] = sgn
+            extra = extra + factor * dual_sample(vol, p, tuple(off), shape, 0.0)
+    return acc + s_mu * extra
+
+
+def viscosity_term_fields(s_mu, sphi, vol, face_shapes):
+    """The 14-term coefficient fields per axis: (diags, per_axis, pdiags)
+    where per_axis[a] is a list of (field, voff, coef) with coef shaped
+    like face array a."""
+    d = len(face_shapes)
+    diags, per_axis, pdiags = [], [], []
+    for a in range(d):
+        shape = tuple(face_shapes[a])
+        p = face_parity(a, d)
+        active = _active(a, sphi, shape)
+        diag_raw = _diag_axis(a, s_mu, vol, shape)
+        terms = []
+        for cond_off, field, voff, vol_off, factor, sign in _terms_for_axis(a, d):
+            fluid_n = _is_fluid(dual_sample(sphi, p, cond_off, shape, -1.0))
+            vcoef = dual_sample(vol, p, vol_off, shape, 0.0)
+            terms.append((field, voff, torch.where(active & fluid_n, sign * factor * s_mu * vcoef, 0.0)))
+        per_axis.append(terms)
+        diags.append(torch.where(active, diag_raw, 0.0))
+        pdiags.append(torch.where(active & (diag_raw > 0), diag_raw, 1.0))
+    return diags, per_axis, pdiags
+
+
+def viscosity_matvec_3d(v_faces, s_mu, sphi, vol):
+    """One application of the coupled operator to (vx, vy, vz)."""
+    diags, per_axis, _ = viscosity_term_fields(s_mu, sphi, vol, [v.shape for v in v_faces])
+    out = []
+    for a in range(len(v_faces)):
+        acc = diags[a] * v_faces[a]
+        for field, voff, coef in per_axis[a]:
+            acc = acc + coef * sample(v_faces[field], voff, v_faces[a].shape, 0.0)
+        out.append(acc)
+    return tuple(out)
+
+
+def viscosity_rhs_3d(v_faces, s_mu, sphi, vol):
+    """b_a = vol_c*v_a + sum of solid-neighbour Dirichlet terms
+    (initialize_solver_{x,y,z}_kernel, :41-246); the input velocities
+    must already be extrapolated into the solid."""
+    d = len(v_faces)
+    out = []
+    for a in range(d):
+        shape = tuple(v_faces[a].shape)
+        p = face_parity(a, d)
+        b = dual_sample(vol, p, (0,) * d, shape, 0.0) * v_faces[a]
+        for cond_off, field, voff, vol_off, factor, sign in _terms_for_axis(a, d):
+            solid_n = ~_is_fluid(dual_sample(sphi, p, cond_off, shape, -1.0))
+            vv = sample(v_faces[field], voff, shape, 0.0)
+            vcoef = dual_sample(vol, p, vol_off, shape, 0.0)
+            b = b + torch.where(solid_n, -sign * factor * s_mu * vcoef * vv, 0.0)
+        out.append(torch.where(_active(a, sphi, shape), b, 0.0))
+    return tuple(out)
+
+
+def viscosity_diag_3d(s_mu, sphi, vol, face_shapes):
+    """Operator diagonal for Jacobi preconditioning (1 where inactive)."""
+    out = []
+    for a in range(len(face_shapes)):
+        shape = tuple(face_shapes[a])
+        diag = _diag_axis(a, s_mu, vol, shape)
+        out.append(torch.where(_active(a, sphi, shape) & (diag > 0), diag, 1.0))
+    return tuple(out)
+
+
+class ViscosityResult(NamedTuple):
+    v_faces: Tuple[torch.Tensor, ...]
+    stats: SolveStats
+
+
+def viscosity_solve_3d(
+    dt, mu: float, rho: float, v_faces: Sequence[torch.Tensor], sphi, lvol, cell_vol: float, *,
+    tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
+) -> ViscosityResult:
+    """Full implicit viscosity solve (ViscosityCGSolver3D.solve :566-613):
+    velocities are extrapolated 3 Jacobi layers into the solid (valid =
+    sphi >= 0 at face sites), the RHS is built from the extrapolated
+    field, Jacobi-PCG runs from the extrapolated field, and the solution
+    is written back only at non-solid faces (apply_viscosity_kernel
+    :458-470).
+
+    ``lvol`` may be the raw dual-lattice array or its parity-class dict;
+    ``dt`` a float or 0-dim tensor.
+    """
+    d = len(v_faces)
+    dev = v_faces[0].device
+    dt = torch.as_tensor(dt, dtype=torch.float32, device=dev)
+    s_mu = dt / cell_vol / rho * mu
+    sphi_c = split_parity(sphi, d)
+    vol_c = {k: v / (cell_vol * 0.125) for k, v in split_parity(lvol, d).items()}
+
+    ext = []
+    for a in range(d):
+        v_e, _ = extrapolate(v_faces[a], _is_fluid(sphi_c[face_parity(a, d)]), 3)
+        ext.append(v_e)
+    ext = tuple(ext)
+    shapes = [tuple(v.shape) for v in v_faces]
+    b = viscosity_rhs_3d(ext, s_mu, sphi_c, vol_c)
+    pdiags = viscosity_diag_3d(s_mu, sphi_c, vol_c, shapes)
+    x, iters, res, res0, thresh, _ = coupled_visc_pcg(
+        b, ext, pdiags, sphi_c, vol_c, s_mu, tol=tol, rel_tol=rel_tol, max_iter=max_iter,
+    )
+    stats = SolveStats(iters=iters, residual=res, initial_residual=res0, converged=res < thresh)
+    out = []
+    for a in range(d):
+        shape = shapes[a]
+        hi = tuple(s - (1 if i == a else 0) for i, s in enumerate(shape))
+        active = interior_mask(shape, active_hi=hi, device=dev) & _is_fluid(sphi_c[face_parity(a, d)])
+        out.append(torch.where(active, x[a], v_faces[a]))
+    return ViscosityResult(tuple(out), stats)

@@ -1,0 +1,85 @@
+"""The PyTorch port stands alone: no JAX, no JAX package, no CPU fallback
+for the chip smoke run.
+
+* In a fresh interpreter whose import system refuses ``jax`` and
+  ``python_fluid_simulation_tpu`` (the JAX package), every module of
+  ``python_fluid_simulation_tpu_torch`` and ``chip_smoke`` imports.
+* ``python3 chip_smoke.py`` on a machine without CUDA exits non-zero
+  with a clear message and prints no result line; so does a copy of the
+  script alone in an empty directory.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORTS = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "python_fluid_simulation_tpu"):
+            raise ImportError("refused: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import python_fluid_simulation_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "python_fluid_simulation_tpu")]
+assert not bad, bad
+print(len(names), "modules")
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    env["PYTHONPATH"] = ROOT
+    return env
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORTS], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) >= 20  # every ported module was imported
+
+
+def _last_line(text):
+    lines = [ln for ln in text.strip().splitlines() if ln.strip()]
+    return lines[-1] if lines else ""
+
+
+def test_chip_smoke_fails_without_cuda():
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert not _last_line(out.stdout).startswith('{"ok": true')
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    env = _env()
+    env.pop("PYTHONPATH")
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
