@@ -3,22 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives ``python_fluid_simulation_tpu_torch`` (never JAX) through its main
-path — the 48x80x48 buckling funnel (``buckling_config()`` defaults,
-89,648 particles, 'apic' viscosity, CFL dt, Jacobi PCG, static solids) —
-and checks every CUDA kernel of that path against its plain PyTorch
-version on the card.  Phases, each printing one JSON line:
+Drives ``python_fluid_simulation_tpu_torch`` (never JAX) through its two
+main paths and checks every CUDA kernel of them against its plain
+PyTorch version on the card:
 
-  device   the card (and its ``nvidia-smi`` name / power limit)
-  build    one nvcc call over csrc/*.cu, with ptxas' register lines
-  kernels  each kernel on the real density / pressure / viscosity
-           systems of the third flagship step vs its plain version:
-           errors, iterations, CUDA-event times, the bound from bytes
-           and operations
-  main     1 warm-up + 10 timed steps with the launch counters reset
-           just before; solves converged, particles finite, and steps
-           1-3 on the card each vs the same step on the CPU from the
-           same state
+* the flagship: the 48x80x48 buckling funnel (``buckling_config()``
+  defaults, 89,648 particles, 'apic' viscosity, CFL dt, Jacobi PCG,
+  static solids);
+* the 128^3 class: ``scaled_buckling_config(128)`` (77x128x77 cells,
+  356,256 particles, MG-preconditioned density and pressure solves,
+  Jacobi viscosity).
+
+Phases, each printing one JSON line:
+
+  device      the card (and its ``nvidia-smi`` name / power limit)
+  build       one nvcc call over csrc/*.cu, with ptxas' register lines
+  kernels     flagship: the two PCG kernels on the real density /
+              pressure / viscosity systems of the third step vs their
+              plain versions: errors, iterations, CUDA-event times, the
+              bound from bytes and operations
+  main        flagship: 1 warm-up + 10 timed steps with the launch
+              counters reset just before; solves converged, particles
+              finite, steps 1-3 on the card each vs the same step on the
+              CPU from the same state
+  kernels_128 128^3: the density / pressure systems and the scatter
+              inputs of the third step; the stencil matvec, every level
+              chain of the real hierarchy, one V-cycle, both MG-PCG
+              solves, every segment reduce / broadcast of the step, and
+              the two PCG kernels, each vs its plain version, with times,
+              library times and bounds
+  main_128    128^3: 1 warm-up + 5 timed steps with the counters reset
+              just before; solves converged, particles finite, the first
+              step bitwise repeatable, step 3 on the card vs the CPU
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -28,6 +44,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -43,12 +60,23 @@ FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 CELL_OPS_PER_ITER = 27
 FACE_OPS_PER_ITER = 85
 KERNEL_TOL = dict(rtol=2e-3, atol=2e-4)  # solution vs plain version
-MATVEC_TOL = dict(rtol=1e-5, atol=1e-6)  # coupled matvec vs plain version
+MATVEC_TOL = dict(rtol=1e-5, atol=1e-6)  # matvecs vs plain version
+# level chains and sums vs plain version: max |difference| over max |value|
+# (the kernels round as the plain versions do and are expected bitwise)
+CHAIN_REL = 1e-6
+SUM_REL = 1e-6
+STENCIL_OPS = 13  # 7 products + 6 sums a cell
+RELAX_OPS = 17  # a relaxation: the stencil, b - Ax, * inv, x + (a cell)
 # card step vs the port's CPU step from the same state: fp32 rounding of
 # differently ordered sums, as between the port and the JAX package on the
 # CPU (tests/test_torch_step.py); measured well inside on the H100
 STEP_TOL = dict(x=1e-5, v=1e-4, c=1e-3)
 CHECKED_STEPS = (0, 1, 2)  # step 0 solves no viscosity; 1 and 2 do
+FLAGSHIP = ((48, 80, 48), 89648)  # grid, particles
+RES_128 = 128
+SHAPE_128 = ((77, 128, 77), 356256)
+STEPS_128 = 6  # 1 warm-up + 5 timed
+CHECKED_STEP_128 = 2  # the third step, card vs CPU
 
 
 def emit(obj):
@@ -102,6 +130,82 @@ def capture_systems(step_3d, state, cfg, geom):
     finally:
         pressure.cell_poisson_pcg, viscosity.coupled_visc_pcg = orig_cell, orig_coupled
     return captured
+
+
+@contextlib.contextmanager
+def patched(replacements):
+    """Temporarily set ``module.name = value`` for (module, name, value)."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in replacements]
+    for m, n, v in replacements:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def capture_128(step_3d, state, cfg, geom):
+    """One 128^3 step with recorders around the cell solves, the coupled
+    solve and the segment reduce / broadcast as their callers call them;
+    each scatter call is labelled with the function that made it."""
+    from python_fluid_simulation_tpu_torch.ops import scatter
+    from python_fluid_simulation_tpu_torch.solvers import density, pressure, viscosity
+
+    got = {"cell": [], "coupled": [], "reduce": [], "broadcast": []}
+
+    def rec(kind, fn, label_depth=None):
+        def call(*args, **kw):
+            label = sys._getframe(label_depth).f_code.co_name if label_depth else kind
+            got[kind].append((label, args, kw))
+            return fn(*args, **kw)
+        return call
+
+    with patched([
+        (pressure, "solve_cell_poisson", rec("cell", pressure.solve_cell_poisson)),
+        (density, "solve_cell_poisson", rec("cell", density.solve_cell_poisson)),
+        (viscosity, "coupled_visc_pcg", rec("coupled", viscosity.coupled_visc_pcg)),
+        # frame 2: the caller of the scatter entry point
+        (scatter, "segment_reduce", rec("reduce", scatter.segment_reduce, 2)),
+        (scatter, "segment_broadcast", rec("broadcast", scatter.segment_broadcast, 2)),
+    ]):
+        step_3d(state, cfg, geom=geom)
+    return got
+
+
+@contextlib.contextmanager
+def plain_mg_routes():
+    """The MG-PCG route with the plain versions of its kernels (the
+    matvec and the level chains), for holding it against the kernels."""
+    from python_fluid_simulation_tpu_torch.ops import cuda_mg, cuda_stencils
+    from python_fluid_simulation_tpu_torch.solvers import multigrid, pressure
+
+    def plain_level_kernels(diag, coefs, *, omega, n_smooth, coarse_iters):
+        def chain(b, x0, iters, resid):
+            return cuda_mg.level_chain_plain(diag, coefs, b, x0, iters=iters, omega=omega, emit_resid=resid)
+        return cuda_mg.LevelKernels(
+            lambda b: chain(b, None, n_smooth, True),
+            lambda x, b: chain(b, x, n_smooth, False),
+            lambda b: chain(b, None, coarse_iters, False),
+        )
+
+    with patched([
+        (multigrid, "stencil_matvec", cuda_stencils.stencil_matvec_plain),
+        (multigrid, "level_kernels", plain_level_kernels),
+        (pressure, "stencil_matvec", cuda_stencils.stencil_matvec_plain),
+    ]):
+        yield
+
+
+def bound(nbytes, ops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return dict(bytes=nbytes, ops=ops, bytes_ms=bytes_ms, ops_ms=ops_ms)
+
+
+def rel_err(got, ref):
+    d = (got - ref).abs().max().item()
+    return d, d / max(ref.abs().max().item(), 1e-30)
 
 
 def max_err(a, b):
@@ -198,6 +302,223 @@ def coupled_kernel_phase(system):
     )
 
 
+def stencil_phase(cell):
+    """7-point matvec on the density and pressure systems (p = b)."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec, stencil_matvec_plain
+
+    rows = []
+    for label, (b, (diag, coefs, _)) in cell:
+        q_k = stencil_matvec(diag, coefs, b)
+        q_p = stencil_matvec_plain(diag, coefs, b)
+        check_close(f"stencil_matvec[{label}]", q_k, q_p, MATVEC_TOL)
+        n = b.numel()
+        rows.append(dict(
+            system=label, shape=list(b.shape), bitwise=bool(torch.equal(q_k, q_p)),
+            max_abs_err=max_err(q_k, q_p)[0],
+            ms=cuda_time_ms(lambda: stencil_matvec(diag, coefs, b), 50),
+            plain_ms=cuda_time_ms(lambda: stencil_matvec_plain(diag, coefs, b), 20),
+            **bound(9 * 4 * n, STENCIL_OPS * n),  # 8 fields read, q written
+        ))
+    return rows
+
+
+def chain_bound(n, iters, from_zero, resid):
+    fields = 8 + (0 if from_zero else 1) + 1 + (1 if resid else 0)  # diag, coefs, b, [x0] in; x, [r] out
+    relax = (iters - 1) * RELAX_OPS + 2 if from_zero else iters * RELAX_OPS
+    return bound(fields * 4 * n, n * (relax + 1 + (STENCIL_OPS + 1 if resid else 0)))  # + inv, + residual
+
+
+def vcycle_phase(b, diag, coefs, mg_kw):
+    """Every level chain of the real hierarchy, then one whole V-cycle,
+    kernels vs plain versions."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops.cuda_mg import level_chain, level_chain_plain
+    from python_fluid_simulation_tpu_torch.solvers import multigrid
+
+    levels = multigrid.build_hierarchy(diag, coefs, min_dim=mg_kw["min_dim"])
+    omega, n_smooth, coarse = mg_kw["omega"], mg_kw["n_smooth"], mg_kw["coarse_iters"]
+    chains = []
+    bk = b
+    for k in range(1, len(levels)):
+        lv = levels[k]
+        bk = multigrid._restrict(bk, tuple(lv.diag.shape))
+        last = k == len(levels) - 1
+        kinds = [("coarse", None, coarse, False)] if last else [("pre", None, n_smooth, True), ("post", "x", n_smooth, False)]
+        x_pre = None
+        for kind, x0, iters, resid in kinds:
+            x0 = x_pre if x0 == "x" else None
+            args = (lv.diag, lv.coefs, bk, x0)
+            kw = dict(iters=iters, omega=omega, emit_resid=resid)
+            out_k, out_p = level_chain(*args, **kw), level_chain_plain(*args, **kw)
+            outs = list(zip(out_k, out_p)) if resid else [(out_k, out_p)]
+            if kind == "pre":
+                x_pre = out_k[0]
+            err = max(rel_err(a, p)[1] for a, p in outs)
+            if not err <= CHAIN_REL:
+                raise AssertionError(f"level {k} {kind} chain: kernel vs plain max rel {err} > {CHAIN_REL}")
+            chains.append(dict(
+                level=k, shape=list(lv.diag.shape), chain=kind, iters=iters,
+                bitwise=all(bool(torch.equal(a, p)) for a, p in outs),
+                max_abs_err=max(max_err(a, p)[0] for a, p in outs), max_rel_err=err,
+                ms=cuda_time_ms(lambda: level_chain(*args, **kw), 50),
+                plain_ms=cuda_time_ms(lambda: level_chain_plain(*args, **kw), 20),
+                **chain_bound(lv.diag.numel(), iters, x0 is None, resid),
+            ))
+
+    mg = multigrid.make_mg_preconditioner(diag, coefs, **{k: v for k, v in mg_kw.items()})
+    z_k = mg(b)
+    with plain_mg_routes():
+        mg_p = multigrid.make_mg_preconditioner(diag, coefs, **mg_kw)
+        z_p = mg_p(b)
+        plain_ms = cuda_time_ms(lambda: mg_p(b), 10)
+    check_close("V-cycle", z_k, z_p, KERNEL_TOL)
+    vcycle = dict(
+        levels=[list(lv.diag.shape) for lv in levels], bitwise=bool(torch.equal(z_k, z_p)),
+        max_abs_err=max_err(z_k, z_p)[0], ms=cuda_time_ms(lambda: mg(b), 20), plain_ms=plain_ms,
+    )
+    return chains, vcycle
+
+
+def mg_solve_phase(cell, kw):
+    """Each MG-PCG solve with the kernels vs with their plain versions."""
+    from python_fluid_simulation_tpu_torch.solvers import pressure
+
+    rows = []
+    for label, (b, coefficients) in cell:
+        x_k, st_k = pressure.solve_cell_poisson(b, coefficients, **kw)
+        with plain_mg_routes():
+            x_p, st_p = pressure.solve_cell_poisson(b, coefficients, **kw)
+            plain_ms = cuda_time_ms(lambda: pressure.solve_cell_poisson(b, coefficients, **kw), 3)
+        it_k, it_p = int(st_k.iters), int(st_p.iters)
+        if abs(it_k - it_p) > 1 or not bool(st_k.converged):
+            raise AssertionError(f"MG-PCG[{label}]: iterations {it_k} vs plain {it_p}, converged {bool(st_k.converged)}")
+        check_close(f"MG-PCG[{label}]", x_k, x_p, KERNEL_TOL)
+        rows.append(dict(
+            system=label, iters=it_k, plain_iters=it_p, res=float(st_k.residual),
+            rel_res=float(st_k.residual / st_k.initial_residual), max_abs_err=max_err(x_k, x_p)[0],
+            ms=cuda_time_ms(lambda: pressure.solve_cell_poisson(b, coefficients, **kw), 5), plain_ms=plain_ms,
+        ))
+    return rows
+
+
+def binned_phase(reduces, broadcasts):
+    """Every segment reduce / broadcast of the step, kernels vs plain
+    versions, with the one-call PyTorch yardstick."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
+
+    red_rows = []
+    for label, args, kw in reduces:
+        vals, ids, m, op, fill = args
+        cf = kw.get("channels_first", False)
+        out_k, out_p = cbn.segment_reduce(*args, **kw), cbn.segment_reduce_plain(*args, **kw)
+        bitwise = bool(torch.equal(out_k, out_p))
+        err, rel = rel_err(out_k, out_p)
+        if op == "min" and not bitwise:
+            raise AssertionError(f"segment_reduce[{label}] min: kernel differs from plain version (max abs {err})")
+        if not rel <= SUM_REL:
+            raise AssertionError(f"segment_reduce[{label}]: kernel vs plain max rel {rel} > {SUM_REL}")
+        offs = cbn._offsets(ids, m)
+        live = int(offs[-1] - offs[0])
+        k, c = vals.shape
+        red = cbn._OPS[op]
+        red_rows.append(dict(
+            caller=label, op=op, channels_first=cf, K=k, live_rows=live, C=c, M=m, bitwise=bitwise,
+            max_abs_err=err, max_rel_err=rel,
+            ms=cuda_time_ms(lambda: cbn.segment_reduce(*args, **kw), 20),
+            plain_ms=cuda_time_ms(lambda: cbn.segment_reduce_plain(*args, **kw), 5),
+            # one torch.segment_reduce call, offsets computed beforehand,
+            # (M, C) output whatever the layout asked for
+            library_ms=cuda_time_ms(lambda: torch.segment_reduce(
+                vals, red, offsets=offs, axis=0, unsafe=True, initial=float(fill)), 5),
+            **bound(live * c * 4 + k * 8 + m * c * 4, live * c),
+        ))
+    bc_rows = []
+    for label, (table, ids), _ in broadcasts:
+        out_k, out_p = cbn.segment_broadcast(table, ids), cbn.segment_broadcast_plain(table, ids)
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"segment_broadcast[{label}]: kernel differs from plain version")
+        m, c = table.shape
+        k = ids.shape[0]
+        valid = (ids >= 0) & (ids < m)
+        used = int(torch.unique_consecutive(ids[valid]).numel())
+        clamped = torch.clamp(ids, 0, m - 1)
+        bc_rows.append(dict(
+            caller=label, K=k, C=c, M=m, table_rows_used=used, bitwise=True, max_abs_err=0.0,
+            ms=cuda_time_ms(lambda: cbn.segment_broadcast(table, ids), 20),
+            plain_ms=cuda_time_ms(lambda: cbn.segment_broadcast_plain(table, ids), 5),
+            # one torch.index_select on ids clamped beforehand (it does
+            # not zero the out-of-range rows)
+            library_ms=cuda_time_ms(lambda: torch.index_select(table, 0, clamped), 5),
+            **bound(k * 8 + used * c * 4 + k * c * 4, 0),
+        ))
+    return red_rows, bc_rows
+
+
+def reset_counters():
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_mg, cuda_stencils
+
+    wrappers = {
+        "cell_poisson_pcg": cuda_stencils.cell_poisson_pcg,
+        "coupled_visc_pcg": cuda_cg.coupled_visc_pcg,
+        "stencil_matvec": cuda_stencils.stencil_matvec,
+        "mg_level_chain": cuda_mg.level_chain,
+        "binned_segment_reduce": cuda_binned.segment_reduce,
+        "binned_segment_broadcast": cuda_binned.segment_broadcast,
+    }
+    for w in wrappers.values():
+        w.launches = 0
+    return lambda: {name: w.launches for name, w in wrappers.items()}
+
+
+def run_steps(step_3d, state, cfg, geom, n, keep):
+    """n steps, each timed on the host clock to a synchronize; returns the
+    final state, the first `keep` + 1 states, step ms and metrics."""
+    import torch
+
+    states, step_ms, metrics = [state], [], []
+    for _ in range(n):
+        ts = time.perf_counter()
+        state, m = step_3d(state, cfg, geom=geom)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        if len(states) <= keep:
+            states.append(state)
+        metrics.append({k: v.item() for k, v in m.items()})
+    return state, states, step_ms, metrics
+
+
+def check_run(state, metrics, launches, need, label):
+    import torch
+
+    for name in need:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the {label} main path")
+    for k in ("x", "v", "c"):
+        if not torch.isfinite(getattr(state.particles, k)).all():
+            raise AssertionError(f"{label}: non-finite particle {k}")
+    for i, m in enumerate(metrics):
+        for solver in ("density", "viscosity", "pressure"):
+            if not m[f"{solver}_converged"]:
+                raise AssertionError(f"{label} step {i}: {solver} solve did not converge: {m}")
+
+
+def card_vs_cpu(step_3d, before, after, cfg, label):
+    from python_fluid_simulation_tpu_torch.convert import state_from_numpy, state_to_numpy
+
+    cpu_state, _ = step_3d(state_from_numpy(state_to_numpy(before), device="cpu"), cfg)
+    cpu, card = state_to_numpy(cpu_state), state_to_numpy(after)
+    err = {k: float(abs(card[k] - cpu[k]).max()) for k in STEP_TOL}
+    for k, tol in STEP_TOL.items():
+        if not err[k] <= tol:
+            raise AssertionError(f"{label} on the card vs CPU: max |d{k}| {err[k]} > {tol}")
+    return err
+
+
 def main() -> int:
     import torch
 
@@ -205,10 +526,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device: this script only runs on an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from python_fluid_simulation_tpu_torch.convert import state_from_numpy, state_to_numpy
-    from python_fluid_simulation_tpu_torch.engine.scenes import buckling_config, buckling_scene
+    from python_fluid_simulation_tpu_torch.convert import state_to_numpy
+    from python_fluid_simulation_tpu_torch.engine.scenes import buckling_config, buckling_scene, scaled_buckling_config
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
-    from python_fluid_simulation_tpu_torch.ops import _cuda_build, cuda_cg, cuda_stencils
+    from python_fluid_simulation_tpu_torch.ops import _cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -239,7 +560,7 @@ def main() -> int:
     cfg = buckling_config()
     state0 = buckling_scene(cfg, seed=0, device="cuda")
     n_particles = int(state0.particles.x.shape[0])
-    if cfg.grid.res != (48, 80, 48) or n_particles != 89648:
+    if (cfg.grid.res, n_particles) != FLAGSHIP:
         raise AssertionError(f"unexpected flagship: grid {cfg.grid.res}, {n_particles} particles")
     geom = build_geom_cache(state0.solid)
     # the first steps start from rest (the viscosity solve exits at once),
@@ -257,36 +578,16 @@ def main() -> int:
     emit({"phase": "kernels", "cell_poisson_pcg": cell_rows, "coupled_visc_pcg": coupled_row,
           "seconds": time.perf_counter() - t0})
 
-    # -- main path: launch counts reset just before, read just after
+    # -- flagship main path: launch counts reset just before, read just after
     t0 = time.perf_counter()
-    cuda_stencils.cell_poisson_pcg.launches = 0
-    cuda_cg.coupled_visc_pcg.launches = 0
+    read_counts = reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state = state0
-    states = [state0]  # the states around the checked steps
-    step_ms, metrics = [], []
-    for _ in range(11):
-        ts = time.perf_counter()
-        state, m = step_3d(state, cfg, geom=geom)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - ts) * 1e3)
-        if len(states) <= max(CHECKED_STEPS) + 1:
-            states.append(state)
-        metrics.append({k: v.item() for k, v in m.items()})
-    launches = {"cell_poisson_pcg": cuda_stencils.cell_poisson_pcg.launches,
-                "coupled_visc_pcg": cuda_cg.coupled_visc_pcg.launches}
+    state, states, step_ms, metrics = run_steps(step_3d, state0, cfg, geom, 11, max(CHECKED_STEPS) + 1)
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} was never launched on the main path")
-    for k in ("x", "v", "c"):
-        if not torch.isfinite(getattr(state.particles, k)).all():
-            raise AssertionError(f"non-finite particle {k} after 11 steps")
-    for i, m in enumerate(metrics):
-        for solver in ("density", "viscosity", "pressure"):
-            if not m[f"{solver}_converged"]:
-                raise AssertionError(f"step {i}: {solver} solve did not converge: {m}")
+    check_run(state, metrics, launches, ("cell_poisson_pcg", "coupled_visc_pcg", "binned_segment_reduce",
+                                         "binned_segment_broadcast"), "flagship")
 
     # reported, not asserted: the first step again, bit for bit
     first = state_to_numpy(states[1])
@@ -296,16 +597,9 @@ def main() -> int:
     # each checked step on the card vs the same step on the CPU (plain
     # versions) from the card's state before it
     tc = time.perf_counter()
-    step_err = {}
-    for i in CHECKED_STEPS:
-        cpu_state, _ = step_3d(state_from_numpy(state_to_numpy(states[i]), device="cpu"), cfg)
-        cpu, card = state_to_numpy(cpu_state), state_to_numpy(states[i + 1])
-        step_err[i] = {k: float(abs(card[k] - cpu[k]).max()) for k in STEP_TOL}
-        for k, tol in STEP_TOL.items():
-            if not step_err[i][k] <= tol:
-                raise AssertionError(f"step {i} on the card vs CPU: max |d{k}| {step_err[i][k]} > {tol}")
+    step_err = {i: card_vs_cpu(step_3d, states[i], states[i + 1], cfg, f"flagship step {i}") for i in CHECKED_STEPS}
     cpu_seconds = time.perf_counter() - tc
-    del states
+    del states, state, state0, geom
     timed = step_ms[1:]
     emit({"phase": "main", "grid": list(cfg.grid.res), "particles": n_particles,
           "warmup_step_ms": step_ms[0], "step_ms": timed, "median_step_ms": statistics.median(timed),
@@ -315,25 +609,99 @@ def main() -> int:
           "cpu_steps_seconds": cpu_seconds, "card_vs_cpu_by_step": step_err, "step_tol": STEP_TOL,
           "seconds": time.perf_counter() - t0})
 
+    # -- 128^3: the kernels on the systems and scatter inputs of step 3
+    t0 = time.perf_counter()
+    cfg128 = scaled_buckling_config(RES_128)
+    s128 = buckling_scene(cfg128, seed=0, device="cuda")
+    n128 = int(s128.particles.x.shape[0])
+    if (cfg128.grid.res, n128) != SHAPE_128 or cfg128.solver.precond != "mg":
+        raise AssertionError(f"unexpected 128^3 config: grid {cfg128.grid.res}, {n128} particles, {cfg128.solver.precond}")
+    geom128 = build_geom_cache(s128.solid)
+    state2 = s128
+    for _ in range(2):
+        state2, _ = step_3d(state2, cfg128, geom=geom128)
+    got = capture_128(step_3d, state2, cfg128, geom128)
+    del state2
+    if len(got["cell"]) != 2 or len(got["coupled"]) != 1 or not got["reduce"] or not got["broadcast"]:
+        raise AssertionError(f"128^3 capture: {[(k, len(v)) for k, v in got.items()]}")
+    cell = [(label, args) for label, (_, args, _) in zip(("density", "pressure"), got["cell"])]
+    solve_kw = got["cell"][0][2]
+    if solve_kw.get("precond") != "mg":
+        raise AssertionError(f"128^3 cell solves are not MG-PCG: {solve_kw}")
+    mg_kw = dict(n_smooth=2, omega=0.8, coarse_iters=24, min_dim=4)
+    if solve_kw.get("mg_opts") is not None:
+        n_s, m_d, c_i = solve_kw["mg_opts"]
+        mg_kw.update(n_smooth=int(n_s), min_dim=int(m_d), coarse_iters=int(c_i))
+    stencil_rows = stencil_phase(cell)
+    b_p, (diag_p, coefs_p, _) = cell[1][1]
+    chain_rows, vcycle = vcycle_phase(b_p, diag_p, coefs_p, mg_kw)
+    mg_rows = mg_solve_phase(cell, solve_kw)
+    red_rows, bc_rows = binned_phase(got["reduce"], got["broadcast"])
+    jac_kw = {k: solve_kw[k] for k in ("tol", "rel_tol", "max_iter")}
+    cell128_rows = cell_kernel_phase([((b, d, c, pd), jac_kw) for _, (b, (d, c, pd)) in cell])
+    coupled128 = coupled_kernel_phase((got["coupled"][0][1], got["coupled"][0][2]))
+    del got, cell
+    emit({"phase": "kernels_128", "grid": list(cfg128.grid.res), "particles": n128,
+          "stencil_matvec": stencil_rows, "mg_level_chain": chain_rows, "vcycle": vcycle, "mg_pcg": mg_rows,
+          "binned_segment_reduce": red_rows, "binned_segment_broadcast": bc_rows,
+          "cell_poisson_pcg_jacobi": cell128_rows, "coupled_visc_pcg": coupled128,
+          "seconds": time.perf_counter() - t0})
+
+    # -- 128^3 main path
+    t0 = time.perf_counter()
+    read_counts = reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, states, step_ms128, metrics128 = run_steps(step_3d, s128, cfg128, geom128, STEPS_128, CHECKED_STEP_128 + 1)
+    launches128 = read_counts()
+    peak128 = torch.cuda.max_memory_allocated()
+    check_run(state, metrics128, launches128, ("coupled_visc_pcg", "stencil_matvec", "mg_level_chain",
+                                               "binned_segment_reduce", "binned_segment_broadcast"), "128^3")
+    first = state_to_numpy(states[1])
+    again, _ = step_3d(s128, cfg128, geom=geom128)
+    for k in ("x", "v", "c"):
+        if not (getattr(again.particles, k).cpu().numpy() == first[k]).all():
+            raise AssertionError(f"128^3: the first step run twice differs in {k}")
+    tc = time.perf_counter()
+    err128 = card_vs_cpu(step_3d, states[CHECKED_STEP_128], states[CHECKED_STEP_128 + 1], cfg128,
+                         f"128^3 step {CHECKED_STEP_128}")
+    cpu128 = time.perf_counter() - tc
+    del states, state
+    timed128 = step_ms128[1:]
+    emit({"phase": "main_128", "grid": list(cfg128.grid.res), "particles": n128,
+          "warmup_step_ms": step_ms128[0], "step_ms": timed128, "median_step_ms": statistics.median(timed128),
+          "iters": {s: [m[f"{s}_iters"] for m in metrics128] for s in ("density", "viscosity", "pressure")},
+          "launches": launches128, "max_memory_allocated": peak128, "first_step_bitwise_repeatable": True,
+          "cpu_step_seconds": cpu128, "card_vs_cpu": {CHECKED_STEP_128: err128}, "step_tol": STEP_TOL,
+          "seconds": time.perf_counter() - t0})
+
     # -- summary: the nvidia-smi line, the kernels line, then the result
-    def entry(name, source, replaces, row, n):
-        bound = max(row["bytes_ms"], row["ops_ms"])
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": n, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": bound,
+    def entry(name, source, replaces, row, library_ms=None):
+        return {"name": name, "route": "cuda", "source": f"python_fluid_simulation_tpu_torch/csrc/{source}",
+                "replaces": f"python_fluid_simulation_tpu/ops/{replaces}",
+                "launches": launches[name] + launches128[name], "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": max(row["bytes_ms"], row["ops_ms"]),
                 "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations",
-                "library_ms": None}
+                "library_ms": library_ms}
+
+    def total(rows, keys=("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")):
+        """One step's (or one V-cycle's) calls summed."""
+        out = {k: sum(r[k] for r in rows) for k in keys if k in rows[0]}
+        out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        return out
 
     # the cell kernel is timed on the pressure system; its error is the
     # larger of the density and pressure systems'
     pres = dict(cell_rows[1], max_abs_err=max(r["max_abs_err"] for r in cell_rows))
+    sten = dict(stencil_rows[1], max_abs_err=max(r["max_abs_err"] for r in stencil_rows))
+    red, bc = total(red_rows), total(bc_rows)
     kernels = [
-        entry("cell_poisson_pcg", "python_fluid_simulation_tpu_torch/csrc/cell_poisson_pcg.cu",
-              "python_fluid_simulation_tpu/ops/pallas_stencils.py:125", pres,
-              launches["cell_poisson_pcg"]),
-        entry("coupled_visc_pcg", "python_fluid_simulation_tpu_torch/csrc/coupled_visc_pcg.cu",
-              "python_fluid_simulation_tpu/ops/pallas_cg.py:673", coupled_row,
-              launches["coupled_visc_pcg"]),
+        entry("cell_poisson_pcg", "cell_poisson_pcg.cu", "pallas_stencils.py:125", pres),
+        entry("coupled_visc_pcg", "coupled_visc_pcg.cu", "pallas_cg.py:673", coupled_row),
+        entry("stencil_matvec", "stencil_matvec.cu", "pallas_stencils.py:299", sten),
+        entry("mg_level_chain", "mg_level_chain.cu", "pallas_mg.py:100", total(chain_rows)),
+        entry("binned_segment_reduce", "binned_segment.cu", "pallas_binned.py:423", red, red["library_ms"]),
+        entry("binned_segment_broadcast", "binned_segment.cu", "pallas_binned.py:179", bc, bc["library_ms"]),
     ]
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

@@ -1,0 +1,134 @@
+// Segmented reduce and broadcast over cell-sorted particle rows.
+//
+// Replaces python_fluid_simulation_tpu/ops/pallas_binned.py::
+// binned_segment_reduce (_kernel, with channels_first) and
+// binned_segment_broadcast (_bcast_kernel).  The TPU kernels walk the
+// sorted rows serially through VMEM tiles of the dense table, with the
+// row range of each tile found by searchsorted in XLA beforehand.  On
+// Hopper every (segment, channel) pair gets its own thread instead:
+//
+// reduce   a block owns 256 consecutive segments.  Its threads first find
+//          the row range of each segment by binary search on the sorted
+//          ids (into shared memory), then each (segment, channel) pair is
+//          reduced SERIALLY IN ROW ORDER from `fill`: add sums, min takes
+//          the minimum clamped at fill.  Sums stay segment-local, use no
+//          atomics and are bitwise repeatable; they match PyTorch's
+//          segment_reduce (the plain version), which reduces in the same
+//          order from the same initial value.  Negative ids sort before
+//          segment 0 and ids >= M after segment M-1, so both fall outside
+//          every range and are dropped.  Row-major output puts consecutive
+//          threads on consecutive channels of one segment; channels-first
+//          output (C, M) puts them on consecutive segments of one channel,
+//          so the stores are coalesced either way.
+// broadcast out[i, c] = table[ids[i], c], 0 for ids outside [0, M); one
+//          thread per output element.
+//
+// What bounds them: bytes.  The reduce reads K*C values and K ids once
+// and writes M*C values, one add or min per value; the broadcast writes
+// K*C values and reads as many.  The simple design pays extra for the
+// binary searches (2 log2 K id reads a segment, L2-resident) and, in the
+// channels-first layout, for reads strided by C; tuning is later work.
+//
+// Ids are int64, the dtype of the port's torch.sort of cell ids.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kSegs = 256;  // segments per reduce block
+
+__device__ __forceinline__ long lower_bound(const long long* ids, long k,
+                                            long long v) {
+  long lo = 0, hi = k;
+  while (lo < hi) {
+    const long mid = (lo + hi) >> 1;
+    if (ids[mid] < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+template <bool kMin, bool kChannelsFirst>
+__global__ void __launch_bounds__(kThreads)
+    binned_reduce_kernel(const float* __restrict__ vals,
+                         const long long* __restrict__ ids, long k, int M,
+                         int C, float fill, float* __restrict__ out) {
+  __shared__ long rows[kSegs + 1];
+  const long m0 = (long)blockIdx.x * kSegs;
+  const int nseg = (long)M - m0 < kSegs ? (int)((long)M - m0) : kSegs;
+  for (int j = threadIdx.x; j <= nseg; j += kThreads)
+    rows[j] = lower_bound(ids, k, (long long)(m0 + j));
+  __syncthreads();
+  const int pairs = nseg * C;
+  for (int p = threadIdx.x; p < pairs; p += kThreads) {
+    const int s = kChannelsFirst ? p % nseg : p / C;
+    const int c = kChannelsFirst ? p / nseg : p % C;
+    float acc = fill;
+    for (long row = rows[s]; row < rows[s + 1]; ++row) {
+      const float v = vals[row * C + c];
+      if (kMin)
+        acc = (v != v || v < acc) ? v : acc;  // NaN propagates, as in torch
+      else
+        acc = __fadd_rn(acc, v);
+    }
+    if (kChannelsFirst)
+      out[(long)c * M + m0 + s] = acc;
+    else
+      out[(m0 + s) * C + c] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    binned_broadcast_kernel(const float* __restrict__ table,
+                            const long long* __restrict__ ids, long k, int M,
+                            int C, float* __restrict__ out) {
+  const long n = k * C;
+  const long stride = (long)gridDim.x * kThreads;
+  for (long t = (long)blockIdx.x * kThreads + threadIdx.x; t < n; t += stride) {
+    const long long id = ids[t / C];
+    out[t] = (id >= 0 && id < M) ? table[id * C + t % C] : 0.f;
+  }
+}
+
+}  // namespace
+
+extern "C" int pfs_binned_reduce(const void* vals, const void* ids,
+                                 long long k, int M, int C, int op_min,
+                                 int channels_first, float fill, void* out,
+                                 void* stream) {
+  if (M <= 0 || C <= 0) return 0;
+  const unsigned blocks = (unsigned)((M + kSegs - 1) / kSegs);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(vals);
+  const long long* id = static_cast<const long long*>(ids);
+  float* o = static_cast<float*>(out);
+  if (op_min) {
+    if (channels_first)
+      binned_reduce_kernel<true, true><<<blocks, kThreads, 0, st>>>(v, id, k, M, C, fill, o);
+    else
+      binned_reduce_kernel<true, false><<<blocks, kThreads, 0, st>>>(v, id, k, M, C, fill, o);
+  } else {
+    if (channels_first)
+      binned_reduce_kernel<false, true><<<blocks, kThreads, 0, st>>>(v, id, k, M, C, fill, o);
+    else
+      binned_reduce_kernel<false, false><<<blocks, kThreads, 0, st>>>(v, id, k, M, C, fill, o);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pfs_binned_broadcast(const void* table, const void* ids,
+                                    long long k, int M, int C, void* out,
+                                    void* stream) {
+  const long n = (long)k * C;
+  if (n <= 0) return 0;
+  long blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > (1L << 20)) blocks = 1L << 20;
+  binned_broadcast_kernel<<<(unsigned)blocks, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(table), static_cast<const long long*>(ids), k,
+      M, C, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}

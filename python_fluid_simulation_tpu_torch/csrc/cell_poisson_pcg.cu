@@ -18,7 +18,9 @@
 // thresh = max(tol^2, rel^2 res0), loop while res >= thresh and
 // k < max_iter and delta != 0; alpha = delta/dq (0 if dq == 0),
 // beta = delta'/delta (0 if delta == 0).  Neighbour reads outside the
-// grid read 0 (the coefficient fields are zero there anyway).
+// grid read 0 (the coefficient fields are zero there anyway).  The
+// stencil is pcg_common.cuh's stencil7, shared with stencil_matvec.cu and
+// mg_level_chain.cu.
 
 #include "pcg_common.cuh"
 
@@ -29,9 +31,8 @@ using pfs::kThreads;
 using pfs::kWarps;
 
 struct PoissonArgs {
+  pfs::Stencil7 A;
   const float* b;
-  const float* diag;
-  const float* coef[6];  // offsets +x, -x, +y, -y, +z, -z
   const float* pd;
   float* x;
   float* r;
@@ -41,30 +42,15 @@ struct PoissonArgs {
   int* iters_out;
   float* res_out;
   float* res0_out;
-  int X, Y, Z;
   float tol2, rel2;
   int max_iter;
 };
-
-__device__ __forceinline__ float stencil(const PoissonArgs& a, long i, int cx,
-                                         int cy, int cz, long yz) {
-  const float* d = a.d;
-  float acc = a.diag[i] * __ldcg(d + i);
-  acc += a.coef[0][i] * (cx + 1 < a.X ? __ldcg(d + i + yz) : 0.f);
-  acc += a.coef[1][i] * (cx > 0 ? __ldcg(d + i - yz) : 0.f);
-  acc += a.coef[2][i] * (cy + 1 < a.Y ? __ldcg(d + i + a.Z) : 0.f);
-  acc += a.coef[3][i] * (cy > 0 ? __ldcg(d + i - a.Z) : 0.f);
-  acc += a.coef[4][i] * (cz + 1 < a.Z ? __ldcg(d + i + 1) : 0.f);
-  acc += a.coef[5][i] * (cz > 0 ? __ldcg(d + i - 1) : 0.f);
-  return acc;
-}
 
 __global__ void __launch_bounds__(kThreads)
     cell_poisson_pcg_kernel(PoissonArgs a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float sh[kWarps + 1];
-  const long yz = (long)a.Y * a.Z;
-  const long n = (long)a.X * yz;
+  const long n = (long)a.A.X * a.A.Y * a.A.Z;
   const long stride = (long)gridDim.x * kThreads;
   const long i0 = (long)blockIdx.x * kThreads + threadIdx.x;
   const int nb = gridDim.x;
@@ -99,10 +85,7 @@ __global__ void __launch_bounds__(kThreads)
     // A: q = A d, partial d.q
     float ldq = 0.f;
     for (long i = i0; i < n; i += stride) {
-      const int cz = (int)(i % a.Z);
-      const int cy = (int)((i / a.Z) % a.Y);
-      const int cx = (int)(i / yz);
-      const float qv = stencil(a, i, cx, cy, cz, yz);
+      const float qv = pfs::stencil7(a.A, a.d, i);
       a.q[i] = qv;
       ldq += __ldcg(a.d + i) * qv;
     }
@@ -158,14 +141,8 @@ extern "C" int pfs_cell_poisson_pcg(
     int part_cap, void* iters, void* res, void* res0, int X, int Y, int Z,
     float tol2, float rel2, int max_iter, void* stream) {
   PoissonArgs a;
+  a.A = pfs::make_stencil7(diag, cxp, cxm, cyp, cym, czp, czm, X, Y, Z);
   a.b = static_cast<const float*>(b);
-  a.diag = static_cast<const float*>(diag);
-  a.coef[0] = static_cast<const float*>(cxp);
-  a.coef[1] = static_cast<const float*>(cxm);
-  a.coef[2] = static_cast<const float*>(cyp);
-  a.coef[3] = static_cast<const float*>(cym);
-  a.coef[4] = static_cast<const float*>(czp);
-  a.coef[5] = static_cast<const float*>(czm);
   a.pd = static_cast<const float*>(pd);
   a.x = static_cast<float*>(x);
   a.r = static_cast<float*>(r);
@@ -175,9 +152,6 @@ extern "C" int pfs_cell_poisson_pcg(
   a.iters_out = static_cast<int*>(iters);
   a.res_out = static_cast<float*>(res);
   a.res0_out = static_cast<float*>(res0);
-  a.X = X;
-  a.Y = Y;
-  a.Z = Z;
   a.tol2 = tol2;
   a.rel2 = rel2;
   a.max_iter = max_iter;

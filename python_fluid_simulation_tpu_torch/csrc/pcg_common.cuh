@@ -1,4 +1,6 @@
-// Shared pieces of the persistent cooperative PCG kernels.
+// Shared pieces of the cell-stencil kernels: the 7-point stencil, and the
+// block / grid reductions and grid sizing of the persistent cooperative
+// kernels.
 //
 // Each solve is ONE cooperative launch that keeps the whole Jacobi-PCG
 // loop on the device.  Phases are separated by grid-wide barriers
@@ -17,6 +19,56 @@ namespace pfs {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+
+// The 7-point cell-centred operator: loop-invariant diagonal and six
+// coefficient fields on an X x Y x Z grid (z fastest).
+struct Stencil7 {
+  const float* diag;
+  const float* coef[6];  // offsets +x, -x, +y, -y, +z, -z
+  int X, Y, Z;
+};
+
+// (A p)[i] = diag p + sum_k coef_k p[i + off_k], neighbours outside the
+// grid read 0.  Every product and sum is rounded on its own (no FMA
+// contraction), in the order of the plain PyTorch version
+// (ops/cuda_stencils.py::stencil_matvec_plain): diag*p first, then the
+// six terms in offset order, so the result is bitwise that version's.
+// p is read through L2 (__ldcg): inside a persistent kernel other blocks
+// wrote it before the last grid barrier.
+__device__ __forceinline__ float stencil7(const Stencil7& s, const float* p,
+                                          long i) {
+  const long yz = (long)s.Y * s.Z;
+  const int cz = (int)(i % s.Z);
+  const int cy = (int)((i / s.Z) % s.Y);
+  const int cx = (int)(i / yz);
+  float acc = __fmul_rn(s.diag[i], __ldcg(p + i));
+  acc = __fadd_rn(acc, __fmul_rn(s.coef[0][i], cx + 1 < s.X ? __ldcg(p + i + yz) : 0.f));
+  acc = __fadd_rn(acc, __fmul_rn(s.coef[1][i], cx > 0 ? __ldcg(p + i - yz) : 0.f));
+  acc = __fadd_rn(acc, __fmul_rn(s.coef[2][i], cy + 1 < s.Y ? __ldcg(p + i + s.Z) : 0.f));
+  acc = __fadd_rn(acc, __fmul_rn(s.coef[3][i], cy > 0 ? __ldcg(p + i - s.Z) : 0.f));
+  acc = __fadd_rn(acc, __fmul_rn(s.coef[4][i], cz + 1 < s.Z ? __ldcg(p + i + 1) : 0.f));
+  acc = __fadd_rn(acc, __fmul_rn(s.coef[5][i], cz > 0 ? __ldcg(p + i - 1) : 0.f));
+  return acc;
+}
+
+// Stencil7 from the C interface's seven field pointers.
+inline Stencil7 make_stencil7(const void* diag, const void* cxp,
+                              const void* cxm, const void* cyp,
+                              const void* cym, const void* czp,
+                              const void* czm, int X, int Y, int Z) {
+  Stencil7 s;
+  s.diag = static_cast<const float*>(diag);
+  s.coef[0] = static_cast<const float*>(cxp);
+  s.coef[1] = static_cast<const float*>(cxm);
+  s.coef[2] = static_cast<const float*>(cyp);
+  s.coef[3] = static_cast<const float*>(cym);
+  s.coef[4] = static_cast<const float*>(czp);
+  s.coef[5] = static_cast<const float*>(czm);
+  s.X = X;
+  s.Y = Y;
+  s.Z = Z;
+  return s;
+}
 
 // Block-wide sum of one value; the result is returned to every thread.
 // `sh` needs kWarps + 1 floats.

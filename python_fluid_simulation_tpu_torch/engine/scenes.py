@@ -8,6 +8,8 @@ regression.  Scenes map a SimConfig to a SimState on ``device``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from python_fluid_simulation_tpu_torch.config import (
@@ -50,6 +52,28 @@ def buckling_config(dx: float = 0.0125, mu: float = 1.0, viscosity_mode: str = "
         dt_mode=dt_mode,
         duration=3.0,
     )
+
+
+def scaled_buckling_config(res: int = 128, **kw) -> SimConfig:
+    """The buckling scene scaled to res^3-class grids (dx chosen so the
+    tallest axis has `res` cells; BASELINE configs 3/5).  From 96^3 up the
+    CG cap is 600 and the cell-Poisson solves take `_poisson_precond`."""
+    base = buckling_config(dx=1.0 / res, **kw)
+    solver = base.solver
+    if res >= 96:
+        solver = dataclasses.replace(solver, max_iter=600, precond=_poisson_precond(base.grid.res))
+    return dataclasses.replace(base, particle_dx=0.5 / res, solver=solver)
+
+
+def _poisson_precond(grid_res) -> str:
+    """Cell-Poisson preconditioner for a 96^3-class-or-larger grid:
+    multigrid up to 4M cells, Jacobi above (the configuration's meaning
+    in the JAX package: two MG hierarchies a step outgrow device memory
+    there, and big grids start pressure-easy)."""
+    cells = 1
+    for n in grid_res:
+        cells *= int(n)
+    return "mg" if cells <= 4_000_000 else "jacobi"
 
 
 def _state(cfg, rbs, center, size, seed, device):

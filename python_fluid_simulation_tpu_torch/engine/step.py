@@ -11,10 +11,14 @@ cell 13, :4552-4693).  Step order follows cell 13:
   -> G2P (:4660) -> viscosity-preconditioner hysteresis flag.
 
 The three solves run as CUDA kernels when the state lives on the GPU
-(``ops/cuda_stencils.py``, ``ops/cuda_cg.py``), and the step makes no
-host sync inside a solve.  Not yet ported (they raise): the 'unet' /
-'unet_warm' viscosity modes, moving solids, MG preconditioners, meshes
-and bucketing.
+(``ops/cuda_stencils.py``, ``ops/cuda_cg.py``; with ``precond='mg'`` the
+cell solves are CG over ``stencil_matvec`` with the multigrid V-cycle of
+``solvers/multigrid.py`` and ``ops/cuda_mg.py``), and so do the segment
+reduces and broadcasts of the transfers (``ops/cuda_binned.py``).  The
+Jacobi solves make no host sync; the MG-PCG loop tests its exit on the
+host once per iteration.  Not yet ported (they raise): the 'unet' /
+'unet_warm' viscosity modes, moving solids, the viscosity MG
+preconditioner, meshes and bucketing.
 """
 
 from __future__ import annotations
@@ -63,8 +67,10 @@ def _check_supported(cfg: SimConfig):
         raise NotImplementedError("moving solids are not ported yet")
     if sol.viscosity_mode != "apic":
         raise NotImplementedError(f"viscosity_mode={sol.viscosity_mode!r} is not ported yet")
-    if sol.precond != "jacobi" or sol.viscosity_precond != "jacobi" or not sol.jacobi_precond:
-        raise NotImplementedError("only Jacobi preconditioning is ported")
+    if sol.precond not in ("jacobi", "mg") or not sol.jacobi_precond:
+        raise NotImplementedError(f"cell-Poisson precond={sol.precond!r} (jacobi_precond={sol.jacobi_precond}) is not ported")
+    if sol.viscosity_precond != "jacobi":
+        raise NotImplementedError(f"viscosity_precond={sol.viscosity_precond!r} is not ported yet")
     if sol.pressure_dt_scaled:
         raise NotImplementedError("the dt-scaled pressure assembly is not ported")
 
@@ -98,7 +104,7 @@ def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> T
     dres = density_solve_3d(
         ph.rho, dt, px, p.m, cfg.particle_dx**3, geom.sphi_c, lphi, geom.w_faces,
         g.bound_min, g.cell_size, tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter,
-        wz_bug=sol.density_wz_bug, sort_info=sort1,
+        wz_bug=sol.density_wz_bug, sort_info=sort1, precond=sol.precond, mg_opts=sol.mg_opts,
     )
     px = dres.px
 
@@ -137,7 +143,7 @@ def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> T
     # -- pressure projection (:4648)
     pres = pressure_solve_3d(
         tuple(gv), geom.sv_c, lphi, geom.w_faces, g.cell_size,
-        tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter,
+        tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter, precond=sol.precond, mg_opts=sol.mg_opts,
     )
     gv = list(pres.v_faces)
 

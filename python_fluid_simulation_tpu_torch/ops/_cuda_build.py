@@ -32,10 +32,15 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every exported function (pointers and the stream as void*)
 _SIGNATURES = {
     "pfs_cell_poisson_pcg": [_P] * 9 + [_P] * 5 + [_I] + [_P] * 3 + [_I] * 3 + [_F, _F, _I, _P],
     "pfs_coupled_visc_pcg": [_P, _I] + [_P] * 10 + [_I] + [_P] * 4 + [_F, _F, _I, _P],
+    "pfs_stencil_matvec": [_P] * 9 + [_I] * 3 + [_P],
+    "pfs_mg_level_chain": [_P] * 12 + [_I] * 4 + [_F, _P],
+    "pfs_binned_reduce": [_P, _P, _L] + [_I] * 4 + [_F, _P, _P],
+    "pfs_binned_broadcast": [_P, _P, _L, _I, _I, _P, _P],
 }
 
 

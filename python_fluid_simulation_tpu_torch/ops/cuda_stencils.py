@@ -1,4 +1,5 @@
-"""Jacobi-PCG for the 7-point cell systems: CUDA kernel + plain version.
+"""The 7-point cell systems: Jacobi-PCG and the matvec, CUDA kernels +
+plain versions.
 
 Replaces ``python_fluid_simulation_tpu/ops/pallas_stencils.py::
 make_stencil_cg`` — the whole Jacobi-PCG for the ghost-fluid cell system
@@ -14,9 +15,16 @@ arithmetic is ~25 flops a cell an iteration.  In practice an iteration
 is bound by its three grid barriers and the L2 traffic of ~20 field
 passes, so the design keeps everything in one launch and in L2.
 
-Routing: a CUDA tensor launches the kernel; a CPU tensor runs
-`cell_poisson_pcg_plain` (the same algorithm in PyTorch).  The plain
-version also serves as the kernel's reference on the card.
+`stencil_matvec` replaces ``pallas_stencils.py::
+make_blocked_stencil_matvec`` (``csrc/stencil_matvec.cu``): one
+application q = A p, the operator of the MG-preconditioned CG and the
+level-0 smoother of its V-cycle.  It is bound by bytes (8 fields read, 1
+written).
+
+Routing: a CUDA tensor launches the kernel; a CPU tensor runs the plain
+version (`cell_poisson_pcg_plain`, `stencil_matvec_plain`: the same
+arithmetic in PyTorch), which also serves as the kernel's reference on
+the card.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ def squared_tols(tol: float, rel_tol: float):
     return float(np.float32(tol) ** 2), float(np.float32(rel_tol) ** 2)
 
 
-def stencil_matvec(diag, coefs, p):
+def stencil_matvec_plain(diag, coefs, p):
     """A p = diag*p + sum_k coef_k * shift(p, off_k) (0 outside)."""
     out = diag * p
     for off, c in coefs:
@@ -51,7 +59,7 @@ def cell_poisson_pcg_plain(b, diag, coefs, pd, *, tol, rel_tol, max_iter):
     """Plain PyTorch version: returns (x, iters, res, res0, thresh)."""
     tol2, rel2 = squared_tols(tol, rel_tol)
     (x,), stats, thresh, _ = cg(
-        lambda v: (stencil_matvec(diag, coefs, v[0]),),
+        lambda v: (stencil_matvec_plain(diag, coefs, v[0]),),
         (b,), (torch.zeros_like(b),),
         tol2=tol2, rel2=rel2, max_iter=max_iter,
         precond=lambda r: (r[0] / pd,),
@@ -59,12 +67,48 @@ def cell_poisson_pcg_plain(b, diag, coefs, pd, *, tol, rel_tol, max_iter):
     return x, stats.iters, stats.residual, stats.initial_residual, thresh
 
 
-def _check(name, t, shape, device):
+def check_field(name, t, shape, device):
     if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(
             f"{name}: need a contiguous float32 {tuple(shape)} tensor on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}"
         )
+
+
+def check_stencil(name, shape, device, diag, coefs):
+    """Raise unless (diag, coefs) is a 3D 7-point system in `OFFSETS`
+    order (x offsets of +-1 only) of contiguous float32 fields of
+    `shape` on `device`."""
+    if tuple(tuple(o) for o, _ in coefs) != OFFSETS:
+        raise ValueError(f"{name}: coefficient offsets must be {OFFSETS}")
+    if len(shape) != 3:
+        raise ValueError(f"{name}: 3D grids only")
+    check_field("diag", diag, shape, device)
+    for k, (_, c) in enumerate(coefs):
+        check_field(f"coef{k}", c, shape, device)
+
+
+def stencil_matvec(diag, coefs, p):
+    """q = A p for the 7-point system (diag, coefs in `OFFSETS` order);
+    neighbours outside the grid read 0."""
+    if p.device.type == "cpu":
+        return stencil_matvec_plain(diag, coefs, p)
+    if p.device.type != "cuda":
+        raise ValueError(f"stencil_matvec: unsupported device {p.device}")
+    shape = tuple(p.shape)
+    check_stencil("stencil_matvec", shape, p.device, diag, coefs)
+    check_field("p", p, shape, p.device)
+    q = torch.empty_like(p)
+    err = cb.LIB.get().pfs_stencil_matvec(
+        diag.data_ptr(), *[c.data_ptr() for _, c in coefs], p.data_ptr(), q.data_ptr(),
+        *shape, cb.stream_of(p),
+    )
+    cb.check(err, "stencil_matvec launch")
+    stencil_matvec.launches += 1
+    return q
+
+
+stencil_matvec.launches = 0
 
 
 def cell_poisson_pcg(b, diag, coefs, pd, *, tol, rel_tol, max_iter):
@@ -78,14 +122,10 @@ def cell_poisson_pcg(b, diag, coefs, pd, *, tol, rel_tol, max_iter):
         return cell_poisson_pcg_plain(b, diag, coefs, pd, tol=tol, rel_tol=rel_tol, max_iter=max_iter)
     if b.device.type != "cuda":
         raise ValueError(f"cell_poisson_pcg: unsupported device {b.device}")
-    if tuple(tuple(o) for o, _ in coefs) != OFFSETS:
-        raise ValueError(f"cell_poisson_pcg: coefficient offsets must be {OFFSETS}")
     shape = tuple(b.shape)
-    if len(shape) != 3:
-        raise ValueError("cell_poisson_pcg: 3D grids only")
-    fields = [("b", b), ("diag", diag), ("pd", pd)] + [(f"coef{k}", c) for k, (_, c) in enumerate(coefs)]
-    for name, t in fields:
-        _check(name, t, shape, b.device)
+    check_stencil("cell_poisson_pcg", shape, b.device, diag, coefs)
+    check_field("b", b, shape, b.device)
+    check_field("pd", pd, shape, b.device)
     lib = cb.LIB.get()
     x = torch.empty_like(b)
     r = torch.empty_like(b)

@@ -1,15 +1,13 @@
 """Deterministic particle <-> grid scatter machinery over cell-sorted rows.
 
-Counterpart of ``python_fluid_simulation_tpu.ops.scatter`` on the route
-the JAX package takes at the flagship size (its binned kernels are gated
-off below 4e5 segments): one stable sort of the per-particle home-cell
-ids, then
+Counterpart of ``python_fluid_simulation_tpu.ops.scatter``: one stable
+sort of the per-particle home-cell ids, then
 
-  * segmented add / min over the sorted rows (``torch.segment_reduce``
-    with offsets from ``searchsorted``: every segment is reduced by one
-    thread in row order, so the sums are exact per segment and
-    bitwise repeatable — no atomics),
-  * a segment broadcast ``out[i] = table[sorted_ids[i]]``,
+  * segmented add / min over the sorted rows and the segment broadcast
+    ``out[i] = table[sorted_ids[i]]`` — the binned segment kernels of
+    ``ops/cuda_binned.py`` (each segment reduced by one thread in row
+    order, so the sums are exact per segment and bitwise repeatable, no
+    atomics), whose plain versions run on the CPU,
   * per-corner-offset folds of the per-cell tables onto the grid that
     reproduce the reference's per-corner border clamping
     (``max(0, min(gres-1, gi + offs))``, cell 2 :128).
@@ -24,6 +22,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from python_fluid_simulation_tpu_torch.ops.cuda_binned import segment_broadcast, segment_reduce
+
 
 def sort_by_segment(ids: torch.Tensor, *vals: torch.Tensor):
     """Stable sort of (ids, vals...) by ids; vals may be (K,) or (K, C)."""
@@ -31,55 +31,38 @@ def sort_by_segment(ids: torch.Tensor, *vals: torch.Tensor):
     return (sorted_ids,) + tuple(v[order] for v in vals)
 
 
-def _offsets(sorted_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """offsets[m] = first row with id >= m, for m in [0, M]: rows of
-    segment m are offsets[m]:offsets[m+1]; rows with ids outside [0, M)
-    fall outside every segment."""
-    bounds = torch.arange(num_segments + 1, device=sorted_ids.device, dtype=sorted_ids.dtype)
-    return torch.searchsorted(sorted_ids, bounds)
+def _rows(vals: torch.Tensor) -> torch.Tensor:
+    """(K,) or (K, C...) -> contiguous (K, C)."""
+    return vals.reshape(vals.shape[0], -1).contiguous()
 
 
 def segment_sum_sorted(vals: torch.Tensor, sorted_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Per-segment sums of rows sorted by segment id: (M,) or (M, C);
     empty segments are 0."""
-    return torch.segment_reduce(
-        vals, "sum", offsets=_offsets(sorted_ids, num_segments), axis=0,
-        unsafe=True, initial=0.0,
-    )
+    out = segment_reduce(_rows(vals), sorted_ids.contiguous(), num_segments, "add", 0.0)
+    return out.reshape((num_segments,) + tuple(vals.shape[1:]))
 
 
 def segment_min_sorted(vals: torch.Tensor, sorted_ids: torch.Tensor, num_segments: int, fill) -> torch.Tensor:
     """Per-segment minima CLAMPED at ``fill``: row m is
     ``min(fill, min over segment m)``, and ``fill`` where it is empty —
     the reference's background-initialised ``atomic.min`` (cell 4 :288)."""
-    return torch.segment_reduce(
-        vals, "min", offsets=_offsets(sorted_ids, num_segments), axis=0,
-        unsafe=True, initial=float(fill),
-    )
+    out = segment_reduce(_rows(vals), sorted_ids.contiguous(), num_segments, "min", float(fill))
+    return out.reshape((num_segments,) + tuple(vals.shape[1:]))
 
 
 def segment_broadcast_sorted(table: torch.Tensor, sorted_ids: torch.Tensor) -> torch.Tensor:
     """``out[i] = table[sorted_ids[i]]``; rows whose id lies outside
     [0, M) read 0."""
-    m = table.shape[0]
-    valid = (sorted_ids >= 0) & (sorted_ids < m)
-    rows = table[torch.clamp(sorted_ids, 0, m - 1)]
-    mask = valid.reshape(valid.shape + (1,) * (rows.ndim - 1))
-    return torch.where(mask, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    out = segment_broadcast(_rows(table), sorted_ids.contiguous())
+    return out.reshape(tuple(sorted_ids.shape) + tuple(table.shape[1:]))
 
 
 def segment_reduce_cf(vals, sorted_ids, num_segments: int, grid_shape: Sequence[int], op: str = "add", fill=0.0):
-    """Segmented reduce emitted channels-first: (C, *grid_shape)."""
-    if op == "add":
-        seg = segment_sum_sorted(vals, sorted_ids, num_segments)
-    else:
-        seg = segment_min_sorted(vals, sorted_ids, num_segments, fill)
-    return channels_first(seg, grid_shape)
-
-
-def channels_first(seg_mc: torch.Tensor, grid_shape: Sequence[int]) -> torch.Tensor:
-    """(M, C) segment table -> (C, *grid_shape) channel-major grids."""
-    return seg_mc.t().reshape((seg_mc.shape[-1],) + tuple(grid_shape))
+    """Segmented reduce of (K, C) rows emitted channels-first:
+    (C, *grid_shape)."""
+    out = segment_reduce(vals.contiguous(), sorted_ids.contiguous(), num_segments, op, float(fill), channels_first=True)
+    return out.reshape((vals.shape[-1],) + tuple(grid_shape))
 
 
 def unsort_rows(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:

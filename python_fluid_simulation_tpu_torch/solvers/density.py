@@ -5,7 +5,7 @@ Counterpart of ``python_fluid_simulation_tpu.solvers.density`` (the
 reference's ``solver/DensityCGSolver3D.py``).  Pipeline (reference solve
 :312-350): scatter particle mass/volume to cell centers -> fix_volume
 clamp -> RHS b = (1 - rho_frac)/dt with solid imputation -> 7-point PCG
-(unit-weight diagonal, cell-Poisson kernel) -> face displacement field ->
+(unit-weight diagonal; Jacobi or multigrid, as configured) -> face displacement field ->
 trilinear gather onto particles.
 
 Documented divergence (as in the JAX package): the reference's -z matvec
@@ -229,11 +229,12 @@ def density_solve_3d(
     rho0: float, dt, px, pm, pvol: float, sphi, lphi, w_faces,
     bound_min: Sequence[float], cell_size: Sequence[float], *,
     tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
-    wz_bug: bool = False, sort_info=None,
+    wz_bug: bool = False, sort_info=None, precond: str = "jacobi", mg_opts=None,
 ) -> DensityResult:
     """Full density projection; returns moved particle positions
     (DensityCGSolver3D.solve :312-350, initial guess x = 0).
-    ``sort_info`` shares an existing bias-0 cell sort of `px`."""
+    ``sort_info`` shares an existing bias-0 cell sort of `px`;
+    ``precond`` / ``mg_opts`` pick the solve (`solve_cell_poisson`)."""
     gres = tuple(lphi.shape)
     d = len(gres)
     gm, gvol, sort_info = scatter_mass_volume(
@@ -243,6 +244,7 @@ def density_solve_3d(
     b = density_rhs(rho0, dt, gm, gvol, lphi, w_faces, cell_size)
     x, stats = solve_cell_poisson(
         b, density_coefficients(w_faces, lphi, wz_bug), tol=tol, rel_tol=rel_tol, max_iter=max_iter,
+        precond=precond, mg_opts=mg_opts,
     )
     face_shapes = [tuple(n + (1 if i == a else 0) for i, n in enumerate(gres)) for a in range(d)]
     disp = compute_displacement(x, lphi, dt, cell_size, face_shapes)

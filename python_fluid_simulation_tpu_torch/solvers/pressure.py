@@ -3,8 +3,12 @@
 Counterpart of ``python_fluid_simulation_tpu.solvers.pressure`` (the
 reference's ``solver/PressureCGSolver3D.py``): the 7-point ghost-fluid
 system, its RHS and the velocity update are PyTorch stencils (shifts +
-where); the Jacobi-PCG solve is the cell-Poisson kernel
-(``ops/cuda_stencils.py``).
+where).  The solve takes the configured preconditioner: 'jacobi' is the
+cell-Poisson PCG kernel (``ops/cuda_stencils.py``), 'mg' the generic CG
+(``solvers/cg.py``) over the 7-point matvec kernel with the multigrid
+V-cycle (``solvers/multigrid.py``) as preconditioner.  The MG route
+tests its exit on the host once per iteration, as the JAX package's
+``while_loop`` does.
 
 Solution convention matches the reference: x = -pressure * dt / (rho V)
 (PressureCGSolver3D.py:225).
@@ -16,7 +20,9 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from python_fluid_simulation_tpu_torch.ops.cuda_stencils import cell_poisson_pcg
+import numpy as np
+
+from python_fluid_simulation_tpu_torch.ops.cuda_stencils import cell_poisson_pcg, stencil_matvec
 from python_fluid_simulation_tpu_torch.ops.fractions import edge_in_fraction
 from python_fluid_simulation_tpu_torch.ops.indexing import (
     dual_sample,
@@ -25,7 +31,8 @@ from python_fluid_simulation_tpu_torch.ops.indexing import (
     sample,
     shift,
 )
-from python_fluid_simulation_tpu_torch.solvers.cg import SolveStats
+from python_fluid_simulation_tpu_torch.solvers.cg import SolveStats, cg
+from python_fluid_simulation_tpu_torch.solvers.multigrid import make_mg_preconditioner
 
 _GHOST_CLIP = (0.01, 1.0)  # frac = clamp(phi/(phi-nphi), 0.01, 1)
 
@@ -127,19 +134,37 @@ def apply_pressure_3d(v_faces, p, w_faces, sv, lphi, cell_size) -> Tuple[torch.T
     return tuple(out)
 
 
-def solve_cell_poisson(b, coefficients, *, tol: float, rel_tol: float, max_iter: int):
-    """Jacobi-PCG solve of a cell-centred ghost-fluid system (pressure or
-    density) from x0 = 0 through the cell-Poisson kernel.
+def solve_cell_poisson(b, coefficients, *, tol: float, rel_tol: float, max_iter: int,
+                       precond: str = "jacobi", mg_opts=None):
+    """PCG solve of a cell-centred ghost-fluid system (pressure or
+    density) from x0 = 0.
 
     ``coefficients`` is (diag, [(off, coef)], precond_diag) from
     `pressure_coefficients` or ``density.density_coefficients``.
-    Returns (x, SolveStats).
+    ``precond`` 'jacobi' runs the cell-Poisson kernel; 'mg' runs CG with
+    a V-cycle preconditioner shaped by ``mg_opts`` = (n_smooth, min_dim,
+    coarse_iters) (None: 2, 4, 24).  Returns (x, SolveStats).
     """
     diag, coefs, precond_diag = coefficients
-    x, iters, res, res0, thresh = cell_poisson_pcg(
-        b, diag, coefs, precond_diag, tol=tol, rel_tol=rel_tol, max_iter=max_iter,
+    if precond == "jacobi":
+        x, iters, res, res0, thresh = cell_poisson_pcg(
+            b, diag, coefs, precond_diag, tol=tol, rel_tol=rel_tol, max_iter=max_iter,
+        )
+        return x, SolveStats(iters=iters, residual=res, initial_residual=res0, converged=res < thresh)
+    if precond != "mg":
+        raise ValueError(f"unknown cell-Poisson preconditioner {precond!r}")
+    kw = {}
+    if mg_opts is not None:
+        kw = dict(n_smooth=int(mg_opts[0]), min_dim=int(mg_opts[1]), coarse_iters=int(mg_opts[2]))
+    mg = make_mg_preconditioner(diag, coefs, **kw)
+    # the JAX package's generic cg rounds tol^2 in fp32 and rel_tol^2 in
+    # double before the fp32 product
+    (x,), stats, _, _ = cg(
+        lambda v: (stencil_matvec(diag, coefs, v[0]),), (b,), (torch.zeros_like(b),),
+        tol2=float(np.float32(tol) ** 2), rel2=float(np.float32(rel_tol**2)), max_iter=max_iter,
+        precond=lambda r: (mg(r[0]),),
     )
-    return x, SolveStats(iters=iters, residual=res, initial_residual=res0, converged=res < thresh)
+    return x, stats
 
 
 class PressureResult(NamedTuple):
@@ -151,11 +176,13 @@ class PressureResult(NamedTuple):
 def pressure_solve_3d(
     v_faces: Sequence[torch.Tensor], sv, lphi, w_faces, cell_size, *,
     tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
+    precond: str = "jacobi", mg_opts=None,
 ) -> PressureResult:
     """Full projection: RHS -> PCG -> apply (PressureCGSolver3D.solve
     :192-226, initial guess x = 0)."""
     b = pressure_rhs_3d(v_faces, sv, lphi, w_faces, cell_size)
     x, stats = solve_cell_poisson(
         b, pressure_coefficients(w_faces, lphi), tol=tol, rel_tol=rel_tol, max_iter=max_iter,
+        precond=precond, mg_opts=mg_opts,
     )
     return PressureResult(apply_pressure_3d(v_faces, x, w_faces, sv, lphi, cell_size), x, stats)

@@ -10,7 +10,8 @@ kernels against the JAX package, on CPU.
   ``make_fused_coupled_cg_geom(interpret=True)``: matvec rtol 1e-5 /
   atol 1e-6 (same fp32 products, ~1 ulp), solve as above.
 * pressure / density / viscosity solves vs the JAX functions on the
-  same inputs.
+  same inputs; the pressure and density solves also with
+  ``precond="mg"`` against the JAX package's MG-PCG route.
 """
 
 import numpy as np
@@ -287,3 +288,41 @@ def test_viscosity_solve_matches_jax(fluid):
     assert abs(int(got.stats.iters) - int(want.stats.iters)) <= 2
     for a in range(3):
         np.testing.assert_allclose(got.v_faces[a].numpy(), np.asarray(want.v_faces[a]), **SOLVE_TOL)
+
+
+def test_mg_pressure_solve_matches_jax(fluid):
+    cfg, d = fluid
+    kw = dict(tol=1e-3, rel_tol=1e-3, max_iter=400)
+    names = ("gv", "sv_c", "lphi", "w_faces")
+    want = jpr.pressure_solve_3d(
+        *(_as(d[k], jnp.asarray) for k in names), cfg.grid.cell_size, use_pallas="off", precond_kind="mg", **kw
+    )
+    got = pressure.pressure_solve_3d(*(_as(d[k], _t) for k in names), cfg.grid.cell_size, precond="mg", **kw)
+    jac = pressure.pressure_solve_3d(*(_as(d[k], _t) for k in names), cfg.grid.cell_size, **kw)
+    assert int(want.stats.iters) > 1 and bool(got.stats.converged)
+    assert abs(int(got.stats.iters) - int(want.stats.iters)) <= 2
+    assert int(got.stats.iters) < int(jac.stats.iters)
+    np.testing.assert_allclose(got.pressure.numpy(), np.asarray(want.pressure), **SOLVE_TOL)
+    for a in range(3):
+        np.testing.assert_allclose(got.v_faces[a].numpy(), np.asarray(want.v_faces[a]), atol=1e-3)
+
+
+@pytest.mark.parametrize("wz_bug", [False, True])
+def test_mg_density_solve_matches_jax(fluid, wz_bug):
+    cfg, d = fluid
+    g = cfg.grid
+    dt = np.float32(cfg.physics.dt)
+    kw = dict(tol=1e-3, rel_tol=1e-3, max_iter=400, wz_bug=wz_bug)
+    names = ("px", "pm")
+    geo = ("sphi_c", "lphi", "w_faces")
+    want = jden.density_solve_3d(
+        cfg.physics.rho, jnp.float32(dt), *(_as(d[k], jnp.asarray) for k in names), cfg.particle_dx**3,
+        *(_as(d[k], jnp.asarray) for k in geo), g.bound_min, g.cell_size, use_pallas="off", precond_kind="mg", **kw,
+    )
+    got = density.density_solve_3d(
+        cfg.physics.rho, torch.tensor(dt), *(_as(d[k], _t) for k in names), cfg.particle_dx**3,
+        *(_as(d[k], _t) for k in geo), g.bound_min, g.cell_size, precond="mg", **kw,
+    )
+    assert int(want.stats.iters) > 1 and bool(got.stats.converged)
+    assert abs(int(got.stats.iters) - int(want.stats.iters)) <= 2
+    np.testing.assert_allclose(got.px.numpy(), np.asarray(want.px), atol=2e-5)

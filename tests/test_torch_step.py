@@ -7,7 +7,12 @@
   their tolerance and the particle state to fp32 rounding carried
   through two steps (x atol 1e-5 m, v atol 1e-4 m/s, APIC rows atol
   1e-3 1/s on entries up to ~2).
-* the same 2 steps with ``dt_mode='fixed'`` (the configured dt, no CFL).
+* the same 2 steps with ``dt_mode='fixed'`` (the configured dt, no CFL),
+  and with ``precond='mg'`` (the MG-PCG cell solves of the 128^3-class
+  configuration) at the same tolerances; on CPU tensors no kernel
+  wrapper counts a launch.
+* ``scaled_buckling_config(r)`` equals the JAX configuration field for
+  field.
 * the 6-step dam break against ``tests/golden_dam_break.npz`` at
   test_golden.py's config and tolerances.
 """
@@ -20,7 +25,12 @@ import torch
 
 from python_fluid_simulation_tpu_torch.config import GridConfig3D, PhysicsConfig, SimConfig, SolverConfig
 from python_fluid_simulation_tpu_torch.convert import state_from_numpy, state_to_numpy
-from python_fluid_simulation_tpu_torch.engine.scenes import buckling_config, buckling_scene, dam_break_scene
+from python_fluid_simulation_tpu_torch.engine.scenes import (
+    buckling_config,
+    buckling_scene,
+    dam_break_scene,
+    scaled_buckling_config,
+)
 from python_fluid_simulation_tpu_torch.engine.step import simulate, step_3d
 
 torch.set_num_threads(1)
@@ -44,16 +54,21 @@ def test_flagship_scene_matches_jax_exactly():
     np.testing.assert_allclose(state.solid.phi.numpy(), np.asarray(want.solid.phi), atol=1e-6)
 
 
-def _coarse_pair(dt_mode):
+def _coarse_pair(dt_mode, precond="jacobi"):
     """2 steps of the coarse buckling scene through both packages from
     the same start state."""
+    import dataclasses
+
     from python_fluid_simulation_tpu.engine.scenes import buckling_config as j_cfg
     from python_fluid_simulation_tpu.engine.scenes import buckling_scene as j_scene
     from python_fluid_simulation_tpu.engine.step import simulate as j_simulate
 
+    def with_precond(c):
+        return dataclasses.replace(c, solver=dataclasses.replace(c.solver, precond=precond))
+
     j_state = j_scene(j_cfg(dx=0.05))
-    j_final, j_metrics = j_simulate(j_state, j_cfg(dx=0.05, dt_mode=dt_mode), 2)
-    cfg = buckling_config(dx=0.05, dt_mode=dt_mode)
+    j_final, j_metrics = j_simulate(j_state, with_precond(j_cfg(dx=0.05, dt_mode=dt_mode)), 2)
+    cfg = with_precond(buckling_config(dx=0.05, dt_mode=dt_mode))
     start = {
         "x": j_state.particles.x, "v": j_state.particles.v, "c": j_state.particles.c, "m": j_state.particles.m,
         "phi": j_state.solid.phi, "sv": j_state.solid.v, "rb": j_state.solid.rb,
@@ -110,6 +125,46 @@ def test_fixed_dt_steps_match_jax(coarse_pair):
     assert float(final.t) == pytest.approx(2.0 / 300.0, rel=1e-6)
 
 
+def _launch_counts():
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_mg, cuda_stencils
+
+    return [f.launches for f in (
+        cuda_stencils.cell_poisson_pcg, cuda_stencils.stencil_matvec, cuda_cg.coupled_visc_pcg,
+        cuda_mg.level_chain, cuda_binned.segment_reduce, cuda_binned.segment_broadcast,
+    )]
+
+
+def test_mg_steps_match_jax():
+    """precond='mg' (both cell solves through the V-cycle-preconditioned
+    CG) on the coarse scene: at the CFL test's tolerances, with the
+    cell solves needing fewer iterations than Jacobi."""
+    before = _launch_counts()
+    j_final, j_metrics, final, metrics = _coarse_pair("cfl", precond="mg")
+    assert _launch_counts() == before  # CPU tensors launch no kernel
+    for solver in ("density", "viscosity", "pressure"):
+        got = metrics[f"{solver}_iters"].numpy()
+        want = np.asarray(j_metrics[f"{solver}_iters"])
+        assert np.all(np.abs(got - want) <= 2), (solver, got, want)
+        assert metrics[f"{solver}_converged"].all()
+    assert metrics["pressure_iters"][1] > 0
+    np.testing.assert_allclose(final.particles.x.numpy(), np.asarray(j_final.particles.x), atol=1e-5)
+    np.testing.assert_allclose(final.particles.v.numpy(), np.asarray(j_final.particles.v), atol=1e-4)
+    np.testing.assert_allclose(final.particles.c.numpy(), np.asarray(j_final.particles.c), atol=1e-3)
+
+
+@pytest.mark.parametrize("res", [64, 128, 256])
+def test_scaled_buckling_config_matches_jax(res):
+    import dataclasses
+
+    from python_fluid_simulation_tpu.engine.scenes import scaled_buckling_config as j_scaled
+
+    got, want = scaled_buckling_config(res), j_scaled(res)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.solver.precond == {64: "jacobi", 128: "mg", 256: "jacobi"}[res]
+    if res == 128:
+        assert got.grid.res == (77, 128, 77)
+
+
 def test_step_is_deterministic_and_state_roundtrips():
     cfg = buckling_config(dx=0.05)
     state = buckling_scene(cfg, device="cpu")
@@ -127,7 +182,7 @@ def test_unported_options_raise():
     for bad in (
         dataclasses.replace(cfg, moving_solid=True),
         dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_mode="unet")),
-        dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, precond="mg")),
+        dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_precond="mg")),
     ):
         with pytest.raises(NotImplementedError):
             step_3d(state, bad)
