@@ -12,12 +12,16 @@ PyTorch version on the card:
   static solids);
 * the 128^3 class: ``scaled_buckling_config(128)`` (77x128x77 cells,
   356,256 particles, MG-preconditioned density and pressure solves,
-  Jacobi viscosity).
+  Jacobi viscosity);
+* the coiling column: ``coiling_config(256)`` (64x256x64 cells, 73,644
+  particles, mu 5, MG cell solves, the 'auto' viscosity preconditioner:
+  Jacobi-PCG or the batched block MG by the carried hysteresis flag).
 
 Phases, each printing one JSON line:
 
   device      the card (and its ``nvidia-smi`` name / power limit)
-  build       one nvcc call over csrc/*.cu, with ptxas' register lines
+  build       one nvcc -c per csrc/*.cu source, all in parallel, then one
+              link; with ptxas' register lines
   kernels     flagship: the two PCG kernels on the real density /
               pressure / viscosity systems of the third step vs their
               plain versions: errors, iterations, CUDA-event times, the
@@ -35,6 +39,19 @@ Phases, each printing one JSON line:
   main_128    128^3: 1 warm-up + 5 timed steps with the counters reset
               just before; solves converged, particles finite, the first
               step bitwise repeatable, step 3 on the card vs the CPU
+  kernels_coil coiling: the viscosity system and the fold inputs of the
+              third step; the geometry matvec (full and same-axis), every
+              chain of the batched viscosity hierarchy, one batched
+              V-cycle, the viscosity MG-PCG solve and every fold of the
+              step, each vs its plain version, with times, library times
+              and bounds
+  main_coil   coiling: 'auto' from the scene and viscosity_precond='mg',
+              1 warm-up + 5 timed steps each, and 2 steps of 'auto' with
+              visc_mg = 2 (its MG branch) from the 'auto' run's state
+              after 2 steps, counters reset just before;
+              the branch of every step, solves converged, particles
+              finite, the first MG step bitwise repeatable, step 3 of
+              both runs on the card vs the CPU, peak memory
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -45,6 +62,7 @@ result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -77,6 +95,14 @@ RES_128 = 128
 SHAPE_128 = ((77, 128, 77), 356256)
 STEPS_128 = 6  # 1 warm-up + 5 timed
 CHECKED_STEP_128 = 2  # the third step, card vs CPU
+RES_COIL = 256
+SHAPE_COIL = ((64, 256, 64), 73644)
+STEPS_COIL = 6  # 1 warm-up + 5 timed, per preconditioner
+CHECKED_STEP_COIL = 2  # the third step, card vs CPU
+# fp32 operations a face of the geometry-recompute matvec: the diagonal
+# (6 products, 6 sums, s_mu * extra, + center, * v: 15) and 4 a coupling
+# (sign*factor * s_mu, * vol, * v, +)
+GEOM_MV_OPS = {False: 15 + 4 * 14, True: 15 + 4 * 6}
 
 
 def emit(obj):
@@ -459,8 +485,226 @@ def binned_phase(reduces, broadcasts):
     return red_rows, bc_rows
 
 
+def capture_coil(step_3d, state, cfg, geom):
+    """One coiling step with recorders around the coupled solve and the
+    fold as their callers call them; each fold is labelled with the
+    function that made it."""
+    from python_fluid_simulation_tpu_torch.ops import scatter
+    from python_fluid_simulation_tpu_torch.solvers import viscosity
+
+    got = {"coupled": [], "fold": []}
+
+    def rec(kind, fn, label_depth=None):
+        def call(*args, **kw):
+            label = sys._getframe(label_depth).f_code.co_name if label_depth else kind
+            got[kind].append((label, args, kw))
+            return fn(*args, **kw)
+        return call
+
+    with patched([
+        (viscosity, "coupled_visc_pcg", rec("coupled", viscosity.coupled_visc_pcg)),
+        # frame 2: the caller of scatter.fold_scattered_sep
+        (scatter, "fold", rec("fold", scatter.fold, 2)),
+    ]):
+        step_3d(state, cfg, geom=geom)
+    return got
+
+
+def plain_geom_mv(sphi_c, vol_c, s_mu, vs, *, same_axis_only=False, geom=None):
+    from python_fluid_simulation_tpu_torch.ops.cuda_cg import coupled_matvec_plain
+
+    return coupled_matvec_plain(sphi_c, vol_c, s_mu, vs, same_axis_only)
+
+
+def check_bitwise(name, got, ref):
+    import torch
+
+    for a, (g, r) in enumerate(zip(got, ref)):
+        if not torch.equal(g, r):
+            raise AssertionError(f"{name}[{a}]: kernel differs from its plain version (max abs {max_err(g, r)[0]})")
+
+
+def geom_matvec_phase(system):
+    """The geometry-recompute coupled matvec, full and same-axis, on the
+    viscosity system's x0."""
+    from python_fluid_simulation_tpu_torch.ops.cuda_cg import (
+        coupled_matvec_geom,
+        coupled_matvec_plain,
+        flat_geometry,
+    )
+
+    (b, x0, pd, sphi_c, vol_c, s_mu), _ = system
+    geom = flat_geometry(sphi_c, vol_c)
+    n = sum(t.numel() for t in x0)
+    rows = []
+    for same in (False, True):
+        q_k = coupled_matvec_geom(sphi_c, vol_c, s_mu, x0, same_axis_only=same, geom=geom)
+        q_p = coupled_matvec_plain(sphi_c, vol_c, s_mu, x0, same)
+        check_bitwise(f"coupled_matvec_geom[same_axis={same}]", q_k, q_p)
+        rows.append(dict(
+            same_axis_only=same, shapes=[list(t.shape) for t in x0], bitwise=True, max_abs_err=0.0,
+            ms=cuda_time_ms(lambda: coupled_matvec_geom(sphi_c, vol_c, s_mu, x0, same_axis_only=same, geom=geom), 50),
+            plain_ms=cuda_time_ms(lambda: coupled_matvec_plain(sphi_c, vol_c, s_mu, x0, same), 5),
+            **bound((geom.numel() + 2 * n) * 4, GEOM_MV_OPS[same] * n),  # geometry, v read; q written
+        ))
+    return rows
+
+
+def batched_vcycle_phase(system):
+    """Every chain of the batched viscosity hierarchy (B = 3) on the
+    restricted right-hand sides of one cycle, the level-0 batched matvec,
+    and one batched V-cycle, kernels vs plain versions."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops.cuda_mg import level_chain, level_chain_plain
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec, stencil_matvec_plain
+    from python_fluid_simulation_tpu_torch.solvers import multigrid, viscosity
+
+    (b, _, _, sphi_c, vol_c, s_mu), _ = system
+    # the 21 same-axis fields, as the MG route builds them
+    diags, same, _ = viscosity.viscosity_term_fields(s_mu, sphi_c, vol_c, [t.shape for t in b], same_axis_only=True)
+    mg = viscosity.make_viscosity_mg_preconditioner(diags, same)
+    levels = mg.levels
+    omega, n_smooth, coarse = 0.8, 2, 24
+    bk = torch.stack([multigrid._pad_to(t, tuple(levels[0].diag.shape[1:])) for t in b])
+    top = levels[0]
+    q_k, q_p = stencil_matvec(top.diag, top.coefs, bk), stencil_matvec_plain(top.diag, top.coefs, bk)
+    check_bitwise("batched level-0 stencil_matvec", [q_k], [q_p])
+    level0 = dict(
+        shape=list(bk.shape), bitwise=True,
+        ms=cuda_time_ms(lambda: stencil_matvec(top.diag, top.coefs, bk), 50),
+        plain_ms=cuda_time_ms(lambda: stencil_matvec_plain(top.diag, top.coefs, bk), 20),
+        **bound(9 * 4 * bk.numel(), STENCIL_OPS * bk.numel()),
+    )
+    chains = []
+    for k in range(1, len(levels)):
+        lv = levels[k]
+        bk = multigrid._restrict(bk, tuple(lv.diag.shape[1:]))
+        last = k == len(levels) - 1
+        kinds = [("coarse", None, coarse, False)] if last else [("pre", None, n_smooth, True), ("post", "x", n_smooth, False)]
+        x_pre = None
+        for kind, x0, iters, resid in kinds:
+            x0 = x_pre if x0 == "x" else None
+            args = (lv.diag, lv.coefs, bk, x0)
+            kw = dict(iters=iters, omega=omega, emit_resid=resid)
+            out_k, out_p = level_chain(*args, **kw), level_chain_plain(*args, **kw)
+            outs = list(zip(out_k, out_p)) if resid else [(out_k, out_p)]
+            if kind == "pre":
+                x_pre = out_k[0]
+            check_bitwise(f"batched level {k} {kind} chain", [a for a, _ in outs], [p for _, p in outs])
+            chains.append(dict(
+                level=k, shape=list(lv.diag.shape), chain=kind, iters=iters, bitwise=True, max_abs_err=0.0,
+                ms=cuda_time_ms(lambda: level_chain(*args, **kw), 50),
+                plain_ms=cuda_time_ms(lambda: level_chain_plain(*args, **kw), 20),
+                **chain_bound(lv.diag.numel(), iters, x0 is None, resid),
+            ))
+    z_k = mg(b)
+    with plain_mg_routes():
+        mg_p = viscosity.make_viscosity_mg_preconditioner(diags, same)
+        z_p = mg_p(b)
+        plain_ms = cuda_time_ms(lambda: mg_p(b), 10)
+    for a in range(3):
+        check_close(f"batched V-cycle[{a}]", z_k[a], z_p[a], KERNEL_TOL)
+    vcycle = dict(
+        levels=[list(lv.diag.shape) for lv in levels],
+        bitwise=all(bool(torch.equal(u, w)) for u, w in zip(z_k, z_p)),
+        max_abs_err=max(max_err(u, w)[0] for u, w in zip(z_k, z_p)),
+        ms=cuda_time_ms(lambda: mg(b), 20), plain_ms=plain_ms,
+    )
+    return level0, chains, vcycle
+
+
+def visc_mg_solve_phase(system):
+    """The viscosity MG-PCG solve (the MG branch) with the kernels vs with
+    their plain versions; iterations must be equal."""
+    from python_fluid_simulation_tpu_torch.solvers import viscosity
+
+    (b, x0, pd, sphi_c, vol_c, s_mu), kw = system
+    shapes = [tuple(t.shape) for t in b]
+
+    def solve():
+        return viscosity._mg_solve(b, x0, s_mu, sphi_c, vol_c, shapes, **kw)
+
+    x_k, st_k = solve()
+    with plain_mg_routes(), patched([(viscosity, "coupled_matvec_geom", plain_geom_mv)]):
+        x_p, st_p = solve()
+        plain_ms = cuda_time_ms(solve, 1)
+    it_k, it_p = int(st_k.iters), int(st_p.iters)
+    if it_k != it_p or not bool(st_k.converged):
+        raise AssertionError(f"viscosity MG-PCG: iterations {it_k} vs plain {it_p}, converged {bool(st_k.converged)}")
+    for a in range(3):
+        check_close(f"viscosity MG-PCG[{a}]", x_k[a], x_p[a], KERNEL_TOL)
+    return dict(
+        iters=it_k, plain_iters=it_p, res=float(st_k.residual), rel_res=float(st_k.residual / st_k.initial_residual),
+        bitwise=all(bool((u == w).all()) for u, w in zip(x_k, x_p)),
+        max_abs_err=max(max_err(u, w)[0] for u, w in zip(x_k, x_p)),
+        ms=cuda_time_ms(solve, 3), plain_ms=plain_ms,
+    )
+
+
+def fold_targets(seg, axis_shifts, out_shape):
+    """Flat target index of every (channel, source cell) of a fold, for
+    the one-call library yardstick."""
+    import itertools
+
+    import torch
+
+    dev = seg.device
+    idx = []
+    for shifts in itertools.product(*axis_shifts):
+        t = None
+        for a, s in enumerate(shifts):
+            e = torch.arange(seg.shape[1 + a], device=dev)
+            ta = torch.clamp(e + s, 0, int(out_shape[a]) - 1)
+            shape = [1, 1, 1]
+            shape[a] = -1
+            ta = ta.reshape(shape)
+            t = ta if t is None else t * int(out_shape[a]) + ta
+        idx.append(t.expand(*seg.shape[1:]).reshape(-1))
+    return torch.cat(idx)
+
+
+def fold_phase(folds):
+    """Every fold of the step, kernel vs plain version, with the one-call
+    PyTorch yardstick (``scatter_reduce`` over target indices computed
+    beforehand)."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops import cuda_fold
+
+    rows = []
+    for label, args, kw in folds:
+        seg, axis_shifts, out_shape, combine, fill = args
+        out_k, out_p = cuda_fold.fold(*args, **kw), cuda_fold.fold_plain(*args, **kw)
+        bitwise = bool(torch.equal(out_k, out_p))
+        err, rel = rel_err(out_k, out_p)
+        if combine == "min" and not bitwise:
+            raise AssertionError(f"fold[{label}] min: kernel differs from plain version (max abs {err})")
+        if not rel <= SUM_REL:
+            raise AssertionError(f"fold[{label}]: kernel vs plain max rel {rel} > {SUM_REL}")
+        idx = fold_targets(seg, axis_shifts, out_shape)
+        vals = seg.contiguous().reshape(-1)
+        red = "sum" if combine == "add" else "amin"
+
+        def library():
+            out = torch.full(tuple(out_shape), float(fill), dtype=seg.dtype, device=seg.device)
+            return out.view(-1).scatter_reduce_(0, idx, vals, reduce=red, include_self=True)
+
+        n_out = out_k.numel()
+        rows.append(dict(
+            caller=label, combine=combine, C=int(seg.shape[0]), table=list(seg.shape[1:]), out=list(out_k.shape),
+            bitwise=bitwise, max_abs_err=err, max_rel_err=rel,
+            ms=cuda_time_ms(lambda: cuda_fold.fold(*args, **kw), 20),
+            plain_ms=cuda_time_ms(lambda: cuda_fold.fold_plain(*args, **kw), 5),
+            library_ms=cuda_time_ms(library, 5),
+            **bound(seg.numel() * 4 + n_out * 4, seg.numel()),  # table read, grid written; a combine a source
+        ))
+        del idx, vals
+    return rows
+
+
 def reset_counters():
-    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_mg, cuda_stencils
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_fold, cuda_mg, cuda_stencils
 
     wrappers = {
         "cell_poisson_pcg": cuda_stencils.cell_poisson_pcg,
@@ -469,10 +713,21 @@ def reset_counters():
         "mg_level_chain": cuda_mg.level_chain,
         "binned_segment_reduce": cuda_binned.segment_reduce,
         "binned_segment_broadcast": cuda_binned.segment_broadcast,
+        "coupled_matvec_geom": cuda_cg.coupled_matvec_geom,
+        "fold": cuda_fold.fold,
     }
     for w in wrappers.values():
         w.launches = 0
-    return lambda: {name: w.launches for name, w in wrappers.items()}
+    cuda_mg.level_chain.batched_launches = 0
+
+    def read():
+        out = {name: w.launches for name, w in wrappers.items()}
+        # the chain wrapper counts both forms: report them apart
+        out["mg_level_chain_batched"] = cuda_mg.level_chain.batched_launches
+        out["mg_level_chain"] -= out["mg_level_chain_batched"]
+        return out
+
+    return read
 
 
 def run_steps(step_3d, state, cfg, geom, n, keep):
@@ -490,6 +745,27 @@ def run_steps(step_3d, state, cfg, geom, n, keep):
             states.append(state)
         metrics.append({k: v.item() for k, v in m.items()})
     return state, states, step_ms, metrics
+
+
+def run_coil(step_3d, state, cfg, geom, n, keep):
+    """`run_steps` that also records the viscosity branch each step took
+    (MG while the carried flag is set, for 'auto'), read before the
+    step's clock starts."""
+    import torch
+
+    states, step_ms, metrics, branch = [state], [], [], []
+    for _ in range(n):
+        mg = cfg.solver.viscosity_precond == "mg" or int(torch.as_tensor(state.visc_mg)) > 0
+        branch.append("mg" if mg else "jacobi")
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        state, m = step_3d(state, cfg, geom=geom)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        if len(states) <= keep:
+            states.append(state)
+        metrics.append({k: v.item() for k, v in m.items()})
+    return state, states, step_ms, metrics, branch
 
 
 def check_run(state, metrics, launches, need, label):
@@ -527,7 +803,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from python_fluid_simulation_tpu_torch.convert import state_to_numpy
-    from python_fluid_simulation_tpu_torch.engine.scenes import buckling_config, buckling_scene, scaled_buckling_config
+    from python_fluid_simulation_tpu_torch.engine.scenes import (
+        buckling_config,
+        buckling_scene,
+        coiling_config,
+        coiling_scene,
+        scaled_buckling_config,
+    )
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
     from python_fluid_simulation_tpu_torch.ops import _cuda_build
 
@@ -544,7 +826,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "seconds": time.perf_counter() - t0})
 
-    # -- build: one nvcc call over every csrc/*.cu
+    # -- build: every csrc/*.cu compiled in parallel, one link
     t0 = time.perf_counter()
     info = _cuda_build.build()
     _cuda_build.LIB.get()
@@ -587,7 +869,7 @@ def main() -> int:
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     check_run(state, metrics, launches, ("cell_poisson_pcg", "coupled_visc_pcg", "binned_segment_reduce",
-                                         "binned_segment_broadcast"), "flagship")
+                                         "binned_segment_broadcast", "fold"), "flagship")
 
     # reported, not asserted: the first step again, bit for bit
     first = state_to_numpy(states[1])
@@ -656,7 +938,7 @@ def main() -> int:
     launches128 = read_counts()
     peak128 = torch.cuda.max_memory_allocated()
     check_run(state, metrics128, launches128, ("coupled_visc_pcg", "stencil_matvec", "mg_level_chain",
-                                               "binned_segment_reduce", "binned_segment_broadcast"), "128^3")
+                                               "binned_segment_reduce", "binned_segment_broadcast", "fold"), "128^3")
     first = state_to_numpy(states[1])
     again, _ = step_3d(s128, cfg128, geom=geom128)
     for k in ("x", "v", "c"):
@@ -675,11 +957,94 @@ def main() -> int:
           "cpu_step_seconds": cpu128, "card_vs_cpu": {CHECKED_STEP_128: err128}, "step_tol": STEP_TOL,
           "seconds": time.perf_counter() - t0})
 
+    # -- coiling: the kernels on the viscosity system and folds of step 3
+    t0 = time.perf_counter()
+    cfgc = coiling_config(RES_COIL)
+    sc = coiling_scene(cfgc, seed=0, device="cuda")
+    nc = int(sc.particles.x.shape[0])
+    if ((cfgc.grid.res, nc) != SHAPE_COIL or cfgc.solver.viscosity_precond != "auto"
+            or cfgc.solver.precond != "mg"):
+        raise AssertionError(f"unexpected coiling config: grid {cfgc.grid.res}, {nc} particles, {cfgc.solver}")
+    geomc = build_geom_cache(sc.solid)
+    state2 = sc
+    for _ in range(2):
+        state2, _ = step_3d(state2, cfgc, geom=geomc)
+    got = capture_coil(step_3d, state2, cfgc, geomc)
+    del state2
+    if len(got["coupled"]) != 1 or not got["fold"]:
+        raise AssertionError(f"coiling capture: {[(k, len(v)) for k, v in got.items()]}")
+    visc = (got["coupled"][0][1], got["coupled"][0][2])
+    geom_rows = geom_matvec_phase(visc)
+    level0_row, bchain_rows, bvcycle = batched_vcycle_phase(visc)
+    vmg_row = visc_mg_solve_phase(visc)
+    fold_rows = fold_phase(got["fold"])
+    del got, visc
+    emit({"phase": "kernels_coil", "grid": list(cfgc.grid.res), "particles": nc,
+          "coupled_matvec_geom": geom_rows, "batched_level0_matvec": level0_row,
+          "mg_level_chain_batched": bchain_rows, "batched_vcycle": bvcycle, "visc_mg_pcg": vmg_row,
+          "fold": fold_rows, "seconds": time.perf_counter() - t0})
+
+    # -- coiling main path: 'auto' from the scene, 'mg', and 'auto' from
+    #    visc_mg = 2; each run's counters reset just before it, read just
+    #    after
+    t0 = time.perf_counter()
+    cfg_mg = dataclasses.replace(cfgc, solver=dataclasses.replace(cfgc.solver, viscosity_precond="mg"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, launches_by_run = {}, {}
+    for label, run_cfg in (("auto", cfgc), ("mg", cfg_mg)):
+        read_counts = reset_counters()
+        runs[label] = run_coil(step_3d, sc, run_cfg, geomc, STEPS_COIL, CHECKED_STEP_COIL + 1)
+        launches_by_run[label] = read_counts()
+    # 'auto' with the flag set takes its MG branch: from the 'auto' run's
+    # state after 2 steps (the first two steps from rest solve nothing)
+    read_counts = reset_counters()
+    runs["auto_from_visc_mg_2"] = run_coil(step_3d, dataclasses.replace(runs["auto"][1][2], visc_mg=2), cfgc,
+                                           geomc, 2, 0)
+    launches_by_run["auto_from_visc_mg_2"] = read_counts()
+    peakc = torch.cuda.max_memory_allocated()
+    every_path = ("stencil_matvec", "mg_level_chain", "fold", "binned_segment_reduce", "binned_segment_broadcast")
+    for label, (state, _, _, metrics, branch) in runs.items():
+        need = every_path  # the cell MG-PCG and the scatters; then each viscosity branch the run took
+        if "jacobi" in branch:
+            need += ("coupled_visc_pcg",)
+        if "mg" in branch:
+            need += ("coupled_matvec_geom", "mg_level_chain_batched")
+        check_run(state, metrics, launches_by_run[label], need, f"coiling {label}")
+        if label != "auto" and branch != ["mg"] * len(branch):
+            raise AssertionError(f"coiling {label}: the viscosity solve left the MG branch: {branch}")
+    if runs["auto"][4][0] != "jacobi":
+        raise AssertionError("coiling auto: the first step from the scene did not take the Jacobi branch")
+    launchesc = {name: sum(lr[name] for lr in launches_by_run.values()) for name in launches_by_run["auto"]}
+    first = state_to_numpy(runs["mg"][1][1])
+    again, _ = step_3d(sc, cfg_mg, geom=geomc)
+    for k in ("x", "v", "c"):
+        if not (getattr(again.particles, k).cpu().numpy() == first[k]).all():
+            raise AssertionError(f"coiling mg: the first step run twice differs in {k}")
+    tc = time.perf_counter()
+    errc = {label: card_vs_cpu(step_3d, runs[label][1][CHECKED_STEP_COIL], runs[label][1][CHECKED_STEP_COIL + 1],
+                               run_cfg, f"coiling {label} step {CHECKED_STEP_COIL}")
+            for label, run_cfg in (("auto", cfgc), ("mg", cfg_mg))}
+    cpuc = time.perf_counter() - tc
+    coil_out = {}
+    for label, (_, _, step_msc, metricsc, branch) in runs.items():
+        timed = step_msc[1:] if len(step_msc) > 2 else step_msc
+        coil_out[label] = dict(
+            warmup_step_ms=step_msc[0], step_ms=timed, median_step_ms=statistics.median(timed), branch=branch,
+            iters={k: [m[f"{k}_iters"] for m in metricsc] for k in ("density", "viscosity", "pressure")},
+            visc_rel_residual=[m["viscosity_rel_residual"] for m in metricsc],
+        )
+    del runs
+    emit({"phase": "main_coil", "grid": list(cfgc.grid.res), "particles": nc, "runs": coil_out,
+          "launches": launches_by_run, "max_memory_allocated": peakc, "first_mg_step_bitwise_repeatable": True,
+          "cpu_steps_seconds": cpuc, "card_vs_cpu": errc, "step_tol": STEP_TOL,
+          "seconds": time.perf_counter() - t0})
+
     # -- summary: the nvidia-smi line, the kernels line, then the result
     def entry(name, source, replaces, row, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"python_fluid_simulation_tpu_torch/csrc/{source}",
                 "replaces": f"python_fluid_simulation_tpu/ops/{replaces}",
-                "launches": launches[name] + launches128[name], "max_abs_err": row["max_abs_err"],
+                "launches": launches[name] + launches128[name] + launchesc[name], "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": max(row["bytes_ms"], row["ops_ms"]),
                 "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations",
                 "library_ms": library_ms}
@@ -694,7 +1059,7 @@ def main() -> int:
     # larger of the density and pressure systems'
     pres = dict(cell_rows[1], max_abs_err=max(r["max_abs_err"] for r in cell_rows))
     sten = dict(stencil_rows[1], max_abs_err=max(r["max_abs_err"] for r in stencil_rows))
-    red, bc = total(red_rows), total(bc_rows)
+    red, bc, fold = total(red_rows), total(bc_rows), total(fold_rows)
     kernels = [
         entry("cell_poisson_pcg", "cell_poisson_pcg.cu", "pallas_stencils.py:125", pres),
         entry("coupled_visc_pcg", "coupled_visc_pcg.cu", "pallas_cg.py:673", coupled_row),
@@ -702,6 +1067,12 @@ def main() -> int:
         entry("mg_level_chain", "mg_level_chain.cu", "pallas_mg.py:100", total(chain_rows)),
         entry("binned_segment_reduce", "binned_segment.cu", "pallas_binned.py:423", red, red["library_ms"]),
         entry("binned_segment_broadcast", "binned_segment.cu", "pallas_binned.py:179", bc, bc["library_ms"]),
+        # the full operator (the MG-PCG's outer matvec); same-axis in kernels_coil
+        entry("coupled_matvec_geom", "coupled_matvec.cu", "pallas_cg.py:714", geom_rows[0]),
+        # the chains of one batched viscosity V-cycle (B = 3)
+        entry("mg_level_chain_batched", "mg_level_chain.cu", "pallas_mg.py:100", total(bchain_rows)),
+        # the folds of one coiling step
+        entry("fold", "fold.cu", "pallas_fold.py:97", fold, fold["library_ms"]),
     ]
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

@@ -16,18 +16,13 @@
 // an iteration is bound by the barriers and by the ~50 L1/L2 loads per
 // face of the recomputed stencil, not by device-memory bytes.
 //
-// The stencil plan (which class, offset and sign*factor feeds each term)
-// is built on the host from solvers/viscosity.py::_terms_for_axis (it
-// depends only on the grid resolution) and passed by value in the
-// kernel's __grid_constant__ parameter, so this file holds no copy of the
-// term table and the launch needs no copy to device memory.
-// Products follow viscosity_term_fields' fp32 order:
-// w = (sign*factor)*s_mu; term = where(mask, w*vol, 0) * v; the fluid
-// test is sphi >= 0.  Geometry reads outside a class array read 0 (vol)
-// or -1 (sphi); velocity reads outside a face array read 0.
+// The stencil plan and the per-face apply (phase A) live in coupled_geom.cuh,
+// shared with the standalone matvec (coupled_matvec.cu); this kernel calls
+// it with compiler contraction allowed, as it did before the split.
 
 #include <cstring>
 
+#include "coupled_geom.cuh"
 #include "pcg_common.cuh"
 
 namespace {
@@ -36,37 +31,7 @@ namespace cg = cooperative_groups;
 using pfs::kThreads;
 using pfs::kWarps;
 
-constexpr int kTerms = 14;
-constexpr int kDiag = 7;   // center + 6 neighbours
-constexpr int kClasses = 10;
-
-struct Term {
-  int field;
-  int vo[3];    // velocity offset into face array `field`
-  int scls;     // sphi class of the coupling's fluid test
-  int ck[3];
-  int vcls;     // vol class of the control volume
-  int vk[3];
-  float sf;     // sign * factor
-};
-
-struct AxisPlan {
-  int active_cls;
-  int diag_cls[kDiag];
-  int diag_k[kDiag][3];
-  float diag_factor[kDiag];  // [0] unused (the centre is unscaled)
-  Term terms[kTerms];
-};
-
-// Every member is a 4-byte word; the host builds the same layout.
-struct Plan {
-  AxisPlan ax[3];
-  int cls_dim[kClasses][3];
-  int cls_off[kClasses];     // offset of each class in the geometry buffer
-  int cls_is_sphi[kClasses];
-  int n[3];                  // cell resolution
-  int off[4];                // field offsets in the concatenated layout
-};
+using pfs::coupled::Plan;
 
 struct CoupledArgs {
   Plan plan;
@@ -88,79 +53,13 @@ struct CoupledArgs {
   int max_iter;
 };
 
-__device__ __forceinline__ float geom(const CoupledArgs& a, int c, int gx,
-                                      int gy, int gz) {
-  const int* dim = a.plan.cls_dim[c];
-  if (gx < 0 || gx >= dim[0] || gy < 0 || gy >= dim[1] || gz < 0 ||
-      gz >= dim[2])
-    return a.plan.cls_is_sphi[c] ? -1.f : 0.f;
-  return __ldg(a.geom + a.plan.cls_off[c] +
-               ((long)gx * dim[1] + gy) * dim[2] + gz);
-}
-
-__device__ __forceinline__ void face_shape(const Plan& p, int f, int* s) {
-  s[0] = p.n[0] + (f == 0);
-  s[1] = p.n[1] + (f == 1);
-  s[2] = p.n[2] + (f == 2);
-}
-
-// (A v) at face (cx, cy, cz) of field f; v is the concatenated 3-field
-// vector, read through L2 when it is written inside the kernel.
+// Phase A's apply: the full coupled operator, contraction allowed.
 template <bool kCoherent>
-__device__ __forceinline__ float apply_a(const CoupledArgs& a, const float* v, int f, int cx,
-                         int cy, int cz, float smu) {
-  const AxisPlan& P = a.plan.ax[f];
-  int s[3];
-  face_shape(a.plan, f, s);
-  const bool interior = cx >= 1 && cx <= s[0] - 2 && cy >= 1 &&
-                        cy <= s[1] - 2 && cz >= 1 && cz <= s[2] - 2;
-  const bool active = interior && geom(a, P.active_cls, cx, cy, cz) >= 0.f;
-  const float center = geom(a, P.diag_cls[0], cx + P.diag_k[0][0],
-                            cy + P.diag_k[0][1], cz + P.diag_k[0][2]);
-  float extra = 0.f;
-#pragma unroll
-  for (int j = 1; j < kDiag; ++j)
-    extra = extra + P.diag_factor[j] * geom(a, P.diag_cls[j],
-                                            cx + P.diag_k[j][0],
-                                            cy + P.diag_k[j][1],
-                                            cz + P.diag_k[j][2]);
-  const float diag_raw = center + smu * extra;
-  const long self = a.plan.off[f] + ((long)cx * s[1] + cy) * s[2] + cz;
-  const float vself = kCoherent ? __ldcg(v + self) : v[self];
-  float acc = (active ? diag_raw : 0.f) * vself;
-#pragma unroll
-  for (int t = 0; t < kTerms; ++t) {
-    const Term& T = P.terms[t];
-    const float w = T.sf * smu;
-    const bool fluid =
-        geom(a, T.scls, cx + T.ck[0], cy + T.ck[1], cz + T.ck[2]) >= 0.f;
-    const float coef =
-        (active && fluid)
-            ? w * geom(a, T.vcls, cx + T.vk[0], cy + T.vk[1], cz + T.vk[2])
-            : 0.f;
-    int u[3];
-    face_shape(a.plan, T.field, u);
-    const int vx = cx + T.vo[0], vy = cy + T.vo[1], vz = cz + T.vo[2];
-    float vv = 0.f;
-    if (vx >= 0 && vx < u[0] && vy >= 0 && vy < u[1] && vz >= 0 && vz < u[2]) {
-      const long j = a.plan.off[T.field] + ((long)vx * u[1] + vy) * u[2] + vz;
-      vv = kCoherent ? __ldcg(v + j) : v[j];
-    }
-    acc = acc + coef * vv;
-  }
-  return acc;
-}
-
-__device__ __forceinline__ void decode(const Plan& p, long i, int* f, int* cx,
-                                       int* cy, int* cz) {
-  const int ff = i < p.off[1] ? 0 : (i < p.off[2] ? 1 : 2);
-  int s[3];
-  face_shape(p, ff, s);
-  const long l = i - p.off[ff];
-  *f = ff;
-  *cz = (int)(l % s[2]);
-  *cy = (int)((l / s[2]) % s[1]);
-  *cx = (int)(l / ((long)s[1] * s[2]));
+__device__ __forceinline__ float apply_a(const CoupledArgs& a, const float* v,
+                                         int f, int cx, int cy, int cz,
+                                         float smu) {
+  return pfs::coupled::apply_a<kCoherent, pfs::coupled::kTerms, false>(
+      a.plan, a.geom, v, f, cx, cy, cz, smu);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -179,7 +78,7 @@ __global__ void __launch_bounds__(kThreads)
   float ld = 0.f, lr = 0.f;
   for (long i = i0; i < n; i += stride) {
     int f, cx, cy, cz;
-    decode(a.plan, i, &f, &cx, &cy, &cz);
+    pfs::coupled::decode(a.plan, i, &f, &cx, &cy, &cz);
     const float rv = a.b[i] - apply_a<false>(a, a.x0, f, cx, cy, cz, smu);
     const float zv = rv / a.pd[i];
     a.x[i] = a.x0[i];
@@ -206,7 +105,7 @@ __global__ void __launch_bounds__(kThreads)
     float ldq = 0.f;
     for (long i = i0; i < n; i += stride) {
       int f, cx, cy, cz;
-      decode(a.plan, i, &f, &cx, &cy, &cz);
+      pfs::coupled::decode(a.plan, i, &f, &cx, &cy, &cz);
       const float qv = apply_a<true>(a, a.d, f, cx, cy, cz, smu);
       a.q[i] = qv;
       ldq += __ldcg(a.d + i) * qv;

@@ -23,6 +23,14 @@
 // the kernel is bitwise the plain version (ops/cuda_mg.py::
 // level_chain_plain).
 //
+// A level may be a stack of B independent systems (the batched viscosity
+// V-cycle stacks its three axis blocks, padded to one shape).  The TPU
+// kernel flattens (B, X) into rows and relies on zero x couplings across
+// systems; here the batch has an index of its own and each system's x
+// bounds are checked (pcg_common.cuh::stencil7<true>), so nothing depends
+// on the padding.  The cooperative grid covers B x cells; B = 1, the one
+// grid of the cell V-cycle, runs the 3D instantiation unchanged.
+//
 // What bounds it: grid barriers.  A relaxation moves ~40 bytes a cell
 // (L2-resident) and the levels are small (97k cells down to 36), so each
 // relaxation costs about one barrier.  The grid is sized to the level
@@ -46,10 +54,13 @@ struct ChainArgs {
   float omega;
 };
 
+// kBatched: a stack of B > 1 systems; one grid (B = 1) takes the plain
+// 3D stencil, which saves a division a neighbour read.
+template <bool kBatched>
 __global__ void __launch_bounds__(pfs::kThreads)
     mg_level_chain_kernel(const __grid_constant__ ChainArgs a) {
   cg::grid_group grid = cg::this_grid();
-  const long n = (long)a.A.X * a.A.Y * a.A.Z;
+  const long n = (long)a.A.B * a.A.X * a.A.Y * a.A.Z;
   const long stride = (long)gridDim.x * pfs::kThreads;
   const long i0 = (long)blockIdx.x * pfs::kThreads + threadIdx.x;
   const float* src = a.x0;
@@ -63,14 +74,14 @@ __global__ void __launch_bounds__(pfs::kThreads)
       dst[i] = src == nullptr
                    ? __fmul_rn(bv, inv)
                    : __fadd_rn(__ldcg(src + i),
-                               __fmul_rn(__fsub_rn(bv, pfs::stencil7(a.A, src, i)), inv));
+                               __fmul_rn(__fsub_rn(bv, pfs::stencil7<kBatched>(a.A, src, i)), inv));
     }
     grid.sync();
     src = dst;
   }
   if (a.r != nullptr)
     for (long i = i0; i < n; i += stride)
-      a.r[i] = __fsub_rn(a.b[i], pfs::stencil7(a.A, a.x, i));
+      a.r[i] = __fsub_rn(a.b[i], pfs::stencil7<kBatched>(a.A, a.x, i));
 }
 
 }  // namespace
@@ -80,11 +91,11 @@ extern "C" int pfs_mg_level_chain(const void* diag, const void* cxp,
                                   const void* cym, const void* czp,
                                   const void* czm, const void* b,
                                   const void* x0, void* x, void* tmp, void* r,
-                                  int X, int Y, int Z, int iters, float omega,
-                                  void* stream) {
-  if (iters < 1) return (int)cudaErrorInvalidValue;
+                                  int B, int X, int Y, int Z, int iters,
+                                  float omega, void* stream) {
+  if (iters < 1 || B < 1) return (int)cudaErrorInvalidValue;
   ChainArgs a;
-  a.A = pfs::make_stencil7(diag, cxp, cxm, cyp, cym, czp, czm, X, Y, Z);
+  a.A = pfs::make_stencil7(diag, cxp, cxm, cyp, cym, czp, czm, X, Y, Z, B);
   a.b = static_cast<const float*>(b);
   a.x0 = static_cast<const float*>(x0);
   a.x = static_cast<float*>(x);
@@ -92,13 +103,13 @@ extern "C" int pfs_mg_level_chain(const void* diag, const void* cxp,
   a.r = static_cast<float*>(r);
   a.iters = iters;
   a.omega = omega;
+  auto* kernel = B > 1 ? mg_level_chain_kernel<true> : mg_level_chain_kernel<false>;
   int grid = 0;
-  cudaError_t e = pfs::coop_grid(mg_level_chain_kernel, (long)X * Y * Z, &grid);
+  cudaError_t e = pfs::coop_grid(kernel, (long)B * X * Y * Z, &grid);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)mg_level_chain_kernel, grid,
-                                  pfs::kThreads, args, 0,
-                                  static_cast<cudaStream_t>(stream));
+  e = cudaLaunchCooperativeKernel((const void*)kernel, grid, pfs::kThreads,
+                                  args, 0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -21,11 +21,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 // The 7-point cell-centred operator: loop-invariant diagonal and six
-// coefficient fields on an X x Y x Z grid (z fastest).
+// coefficient fields on an X x Y x Z grid (z fastest), or on B such
+// grids stacked along a leading batch axis (B independent systems, as
+// the three axis blocks of the viscosity V-cycle).
 struct Stencil7 {
   const float* diag;
   const float* coef[6];  // offsets +x, -x, +y, -y, +z, -z
   int X, Y, Z;
+  int B;  // systems in the stack (1: one grid)
 };
 
 // (A p)[i] = diag p + sum_k coef_k p[i + off_k], neighbours outside the
@@ -35,12 +38,16 @@ struct Stencil7 {
 // six terms in offset order, so the result is bitwise that version's.
 // p is read through L2 (__ldcg): inside a persistent kernel other blocks
 // wrote it before the last grid barrier.
+// kBatched: i runs over B stacked grids and the x bounds are those of
+// the grid that holds i (a batch index of its own, so no neighbour read
+// crosses from one system into the next); otherwise B is 1 and x = i / YZ.
+template <bool kBatched = false>
 __device__ __forceinline__ float stencil7(const Stencil7& s, const float* p,
                                           long i) {
   const long yz = (long)s.Y * s.Z;
   const int cz = (int)(i % s.Z);
   const int cy = (int)((i / s.Z) % s.Y);
-  const int cx = (int)(i / yz);
+  const int cx = kBatched ? (int)((i / yz) % s.X) : (int)(i / yz);
   float acc = __fmul_rn(s.diag[i], __ldcg(p + i));
   acc = __fadd_rn(acc, __fmul_rn(s.coef[0][i], cx + 1 < s.X ? __ldcg(p + i + yz) : 0.f));
   acc = __fadd_rn(acc, __fmul_rn(s.coef[1][i], cx > 0 ? __ldcg(p + i - yz) : 0.f));
@@ -55,7 +62,8 @@ __device__ __forceinline__ float stencil7(const Stencil7& s, const float* p,
 inline Stencil7 make_stencil7(const void* diag, const void* cxp,
                               const void* cxm, const void* cyp,
                               const void* cym, const void* czp,
-                              const void* czm, int X, int Y, int Z) {
+                              const void* czm, int X, int Y, int Z,
+                              int B = 1) {
   Stencil7 s;
   s.diag = static_cast<const float*>(diag);
   s.coef[0] = static_cast<const float*>(cxp);
@@ -67,6 +75,7 @@ inline Stencil7 make_stencil7(const void* diag, const void* cxp,
   s.X = X;
   s.Y = Y;
   s.Z = Z;
+  s.B = B;
   return s;
 }
 

@@ -12,19 +12,24 @@
 // H100's ~20 operations a byte; the 6 neighbour reads of p hit L1/L2.  The
 // design keeps every access coalesced along z (the fastest axis) and does
 // nothing else.  Used by the MG-PCG route as the outer CG operator and as
-// the level-0 smoother / residual of the V-cycle (solvers/multigrid.py).
+// the level-0 smoother / residual of the V-cycle (solvers/multigrid.py),
+// and on a stack of B systems as the level-0 operator of the batched
+// viscosity V-cycle (each system's x bounds its own, B = 1 for one grid).
 
 #include "pcg_common.cuh"
 
 namespace {
 
+// kBatched: a stack of B > 1 systems (the x index costs one more division
+// a cell, so one grid takes the plain 3D form).
+template <bool kBatched>
 __global__ void __launch_bounds__(pfs::kThreads)
     stencil_matvec_kernel(const __grid_constant__ pfs::Stencil7 s,
                           const float* __restrict__ p, float* __restrict__ q) {
-  const long n = (long)s.X * s.Y * s.Z;
+  const long n = (long)s.B * s.X * s.Y * s.Z;
   const long stride = (long)gridDim.x * blockDim.x;
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
-    q[i] = pfs::stencil7(s, p, i);
+    q[i] = pfs::stencil7<kBatched>(s, p, i);
 }
 
 }  // namespace
@@ -33,13 +38,17 @@ extern "C" int pfs_stencil_matvec(const void* diag, const void* cxp,
                                   const void* cxm, const void* cyp,
                                   const void* cym, const void* czp,
                                   const void* czm, const void* p, void* q,
-                                  int X, int Y, int Z, void* stream) {
-  const pfs::Stencil7 s = pfs::make_stencil7(diag, cxp, cxm, cyp, cym, czp, czm, X, Y, Z);
-  const long n = (long)X * Y * Z;
+                                  int B, int X, int Y, int Z, void* stream) {
+  const pfs::Stencil7 s = pfs::make_stencil7(diag, cxp, cxm, cyp, cym, czp, czm, X, Y, Z, B);
+  const long n = (long)B * X * Y * Z;
   if (n <= 0) return 0;
   const long blocks = (n + pfs::kThreads - 1) / pfs::kThreads;
-  stencil_matvec_kernel<<<(unsigned)blocks, pfs::kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      s, static_cast<const float*>(p), static_cast<float*>(q));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* pp = static_cast<const float*>(p);
+  float* qp = static_cast<float*>(q);
+  if (B > 1)
+    stencil_matvec_kernel<true><<<(unsigned)blocks, pfs::kThreads, 0, st>>>(s, pp, qp);
+  else
+    stencil_matvec_kernel<false><<<(unsigned)blocks, pfs::kThreads, 0, st>>>(s, pp, qp);
   return (int)cudaGetLastError();
 }

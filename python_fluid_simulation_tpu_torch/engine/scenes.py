@@ -2,8 +2,10 @@
 
 Counterpart of ``python_fluid_simulation_tpu.engine.scenes``.  The
 reference (notebook cell 10, :650-812) builds one scene — the 3D
-viscous-buckling funnel; the dam break is a small scene for the golden
-regression.  Scenes map a SimConfig to a SimState on ``device``.
+viscous-buckling funnel; the coiling column is the JAX package's
+high-viscosity scene (BASELINE config 5); the dam break is a small scene
+for the golden regression.  Scenes map a SimConfig to a SimState on
+``device``.
 """
 
 from __future__ import annotations
@@ -74,6 +76,45 @@ def _poisson_precond(grid_res) -> str:
     for n in grid_res:
         cells *= int(n)
     return "mg" if cells <= 4_000_000 else "jacobi"
+
+
+def coiling_config(res: int = 256, mu: float = 5.0) -> SimConfig:
+    """BASELINE config 5: high-viscosity coiling — a tall thin column of
+    very viscous fluid falling onto the container floor (rope coiling).
+    Domain 0.3 x 1.2 x 0.3 so `res` is the vertical cell count (64x256x64
+    at the default).  From 96 up the CG cap is 600, the viscosity solve
+    takes the 'auto' preconditioner (Jacobi-PCG while it converges
+    cheaply; the batched block MG once the pooled fluid makes Jacobi
+    slow or fail, by the hysteresis on SimState.visc_mg) and the
+    cell-Poisson solves take `_poisson_precond`."""
+    base = SimConfig(
+        grid=GridConfig3D(bound_min=(-0.15, 0.0, -0.15), bound_size=(0.3, 1.2, 0.3), dx=1.2 / res),
+        physics=PhysicsConfig(rho=1000.0, mu=mu, dt=1.0 / 300.0),
+        solver=SolverConfig(),
+        particle_dx=0.6 / res,
+        dt_mode="cfl",
+        duration=3.0,
+    )
+    solver = base.solver
+    if res >= 96:
+        solver = dataclasses.replace(
+            solver, max_iter=600, viscosity_precond="auto", precond=_poisson_precond(base.grid.res),
+        )
+    return dataclasses.replace(base, solver=solver)
+
+
+def coiling_scene(cfg: SimConfig | None = None, seed: int = 0, device="cuda") -> SimState:
+    """Container + a thin tall fluid column centred in the domain."""
+    cfg = cfg or coiling_config()
+    g = cfg.grid
+    rbs = RigidBodySet()
+    c = [m + 0.5 * s for m, s in zip(g.bound_min, g.bound_size)]
+    rbs.add("container", "box", [s - 4 * g.dx for s in g.bound_size], flip=True, center=c)
+    column_w = 0.12 * g.bound_size[0] + 4 * cfg.particle_dx
+    return _state(
+        cfg, rbs, [0.0, g.bound_min[1] + 0.75 * g.bound_size[1], 0.0],
+        [column_w, 0.4 * g.bound_size[1], column_w], seed, device,
+    )
 
 
 def _state(cfg, rbs, center, size, seed, device):

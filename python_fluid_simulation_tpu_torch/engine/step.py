@@ -13,17 +13,22 @@ cell 13, :4552-4693).  Step order follows cell 13:
 The three solves run as CUDA kernels when the state lives on the GPU
 (``ops/cuda_stencils.py``, ``ops/cuda_cg.py``; with ``precond='mg'`` the
 cell solves are CG over ``stencil_matvec`` with the multigrid V-cycle of
-``solvers/multigrid.py`` and ``ops/cuda_mg.py``), and so do the segment
-reduces and broadcasts of the transfers (``ops/cuda_binned.py``).  The
-Jacobi solves make no host sync; the MG-PCG loop tests its exit on the
-host once per iteration.  Not yet ported (they raise): the 'unet' /
-'unet_warm' viscosity modes, moving solids, the viscosity MG
-preconditioner, meshes and bucketing.
+``solvers/multigrid.py`` and ``ops/cuda_mg.py``; with
+``viscosity_precond='mg'``, or 'auto' while the carried flag is set, the
+viscosity solve is CG over ``coupled_matvec_geom`` with the batched
+block V-cycle), and so do the segment reduces and broadcasts and the
+folds of the transfers (``ops/cuda_binned.py``, ``ops/cuda_fold.py``).
+The Jacobi solves make no host sync; the MG-PCG loops test their exit on
+the host once per iteration, and 'auto' reads its flag once a step.  Not
+yet ported (they raise): the 'unet' / 'unet_warm' viscosity modes,
+moving solids, the viscosity MG route above 4M face cells, meshes and
+bucketing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -38,8 +43,8 @@ from python_fluid_simulation_tpu_torch.ops.levelset import compute_fluid_levelse
 from python_fluid_simulation_tpu_torch.ops.transfers import g2p_all, make_sort_info, p2g_all
 from python_fluid_simulation_tpu_torch.solvers.density import density_solve_3d
 from python_fluid_simulation_tpu_torch.solvers.pressure import pressure_solve_3d
-from python_fluid_simulation_tpu_torch.solvers.viscosity import viscosity_solve_3d
-from python_fluid_simulation_tpu_torch.state import Particles, SimState
+from python_fluid_simulation_tpu_torch.solvers.viscosity import MG_FACE_CELLS, viscosity_solve_3d
+from python_fluid_simulation_tpu_torch.state import Particles, SimState, face_shapes
 
 _FACE_BIAS = ((0.0, 0.5, 0.5), (0.5, 0.0, 0.5), (0.5, 0.5, 0.0))
 
@@ -69,8 +74,13 @@ def _check_supported(cfg: SimConfig):
         raise NotImplementedError(f"viscosity_mode={sol.viscosity_mode!r} is not ported yet")
     if sol.precond not in ("jacobi", "mg") or not sol.jacobi_precond:
         raise NotImplementedError(f"cell-Poisson precond={sol.precond!r} (jacobi_precond={sol.jacobi_precond}) is not ported")
-    if sol.viscosity_precond != "jacobi":
-        raise NotImplementedError(f"viscosity_precond={sol.viscosity_precond!r} is not ported yet")
+    if sol.viscosity_precond not in ("jacobi", "mg", "auto"):
+        raise NotImplementedError(f"viscosity_precond={sol.viscosity_precond!r} is not ported")
+    if sol.viscosity_precond != "jacobi" and math.prod(face_shapes(cfg.grid.res)[0]) > MG_FACE_CELLS:
+        raise NotImplementedError(
+            f"viscosity_precond={sol.viscosity_precond!r} above {MG_FACE_CELLS} face cells "
+            "(the lean viscosity MG route) is not ported yet"
+        )
     if sol.pressure_dt_scaled:
         raise NotImplementedError("the dt-scaled pressure assembly is not ported")
 
@@ -125,7 +135,9 @@ def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> T
     # -- gravity (:4608)
     gv[1] = gv[1] + ph.gravity * dt
 
-    # -- viscosity (:4611-4642)
+    # -- viscosity (:4611-4642); 'auto' takes MG while the hysteresis flag
+    #    carried from the previous step is set (read on the host, once)
+    visc_mg = torch.as_tensor(state.visc_mg, dtype=torch.int32, device=dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     visc_iters, visc_resid = zero_i, torch.zeros((), dtype=f32, device=dev)
     visc_rel, visc_conv = visc_resid, torch.ones((), dtype=torch.bool, device=dev)
@@ -133,6 +145,7 @@ def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> T
         vres = viscosity_solve_3d(
             dt, ph.mu, ph.rho, tuple(gv), geom.sphi_c, lvol, g.cell_vol,
             tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter,
+            precond_kind=sol.viscosity_precond, auto_use_mg=visc_mg > 0,
         )
         gv = list(vres.v_faces)
         visc_iters = vres.stats.iters
@@ -159,7 +172,6 @@ def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> T
 
     # -- viscosity-preconditioner hysteresis (0 Jacobi, 1 MG entered on
     #    cost, 2 MG entered on non-convergence, sticky)
-    visc_mg = torch.as_tensor(state.visc_mg, dtype=torch.int32, device=dev)
     fallback = max(16, sol.viscosity_auto_iters // 12)
     new_visc_mg = torch.where(
         visc_mg > 0,

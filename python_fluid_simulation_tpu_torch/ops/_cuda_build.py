@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-All ``csrc/*.cu`` sources are compiled by ONE ``nvcc`` call into one
-shared library with a plain C interface, loaded with ``ctypes`` (no
-PyTorch headers, so the build takes seconds).  The build happens at the
-first kernel launch, never at import, and is keyed on a hash of the
-sources and flags: ``_build/libpfs_kernels_<hash>.so`` under the package
-(listed in ``.gitignore``).  Nothing here runs on a machine without a
+All ``csrc/*.cu`` sources are compiled into one shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
+build takes seconds): one ``nvcc -c`` per source, all started together,
+then one link.  The build happens at the first kernel launch, never at
+import, and is keyed on a hash of the sources and of both flag lists:
+``_build/libpfs_kernels_<hash>.so`` under the package (listed in
+``.gitignore``).  Nothing here runs on a machine without a
 kernel launch, so the CPU-only tests never need ``nvcc``.
 """
 
@@ -24,10 +25,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]  # each compile
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]  # the one link
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,17 +37,19 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "pfs_cell_poisson_pcg": [_P] * 9 + [_P] * 5 + [_I] + [_P] * 3 + [_I] * 3 + [_F, _F, _I, _P],
     "pfs_coupled_visc_pcg": [_P, _I] + [_P] * 10 + [_I] + [_P] * 4 + [_F, _F, _I, _P],
-    "pfs_stencil_matvec": [_P] * 9 + [_I] * 3 + [_P],
-    "pfs_mg_level_chain": [_P] * 12 + [_I] * 4 + [_F, _P],
+    "pfs_coupled_matvec": [_P, _I, _P, _P, _P, _P, _I, _P],
+    "pfs_stencil_matvec": [_P] * 9 + [_I] * 4 + [_P],
+    "pfs_mg_level_chain": [_P] * 12 + [_I] * 5 + [_F, _P],
     "pfs_binned_reduce": [_P, _P, _L] + [_I] * 4 + [_F, _P, _P],
     "pfs_binned_broadcast": [_P, _P, _L, _I, _I, _P, _P],
+    "pfs_fold": [_P, _L, _P] + [_I] * 9 + [_P, _F, _I, _P],
 }
 
 
 @dataclasses.dataclass
 class BuildInfo:
     path: Path
-    seconds: float  # wall time of the nvcc call; 0 when it was cached
+    seconds: float  # wall time of the compiles and the link; 0 when it was cached
     log: str  # nvcc's output (-Xptxas -v register / smem / spill lines)
     cached: bool
 
@@ -68,7 +70,7 @@ def sources():
 
 
 def _key() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ["|"] + LINK_FLAGS).encode())
     for p in sorted(SRC_DIR.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
@@ -78,23 +80,32 @@ def _key() -> str:
 
 def build() -> BuildInfo:
     """Compile every ``csrc/*.cu`` into one .so (skipped when the library
-    for this source hash already exists)."""
+    for this source hash already exists): the sources in parallel, one
+    ``nvcc -c`` each, then one link."""
     out = BUILD_DIR / f"libpfs_kernels_{_key()}.so"
     if out.exists():
         return BuildInfo(out, 0.0, "", True)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", os.path.join(tmpdir, src.stem + ".o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = []
+        for cmd, proc in jobs:  # wait for every compile before reporting one
+            logs.append((cmd, proc.communicate()[0], proc.returncode))
+        link = [nvcc, *LINK_FLAGS, "-o", os.path.join(tmpdir, "lib.so"), *[c[c.index("-o") + 1] for c, _, _ in logs]]
+        for cmd, log, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        os.replace(os.path.join(tmpdir, "lib.so"), out)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
-    return BuildInfo(out, seconds, log, False)
+    return BuildInfo(out, seconds, "".join(log for _, log, _ in logs), False)
 
 
 class _Lib:

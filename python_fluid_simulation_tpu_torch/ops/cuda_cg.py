@@ -24,8 +24,16 @@ kernel receives it by value in its ``__grid_constant__`` parameter and
 `coupled_matvec_plain` walks the same plan, so both follow
 ``viscosity_term_fields``' fp32 product order.
 
-Routing: CUDA tensors launch the kernel; CPU tensors run
-`coupled_visc_pcg_plain`.
+`coupled_matvec_geom` replaces ``pallas_cg.py::
+make_blocked_coupled_matvec_geom``: one application of the same operator
+(``csrc/coupled_matvec.cu``, the PCG's phase A as an ordinary launch,
+sharing ``csrc/coupled_geom.cuh`` with it), the outer operator of the
+viscosity MG-PCG route; ``same_axis_only`` gives the block-diagonal
+sub-operator (the diagonal and the 6 same-field couplings an axis).  It
+rounds every operation on its own and is bitwise `coupled_matvec_plain`.
+
+Routing: CUDA tensors launch the kernels; CPU tensors run
+`coupled_visc_pcg_plain` / `coupled_matvec_plain`.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from python_fluid_simulation_tpu_torch.solvers.cg import cg
 VOL_CLASSES = ((0, 0, 1), (0, 1, 0), (0, 1, 1), (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1))
 SPHI_CLASSES = ((0, 1, 1), (1, 0, 1), (1, 1, 0))
 _PART_CAP = 3 * 8192
+SAME_TERMS = 6  # same-field couplings an axis (they lead the term table)
 
 
 def _dual(parity, off):
@@ -70,6 +79,8 @@ def stencil_plan():
             ccls, ck = _dual(pa, cond)
             vcls, vk = _dual(pa, voloff)
             terms.append((field, tuple(voff), ccls, ck, vcls, vk, sign * factor))
+        # the kernels' same-axis form takes the first SAME_TERMS terms
+        assert all((t[0] == a) == (i < SAME_TERMS) for i, t in enumerate(terms))
         plan.append({"active": _dual(pa, (0, 0, 0))[0], "diag": diag, "terms": terms})
     return tuple(plan)
 
@@ -124,11 +135,14 @@ def _face_shapes(n):
     return [tuple(int(k) + (1 if i == a else 0) for i, k in enumerate(n)) for a in range(3)]
 
 
-def coupled_matvec_plain(sphi_c, vol_c, s_mu, vs):
+def coupled_matvec_plain(sphi_c, vol_c, s_mu, vs, same_axis_only: bool = False):
     """A v with coefficients rebuilt from the geometry classes by the
-    stencil plan; vs = (vx, vy, vz) face arrays."""
+    stencil plan; vs = (vx, vy, vz) face arrays.  ``same_axis_only``:
+    the block-diagonal part (the diagonal and the 6 same-field couplings
+    an axis)."""
     out = []
     for a, ax in enumerate(stencil_plan()):
+        terms = ax["terms"][:SAME_TERMS] if same_axis_only else ax["terms"]
         shape = tuple(vs[a].shape)
         interior = torch.ones(shape, dtype=torch.bool, device=vs[a].device)
         for i, s in enumerate(shape):
@@ -144,7 +158,7 @@ def coupled_matvec_plain(sphi_c, vol_c, s_mu, vs):
             extra = extra + factor * sample(vol_c[vcls], vk, shape, 0.0)
         diag_raw = center + s_mu * extra
         acc = torch.where(active, diag_raw, 0.0) * vs[a]
-        for field, voff, ccls, ck, vcls, vk, sf in ax["terms"]:
+        for field, voff, ccls, ck, vcls, vk, sf in terms:
             w = sf * s_mu
             fluid = sample(sphi_c[ccls], ck, shape, -1.0) >= 0
             coef = torch.where(active & fluid, w * sample(vol_c[vcls], vk, shape, 0.0), 0.0)
@@ -184,6 +198,71 @@ def _split(flat, shapes):
     return tuple(out)
 
 
+def _grid_of(vs):
+    """Cell resolution n of the (vx, vy, vz) face arrays."""
+    return (int(vs[1].shape[0]), int(vs[0].shape[1]), int(vs[0].shape[2]))
+
+
+def _check(what, tensors, dev):
+    for name, t, shape in tensors:
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{what}: {name} must be float32 {tuple(shape)} on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+
+
+def _geometry_tensors(sphi_c, vol_c, n):
+    return [(f"vol{c}", vol_c[c], class_shape(c, n)) for c in VOL_CLASSES] + [
+        (f"sphi{c}", sphi_c[c], class_shape(c, n)) for c in SPHI_CLASSES
+    ]
+
+
+def flat_geometry(sphi_c, vol_c):
+    """The 10 geometry classes concatenated in the kernels' order (7 vol,
+    then 3 sphi); build it once per solve and pass it to
+    `coupled_matvec_geom`."""
+    return _flat([vol_c[c] for c in VOL_CLASSES] + [sphi_c[c] for c in SPHI_CLASSES])
+
+
+def coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, *, same_axis_only: bool = False, geom=None):
+    """q = A v for the coupled viscosity operator (or, with
+    ``same_axis_only``, its block-diagonal part), coefficients rebuilt
+    from the geometry classes; vs = (vx, vy, vz).  On CUDA one launch of
+    ``csrc/coupled_matvec.cu``, bitwise `coupled_matvec_plain`; ``geom``
+    is `flat_geometry(sphi_c, vol_c)`, made here when not given."""
+    dev = vs[0].device
+    if dev.type == "cpu":
+        return coupled_matvec_plain(sphi_c, vol_c, s_mu, vs, same_axis_only)
+    if dev.type != "cuda":
+        raise ValueError(f"coupled_matvec_geom: unsupported device {dev}")
+    n = _grid_of(vs)
+    shapes = _face_shapes(n)
+    tensors = [(f"v[{a}]", vs[a], shapes[a]) for a in range(3)] + [("s_mu", s_mu, ())]
+    if geom is None:
+        tensors += _geometry_tensors(sphi_c, vol_c, n)
+    _check("coupled_matvec_geom", tensors, dev)
+    if geom is None:
+        geom = flat_geometry(sphi_c, vol_c)
+    n_geom = sum(int(np.prod(class_shape(c, n))) for c in VOL_CLASSES + SPHI_CLASSES)
+    if geom.device != dev or geom.dtype != torch.float32 or tuple(geom.shape) != (n_geom,) or not geom.is_contiguous():
+        raise ValueError(f"coupled_matvec_geom: geom must be the flat float32 ({n_geom},) geometry on {dev}")
+    plan = plan_words(n)
+    vf = _flat(vs)
+    q = torch.empty_like(vf)
+    s_mu = s_mu.contiguous()
+    err = cb.LIB.get().pfs_coupled_matvec(
+        plan.ctypes.data, plan.nbytes, geom.data_ptr(), vf.data_ptr(), s_mu.data_ptr(), q.data_ptr(),
+        int(bool(same_axis_only)), cb.stream_of(vf),
+    )
+    cb.check(err, "coupled_matvec_geom launch")
+    coupled_matvec_geom.launches += 1
+    return _split(q, shapes)
+
+
+coupled_matvec_geom.launches = 0
+
+
 def coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, *, tol, rel_tol, max_iter):
     """Coupled viscosity Jacobi-PCG from x0 on the three face arrays.
 
@@ -197,26 +276,17 @@ def coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, *, tol, rel_tol, max_iter):
         return coupled_visc_pcg_plain(b, x0, pd, sphi_c, vol_c, s_mu, tol=tol, rel_tol=rel_tol, max_iter=max_iter)
     if dev.type != "cuda":
         raise ValueError(f"coupled_visc_pcg: unsupported device {dev}")
-    n = (int(b[1].shape[0]), int(b[0].shape[1]), int(b[0].shape[2]))
+    n = _grid_of(b)
     shapes = _face_shapes(n)
     tensors = []
     for name, group in (("b", b), ("x0", x0), ("pd", pd)):
         for a in range(3):
             tensors.append((f"{name}[{a}]", group[a], shapes[a]))
-    for c in VOL_CLASSES:
-        tensors.append((f"vol{c}", vol_c[c], class_shape(c, n)))
-    for c in SPHI_CLASSES:
-        tensors.append((f"sphi{c}", sphi_c[c], class_shape(c, n)))
-    tensors.append(("s_mu", s_mu, ()))
-    for name, t, shape in tensors:
-        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
-            raise ValueError(
-                f"coupled_visc_pcg: {name} must be float32 {tuple(shape)} on {dev}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
+    tensors += _geometry_tensors(sphi_c, vol_c, n) + [("s_mu", s_mu, ())]
+    _check("coupled_visc_pcg", tensors, dev)
     lib = cb.LIB.get()
     plan = plan_words(n)
-    geom = _flat([vol_c[c] for c in VOL_CLASSES] + [sphi_c[c] for c in SPHI_CLASSES])
+    geom = flat_geometry(sphi_c, vol_c)
     bf, x0f, pdf = _flat(b), _flat(x0), _flat(pd)
     x = torch.empty_like(bf)
     r = torch.empty_like(bf)

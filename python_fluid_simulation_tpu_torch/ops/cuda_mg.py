@@ -24,6 +24,14 @@ so the two differ in the last bits (tests/test_torch_multigrid.py states
 the tolerance).  Kernel and plain version round every operation alike
 and agree bitwise.
 
+A level may also be a stack (B, X, Y, Z) of independent systems: the
+batched viscosity V-cycle (``solvers/multigrid.py::
+make_batched_mg_preconditioner``) stacks its three axis blocks, padded
+to one shape; the kernel gives the batch an index of its own (no read
+crosses from one system into the next) and its plain version shifts
+within each system with zero fill, as the JAX package's batched XLA
+cycle does (``_bshift(p, off, 0.0)``).
+
 Routing: a CUDA tensor launches the kernel; a CPU tensor runs
 `level_chain_plain`.
 """
@@ -36,7 +44,7 @@ import numpy as np
 import torch
 
 from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
-from python_fluid_simulation_tpu_torch.ops.cuda_stencils import check_field, check_stencil, stencil_matvec_plain
+from python_fluid_simulation_tpu_torch.ops.cuda_stencils import batched, check_field, check_stencil, stencil_matvec_plain
 
 
 class LevelKernels(NamedTuple):
@@ -61,7 +69,9 @@ def level_chain_plain(diag, coefs, b, x0, *, iters: int, omega: float, emit_resi
 
 
 def level_chain(diag, coefs, b, x0, *, iters: int, omega: float, emit_resid: bool):
-    """One smoothing chain of a level (see `level_chain_plain`)."""
+    """One smoothing chain of a level (see `level_chain_plain`): fields
+    (X, Y, Z), or (B, X, Y, Z) for a stack of B independent systems
+    (each relaxed with its own x bounds)."""
     if iters < 1:
         raise ValueError("level_chain: at least one relaxation")
     if b.device.type == "cpu":
@@ -79,15 +89,18 @@ def level_chain(diag, coefs, b, x0, *, iters: int, omega: float, emit_resid: boo
     err = cb.LIB.get().pfs_mg_level_chain(
         diag.data_ptr(), *[c.data_ptr() for _, c in coefs], b.data_ptr(),
         None if x0 is None else x0.data_ptr(), x.data_ptr(), tmp.data_ptr(),
-        None if r is None else r.data_ptr(), *shape, int(iters), float(np.float32(omega)),
+        None if r is None else r.data_ptr(), *batched(shape), int(iters), float(np.float32(omega)),
         cb.stream_of(b),
     )
     cb.check(err, "mg_level_chain launch")
     level_chain.launches += 1
+    if len(shape) == 4:
+        level_chain.batched_launches += 1  # of which on a stack of systems
     return (x, r) if emit_resid else x
 
 
 level_chain.launches = 0
+level_chain.batched_launches = 0
 
 
 def level_kernels(diag, coefs, *, omega: float, n_smooth: int, coarse_iters: int) -> LevelKernels:

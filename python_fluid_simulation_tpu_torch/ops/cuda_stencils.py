@@ -48,10 +48,12 @@ def squared_tols(tol: float, rel_tol: float):
 
 
 def stencil_matvec_plain(diag, coefs, p):
-    """A p = diag*p + sum_k coef_k * shift(p, off_k) (0 outside)."""
+    """A p = diag*p + sum_k coef_k * shift(p, off_k) (0 outside).  p may
+    carry a leading batch dim (a stack of independent systems): the
+    shifts stay within each system."""
     out = diag * p
     for off, c in coefs:
-        out = out + c * shift(p, off, 0.0)
+        out = out + c * shift(p, (0,) * (p.ndim - len(off)) + tuple(off), 0.0)
     return out
 
 
@@ -78,19 +80,26 @@ def check_field(name, t, shape, device):
 def check_stencil(name, shape, device, diag, coefs):
     """Raise unless (diag, coefs) is a 3D 7-point system in `OFFSETS`
     order (x offsets of +-1 only) of contiguous float32 fields of
-    `shape` on `device`."""
+    `shape` on `device`: (X, Y, Z), or (B, X, Y, Z) for a stack of B
+    systems."""
     if tuple(tuple(o) for o, _ in coefs) != OFFSETS:
         raise ValueError(f"{name}: coefficient offsets must be {OFFSETS}")
-    if len(shape) != 3:
-        raise ValueError(f"{name}: 3D grids only")
+    if len(shape) not in (3, 4):
+        raise ValueError(f"{name}: 3D grids, or a batch of them, only")
     check_field("diag", diag, shape, device)
     for k, (_, c) in enumerate(coefs):
         check_field(f"coef{k}", c, shape, device)
 
 
+def batched(shape):
+    """(B, X, Y, Z) of a single grid (B = 1) or of a stack."""
+    return tuple(shape) if len(shape) == 4 else (1, *shape)
+
+
 def stencil_matvec(diag, coefs, p):
     """q = A p for the 7-point system (diag, coefs in `OFFSETS` order);
-    neighbours outside the grid read 0."""
+    neighbours outside the grid read 0.  p is (X, Y, Z) or a stack
+    (B, X, Y, Z) of independent systems."""
     if p.device.type == "cpu":
         return stencil_matvec_plain(diag, coefs, p)
     if p.device.type != "cuda":
@@ -101,7 +110,7 @@ def stencil_matvec(diag, coefs, p):
     q = torch.empty_like(p)
     err = cb.LIB.get().pfs_stencil_matvec(
         diag.data_ptr(), *[c.data_ptr() for _, c in coefs], p.data_ptr(), q.data_ptr(),
-        *shape, cb.stream_of(p),
+        *batched(shape), cb.stream_of(p),
     )
     cb.check(err, "stencil_matvec launch")
     stencil_matvec.launches += 1

@@ -10,7 +10,8 @@ sort of the per-particle home-cell ids, then
     atomics), whose plain versions run on the CPU,
   * per-corner-offset folds of the per-cell tables onto the grid that
     reproduce the reference's per-corner border clamping
-    (``max(0, min(gres-1, gi + offs))``, cell 2 :128).
+    (``max(0, min(gres-1, gi + offs))``, cell 2 :128) — the fold kernel
+    of ``ops/cuda_fold.py``, whose plain version runs on the CPU.
 
 Ids outside [0, M) — negative ones included — are dropped by the reduce
 and read 0 in the broadcast.
@@ -23,6 +24,7 @@ from typing import Sequence, Tuple
 import torch
 
 from python_fluid_simulation_tpu_torch.ops.cuda_binned import segment_broadcast, segment_reduce
+from python_fluid_simulation_tpu_torch.ops.cuda_fold import fold
 
 
 def sort_by_segment(ids: torch.Tensor, *vals: torch.Tensor):
@@ -84,80 +86,9 @@ def home_ids_extended(gi: torch.Tensor, gres: Sequence[int]) -> Tuple[torch.Tens
     return idx, ext
 
 
-def _combine(acc, piece, combine):
-    if acc is None:
-        return piece
-    return acc + piece if combine == "add" else torch.minimum(acc, piece)
-
-
 def fold_scattered_sep(seg: torch.Tensor, axis_shifts, out_shape: Sequence[int], combine: str = "add", fill=0.0) -> torch.Tensor:
-    """Combine per-corner segment grids onto clipped targets, separably.
-
-    seg: (K, G...) with channel k = lexicographic index into
-    product(axis_shifts); channel k contributes to target
-    t = clip(grid_index + shifts[k], 0, out_n - 1) per axis.  Folds axis
-    by axis on whole channel blocks, then `fold_clip` resolves the
-    border clamping.
-    """
-    from python_fluid_simulation_tpu_torch.ops.indexing import sample
-
-    d = len(out_shape)
-    sizes = [len(s) for s in axis_shifts]
-    min_s = [min(s) for s in axis_shifts]
-    max_s = [max(s) for s in axis_shifts]
-    cur = seg.reshape(tuple(sizes) + tuple(seg.shape[1:]))
-    for a in range(d):
-        # cur dims: (s_a, .., s_{d-1}, T_0..T_{a-1}, X_a, .., X_{d-1});
-        # the spatial axis to shift sits at index d after taking cur[i]
-        t_a = cur.shape[d] + max_s[a] - min_s[a]
-        acc = None
-        for i, s in enumerate(axis_shifts[a]):
-            tgt = list(cur.shape[1:])
-            tgt[d - 1] = t_a
-            off = [0] * len(tgt)
-            off[d - 1] = min_s[a] - s
-            acc = _combine(acc, sample(cur[i], tuple(off), tuple(tgt), fill), combine)
-        cur = acc
-    return fold_clip(cur, tuple(min_s), out_shape, combine, fill)
-
-
-def fold_clip(field: torch.Tensor, shifts: Sequence[int], out_shape: Sequence[int], combine: str = "add", fill=0.0) -> torch.Tensor:
-    """Redistribute `field` onto targets t = clip(c + shift, 0, out_n-1)
-    per axis, reducing all clipped planes into the edge rows.  Targets no
-    source plane reaches get `fill`."""
-    out = field
-    for axis, (s, out_n) in enumerate(zip(shifts, out_shape)):
-        s = int(s)
-        n = out.shape[axis]
-
-        def take(a, b, src=out, axis=axis):
-            return src.narrow(axis, a, b - a)
-
-        def reduce_planes(planes, axis=axis):
-            if combine == "add":
-                return torch.sum(planes, dim=axis, keepdim=True)
-            return torch.amin(planes, dim=axis, keepdim=True)
-
-        def fill_plane(k, ref=out, axis=axis):
-            shape = list(ref.shape)
-            shape[axis] = k
-            return torch.full(shape, fill, dtype=ref.dtype, device=ref.device)
-
-        # source groups: [0, L) -> t=0;  [L, R) -> t=c+s;  [R, n) -> t=out_n-1
-        L = min(max(1 - s, 0), n)
-        R = max(min(max(out_n - 1 - s, 0), n), L)
-        pieces = [reduce_planes(take(0, L)) if L > 0 else fill_plane(1)]
-        pre_gap = (L + s - 1) if L > 0 else (s - 1)
-        pre_gap = max(0, min(out_n - 2, pre_gap))
-        if pre_gap:
-            pieces.append(fill_plane(pre_gap))
-        if R > L:
-            pieces.append(take(L, R))
-        post_gap = max(0, (out_n - 1) - ((R + s) if R > L else (1 + pre_gap)))
-        if post_gap:
-            pieces.append(fill_plane(post_gap))
-        pieces.append(reduce_planes(take(R, n)) if R < n else fill_plane(1))
-        out = torch.cat(pieces, dim=axis)
-        if out.shape[axis] != out_n:
-            raise AssertionError((tuple(out.shape), axis, out_n, s))
-    return out
+    """Combine per-corner segment grids onto clipped targets: channel k
+    (lexicographic index into product(axis_shifts)) of seg (K, G...)
+    contributes to target t = clip(grid_index + shifts[k], 0, out_n - 1)
+    per axis (``ops/cuda_fold.py``: one kernel launch on the card)."""
+    return fold(seg, axis_shifts, out_shape, combine, fill)

@@ -1,11 +1,17 @@
-"""Where the buckling step's time goes on the GPU.
+"""Where a step's time goes on the GPU.
 
-    python3 -m python_fluid_simulation_tpu_torch.profile_step [--res R] [--steps 3] [--out DIR]
+    python3 -m python_fluid_simulation_tpu_torch.profile_step [--scene buckling|coiling] [--res R]
+        [--viscosity-precond jacobi|mg|auto] [--steps 3] [--out DIR]
 
-Runs the buckling step on the card: the 48x80x48 flagship
-(``buckling_config()`` defaults) without ``--res``, else
-``scaled_buckling_config(R)`` (``--res 128``: 77x128x77 cells, 356,256
-particles, MG-PCG cell solves).  3 warm-up steps, then ``--steps``
+Runs a step on the card.  ``--scene buckling`` (the default): the
+48x80x48 flagship (``buckling_config()`` defaults) without ``--res``,
+else ``scaled_buckling_config(R)`` (``--res 128``: 77x128x77 cells,
+356,256 particles, MG-PCG cell solves).  ``--scene coiling``:
+``coiling_config(R)`` (default R 256: 64x256x64 cells, 73,644 particles,
+MG-PCG cell solves, the 'auto' viscosity preconditioner);
+``--viscosity-precond`` overrides the configuration's (``mg`` profiles
+the MG branch).  Every fold call is a ``pfs_fold`` range in the
+profile.  3 warm-up steps, then ``--steps``
 steps timed on the host clock without the profiler, then ``--steps``
 steps under ``torch.profiler`` (CPU + CUDA activities).  Prints one JSON
 line with the step times, the device busy time (sum of the CUDA kernel
@@ -14,12 +20,14 @@ share, the CUDA runtime calls per step (kernel launches, cooperative
 launches, stream synchronisations), the device time and launches of the
 port's own kernels, and the top operators by device and by host time;
 writes the full ``key_averages`` tables to
-``<out>/profile_step[_<R>].txt``.  Needs a CUDA device.
+``<out>/profile_step[_<scene>][_<R>][_<precond>].txt``.  Needs
+a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -27,21 +35,43 @@ import time
 
 def main() -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    from python_fluid_simulation_tpu_torch.engine.scenes import buckling_config, buckling_scene, scaled_buckling_config
+    from python_fluid_simulation_tpu_torch.engine.scenes import (
+        buckling_config,
+        buckling_scene,
+        coiling_config,
+        coiling_scene,
+        scaled_buckling_config,
+    )
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
+    from python_fluid_simulation_tpu_torch.ops import cuda_fold, scatter
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--res", type=int, default=None, help="scaled_buckling_config(res); default: the flagship")
+    ap.add_argument("--scene", choices=("buckling", "coiling"), default="buckling")
+    ap.add_argument("--res", type=int, default=None,
+                    help="buckling: scaled_buckling_config(res), default the flagship; coiling: coiling_config(res), default 256")
+    ap.add_argument("--viscosity-precond", choices=("jacobi", "mg", "auto"), default=None)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=".")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
 
-    cfg = buckling_config() if args.res is None else scaled_buckling_config(args.res)
-    state = buckling_scene(cfg, device="cuda")
+    if args.scene == "coiling":
+        cfg = coiling_config(args.res or 256)
+        state = coiling_scene(cfg, device="cuda")
+    else:
+        cfg = buckling_config() if args.res is None else scaled_buckling_config(args.res)
+        state = buckling_scene(cfg, device="cuda")
+    if args.viscosity_precond:
+        cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_precond=args.viscosity_precond))
+
+    def fold_range(*a, **kw):
+        with record_function("pfs_fold"):
+            return cuda_fold.fold(*a, **kw)
+
+    scatter.fold = fold_range
     geom = build_geom_cache(state.solid)
     for _ in range(3):
         state, _ = step_3d(state, cfg, geom=geom)
@@ -72,7 +102,7 @@ def main() -> int:
     own = {}  # the port's kernels, by name
     for e in kernels:
         name = e.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0].split("<")[0].strip()
-        if name.endswith("_kernel") and any(k in name for k in ("pcg", "stencil", "mg_level", "binned")):
+        if name.endswith("_kernel") and any(k in name for k in ("pcg", "stencil", "mg_level", "binned", "fold", "matvec")):
             n, us = own.get(name, (0, 0.0))
             own[name] = (n + 1, us + e.time_range.elapsed_us())
 
@@ -86,11 +116,19 @@ def main() -> int:
         ]
 
     busy_ms = busy_us / 1e3 / args.steps
+    folds = [a for a in avgs if a.key == "pfs_fold"]
     summary = {
         "device": torch.cuda.get_device_name(0),
+        "scene": args.scene,
         "grid": list(cfg.grid.res),
         "particles": int(state.particles.x.shape[0]),
         "precond": cfg.solver.precond,
+        "viscosity_precond": cfg.solver.viscosity_precond,
+        "visc_mg_after": int(torch.as_tensor(state.visc_mg)),
+        # the folds' ranges: host time (CPU total) and the device time of
+        # the kernels they launched, per step
+        "fold_per_step": [{"calls": a.count / args.steps, "host_ms": a.cpu_time_total / 1e3 / args.steps,
+                           "device_ms": a.device_time_total / 1e3 / args.steps} for a in folds],
         "steps": args.steps,
         "unprofiled_step_ms": plain_ms,
         "step_ms": step_ms,
@@ -104,7 +142,14 @@ def main() -> int:
         "top_host": top("self_cpu_time_total"),
     }
     os.makedirs(args.out, exist_ok=True)
-    name = "profile_step.txt" if args.res is None else f"profile_step_{args.res}.txt"
+    name = "profile_step"
+    if args.scene != "buckling":
+        name += f"_{args.scene}"
+    if args.res is not None:
+        name += f"_{args.res}"
+    if args.viscosity_precond:
+        name += f"_{args.viscosity_precond}"
+    name += ".txt"
     with open(os.path.join(args.out, name), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
         f.write("\n")

@@ -1,8 +1,10 @@
-"""Geometric multigrid V-cycle preconditioner for the cell-centred
-ghost-fluid Poisson systems (pressure and density projections).
+"""Geometric multigrid V-cycle preconditioners: for the cell-centred
+ghost-fluid Poisson systems (pressure and density projections), and the
+batched cycle over the three same-axis blocks of the coupled viscosity
+operator (``make_batched_mg_preconditioner``).
 
-Counterpart of the cell-Poisson half of
-``python_fluid_simulation_tpu.solvers.multigrid``.  Galerkin coarsening
+Counterpart of ``python_fluid_simulation_tpu.solvers.multigrid``.
+Galerkin coarsening
 with piecewise-constant transfers keeps the operator 7-point on every
 level and reduces to sums of the coefficient fields:
 
@@ -18,7 +20,9 @@ zero-padded axes, broadcasts), taken axis by axis in the JAX package's
 order, so each pair sum rounds as there.  Level 0 smooths with
 `stencil_matvec` (the CUDA matvec on the card); levels k >= 1 run their
 smoothing chains through ``ops/cuda_mg.py`` (one kernel launch per chain
-on the card).  Nothing in the cycle reads a value back to the host.
+on the card).  The batched cycle stacks its systems' levels as
+(B, X, Y, Z) fields and runs the same kernels on the stack.  Nothing in
+the cycle reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -95,33 +99,36 @@ def build_hierarchy(diag, coefs, min_dim: int = 4, max_levels: int = 10) -> List
 
 
 def _restrict(r, coarse_shape):
-    """P^T r: 2^d-child sum onto the coarse grid (x, then z, then y, the
-    JAX package's order)."""
-    assert all(c == (s + 1) // 2 for s, c in zip(r.shape, coarse_shape)), (r.shape, coarse_shape)
-    d = r.ndim
+    """P^T r: 2^d-child sum onto the coarse grid over the trailing
+    len(coarse_shape) dims (x, then z, then y, the JAX package's order);
+    leading dims are a batch and ride along."""
+    lead = r.ndim - len(coarse_shape)
+    assert all(c == (s + 1) // 2 for s, c in zip(r.shape[lead:], coarse_shape)), (r.shape, coarse_shape)
+    d = len(coarse_shape)
     for axis in tuple(range(d - 2)) + (d - 1, d - 2):
-        r = _halve(r, axis, None)
+        r = _halve(r, lead + axis, None)
     return r
 
 
 def _prolong(e, fine_shape):
-    """P e: inject the parent value into all children."""
-    for axis, n in enumerate(fine_shape):
+    """P e: inject the parent value into all children (over the trailing
+    len(fine_shape) dims; leading dims are a batch)."""
+    lead = e.ndim - len(fine_shape)
+    for k, n in enumerate(fine_shape):
+        axis = lead + k
         shp = list(e.shape)
         e = e.unsqueeze(axis + 1).expand(*shp[: axis + 1], 2, *shp[axis + 1 :])
         e = e.reshape(*shp[:axis], 2 * shp[axis], *shp[axis + 1 :]).narrow(axis, 0, n)
     return e.contiguous()
 
 
-def make_mg_preconditioner(diag, coefs, *, n_smooth: int = 2, omega: float = 0.8, coarse_iters: int = 24, min_dim: int = 4):
-    """Returns M^{-1}: r -> z, one symmetric V-cycle with zero initial
-    guess, restricted to the active rows (diag > 0)."""
-    levels = build_hierarchy(diag, coefs, min_dim=min_dim)
-    chains = {
-        k: level_kernels(lv.diag, lv.coefs, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
-        for k, lv in enumerate(levels) if k >= 1
-    }
+def _vcycle(levels, chains, *, omega, n_smooth, coarse_iters):
+    """One symmetric V-cycle from a zero guess over `levels` (fields
+    (X, Y, Z), or (B, X, Y, Z) stacks of independent systems): level 0
+    smooths in the XLA V-cycle's form with `stencil_matvec` (the CUDA
+    matvec on the card), levels k >= 1 run their chains (`chains[k]`)."""
     top = levels[0]
+    nd = len(top.coefs[0][0])  # spatial dims (the offsets' length)
 
     def matvec0(p):
         return stencil_matvec(top.diag, top.coefs, p)
@@ -146,18 +153,101 @@ def make_mg_preconditioner(diag, coefs, *, n_smooth: int = 2, omega: float = 0.8
         else:
             x = smooth0(None, b, n_smooth)
             r = b - matvec0(x)
-        ec = vcycle(k + 1, _restrict(r, levels[k + 1].diag.shape))
-        x = x + _prolong(ec, b.shape)
+        ec = vcycle(k + 1, _restrict(r, tuple(levels[k + 1].diag.shape[-nd:])))
+        x = x + _prolong(ec, tuple(b.shape[-nd:]))
         if k in chains:
             return chains[k].postsmooth(x, b)
         return smooth0(x, b, n_smooth)
 
-    active = top.diag > 0
+    return lambda b: vcycle(0, b)
+
+
+def make_mg_preconditioner(diag, coefs, *, n_smooth: int = 2, omega: float = 0.8, coarse_iters: int = 24, min_dim: int = 4):
+    """Returns M^{-1}: r -> z, one symmetric V-cycle with zero initial
+    guess, restricted to the active rows (diag > 0)."""
+    levels = build_hierarchy(diag, coefs, min_dim=min_dim)
+    chains = {
+        k: level_kernels(lv.diag, lv.coefs, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
+        for k, lv in enumerate(levels) if k >= 1
+    }
+    cycle = _vcycle(levels, chains, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
+    active = levels[0].diag > 0
 
     def precond(r):
         # identity on the inactive rows (A's row and column are zero
         # there): keeps M SPD and x from drifting where the residual
         # cannot see it
-        return torch.where(active, vcycle(0, r), r)
+        return torch.where(active, cycle(r), r)
 
+    return precond
+
+
+# ---------------------------------------------------------------------------
+# Batched V-cycle: one cycle for several same-shaped independent systems
+# (the per-axis diagonal blocks of the coupled viscosity operator), each
+# level a (B, X, Y, Z) stack: one kernel launch a chain for all B systems.
+# ---------------------------------------------------------------------------
+
+
+def _pad_to(a, shape, fill=0.0):
+    """`a` zero- (or `fill`-) padded at the high end of each axis to `shape`."""
+    if tuple(a.shape) == tuple(shape):
+        return a
+    out = a.new_full(tuple(shape), fill)
+    out[tuple(slice(0, int(s)) for s in a.shape)] = a
+    return out
+
+
+def _canon(coefs):
+    """Coefficients in the canonical (+x, -x, +y, -y, +z, -z) order —
+    `_coarsen`'s output order, so every level of every hierarchy lines up
+    for stacking (and the kernels' `OFFSETS` order)."""
+
+    def key(item):
+        off = item[0]
+        axis = next(i for i, o in enumerate(off) if o)
+        return (axis, 0 if off[axis] > 0 else 1)
+
+    return sorted(coefs, key=key)
+
+
+def make_batched_mg_preconditioner(systems, *, n_smooth: int = 2, omega: float = 0.8, coarse_iters: int = 24, min_dim: int = 4):
+    """M^{-1} for B independent same-stencil systems in ONE V-cycle.
+
+    ``systems``: list of (diag, coefs), e.g. the per-axis same-field
+    sub-operators of the viscosity block preconditioner.  Hierarchies
+    are built per system (their shapes differ by +-1 face plane) and
+    stacked per level onto the common padded shape; padded rows carry
+    diag = 0, coefs = 0 and safe_diag = 1 (identity).  Returns a function
+    mapping a tuple of B residual arrays to B corrected arrays.
+    """
+    hiers = [build_hierarchy(diag, _canon(coefs), min_dim=min_dim) for diag, coefs in systems]
+    n_lev = min(len(h) for h in hiers)
+    levels = []
+    for k in range(n_lev):
+        common = tuple(max(int(h[k].diag.shape[i]) for h in hiers) for i in range(hiers[0][k].diag.ndim))
+        offs = [off for off, _ in hiers[0][k].coefs]
+        for h in hiers:
+            assert [off for off, _ in h[k].coefs] == offs
+        levels.append(_Level(
+            torch.stack([_pad_to(h[k].diag, common) for h in hiers]),
+            tuple((off, torch.stack([_pad_to(h[k].coefs[j][1], common) for h in hiers]))
+                  for j, off in enumerate(offs)),
+            torch.stack([_pad_to(h[k].safe_diag, common, 1.0) for h in hiers]),
+        ))
+    chains = {
+        k: level_kernels(lv.diag, lv.coefs, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
+        for k, lv in enumerate(levels) if k >= 1
+    }
+    cycle = _vcycle(levels, chains, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
+    active = levels[0].diag > 0
+    shapes = [tuple(h[0].diag.shape) for h in hiers]
+    common0 = tuple(levels[0].diag.shape[1:])
+
+    def precond(rs):
+        rb = torch.stack([_pad_to(r, common0) for r in rs])
+        zb = torch.where(active, cycle(rb), rb)
+        return tuple(zb[i][tuple(slice(0, s) for s in shapes[i])] for i in range(len(shapes)))
+
+    precond.levels = levels  # the stacked hierarchy, for inspection
     return precond

@@ -20,16 +20,23 @@ The matvec couples where the neighbour face site is fluid (sphi >= 0 in
 evaluated on velocities first extrapolated 3 Jacobi layers into the
 solid (solve :573).  scale = dt/(cell_vol*rho); vol = lvol/(cell_vol/8)
 (solve :567-568).  The Jacobi-PCG solve is the coupled kernel
-(``ops/cuda_cg.py``), which rebuilds the couplings from the geometry.
+(``ops/cuda_cg.py``), which rebuilds the couplings from the geometry; the
+MG-PCG solve is CG over the geometry-recompute matvec (``ops/cuda_cg.py::
+coupled_matvec_geom``) with the batched block V-cycle of
+``solvers/multigrid.py``.  The JAX package's axis permutations
+(``_PERM_CANDIDATES``) work around a TPU VMEM limit and have no
+counterpart here.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from python_fluid_simulation_tpu_torch.ops.cuda_cg import coupled_visc_pcg
+from python_fluid_simulation_tpu_torch.ops.cuda_cg import coupled_matvec_geom, coupled_visc_pcg, flat_geometry
 from python_fluid_simulation_tpu_torch.ops.extrapolate import extrapolate
 from python_fluid_simulation_tpu_torch.ops.indexing import (
     dual_sample,
@@ -38,7 +45,8 @@ from python_fluid_simulation_tpu_torch.ops.indexing import (
     sample,
     split_parity,
 )
-from python_fluid_simulation_tpu_torch.solvers.cg import SolveStats
+from python_fluid_simulation_tpu_torch.solvers.cg import SolveStats, cg
+from python_fluid_simulation_tpu_torch.solvers.multigrid import make_batched_mg_preconditioner
 
 
 def _terms_for_axis(a: int, d: int = 3):
@@ -108,10 +116,11 @@ def _diag_axis(a, s_mu, vol, shape):
     return acc + s_mu * extra
 
 
-def viscosity_term_fields(s_mu, sphi, vol, face_shapes):
+def viscosity_term_fields(s_mu, sphi, vol, face_shapes, same_axis_only: bool = False):
     """The 14-term coefficient fields per axis: (diags, per_axis, pdiags)
     where per_axis[a] is a list of (field, voff, coef) with coef shaped
-    like face array a."""
+    like face array a.  ``same_axis_only`` builds only the 6 same-field
+    terms an axis (what the MG block preconditioner reads)."""
     d = len(face_shapes)
     diags, per_axis, pdiags = [], [], []
     for a in range(d):
@@ -121,6 +130,8 @@ def viscosity_term_fields(s_mu, sphi, vol, face_shapes):
         diag_raw = _diag_axis(a, s_mu, vol, shape)
         terms = []
         for cond_off, field, voff, vol_off, factor, sign in _terms_for_axis(a, d):
+            if same_axis_only and field != a:
+                continue
             fluid_n = _is_fluid(dual_sample(sphi, p, cond_off, shape, -1.0))
             vcoef = dual_sample(vol, p, vol_off, shape, 0.0)
             terms.append((field, voff, torch.where(active & fluid_n, sign * factor * s_mu * vcoef, 0.0)))
@@ -171,21 +182,50 @@ def viscosity_diag_3d(s_mu, sphi, vol, face_shapes):
     return tuple(out)
 
 
+def make_viscosity_mg_preconditioner(diags, per_axis):
+    """Block-diagonal multigrid preconditioner for the coupled system.
+
+    It drops the cross-field couplings and runs one Galerkin-MG V-cycle
+    per axis on the same-field 7-point sub-operator (diagonal blocks of
+    an SPD matrix are SPD, and each is exactly the stencil form
+    ``solvers/multigrid.py`` coarsens), the three axes batched into ONE
+    cycle (one kernel launch a chain for all three).
+    """
+    systems = []
+    for a in range(len(diags)):
+        same = [
+            (voff, coef) for field, voff, coef in per_axis[a]
+            if field == a and sum(abs(o) for o in voff) == 1
+        ]
+        systems.append((diags[a], same))
+    return make_batched_mg_preconditioner(systems)
+
+
 class ViscosityResult(NamedTuple):
     v_faces: Tuple[torch.Tensor, ...]
     stats: SolveStats
 
 
+MG_FACE_CELLS = 4_000_000  # above this the lean MG route is needed (not ported)
+
+
 def viscosity_solve_3d(
     dt, mu: float, rho: float, v_faces: Sequence[torch.Tensor], sphi, lvol, cell_vol: float, *,
     tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
+    precond_kind: str = "jacobi", auto_use_mg=None,
 ) -> ViscosityResult:
     """Full implicit viscosity solve (ViscosityCGSolver3D.solve :566-613):
     velocities are extrapolated 3 Jacobi layers into the solid (valid =
     sphi >= 0 at face sites), the RHS is built from the extrapolated
-    field, Jacobi-PCG runs from the extrapolated field, and the solution
-    is written back only at non-solid faces (apply_viscosity_kernel
+    field, PCG runs from the extrapolated field, and the solution is
+    written back only at non-solid faces (apply_viscosity_kernel
     :458-470).
+
+    ``precond_kind``: 'jacobi' (the coupled Jacobi-PCG kernel), 'mg' (CG
+    over `coupled_matvec_geom` with the batched block V-cycle), or 'auto':
+    MG when ``auto_use_mg`` (the engine's hysteresis flag) is true, else
+    Jacobi — the flag is read on the host, once a solve.  The MG route
+    builds its fields and hierarchy only when it runs.
 
     ``lvol`` may be the raw dual-lattice array or its parity-class dict;
     ``dt`` a float or 0-dim tensor.
@@ -204,11 +244,21 @@ def viscosity_solve_3d(
     ext = tuple(ext)
     shapes = [tuple(v.shape) for v in v_faces]
     b = viscosity_rhs_3d(ext, s_mu, sphi_c, vol_c)
-    pdiags = viscosity_diag_3d(s_mu, sphi_c, vol_c, shapes)
-    x, iters, res, res0, thresh, _ = coupled_visc_pcg(
-        b, ext, pdiags, sphi_c, vol_c, s_mu, tol=tol, rel_tol=rel_tol, max_iter=max_iter,
-    )
-    stats = SolveStats(iters=iters, residual=res, initial_residual=res0, converged=res < thresh)
+
+    if precond_kind == "auto":
+        use_mg = auto_use_mg is not None and bool(auto_use_mg)
+    elif precond_kind in ("jacobi", "mg"):
+        use_mg = precond_kind == "mg"
+    else:
+        raise ValueError(f"unknown viscosity preconditioner {precond_kind!r}")
+    if use_mg:
+        x, stats = _mg_solve(b, ext, s_mu, sphi_c, vol_c, shapes, tol=tol, rel_tol=rel_tol, max_iter=max_iter)
+    else:
+        pdiags = viscosity_diag_3d(s_mu, sphi_c, vol_c, shapes)
+        x, iters, res, res0, thresh, _ = coupled_visc_pcg(
+            b, ext, pdiags, sphi_c, vol_c, s_mu, tol=tol, rel_tol=rel_tol, max_iter=max_iter,
+        )
+        stats = SolveStats(iters=iters, residual=res, initial_residual=res0, converged=res < thresh)
     out = []
     for a in range(d):
         shape = shapes[a]
@@ -216,3 +266,26 @@ def viscosity_solve_3d(
         active = interior_mask(shape, active_hi=hi, device=dev) & _is_fluid(sphi_c[face_parity(a, d)])
         out.append(torch.where(active, x[a], v_faces[a]))
     return ViscosityResult(tuple(out), stats)
+
+
+def _mg_solve(b, x0, s_mu, sphi_c, vol_c, shapes, *, tol, rel_tol, max_iter):
+    """MG-PCG with materialised same-axis stencils (JAX ``_mg_solve``,
+    the <= 4M-face-cell route): the outer operator recomputes its
+    coefficients from the geometry (`coupled_matvec_geom`), the block
+    preconditioner coarsens the 21 same-axis fields (3 diagonals, 6
+    couplings an axis), which are all this route builds."""
+    if math.prod(shapes[0]) > MG_FACE_CELLS:
+        raise NotImplementedError(
+            f"the viscosity MG route above {MG_FACE_CELLS} face cells (the lean two-grid route) is not ported"
+        )
+    diags, same, _ = viscosity_term_fields(s_mu, sphi_c, vol_c, shapes, same_axis_only=True)
+    mg = make_viscosity_mg_preconditioner(diags, same)
+    geom = flat_geometry(sphi_c, vol_c)
+    # the JAX package's generic cg rounds tol^2 in fp32 and rel_tol^2 in
+    # double before the fp32 product
+    x, stats, _, _ = cg(
+        lambda vs: coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, geom=geom), b, x0,
+        tol2=float(np.float32(tol) ** 2), rel2=float(np.float32(rel_tol**2)), max_iter=max_iter,
+        precond=mg,
+    )
+    return x, stats

@@ -13,6 +13,8 @@
   wrapper counts a launch.
 * ``scaled_buckling_config(r)`` equals the JAX configuration field for
   field.
+* unported options raise NotImplementedError, the viscosity MG route
+  above 4M face cells among them.
 * the 6-step dam break against ``tests/golden_dam_break.npz`` at
   test_golden.py's config and tolerances.
 """
@@ -126,11 +128,12 @@ def test_fixed_dt_steps_match_jax(coarse_pair):
 
 
 def _launch_counts():
-    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_mg, cuda_stencils
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_fold, cuda_mg, cuda_stencils
 
     return [f.launches for f in (
         cuda_stencils.cell_poisson_pcg, cuda_stencils.stencil_matvec, cuda_cg.coupled_visc_pcg,
-        cuda_mg.level_chain, cuda_binned.segment_reduce, cuda_binned.segment_broadcast,
+        cuda_cg.coupled_matvec_geom, cuda_mg.level_chain, cuda_binned.segment_reduce,
+        cuda_binned.segment_broadcast, cuda_fold.fold,
     )]
 
 
@@ -182,10 +185,24 @@ def test_unported_options_raise():
     for bad in (
         dataclasses.replace(cfg, moving_solid=True),
         dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_mode="unet")),
-        dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_precond="mg")),
+        dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, pressure_dt_scaled=True)),
     ):
         with pytest.raises(NotImplementedError):
             step_3d(state, bad)
+
+
+@pytest.mark.parametrize("viscosity_precond", ["mg", "auto"])
+def test_viscosity_mg_above_4m_face_cells_raises(viscosity_precond):
+    """The viscosity MG route above 4M face cells is the JAX package's
+    lean two-grid route, not ported: refused before any work (a 154x256x154
+    grid, 6.1M face cells an axis)."""
+    import dataclasses
+
+    cfg = scaled_buckling_config(256)
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_precond=viscosity_precond))
+    small = buckling_config(dx=0.05)
+    with pytest.raises(NotImplementedError, match="face cells"):
+        step_3d(buckling_scene(small, device="cpu"), cfg)
 
 
 def test_dam_break_golden():
