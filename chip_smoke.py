@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``python_fluid_simulation_tpu_torch`` (never JAX) through its two
+Drives ``python_fluid_simulation_tpu_torch`` (never JAX) through its
 main paths and checks every CUDA kernel of them against its plain
 PyTorch version on the card:
 
@@ -15,7 +15,10 @@ PyTorch version on the card:
   Jacobi viscosity);
 * the coiling column: ``coiling_config(256)`` (64x256x64 cells, 73,644
   particles, mu 5, MG cell solves, the 'auto' viscosity preconditioner:
-  Jacobi-PCG or the batched block MG by the carried hysteresis flag).
+  Jacobi-PCG or the batched block MG by the carried hysteresis flag);
+* the big grid: ``coiling_config(504)`` (126x504x126 = 8.0M cells,
+  465,868 particles, Jacobi cell solves through the streamed Poisson PCG,
+  'auto' viscosity: Jacobi-PCG at 24M faces, or the lean two-grid MG).
 
 Phases, each printing one JSON line:
 
@@ -52,9 +55,26 @@ Phases, each printing one JSON line:
               the branch of every step, solves converged, particles
               finite, the first MG step bitwise repeatable, step 3 of
               both runs on the card vs the CPU, peak memory
+  kernels_504 504: the density / pressure systems, the viscosity system
+              and the level set's fold of the third step; the streamed
+              Poisson PCG (also from a random x0) vs plain, iterations
+              equal, with the cell-Poisson PCG on the same systems and a
+              sweep of both over 0.5M-8.0M cells (the gate); the geometry
+              matvec (full, same-axis), the coupled PCG, one lean
+              preconditioner application and the lean MG-PCG solve (both
+              bitwise) at 24M faces; the 125-channel fold of a 4.0 GB
+              table (bitwise)
+  main_504    504: 3 'auto' steps from the scene (Jacobi branch), then 3
+              'auto' steps from visc_mg = 2 (the lean branch), counters
+              reset before each run; the streamed PCG and the lean route
+              launched, solves converged, the first lean step bitwise
+              repeatable and within STEP_TOL of the same step on the card
+              with every kernel swapped for its plain version; the same
+              step on the CPU reported (not asserted), peak memory
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
-line, and ``{"ok": true, "device": {...}}``.  Any failure raises and
+line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
+total seconds.  Any failure raises and
 exits non-zero; without a CUDA device it exits non-zero before any
 result.
 """
@@ -64,6 +84,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -99,6 +120,11 @@ RES_COIL = 256
 SHAPE_COIL = ((64, 256, 64), 73644)
 STEPS_COIL = 6  # 1 warm-up + 5 timed, per preconditioner
 CHECKED_STEP_COIL = 2  # the third step, card vs CPU
+RES_504 = 504
+SHAPE_504 = ((126, 504, 126), 465868)
+STEPS_504 = 3  # per run: 'auto' from the scene, then 'auto' from visc_mg = 2
+SWEEP_PLANES = (8, 16, 32, 63, 126)  # x planes of the 504 pressure system: 0.5M-8.0M cells
+SWEEP_ITERS = 50
 # fp32 operations a face of the geometry-recompute matvec: the diagonal
 # (6 products, 6 sums, s_mu * extra, + center, * v: 15) and 4 a coupling
 # (sign*factor * s_mu, * vol, * v, +)
@@ -280,8 +306,24 @@ def cell_kernel_phase(systems):
     return rows
 
 
+def timed_once(fn):
+    """(fn(), its ms between CUDA events): one call, for a plain version
+    too slow to repeat."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
 def coupled_kernel_phase(system):
-    """Coupled viscosity PCG (and its matvec) on the viscosity system."""
+    """Coupled viscosity PCG (and its matvec) on the viscosity system; the
+    plain version's time is its checked solve's."""
     import torch
 
     from python_fluid_simulation_tpu_torch.ops.cuda_cg import (
@@ -305,7 +347,8 @@ def coupled_kernel_phase(system):
     x_k, it_k, res_k, *_ = coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, **kw)
     x_k2 = coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, **kw)[0]
     repeatable = all(bool(torch.equal(u, w)) for u, w in zip(x_k, x_k2))
-    x_p, it_p, res_p, *_ = coupled_visc_pcg_plain(b, x0, pd, sphi_c, vol_c, s_mu, **kw)
+    (x_p, it_p, res_p, *_), plain_ms = timed_once(
+        lambda: coupled_visc_pcg_plain(b, x0, pd, sphi_c, vol_c, s_mu, **kw))
     err = rel = 0.0
     for a in range(3):
         check_close(f"coupled_visc_pcg[{a}]", x_k[a], x_p[a], KERNEL_TOL)
@@ -314,7 +357,6 @@ def coupled_kernel_phase(system):
     if abs(int(it_k) - int(it_p)) > 2:
         raise AssertionError(f"coupled_visc_pcg: iterations {int(it_k)} vs plain {int(it_p)}")
     ms = cuda_time_ms(lambda: coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, **kw), 20)
-    plain_ms = cuda_time_ms(lambda: coupled_visc_pcg_plain(b, x0, pd, sphi_c, vol_c, s_mu, **kw), 2)
     n = sum(t.numel() for t in b)
     n_geom = sum(vol_c[c].numel() for c in VOL_CLASSES) + sum(sphi_c[c].numel() for c in SPHI_CLASSES)
     nbytes = (3 * n + n + n_geom) * 4  # b, x0, pd and geometry read once; x written once
@@ -615,8 +657,9 @@ def batched_vcycle_phase(system):
 
 
 def visc_mg_solve_phase(system):
-    """The viscosity MG-PCG solve (the MG branch) with the kernels vs with
-    their plain versions; iterations must be equal."""
+    """The viscosity MG-PCG solve (the MG branch; above 4M face cells the
+    lean route) with the kernels vs with their plain versions; iterations
+    must be equal.  The plain time is its checked solve's."""
     from python_fluid_simulation_tpu_torch.solvers import viscosity
 
     (b, x0, pd, sphi_c, vol_c, s_mu), kw = system
@@ -627,8 +670,7 @@ def visc_mg_solve_phase(system):
 
     x_k, st_k = solve()
     with plain_mg_routes(), patched([(viscosity, "coupled_matvec_geom", plain_geom_mv)]):
-        x_p, st_p = solve()
-        plain_ms = cuda_time_ms(solve, 1)
+        (x_p, st_p), plain_ms = timed_once(solve)
     it_k, it_p = int(st_k.iters), int(st_p.iters)
     if it_k != it_p or not bool(st_k.converged):
         raise AssertionError(f"viscosity MG-PCG: iterations {it_k} vs plain {it_p}, converged {bool(st_k.converged)}")
@@ -703,11 +745,258 @@ def fold_phase(folds):
     return rows
 
 
+def _pair_slices(row_shape, col_shape, off):
+    """Slices of the rows whose neighbour at `off` lies inside the column
+    array, and of those neighbours."""
+    rs, cs = [], []
+    for r, c, o in zip(row_shape, col_shape, off):
+        lo, hi = max(0, -o), min(r, c - o)
+        rs.append(slice(lo, hi))
+        cs.append(slice(lo + o, hi + o))
+    return tuple(rs), tuple(cs)
+
+
+def csr_matrix(blocks, n):
+    """A torch.sparse CSR matrix from row blocks [(row offset, row shape,
+    diag, [(col offset, col shape, offset, coef)])], every structural
+    entry kept (zero coefficients too): the operator a matvec kernel
+    applies, assembled beforehand for the one-call library yardstick."""
+    import torch
+
+    rows, cols, vals = [], [], []
+    for r0, rshape, diag, terms in blocks:
+        ridx = r0 + torch.arange(diag.numel(), device=diag.device).view(rshape)
+        rows.append(ridx.reshape(-1))
+        cols.append(ridx.reshape(-1))
+        vals.append(diag.reshape(-1))
+        for c0, cshape, off, coef in terms:
+            rsl, csl = _pair_slices(rshape, cshape, off)
+            cidx = c0 + torch.arange(math.prod(cshape), device=diag.device).view(cshape)
+            rows.append(ridx[rsl].reshape(-1))
+            cols.append(cidx[csl].reshape(-1))
+            vals.append(coef[rsl].reshape(-1))
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    coo = torch.sparse_coo_tensor(idx, torch.cat(vals), (n, n)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def stencil_library(diag, coefs, p, q_kernel):
+    """One torch.sparse CSR matrix-vector product computing the 7-point
+    matvec (matrix assembled beforehand): ms, nnz and its largest
+    difference from the kernel."""
+    shape = tuple(diag.shape)
+    a = csr_matrix([(0, shape, diag, [(0, shape, off, c) for off, c in coefs])], diag.numel())
+    v = p.reshape(-1)
+    q = (a @ v).view(shape)
+    return dict(library_ms=cuda_time_ms(lambda: a @ v, 50), library_nnz=int(a.values().numel()),
+                library_max_abs_err=max_err(q, q_kernel)[0])
+
+
+def coupled_library(system, q_kernel):
+    """One torch.sparse CSR matrix-vector product computing the coupled
+    viscosity matvec (the 45 materialised term fields assembled into the
+    matrix beforehand), on the system's x0: ms, nnz and its largest
+    difference from the kernel."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.solvers import viscosity
+
+    (b, x0, _, sphi_c, vol_c, s_mu), _ = system
+    shapes = [tuple(t.shape) for t in x0]
+    offs = [0, x0[0].numel(), x0[0].numel() + x0[1].numel()]
+    n = sum(t.numel() for t in x0)
+    diags, per_axis, _ = viscosity.viscosity_term_fields(s_mu, sphi_c, vol_c, shapes)
+    blocks = [(offs[a], shapes[a], diags[a], [(offs[f], shapes[f], voff, c) for f, voff, c in per_axis[a]])
+              for a in range(3)]
+    del diags, per_axis
+    a = csr_matrix(blocks, n)
+    del blocks
+    v = torch.cat([t.reshape(-1) for t in x0])
+    q = a @ v
+    ref = torch.cat([t.reshape(-1) for t in q_kernel])
+    return dict(library_ms=cuda_time_ms(lambda: a @ v, 20), library_nnz=int(a.values().numel()),
+                library_max_abs_err=max_err(q, ref)[0])
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel of the step swapped for its plain version (module
+    attributes, as `plain_mg_routes`): the step on the card with no kernel
+    of this port."""
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_fold, cuda_stencils, scatter
+    from python_fluid_simulation_tpu_torch.solvers import pressure, viscosity
+
+    with plain_mg_routes(), patched([
+        (pressure, "cell_poisson_pcg", cuda_stencils.cell_poisson_pcg_plain),
+        (pressure, "fused_poisson_pcg", cuda_stencils.fused_poisson_pcg_plain),
+        (viscosity, "coupled_visc_pcg", cuda_cg.coupled_visc_pcg_plain),
+        (viscosity, "coupled_matvec_geom", plain_geom_mv),
+        (scatter, "segment_reduce", cuda_binned.segment_reduce_plain),
+        (scatter, "segment_broadcast", cuda_binned.segment_broadcast_plain),
+        (scatter, "fold", cuda_fold.fold_plain),
+    ]):
+        yield
+
+
+def capture_504(step_3d, state, cfg, geom):
+    """One 504 step with recorders around the cell solves' two PCG
+    kernels, the coupled solve and the level set's first 125-channel
+    fold, as their callers call them."""
+    from python_fluid_simulation_tpu_torch.ops import scatter
+    from python_fluid_simulation_tpu_torch.solvers import pressure, viscosity
+
+    got = {"fused": [], "cell": [], "coupled": [], "fold": []}
+
+    def rec(kind, fn, keep=None):
+        def call(*args, **kw):
+            if keep is None or keep(args):
+                got[kind].append((args, kw))
+            return fn(*args, **kw)
+        return call
+
+    with patched([
+        (pressure, "fused_poisson_pcg", rec("fused", pressure.fused_poisson_pcg)),
+        (pressure, "cell_poisson_pcg", rec("cell", pressure.cell_poisson_pcg)),
+        (viscosity, "coupled_visc_pcg", rec("coupled", viscosity.coupled_visc_pcg)),
+        (scatter, "fold", rec("fold", scatter.fold, lambda a: a[0].shape[0] == 125 and not got["fold"])),
+    ]):
+        step_3d(state, cfg, geom=geom)
+    return got
+
+
+def fused_kernel_phase(systems):
+    """Row 3 (the streamed Jacobi-PCG from x0) on cell systems vs its
+    plain version: iterations equal, x within KERNEL_TOL, a repeat
+    bitwise; from x0 = 0 also the cell-Poisson PCG on the same system
+    (the other side of the gate).  The plain time is its checked solve's."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import (
+        cell_poisson_pcg,
+        fused_poisson_pcg,
+        fused_poisson_pcg_plain,
+    )
+
+    rows = []
+    for label, args, kw in systems:
+        b, x0, diag, coefs, pd = args
+        x_k, it_k, res_k, _, _ = fused_poisson_pcg(*args, **kw)
+        repeatable = bool(torch.equal(x_k, fused_poisson_pcg(*args, **kw)[0]))
+        (x_p, it_p, res_p, _, _), plain_ms = timed_once(lambda: fused_poisson_pcg_plain(*args, **kw))
+        if int(it_k) != int(it_p):
+            raise AssertionError(f"fused_poisson_pcg[{label}]: iterations {int(it_k)} vs plain {int(it_p)}")
+        check_close(f"fused_poisson_pcg[{label}]", x_k, x_p, KERNEL_TOL)
+        n = b.numel()
+        nbytes = (10 + 1) * n * 4  # b, x0, diag, 6 coefs, pd read once; x written once
+        ops = (int(it_k) * CELL_OPS_PER_ITER + STENCIL_OPS + 4) * n
+        err, rel = max_err(x_k, x_p)
+        row = dict(
+            system=label, shape=list(b.shape), zero_x0=not bool(x0.any()), iters=int(it_k), plain_iters=int(it_p),
+            res=float(res_k), plain_res=float(res_p), max_abs_err=err, max_rel_err=rel,
+            bitwise_repeatable=repeatable, ms=cuda_time_ms(lambda: fused_poisson_pcg(*args, **kw), 10),
+            plain_ms=plain_ms,
+            **bound(nbytes, ops),
+        )
+        if row["zero_x0"]:
+            _, it_c, *_ = cell_poisson_pcg(b, diag, coefs, pd, **kw)
+            row.update(cell_poisson_pcg_iters=int(it_c),
+                       cell_poisson_pcg_ms=cuda_time_ms(lambda: cell_poisson_pcg(b, diag, coefs, pd, **kw), 10))
+        rows.append(row)
+    return rows
+
+
+def gate_sweep(b, diag, coefs, pd, planes):
+    """Both Jacobi-PCG kernels on the middle `planes` x planes of a cell
+    system (a principal submatrix: the same operator on fewer cells, the
+    fluid column included), at most SWEEP_ITERS iterations each (tol 0):
+    ms an iteration against the cell count, which sets
+    pressure.FUSED_POISSON_CELLS."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import cell_poisson_pcg, fused_poisson_pcg
+
+    fixed = dict(tol=0.0, rel_tol=0.0, max_iter=SWEEP_ITERS)
+    rows = []
+    for xc in planes:
+        x0 = (b.shape[0] - xc) // 2
+        sb, sd, sp = b[x0:x0 + xc], diag[x0:x0 + xc], pd[x0:x0 + xc]
+        sc = [(off, c[x0:x0 + xc]) for off, c in coefs]
+        z = torch.zeros_like(sb)
+        it_f = int(fused_poisson_pcg(sb, z, sd, sc, sp, **fixed)[1])
+        it_c = int(cell_poisson_pcg(sb, sd, sc, sp, **fixed)[1])
+        ms_f = cuda_time_ms(lambda: fused_poisson_pcg(sb, z, sd, sc, sp, **fixed), 5)
+        ms_c = cuda_time_ms(lambda: cell_poisson_pcg(sb, sd, sc, sp, **fixed), 5)
+        rows.append(dict(shape=list(sb.shape), cells=sb.numel(), fused_iters=it_f, cell_iters=it_c,
+                         fused_ms_per_iter=ms_f / max(it_f, 1), cell_ms_per_iter=ms_c / max(it_c, 1)))
+    return rows
+
+
+def lean_precond_phase(system):
+    """One application of the lean two-grid viscosity preconditioner (the
+    > 4M-face-cell route) to the viscosity right-hand side, kernels vs
+    plain versions: bitwise."""
+    from python_fluid_simulation_tpu_torch.ops.cuda_cg import flat_geometry
+    from python_fluid_simulation_tpu_torch.solvers import viscosity
+
+    (b, _, _, sphi_c, vol_c, s_mu), _ = system
+    shapes = [tuple(t.shape) for t in b]
+    geom = flat_geometry(sphi_c, vol_c)
+
+    def build():
+        return viscosity.make_viscosity_mg_preconditioner_lean(
+            s_mu, sphi_c, vol_c, shapes,
+            lambda vs: viscosity.coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, same_axis_only=True, geom=geom))
+
+    pre = build()
+    z_k = pre(b)
+    with plain_mg_routes(), patched([(viscosity, "coupled_matvec_geom", plain_geom_mv)]):
+        pre_p = build()
+        z_p, plain_ms = timed_once(lambda: pre_p(b))
+    check_bitwise("lean preconditioner", z_k, z_p)
+    del pre_p
+    return dict(
+        levels=[list(lv.diag.shape) for lv in pre.inner.levels], bitwise=True, max_abs_err=0.0,
+        ms=cuda_time_ms(lambda: pre(b), 5), plain_ms=plain_ms, setup_ms=cuda_time_ms(build, 2),
+    )
+
+
+def card_vs_plain(step_3d, before, after, cfg, geom, label):
+    """The step from `before` on the card with every kernel swapped for
+    its plain version, against the kernels' step `after`: STEP_TOL, and
+    no kernel launched.  Returns (errors, the plain step's state)."""
+    from python_fluid_simulation_tpu_torch.convert import state_to_numpy
+
+    read = reset_counters()
+    with plain_kernels():
+        plain_state, _ = step_3d(before, cfg, geom=geom)
+    launched = {k: v for k, v in read().items() if v}
+    if launched:
+        raise AssertionError(f"{label}: the plain step launched kernels {launched}")
+    ref, card = state_to_numpy(plain_state), state_to_numpy(after)
+    err = {k: float(abs(card[k] - ref[k]).max()) for k in STEP_TOL}
+    for k, tol in STEP_TOL.items():
+        if not err[k] <= tol:
+            raise AssertionError(f"{label} vs the plain step on the card: max |d{k}| {err[k]} > {tol}")
+    return err, plain_state
+
+
+def step_diff(a, b):
+    """Max |difference| of x, v and the APIC rows between two states (numpy
+    dicts), and how many particles' rows differ by more than STEP_TOL."""
+    import numpy as np
+
+    err = {k: float(np.abs(a[k] - b[k]).max()) for k in STEP_TOL}
+    rows = np.abs(a["c"] - b["c"]).reshape(len(a["c"]), -1).max(axis=1)
+    err["particles_rows_over_tol"] = int((rows > STEP_TOL["c"]).sum())
+    return err
+
+
 def reset_counters():
     from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_fold, cuda_mg, cuda_stencils
 
     wrappers = {
         "cell_poisson_pcg": cuda_stencils.cell_poisson_pcg,
+        "fused_poisson_pcg": cuda_stencils.fused_poisson_pcg,
         "coupled_visc_pcg": cuda_cg.coupled_visc_pcg,
         "stencil_matvec": cuda_stencils.stencil_matvec,
         "mg_level_chain": cuda_mg.level_chain,
@@ -719,12 +1008,15 @@ def reset_counters():
     for w in wrappers.values():
         w.launches = 0
     cuda_mg.level_chain.batched_launches = 0
+    cuda_cg.coupled_matvec_geom.same_axis_launches = 0
 
     def read():
         out = {name: w.launches for name, w in wrappers.items()}
         # the chain wrapper counts both forms: report them apart
         out["mg_level_chain_batched"] = cuda_mg.level_chain.batched_launches
         out["mg_level_chain"] -= out["mg_level_chain_batched"]
+        # of the geometry matvecs, the same-axis form (only the lean route's)
+        out["coupled_matvec_geom_same_axis"] = cuda_cg.coupled_matvec_geom.same_axis_launches
         return out
 
     return read
@@ -802,7 +1094,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device: this script only runs on an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from python_fluid_simulation_tpu_torch.convert import state_to_numpy
+    from python_fluid_simulation_tpu_torch.convert import state_from_numpy, state_to_numpy
     from python_fluid_simulation_tpu_torch.engine.scenes import (
         buckling_config,
         buckling_scene,
@@ -812,6 +1104,9 @@ def main() -> int:
     )
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
     from python_fluid_simulation_tpu_torch.ops import _cuda_build
+    from python_fluid_simulation_tpu_torch.ops.cuda_cg import coupled_matvec_geom
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec
+    from python_fluid_simulation_tpu_torch.solvers import pressure
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -916,17 +1211,22 @@ def main() -> int:
         mg_kw.update(n_smooth=int(n_s), min_dim=int(m_d), coarse_iters=int(c_i))
     stencil_rows = stencil_phase(cell)
     b_p, (diag_p, coefs_p, _) = cell[1][1]
+    stencil_lib = stencil_library(diag_p, coefs_p, b_p, stencil_matvec(diag_p, coefs_p, b_p))
     chain_rows, vcycle = vcycle_phase(b_p, diag_p, coefs_p, mg_kw)
     mg_rows = mg_solve_phase(cell, solve_kw)
     red_rows, bc_rows = binned_phase(got["reduce"], got["broadcast"])
     jac_kw = {k: solve_kw[k] for k in ("tol", "rel_tol", "max_iter")}
     cell128_rows = cell_kernel_phase([((b, d, c, pd), jac_kw) for _, (b, (d, c, pd)) in cell])
+    # the other side of the gate on the same systems
+    fused128_rows = fused_kernel_phase([(label, (b, torch.zeros_like(b), d, c, pd), jac_kw)
+                                        for label, (b, (d, c, pd)) in cell])
     coupled128 = coupled_kernel_phase((got["coupled"][0][1], got["coupled"][0][2]))
     del got, cell
     emit({"phase": "kernels_128", "grid": list(cfg128.grid.res), "particles": n128,
-          "stencil_matvec": stencil_rows, "mg_level_chain": chain_rows, "vcycle": vcycle, "mg_pcg": mg_rows,
+          "stencil_matvec": stencil_rows, "stencil_matvec_library": stencil_lib, "mg_level_chain": chain_rows, "vcycle": vcycle, "mg_pcg": mg_rows,
           "binned_segment_reduce": red_rows, "binned_segment_broadcast": bc_rows,
-          "cell_poisson_pcg_jacobi": cell128_rows, "coupled_visc_pcg": coupled128,
+          "cell_poisson_pcg_jacobi": cell128_rows, "fused_poisson_pcg_jacobi": fused128_rows,
+          "coupled_visc_pcg": coupled128,
           "seconds": time.perf_counter() - t0})
 
     # -- 128^3 main path
@@ -975,12 +1275,16 @@ def main() -> int:
         raise AssertionError(f"coiling capture: {[(k, len(v)) for k, v in got.items()]}")
     visc = (got["coupled"][0][1], got["coupled"][0][2])
     geom_rows = geom_matvec_phase(visc)
+    (_, x0c, _, sphi_cc, vol_cc, s_muc), _ = visc
+    geom_lib = coupled_library(visc, coupled_matvec_geom(sphi_cc, vol_cc, s_muc, x0c))
+    del x0c, sphi_cc, vol_cc, s_muc
     level0_row, bchain_rows, bvcycle = batched_vcycle_phase(visc)
     vmg_row = visc_mg_solve_phase(visc)
     fold_rows = fold_phase(got["fold"])
     del got, visc
     emit({"phase": "kernels_coil", "grid": list(cfgc.grid.res), "particles": nc,
-          "coupled_matvec_geom": geom_rows, "batched_level0_matvec": level0_row,
+          "coupled_matvec_geom": geom_rows, "coupled_matvec_geom_library": geom_lib,
+          "batched_level0_matvec": level0_row,
           "mg_level_chain_batched": bchain_rows, "batched_vcycle": bvcycle, "visc_mg_pcg": vmg_row,
           "fold": fold_rows, "seconds": time.perf_counter() - t0})
 
@@ -1040,11 +1344,122 @@ def main() -> int:
           "cpu_steps_seconds": cpuc, "card_vs_cpu": errc, "step_tol": STEP_TOL,
           "seconds": time.perf_counter() - t0})
 
+    # -- 504: the kernels on the systems, the viscosity system and the
+    #    level set's fold of step 3 of the 'auto' run (its Jacobi branch)
+    t0 = time.perf_counter()
+    cfg504 = coiling_config(RES_504)
+    s504 = coiling_scene(cfg504, seed=0, device="cuda")
+    n504 = int(s504.particles.x.shape[0])
+    cells504 = math.prod(cfg504.grid.res)
+    if ((cfg504.grid.res, n504) != SHAPE_504 or cfg504.solver.viscosity_precond != "auto"
+            or cfg504.solver.precond != "jacobi" or not cells504 > pressure.FUSED_POISSON_CELLS):
+        raise AssertionError(f"unexpected 504 config: grid {cfg504.grid.res}, {n504} particles, {cfg504.solver}")
+    geom504 = build_geom_cache(s504.solid)
+    state2 = s504
+    for _ in range(2):
+        state2, _ = step_3d(state2, cfg504, geom=geom504)
+    got = capture_504(step_3d, state2, cfg504, geom504)
+    del state2
+    if len(got["fused"]) != 2 or got["cell"] or len(got["coupled"]) != 1 or len(got["fold"]) != 1:
+        raise AssertionError(f"504 capture: {[(k, len(v)) for k, v in got.items()]}")
+    cell504 = [(label, args, kw) for label, (args, kw) in zip(("density", "pressure"), got["fused"])]
+    b_p, _, diag_p, coefs_p, pd_p = cell504[1][1]
+    # x0 as an input: the pressure system from a random start too
+    x0_rand = torch.randn(b_p.shape, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    x0_rand *= b_p.abs().max()
+    fused504_rows = fused_kernel_phase(
+        cell504 + [("pressure_random_x0", (b_p, x0_rand, diag_p, coefs_p, pd_p), cell504[1][2])])
+    sweep = gate_sweep(b_p, diag_p, coefs_p, pd_p, SWEEP_PLANES)
+    del x0_rand, b_p, diag_p, coefs_p, pd_p, cell504
+    visc504 = got["coupled"][0]
+    geom504_rows = geom_matvec_phase(visc504)
+    coupled504 = coupled_kernel_phase(visc504)
+    lean_row = lean_precond_phase(visc504)
+    lean_pcg = visc_mg_solve_phase(visc504)
+    if not lean_pcg["bitwise"]:
+        raise AssertionError(f"504 lean MG-PCG: kernels vs plain versions not bitwise (max abs {lean_pcg['max_abs_err']})")
+    fold504 = fold_phase([("compute_fluid_levelset", *got["fold"][0])])
+    if fold504[0]["C"] * math.prod(fold504[0]["table"]) * 4 <= 2**31 or not fold504[0]["bitwise"]:
+        raise AssertionError(f"504 level-set fold: {fold504[0]}")
+    del got, visc504
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_504", "grid": list(cfg504.grid.res), "particles": n504,
+          "fused_poisson_pcg": fused504_rows, "gate_sweep": sweep,
+          "fused_poisson_cells": pressure.FUSED_POISSON_CELLS, "coupled_matvec_geom": geom504_rows,
+          "coupled_visc_pcg": coupled504, "lean_preconditioner": lean_row, "lean_mg_pcg": lean_pcg,
+          "fold_levelset": fold504[0], "seconds": time.perf_counter() - t0})
+
+    # -- 504 main path: 'auto' from the scene (the Jacobi branch), then
+    #    'auto' from visc_mg = 2 (the lean MG branch) from its state after
+    #    2 steps; each run's counters reset just before it, read just after
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs504, launches_by_run504 = {}, {}
+    read_counts = reset_counters()
+    runs504["auto"] = run_coil(step_3d, s504, cfg504, geom504, STEPS_504, 2)
+    launches_by_run504["auto"] = read_counts()
+    read_counts = reset_counters()
+    runs504["auto_from_visc_mg_2"] = run_coil(step_3d, dataclasses.replace(runs504["auto"][1][2], visc_mg=2),
+                                              cfg504, geom504, STEPS_504, 1)
+    launches_by_run504["auto_from_visc_mg_2"] = read_counts()
+    peak504 = torch.cuda.max_memory_allocated()
+    every_path = ("fused_poisson_pcg", "fold", "binned_segment_reduce", "binned_segment_broadcast")
+    need_by_run = {"auto": every_path + ("coupled_visc_pcg",),
+                   "auto_from_visc_mg_2": every_path + ("coupled_matvec_geom", "coupled_matvec_geom_same_axis",
+                                                        "mg_level_chain_batched", "stencil_matvec")}
+    for label, (state, _, _, metrics, branch) in runs504.items():
+        check_run(state, metrics, launches_by_run504[label], need_by_run[label], f"504 {label}")
+        if launches_by_run504[label]["cell_poisson_pcg"]:
+            raise AssertionError(f"504 {label}: a cell solve took cell_poisson_pcg")
+        want = "mg" if label != "auto" else "jacobi"
+        if branch != [want] * len(branch):
+            raise AssertionError(f"504 {label}: the viscosity solve took {branch}")
+    # the first lean-MG step again, bit for bit
+    before, first = runs504["auto_from_visc_mg_2"][1][0], runs504["auto_from_visc_mg_2"][1][1]
+    again, _ = step_3d(before, cfg504, geom=geom504)
+    for k in ("x", "v", "c"):
+        if not torch.equal(getattr(again.particles, k), getattr(first.particles, k)):
+            raise AssertionError(f"504: the first lean-MG step run twice differs in {k}")
+    del again
+    # the first lean step held against the same step on the card with every
+    # kernel swapped for its plain version
+    tc = time.perf_counter()
+    err504, plain_after = card_vs_plain(step_3d, before, first, cfg504, geom504, "504 first lean-MG step")
+    plain504 = time.perf_counter() - tc
+    # reported, not asserted: the same step on the CPU (~100-120 s, ~18 GB
+    # of host memory); its APIC rows differ from both card steps by more
+    # than STEP_TOL at a few free-surface particles (PERF.md)
+    tc = time.perf_counter()
+    cpu_after, _ = step_3d(state_from_numpy(state_to_numpy(before), device="cpu"), cfg504)
+    cpu504 = time.perf_counter() - tc
+    cpu_np = state_to_numpy(cpu_after)
+    vs_cpu504 = {"card": step_diff(state_to_numpy(first), cpu_np),
+                 "plain_on_card": step_diff(state_to_numpy(plain_after), cpu_np)}
+    del plain_after, cpu_after, cpu_np
+    launches504 = {name: sum(lr[name] for lr in launches_by_run504.values()) for name in launches_by_run504["auto"]}
+    out504 = {}
+    for label, (_, _, step_ms504, metrics504, branch) in runs504.items():
+        timed = step_ms504[1:]
+        out504[label] = dict(
+            warmup_step_ms=step_ms504[0], step_ms=timed, median_step_ms=statistics.median(timed), branch=branch,
+            iters={k: [m[f"{k}_iters"] for m in metrics504] for k in ("density", "viscosity", "pressure")},
+            visc_rel_residual=[m["viscosity_rel_residual"] for m in metrics504],
+        )
+    del runs504, before, first, s504, geom504
+    emit({"phase": "main_504", "grid": list(cfg504.grid.res), "particles": n504, "runs": out504,
+          "launches": launches_by_run504, "max_memory_allocated": peak504, "first_lean_step_bitwise_repeatable": True,
+          "check": "the first lean-MG step vs the same step on the card with every kernel swapped for its plain version",
+          "plain_step_seconds": plain504, "card_vs_plain_on_card": err504,
+          "reported_vs_cpu": vs_cpu504, "cpu_step_seconds": cpu504, "step_tol": STEP_TOL,
+          "seconds": time.perf_counter() - t0})
+
     # -- summary: the nvidia-smi line, the kernels line, then the result
     def entry(name, source, replaces, row, library_ms=None):
         return {"name": name, "route": "cuda", "source": f"python_fluid_simulation_tpu_torch/csrc/{source}",
                 "replaces": f"python_fluid_simulation_tpu/ops/{replaces}",
-                "launches": launches[name] + launches128[name] + launchesc[name], "max_abs_err": row["max_abs_err"],
+                "launches": launches[name] + launches128[name] + launchesc[name] + launches504[name],
+                "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": max(row["bytes_ms"], row["ops_ms"]),
                 "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations",
                 "library_ms": library_ms}
@@ -1063,12 +1478,15 @@ def main() -> int:
     kernels = [
         entry("cell_poisson_pcg", "cell_poisson_pcg.cu", "pallas_stencils.py:125", pres),
         entry("coupled_visc_pcg", "coupled_visc_pcg.cu", "pallas_cg.py:673", coupled_row),
-        entry("stencil_matvec", "stencil_matvec.cu", "pallas_stencils.py:299", sten),
+        # the blocked Poisson PCG on the 504 pressure system
+        entry("fused_poisson_pcg", "fused_poisson_pcg.cu", "pallas_cg.py:263",
+              dict(fused504_rows[1], max_abs_err=max(r["max_abs_err"] for r in fused504_rows))),
+        entry("stencil_matvec", "stencil_matvec.cu", "pallas_stencils.py:299", sten, stencil_lib["library_ms"]),
         entry("mg_level_chain", "mg_level_chain.cu", "pallas_mg.py:100", total(chain_rows)),
         entry("binned_segment_reduce", "binned_segment.cu", "pallas_binned.py:423", red, red["library_ms"]),
         entry("binned_segment_broadcast", "binned_segment.cu", "pallas_binned.py:179", bc, bc["library_ms"]),
         # the full operator (the MG-PCG's outer matvec); same-axis in kernels_coil
-        entry("coupled_matvec_geom", "coupled_matvec.cu", "pallas_cg.py:714", geom_rows[0]),
+        entry("coupled_matvec_geom", "coupled_matvec.cu", "pallas_cg.py:714", geom_rows[0], geom_lib["library_ms"]),
         # the chains of one batched viscosity V-cycle (B = 3)
         entry("mg_level_chain_batched", "mg_level_chain.cu", "pallas_mg.py:100", total(bchain_rows)),
         # the folds of one coiling step

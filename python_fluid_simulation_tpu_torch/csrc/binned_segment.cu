@@ -30,6 +30,12 @@
 // channels-first layout, for reads strided by C; tuning is later work.
 //
 // Ids are int64, the dtype of the port's torch.sort of cell ids.
+//
+// Index widths: M and C are 32-bit (the wrapper checks M < 2^31 and
+// 256 C < 2^31, the pairs a reduce block counts in an int); every element
+// offset -- row * C + c, (m0 + s) * C + c, c * M + m0 + s, id * C + t % C --
+// is computed in 64 bits, so a table may pass 2^31 entries (the level
+// set's 125-channel reduce at 126x504x126 cells holds 1.0e9).
 
 #include <cuda_runtime.h>
 

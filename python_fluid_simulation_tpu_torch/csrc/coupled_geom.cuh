@@ -11,6 +11,11 @@
 // w = (sign*factor)*s_mu; term = where(mask, w*vol, 0) * v; the fluid test
 // is sphi >= 0.  Geometry reads outside a class array read 0 (vol) or -1
 // (sphi); velocity reads outside a face array read 0.
+//
+// Index widths: the plan's class and field offsets are 32-bit words (the
+// host checks that the geometry and the three face arrays each hold fewer
+// than 2^31 entries: 64.6M and 24.2M at 126x504x126 cells); every element
+// index is computed in 64 bits from them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -69,23 +74,13 @@ __device__ __forceinline__ void face_shape(const Plan& p, int f, int* s) {
   s[2] = p.n[2] + (f == 2);
 }
 
-// kRound: every product and sum rounded on its own (no FMA contraction),
-// so the result is bitwise the plain PyTorch version's; otherwise the
-// compiler may contract (the fused PCG's arithmetic).
-template <bool kRound>
-__device__ __forceinline__ float mul(float a, float b) {
-  return kRound ? __fmul_rn(a, b) : a * b;
-}
-template <bool kRound>
-__device__ __forceinline__ float add(float a, float b) {
-  return kRound ? __fadd_rn(a, b) : a + b;
-}
-
 // (A v) at face (cx, cy, cz) of field f; v is the concatenated 3-field
 // vector, read through L2 (kCoherent) when it is written inside the kernel.
 // kNTerms = kTerms: the coupled operator; kSameTerms: its block-diagonal
-// part (the diagonal and the 6 same-field couplings).
-template <bool kCoherent, int kNTerms, bool kRound>
+// part (the diagonal and the 6 same-field couplings).  Every product and
+// sum is rounded on its own (no FMA contraction), so the result is bitwise
+// the plain PyTorch version's.
+template <bool kCoherent, int kNTerms>
 __device__ __forceinline__ float apply_a(const Plan& p, const float* g,
                                          const float* v, int f, int cx,
                                          int cy, int cz, float smu) {
@@ -100,23 +95,23 @@ __device__ __forceinline__ float apply_a(const Plan& p, const float* g,
   float extra = 0.f;
 #pragma unroll
   for (int j = 1; j < kDiag; ++j)
-    extra = add<kRound>(
-        extra, mul<kRound>(P.diag_factor[j],
+    extra = __fadd_rn(
+        extra, __fmul_rn(P.diag_factor[j],
                            geom(p, g, P.diag_cls[j], cx + P.diag_k[j][0],
                                 cy + P.diag_k[j][1], cz + P.diag_k[j][2])));
-  const float diag_raw = add<kRound>(center, mul<kRound>(smu, extra));
+  const float diag_raw = __fadd_rn(center, __fmul_rn(smu, extra));
   const long self = p.off[f] + ((long)cx * s[1] + cy) * s[2] + cz;
   const float vself = kCoherent ? __ldcg(v + self) : v[self];
-  float acc = mul<kRound>(active ? diag_raw : 0.f, vself);
+  float acc = __fmul_rn(active ? diag_raw : 0.f, vself);
 #pragma unroll
   for (int t = 0; t < kNTerms; ++t) {
     const Term& T = P.terms[t];
-    const float w = mul<kRound>(T.sf, smu);
+    const float w = __fmul_rn(T.sf, smu);
     const bool fluid =
         geom(p, g, T.scls, cx + T.ck[0], cy + T.ck[1], cz + T.ck[2]) >= 0.f;
     const float coef =
         (active && fluid)
-            ? mul<kRound>(w, geom(p, g, T.vcls, cx + T.vk[0], cy + T.vk[1],
+            ? __fmul_rn(w, geom(p, g, T.vcls, cx + T.vk[0], cy + T.vk[1],
                                   cz + T.vk[2]))
             : 0.f;
     int u[3];
@@ -127,7 +122,7 @@ __device__ __forceinline__ float apply_a(const Plan& p, const float* g,
       const long j = p.off[T.field] + ((long)vx * u[1] + vy) * u[2] + vz;
       vv = kCoherent ? __ldcg(v + j) : v[j];
     }
-    acc = add<kRound>(acc, mul<kRound>(coef, vv));
+    acc = __fadd_rn(acc, __fmul_rn(coef, vv));
   }
   return acc;
 }

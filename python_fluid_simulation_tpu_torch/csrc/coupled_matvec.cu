@@ -47,8 +47,8 @@ __global__ void __launch_bounds__(pfs::kThreads)
        i += stride) {
     int f, cx, cy, cz;
     pfs::coupled::decode(a.plan, i, &f, &cx, &cy, &cz);
-    a.q[i] = pfs::coupled::apply_a<false, kNTerms, true>(a.plan, a.geom, a.v,
-                                                         f, cx, cy, cz, smu);
+    a.q[i] = pfs::coupled::apply_a<false, kNTerms>(a.plan, a.geom, a.v, f,
+                                                   cx, cy, cz, smu);
   }
 }
 

@@ -18,7 +18,10 @@
 //
 // The stencil plan and the per-face apply (phase A) live in coupled_geom.cuh,
 // shared with the standalone matvec (coupled_matvec.cu); this kernel calls
-// it with compiler contraction allowed, as it did before the split.
+// it with every operation rounded on its own, as the matvec and the plain
+// version do, so phase A's A d is bitwise coupled_matvec_plain's.  (With
+// contraction allowed, the products that cancel in a face's sum left
+// last-bit differences of up to 1.9e-5 at 24M faces, on an H100.)
 
 #include <cstring>
 
@@ -53,12 +56,12 @@ struct CoupledArgs {
   int max_iter;
 };
 
-// Phase A's apply: the full coupled operator, contraction allowed.
+// Phase A's apply: the full coupled operator, each operation rounded.
 template <bool kCoherent>
 __device__ __forceinline__ float apply_a(const CoupledArgs& a, const float* v,
                                          int f, int cx, int cy, int cz,
                                          float smu) {
-  return pfs::coupled::apply_a<kCoherent, pfs::coupled::kTerms, false>(
+  return pfs::coupled::apply_a<kCoherent, pfs::coupled::kTerms>(
       a.plan, a.geom, v, f, cx, cy, cz, smu);
 }
 

@@ -118,11 +118,14 @@ __device__ __forceinline__ float channels(const FoldArgs& a, int j0, int j1,
 }
 
 // One thread per target; the host keeps the target count at most 2^30, so
-// the target's coordinates come from 32-bit divisions.
+// the target's coordinates come from 32-bit divisions (i + stride stays
+// below 2^31).  Table offsets are 64-bit (channel * cstride + source), so
+// the table itself may pass 2^31 entries: the level set's 125-channel
+// table at 126x504x126 cells holds 1.0e9 (4.0 GB).
 template <bool kMin, int K>
 __global__ void __launch_bounds__(pfs::kThreads)
     fold_kernel(const __grid_constant__ FoldArgs a) {
-  const int n = a.N[0] * a.N[1] * a.N[2];
+  const int n = (int)((long)a.N[0] * a.N[1] * a.N[2]);
   const int stride = gridDim.x * pfs::kThreads;
   for (int i = blockIdx.x * pfs::kThreads + threadIdx.x; i < n; i += stride) {
     const int t[3] = {i / (a.N[1] * a.N[2]), (i / a.N[2]) % a.N[1], i % a.N[2]};

@@ -11,24 +11,25 @@ cell 13, :4552-4693).  Step order follows cell 13:
   -> G2P (:4660) -> viscosity-preconditioner hysteresis flag.
 
 The three solves run as CUDA kernels when the state lives on the GPU
-(``ops/cuda_stencils.py``, ``ops/cuda_cg.py``; with ``precond='mg'`` the
+(``ops/cuda_stencils.py``: the Jacobi cell solves take the streamed PCG
+kernel above ``solvers/pressure.py::FUSED_POISSON_CELLS`` cells;
+``ops/cuda_cg.py``; with ``precond='mg'`` the
 cell solves are CG over ``stencil_matvec`` with the multigrid V-cycle of
 ``solvers/multigrid.py`` and ``ops/cuda_mg.py``; with
 ``viscosity_precond='mg'``, or 'auto' while the carried flag is set, the
 viscosity solve is CG over ``coupled_matvec_geom`` with the batched
-block V-cycle), and so do the segment reduces and broadcasts and the
+block V-cycle, or above 4M face cells the lean two-grid cycle), and so
+do the segment reduces and broadcasts and the
 folds of the transfers (``ops/cuda_binned.py``, ``ops/cuda_fold.py``).
 The Jacobi solves make no host sync; the MG-PCG loops test their exit on
 the host once per iteration, and 'auto' reads its flag once a step.  Not
 yet ported (they raise): the 'unet' / 'unet_warm' viscosity modes,
-moving solids, the viscosity MG route above 4M face cells, meshes and
-bucketing.
+moving solids, meshes and bucketing.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Tuple
 
 import torch
@@ -43,8 +44,8 @@ from python_fluid_simulation_tpu_torch.ops.levelset import compute_fluid_levelse
 from python_fluid_simulation_tpu_torch.ops.transfers import g2p_all, make_sort_info, p2g_all
 from python_fluid_simulation_tpu_torch.solvers.density import density_solve_3d
 from python_fluid_simulation_tpu_torch.solvers.pressure import pressure_solve_3d
-from python_fluid_simulation_tpu_torch.solvers.viscosity import MG_FACE_CELLS, viscosity_solve_3d
-from python_fluid_simulation_tpu_torch.state import Particles, SimState, face_shapes
+from python_fluid_simulation_tpu_torch.solvers.viscosity import viscosity_solve_3d
+from python_fluid_simulation_tpu_torch.state import Particles, SimState
 
 _FACE_BIAS = ((0.0, 0.5, 0.5), (0.5, 0.0, 0.5), (0.5, 0.5, 0.0))
 
@@ -76,11 +77,6 @@ def _check_supported(cfg: SimConfig):
         raise NotImplementedError(f"cell-Poisson precond={sol.precond!r} (jacobi_precond={sol.jacobi_precond}) is not ported")
     if sol.viscosity_precond not in ("jacobi", "mg", "auto"):
         raise NotImplementedError(f"viscosity_precond={sol.viscosity_precond!r} is not ported")
-    if sol.viscosity_precond != "jacobi" and math.prod(face_shapes(cfg.grid.res)[0]) > MG_FACE_CELLS:
-        raise NotImplementedError(
-            f"viscosity_precond={sol.viscosity_precond!r} above {MG_FACE_CELLS} face cells "
-            "(the lean viscosity MG route) is not ported yet"
-        )
     if sol.pressure_dt_scaled:
         raise NotImplementedError("the dt-scaled pressure assembly is not ported")
 

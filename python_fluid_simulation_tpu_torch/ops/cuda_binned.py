@@ -62,6 +62,20 @@ def segment_broadcast_plain(table, sorted_ids):
     return torch.where(mask, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
 
 
+# The kernels take the segment count and the channel count as 32-bit ints
+# and a reduce block walks its 256 segments' (segment, channel) pairs with
+# a 32-bit counter; every element offset (row * C + c, segment * C + c,
+# c * M + segment) is 64-bit, so a table may hold more than 2^31 entries
+# (the level set's 125-channel reduce at 126x504x126 cells: 1.0e9).
+MAX_SEGMENTS = 2**31 - 1
+MAX_CHANNELS = (2**31 - 1) // 256
+
+
+def _check_extents(name, m, c):
+    if not (0 <= m <= MAX_SEGMENTS and 0 < c <= MAX_CHANNELS):
+        raise ValueError(f"{name}: at most {MAX_SEGMENTS} segments of at most {MAX_CHANNELS} channels, got {m} x {c}")
+
+
 def _check_rows(name, vals, sorted_ids):
     if vals.ndim != 2 or vals.dtype != torch.float32 or not vals.is_contiguous():
         raise ValueError(f"{name}: need contiguous float32 (K, C) values, got {vals.dtype} {tuple(vals.shape)}")
@@ -84,6 +98,7 @@ def segment_reduce(vals, sorted_ids, num_segments: int, op: str = "add", fill: f
     k, c = vals.shape
     if sorted_ids.shape[0] != k:
         raise ValueError(f"segment_reduce: {sorted_ids.shape[0]} ids for {k} rows")
+    _check_extents("segment_reduce", int(num_segments), c)
     out = torch.empty((c, num_segments) if channels_first else (num_segments, c), dtype=vals.dtype, device=vals.device)
     err = cb.LIB.get().pfs_binned_reduce(
         vals.data_ptr(), sorted_ids.data_ptr(), k, int(num_segments), c, int(op == "min"),
@@ -105,6 +120,7 @@ def segment_broadcast(table, sorted_ids):
         raise ValueError(f"segment_broadcast: unsupported device {table.device}")
     _check_rows("segment_broadcast", table, sorted_ids)
     m, c = table.shape
+    _check_extents("segment_broadcast", m, c)
     k = sorted_ids.shape[0]
     out = torch.empty((k, c), dtype=table.dtype, device=table.device)
     err = cb.LIB.get().pfs_binned_broadcast(

@@ -126,6 +126,8 @@ def plan_words(n: tuple) -> np.ndarray:
     words += [int(k) for k in n]
     sizes = [int(np.prod(s)) for s in _face_shapes(n)]
     words += [0, sizes[0], sizes[0] + sizes[1], sum(sizes)]
+    if off >= 2**31 or sum(sizes) >= 2**31:  # the plan's offsets are int32 words
+        raise ValueError(f"coupled kernels: grid {tuple(n)} has more than 2^31 geometry or face entries")
     out = np.asarray(words, dtype=np.int32)
     out.flags.writeable = False
     return out
@@ -257,10 +259,13 @@ def coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, *, same_axis_only: bool = False
     )
     cb.check(err, "coupled_matvec_geom launch")
     coupled_matvec_geom.launches += 1
+    if same_axis_only:
+        coupled_matvec_geom.same_axis_launches += 1
     return _split(q, shapes)
 
 
 coupled_matvec_geom.launches = 0
+coupled_matvec_geom.same_axis_launches = 0  # of them, the block-diagonal form
 
 
 def coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, *, tol, rel_tol, max_iter):

@@ -15,6 +15,16 @@ arithmetic is ~25 flops a cell an iteration.  In practice an iteration
 is bound by its three grid barriers and the L2 traffic of ~20 field
 passes, so the design keeps everything in one launch and in L2.
 
+`fused_poisson_pcg` replaces ``pallas_cg.py::make_fused_coupled_cg``
+with F = 1 (through ``make_fused_poisson_cg``): the same Jacobi-PCG from
+an initial guess x0, for grids whose working set is several times the L2
+(``csrc/fused_poisson_pcg.cu``): two grid barriers an iteration, the
+direction update folded into the matvec phase (a neighbour's direction
+recomputed where its coupling is nonzero), every field pass a
+device-memory pass (19 an iteration, ~0.18 ms at 126x504x126
+cells and 3.35 TB/s).  Its thresholds round as the TPU solve loop's
+(``cuda_cg.squared_tols``).
+
 `stencil_matvec` replaces ``pallas_stencils.py::
 make_blocked_stencil_matvec`` (``csrc/stencil_matvec.cu``): one
 application q = A p, the operator of the MG-preconditioned CG and the
@@ -22,9 +32,9 @@ level-0 smoother of its V-cycle.  It is bound by bytes (8 fields read, 1
 written).
 
 Routing: a CUDA tensor launches the kernel; a CPU tensor runs the plain
-version (`cell_poisson_pcg_plain`, `stencil_matvec_plain`: the same
-arithmetic in PyTorch), which also serves as the kernel's reference on
-the card.
+version (`cell_poisson_pcg_plain`, `fused_poisson_pcg_plain`,
+`stencil_matvec_plain`: the same arithmetic in PyTorch), which also
+serves as the kernel's reference on the card.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import numpy as np
 import torch
 
 from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
+from python_fluid_simulation_tpu_torch.ops import cuda_cg
 from python_fluid_simulation_tpu_torch.ops.indexing import shift
 from python_fluid_simulation_tpu_torch.solvers.cg import cg, threshold
 
@@ -63,6 +74,19 @@ def cell_poisson_pcg_plain(b, diag, coefs, pd, *, tol, rel_tol, max_iter):
     (x,), stats, thresh, _ = cg(
         lambda v: (stencil_matvec_plain(diag, coefs, v[0]),),
         (b,), (torch.zeros_like(b),),
+        tol2=tol2, rel2=rel2, max_iter=max_iter,
+        precond=lambda r: (r[0] / pd,),
+    )
+    return x, stats.iters, stats.residual, stats.initial_residual, thresh
+
+
+def fused_poisson_pcg_plain(b, x0, diag, coefs, pd, *, tol, rel_tol, max_iter):
+    """Plain PyTorch version of `fused_poisson_pcg`: returns
+    (x, iters, res, res0, thresh)."""
+    tol2, rel2 = cuda_cg.squared_tols(tol, rel_tol)
+    (x,), stats, thresh, _ = cg(
+        lambda v: (stencil_matvec_plain(diag, coefs, v[0]),),
+        (b,), (x0,),
         tol2=tol2, rel2=rel2, max_iter=max_iter,
         precond=lambda r: (r[0] / pd,),
     )
@@ -157,3 +181,42 @@ def cell_poisson_pcg(b, diag, coefs, pd, *, tol, rel_tol, max_iter):
 
 
 cell_poisson_pcg.launches = 0
+
+
+def fused_poisson_pcg(b, x0, diag, coefs, pd, *, tol, rel_tol, max_iter):
+    """Jacobi-PCG solve of the 7-point system (diag, coefs) from x0, for
+    big grids (the blocked TPU PCG's semantics).
+
+    coefs: [(offset, field)] in `OFFSETS` order; pd is 1 on rows outside
+    the system.  Returns (x, iters, res, res0, thresh) as tensors on b's
+    device; the CUDA route makes no host sync.
+    """
+    if b.device.type == "cpu":
+        return fused_poisson_pcg_plain(b, x0, diag, coefs, pd, tol=tol, rel_tol=rel_tol, max_iter=max_iter)
+    if b.device.type != "cuda":
+        raise ValueError(f"fused_poisson_pcg: unsupported device {b.device}")
+    shape = tuple(b.shape)
+    if len(shape) != 3:
+        raise ValueError(f"fused_poisson_pcg: 3D grids only, got {shape}")
+    check_stencil("fused_poisson_pcg", shape, b.device, diag, coefs)
+    for name, t in (("b", b), ("x0", x0), ("pd", pd)):
+        check_field(name, t, shape, b.device)
+    lib = cb.LIB.get()
+    x, r, d0, d1, q = (torch.empty_like(b) for _ in range(5))
+    part = torch.empty(_PART_CAP, dtype=torch.float32, device=b.device)
+    iters = torch.empty((), dtype=torch.int32, device=b.device)
+    res = torch.empty((), dtype=torch.float32, device=b.device)
+    res0 = torch.empty((), dtype=torch.float32, device=b.device)
+    tol2, rel2 = cuda_cg.squared_tols(tol, rel_tol)
+    err = lib.pfs_fused_poisson_pcg(
+        b.data_ptr(), x0.data_ptr(), diag.data_ptr(), *[c.data_ptr() for _, c in coefs], pd.data_ptr(),
+        x.data_ptr(), r.data_ptr(), d0.data_ptr(), d1.data_ptr(), q.data_ptr(), part.data_ptr(), _PART_CAP,
+        iters.data_ptr(), res.data_ptr(), res0.data_ptr(), *shape,
+        tol2, rel2, int(max_iter), cb.stream_of(b),
+    )
+    cb.check(err, "fused_poisson_pcg launch")
+    fused_poisson_pcg.launches += 1
+    return x, iters, res, res0, threshold(tol2, rel2, res0)
+
+
+fused_poisson_pcg.launches = 0

@@ -8,8 +8,10 @@ Runs a step on the card.  ``--scene buckling`` (the default): the
 else ``scaled_buckling_config(R)`` (``--res 128``: 77x128x77 cells,
 356,256 particles, MG-PCG cell solves).  ``--scene coiling``:
 ``coiling_config(R)`` (default R 256: 64x256x64 cells, 73,644 particles,
-MG-PCG cell solves, the 'auto' viscosity preconditioner);
-``--viscosity-precond`` overrides the configuration's (``mg`` profiles
+MG-PCG cell solves, the 'auto' viscosity preconditioner; ``--res 504``:
+the big grid, 126x504x126 cells, 465,868 particles, Jacobi cell solves
+through the streamed Poisson PCG, and with ``--viscosity-precond mg``
+the lean two-grid viscosity MG); ``--viscosity-precond`` overrides the configuration's (``mg`` profiles
 the MG branch).  Every fold call is a ``pfs_fold`` range in the
 profile.  3 warm-up steps, then ``--steps``
 steps timed on the host clock without the profiler, then ``--steps``

@@ -4,7 +4,9 @@ Counterpart of ``python_fluid_simulation_tpu.solvers.pressure`` (the
 reference's ``solver/PressureCGSolver3D.py``): the 7-point ghost-fluid
 system, its RHS and the velocity update are PyTorch stencils (shifts +
 where).  The solve takes the configured preconditioner: 'jacobi' is the
-cell-Poisson PCG kernel (``ops/cuda_stencils.py``), 'mg' the generic CG
+cell-Poisson PCG kernel (``ops/cuda_stencils.py``; above
+`FUSED_POISSON_CELLS` cells the streamed PCG kernel of the JAX package's
+big-grid route), 'mg' the generic CG
 (``solvers/cg.py``) over the 7-point matvec kernel with the multigrid
 V-cycle (``solvers/multigrid.py``) as preconditioner.  The MG route
 tests its exit on the host once per iteration, as the JAX package's
@@ -22,7 +24,7 @@ import torch
 
 import numpy as np
 
-from python_fluid_simulation_tpu_torch.ops.cuda_stencils import cell_poisson_pcg, stencil_matvec
+from python_fluid_simulation_tpu_torch.ops.cuda_stencils import cell_poisson_pcg, fused_poisson_pcg, stencil_matvec
 from python_fluid_simulation_tpu_torch.ops.fractions import edge_in_fraction
 from python_fluid_simulation_tpu_torch.ops.indexing import (
     dual_sample,
@@ -33,6 +35,14 @@ from python_fluid_simulation_tpu_torch.ops.indexing import (
 )
 from python_fluid_simulation_tpu_torch.solvers.cg import SolveStats, cg
 from python_fluid_simulation_tpu_torch.solvers.multigrid import make_mg_preconditioner
+
+# Jacobi solves of more cells take `fused_poisson_pcg`, fewer
+# `cell_poisson_pcg`: both run Jacobi-PCG from x0 = 0, so the gate only
+# decides speed.  Set from both kernels' ms an iteration on slabs of the
+# coiling_504 pressure system on an H100 (chip_smoke.py, kernels_504's
+# gate sweep): within 5% of each other up to 2.0M cells, either one
+# ahead; the streamed kernel 7% faster at 4.0M cells and 10% at 8.0M.
+FUSED_POISSON_CELLS = 3_000_000
 
 _GHOST_CLIP = (0.01, 1.0)  # frac = clamp(phi/(phi-nphi), 0.01, 1)
 
@@ -141,15 +151,18 @@ def solve_cell_poisson(b, coefficients, *, tol: float, rel_tol: float, max_iter:
 
     ``coefficients`` is (diag, [(off, coef)], precond_diag) from
     `pressure_coefficients` or ``density.density_coefficients``.
-    ``precond`` 'jacobi' runs the cell-Poisson kernel; 'mg' runs CG with
+    ``precond`` 'jacobi' runs the cell-Poisson kernel, or above
+    `FUSED_POISSON_CELLS` cells the streamed one; 'mg' runs CG with
     a V-cycle preconditioner shaped by ``mg_opts`` = (n_smooth, min_dim,
     coarse_iters) (None: 2, 4, 24).  Returns (x, SolveStats).
     """
     diag, coefs, precond_diag = coefficients
     if precond == "jacobi":
-        x, iters, res, res0, thresh = cell_poisson_pcg(
-            b, diag, coefs, precond_diag, tol=tol, rel_tol=rel_tol, max_iter=max_iter,
-        )
+        kw = dict(tol=tol, rel_tol=rel_tol, max_iter=max_iter)
+        if b.numel() > FUSED_POISSON_CELLS:
+            x, iters, res, res0, thresh = fused_poisson_pcg(b, torch.zeros_like(b), diag, coefs, precond_diag, **kw)
+        else:
+            x, iters, res, res0, thresh = cell_poisson_pcg(b, diag, coefs, precond_diag, **kw)
         return x, SolveStats(iters=iters, residual=res, initial_residual=res0, converged=res < thresh)
     if precond != "mg":
         raise ValueError(f"unknown cell-Poisson preconditioner {precond!r}")

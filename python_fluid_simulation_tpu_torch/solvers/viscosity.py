@@ -23,9 +23,10 @@ solid (solve :573).  scale = dt/(cell_vol*rho); vol = lvol/(cell_vol/8)
 (``ops/cuda_cg.py``), which rebuilds the couplings from the geometry; the
 MG-PCG solve is CG over the geometry-recompute matvec (``ops/cuda_cg.py::
 coupled_matvec_geom``) with the batched block V-cycle of
-``solvers/multigrid.py``.  The JAX package's axis permutations
-(``_PERM_CANDIDATES``) work around a TPU VMEM limit and have no
-counterpart here.
+``solvers/multigrid.py`` (above `MG_FACE_CELLS` face cells the lean
+two-grid cycle, whose fine level is the same-axis geometry matvec).  The
+JAX package's axis permutations (``_PERM_CANDIDATES``) lay tall grids
+out for the TPU's VMEM and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -46,7 +47,12 @@ from python_fluid_simulation_tpu_torch.ops.indexing import (
     split_parity,
 )
 from python_fluid_simulation_tpu_torch.solvers.cg import SolveStats, cg
-from python_fluid_simulation_tpu_torch.solvers.multigrid import make_batched_mg_preconditioner
+from python_fluid_simulation_tpu_torch.solvers.multigrid import (
+    _coarsen,
+    _prolong,
+    _restrict,
+    make_batched_mg_preconditioner,
+)
 
 
 def _terms_for_axis(a: int, d: int = 3):
@@ -116,29 +122,69 @@ def _diag_axis(a, s_mu, vol, shape):
     return acc + s_mu * extra
 
 
+def _neighbour_interior(shape, voff, device):
+    """interior_mask of the site at f + voff, as a mask over f."""
+    m = None
+    for j, n in enumerate(shape):
+        idx = torch.arange(n, device=device) + voff[j]
+        bshape = [1] * len(shape)
+        bshape[j] = n
+        mj = ((idx >= 1) & (idx < n - 1)).reshape(bshape)
+        m = mj if m is None else (m & mj)
+    return m
+
+
+def _axis_system(a, s_mu, sphi, vol, shape, same_axis_only=False, symmetrize=False):
+    """Face axis a's rows: (diag, [(field, voff, coef)], pdiag, active) in
+    `_terms_for_axis` order, only the 6 same-field couplings with
+    ``same_axis_only``; ``symmetrize`` also masks each coupling with the
+    neighbour's interior test (see `viscosity_axis_block_stencil`)."""
+    d = len(shape)
+    p = face_parity(a, d)
+    active = _active(a, sphi, shape)
+    diag_raw = _diag_axis(a, s_mu, vol, shape)
+    terms = []
+    for cond_off, field, voff, vol_off, factor, sign in _terms_for_axis(a, d):
+        if same_axis_only and field != a:
+            continue
+        mask = active & _is_fluid(dual_sample(sphi, p, cond_off, shape, -1.0))
+        if symmetrize:
+            mask = mask & _neighbour_interior(shape, voff, active.device)
+        vcoef = dual_sample(vol, p, vol_off, shape, 0.0)
+        terms.append((field, voff, torch.where(mask, sign * factor * s_mu * vcoef, 0.0)))
+    diag = torch.where(active, diag_raw, 0.0)
+    pdiag = torch.where(active & (diag_raw > 0), diag_raw, 1.0)
+    return diag, terms, pdiag, active
+
+
 def viscosity_term_fields(s_mu, sphi, vol, face_shapes, same_axis_only: bool = False):
     """The 14-term coefficient fields per axis: (diags, per_axis, pdiags)
     where per_axis[a] is a list of (field, voff, coef) with coef shaped
     like face array a.  ``same_axis_only`` builds only the 6 same-field
     terms an axis (what the MG block preconditioner reads)."""
-    d = len(face_shapes)
     diags, per_axis, pdiags = [], [], []
-    for a in range(d):
-        shape = tuple(face_shapes[a])
-        p = face_parity(a, d)
-        active = _active(a, sphi, shape)
-        diag_raw = _diag_axis(a, s_mu, vol, shape)
-        terms = []
-        for cond_off, field, voff, vol_off, factor, sign in _terms_for_axis(a, d):
-            if same_axis_only and field != a:
-                continue
-            fluid_n = _is_fluid(dual_sample(sphi, p, cond_off, shape, -1.0))
-            vcoef = dual_sample(vol, p, vol_off, shape, 0.0)
-            terms.append((field, voff, torch.where(active & fluid_n, sign * factor * s_mu * vcoef, 0.0)))
+    for a in range(len(face_shapes)):
+        diag, terms, pdiag, _ = _axis_system(a, s_mu, sphi, vol, tuple(face_shapes[a]), same_axis_only)
+        diags.append(diag)
         per_axis.append(terms)
-        diags.append(torch.where(active, diag_raw, 0.0))
-        pdiags.append(torch.where(active & (diag_raw > 0), diag_raw, 1.0))
+        pdiags.append(pdiag)
     return diags, per_axis, pdiags
+
+
+def viscosity_axis_block_stencil(a, s_mu, sphi, vol, shape, symmetrize: bool = False):
+    """Same-axis 7-point sub-operator of velocity component a: the
+    diagonal block the MG preconditioner smooths and Galerkin-coarsens,
+    built for one axis at a time (the lean route's transient peak is 7
+    fields of one face array).  Bitwise `viscosity_term_fields` filtered
+    to ``field == a``.
+
+    ``symmetrize`` also masks each coupling with the neighbour's interior
+    test, making the stencil exactly Pi A Pi (Pi = diag(active)): the
+    operator the lean cycle smooths on active-supported vectors, so every
+    Galerkin level coarsened from it stays symmetric.
+    Returns (diag, [(voff, coef)] * 6, pdiag, active)."""
+    diag, terms, pdiag, active = _axis_system(a, s_mu, sphi, vol, tuple(shape), True, symmetrize)
+    return diag, [(voff, coef) for _, voff, coef in terms], pdiag, active
 
 
 def viscosity_matvec_3d(v_faces, s_mu, sphi, vol):
@@ -201,12 +247,56 @@ def make_viscosity_mg_preconditioner(diags, per_axis):
     return make_batched_mg_preconditioner(systems)
 
 
+def make_viscosity_mg_preconditioner_lean(s_mu, sphi, vol, face_shapes, fine_matvec, *, omega: float = 0.8):
+    """Two-grid-entry MG preconditioner with no persistent fine-level
+    stencil fields: the route above `MG_FACE_CELLS` face cells.
+
+    The fine level is ``fine_matvec``, the same-axis geometry-recompute
+    matvec (`coupled_matvec_geom(same_axis_only=True)`), whose operands
+    are the geometry the outer solve already holds; the batched Galerkin
+    hierarchy (`make_batched_mg_preconditioner`) starts at level 1, built
+    from per-axis transient symmetrised fine stencils.  One application,
+    in the JAX package's order (a symmetric two-grid cycle, a fixed SPD
+    operator inside plain PCG):
+
+      x1 = w r / pd                     (pre-smooth from zero)
+      r1 = r - A_blk x1
+      e  = Vcycle_1(restrict(r1))
+      x2 = x1 + where(active, prolong(e), 0)
+      x3 = x2 + w (r - A_blk x2) / pd   (post-smooth)
+      z  = where(active, x3, r)
+    """
+    level1, pdiags, actives = [], [], []
+    for a in range(len(face_shapes)):
+        diag, coefs, pdiag, active = viscosity_axis_block_stencil(a, s_mu, sphi, vol, face_shapes[a], symmetrize=True)
+        level1.append(_coarsen(diag, coefs))
+        pdiags.append(pdiag)
+        actives.append(active)
+    inner = make_batched_mg_preconditioner(level1)
+
+    def precond(rs):
+        x1 = tuple(omega * r / pd for r, pd in zip(rs, pdiags))
+        r1 = tuple(r - q for r, q in zip(rs, fine_matvec(x1)))
+        ec = inner(tuple(_restrict(r, tuple((n + 1) // 2 for n in r.shape)) for r in r1))
+        # the prolonged correction masked to active rows keeps every vector
+        # active-supported, so the fine matvec acts as Pi A Pi
+        x2 = tuple(x + torch.where(act, _prolong(e, tuple(x.shape)), 0.0) for x, e, act in zip(x1, ec, actives))
+        x3 = tuple(x + omega * (r - q) / pd for x, r, q, pd in zip(x2, rs, fine_matvec(x2), pdiags))
+        return tuple(torch.where(act, x, r) for x, r, act in zip(x3, rs, actives))
+
+    precond.inner = inner
+    return precond
+
+
 class ViscosityResult(NamedTuple):
     v_faces: Tuple[torch.Tensor, ...]
     stats: SolveStats
 
 
-MG_FACE_CELLS = 4_000_000  # above this the lean MG route is needed (not ported)
+# Above this many face cells of axis 0 the MG route takes the lean
+# two-grid preconditioner (the JAX package's switch, `_mg_solve`): it
+# chooses the preconditioner, so it changes the iterates.
+MG_FACE_CELLS = 4_000_000
 
 
 def viscosity_solve_3d(
@@ -269,23 +359,28 @@ def viscosity_solve_3d(
 
 
 def _mg_solve(b, x0, s_mu, sphi_c, vol_c, shapes, *, tol, rel_tol, max_iter):
-    """MG-PCG with materialised same-axis stencils (JAX ``_mg_solve``,
-    the <= 4M-face-cell route): the outer operator recomputes its
-    coefficients from the geometry (`coupled_matvec_geom`), the block
-    preconditioner coarsens the 21 same-axis fields (3 diagonals, 6
-    couplings an axis), which are all this route builds."""
-    if math.prod(shapes[0]) > MG_FACE_CELLS:
-        raise NotImplementedError(
-            f"the viscosity MG route above {MG_FACE_CELLS} face cells (the lean two-grid route) is not ported"
-        )
-    diags, same, _ = viscosity_term_fields(s_mu, sphi_c, vol_c, shapes, same_axis_only=True)
-    mg = make_viscosity_mg_preconditioner(diags, same)
+    """MG-PCG (JAX ``_mg_solve``): the outer operator recomputes its
+    coefficients from the geometry (`coupled_matvec_geom`).  Up to
+    `MG_FACE_CELLS` face cells of axis 0 the block preconditioner
+    coarsens the 21 same-axis fields (3 diagonals, 6 couplings an axis),
+    which are all this route builds; above, the lean two-grid
+    preconditioner smooths the fine level with the same-axis geometry
+    matvec and keeps no fine stencil field."""
     geom = flat_geometry(sphi_c, vol_c)
+    if math.prod(shapes[0]) > MG_FACE_CELLS:
+        precond = make_viscosity_mg_preconditioner_lean(
+            s_mu, sphi_c, vol_c, shapes,
+            lambda vs: coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, same_axis_only=True, geom=geom),
+        )
+    else:
+        diags, same, _ = viscosity_term_fields(s_mu, sphi_c, vol_c, shapes, same_axis_only=True)
+        precond = make_viscosity_mg_preconditioner(diags, same)
+        del diags, same
     # the JAX package's generic cg rounds tol^2 in fp32 and rel_tol^2 in
     # double before the fp32 product
     x, stats, _, _ = cg(
         lambda vs: coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, geom=geom), b, x0,
         tol2=float(np.float32(tol) ** 2), rel2=float(np.float32(rel_tol**2)), max_iter=max_iter,
-        precond=mg,
+        precond=precond,
     )
     return x, stats

@@ -13,8 +13,8 @@
   wrapper counts a launch.
 * ``scaled_buckling_config(r)`` equals the JAX configuration field for
   field.
-* unported options raise NotImplementedError, the viscosity MG route
-  above 4M face cells among them.
+* unported options raise NotImplementedError; the viscosity MG route
+  above 4M face cells (the lean two-grid route) runs.
 * the 6-step dam break against ``tests/golden_dam_break.npz`` at
   test_golden.py's config and tolerances.
 """
@@ -192,17 +192,39 @@ def test_unported_options_raise():
 
 
 @pytest.mark.parametrize("viscosity_precond", ["mg", "auto"])
-def test_viscosity_mg_above_4m_face_cells_raises(viscosity_precond):
-    """The viscosity MG route above 4M face cells is the JAX package's
-    lean two-grid route, not ported: refused before any work (a 154x256x154
-    grid, 6.1M face cells an axis)."""
+def test_viscosity_mg_above_4m_face_cells_raises(viscosity_precond, monkeypatch):
+    """The viscosity MG route above 4M face cells (the JAX package's lean
+    two-grid route, refused by the port before it was ported) raises
+    nothing now: the step accepts ``scaled_buckling_config(256)`` (a
+    154x256x154 grid, 6.1M face cells an axis) with an MG viscosity
+    preconditioner, and the MG solve takes the lean preconditioner
+    exactly above ``viscosity.MG_FACE_CELLS`` face cells of axis 0 (shown
+    on 2 coarse coiling steps, 6x24x6 cells, with the switch set just
+    below and at their 1,008 face cells)."""
     import dataclasses
 
-    cfg = scaled_buckling_config(256)
-    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_precond=viscosity_precond))
-    small = buckling_config(dx=0.05)
-    with pytest.raises(NotImplementedError, match="face cells"):
-        step_3d(buckling_scene(small, device="cpu"), cfg)
+    from python_fluid_simulation_tpu_torch.engine.scenes import coiling_config, coiling_scene
+    from python_fluid_simulation_tpu_torch.engine.step import _check_supported
+    from python_fluid_simulation_tpu_torch.solvers import viscosity
+
+    def with_precond(c):
+        return dataclasses.replace(c, solver=dataclasses.replace(c.solver, viscosity_precond=viscosity_precond))
+
+    _check_supported(with_precond(scaled_buckling_config(256)))
+    cfg = with_precond(coiling_config(24))
+    state = dataclasses.replace(coiling_scene(cfg, device="cpu"), visc_mg=2)
+    built = []
+    for name in ("make_viscosity_mg_preconditioner_lean", "make_viscosity_mg_preconditioner"):
+        fn = getattr(viscosity, name)
+        monkeypatch.setattr(viscosity, name, lambda *a, _fn=fn, _name=name, **kw: built.append(_name) or _fn(*a, **kw))
+    face_cells = 7 * 24 * 6
+    for switch, want in ((face_cells - 1, "make_viscosity_mg_preconditioner_lean"),
+                         (face_cells, "make_viscosity_mg_preconditioner")):
+        built.clear()
+        monkeypatch.setattr(viscosity, "MG_FACE_CELLS", switch)
+        _, metrics = simulate(state, cfg, 2)
+        assert built == [want, want], (switch, built)
+        assert metrics["viscosity_converged"].all()
 
 
 def test_dam_break_golden():
