@@ -18,7 +18,12 @@ PyTorch version on the card:
   Jacobi-PCG or the batched block MG by the carried hysteresis flag);
 * the big grid: ``coiling_config(504)`` (126x504x126 = 8.0M cells,
   465,868 particles, Jacobi cell solves through the streamed Poisson PCG,
-  'auto' viscosity: Jacobi-PCG at 24M faces, or the lean two-grid MG).
+  'auto' viscosity: Jacobi-PCG at 24M faces, or the lean two-grid MG);
+* the solver options: the reference's unpreconditioned CG
+  (``jacobi_precond=False``: generic CG over the 7-point and the
+  materialised coupled matvec kernels) on the flagship, the 128^3 step
+  and coiling 'auto', and the dt-scaled pressure assembly
+  (``pressure_dt_scaled``) on the flagship.
 
 Phases, each printing one JSON line:
 
@@ -37,8 +42,9 @@ Phases, each printing one JSON line:
               inputs of the third step; the stencil matvec, every level
               chain of the real hierarchy, one V-cycle, both MG-PCG
               solves, every segment reduce / broadcast of the step, and
-              the two PCG kernels, each vs its plain version, with times,
-              library times and bounds
+              the two PCG kernels and the materialised coupled matvec
+              (bitwise), each vs its plain version, with times, library
+              times and bounds
   main_128    128^3: 1 warm-up + 5 timed steps with the counters reset
               just before; solves converged, particles finite, the first
               step bitwise repeatable, step 3 on the card vs the CPU
@@ -71,6 +77,22 @@ Phases, each printing one JSON line:
               repeatable and within STEP_TOL of the same step on the card
               with every kernel swapped for its plain version; the same
               step on the CPU reported (not asserted), peak memory
+  kernels_options flagship, jacobi_precond=False, the third step: the
+              materialised coupled matvec and the prepared pressure and
+              density matvecs (bitwise, with library times and bounds),
+              and the unpreconditioned density, pressure and viscosity
+              solves over the kernels vs over their plain versions
+              (iterations equal, solutions bitwise)
+  main_options flagship jacobi_precond=False (1 warm-up + 5 timed steps;
+              the matvec kernels launched, no PCG kernel; the first step
+              repeated, reported; step 3 vs the CPU, or where that misses
+              STEP_TOL, vs the same step on the card with every kernel
+              swapped for its plain version), flagship pressure_dt_scaled
+              (3 steps, step 3 checked the same way), 128^3
+              jacobi_precond=False (3 steps) and coiling 'auto'
+              jacobi_precond=False (2 steps from the 'auto' run's state
+              after 2 steps: the Jacobi branch over the materialised
+              matvec); counters reset before each run, solves converged
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
@@ -129,6 +151,12 @@ SWEEP_ITERS = 50
 # (6 products, 6 sums, s_mu * extra, + center, * v: 15) and 4 a coupling
 # (sign*factor * s_mu, * vol, * v, +)
 GEOM_MV_OPS = {False: 15 + 4 * 14, True: 15 + 4 * 6}
+# the materialised coupled matvec: a face reads its diagonal, 14
+# coefficients and v once and writes q once; 15 products and 14 sums
+COUPLED_FLOATS_PER_FACE = 17
+COUPLED_OPS_PER_FACE = 29
+STEPS_NOJAC = 6  # flagship, jacobi_precond=False: 1 warm-up + 5 timed
+STEPS_OPTION = 3  # the other runs of the new options
 
 
 def emit(obj):
@@ -558,6 +586,12 @@ def plain_geom_mv(sphi_c, vol_c, s_mu, vs, *, same_axis_only=False, geom=None):
     return coupled_matvec_plain(sphi_c, vol_c, s_mu, vs, same_axis_only)
 
 
+def plain_coupled_stencil_mv(diags, per_axis, vs, *, packed=None):
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import coupled_stencil_matvec_plain
+
+    return coupled_stencil_matvec_plain(diags, per_axis, vs)
+
+
 def check_bitwise(name, got, ref):
     import torch
 
@@ -792,6 +826,28 @@ def stencil_library(diag, coefs, p, q_kernel):
                 library_max_abs_err=max_err(q, q_kernel)[0])
 
 
+def prepared_matvec_phase(cell):
+    """Row 5: the prepared cell matvecs (`prepare_stencil_matvec`, as
+    `prepare_pressure_matvec` / `prepare_density_matvec` make them) on the
+    step's systems (p = b) vs the plain version: bitwise; with the CSR
+    library yardstick."""
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec_plain
+    from python_fluid_simulation_tpu_torch.solvers import pressure
+
+    rows = []
+    for label, (b, coefficients) in cell:
+        diag, coefs, _ = coefficients
+        mv, _ = pressure.prepare_stencil_matvec(coefficients)
+        q_k = mv(b)
+        check_bitwise(f"prepared {label} matvec", [q_k], [stencil_matvec_plain(diag, coefs, b)])
+        n = b.numel()
+        rows.append(dict(
+            system=label, shape=list(b.shape), bitwise=True, max_abs_err=0.0,
+            ms=cuda_time_ms(lambda: mv(b), 50), plain_ms=cuda_time_ms(lambda: stencil_matvec_plain(diag, coefs, b), 20),
+            **bound(9 * 4 * n, STENCIL_OPS * n), **stencil_library(diag, coefs, b, q_k),
+        ))
+    return rows
+
 def coupled_library(system, q_kernel):
     """One torch.sparse CSR matrix-vector product computing the coupled
     viscosity matvec (the 45 materialised term fields assembled into the
@@ -831,6 +887,7 @@ def plain_kernels():
         (pressure, "fused_poisson_pcg", cuda_stencils.fused_poisson_pcg_plain),
         (viscosity, "coupled_visc_pcg", cuda_cg.coupled_visc_pcg_plain),
         (viscosity, "coupled_matvec_geom", plain_geom_mv),
+        (viscosity, "coupled_stencil_matvec", plain_coupled_stencil_mv),
         (scatter, "segment_reduce", cuda_binned.segment_reduce_plain),
         (scatter, "segment_broadcast", cuda_binned.segment_broadcast_plain),
         (scatter, "fold", cuda_fold.fold_plain),
@@ -1004,6 +1061,7 @@ def reset_counters():
         "binned_segment_broadcast": cuda_binned.segment_broadcast,
         "coupled_matvec_geom": cuda_cg.coupled_matvec_geom,
         "fold": cuda_fold.fold,
+        "coupled_stencil_matvec": cuda_stencils.coupled_stencil_matvec,
     }
     for w in wrappers.values():
         w.launches = 0
@@ -1085,6 +1143,122 @@ def card_vs_cpu(step_3d, before, after, cfg, label):
         if not err[k] <= tol:
             raise AssertionError(f"{label} on the card vs CPU: max |d{k}| {err[k]} > {tol}")
     return err
+
+
+def capture_nojac(step_3d, state, cfg, geom):
+    """One step with ``jacobi_precond=False``, with recorders around the
+    cell solves, the viscosity solve's preparation of its materialised
+    matvec, and its generic CG, as their callers call them."""
+    from python_fluid_simulation_tpu_torch.solvers import density, pressure, viscosity
+
+    got = {"cell": [], "visc_fields": [], "visc_cg": []}
+
+    def rec(kind, fn):
+        def call(*args, **kw):
+            got[kind].append((args, kw))
+            return fn(*args, **kw)
+        return call
+
+    with patched([
+        (pressure, "solve_cell_poisson", rec("cell", pressure.solve_cell_poisson)),
+        (density, "solve_cell_poisson", rec("cell", density.solve_cell_poisson)),
+        (viscosity, "prepare_viscosity_matvec", rec("visc_fields", viscosity.prepare_viscosity_matvec)),
+        (viscosity, "cg", rec("visc_cg", viscosity.cg)),
+    ]):
+        step_3d(state, cfg, geom=geom)
+    return got
+
+
+def coupled_stencil_phase(system):
+    """Rows 7-8: the materialised coupled matvec on the viscosity system's
+    x0, its 45 term fields built as the unpreconditioned route builds
+    them, kernel vs plain version (bitwise), with the CSR library
+    yardstick."""
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import (
+        coupled_stencil_matvec,
+        coupled_stencil_matvec_plain,
+        pack_coupled_stencil,
+    )
+    from python_fluid_simulation_tpu_torch.solvers import viscosity
+
+    (_, x0, _, sphi_c, vol_c, s_mu), _ = system
+    shapes = [tuple(t.shape) for t in x0]
+    diags, per_axis, _ = viscosity.viscosity_term_fields(s_mu, sphi_c, vol_c, shapes)
+    packed = pack_coupled_stencil(diags, per_axis)  # once a solve, as prepare_viscosity_matvec does
+    q_k = coupled_stencil_matvec(diags, per_axis, x0, packed=packed)
+    check_bitwise("coupled_stencil_matvec", q_k, coupled_stencil_matvec_plain(diags, per_axis, x0))
+    n = sum(t.numel() for t in x0)
+    row = dict(
+        shapes=[list(s) for s in shapes], fields_bytes=sum(t.numel() * 4 for t in diags) * 15,
+        bitwise=True, max_abs_err=0.0,
+        ms=cuda_time_ms(lambda: coupled_stencil_matvec(diags, per_axis, x0, packed=packed), 50),
+        plain_ms=cuda_time_ms(lambda: coupled_stencil_matvec_plain(diags, per_axis, x0), 5),
+        # diag and 14 coefficients a face and v read once, q written once;
+        # 15 products and 14 sums a face
+        **bound(COUPLED_FLOATS_PER_FACE * 4 * n, COUPLED_OPS_PER_FACE * n),
+    )
+    del diags, per_axis
+    row.update(coupled_library(system, q_k))
+    return row
+
+
+def nojac_solve_phase(got):
+    """The unpreconditioned solves of the captured step, over the kernels
+    and over their plain versions: iterations equal, solutions bitwise.
+    The plain time is its checked solve's."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops import cuda_stencils
+    from python_fluid_simulation_tpu_torch.solvers import pressure, viscosity
+
+    rows = []
+    for label, (args, kw) in zip(("density", "pressure"), got["cell"]):
+        def solve(args=args, kw=kw):
+            return pressure.solve_cell_poisson(*args, **kw)
+
+        x_k, st_k = solve()
+        with patched([(pressure, "stencil_matvec", cuda_stencils.stencil_matvec_plain)]):
+            (x_p, st_p), plain_ms = timed_once(solve)
+        rows.append(dict(system=label, iters=int(st_k.iters), plain_iters=int(st_p.iters),
+                         converged=bool(st_k.converged), bitwise=bool(torch.equal(x_k, x_p)),
+                         max_abs_err=max_err(x_k, x_p)[0], ms=cuda_time_ms(solve, 3), plain_ms=plain_ms))
+    (s_mu, sphi_c, vol_c, shapes), _ = got["visc_fields"][0]
+    (_, b, x0), kw = got["visc_cg"][0]
+    diags, per_axis, _ = viscosity.viscosity_term_fields(s_mu, sphi_c, vol_c, shapes)
+    packed = cuda_stencils.pack_coupled_stencil(diags, per_axis)
+
+    def visc(matvec):
+        return viscosity.cg(lambda vs: matvec(diags, per_axis, vs, packed=packed), b, x0, **kw)
+
+    x_k, st_k, _, _ = visc(cuda_stencils.coupled_stencil_matvec)
+    (x_p, st_p, _, _), plain_ms = timed_once(lambda: visc(plain_coupled_stencil_mv))
+    rows.append(dict(system="viscosity", iters=int(st_k.iters), plain_iters=int(st_p.iters),
+                     converged=bool(st_k.converged), bitwise=all(bool(torch.equal(u, w)) for u, w in zip(x_k, x_p)),
+                     max_abs_err=max(max_err(u, w)[0] for u, w in zip(x_k, x_p)),
+                     ms=cuda_time_ms(lambda: visc(cuda_stencils.coupled_stencil_matvec), 3), plain_ms=plain_ms))
+    for r in rows:
+        if r["iters"] != r["plain_iters"] or not r["bitwise"] or not r["converged"]:
+            raise AssertionError(f"unpreconditioned {r['system']} solve, kernels vs plain versions: {r}")
+    return rows
+
+
+def step_vs_cpu_or_plain(step_3d, before, after, cfg, geom, label):
+    """The step from `before` on the CPU against the card's `after`; where
+    that misses STEP_TOL, the step with every kernel swapped for its plain
+    version on the card must be within it (the reference the kernels are
+    held to).  Returns what was measured; which check held is "held"."""
+    from python_fluid_simulation_tpu_torch.convert import state_from_numpy, state_to_numpy
+
+    tc = time.perf_counter()
+    cpu_state, _ = step_3d(state_from_numpy(state_to_numpy(before), device="cpu"), cfg)
+    out = {"cpu_step_seconds": time.perf_counter() - tc,
+           "card_vs_cpu": step_diff(state_to_numpy(after), state_to_numpy(cpu_state))}
+    if all(out["card_vs_cpu"][k] <= tol for k, tol in STEP_TOL.items()):
+        out["held"] = "card vs CPU"
+        return out
+    out["card_vs_plain_on_card"], _ = card_vs_plain(step_3d, before, after, cfg, geom, label)
+    out["held"] = "card vs the plain step on the card"
+    return out
 
 
 def main() -> int:
@@ -1221,12 +1395,14 @@ def main() -> int:
     fused128_rows = fused_kernel_phase([(label, (b, torch.zeros_like(b), d, c, pd), jac_kw)
                                         for label, (b, (d, c, pd)) in cell])
     coupled128 = coupled_kernel_phase((got["coupled"][0][1], got["coupled"][0][2]))
+    # rows 7-8 at their own size class (the TPU takes the blocked kernel here)
+    coupled_stencil128 = coupled_stencil_phase((got["coupled"][0][1], got["coupled"][0][2]))
     del got, cell
     emit({"phase": "kernels_128", "grid": list(cfg128.grid.res), "particles": n128,
           "stencil_matvec": stencil_rows, "stencil_matvec_library": stencil_lib, "mg_level_chain": chain_rows, "vcycle": vcycle, "mg_pcg": mg_rows,
           "binned_segment_reduce": red_rows, "binned_segment_broadcast": bc_rows,
           "cell_poisson_pcg_jacobi": cell128_rows, "fused_poisson_pcg_jacobi": fused128_rows,
-          "coupled_visc_pcg": coupled128,
+          "coupled_visc_pcg": coupled128, "coupled_stencil_matvec": coupled_stencil128,
           "seconds": time.perf_counter() - t0})
 
     # -- 128^3 main path
@@ -1338,6 +1514,7 @@ def main() -> int:
             iters={k: [m[f"{k}_iters"] for m in metricsc] for k in ("density", "viscosity", "pressure")},
             visc_rel_residual=[m["viscosity_rel_residual"] for m in metricsc],
         )
+    coil_state2 = runs["auto"][1][2]  # for 'auto' with jacobi_precond=False
     del runs
     emit({"phase": "main_coil", "grid": list(cfgc.grid.res), "particles": nc, "runs": coil_out,
           "launches": launches_by_run, "max_memory_allocated": peakc, "first_mg_step_bitwise_repeatable": True,
@@ -1454,11 +1631,117 @@ def main() -> int:
           "reported_vs_cpu": vs_cpu504, "cpu_step_seconds": cpu504, "step_tol": STEP_TOL,
           "seconds": time.perf_counter() - t0})
 
+    # -- the reference's unpreconditioned CG (jacobi_precond=False) and the
+    #    dt-scaled pressure assembly: the kernels on the flagship's third
+    #    step with jacobi_precond=False
+    t0 = time.perf_counter()
+
+    def with_solver(c, **kw):
+        return dataclasses.replace(c, solver=dataclasses.replace(c.solver, **kw))
+
+    cfg_nj = with_solver(cfg, jacobi_precond=False)
+    s_f = buckling_scene(cfg, seed=0, device="cuda")
+    geom = build_geom_cache(s_f.solid)
+    state2 = s_f
+    for _ in range(2):
+        state2, _ = step_3d(state2, cfg_nj, geom=geom)
+    got = capture_nojac(step_3d, state2, cfg_nj, geom)
+    del state2
+    if len(got["cell"]) != 2 or len(got["visc_fields"]) != 1 or len(got["visc_cg"]) != 1:
+        raise AssertionError(f"jacobi_precond=False capture: {[(k, len(v)) for k, v in got.items()]}")
+    (s_mu_f, sphi_f, vol_f, _), _ = got["visc_fields"][0]
+    (_, b_f, x0_f), _ = got["visc_cg"][0]
+    coupled_stencil_row = coupled_stencil_phase(((b_f, x0_f, None, sphi_f, vol_f, s_mu_f), {}))
+    prepared_rows = prepared_matvec_phase([(label, (args[0], args[1]))
+                                           for label, (args, _) in zip(("density", "pressure"), got["cell"])])
+    nojac_solves = nojac_solve_phase(got)
+    del got, b_f, x0_f, sphi_f, vol_f, s_mu_f
+    emit({"phase": "kernels_options", "grid": list(cfg.grid.res), "coupled_stencil_matvec": coupled_stencil_row,
+          "prepared_matvec": prepared_rows, "unpreconditioned_solves": nojac_solves,
+          "seconds": time.perf_counter() - t0})
+
+    # -- the options' main paths, counters reset just before each run and
+    #    read just after: the flagship with jacobi_precond=False and with
+    #    pressure_dt_scaled, the 128^3 step with jacobi_precond=False, and
+    #    coiling 'auto' with jacobi_precond=False from the 'auto' run's
+    #    state after 2 steps (its Jacobi branch: CG over the materialised
+    #    matvec with the Jacobi preconditioner)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches_opt, opt_out = {}, {}
+    every_path = ("binned_segment_reduce", "binned_segment_broadcast", "fold")
+
+    def refuse(label, launched, names):
+        for name in names:
+            if launched[name]:
+                raise AssertionError(f"{label}: {name} was launched ({launched[name]} times)")
+
+    def summary(step_ms, metrics, **extra):
+        timed = step_ms[1:]
+        return dict(warmup_step_ms=step_ms[0], step_ms=timed, median_step_ms=statistics.median(timed),
+                    iters={k: [m[f"{k}_iters"] for m in metrics] for k in ("density", "viscosity", "pressure")},
+                    **extra)
+
+    read_counts = reset_counters()
+    state, states, ms_nj, metrics_nj = run_steps(step_3d, s_f, cfg_nj, geom, STEPS_NOJAC, 3)
+    launches_opt["flagship_nojac"] = read_counts()
+    check_run(state, metrics_nj, launches_opt["flagship_nojac"],
+              ("coupled_stencil_matvec", "stencil_matvec") + every_path, "flagship jacobi_precond=False")
+    refuse("flagship jacobi_precond=False", launches_opt["flagship_nojac"],
+           ("cell_poisson_pcg", "fused_poisson_pcg", "coupled_visc_pcg"))
+    first = state_to_numpy(states[1])
+    again, _ = step_3d(s_f, cfg_nj, geom=geom)
+    nj_repeatable = all(bool((getattr(again.particles, k).cpu().numpy() == first[k]).all()) for k in ("x", "v", "c"))
+    nj_check = step_vs_cpu_or_plain(step_3d, states[2], states[3], cfg_nj, geom, "flagship jacobi_precond=False step 2")
+    opt_out["flagship_nojac"] = summary(ms_nj, metrics_nj, first_step_bitwise_repeatable=nj_repeatable,
+                                        step_2=nj_check)
+    del states, state, again
+
+    cfg_dt = with_solver(cfg, pressure_dt_scaled=True)
+    read_counts = reset_counters()
+    state, states, ms_dt, metrics_dt = run_steps(step_3d, s_f, cfg_dt, geom, STEPS_OPTION, 3)
+    launches_opt["flagship_dt_scaled"] = read_counts()
+    check_run(state, metrics_dt, launches_opt["flagship_dt_scaled"],
+              ("cell_poisson_pcg", "coupled_visc_pcg") + every_path, "flagship pressure_dt_scaled")
+    opt_out["flagship_dt_scaled"] = summary(ms_dt, metrics_dt, step_2=step_vs_cpu_or_plain(
+        step_3d, states[2], states[3], cfg_dt, geom, "flagship pressure_dt_scaled step 2"))
+    del states, state, s_f, geom
+
+    cfg128_nj = with_solver(cfg128, jacobi_precond=False)
+    read_counts = reset_counters()
+    state, _, ms128_nj, metrics128_nj = run_steps(step_3d, s128, cfg128_nj, geom128, STEPS_OPTION, 0)
+    launches_opt["128_nojac"] = read_counts()
+    check_run(state, metrics128_nj, launches_opt["128_nojac"],
+              ("coupled_stencil_matvec", "stencil_matvec", "mg_level_chain") + every_path, "128^3 jacobi_precond=False")
+    refuse("128^3 jacobi_precond=False", launches_opt["128_nojac"], ("coupled_visc_pcg",))
+    opt_out["128_nojac"] = summary(ms128_nj, metrics128_nj)
+    del state, s128, geom128
+
+    cfgc_nj = with_solver(cfgc, jacobi_precond=False)
+    read_counts = reset_counters()
+    state, _, msc_nj, metricsc_nj, branch_nj = run_coil(step_3d, coil_state2, cfgc_nj, geomc, 2, 0)
+    launches_opt["coil_auto_nojac"] = read_counts()
+    if branch_nj[0] != "jacobi":
+        raise AssertionError(f"coiling 'auto' jacobi_precond=False: the first step took {branch_nj}")
+    check_run(state, metricsc_nj, launches_opt["coil_auto_nojac"],
+              ("coupled_stencil_matvec", "stencil_matvec", "mg_level_chain") + every_path
+              + (("coupled_matvec_geom",) if "mg" in branch_nj else ()), "coiling 'auto' jacobi_precond=False")
+    refuse("coiling 'auto' jacobi_precond=False", launches_opt["coil_auto_nojac"], ("coupled_visc_pcg",))
+    opt_out["coil_auto_nojac"] = dict(step_ms=msc_nj, branch=branch_nj, iters={
+        k: [m[f"{k}_iters"] for m in metricsc_nj] for k in ("density", "viscosity", "pressure")})
+    del state, coil_state2, geomc
+    emit({"phase": "main_options", "runs": opt_out, "launches": launches_opt,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(), "step_tol": STEP_TOL,
+          "seconds": time.perf_counter() - t0})
+
     # -- summary: the nvidia-smi line, the kernels line, then the result
-    def entry(name, source, replaces, row, library_ms=None):
+    every_run = [launches, launches128, launchesc, launches504, *launches_opt.values()]
+
+    def entry(name, source, replaces, row, library_ms=None, counter=None):
         return {"name": name, "route": "cuda", "source": f"python_fluid_simulation_tpu_torch/csrc/{source}",
                 "replaces": f"python_fluid_simulation_tpu/ops/{replaces}",
-                "launches": launches[name] + launches128[name] + launchesc[name] + launches504[name],
+                "launches": sum(run[counter or name] for run in every_run),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": max(row["bytes_ms"], row["ops_ms"]),
                 "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations",
@@ -1491,6 +1774,14 @@ def main() -> int:
         entry("mg_level_chain_batched", "mg_level_chain.cu", "pallas_mg.py:100", total(bchain_rows)),
         # the folds of one coiling step
         entry("fold", "fold.cu", "pallas_fold.py:97", fold, fold["library_ms"]),
+        # rows 7 and 8 in one kernel, on the flagship's fields (128^3 in kernels_128)
+        dict(entry("coupled_stencil_matvec", "coupled_stencil_matvec.cu", "pallas_stencils.py:379",
+                   coupled_stencil_row, coupled_stencil_row["library_ms"]),
+             also_replaces="python_fluid_simulation_tpu/ops/pallas_stencils.py:520"),
+        # row 5: the same kernel as stencil_matvec, as the prepared pressure matvec
+        entry("stencil_matvec_prepared", "stencil_matvec.cu", "pallas_stencils.py:79",
+              dict(prepared_rows[1], max_abs_err=max(r["max_abs_err"] for r in prepared_rows)),
+              prepared_rows[1]["library_ms"], counter="stencil_matvec"),
     ]
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

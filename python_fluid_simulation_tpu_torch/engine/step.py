@@ -21,10 +21,13 @@ viscosity solve is CG over ``coupled_matvec_geom`` with the batched
 block V-cycle, or above 4M face cells the lean two-grid cycle), and so
 do the segment reduces and broadcasts and the
 folds of the transfers (``ops/cuda_binned.py``, ``ops/cuda_fold.py``).
-The Jacobi solves make no host sync; the MG-PCG loops test their exit on
-the host once per iteration, and 'auto' reads its flag once a step.  Not
-yet ported (they raise): the 'unet' / 'unet_warm' viscosity modes,
-moving solids, meshes and bucketing.
+With ``jacobi_precond=False`` (the reference's unpreconditioned CG) the
+non-MG solves are the generic CG over ``stencil_matvec`` and
+``coupled_stencil_matvec``; ``pressure_dt_scaled`` solves the pressure
+system scaled by dt.  The Jacobi solves make no host sync; the generic
+CG loops test their exit on the host once per iteration, and 'auto'
+reads its flag once a step.  Not yet ported (they raise): the 'unet' /
+'unet_warm' viscosity modes, moving solids, meshes and bucketing.
 """
 
 from __future__ import annotations
@@ -73,12 +76,10 @@ def _check_supported(cfg: SimConfig):
         raise NotImplementedError("moving solids are not ported yet")
     if sol.viscosity_mode != "apic":
         raise NotImplementedError(f"viscosity_mode={sol.viscosity_mode!r} is not ported yet")
-    if sol.precond not in ("jacobi", "mg") or not sol.jacobi_precond:
-        raise NotImplementedError(f"cell-Poisson precond={sol.precond!r} (jacobi_precond={sol.jacobi_precond}) is not ported")
+    if sol.precond not in ("jacobi", "mg"):
+        raise NotImplementedError(f"cell-Poisson precond={sol.precond!r} is not ported")
     if sol.viscosity_precond not in ("jacobi", "mg", "auto"):
         raise NotImplementedError(f"viscosity_precond={sol.viscosity_precond!r} is not ported")
-    if sol.pressure_dt_scaled:
-        raise NotImplementedError("the dt-scaled pressure assembly is not ported")
 
 
 def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> Tuple[SimState, Dict[str, torch.Tensor]]:
@@ -111,6 +112,7 @@ def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> T
         ph.rho, dt, px, p.m, cfg.particle_dx**3, geom.sphi_c, lphi, geom.w_faces,
         g.bound_min, g.cell_size, tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter,
         wz_bug=sol.density_wz_bug, sort_info=sort1, precond=sol.precond, mg_opts=sol.mg_opts,
+        jacobi_precond=sol.jacobi_precond,
     )
     px = dres.px
 
@@ -140,7 +142,7 @@ def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> T
     if ph.mu > 0:
         vres = viscosity_solve_3d(
             dt, ph.mu, ph.rho, tuple(gv), geom.sphi_c, lvol, g.cell_vol,
-            tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter,
+            tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter, jacobi_precond=sol.jacobi_precond,
             precond_kind=sol.viscosity_precond, auto_use_mg=visc_mg > 0,
         )
         gv = list(vres.v_faces)
@@ -153,6 +155,7 @@ def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> T
     pres = pressure_solve_3d(
         tuple(gv), geom.sv_c, lphi, geom.w_faces, g.cell_size,
         tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter, precond=sol.precond, mg_opts=sol.mg_opts,
+        jacobi_precond=sol.jacobi_precond, dt_scale=dt if sol.pressure_dt_scaled else None,
     )
     gv = list(pres.v_faces)
 

@@ -26,25 +26,37 @@ cells and 3.35 TB/s).  Its thresholds round as the TPU solve loop's
 (``cuda_cg.squared_tols``).
 
 `stencil_matvec` replaces ``pallas_stencils.py::
-make_blocked_stencil_matvec`` (``csrc/stencil_matvec.cu``): one
-application q = A p, the operator of the MG-preconditioned CG and the
-level-0 smoother of its V-cycle.  It is bound by bytes (8 fields read, 1
-written).
+make_blocked_stencil_matvec`` and ``::make_stencil_matvec`` (the same
+function on whole arrays) (``csrc/stencil_matvec.cu``): one application
+q = A p, the operator of the MG-preconditioned and the unpreconditioned
+CG, the level-0 smoother of the V-cycle, and the prepared pressure and
+density matvecs.  It is bound by bytes (8 fields read, 1 written).
+
+`coupled_stencil_matvec` replaces ``pallas_stencils.py::
+make_blocked_coupled_matvec`` and ``::make_coupled_stencil_matvec``
+(``csrc/coupled_stencil_matvec.cu``): the coupled viscosity operator
+from its 3 diagonals and 42 materialised coefficient fields
+(``solvers/viscosity.py::viscosity_term_fields``), one launch for the
+three face arrays, bitwise its plain version.  It is bound by bytes (17
+floats a face).
 
 Routing: a CUDA tensor launches the kernel; a CPU tensor runs the plain
 version (`cell_poisson_pcg_plain`, `fused_poisson_pcg_plain`,
-`stencil_matvec_plain`: the same arithmetic in PyTorch), which also
-serves as the kernel's reference on the card.
+`stencil_matvec_plain`, `coupled_stencil_matvec_plain`: the same
+arithmetic in PyTorch), which also serves as the kernel's reference on
+the card.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
 from python_fluid_simulation_tpu_torch.ops import cuda_cg
-from python_fluid_simulation_tpu_torch.ops.indexing import shift
+from python_fluid_simulation_tpu_torch.ops.indexing import sample, shift
 from python_fluid_simulation_tpu_torch.solvers.cg import cg, threshold
 
 # coefficient offsets in the order the kernel reads them
@@ -220,3 +232,89 @@ def fused_poisson_pcg(b, x0, diag, coefs, pd, *, tol, rel_tol, max_iter):
 
 
 fused_poisson_pcg.launches = 0
+
+
+def coupled_terms():
+    """Per output axis, the 14 (field, voff) couplings in the order of
+    ``solvers/viscosity.py::viscosity_term_fields`` (the kernel's term
+    table)."""
+    return tuple(tuple((t[0], t[1]) for t in ax["terms"]) for ax in cuda_cg.stencil_plan())
+
+
+def coupled_stencil_matvec_plain(diags, per_axis, vs):
+    """A v for the coupled viscosity operator from its materialised
+    fields: per axis a, diag_a * v_a, then each (field, voff, coef) of
+    per_axis[a] adds coef * v_field sampled at voff (0 outside v_field)."""
+    out = []
+    for a in range(len(vs)):
+        acc = diags[a] * vs[a]
+        for field, voff, coef in per_axis[a]:
+            acc = acc + coef * sample(vs[field], voff, vs[a].shape, 0.0)
+        out.append(acc)
+    return tuple(out)
+
+
+class CoupledStencil(NamedTuple):
+    """The coupled operator's fields, checked once, as the kernel takes
+    them: the 45 field pointers, the face shapes and the term table."""
+
+    device: torch.device
+    shapes: tuple
+    ptrs: np.ndarray  # uint64: 3 diagonals, then the 42 coefficients axis by axis
+    dims: np.ndarray  # int32 (3, 3)
+    terms: np.ndarray  # int32 (3, 14, 4): field, x, y, z offset
+
+
+def pack_coupled_stencil(diags, per_axis) -> CoupledStencil:
+    """Check the operator's fields (three 3D face arrays, every term list
+    in `coupled_terms` order, contiguous float32 on one device, extents
+    below 2^31) and pack them for `coupled_stencil_matvec`: a solve
+    packs once and pays only the velocity checks each application."""
+    table = coupled_terms()
+    if len(diags) != 3 or len(per_axis) != 3:
+        raise ValueError("coupled_stencil_matvec: three face arrays only")
+    if tuple(tuple((f, tuple(o)) for f, o, _ in terms) for terms in per_axis) != table:
+        raise ValueError("coupled_stencil_matvec: the term lists must follow viscosity_term_fields' order")
+    dev = diags[0].device
+    shapes = tuple(tuple(d.shape) for d in diags)
+    for a, shape in enumerate(shapes):
+        if len(shape) != 3 or int(np.prod(shape)) >= 2**31:
+            raise ValueError(f"coupled_stencil_matvec: face array {a} {shape} is not 3D with fewer than 2^31 entries")
+        check_field(f"diag[{a}]", diags[a], shape, dev)
+        for t, (_, _, c) in enumerate(per_axis[a]):
+            check_field(f"coef[{a}][{t}]", c, shape, dev)
+    fields = [*diags, *[c for terms in per_axis for _, _, c in terms]]
+    return CoupledStencil(
+        dev, shapes, np.array([t.data_ptr() for t in fields], dtype=np.uint64),
+        np.array(shapes, dtype=np.int32), np.array([[[f, *o] for f, o in ax] for ax in table], dtype=np.int32),
+    )
+
+
+def coupled_stencil_matvec(diags, per_axis, vs, *, packed: CoupledStencil | None = None):
+    """q = A v, vs = (vx, vy, vz), with the operator's diagonals and
+    coefficient fields as ``viscosity_term_fields`` builds them.  On CUDA
+    one launch of ``csrc/coupled_stencil_matvec.cu``, bitwise the plain
+    version; ``packed`` is `pack_coupled_stencil(diags, per_axis)`,
+    made here when not given."""
+    dev = vs[0].device
+    if dev.type == "cpu":
+        return coupled_stencil_matvec_plain(diags, per_axis, vs)
+    if dev.type != "cuda":
+        raise ValueError(f"coupled_stencil_matvec: unsupported device {dev}")
+    if packed is None:
+        packed = pack_coupled_stencil(diags, per_axis)
+    if len(vs) != 3:
+        raise ValueError("coupled_stencil_matvec: three face arrays only")
+    for a in range(3):
+        check_field(f"v[{a}]", vs[a], packed.shapes[a], packed.device)
+    q = tuple(torch.empty_like(v) for v in vs)
+    ptrs = np.concatenate((packed.ptrs, np.array([t.data_ptr() for t in (*vs, *q)], dtype=np.uint64)))
+    err = cb.LIB.get().pfs_coupled_stencil_matvec(
+        ptrs.ctypes.data, packed.dims.ctypes.data, packed.terms.ctypes.data, cb.stream_of(vs[0]),
+    )
+    cb.check(err, "coupled_stencil_matvec launch")
+    coupled_stencil_matvec.launches += 1
+    return q
+
+
+coupled_stencil_matvec.launches = 0

@@ -1,7 +1,8 @@
 """Where a step's time goes on the GPU.
 
     python3 -m python_fluid_simulation_tpu_torch.profile_step [--scene buckling|coiling] [--res R]
-        [--viscosity-precond jacobi|mg|auto] [--steps 3] [--out DIR]
+        [--viscosity-precond jacobi|mg|auto] [--no-jacobi-precond] [--pressure-dt-scaled]
+        [--steps 3] [--out DIR]
 
 Runs a step on the card.  ``--scene buckling`` (the default): the
 48x80x48 flagship (``buckling_config()`` defaults) without ``--res``,
@@ -12,8 +13,11 @@ MG-PCG cell solves, the 'auto' viscosity preconditioner; ``--res 504``:
 the big grid, 126x504x126 cells, 465,868 particles, Jacobi cell solves
 through the streamed Poisson PCG, and with ``--viscosity-precond mg``
 the lean two-grid viscosity MG); ``--viscosity-precond`` overrides the configuration's (``mg`` profiles
-the MG branch).  Every fold call is a ``pfs_fold`` range in the
-profile.  3 warm-up steps, then ``--steps``
+the MG branch).  ``--no-jacobi-precond`` sets ``jacobi_precond=False``
+(the reference's unpreconditioned CG: the non-MG solves run the generic
+CG over ``stencil_matvec`` and ``coupled_stencil_matvec``);
+``--pressure-dt-scaled`` sets ``pressure_dt_scaled``.  Every fold call
+is a ``pfs_fold`` range in the profile.  3 warm-up steps, then ``--steps``
 steps timed on the host clock without the profiler, then ``--steps``
 steps under ``torch.profiler`` (CPU + CUDA activities).  Prints one JSON
 line with the step times, the device busy time (sum of the CUDA kernel
@@ -22,7 +26,7 @@ share, the CUDA runtime calls per step (kernel launches, cooperative
 launches, stream synchronisations), the device time and launches of the
 port's own kernels, and the top operators by device and by host time;
 writes the full ``key_averages`` tables to
-``<out>/profile_step[_<scene>][_<R>][_<precond>].txt``.  Needs
+``<out>/profile_step[_<scene>][_<R>][_<precond>][_nojacobi][_dtscaled].txt``.  Needs
 a CUDA device.
 """
 
@@ -54,6 +58,8 @@ def main() -> int:
     ap.add_argument("--res", type=int, default=None,
                     help="buckling: scaled_buckling_config(res), default the flagship; coiling: coiling_config(res), default 256")
     ap.add_argument("--viscosity-precond", choices=("jacobi", "mg", "auto"), default=None)
+    ap.add_argument("--no-jacobi-precond", action="store_true", help="SolverConfig(jacobi_precond=False)")
+    ap.add_argument("--pressure-dt-scaled", action="store_true", help="SolverConfig(pressure_dt_scaled=True)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=".")
     args = ap.parse_args()
@@ -66,8 +72,14 @@ def main() -> int:
     else:
         cfg = buckling_config() if args.res is None else scaled_buckling_config(args.res)
         state = buckling_scene(cfg, device="cuda")
+    solver = {}
     if args.viscosity_precond:
-        cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_precond=args.viscosity_precond))
+        solver["viscosity_precond"] = args.viscosity_precond
+    if args.no_jacobi_precond:
+        solver["jacobi_precond"] = False
+    if args.pressure_dt_scaled:
+        solver["pressure_dt_scaled"] = True
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, **solver))
 
     def fold_range(*a, **kw):
         with record_function("pfs_fold"):
@@ -126,6 +138,8 @@ def main() -> int:
         "particles": int(state.particles.x.shape[0]),
         "precond": cfg.solver.precond,
         "viscosity_precond": cfg.solver.viscosity_precond,
+        "jacobi_precond": cfg.solver.jacobi_precond,
+        "pressure_dt_scaled": cfg.solver.pressure_dt_scaled,
         "visc_mg_after": int(torch.as_tensor(state.visc_mg)),
         # the folds' ranges: host time (CPU total) and the device time of
         # the kernels they launched, per step
@@ -151,6 +165,10 @@ def main() -> int:
         name += f"_{args.res}"
     if args.viscosity_precond:
         name += f"_{args.viscosity_precond}"
+    if args.no_jacobi_precond:
+        name += "_nojacobi"
+    if args.pressure_dt_scaled:
+        name += "_dtscaled"
     name += ".txt"
     with open(os.path.join(args.out, name), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))

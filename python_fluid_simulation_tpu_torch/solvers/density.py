@@ -44,6 +44,7 @@ from python_fluid_simulation_tpu_torch.solvers.cg import SolveStats
 from python_fluid_simulation_tpu_torch.solvers.pressure import (
     _ghost_frac,
     _offset,
+    prepare_stencil_matvec,
     solve_cell_poisson,
 )
 
@@ -141,6 +142,54 @@ def density_rhs(rho0, dt, gm, gvol, lphi, w_faces, cell_size):
     return torch.where(active, b, 0.0)
 
 
+def _density_w(w_faces, a, side, shape, wz_bug):
+    """Face weight of the (a, side) neighbour; the bug reads
+    wz[x,y,z+1] for the -z face."""
+    woff = [0] * len(shape)
+    if side > 0 or (wz_bug and len(shape) == 3 and a == 2):
+        woff[a] = 1
+    return sample(w_faces[a], tuple(woff), shape, 0.0)
+
+
+def density_matvec(p, w_faces, lphi, wz_bug: bool = False):
+    """7-point matvec from the geometry (matvecmul_kernel,
+    DensityCGSolver3D.py:117-194): the off-diagonal uses the face weight
+    w, the diagonal accumulates 1 (or 1/frac) unweighted."""
+    shape = tuple(lphi.shape)
+    d = len(shape)
+    val = torch.zeros(shape, dtype=p.dtype, device=p.device)
+    diag = torch.zeros(shape, dtype=p.dtype, device=p.device)
+    for a in range(d):
+        for side in (+1, -1):
+            off = _offset(d, a, side)
+            nphi = shift(lphi, off, 1.0)
+            w = _density_w(w_faces, a, side, shape, wz_bug)
+            fluid_n = nphi < 0
+            val = val - torch.where(fluid_n, w * shift(p, off, 0.0), 0.0)
+            diag = diag + torch.where(fluid_n, 1.0, 1.0 / _ghost_frac(lphi, nphi))
+    active = interior_mask(shape, device=lphi.device) & (lphi < 0)
+    return torch.where(active, val + diag * p, 0.0)
+
+
+def density_diag(lphi):
+    """Operator diagonal (for Jacobi preconditioning); 1 outside the
+    system."""
+    shape = tuple(lphi.shape)
+    d = len(shape)
+    diag = torch.zeros(shape, dtype=lphi.dtype, device=lphi.device)
+    for a in range(d):
+        for side in (+1, -1):
+            nphi = shift(lphi, _offset(d, a, side), 1.0)
+            diag = diag + torch.where(nphi < 0, 1.0, 1.0 / _ghost_frac(lphi, nphi))
+    active = interior_mask(shape, device=lphi.device) & (lphi < 0)
+    return torch.where(active & (diag > 0), diag, 1.0)
+
+
+def prepare_density_matvec(w_faces, lphi, wz_bug: bool = False):
+    """(matvec, precond_diag) with matvec equal to `density_matvec`."""
+    return prepare_stencil_matvec(density_coefficients(w_faces, lphi, wz_bug))
+
+
 def density_coefficients(w_faces, lphi, wz_bug: bool = False):
     """Coefficient fields of the density matvec (matvecmul_kernel,
     DensityCGSolver3D.py:117-194): off-diagonals use the face weight w,
@@ -155,10 +204,7 @@ def density_coefficients(w_faces, lphi, wz_bug: bool = False):
         for side in (+1, -1):
             off = _offset(d, a, side)
             nphi = shift(lphi, off, 1.0)
-            woff = [0] * d
-            if side > 0 or (wz_bug and d == 3 and a == 2):
-                woff[a] = 1  # the bug reads wz[x,y,z+1] for the -z face
-            w = sample(w_faces[a], tuple(woff), shape, 0.0)
+            w = _density_w(w_faces, a, side, shape, wz_bug)
             fluid_n = nphi < 0
             frac = _ghost_frac(lphi, nphi)
             diag = diag + torch.where(fluid_n, 1.0, 1.0 / frac)
@@ -229,12 +275,13 @@ def density_solve_3d(
     rho0: float, dt, px, pm, pvol: float, sphi, lphi, w_faces,
     bound_min: Sequence[float], cell_size: Sequence[float], *,
     tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
-    wz_bug: bool = False, sort_info=None, precond: str = "jacobi", mg_opts=None,
+    wz_bug: bool = False, sort_info=None, precond: str = "jacobi", mg_opts=None, jacobi_precond: bool = True,
 ) -> DensityResult:
     """Full density projection; returns moved particle positions
     (DensityCGSolver3D.solve :312-350, initial guess x = 0).
     ``sort_info`` shares an existing bias-0 cell sort of `px`;
-    ``precond`` / ``mg_opts`` pick the solve (`solve_cell_poisson`)."""
+    ``precond`` / ``mg_opts`` / ``jacobi_precond`` pick the solve
+    (`solve_cell_poisson`)."""
     gres = tuple(lphi.shape)
     d = len(gres)
     gm, gvol, sort_info = scatter_mass_volume(
@@ -244,7 +291,7 @@ def density_solve_3d(
     b = density_rhs(rho0, dt, gm, gvol, lphi, w_faces, cell_size)
     x, stats = solve_cell_poisson(
         b, density_coefficients(w_faces, lphi, wz_bug), tol=tol, rel_tol=rel_tol, max_iter=max_iter,
-        precond=precond, mg_opts=mg_opts,
+        precond=precond, mg_opts=mg_opts, jacobi_precond=jacobi_precond,
     )
     face_shapes = [tuple(n + (1 if i == a else 0) for i, n in enumerate(gres)) for a in range(d)]
     disp = compute_displacement(x, lphi, dt, cell_size, face_shapes)

@@ -8,9 +8,11 @@ cell-Poisson PCG kernel (``ops/cuda_stencils.py``; above
 `FUSED_POISSON_CELLS` cells the streamed PCG kernel of the JAX package's
 big-grid route), 'mg' the generic CG
 (``solvers/cg.py``) over the 7-point matvec kernel with the multigrid
-V-cycle (``solvers/multigrid.py``) as preconditioner.  The MG route
-tests its exit on the host once per iteration, as the JAX package's
-``while_loop`` does.
+V-cycle (``solvers/multigrid.py``) as preconditioner, and 'jacobi' with
+``jacobi_precond=False`` the same CG with no preconditioner.  The
+generic CG tests its exit on the host once per iteration, as the JAX
+package's ``while_loop`` does.  ``dt_scale`` solves the uniformly scaled
+system (s A) x = s b of the JAX package's dt-scaled assembly.
 
 Solution convention matches the reference: x = -pressure * dt / (rho V)
 (PressureCGSolver3D.py:225).
@@ -22,8 +24,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-import numpy as np
-
+from python_fluid_simulation_tpu_torch.ops.cuda_cg import squared_tols
 from python_fluid_simulation_tpu_torch.ops.cuda_stencils import cell_poisson_pcg, fused_poisson_pcg, stencil_matvec
 from python_fluid_simulation_tpu_torch.ops.fractions import edge_in_fraction
 from python_fluid_simulation_tpu_torch.ops.indexing import (
@@ -95,10 +96,38 @@ def pressure_rhs_3d(v_faces, sv, lphi, w_faces, cell_size) -> torch.Tensor:
     return torch.where(active, b, 0.0)
 
 
-def pressure_coefficients(w_faces, lphi):
+def pressure_matvec_3d(p, w_faces, lphi, unit_diag_weight: bool = False):
+    """7-point ghost-fluid matvec from the geometry (matvecmul_kernel,
+    PressureCGSolver3D.py:52-130).  With ``unit_diag_weight`` the
+    diagonal accumulates 1 (or 1/frac) instead of w."""
+    shape = tuple(lphi.shape)
+    d = len(shape)
+    val = torch.zeros(shape, dtype=p.dtype, device=p.device)
+    diag = torch.zeros(shape, dtype=p.dtype, device=p.device)
+    for a in range(d):
+        for side in (+1, -1):
+            off = _offset(d, a, side)
+            nphi = shift(lphi, off, 1.0)  # out of range: non-fluid
+            w = _face_w_v(w_faces[a], a, side, shape)
+            fluid_n = nphi < 0
+            dw = torch.ones_like(w) if unit_diag_weight else w
+            val = val - torch.where(fluid_n, w * shift(p, off, 0.0), 0.0)
+            diag = diag + torch.where(fluid_n, dw, dw / _ghost_frac(lphi, nphi))
+    active = interior_mask(shape, device=lphi.device) & (lphi < 0)
+    return torch.where(active, val + diag * p, 0.0)
+
+
+def pressure_diag_3d(w_faces, lphi, unit_diag_weight: bool = False):
+    """Operator diagonal (for Jacobi preconditioning); 1 outside the
+    system."""
+    return pressure_coefficients(w_faces, lphi, unit_diag_weight)[2]
+
+
+def pressure_coefficients(w_faces, lphi, unit_diag_weight: bool = False):
     """Loop-invariant stencil coefficient fields: (diag, [(off, coef)],
     precond_diag), coefficient offsets in the order +x, -x, +y, -y, +z, -z.
-    The diagonal accumulates w (or w/frac at a ghost-fluid face)."""
+    The diagonal accumulates w (or w/frac at a ghost-fluid face); with
+    ``unit_diag_weight`` 1 (or 1/frac)."""
     shape = tuple(lphi.shape)
     d = len(shape)
     active = interior_mask(shape, device=lphi.device) & (lphi < 0)
@@ -111,11 +140,24 @@ def pressure_coefficients(w_faces, lphi):
             w = _face_w_v(w_faces[a], a, side, shape)
             fluid_n = nphi < 0
             frac = _ghost_frac(lphi, nphi)
-            diag = diag + torch.where(fluid_n, w, w / frac)
+            dw = torch.ones_like(w) if unit_diag_weight else w
+            diag = diag + torch.where(fluid_n, dw, dw / frac)
             coefs.append((off, torch.where(active & fluid_n, -w, 0.0)))
     diag = torch.where(active, diag, 0.0)
     precond_diag = torch.where(active & (diag > 0), diag, 1.0)
     return diag, coefs, precond_diag
+
+
+def prepare_stencil_matvec(coefficients):
+    """(matvec, precond_diag) of a 7-point system (diag, [(off, coef)],
+    precond_diag): matvec is `stencil_matvec` on its fields."""
+    diag, coefs, precond_diag = coefficients
+    return (lambda p: stencil_matvec(diag, coefs, p)), precond_diag
+
+
+def prepare_pressure_matvec(w_faces, lphi, unit_diag_weight: bool = False):
+    """(matvec, precond_diag) with matvec equal to `pressure_matvec_3d`."""
+    return prepare_stencil_matvec(pressure_coefficients(w_faces, lphi, unit_diag_weight))
 
 
 def apply_pressure_3d(v_faces, p, w_faces, sv, lphi, cell_size) -> Tuple[torch.Tensor, ...]:
@@ -145,38 +187,59 @@ def apply_pressure_3d(v_faces, p, w_faces, sv, lphi, cell_size) -> Tuple[torch.T
 
 
 def solve_cell_poisson(b, coefficients, *, tol: float, rel_tol: float, max_iter: int,
-                       precond: str = "jacobi", mg_opts=None):
+                       precond: str = "jacobi", mg_opts=None, jacobi_precond: bool = True, dt_scale=None):
     """PCG solve of a cell-centred ghost-fluid system (pressure or
     density) from x0 = 0.
 
     ``coefficients`` is (diag, [(off, coef)], precond_diag) from
     `pressure_coefficients` or ``density.density_coefficients``.
     ``precond`` 'jacobi' runs the cell-Poisson kernel, or above
-    `FUSED_POISSON_CELLS` cells the streamed one; 'mg' runs CG with
-    a V-cycle preconditioner shaped by ``mg_opts`` = (n_smooth, min_dim,
-    coarse_iters) (None: 2, 4, 24).  Returns (x, SolveStats).
+    `FUSED_POISSON_CELLS` cells the streamed one; with
+    ``jacobi_precond=False`` CG over `stencil_matvec` with no
+    preconditioner.  'mg' (which ignores ``jacobi_precond``, as the JAX
+    package does) runs CG with a V-cycle preconditioner shaped by
+    ``mg_opts`` = (n_smooth, min_dim, coarse_iters) (None: 2, 4, 24).
+    ``dt_scale`` = s solves (s A) x = s b: the Jacobi kernels take the
+    scaled fields, the generic CG the operator s A and, for 'mg', the
+    preconditioner mg(r) / s (JAX ``pressure.py:379-470``).
+    Returns (x, SolveStats).
     """
     diag, coefs, precond_diag = coefficients
-    if precond == "jacobi":
+    s = dt_scale
+    if precond not in ("jacobi", "mg"):
+        raise ValueError(f"unknown cell-Poisson preconditioner {precond!r}")
+    if precond == "jacobi" and jacobi_precond:
+        if s is not None:
+            b, diag, precond_diag = s * b, s * diag, s * precond_diag
+            coefs = [(off, s * c) for off, c in coefs]
         kw = dict(tol=tol, rel_tol=rel_tol, max_iter=max_iter)
         if b.numel() > FUSED_POISSON_CELLS:
             x, iters, res, res0, thresh = fused_poisson_pcg(b, torch.zeros_like(b), diag, coefs, precond_diag, **kw)
         else:
             x, iters, res, res0, thresh = cell_poisson_pcg(b, diag, coefs, precond_diag, **kw)
         return x, SolveStats(iters=iters, residual=res, initial_residual=res0, converged=res < thresh)
-    if precond != "mg":
-        raise ValueError(f"unknown cell-Poisson preconditioner {precond!r}")
-    kw = {}
-    if mg_opts is not None:
-        kw = dict(n_smooth=int(mg_opts[0]), min_dim=int(mg_opts[1]), coarse_iters=int(mg_opts[2]))
-    mg = make_mg_preconditioner(diag, coefs, **kw)
+    mv, _ = prepare_stencil_matvec(coefficients)
+    if s is None:
+        def matvec(v):
+            return (mv(v[0]),)
+    else:
+        b = s * b
+
+        def matvec(v):
+            return (s * mv(v[0]),)
+    pre = None
+    if precond == "mg":
+        kw = {}
+        if mg_opts is not None:
+            kw = dict(n_smooth=int(mg_opts[0]), min_dim=int(mg_opts[1]), coarse_iters=int(mg_opts[2]))
+        mg = make_mg_preconditioner(diag, coefs, **kw)
+
+        def pre(r):
+            return (mg(r[0]),) if s is None else (mg(r[0]) / s,)
     # the JAX package's generic cg rounds tol^2 in fp32 and rel_tol^2 in
     # double before the fp32 product
-    (x,), stats, _, _ = cg(
-        lambda v: (stencil_matvec(diag, coefs, v[0]),), (b,), (torch.zeros_like(b),),
-        tol2=float(np.float32(tol) ** 2), rel2=float(np.float32(rel_tol**2)), max_iter=max_iter,
-        precond=lambda r: (mg(r[0]),),
-    )
+    tol2, rel2 = squared_tols(tol, rel_tol)
+    (x,), stats, _, _ = cg(matvec, (b,), (torch.zeros_like(b),), tol2=tol2, rel2=rel2, max_iter=max_iter, precond=pre)
     return x, stats
 
 
@@ -189,13 +252,14 @@ class PressureResult(NamedTuple):
 def pressure_solve_3d(
     v_faces: Sequence[torch.Tensor], sv, lphi, w_faces, cell_size, *,
     tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
-    precond: str = "jacobi", mg_opts=None,
+    precond: str = "jacobi", mg_opts=None, jacobi_precond: bool = True, dt_scale=None,
 ) -> PressureResult:
     """Full projection: RHS -> PCG -> apply (PressureCGSolver3D.solve
-    :192-226, initial guess x = 0)."""
+    :192-226, initial guess x = 0); ``dt_scale`` scales both sides of the
+    system (the solution is the same after unscaling)."""
     b = pressure_rhs_3d(v_faces, sv, lphi, w_faces, cell_size)
     x, stats = solve_cell_poisson(
         b, pressure_coefficients(w_faces, lphi), tol=tol, rel_tol=rel_tol, max_iter=max_iter,
-        precond=precond, mg_opts=mg_opts,
+        precond=precond, mg_opts=mg_opts, jacobi_precond=jacobi_precond, dt_scale=dt_scale,
     )
     return PressureResult(apply_pressure_3d(v_faces, x, w_faces, sv, lphi, cell_size), x, stats)

@@ -24,9 +24,12 @@ solid (solve :573).  scale = dt/(cell_vol*rho); vol = lvol/(cell_vol/8)
 MG-PCG solve is CG over the geometry-recompute matvec (``ops/cuda_cg.py::
 coupled_matvec_geom``) with the batched block V-cycle of
 ``solvers/multigrid.py`` (above `MG_FACE_CELLS` face cells the lean
-two-grid cycle, whose fine level is the same-axis geometry matvec).  The
-JAX package's axis permutations (``_PERM_CANDIDATES``) lay tall grids
-out for the TPU's VMEM and have no counterpart here.
+two-grid cycle, whose fine level is the same-axis geometry matvec).
+With ``jacobi_precond=False`` the non-MG solves are CG over the
+materialised matvec (`prepare_viscosity_matvec`, ``ops/cuda_stencils.py::
+coupled_stencil_matvec``), as in the JAX package.  The JAX package's
+axis permutations (``_PERM_CANDIDATES``) lay tall grids out for the
+TPU's VMEM and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -34,10 +37,14 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Sequence, Tuple
 
-import numpy as np
 import torch
 
-from python_fluid_simulation_tpu_torch.ops.cuda_cg import coupled_matvec_geom, coupled_visc_pcg, flat_geometry
+from python_fluid_simulation_tpu_torch.ops.cuda_cg import coupled_matvec_geom, coupled_visc_pcg, flat_geometry, squared_tols
+from python_fluid_simulation_tpu_torch.ops.cuda_stencils import (
+    coupled_stencil_matvec,
+    coupled_stencil_matvec_plain,
+    pack_coupled_stencil,
+)
 from python_fluid_simulation_tpu_torch.ops.extrapolate import extrapolate
 from python_fluid_simulation_tpu_torch.ops.indexing import (
     dual_sample,
@@ -190,13 +197,16 @@ def viscosity_axis_block_stencil(a, s_mu, sphi, vol, shape, symmetrize: bool = F
 def viscosity_matvec_3d(v_faces, s_mu, sphi, vol):
     """One application of the coupled operator to (vx, vy, vz)."""
     diags, per_axis, _ = viscosity_term_fields(s_mu, sphi, vol, [v.shape for v in v_faces])
-    out = []
-    for a in range(len(v_faces)):
-        acc = diags[a] * v_faces[a]
-        for field, voff, coef in per_axis[a]:
-            acc = acc + coef * sample(v_faces[field], voff, v_faces[a].shape, 0.0)
-        out.append(acc)
-    return tuple(out)
+    return coupled_stencil_matvec_plain(diags, per_axis, v_faces)
+
+
+def prepare_viscosity_matvec(s_mu, sphi, vol, face_shapes, fields=None):
+    """(matvec, pdiags) from the materialised term fields (``fields``,
+    or `viscosity_term_fields` built here); matvec equals
+    `viscosity_matvec_3d` and is `coupled_stencil_matvec` on them."""
+    diags, per_axis, pdiags = fields or viscosity_term_fields(s_mu, sphi, vol, face_shapes)
+    packed = pack_coupled_stencil(diags, per_axis)
+    return (lambda vs: coupled_stencil_matvec(diags, per_axis, vs, packed=packed)), tuple(pdiags)
 
 
 def viscosity_rhs_3d(v_faces, s_mu, sphi, vol):
@@ -302,7 +312,7 @@ MG_FACE_CELLS = 4_000_000
 def viscosity_solve_3d(
     dt, mu: float, rho: float, v_faces: Sequence[torch.Tensor], sphi, lvol, cell_vol: float, *,
     tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
-    precond_kind: str = "jacobi", auto_use_mg=None,
+    jacobi_precond: bool = True, precond_kind: str = "jacobi", auto_use_mg=None,
 ) -> ViscosityResult:
     """Full implicit viscosity solve (ViscosityCGSolver3D.solve :566-613):
     velocities are extrapolated 3 Jacobi layers into the solid (valid =
@@ -316,6 +326,14 @@ def viscosity_solve_3d(
     MG when ``auto_use_mg`` (the engine's hysteresis flag) is true, else
     Jacobi — the flag is read on the host, once a solve.  The MG route
     builds its fields and hierarchy only when it runs.
+
+    ``jacobi_precond=False`` keeps the JAX package's branches
+    (``viscosity.py:882-926``): 'mg' and the MG branch of 'auto' ignore
+    it; 'jacobi' (and 'auto' without a flag) run CG with no
+    preconditioner over the materialised matvec; the Jacobi branch of
+    'auto' runs CG over the same matvec WITH the Jacobi preconditioner
+    (the JAX package's ``_jacobi_cg`` when no fused solve was built).
+    The 45 term fields are built only on those branches.
 
     ``lvol`` may be the raw dual-lattice array or its parity-class dict;
     ``dt`` a float or 0-dim tensor.
@@ -335,20 +353,22 @@ def viscosity_solve_3d(
     shapes = [tuple(v.shape) for v in v_faces]
     b = viscosity_rhs_3d(ext, s_mu, sphi_c, vol_c)
 
-    if precond_kind == "auto":
-        use_mg = auto_use_mg is not None and bool(auto_use_mg)
-    elif precond_kind in ("jacobi", "mg"):
-        use_mg = precond_kind == "mg"
-    else:
+    if precond_kind not in ("jacobi", "mg", "auto"):
         raise ValueError(f"unknown viscosity preconditioner {precond_kind!r}")
-    if use_mg:
-        x, stats = _mg_solve(b, ext, s_mu, sphi_c, vol_c, shapes, tol=tol, rel_tol=rel_tol, max_iter=max_iter)
-    else:
+    flagged = precond_kind == "auto" and auto_use_mg is not None
+    kw = dict(tol=tol, rel_tol=rel_tol, max_iter=max_iter)
+    if precond_kind == "mg" or (flagged and bool(auto_use_mg)):
+        x, stats = _mg_solve(b, ext, s_mu, sphi_c, vol_c, shapes, **kw)
+    elif jacobi_precond:
         pdiags = viscosity_diag_3d(s_mu, sphi_c, vol_c, shapes)
-        x, iters, res, res0, thresh, _ = coupled_visc_pcg(
-            b, ext, pdiags, sphi_c, vol_c, s_mu, tol=tol, rel_tol=rel_tol, max_iter=max_iter,
-        )
+        x, iters, res, res0, thresh, _ = coupled_visc_pcg(b, ext, pdiags, sphi_c, vol_c, s_mu, **kw)
         stats = SolveStats(iters=iters, residual=res, initial_residual=res0, converged=res < thresh)
+    else:
+        matvec, pdiags = prepare_viscosity_matvec(s_mu, sphi_c, vol_c, shapes)
+        # the Jacobi branch of a flagged 'auto' keeps the preconditioner
+        precond = (lambda rs: tuple(r / p for r, p in zip(rs, pdiags))) if flagged else None
+        tol2, rel2 = squared_tols(tol, rel_tol)  # as the JAX package's generic cg rounds them
+        x, stats, _, _ = cg(matvec, b, ext, tol2=tol2, rel2=rel2, max_iter=max_iter, precond=precond)
     out = []
     for a in range(d):
         shape = shapes[a]
@@ -378,9 +398,9 @@ def _mg_solve(b, x0, s_mu, sphi_c, vol_c, shapes, *, tol, rel_tol, max_iter):
         del diags, same
     # the JAX package's generic cg rounds tol^2 in fp32 and rel_tol^2 in
     # double before the fp32 product
+    tol2, rel2 = squared_tols(tol, rel_tol)
     x, stats, _, _ = cg(
         lambda vs: coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, geom=geom), b, x0,
-        tol2=float(np.float32(tol) ** 2), rel2=float(np.float32(rel_tol**2)), max_iter=max_iter,
-        precond=precond,
+        tol2=tol2, rel2=rel2, max_iter=max_iter, precond=precond,
     )
     return x, stats

@@ -185,7 +185,7 @@ def test_unported_options_raise():
     for bad in (
         dataclasses.replace(cfg, moving_solid=True),
         dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_mode="unet")),
-        dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, pressure_dt_scaled=True)),
+        dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_mode="unet_warm")),
     ):
         with pytest.raises(NotImplementedError):
             step_3d(state, bad)
