@@ -23,7 +23,12 @@ PyTorch version on the card:
   (``jacobi_precond=False``: generic CG over the 7-point and the
   materialised coupled matvec kernels) on the flagship, the 128^3 step
   and coiling 'auto', and the dt-scaled pressure assembly
-  (``pressure_dt_scaled``) on the flagship.
+  (``pressure_dt_scaled``) on the flagship;
+* the largest particle count: ``scaled_buckling_config(256)``
+  (154x256x154 = 6.1M cells, 2,903,629 particles, Jacobi cell solves
+  through the streamed Poisson PCG, Jacobi viscosity PCG at 18M faces),
+  whose segment reduces take the scan route (the segmented scan, then
+  the placement kernel), as every measured reduce does.
 
 Phases, each printing one JSON line:
 
@@ -93,6 +98,19 @@ Phases, each printing one JSON line:
               jacobi_precond=False (2 steps from the 'auto' run's state
               after 2 steps: the Jacobi branch over the materialised
               matvec); counters reset before each run, solves converged
+  kernels_256 256: every segment reduce of the third step: the serial
+              kernel, the segmented scan, the placement and the scan route,
+              each vs its plain version (bitwise; the serial add within
+              SUM_REL) and the scan route vs the serial route (bitwise),
+              with CUDA-event times, the torch.segment_reduce time and
+              bounds; and the gate sweep: both routes on every reduce of a
+              step at all five sizes
+  main_256    256: 1 warm-up + 2 timed steps with the counters reset just
+              before; the scan route, the streamed Poisson PCG and the
+              coupled PCG launched, solves converged, particles finite,
+              the first step bitwise repeatable, the last step within
+              STEP_TOL of the same step on the card with every kernel
+              swapped for its plain version, peak memory
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
@@ -114,6 +132,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # fp32 operations a cell / a face does per PCG iteration (matvec, two
 # dots, three vector updates, the Jacobi divide), counted from the
@@ -157,6 +176,23 @@ COUPLED_FLOATS_PER_FACE = 17
 COUPLED_OPS_PER_FACE = 29
 STEPS_NOJAC = 6  # flagship, jacobi_precond=False: 1 warm-up + 5 timed
 STEPS_OPTION = 3  # the other runs of the new options
+RES_256 = 256
+SHAPE_256 = ((154, 256, 154), 2903629)
+STEPS_256 = 3  # 1 warm-up + 2 timed
+# the kernels of the reduce route every step's reduces take (the gate
+# sends them all to the scan route, ops/cuda_binned.py::_scan_route)
+REDUCE_ROUTE = ("seg_scan_sorted", "binned_segment_place")
+
+
+def halo_plane_bounds():
+    """Row 15 (``parallel/halo_rdma.py::halo_exchange_rdma``, not ported:
+    it needs two or more cards): its bound from its code, one width-1
+    axis-0 plane of a cell field (Y * Z float32) pushed to a neighbour
+    over NVLink, at the sizes of the step.  Computed, not measured."""
+    out = {}
+    for name, ((_, y, z), _) in (("128", SHAPE_128), ("504", SHAPE_504), ("256", SHAPE_256)):
+        out[name] = dict(plane=[y, z], bytes=y * z * 4, bound_ms=y * z * 4 / NVLINK_BYTES_PER_S * 1e3)
+    return out
 
 
 def emit(obj):
@@ -501,8 +537,9 @@ def mg_solve_phase(cell, kw):
 
 
 def binned_phase(reduces, broadcasts):
-    """Every segment reduce / broadcast of the step, kernels vs plain
-    versions, with the one-call PyTorch yardstick."""
+    """Every segment reduce / broadcast of the step, the serial reduce
+    kernel and the broadcast kernel vs plain versions, with the one-call
+    PyTorch yardstick."""
     import torch
 
     from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
@@ -511,7 +548,7 @@ def binned_phase(reduces, broadcasts):
     for label, args, kw in reduces:
         vals, ids, m, op, fill = args
         cf = kw.get("channels_first", False)
-        out_k, out_p = cbn.segment_reduce(*args, **kw), cbn.segment_reduce_plain(*args, **kw)
+        out_k, out_p = cbn.serial_reduce(*args, **kw), cbn.segment_reduce_plain(*args, **kw)
         bitwise = bool(torch.equal(out_k, out_p))
         err, rel = rel_err(out_k, out_p)
         if op == "min" and not bitwise:
@@ -525,7 +562,7 @@ def binned_phase(reduces, broadcasts):
         red_rows.append(dict(
             caller=label, op=op, channels_first=cf, K=k, live_rows=live, C=c, M=m, bitwise=bitwise,
             max_abs_err=err, max_rel_err=rel,
-            ms=cuda_time_ms(lambda: cbn.segment_reduce(*args, **kw), 20),
+            ms=cuda_time_ms(lambda: cbn.serial_reduce(*args, **kw), 20),
             plain_ms=cuda_time_ms(lambda: cbn.segment_reduce_plain(*args, **kw), 5),
             # one torch.segment_reduce call, offsets computed beforehand,
             # (M, C) output whatever the layout asked for
@@ -553,6 +590,132 @@ def binned_phase(reduces, broadcasts):
             **bound(k * 8 + used * c * 4 + k * c * 4, 0),
         ))
     return red_rows, bc_rows
+
+
+@contextlib.contextmanager
+def recorded_reduces():
+    """Record every segment reduce of what runs inside as its caller makes
+    it: a list of (caller, args, kw)."""
+    from python_fluid_simulation_tpu_torch.ops import scatter
+
+    got = []
+    fn = scatter.segment_reduce
+
+    def call(*args, **kw):
+        got.append((sys._getframe(2).f_code.co_name, args, kw))  # frame 2: the caller of the scatter entry point
+        return fn(*args, **kw)
+
+    with patched([(scatter, "segment_reduce", call)]):
+        yield got
+
+
+def reduce_bound(vals, ids, m):
+    """The reduce's bound: the live rows and the ids read once, the table
+    written once; one combine a live value.  Also the live rows and the
+    non-empty segments."""
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
+
+    k, c = vals.shape
+    offs = cbn._offsets(ids, m)
+    live = int(offs[-1] - offs[0])
+    nonempty = int((offs[1:] > offs[:-1]).sum())
+    return dict(live_rows=live, nonempty_segments=nonempty), bound(live * c * 4 + k * 8 + m * c * 4, live * c)
+
+
+def route_sweep(size, reduces):
+    """Both reduce routes on each captured reduce of a step (the data
+    `_scan_route` is set from): the serial kernel's and the scan route's
+    CUDA-event ms, which one the gate takes, the reduce's bound; the two
+    routes must agree bitwise (both add in row order from fill = 0)."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
+
+    rows = []
+    for caller, args, kw in reduces:
+        vals, ids, m, op, fill = args
+        k, c = vals.shape
+        if not torch.equal(cbn.serial_reduce(*args, **kw), cbn.scan_reduce(*args, **kw)):
+            raise AssertionError(f"{size} {caller}: the scan route differs from the serial route")
+        counts, bnd = reduce_bound(vals, ids, m)
+        rows.append(dict(
+            size=size, caller=caller, op=op, K=k, C=c, M=m, **counts, bitwise=True,
+            gate="scan" if cbn._scan_route(op, k, m, c) else "serial",
+            serial_ms=cuda_time_ms(lambda: cbn.serial_reduce(*args, **kw), 10),
+            scan_route_ms=cuda_time_ms(lambda: cbn.scan_reduce(*args, **kw), 10), **bnd,
+        ))
+    return rows
+
+
+def scan_route_phase(reduces):
+    """Every reduce of the step on both routes: the segmented scan, the
+    placement and the scan route each vs its plain version (bitwise), the
+    serial kernel vs its plain version (min bitwise, add within SUM_REL),
+    the scan route vs the serial route (bitwise); with CUDA-event times,
+    one torch.segment_reduce call and the bounds."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
+    from python_fluid_simulation_tpu_torch.ops import cuda_scan
+
+    rows = []
+    for caller, args, kw in reduces:
+        vals, ids, m, op, fill = args
+        cf = kw.get("channels_first", False)
+        k, c = vals.shape
+        same = cbn.segment_same(ids)
+        scan = cuda_scan.seg_scan_sorted(vals, same, op)
+        check_bitwise(f"seg_scan_sorted[{caller}]", [scan], [cuda_scan.seg_scan_sorted_plain(vals, same, op)])
+        placed = cbn.place_segments(scan, ids, m, op, fill, cf)
+        check_bitwise(f"place_segments[{caller}]", [placed], [cbn.place_segments_plain(scan, ids, m, op, fill, cf)])
+        del placed
+        route = cbn.scan_reduce(*args, **kw)
+        check_bitwise(f"scan_reduce[{caller}]", [route], [cbn.scan_reduce_plain(*args, **kw)])
+        check_bitwise(f"scan route vs serial route[{caller}]", [route], [cbn.serial_reduce(*args, **kw)])
+        del route
+        serial_k, serial_p = cbn.serial_reduce(*args, **kw), cbn.segment_reduce_plain(*args, **kw)
+        serial_bitwise = bool(torch.equal(serial_k, serial_p))
+        err, rel = rel_err(serial_k, serial_p)
+        if (op == "min" and not serial_bitwise) or not rel <= SUM_REL:
+            raise AssertionError(f"serial reduce[{caller}]: kernel vs plain max abs {err}, rel {rel}")
+        del serial_k, serial_p
+        counts, bnd = reduce_bound(vals, ids, m)
+        offs = cbn._offsets(ids, m)
+        rows.append(dict(
+            caller=caller, op=op, channels_first=cf, K=k, C=c, M=m, **counts,
+            # row 13: each value read once and written once, the flags read
+            # once; one combine a value
+            seg_scan_sorted=dict(
+                bitwise=True, max_abs_err=0.0,
+                ms=cuda_time_ms(lambda: cuda_scan.seg_scan_sorted(vals, same, op), 10),
+                plain_ms=cuda_time_ms(lambda: cuda_scan.seg_scan_sorted_plain(vals, same, op), 2),
+                **bound(2 * k * c * 4 + k, k * c)),
+            # the placement alone: the ids and one scanned row a non-empty
+            # segment read, the table written
+            place_segments=dict(
+                bitwise=True, max_abs_err=0.0,
+                ms=cuda_time_ms(lambda: cbn.place_segments(scan, ids, m, op, fill, cf), 10),
+                plain_ms=cuda_time_ms(lambda: cbn.place_segments_plain(scan, ids, m, op, fill, cf), 3),
+                **bound(counts["nonempty_segments"] * c * 4 + k * 8 + m * c * 4, m * c)),
+            # row 11: the scan route as the step calls it (flags, scan,
+            # placement), the reduce's bound
+            scan_reduce=dict(
+                bitwise=True, max_abs_err=0.0, vs_serial_route_bitwise=True,
+                ms=cuda_time_ms(lambda: cbn.scan_reduce(*args, **kw), 10),
+                plain_ms=cuda_time_ms(lambda: cbn.scan_reduce_plain(*args, **kw), 2),
+                # one torch.segment_reduce call, offsets computed beforehand,
+                # (M, C) output whatever the layout asked for
+                library_ms=cuda_time_ms(lambda: torch.segment_reduce(
+                    vals, cbn._OPS[op], offsets=offs, axis=0, unsafe=True, initial=float(fill)), 5),
+                **bnd),
+            serial_reduce=dict(
+                bitwise=serial_bitwise, max_abs_err=err, max_rel_err=rel,
+                ms=cuda_time_ms(lambda: cbn.serial_reduce(*args, **kw), 10),
+                plain_ms=cuda_time_ms(lambda: cbn.segment_reduce_plain(*args, **kw), 5), **bnd),
+        ))
+        del scan, same, offs
+        torch.cuda.empty_cache()
+    return rows
 
 
 def capture_coil(step_3d, state, cfg, geom):
@@ -874,6 +1037,16 @@ def coupled_library(system, q_kernel):
                 library_max_abs_err=max_err(q, ref)[0])
 
 
+def plain_segment_reduce(vals, sorted_ids, num_segments, op="add", fill=0.0, channels_first=False):
+    """`segment_reduce` with the plain version of the route its gate
+    picks."""
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned
+
+    scan = cuda_binned._scan_route(op, vals.shape[0], int(num_segments), vals.shape[-1])
+    plain = cuda_binned.scan_reduce_plain if scan else cuda_binned.segment_reduce_plain
+    return plain(vals, sorted_ids, num_segments, op, fill, channels_first)
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Every kernel of the step swapped for its plain version (module
@@ -888,7 +1061,7 @@ def plain_kernels():
         (viscosity, "coupled_visc_pcg", cuda_cg.coupled_visc_pcg_plain),
         (viscosity, "coupled_matvec_geom", plain_geom_mv),
         (viscosity, "coupled_stencil_matvec", plain_coupled_stencil_mv),
-        (scatter, "segment_reduce", cuda_binned.segment_reduce_plain),
+        (scatter, "segment_reduce", plain_segment_reduce),
         (scatter, "segment_broadcast", cuda_binned.segment_broadcast_plain),
         (scatter, "fold", cuda_fold.fold_plain),
     ]):
@@ -1049,7 +1222,7 @@ def step_diff(a, b):
 
 
 def reset_counters():
-    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_fold, cuda_mg, cuda_stencils
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_fold, cuda_mg, cuda_scan, cuda_stencils
 
     wrappers = {
         "cell_poisson_pcg": cuda_stencils.cell_poisson_pcg,
@@ -1057,7 +1230,9 @@ def reset_counters():
         "coupled_visc_pcg": cuda_cg.coupled_visc_pcg,
         "stencil_matvec": cuda_stencils.stencil_matvec,
         "mg_level_chain": cuda_mg.level_chain,
-        "binned_segment_reduce": cuda_binned.segment_reduce,
+        "binned_segment_reduce": cuda_binned.serial_reduce,
+        "seg_scan_sorted": cuda_scan.seg_scan_sorted,
+        "binned_segment_place": cuda_binned.place_segments,
         "binned_segment_broadcast": cuda_binned.segment_broadcast,
         "coupled_matvec_geom": cuda_cg.coupled_matvec_geom,
         "fold": cuda_fold.fold,
@@ -1319,8 +1494,11 @@ def main() -> int:
     state2 = state0
     for _ in range(2):
         state2, _ = step_3d(state2, cfg, geom=geom)
-    captured = capture_systems(step_3d, state2, cfg, geom)
+    with recorded_reduces() as reduces:
+        captured = capture_systems(step_3d, state2, cfg, geom)
     del state2
+    reduce_sweep = route_sweep("flagship", reduces)  # the reduce gate's data, printed in kernels_256
+    del reduces
     if len(captured["cell"]) != 2 or len(captured["coupled"]) != 1:
         raise AssertionError(f"expected 2 cell solves and 1 coupled solve, got {len(captured['cell'])}, {len(captured['coupled'])}")
     cell_rows = cell_kernel_phase(captured["cell"])
@@ -1337,7 +1515,7 @@ def main() -> int:
     state, states, step_ms, metrics = run_steps(step_3d, state0, cfg, geom, 11, max(CHECKED_STEPS) + 1)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    check_run(state, metrics, launches, ("cell_poisson_pcg", "coupled_visc_pcg", "binned_segment_reduce",
+    check_run(state, metrics, launches, ("cell_poisson_pcg", "coupled_visc_pcg", *REDUCE_ROUTE,
                                          "binned_segment_broadcast", "fold"), "flagship")
 
     # reported, not asserted: the first step again, bit for bit
@@ -1389,6 +1567,7 @@ def main() -> int:
     chain_rows, vcycle = vcycle_phase(b_p, diag_p, coefs_p, mg_kw)
     mg_rows = mg_solve_phase(cell, solve_kw)
     red_rows, bc_rows = binned_phase(got["reduce"], got["broadcast"])
+    reduce_sweep += route_sweep("128", got["reduce"])
     jac_kw = {k: solve_kw[k] for k in ("tol", "rel_tol", "max_iter")}
     cell128_rows = cell_kernel_phase([((b, d, c, pd), jac_kw) for _, (b, (d, c, pd)) in cell])
     # the other side of the gate on the same systems
@@ -1414,7 +1593,7 @@ def main() -> int:
     launches128 = read_counts()
     peak128 = torch.cuda.max_memory_allocated()
     check_run(state, metrics128, launches128, ("coupled_visc_pcg", "stencil_matvec", "mg_level_chain",
-                                               "binned_segment_reduce", "binned_segment_broadcast", "fold"), "128^3")
+                                               *REDUCE_ROUTE, "binned_segment_broadcast", "fold"), "128^3")
     first = state_to_numpy(states[1])
     again, _ = step_3d(s128, cfg128, geom=geom128)
     for k in ("x", "v", "c"):
@@ -1445,8 +1624,11 @@ def main() -> int:
     state2 = sc
     for _ in range(2):
         state2, _ = step_3d(state2, cfgc, geom=geomc)
-    got = capture_coil(step_3d, state2, cfgc, geomc)
+    with recorded_reduces() as reduces:
+        got = capture_coil(step_3d, state2, cfgc, geomc)
     del state2
+    reduce_sweep += route_sweep("coiling", reduces)
+    del reduces
     if len(got["coupled"]) != 1 or not got["fold"]:
         raise AssertionError(f"coiling capture: {[(k, len(v)) for k, v in got.items()]}")
     visc = (got["coupled"][0][1], got["coupled"][0][2])
@@ -1483,7 +1665,7 @@ def main() -> int:
                                            geomc, 2, 0)
     launches_by_run["auto_from_visc_mg_2"] = read_counts()
     peakc = torch.cuda.max_memory_allocated()
-    every_path = ("stencil_matvec", "mg_level_chain", "fold", "binned_segment_reduce", "binned_segment_broadcast")
+    every_path = ("stencil_matvec", "mg_level_chain", "fold", *REDUCE_ROUTE, "binned_segment_broadcast")
     for label, (state, _, _, metrics, branch) in runs.items():
         need = every_path  # the cell MG-PCG and the scatters; then each viscosity branch the run took
         if "jacobi" in branch:
@@ -1535,8 +1717,11 @@ def main() -> int:
     state2 = s504
     for _ in range(2):
         state2, _ = step_3d(state2, cfg504, geom=geom504)
-    got = capture_504(step_3d, state2, cfg504, geom504)
+    with recorded_reduces() as reduces:
+        got = capture_504(step_3d, state2, cfg504, geom504)
     del state2
+    reduce_sweep += route_sweep("504", reduces)
+    del reduces
     if len(got["fused"]) != 2 or got["cell"] or len(got["coupled"]) != 1 or len(got["fold"]) != 1:
         raise AssertionError(f"504 capture: {[(k, len(v)) for k, v in got.items()]}")
     cell504 = [(label, args, kw) for label, (args, kw) in zip(("density", "pressure"), got["fused"])]
@@ -1581,7 +1766,7 @@ def main() -> int:
                                               cfg504, geom504, STEPS_504, 1)
     launches_by_run504["auto_from_visc_mg_2"] = read_counts()
     peak504 = torch.cuda.max_memory_allocated()
-    every_path = ("fused_poisson_pcg", "fold", "binned_segment_reduce", "binned_segment_broadcast")
+    every_path = ("fused_poisson_pcg", "fold", *REDUCE_ROUTE, "binned_segment_broadcast")
     need_by_run = {"auto": every_path + ("coupled_visc_pcg",),
                    "auto_from_visc_mg_2": every_path + ("coupled_matvec_geom", "coupled_matvec_geom_same_axis",
                                                         "mg_level_chain_batched", "stencil_matvec")}
@@ -1670,7 +1855,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches_opt, opt_out = {}, {}
-    every_path = ("binned_segment_reduce", "binned_segment_broadcast", "fold")
+    every_path = (*REDUCE_ROUTE, "binned_segment_broadcast", "fold")
 
     def refuse(label, launched, names):
         for name in names:
@@ -1735,8 +1920,69 @@ def main() -> int:
           "max_memory_allocated": torch.cuda.max_memory_allocated(), "step_tol": STEP_TOL,
           "seconds": time.perf_counter() - t0})
 
+    # -- 256: every segment reduce of the third step on both routes, and
+    #    the gate sweep of all five sizes
+    t0 = time.perf_counter()
+    cfg256 = scaled_buckling_config(RES_256)
+    s256 = buckling_scene(cfg256, seed=0, device="cuda")
+    n256 = int(s256.particles.x.shape[0])
+    if ((cfg256.grid.res, n256) != SHAPE_256 or cfg256.solver.precond != "jacobi"
+            or cfg256.solver.viscosity_precond != "jacobi"
+            or not math.prod(cfg256.grid.res) > pressure.FUSED_POISSON_CELLS):
+        raise AssertionError(f"unexpected 256 config: grid {cfg256.grid.res}, {n256} particles, {cfg256.solver}")
+    geom256 = build_geom_cache(s256.solid)
+    state2 = s256
+    for _ in range(2):
+        state2, _ = step_3d(state2, cfg256, geom=geom256)
+    with recorded_reduces() as reduces:
+        step_3d(state2, cfg256, geom=geom256)
+    del state2
+    if len(reduces) != 4:
+        raise AssertionError(f"256 capture: {len(reduces)} reduces")
+    scan_rows = scan_route_phase(reduces)
+    reduce_sweep += route_sweep("256", reduces)
+    del reduces
+    torch.cuda.empty_cache()
+    if not any(r["gate"] == "scan" for r in reduce_sweep if r["size"] == "256"):
+        raise AssertionError("256: the gate sends no reduce to the scan route")
+    emit({"phase": "kernels_256", "grid": list(cfg256.grid.res), "particles": n256, "reduce": scan_rows,
+          "gate_sweep": reduce_sweep, "seconds": time.perf_counter() - t0})
+
+    # -- 256 main path: counters reset just before, read just after
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read_counts = reset_counters()
+    state, states, step_ms256, metrics256 = run_steps(step_3d, s256, cfg256, geom256, STEPS_256, STEPS_256)
+    launches256 = read_counts()
+    peak256 = torch.cuda.max_memory_allocated()
+    check_run(state, metrics256, launches256, ("fused_poisson_pcg", "coupled_visc_pcg", *REDUCE_ROUTE,
+                                               "binned_segment_broadcast", "fold"), "256")
+    for name in ("cell_poisson_pcg", "binned_segment_reduce"):
+        if launches256[name]:
+            raise AssertionError(f"256: {name} was launched ({launches256[name]} times)")
+    again, _ = step_3d(s256, cfg256, geom=geom256)
+    for k in ("x", "v", "c"):
+        if not torch.equal(getattr(again.particles, k), getattr(states[1].particles, k)):
+            raise AssertionError(f"256: the first step run twice differs in {k}")
+    del again
+    # the last step held against the same step on the card with every
+    # kernel swapped for its plain version
+    tc = time.perf_counter()
+    err256, _ = card_vs_plain(step_3d, states[-2], states[-1], cfg256, geom256, f"256 step {STEPS_256 - 1}")
+    plain256 = time.perf_counter() - tc
+    timed256 = step_ms256[1:]
+    del states, state, s256, geom256
+    emit({"phase": "main_256", "grid": list(cfg256.grid.res), "particles": n256,
+          "warmup_step_ms": step_ms256[0], "step_ms": timed256, "median_step_ms": statistics.median(timed256),
+          "iters": {k: [m[f"{k}_iters"] for m in metrics256] for k in ("density", "viscosity", "pressure")},
+          "launches": launches256, "max_memory_allocated": peak256, "first_step_bitwise_repeatable": True,
+          "check": f"step {STEPS_256 - 1} vs the same step on the card with every kernel swapped for its plain version",
+          "card_vs_plain_on_card": err256, "plain_step_seconds": plain256, "step_tol": STEP_TOL,
+          "seconds": time.perf_counter() - t0})
+
     # -- summary: the nvidia-smi line, the kernels line, then the result
-    every_run = [launches, launches128, launchesc, launches504, *launches_opt.values()]
+    every_run = [launches, launches128, launchesc, launches504, *launches_opt.values(), launches256]
 
     def entry(name, source, replaces, row, library_ms=None, counter=None):
         return {"name": name, "route": "cuda", "source": f"python_fluid_simulation_tpu_torch/csrc/{source}",
@@ -1758,6 +2004,7 @@ def main() -> int:
     pres = dict(cell_rows[1], max_abs_err=max(r["max_abs_err"] for r in cell_rows))
     sten = dict(stencil_rows[1], max_abs_err=max(r["max_abs_err"] for r in stencil_rows))
     red, bc, fold = total(red_rows), total(bc_rows), total(fold_rows)
+    scan_red = total([r["scan_reduce"] for r in scan_rows])
     kernels = [
         entry("cell_poisson_pcg", "cell_poisson_pcg.cu", "pallas_stencils.py:125", pres),
         entry("coupled_visc_pcg", "coupled_visc_pcg.cu", "pallas_cg.py:673", coupled_row),
@@ -1767,6 +2014,12 @@ def main() -> int:
         entry("stencil_matvec", "stencil_matvec.cu", "pallas_stencils.py:299", sten, stencil_lib["library_ms"]),
         entry("mg_level_chain", "mg_level_chain.cu", "pallas_mg.py:100", total(chain_rows)),
         entry("binned_segment_reduce", "binned_segment.cu", "pallas_binned.py:423", red, red["library_ms"]),
+        # the scan route on the 256 step's four reduces: row 11 (the
+        # placement, with row 13 as its first phase) and row 13 (the scan)
+        dict(entry("scan_reduce", "binned_segment.cu", "pallas_binned.py:327", scan_red, scan_red["library_ms"],
+                   counter="binned_segment_place"),
+             first_phase="python_fluid_simulation_tpu_torch/csrc/seg_scan.cu"),
+        entry("seg_scan_sorted", "seg_scan.cu", "pallas_segscan.py:173", total([r["seg_scan_sorted"] for r in scan_rows])),
         entry("binned_segment_broadcast", "binned_segment.cu", "pallas_binned.py:179", bc, bc["library_ms"]),
         # the full operator (the MG-PCG's outer matvec); same-axis in kernels_coil
         entry("coupled_matvec_geom", "coupled_matvec.cu", "pallas_cg.py:714", geom_rows[0], geom_lib["library_ms"]),
@@ -1783,7 +2036,8 @@ def main() -> int:
               dict(prepared_rows[1], max_abs_err=max(r["max_abs_err"] for r in prepared_rows)),
               prepared_rows[1]["library_ms"], counter="stencil_matvec"),
     ]
-    emit({"phase": "done", "seconds": time.perf_counter() - t_all})
+    emit({"phase": "done", "halo_rdma_bound_not_measured": halo_plane_bounds(),
+          "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -22,20 +22,38 @@
 //          so the stores are coalesced either way.
 // broadcast out[i, c] = table[ids[i], c], 0 for ids outside [0, M); one
 //          thread per output element.
+// place    the second phase of the scan route (replaces _scan_kernel's
+//          phase B, pallas_binned.py:327): given the inclusive segmented
+//          scan of the rows (seg_scan.cu), each segment's LAST row holds
+//          its reduce.  A block owns S consecutive segments: it fills an
+//          S x C tile in shared memory with `fill`, finds its row range
+//          with two binary searches, and for every segment-last row in
+//          that range (a warp ballot on ids[i] != ids[i+1]) its warp
+//          copies the row into the tile, combined with fill (add:
+//          fill + row, min: the row where it is below fill); then the
+//          tile is written out once, coalesced.  channels_first stages
+//          the tile transposed (C x (S+1): the +1 keeps a warp's row
+//          writes on distinct banks), so a warp writes consecutive
+//          segments of one channel.  Scan then place computes what the
+//          serial reduce computes: with fill = 0 (every add caller) and
+//          the scan's row-order adds it is bitwise that result, and the
+//          min is order-free.
 //
 // What bounds them: bytes.  The reduce reads K*C values and K ids once
 // and writes M*C values, one add or min per value; the broadcast writes
-// K*C values and reads as many.  The simple design pays extra for the
+// K*C values and reads as many; the placement reads K ids and the
+// segment-last rows (one a non-empty segment) and writes M*C values.  The simple design pays extra for the
 // binary searches (2 log2 K id reads a segment, L2-resident) and, in the
 // channels-first layout, for reads strided by C; tuning is later work.
 //
 // Ids are int64, the dtype of the port's torch.sort of cell ids.
 //
 // Index widths: M and C are 32-bit (the wrapper checks M < 2^31 and
-// 256 C < 2^31, the pairs a reduce block counts in an int); every element
-// offset -- row * C + c, (m0 + s) * C + c, c * M + m0 + s, id * C + t % C --
-// is computed in 64 bits, so a table may pass 2^31 entries (the level
-// set's 125-channel reduce at 126x504x126 cells holds 1.0e9).
+// 256 C < 2^31, the pairs a reduce block counts in an int; the placement
+// takes C <= 256); every element offset -- row * C + c, (m0 + s) * C + c,
+// c * M + m0 + s, id * C + t % C -- is computed in 64 bits, so a table may
+// pass 2^31 entries (the level set's 125-channel reduce at 126x504x126
+// cells holds 1.0e9).
 
 #include <cuda_runtime.h>
 
@@ -99,7 +117,87 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kPlaceFloats = 10240;  // shared floats a placement tile holds (40 KB)
+
+template <bool kMin, bool kChannelsFirst>
+__global__ void __launch_bounds__(kThreads)
+    binned_place_kernel(const float* __restrict__ scan,
+                        const long long* __restrict__ ids, long k, int M,
+                        int C, int S, float fill, float* __restrict__ out) {
+  extern __shared__ float tile[];  // S x C, or C x (S + 1) channels-first
+  __shared__ long range[2];
+  const long m0 = (long)blockIdx.x * S;
+  const int nseg = (long)M - m0 < S ? (int)((long)M - m0) : S;
+  const int ld = kChannelsFirst ? S + 1 : C;
+  const int n = kChannelsFirst ? C * ld : nseg * C;
+  for (int p = threadIdx.x; p < n; p += kThreads) tile[p] = fill;
+  if (threadIdx.x < 2)
+    range[threadIdx.x] = lower_bound(ids, k, (long long)(m0 + threadIdx.x * nseg));
+  __syncthreads();
+  const long lo = range[0], hi = range[1];
+  const int lane = threadIdx.x & 31;
+  for (long base = lo + (threadIdx.x & ~31); base < hi; base += kThreads) {
+    const long i = base + lane;
+    const long long id = i < hi ? ids[i] : 0;
+    const bool last = i < hi && (i + 1 == k || ids[i + 1] != id);
+    for (unsigned mask = __ballot_sync(0xffffffffu, last); mask; mask &= mask - 1) {
+      const int b = __ffs(mask) - 1;
+      const int s = (int)(__shfl_sync(0xffffffffu, id, b) - m0);
+      const float* row = scan + (base + b) * C;
+      for (int c = lane; c < C; c += 32) {
+        const float v = row[c];
+        const float r = kMin ? ((v != v || v < fill) ? v : fill) : __fadd_rn(fill, v);
+        tile[kChannelsFirst ? c * ld + s : s * C + c] = r;
+      }
+    }
+  }
+  __syncthreads();
+  if (kChannelsFirst) {
+    for (int p = threadIdx.x; p < C * nseg; p += kThreads) {
+      const int c = p / nseg, s = p - c * nseg;
+      out[(long)c * M + m0 + s] = tile[c * ld + s];
+    }
+  } else {
+    float* dst = out + m0 * C;
+    for (int p = threadIdx.x; p < n; p += kThreads) dst[p] = tile[p];
+  }
+}
+
 }  // namespace
+
+// Segments a placement block owns: a multiple of 32, at most 1024, with
+// the tile within kPlaceFloats; 0 when C is too wide.
+static int place_segments(int C) {
+  const int s = (kPlaceFloats / C - 1) / 32 * 32;
+  return s < 32 ? 0 : (s > 1024 ? 1024 : s);
+}
+
+extern "C" int pfs_binned_place(const void* scan, const void* ids,
+                                long long k, int M, int C, int op_min,
+                                int channels_first, float fill, void* out,
+                                void* stream) {
+  if (M <= 0 || C <= 0) return 0;
+  const int S = place_segments(C);
+  if (S == 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((M + S - 1) / S);
+  const size_t smem = (size_t)(channels_first ? C * (S + 1) : S * C) * sizeof(float);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(scan);
+  const long long* id = static_cast<const long long*>(ids);
+  float* o = static_cast<float*>(out);
+  if (op_min) {
+    if (channels_first)
+      binned_place_kernel<true, true><<<blocks, kThreads, smem, st>>>(v, id, k, M, C, S, fill, o);
+    else
+      binned_place_kernel<true, false><<<blocks, kThreads, smem, st>>>(v, id, k, M, C, S, fill, o);
+  } else {
+    if (channels_first)
+      binned_place_kernel<false, true><<<blocks, kThreads, smem, st>>>(v, id, k, M, C, S, fill, o);
+    else
+      binned_place_kernel<false, false><<<blocks, kThreads, smem, st>>>(v, id, k, M, C, S, fill, o);
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int pfs_binned_reduce(const void* vals, const void* ids,
                                  long long k, int M, int C, int op_min,

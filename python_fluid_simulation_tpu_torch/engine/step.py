@@ -19,8 +19,9 @@ cell solves are CG over ``stencil_matvec`` with the multigrid V-cycle of
 ``viscosity_precond='mg'``, or 'auto' while the carried flag is set, the
 viscosity solve is CG over ``coupled_matvec_geom`` with the batched
 block V-cycle, or above 4M face cells the lean two-grid cycle), and so
-do the segment reduces and broadcasts and the
-folds of the transfers (``ops/cuda_binned.py``, ``ops/cuda_fold.py``).
+do the segment reduces (the scan route of ``ops/cuda_binned.py`` and
+``ops/cuda_scan.py`` for every reduce of up to 256 channels) and
+broadcasts and the folds of the transfers (``ops/cuda_fold.py``).
 With ``jacobi_precond=False`` (the reference's unpreconditioned CG) the
 non-MG solves are the generic CG over ``stencil_matvec`` and
 ``coupled_stencil_matvec``; ``pressure_dt_scaled`` solves the pressure

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "pfs_coupled_stencil_matvec": [_P] * 4,
     "pfs_mg_level_chain": [_P] * 12 + [_I] * 5 + [_F, _P],
     "pfs_binned_reduce": [_P, _P, _L] + [_I] * 4 + [_F, _P, _P],
+    "pfs_binned_place": [_P, _P, _L] + [_I] * 4 + [_F, _P, _P],
+    "pfs_seg_scan": [_P, _P, _L, _I, _I, _P, _P],
     "pfs_binned_broadcast": [_P, _P, _L, _I, _I, _P, _P],
     "pfs_fold": [_P, _L, _P] + [_I] * 9 + [_P, _F, _I, _P],
 }

@@ -2,29 +2,40 @@
 plain versions.
 
 Replaces ``python_fluid_simulation_tpu/ops/pallas_binned.py::
-binned_segment_reduce`` (``_kernel``, row-major and ``channels_first``)
-and ``binned_segment_broadcast`` (``_bcast_kernel``), the engine's
-particle -> cell reduces (P2G, level sets, volumes, density scatter) and
-cell -> particle gathers (G2P, density displacement).  The kernels are in
-``csrc/binned_segment.cu``:
+binned_segment_reduce`` (``_kernel``, row-major and ``channels_first``,
+and the two-phase ``_scan_kernel``) and ``binned_segment_broadcast``
+(``_bcast_kernel``), the engine's particle -> cell reduces (P2G, level
+sets, volumes, density scatter) and cell -> particle gathers (G2P,
+density displacement).  The kernels are in ``csrc/binned_segment.cu``
+and ``csrc/seg_scan.cu``:
 
-  * reduce: one thread per (segment, channel), the segment's row range
-    found by binary search on the sorted ids inside the kernel, the rows
-    reduced serially in row order from ``fill`` (no atomics: bitwise
-    repeatable, and the same order as ``torch.segment_reduce``);
+  * the serial reduce (`serial_reduce`): one thread per (segment,
+    channel), the segment's row range found by binary search on the
+    sorted ids inside the kernel, the rows reduced serially in row order
+    from ``fill`` (no atomics: bitwise repeatable, and the same order as
+    ``torch.segment_reduce``);
+  * the scan reduce (`scan_reduce`): the inclusive segmented scan of the
+    rows (``ops/cuda_scan.py::seg_scan_sorted``, every row read once,
+    coalesced), then `place_segments` writes each segment's last row,
+    combined with ``fill``, into the table and ``fill`` everywhere else;
   * broadcast: one thread per output element, 0 for ids outside [0, M).
 
-Both are bound by bytes.  The JAX package runs its binned kernels only
-above 4e5 segments (a TPU fusion trade-off); here a CUDA tensor takes the
-kernels at every size.
+All are bound by bytes.  `segment_reduce` takes one reduce route or the
+other by `_scan_route`, a function of the shapes alone (set from H100
+measurements of both routes on the step's reduces, PERF.md); the JAX
+package's gates (its 4e5-segment binned gate, ``PFS_SCAN_REDUCE``) are
+TPU trade-offs and do not carry over.  Both routes add in row order, so
+with ``fill`` = 0 (every add caller) they agree bitwise, and the min is
+order-free: the route changes the time, not the result.
 
-Contract (the same on both routes): ``sorted_ids`` is non-decreasing
+Contract (the same on every route): ``sorted_ids`` is non-decreasing
 int64; rows whose id lies outside [0, M) (negative ids included) are
 dropped by the reduce and read 0 in the broadcast; ``min`` is clamped at
 ``fill``; ``add`` adds the rows to ``fill``.
 
-Routing: a CUDA tensor launches the kernel; a CPU tensor runs the plain
-version (`segment_reduce_plain`, `segment_broadcast_plain`).
+Routing: a CUDA tensor launches the kernels; a CPU tensor takes the same
+route and runs its plain versions (`segment_reduce_plain`,
+`scan_reduce_plain`, `segment_broadcast_plain`).
 """
 
 from __future__ import annotations
@@ -32,6 +43,8 @@ from __future__ import annotations
 import torch
 
 from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
+from python_fluid_simulation_tpu_torch.ops.cuda_scan import MAX_CHANNELS as SCAN_CHANNELS
+from python_fluid_simulation_tpu_torch.ops.cuda_scan import combine, seg_scan_sorted, seg_scan_sorted_plain
 
 _OPS = {"add": "sum", "min": "min"}
 
@@ -85,11 +98,29 @@ def _check_rows(name, vals, sorted_ids):
                          f"{sorted_ids.dtype} {tuple(sorted_ids.shape)} on {sorted_ids.device}")
 
 
+def _scan_route(op: str, k: int, m: int, c: int) -> bool:
+    """Whether `segment_reduce` takes the scan route for K rows of C
+    channels onto M segments (otherwise the serial kernel).
+
+    Set from H100 measurements of both routes on every reduce of a step
+    at five sizes (PERF.md §6, ``chip_smoke.py``'s gate sweep): the scan
+    route was the faster on all 20, by 1.2x to 4.4x (K 74k-2.9M rows,
+    M 0.18M-8.3M segments, C 54-135, add and min), so it takes every
+    reduce its kernels take, up to `SCAN_CHANNELS` channels."""
+    return c <= SCAN_CHANNELS
+
+
 def segment_reduce(vals, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0, channels_first: bool = False):
     """Reduce the (K, C) rows of each segment: (M, C), or (C, M) with
-    `channels_first`."""
+    `channels_first`; by the route `_scan_route` picks for the shapes."""
     if op not in _OPS:
         raise ValueError(f"segment_reduce: op must be one of {tuple(_OPS)}, got {op!r}")
+    route = scan_reduce if _scan_route(op, vals.shape[0], int(num_segments), vals.shape[-1]) else serial_reduce
+    return route(vals, sorted_ids, num_segments, op, fill, channels_first)
+
+
+def serial_reduce(vals, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0, channels_first: bool = False):
+    """The serial route: on CUDA one launch of the serial reduce kernel."""
     if vals.device.type == "cpu":
         return segment_reduce_plain(vals, sorted_ids, num_segments, op, fill, channels_first)
     if vals.device.type != "cuda":
@@ -105,11 +136,75 @@ def segment_reduce(vals, sorted_ids, num_segments: int, op: str = "add", fill: f
         int(channels_first), float(fill), out.data_ptr(), cb.stream_of(vals),
     )
     cb.check(err, "binned_segment_reduce launch")
-    segment_reduce.launches += 1
+    serial_reduce.launches += 1
     return out
 
 
-segment_reduce.launches = 0
+serial_reduce.launches = 0
+
+
+def segment_same(sorted_ids):
+    """``same[i]``: row i continues row i-1's segment (row 0: False)."""
+    same = torch.zeros(sorted_ids.shape, dtype=torch.bool, device=sorted_ids.device)
+    torch.eq(sorted_ids[1:], sorted_ids[:-1], out=same[1:])
+    return same
+
+
+def place_segments_plain(scanned, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0,
+                         channels_first: bool = False):
+    """Each segment's last scanned row combined with `fill` (add:
+    ``fill + row``; min: the row where it is below fill), `fill` in the
+    empty segments; rows with ids outside [0, M) are dropped."""
+    k, c = scanned.shape
+    last = torch.ones(k, dtype=torch.bool, device=scanned.device)
+    torch.ne(sorted_ids[1:], sorted_ids[:-1], out=last[:-1])
+    keep = last & (sorted_ids >= 0) & (sorted_ids < num_segments)
+    out = torch.full((num_segments, c), float(fill), dtype=scanned.dtype, device=scanned.device)
+    rows = scanned[keep]
+    out[sorted_ids[keep]] = combine(torch.full_like(rows, float(fill)), rows, op)
+    return out.t().contiguous() if channels_first else out
+
+
+def place_segments(scanned, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0,
+                   channels_first: bool = False):
+    """`place_segments_plain`; on CUDA one launch of the placement kernel,
+    for at most `SCAN_CHANNELS` channels."""
+    if scanned.device.type == "cpu":
+        return place_segments_plain(scanned, sorted_ids, num_segments, op, fill, channels_first)
+    if scanned.device.type != "cuda":
+        raise ValueError(f"place_segments: unsupported device {scanned.device}")
+    _check_rows("place_segments", scanned, sorted_ids)
+    k, c = scanned.shape
+    if sorted_ids.shape[0] != k:
+        raise ValueError(f"place_segments: {sorted_ids.shape[0]} ids for {k} rows")
+    _check_extents("place_segments", int(num_segments), c)
+    if c > SCAN_CHANNELS:
+        raise ValueError(f"place_segments: at most {SCAN_CHANNELS} channels, got {c}")
+    out = torch.empty((c, num_segments) if channels_first else (num_segments, c), dtype=scanned.dtype,
+                      device=scanned.device)
+    err = cb.LIB.get().pfs_binned_place(
+        scanned.data_ptr(), sorted_ids.data_ptr(), k, int(num_segments), c, int(op == "min"),
+        int(channels_first), float(fill), out.data_ptr(), cb.stream_of(scanned),
+    )
+    cb.check(err, "binned_segment_place launch")
+    place_segments.launches += 1
+    return out
+
+
+place_segments.launches = 0
+
+
+def scan_reduce(vals, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0, channels_first: bool = False):
+    """The scan route: `seg_scan_sorted` of the rows, then
+    `place_segments`; the plain versions on the CPU."""
+    scanned = seg_scan_sorted(vals, segment_same(sorted_ids), op)
+    return place_segments(scanned, sorted_ids, num_segments, op, fill, channels_first)
+
+
+def scan_reduce_plain(vals, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0,
+                      channels_first: bool = False):
+    scanned = seg_scan_sorted_plain(vals, segment_same(sorted_ids), op)
+    return place_segments_plain(scanned, sorted_ids, num_segments, op, fill, channels_first)
 
 
 def segment_broadcast(table, sorted_ids):

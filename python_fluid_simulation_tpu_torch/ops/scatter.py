@@ -4,10 +4,10 @@ Counterpart of ``python_fluid_simulation_tpu.ops.scatter``: one stable
 sort of the per-particle home-cell ids, then
 
   * segmented add / min over the sorted rows and the segment broadcast
-    ``out[i] = table[sorted_ids[i]]`` — the binned segment kernels of
-    ``ops/cuda_binned.py`` (each segment reduced by one thread in row
-    order, so the sums are exact per segment and bitwise repeatable, no
-    atomics), whose plain versions run on the CPU,
+    ``out[i] = table[sorted_ids[i]]`` — the kernels of
+    ``ops/cuda_binned.py`` (a reduce adds each segment's rows in row
+    order, on either of its routes, so the sums are bitwise repeatable,
+    no atomics), whose plain versions run on the CPU,
   * per-corner-offset folds of the per-cell tables onto the grid that
     reproduce the reference's per-corner border clamping
     (``max(0, min(gres-1, gi + offs))``, cell 2 :128) — the fold kernel

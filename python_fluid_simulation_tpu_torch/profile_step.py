@@ -7,7 +7,9 @@
 Runs a step on the card.  ``--scene buckling`` (the default): the
 48x80x48 flagship (``buckling_config()`` defaults) without ``--res``,
 else ``scaled_buckling_config(R)`` (``--res 128``: 77x128x77 cells,
-356,256 particles, MG-PCG cell solves).  ``--scene coiling``:
+356,256 particles, MG-PCG cell solves; ``--res 256``: 154x256x154 cells,
+2,903,629 particles, Jacobi cell solves through the streamed Poisson
+PCG).  ``--scene coiling``:
 ``coiling_config(R)`` (default R 256: 64x256x64 cells, 73,644 particles,
 MG-PCG cell solves, the 'auto' viscosity preconditioner; ``--res 504``:
 the big grid, 126x504x126 cells, 465,868 particles, Jacobi cell solves
@@ -116,7 +118,7 @@ def main() -> int:
     own = {}  # the port's kernels, by name
     for e in kernels:
         name = e.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0].split("<")[0].strip()
-        if name.endswith("_kernel") and any(k in name for k in ("pcg", "stencil", "mg_level", "binned", "fold", "matvec")):
+        if name.endswith("_kernel") and any(k in name for k in ("pcg", "stencil", "mg_level", "binned", "seg_scan", "fold", "matvec")):
             n, us = own.get(name, (0, 0.0))
             own[name] = (n + 1, us + e.time_range.elapsed_us())
 

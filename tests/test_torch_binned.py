@@ -11,7 +11,9 @@ on O(1) values of up to 409 rows (test_pallas.py's tolerance for the TPU
 kernel against a float64 sum), against both the TPU kernel and a float64
 sum: the TPU kernel adds a chunk-crossing segment as chunk partials, the
 port adds every segment's rows in one pass in row order, and the two
-differ by ~2e-5 on that segment.
+differ by ~2e-5 on that segment.  ``segment_reduce`` takes the route
+its gate picks for the shapes (the scan route here); both routes add in
+row order and agree bitwise (tests/test_torch_scan.py).
 """
 
 import jax.numpy as jnp
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 from python_fluid_simulation_tpu.ops.pallas_binned import binned_segment_broadcast, binned_segment_reduce
-from python_fluid_simulation_tpu_torch.ops import cuda_binned, scatter
+from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_scan, scatter
 
 torch.set_num_threads(1)
 
@@ -54,9 +56,10 @@ def _numpy_reduce(ids, vals, m, op, fill):
 @pytest.mark.parametrize("op,fill", [("add", 0.0), ("min", 0.5)])
 def test_reduce_plain_matches_binned_kernel(op, fill, channels_first):
     ids, vals, m = _rows(7)
-    before = cuda_binned.segment_reduce.launches
+    counts = (cuda_binned.serial_reduce, cuda_scan.seg_scan_sorted, cuda_binned.place_segments)
+    before = [w.launches for w in counts]
     got = cuda_binned.segment_reduce(torch.from_numpy(vals), torch.from_numpy(ids), m, op, fill, channels_first)
-    assert cuda_binned.segment_reduce.launches == before  # the CPU runs the plain version
+    assert [w.launches for w in counts] == before  # the CPU runs the plain versions
     want = np.asarray(binned_segment_reduce(
         jnp.asarray(vals), jnp.asarray(ids.astype(np.int32)), m, op=op, fill=fill,
         interpret=True, channels_first=channels_first,

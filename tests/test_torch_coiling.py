@@ -47,7 +47,7 @@ from python_fluid_simulation_tpu.solvers import viscosity as jvisc
 from python_fluid_simulation_tpu_torch.convert import state_from_numpy
 from python_fluid_simulation_tpu_torch.engine.scenes import coiling_config, coiling_scene
 from python_fluid_simulation_tpu_torch.engine.step import simulate
-from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_fold, cuda_mg, cuda_stencils
+from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_fold, cuda_mg, cuda_scan, cuda_stencils
 from python_fluid_simulation_tpu_torch.ops.indexing import split_parity
 from python_fluid_simulation_tpu_torch.solvers import viscosity
 
@@ -65,8 +65,8 @@ TIGHT = dict(tol=1e-5, rel_tol=1e-5, max_iter=500)
 def _launch_counts():
     return [f.launches for f in (
         cuda_stencils.cell_poisson_pcg, cuda_stencils.stencil_matvec, cuda_cg.coupled_visc_pcg,
-        cuda_cg.coupled_matvec_geom, cuda_mg.level_chain, cuda_binned.segment_reduce,
-        cuda_binned.segment_broadcast, cuda_fold.fold,
+        cuda_cg.coupled_matvec_geom, cuda_mg.level_chain, cuda_binned.serial_reduce, cuda_scan.seg_scan_sorted,
+        cuda_binned.place_segments, cuda_binned.segment_broadcast, cuda_fold.fold,
     )]
 
 

@@ -128,12 +128,12 @@ def test_fixed_dt_steps_match_jax(coarse_pair):
 
 
 def _launch_counts():
-    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_fold, cuda_mg, cuda_stencils
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_fold, cuda_mg, cuda_scan, cuda_stencils
 
     return [f.launches for f in (
         cuda_stencils.cell_poisson_pcg, cuda_stencils.stencil_matvec, cuda_cg.coupled_visc_pcg,
-        cuda_cg.coupled_matvec_geom, cuda_mg.level_chain, cuda_binned.segment_reduce,
-        cuda_binned.segment_broadcast, cuda_fold.fold,
+        cuda_cg.coupled_matvec_geom, cuda_mg.level_chain, cuda_binned.serial_reduce, cuda_scan.seg_scan_sorted,
+        cuda_binned.place_segments, cuda_binned.segment_broadcast, cuda_fold.fold,
     )]
 
 
