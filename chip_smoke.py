@@ -28,7 +28,13 @@ PyTorch version on the card:
   (154x256x154 = 6.1M cells, 2,903,629 particles, Jacobi cell solves
   through the streamed Poisson PCG, Jacobi viscosity PCG at 18M faces),
   whose segment reduces take the scan route (the segmented scan, then
-  the placement kernel), as every measured reduce does.
+  the placement kernel), as every measured reduce does;
+* the learned viscosity operator: the flagship in 'unet' (the network's
+  Δv in place of the viscosity solve) and 'unet_warm' (the coupled PCG
+  started from the network's guess, rescaled by a line search over two
+  geometry matvecs), with the full-width UNet (width 64, 68,723,203
+  parameters; weights drawn from ``numpy.random.default_rng(0)`` through
+  ``convert.random_flax_unet_params``) run by cuDNN in fp32, TF32 off.
 
 Phases, each printing one JSON line:
 
@@ -103,14 +109,38 @@ Phases, each printing one JSON line:
               each vs its plain version (bitwise; the serial add within
               SUM_REL) and the scan route vs the serial route (bitwise),
               with CUDA-event times, the torch.segment_reduce time and
-              bounds; and the gate sweep: both routes on every reduce of a
-              step at all five sizes
+              bounds; the gate sweep: both routes on every reduce of a
+              step at all five sizes; and the streamed Poisson PCG (density, pressure) and the
+              coupled PCG (18M faces) on the step's systems vs their plain
+              versions, with times and bounds
   main_256    256: 1 warm-up + 2 timed steps with the counters reset just
               before; the scan route, the streamed Poisson PCG and the
               coupled PCG launched, solves converged, particles finite,
               the first step bitwise repeatable, the last step within
               STEP_TOL of the same step on the card with every kernel
               swapped for its plain version, peak memory
+  kernels_unet flagship 'unet_warm', the third step: the fp32 UNet on its
+              real (1, 11, 112, 176, 112) feature box vs the same module
+              and weights on the CPU (UNET_REL), bf16 vs fp32
+              (UNET_BF16_ATOL), a repeat bitwise; CUDA-event times of the
+              features, the fp32, bf16 and (reported) TF32 forwards, the
+              extraction and the whole learned step beside their bounds
+              (3.81 TFLOP a forward, counted from the layers), the peak
+              memory of a forward; the step's warm start: the two
+              line-search geometry matvecs bitwise their plain version,
+              the rescaled x0 bitwise the step's, its residual no larger
+              than the extrapolated field's, and the coupled PCG from it
+              vs its plain version (iterations equal)
+  main_unet   flagship 'unet' then 'unet_warm', 1 warm-up + 5 timed steps
+              each with the counters reset just before; solves converged,
+              particles finite, no coupled PCG in 'unet', the coupled PCG
+              and the geometry matvec in 'unet_warm', the first step
+              bitwise repeatable, step 3 within STEP_TOL of the same step
+              on the card with every kernel swapped for its plain version
+              (the UNet on the card in both), step 3 on the CPU (UNet on
+              the CPU) reported; median step, the UNet forward's share of
+              a step (CUDA events), the 'apic' viscosity iterations from
+              the same states (reported), peak memory
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
@@ -123,6 +153,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -182,6 +213,18 @@ STEPS_256 = 3  # 1 warm-up + 2 timed
 # the kernels of the reduce route every step's reduces take (the gate
 # sends them all to the scan route, ops/cuda_binned.py::_scan_route)
 REDUCE_ROUTE = ("seg_scan_sorted", "binned_segment_place")
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+UNET_WIDTH = 64  # the reference UNet's width (model_3d.py)
+UNET_PARAMS = 68_723_203  # at 11 input and 3 output channels
+UNET_BOX = (1, 11, 112, 176, 112)  # the flagship's feature box (dual lattice 97x161x97 padded to 16s)
+UNET_REL = 1e-4  # fp32 forward, card vs CPU: max |difference| over max |output|
+UNET_BF16_ATOL = 0.05  # bf16 vs fp32 compute (the JAX package's test_unet.py)
+# the pooling level of each layer (voxels = the box's / 8^level)
+UNET_LEVEL = {"enc1": 0, "enc2": 1, "enc3": 2, "enc4": 3, "enc5": 4, "dec5": 4, "dec4": 3, "dec3": 2, "dec2": 1,
+              "dec1": 0, "unpool4": 4, "unpool3": 3, "unpool2": 2, "unpool1": 1, "fc": 0}
+STEPS_UNET = 6  # 1 warm-up + 5 timed, per mode
+CHECKED_STEP_UNET = 2  # the third step: card vs plain on the card, and vs the CPU (reported)
 
 
 def halo_plane_bounds():
@@ -1436,6 +1479,219 @@ def step_vs_cpu_or_plain(step_3d, before, after, cfg, geom, label):
     return out
 
 
+def unet_ops(unet, box):
+    """Operations of one forward at the (N, C, D, H, W) box, counted from
+    the layers: 2 a multiply-add of every conv and transposed conv (k2, s2:
+    each input voxel feeds 8 outputs) plus its bias adds; the pools, tanh
+    and concats are left out (bytes, not operations)."""
+    n, _, d, h, w = box
+    s0 = n * d * h * w
+    ops = 0
+    for key, wt in unet.state_dict().items():
+        if not key.endswith(".weight"):
+            continue
+        name = key.split(".")[0]
+        vox = s0 // 8 ** UNET_LEVEL.get(name, UNET_LEVEL.get(name[:4]))
+        if name.startswith("unpool"):
+            ops += 2 * vox * wt.numel() + 8 * vox * wt.shape[1]
+        else:
+            ops += 2 * vox * wt.numel() + vox * wt.shape[0]
+    return ops
+
+
+def capture_unet(step_3d, state, cfg, geom):
+    """One 'unet_warm' step (``step_3d`` carries the network) with
+    recorders around the learned operator, the line search and the
+    coupled PCG, as the step calls them."""
+    from python_fluid_simulation_tpu_torch.engine import step as step_mod
+    from python_fluid_simulation_tpu_torch.solvers import viscosity
+
+    got = {"unet": [], "line": [], "coupled": []}
+
+    def rec(kind, fn):
+        def call(*args, **kw):
+            got[kind].append((args, kw))
+            return fn(*args, **kw)
+        return call
+
+    with patched([
+        (step_mod, "unet_delta_v", rec("unet", step_mod.unet_delta_v)),
+        (viscosity, "rescaled_warm_start", rec("line", viscosity.rescaled_warm_start)),
+        (viscosity, "coupled_visc_pcg", rec("coupled", viscosity.coupled_visc_pcg)),
+    ]):
+        step_3d(state, cfg, geom=geom)
+    return got
+
+
+def unet_forward_phase(unet, unet16, state_dict, feats, cfg):
+    """The full-width network on the step's real feature box: fp32 on the
+    card vs the same module and weights on the CPU (UNET_REL), bf16 vs fp32
+    on the card (UNET_BF16_ATOL), a repeat bitwise; CUDA-event times of
+    the features, the fp32 / bf16 / TF32 forwards (TF32 reported only), the
+    extraction and the whole learned step, each beside its bound; peak
+    memory of one fp32 forward."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.models import features
+    from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
+
+    (_, gv, sphi, lvol, _), _ = feats
+    dual, shapes = tuple(sphi.shape), [tuple(v.shape) for v in gv]
+    cell_vol = cfg.grid.dx**3
+    x = features.build_unet_input(gv, sphi, lvol, cell_vol)
+    if tuple(x.shape) != UNET_BOX:
+        raise AssertionError(f"feature box {tuple(x.shape)}, expected {UNET_BOX}")
+    n_params = sum(p.numel() for p in unet.parameters())
+    if n_params != UNET_PARAMS:
+        raise AssertionError(f"the width-{UNET_WIDTH} UNet has {n_params} parameters, expected {UNET_PARAMS}")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = unet(x)
+        torch.cuda.synchronize()
+        forward_peak = torch.cuda.max_memory_allocated() - base
+        if tuple(out.shape) != (1, 3) + UNET_BOX[2:] or out.dtype != torch.float32 or not torch.isfinite(out).all():
+            raise AssertionError(f"UNet output {tuple(out.shape)} {out.dtype}, finite {bool(torch.isfinite(out).all())}")
+        repeatable = bool(torch.equal(unet(x), out))
+        if not repeatable:
+            raise AssertionError("the fp32 UNet forward run twice differs")
+        # the same module and weights on the CPU
+        cpu = UNet3D(width=UNET_WIDTH).eval()
+        cpu.load_state_dict(state_dict)
+        tc = time.perf_counter()
+        out_cpu = cpu(x.cpu())
+        cpu_seconds = time.perf_counter() - tc
+        d_cpu, rel_cpu = max_err(out.cpu(), out_cpu)
+        if not rel_cpu <= UNET_REL:
+            raise AssertionError(f"UNet fp32 card vs CPU: max |d| / max |out| {rel_cpu} > {UNET_REL}")
+        del cpu, out_cpu
+        out16 = unet16(x)
+        err16 = (out16 - out).abs().max().item()
+        if out16.dtype != torch.float32 or not err16 <= UNET_BF16_ATOL:
+            raise AssertionError(f"UNet bf16 vs fp32: {out16.dtype}, max |d| {err16} > {UNET_BF16_ATOL}")
+        ms32 = cuda_time_ms(lambda: unet(x), 5)
+        ms16 = cuda_time_ms(lambda: unet16(x), 5)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=True):
+            err_tf32 = (unet.forward_raw(x) - out).abs().max().item()
+            ms_tf32 = cuda_time_ms(lambda: unet.forward_raw(x), 5)
+        del out16
+    features_ms = cuda_time_ms(lambda: features.build_unet_input(gv, sphi, lvol, cell_vol), 10)
+    extract_ms = cuda_time_ms(lambda: features.extract_delta_v(out, dual, shapes), 20)
+    delta_v_ms = cuda_time_ms(lambda: features.unet_delta_v(unet, gv, sphi, lvol, cfg), 5)
+    ops = unet_ops(unet, UNET_BOX)
+    nbytes = (x.numel() + n_params + out.numel()) * 4  # features and weights read once; the output written once
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(
+        box=list(x.shape), params=n_params, ops=ops, bytes=nbytes, max_abs_out=out.abs().max().item(),
+        fp32=dict(ms=ms32, bound_ms=max(bytes_ms, ops / FP32_OPS_PER_S * 1e3), bitwise_repeatable=repeatable),
+        bf16=dict(ms=ms16, bound_ms=max(bytes_ms, ops / BF16_OPS_PER_S * 1e3), max_abs_vs_fp32=err16),
+        tf32_reported=dict(ms=ms_tf32, bound_ms=max(bytes_ms, ops / TF32_OPS_PER_S * 1e3), max_abs_vs_fp32=err_tf32),
+        card_vs_cpu=dict(max_abs=d_cpu, rel=rel_cpu, tol=UNET_REL, cpu_seconds=cpu_seconds),
+        forward_peak_bytes=forward_peak, features_ms=features_ms, extract_ms=extract_ms,
+        unet_delta_v_ms=delta_v_ms, bytes_ms=bytes_ms, fp32_ops_ms=ops / FP32_OPS_PER_S * 1e3,
+    )
+
+
+def warm_start_phase(line, coupled):
+    """The warm start on the step's viscosity system: row 4's two line-
+    search matvecs (on p = warm - ext and on ext) bitwise their plain
+    version, the rescaled x0 bitwise and equal to the step's, the line
+    search's guarantee (the residual at x0 no larger than at ext), and row
+    2 from x0 vs its plain version (iterations equal, KERNEL_TOL); row 2
+    from ext on the same system (the cold start) reported."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops.cuda_cg import (
+        SPHI_CLASSES,
+        VOL_CLASSES,
+        coupled_matvec_geom,
+        coupled_matvec_plain,
+        coupled_visc_pcg,
+        coupled_visc_pcg_plain,
+        flat_geometry,
+    )
+    from python_fluid_simulation_tpu_torch.solvers.viscosity import rescaled_warm_start
+
+    (_, b, ext, warm), _ = line
+    (_, x0_step, pd, sphi_c, vol_c, s_mu), kw = coupled
+    geom = flat_geometry(sphi_c, vol_c)
+
+    def mv_k(vs):
+        return coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, geom=geom)
+
+    def mv_p(vs):
+        return coupled_matvec_plain(sphi_c, vol_c, s_mu, vs)
+
+    p = tuple(w - e for w, e in zip(warm, ext))
+    for label, v in (("p", p), ("ext", ext)):
+        check_bitwise(f"coupled_matvec_geom[line search, {label}]", mv_k(v), mv_p(v))
+    x0, alpha = rescaled_warm_start(mv_k, b, ext, warm)
+    x0_p, alpha_p = rescaled_warm_start(mv_p, b, ext, warm)
+    check_bitwise("rescaled warm start", x0, x0_p)
+    check_bitwise("rescaled warm start vs the step's x0", x0, x0_step)
+
+    def res_norm(x):
+        return math.sqrt(sum(float(((bb - q).double() ** 2).sum()) for bb, q in zip(b, mv_k(x))))
+
+    r_x0, r_ext, r_warm = res_norm(x0), res_norm(ext), res_norm(warm)
+    if not r_x0 <= r_ext * (1 + 1e-6):
+        raise AssertionError(f"line search: |b - A x0| {r_x0} > |b - A ext| {r_ext}")
+
+    x_k, it_k, res_k, *_ = coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, **kw)
+    (x_p, it_p, res_p, *_), plain_ms = timed_once(lambda: coupled_visc_pcg_plain(b, x0, pd, sphi_c, vol_c, s_mu, **kw))
+    if int(it_k) != int(it_p):
+        raise AssertionError(f"coupled_visc_pcg from the warm start: iterations {int(it_k)} vs plain {int(it_p)}")
+    err = 0.0
+    for a in range(3):
+        check_close(f"coupled_visc_pcg from the warm start[{a}]", x_k[a], x_p[a], KERNEL_TOL)
+        err = max(err, max_err(x_k[a], x_p[a])[0])
+    _, it_cold, *_ = coupled_visc_pcg(b, ext, pd, sphi_c, vol_c, s_mu, **kw)
+    n = sum(t.numel() for t in b)
+    n_geom = geom.numel()
+    nbytes = (3 * n + n + n_geom) * 4  # b, x0, pd and geometry read once; x written once
+    ops = (int(it_k) * FACE_OPS_PER_ITER + FACE_OPS_PER_ITER) * n
+    return dict(
+        shapes=[list(t.shape) for t in b], alpha=float(alpha), alpha_plain=float(alpha_p),
+        residual_norm=dict(x0=r_x0, ext=r_ext, warm_unscaled=r_warm),
+        matvec=dict(bitwise=True, max_abs_err=0.0,
+                    ms=cuda_time_ms(lambda: mv_k(p), 50), plain_ms=cuda_time_ms(lambda: mv_p(p), 5),
+                    **bound((n_geom + 2 * n) * 4, GEOM_MV_OPS[False] * n)),
+        line_search_ms=cuda_time_ms(lambda: rescaled_warm_start(mv_k, b, ext, warm), 20),
+        coupled_visc_pcg=dict(
+            iters=int(it_k), plain_iters=int(it_p), cold_iters=int(it_cold), res=float(res_k),
+            plain_res=float(res_p), max_abs_err=err,
+            ms=cuda_time_ms(lambda: coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, **kw), 20),
+            plain_ms=plain_ms, **bound(nbytes, ops)),
+    )
+
+
+def unet_forward_events(unet):
+    """CUDA events around every forward of `unet` (forward hooks); returns
+    (events list, remove)."""
+    import torch
+
+    events = []
+
+    def pre(module, args):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append([ev, None])
+
+    def post(module, args, out):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[-1][1] = ev
+
+    handles = [unet.register_forward_pre_hook(pre), unet.register_forward_hook(post)]
+
+    def remove():
+        for h in handles:
+            h.remove()
+
+    return events, remove
+
+
 def main() -> int:
     import torch
 
@@ -1935,8 +2191,8 @@ def main() -> int:
     for _ in range(2):
         state2, _ = step_3d(state2, cfg256, geom=geom256)
     with recorded_reduces() as reduces:
-        step_3d(state2, cfg256, geom=geom256)
-    del state2
+        got = capture_504(step_3d, state2, cfg256, geom256)
+    del state2, got["fold"]
     if len(reduces) != 4:
         raise AssertionError(f"256 capture: {len(reduces)} reduces")
     scan_rows = scan_route_phase(reduces)
@@ -1945,8 +2201,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     if not any(r["gate"] == "scan" for r in reduce_sweep if r["size"] == "256"):
         raise AssertionError("256: the gate sends no reduce to the scan route")
+    # rows 3 and 2 on the step's cell systems (6.07M cells) and viscosity
+    # system (18M faces)
+    if len(got["fused"]) != 2 or got["cell"] or len(got["coupled"]) != 1:
+        raise AssertionError(f"256 capture: {[(k, len(v)) for k, v in got.items()]}")
+    fused256_rows = fused_kernel_phase([(label, args, kw) for label, (args, kw) in zip(("density", "pressure"),
+                                                                                      got["fused"])])
+    coupled256 = coupled_kernel_phase(got["coupled"][0])
+    del got
+    torch.cuda.empty_cache()
     emit({"phase": "kernels_256", "grid": list(cfg256.grid.res), "particles": n256, "reduce": scan_rows,
-          "gate_sweep": reduce_sweep, "seconds": time.perf_counter() - t0})
+          "gate_sweep": reduce_sweep, "fused_poisson_pcg": fused256_rows, "coupled_visc_pcg": coupled256,
+          "seconds": time.perf_counter() - t0})
 
     # -- 256 main path: counters reset just before, read just after
     t0 = time.perf_counter()
@@ -1981,8 +2247,101 @@ def main() -> int:
           "card_vs_plain_on_card": err256, "plain_step_seconds": plain256, "step_tol": STEP_TOL,
           "seconds": time.perf_counter() - t0})
 
+    # -- the learned operator: the full-width UNet on the flagship's real
+    #    feature box of the third 'unet_warm' step, and that step's warm
+    #    start (rows 4 and 2) vs their plain versions
+    t0 = time.perf_counter()
+    from python_fluid_simulation_tpu_torch.convert import random_flax_unet_params, unet_state_dict_from_flax
+    from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
+
+    unet_sd = unet_state_dict_from_flax(random_flax_unet_params(UNET_WIDTH, seed=0))
+    unet = UNet3D(width=UNET_WIDTH).eval()
+    unet.load_state_dict(unet_sd)
+    unet = unet.to("cuda")
+    unet16 = UNet3D(width=UNET_WIDTH, dtype=torch.bfloat16).eval()
+    unet16.load_state_dict(unet_sd)
+    unet16 = unet16.to("cuda")
+    unet_cpu = UNet3D(width=UNET_WIDTH).eval()
+    unet_cpu.load_state_dict(unet_sd)
+    step_unet = functools.partial(step_3d, unet=unet)
+    step_unet_cpu = functools.partial(step_3d, unet=unet_cpu)
+    cfg_unet, cfg_warm = with_solver(cfg, viscosity_mode="unet"), with_solver(cfg, viscosity_mode="unet_warm")
+    s_u = buckling_scene(cfg, seed=0, device="cuda")
+    geom = build_geom_cache(s_u.solid)
+    state2 = s_u
+    for _ in range(2):
+        state2, _ = step_unet(state2, cfg_warm, geom=geom)
+    got = capture_unet(step_unet, state2, cfg_warm, geom)
+    del state2
+    if len(got["unet"]) != 1 or len(got["line"]) != 1 or len(got["coupled"]) != 1:
+        raise AssertionError(f"unet_warm capture: {[(k, len(v)) for k, v in got.items()]}")
+    forward_row = unet_forward_phase(unet, unet16, unet_sd, got["unet"][0], cfg)
+    warm_row = warm_start_phase(got["line"][0], got["coupled"][0])
+    del got, unet16
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_unet", "grid": list(cfg.grid.res), "width": UNET_WIDTH, "forward": forward_row,
+          "warm_start": warm_row, "seconds": time.perf_counter() - t0})
+
+    # -- the learned operator's main paths: 'unet' then 'unet_warm' on the
+    #    flagship, 1 warm-up + 5 timed steps each, counters reset just
+    #    before each run and read just after
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    unet_out, launches_unet = {}, {}
+    for mode, run_cfg in (("unet", cfg_unet), ("unet_warm", cfg_warm)):
+        events, remove_hooks = unet_forward_events(unet)
+        read_counts = reset_counters()
+        state, states, ms_u, metrics_u = run_steps(step_unet, s_u, run_cfg, geom, STEPS_UNET, STEPS_UNET)
+        launches_unet[mode] = read_counts()
+        remove_hooks()
+        torch.cuda.synchronize()
+        forward_ms = [start.elapsed_time(stop) for start, stop in events]
+        if len(forward_ms) != STEPS_UNET:
+            raise AssertionError(f"{mode}: {len(forward_ms)} UNet forwards in {STEPS_UNET} steps")
+        need = ("cell_poisson_pcg", *REDUCE_ROUTE, "binned_segment_broadcast", "fold")
+        if mode == "unet_warm":
+            need += ("coupled_visc_pcg", "coupled_matvec_geom")
+        check_run(state, metrics_u, launches_unet[mode], need, f"flagship {mode}")
+        if mode == "unet":
+            refuse(f"flagship {mode}", launches_unet[mode], ("coupled_visc_pcg", "coupled_matvec_geom"))
+            if any(m["viscosity_iters"] for m in metrics_u):
+                raise AssertionError(f"flagship unet: viscosity iterations {[m['viscosity_iters'] for m in metrics_u]}")
+        again, _ = step_unet(s_u, run_cfg, geom=geom)
+        for k in ("x", "v", "c"):
+            if not torch.equal(getattr(again.particles, k), getattr(states[1].particles, k)):
+                raise AssertionError(f"flagship {mode}: the first step run twice differs in {k}")
+        del again
+        before, after = states[CHECKED_STEP_UNET], states[CHECKED_STEP_UNET + 1]
+        err_u, _ = card_vs_plain(step_unet, before, after, run_cfg, geom, f"flagship {mode} step {CHECKED_STEP_UNET}")
+        tc = time.perf_counter()
+        cpu_after, _ = step_unet_cpu(state_from_numpy(state_to_numpy(before), device="cpu"), run_cfg)
+        cpu_u = time.perf_counter() - tc
+        vs_cpu = step_diff(state_to_numpy(after), state_to_numpy(cpu_after))
+        # reported, not asserted (random weights): the 'apic' solve from the
+        # same states
+        apic_iters = [int(step_3d(s, cfg, geom=geom)[1]["viscosity_iters"]) for s in states[:-1]]
+        timed = ms_u[1:]
+        unet_out[mode] = dict(
+            warmup_step_ms=ms_u[0], step_ms=timed, median_step_ms=statistics.median(timed),
+            forward_ms=forward_ms, unet_share_of_step=statistics.median(
+                f / s for f, s in zip(forward_ms[1:], timed)),
+            iters={k: [m[f"{k}_iters"] for m in metrics_u] for k in ("density", "viscosity", "pressure")},
+            apic_viscosity_iters_from_same_states=apic_iters, first_step_bitwise_repeatable=True,
+            check=f"step {CHECKED_STEP_UNET} vs the same step on the card with every kernel swapped for its plain "
+                  "version (the UNet on the card in both)",
+            card_vs_plain_on_card=err_u, reported_vs_cpu=vs_cpu, cpu_step_seconds=cpu_u)
+        del state, states, cpu_after
+    peak_unet = torch.cuda.max_memory_allocated()
+    del s_u, geom, unet, unet_cpu
+    torch.cuda.empty_cache()
+    emit({"phase": "main_unet", "grid": list(cfg.grid.res), "width": UNET_WIDTH, "runs": unet_out,
+          "launches": launches_unet, "max_memory_allocated": peak_unet, "step_tol": STEP_TOL,
+          "seconds": time.perf_counter() - t0})
+
     # -- summary: the nvidia-smi line, the kernels line, then the result
-    every_run = [launches, launches128, launchesc, launches504, *launches_opt.values(), launches256]
+    every_run = [launches, launches128, launchesc, launches504, *launches_opt.values(), launches256,
+                 *launches_unet.values()]
 
     def entry(name, source, replaces, row, library_ms=None, counter=None):
         return {"name": name, "route": "cuda", "source": f"python_fluid_simulation_tpu_torch/csrc/{source}",

@@ -1,8 +1,10 @@
 """The time step: ``step_3d(state, cfg) -> (state, metrics)``.
 
 Counterpart of ``python_fluid_simulation_tpu.engine.step`` for the
-single-device 'apic' step with static solids (the reference's notebook
-cell 13, :4552-4693).  Step order follows cell 13:
+single-device step with static solids (the reference's notebook cell 13,
+:4552-4693), in the viscosity modes 'apic' (the implicit solve), 'unet'
+(the learned operator's Δv in place of the solve) and 'unet_warm' (the
+solve started from the network's guess).  Step order follows cell 13:
   dt (CFL, :4572-4576) -> advect + SDF project (:4582-4584)
   -> sort + level set -> density solve (:4587-4590) -> sort + level set
   again (:4593-4594) -> merged P2G + fluid-volume classes (:4597)
@@ -27,8 +29,9 @@ non-MG solves are the generic CG over ``stencil_matvec`` and
 ``coupled_stencil_matvec``; ``pressure_dt_scaled`` solves the pressure
 system scaled by dt.  The Jacobi solves make no host sync; the generic
 CG loops test their exit on the host once per iteration, and 'auto'
-reads its flag once a step.  Not yet ported (they raise): the 'unet' /
-'unet_warm' viscosity modes, moving solids, meshes and bucketing.
+reads its flag once a step.  The UNet (``models/unet3d.py``) runs on the
+device of the state, through cuDNN.  Not yet ported (they raise): moving
+solids, meshes and bucketing.
 """
 
 from __future__ import annotations
@@ -39,11 +42,13 @@ from typing import Dict, Tuple
 import torch
 
 from python_fluid_simulation_tpu_torch.config import SimConfig
+from python_fluid_simulation_tpu_torch.models.features import unet_delta_v
+from python_fluid_simulation_tpu_torch.models.train import capture_viscosity_pair
 from python_fluid_simulation_tpu_torch.ops import sdf as sdf3d
 from python_fluid_simulation_tpu_torch.ops.boundary import apply_boundary_condition
 from python_fluid_simulation_tpu_torch.ops.extrapolate import extrapolate
 from python_fluid_simulation_tpu_torch.ops.fractions import compute_solid_frac_3d
-from python_fluid_simulation_tpu_torch.ops.indexing import const, split_parity
+from python_fluid_simulation_tpu_torch.ops.indexing import const, merge_parity, split_parity
 from python_fluid_simulation_tpu_torch.ops.levelset import compute_fluid_levelset
 from python_fluid_simulation_tpu_torch.ops.transfers import g2p_all, make_sort_info, p2g_all
 from python_fluid_simulation_tpu_torch.solvers.density import density_solve_3d
@@ -71,24 +76,39 @@ def build_geom_cache(solid) -> GeomCache:
     return GeomCache(sphi_c=sphi_c, sv_c=sv_c, w_faces=tuple(compute_solid_frac_3d(sphi_c)))
 
 
-def _check_supported(cfg: SimConfig):
+def _check_supported(cfg: SimConfig, unet=None, capture_ml=False):
     sol = cfg.solver
     if cfg.moving_solid:
         raise NotImplementedError("moving solids are not ported yet")
-    if sol.viscosity_mode != "apic":
-        raise NotImplementedError(f"viscosity_mode={sol.viscosity_mode!r} is not ported yet")
+    if sol.viscosity_mode not in ("apic", "unet", "unet_warm"):
+        raise ValueError(f"unknown viscosity_mode {sol.viscosity_mode!r}")
+    if sol.viscosity_mode == "unet" and unet is None:
+        raise ValueError("viscosity_mode='unet' needs a model: step_3d(..., unet=UNet3D(...))")
+    if capture_ml and (sol.viscosity_mode == "unet" or cfg.physics.mu <= 0):
+        raise ValueError("capture_ml captures the pair around the viscosity solve: 'apic' or 'unet_warm' with mu > 0")
     if sol.precond not in ("jacobi", "mg"):
         raise NotImplementedError(f"cell-Poisson precond={sol.precond!r} is not ported")
     if sol.viscosity_precond not in ("jacobi", "mg", "auto"):
         raise NotImplementedError(f"viscosity_precond={sol.viscosity_precond!r} is not ported")
 
 
-def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> Tuple[SimState, Dict[str, torch.Tensor]]:
-    """One 'apic' step on the device of the state's tensors."""
-    _check_supported(cfg)
+def step_3d(
+    state: SimState, cfg: SimConfig, geom: GeomCache | None = None, unet=None, capture_ml=False,
+) -> Tuple[SimState, Dict[str, torch.Tensor]]:
+    """One step on the device of the state's tensors.
+
+    ``unet``: the learned operator (``models/unet3d.py::UNet3D``, on the
+    state's device), needed by 'unet'; in 'unet_warm' without one the
+    solve starts cold.  ``capture_ml`` ('apic' and 'unet_warm' only):
+    "raw" puts the velocities around the viscosity solve and the merged
+    fluid volume in ``metrics["ml_pair"]``, ``True`` the built
+    ``models/train.py::ViscosityExample``."""
     g, ph, sol = cfg.grid, cfg.physics, cfg.solver
     p = state.particles
     dev = p.x.device
+    _check_supported(cfg, unet, capture_ml)
+    if unet is not None and next(unet.parameters()).device != dev:
+        raise ValueError(f"the UNet's parameters are on {next(unet.parameters()).device}, the state on {dev}")
     f32 = torch.float32
     if geom is None:
         geom = build_geom_cache(state.solid)
@@ -140,12 +160,28 @@ def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> T
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     visc_iters, visc_resid = zero_i, torch.zeros((), dtype=f32, device=dev)
     visc_rel, visc_conv = visc_resid, torch.ones((), dtype=torch.bool, device=dev)
-    if ph.mu > 0:
+    sphi = state.solid.phi
+    if ph.mu > 0 and sol.viscosity_mode == "unet":
+        # g.v += Δv, zero where the face has no mass (cell 13 :4635-4640);
+        # the viscosity stats stay at 0 iterations, converged
+        dv = unet_delta_v(unet, gv, sphi, lvol, cfg)
+        gv = [torch.where(gm[a] > 0, gv[a] + dv[a], 0.0) for a in range(3)]
+    elif ph.mu > 0:
+        warm = None
+        if sol.viscosity_mode == "unet_warm" and unet is not None:
+            # the network's guess seeds the solve only; the system is still
+            # built from gv
+            dv = unet_delta_v(unet, gv, sphi, lvol, cfg)
+            warm = tuple(torch.where(gm[a] > 0, gv[a] + dv[a], gv[a]) for a in range(3))
         vres = viscosity_solve_3d(
             dt, ph.mu, ph.rho, tuple(gv), geom.sphi_c, lvol, g.cell_vol,
             tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter, jacobi_precond=sol.jacobi_precond,
-            precond_kind=sol.viscosity_precond, auto_use_mg=visc_mg > 0,
+            precond_kind=sol.viscosity_precond, auto_use_mg=visc_mg > 0, warm_start=warm,
         )
+        if capture_ml == "raw":
+            ml_pair = {"gv_before": tuple(gv), "gv_after": vres.v_faces, "lvol": merge_parity(lvol, tuple(sphi.shape))}
+        elif capture_ml:
+            ml_pair = capture_viscosity_pair(tuple(gv), vres.v_faces, sphi, lvol, cfg)
         gv = list(vres.v_faces)
         visc_iters = vres.stats.iters
         visc_resid = vres.stats.residual
@@ -206,17 +242,19 @@ def step_3d(state: SimState, cfg: SimConfig, geom: GeomCache | None = None) -> T
         "pressure_rel_residual": _rel(pres.stats),
         "pressure_converged": pres.stats.converged,
     }
+    if capture_ml:
+        metrics["ml_pair"] = ml_pair
     return new_state, metrics
 
 
-def simulate(state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | None = None):
+def simulate(state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | None = None, unet=None):
     """Run `num_steps` steps; the static geometry is built once.
     Returns (final_state, metrics) with each metric stacked over steps."""
     if geom is None:
         geom = build_geom_cache(state.solid)
     history = []
     for _ in range(num_steps):
-        state, m = step_3d(state, cfg, geom=geom)
+        state, m = step_3d(state, cfg, geom=geom, unet=unet)
         history.append(m)
     metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]} if history else {}
     return state, metrics

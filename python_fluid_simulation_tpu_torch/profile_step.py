@@ -2,7 +2,7 @@
 
     python3 -m python_fluid_simulation_tpu_torch.profile_step [--scene buckling|coiling] [--res R]
         [--viscosity-precond jacobi|mg|auto] [--no-jacobi-precond] [--pressure-dt-scaled]
-        [--steps 3] [--out DIR]
+        [--viscosity-mode apic|unet|unet_warm] [--unet-bf16] [--steps 3] [--out DIR]
 
 Runs a step on the card.  ``--scene buckling`` (the default): the
 48x80x48 flagship (``buckling_config()`` defaults) without ``--res``,
@@ -18,8 +18,13 @@ the lean two-grid viscosity MG); ``--viscosity-precond`` overrides the configura
 the MG branch).  ``--no-jacobi-precond`` sets ``jacobi_precond=False``
 (the reference's unpreconditioned CG: the non-MG solves run the generic
 CG over ``stencil_matvec`` and ``coupled_stencil_matvec``);
-``--pressure-dt-scaled`` sets ``pressure_dt_scaled``.  Every fold call
-is a ``pfs_fold`` range in the profile.  3 warm-up steps, then ``--steps``
+``--pressure-dt-scaled`` sets ``pressure_dt_scaled``.
+``--viscosity-mode unet|unet_warm`` runs the learned operator: the
+full-width UNet (``models/unet3d.py``, width 64, 68,723,203 parameters)
+with weights drawn from ``convert.random_flax_unet_params(seed=0)``, in
+fp32 (TF32 off), or with ``--unet-bf16`` computing in bf16.  Every fold
+call is a ``pfs_fold`` range in the profile, every learned-operator call
+(features, network, extraction) a ``pfs_unet_delta_v`` range.  3 warm-up steps, then ``--steps``
 steps timed on the host clock without the profiler, then ``--steps``
 steps under ``torch.profiler`` (CPU + CUDA activities).  Prints one JSON
 line with the step times, the device busy time (sum of the CUDA kernel
@@ -28,7 +33,7 @@ share, the CUDA runtime calls per step (kernel launches, cooperative
 launches, stream synchronisations), the device time and launches of the
 port's own kernels, and the top operators by device and by host time;
 writes the full ``key_averages`` tables to
-``<out>/profile_step[_<scene>][_<R>][_<precond>][_nojacobi][_dtscaled].txt``.  Needs
+``<out>/profile_step[_<scene>][_<R>][_<precond>][_nojacobi][_dtscaled][_<mode>[_bf16]].txt``.  Needs
 a CUDA device.
 """
 
@@ -52,7 +57,10 @@ def main() -> int:
         coiling_scene,
         scaled_buckling_config,
     )
+    from python_fluid_simulation_tpu_torch.convert import random_flax_unet_params, unet_state_dict_from_flax
+    from python_fluid_simulation_tpu_torch.engine import step as step_mod
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
+    from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
     from python_fluid_simulation_tpu_torch.ops import cuda_fold, scatter
 
     ap = argparse.ArgumentParser()
@@ -62,6 +70,8 @@ def main() -> int:
     ap.add_argument("--viscosity-precond", choices=("jacobi", "mg", "auto"), default=None)
     ap.add_argument("--no-jacobi-precond", action="store_true", help="SolverConfig(jacobi_precond=False)")
     ap.add_argument("--pressure-dt-scaled", action="store_true", help="SolverConfig(pressure_dt_scaled=True)")
+    ap.add_argument("--viscosity-mode", choices=("apic", "unet", "unet_warm"), default="apic")
+    ap.add_argument("--unet-bf16", action="store_true", help="the UNet computes in bf16 (parameters fp32)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=".")
     args = ap.parse_args()
@@ -81,34 +91,49 @@ def main() -> int:
         solver["jacobi_precond"] = False
     if args.pressure_dt_scaled:
         solver["pressure_dt_scaled"] = True
+    solver["viscosity_mode"] = args.viscosity_mode
     cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, **solver))
+    unet = None
+    if args.viscosity_mode != "apic":
+        unet = UNet3D(width=64, dtype=torch.bfloat16 if args.unet_bf16 else torch.float32)
+        unet.load_state_dict(unet_state_dict_from_flax(random_flax_unet_params(64, seed=0)))
+        unet = unet.to("cuda").eval()
 
     def fold_range(*a, **kw):
         with record_function("pfs_fold"):
             return cuda_fold.fold(*a, **kw)
 
+    unet_delta_v = step_mod.unet_delta_v
+
+    def unet_range(*a, **kw):
+        with record_function("pfs_unet_delta_v"):
+            return unet_delta_v(*a, **kw)
+
     scatter.fold = fold_range
+    step_mod.unet_delta_v = unet_range
     geom = build_geom_cache(state.solid)
     for _ in range(3):
-        state, _ = step_3d(state, cfg, geom=geom)
+        state, _ = step_3d(state, cfg, geom=geom, unet=unet)
     torch.cuda.synchronize()
     plain_ms = []
     for _ in range(args.steps):
         t0 = time.perf_counter()
-        state, _ = step_3d(state, cfg, geom=geom)
+        state, _ = step_3d(state, cfg, geom=geom, unet=unet)
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            state, _ = step_3d(state, cfg, geom=geom)
+            state, _ = step_3d(state, cfg, geom=geom, unet=unet)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     step_ms = wall / args.steps * 1e3
 
     events = prof.events()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the device side of the pfs_* ranges is an annotation spanning their
+    # kernels, not work of its own: left out of the busy time
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("pfs_")]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     avgs = prof.key_averages()
     runtime = {}
@@ -133,6 +158,7 @@ def main() -> int:
 
     busy_ms = busy_us / 1e3 / args.steps
     folds = [a for a in avgs if a.key == "pfs_fold"]
+    unet_calls = [a for a in avgs if a.key == "pfs_unet_delta_v"]
     summary = {
         "device": torch.cuda.get_device_name(0),
         "scene": args.scene,
@@ -142,11 +168,16 @@ def main() -> int:
         "viscosity_precond": cfg.solver.viscosity_precond,
         "jacobi_precond": cfg.solver.jacobi_precond,
         "pressure_dt_scaled": cfg.solver.pressure_dt_scaled,
+        "viscosity_mode": cfg.solver.viscosity_mode,
+        "unet_dtype": None if unet is None else str(unet.dtype),
         "visc_mg_after": int(torch.as_tensor(state.visc_mg)),
         # the folds' ranges: host time (CPU total) and the device time of
         # the kernels they launched, per step
         "fold_per_step": [{"calls": a.count / args.steps, "host_ms": a.cpu_time_total / 1e3 / args.steps,
                            "device_ms": a.device_time_total / 1e3 / args.steps} for a in folds],
+        # the learned operator's range (features, network, extraction)
+        "unet_delta_v_per_step": [{"calls": a.count / args.steps, "host_ms": a.cpu_time_total / 1e3 / args.steps,
+                                   "device_ms": a.device_time_total / 1e3 / args.steps} for a in unet_calls],
         "steps": args.steps,
         "unprofiled_step_ms": plain_ms,
         "step_ms": step_ms,
@@ -171,6 +202,8 @@ def main() -> int:
         name += "_nojacobi"
     if args.pressure_dt_scaled:
         name += "_dtscaled"
+    if args.viscosity_mode != "apic":
+        name += f"_{args.viscosity_mode}" + ("_bf16" if args.unet_bf16 else "")
     name += ".txt"
     with open(os.path.join(args.out, name), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))

@@ -312,7 +312,7 @@ MG_FACE_CELLS = 4_000_000
 def viscosity_solve_3d(
     dt, mu: float, rho: float, v_faces: Sequence[torch.Tensor], sphi, lvol, cell_vol: float, *,
     tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
-    jacobi_precond: bool = True, precond_kind: str = "jacobi", auto_use_mg=None,
+    jacobi_precond: bool = True, precond_kind: str = "jacobi", auto_use_mg=None, warm_start=None,
 ) -> ViscosityResult:
     """Full implicit viscosity solve (ViscosityCGSolver3D.solve :566-613):
     velocities are extrapolated 3 Jacobi layers into the solid (valid =
@@ -335,6 +335,15 @@ def viscosity_solve_3d(
     (the JAX package's ``_jacobi_cg`` when no fused solve was built).
     The 45 term fields are built only on those branches.
 
+    ``warm_start`` (face arrays, e.g. the velocities corrected by the
+    learned operator's Δv) replaces the PCG's initial guess only: it is
+    extrapolated like the velocities, then rescaled along the line from
+    the extrapolated field (`rescaled_warm_start`) with the operator the
+    branch builds — the geometry matvec (``coupled_matvec_geom``) on the
+    Jacobi and MG branches, the materialised one with
+    ``jacobi_precond=False``.  The system (RHS, coefficients) is still
+    built from ``v_faces``.
+
     ``lvol`` may be the raw dual-lattice array or its parity-class dict;
     ``dt`` a float or 0-dim tensor.
     """
@@ -345,11 +354,11 @@ def viscosity_solve_3d(
     sphi_c = split_parity(sphi, d)
     vol_c = {k: v / (cell_vol * 0.125) for k, v in split_parity(lvol, d).items()}
 
-    ext = []
-    for a in range(d):
-        v_e, _ = extrapolate(v_faces[a], _is_fluid(sphi_c[face_parity(a, d)]), 3)
-        ext.append(v_e)
-    ext = tuple(ext)
+    def extrapolated(fields):
+        return tuple(extrapolate(fields[a], _is_fluid(sphi_c[face_parity(a, d)]), 3)[0] for a in range(d))
+
+    ext = extrapolated(v_faces)
+    warm = None if warm_start is None else extrapolated(warm_start)
     shapes = [tuple(v.shape) for v in v_faces]
     b = viscosity_rhs_3d(ext, s_mu, sphi_c, vol_c)
 
@@ -358,17 +367,22 @@ def viscosity_solve_3d(
     flagged = precond_kind == "auto" and auto_use_mg is not None
     kw = dict(tol=tol, rel_tol=rel_tol, max_iter=max_iter)
     if precond_kind == "mg" or (flagged and bool(auto_use_mg)):
-        x, stats = _mg_solve(b, ext, s_mu, sphi_c, vol_c, shapes, **kw)
+        x, stats = _mg_solve(b, ext, s_mu, sphi_c, vol_c, shapes, warm=warm, **kw)
     elif jacobi_precond:
         pdiags = viscosity_diag_3d(s_mu, sphi_c, vol_c, shapes)
-        x, iters, res, res0, thresh, _ = coupled_visc_pcg(b, ext, pdiags, sphi_c, vol_c, s_mu, **kw)
+        x0 = ext
+        if warm is not None:
+            geom = flat_geometry(sphi_c, vol_c)
+            x0 = rescaled_warm_start(lambda vs: coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, geom=geom), b, ext, warm)[0]
+        x, iters, res, res0, thresh, _ = coupled_visc_pcg(b, x0, pdiags, sphi_c, vol_c, s_mu, **kw)
         stats = SolveStats(iters=iters, residual=res, initial_residual=res0, converged=res < thresh)
     else:
         matvec, pdiags = prepare_viscosity_matvec(s_mu, sphi_c, vol_c, shapes)
         # the Jacobi branch of a flagged 'auto' keeps the preconditioner
         precond = (lambda rs: tuple(r / p for r, p in zip(rs, pdiags))) if flagged else None
         tol2, rel2 = squared_tols(tol, rel_tol)  # as the JAX package's generic cg rounds them
-        x, stats, _, _ = cg(matvec, b, ext, tol2=tol2, rel2=rel2, max_iter=max_iter, precond=precond)
+        x0 = ext if warm is None else rescaled_warm_start(matvec, b, ext, warm)[0]
+        x, stats, _, _ = cg(matvec, b, x0, tol2=tol2, rel2=rel2, max_iter=max_iter, precond=precond)
     out = []
     for a in range(d):
         shape = shapes[a]
@@ -378,9 +392,26 @@ def viscosity_solve_3d(
     return ViscosityResult(tuple(out), stats)
 
 
-def _mg_solve(b, x0, s_mu, sphi_c, vol_c, shapes, *, tol, rel_tol, max_iter):
+def rescaled_warm_start(matvec, b, ext, warm):
+    """One residual line search along the predicted correction (JAX
+    ``viscosity.py:612-630``): x0 = ext + α (warm - ext) with
+    α = <b - A ext, A p> / <A p, A p>, p = warm - ext, and α = 0 where
+    <A p, A p> = 0.  α minimises the residual on that line, so x0's
+    residual is never larger than the extrapolated field's.  Two
+    matvecs; the dots in fp32, with no host sync.  Returns (x0, α)."""
+    p = tuple(w - e for w, e in zip(warm, ext))
+    ap = matvec(p)
+    r = tuple(bb - q for bb, q in zip(b, matvec(ext)))
+    num = sum(torch.dot(ri.reshape(-1), ai.reshape(-1)) for ri, ai in zip(r, ap))
+    den = sum(torch.dot(ai.reshape(-1), ai.reshape(-1)) for ai in ap)
+    alpha = torch.where(den > 0, num / torch.clamp(den, min=1e-30), 0.0)
+    return tuple(e + alpha * pi for e, pi in zip(ext, p)), alpha
+
+
+def _mg_solve(b, x0, s_mu, sphi_c, vol_c, shapes, *, tol, rel_tol, max_iter, warm=None):
     """MG-PCG (JAX ``_mg_solve``): the outer operator recomputes its
-    coefficients from the geometry (`coupled_matvec_geom`).  Up to
+    coefficients from the geometry (`coupled_matvec_geom`), and with
+    ``warm`` the solve starts from `rescaled_warm_start` along it.  Up to
     `MG_FACE_CELLS` face cells of axis 0 the block preconditioner
     coarsens the 21 same-axis fields (3 diagonals, 6 couplings an axis),
     which are all this route builds; above, the lean two-grid
@@ -399,8 +430,10 @@ def _mg_solve(b, x0, s_mu, sphi_c, vol_c, shapes, *, tol, rel_tol, max_iter):
     # the JAX package's generic cg rounds tol^2 in fp32 and rel_tol^2 in
     # double before the fp32 product
     tol2, rel2 = squared_tols(tol, rel_tol)
-    x, stats, _, _ = cg(
-        lambda vs: coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, geom=geom), b, x0,
-        tol2=tol2, rel2=rel2, max_iter=max_iter, precond=precond,
-    )
+    def matvec(vs):
+        return coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, geom=geom)
+
+    if warm is not None:
+        x0 = rescaled_warm_start(matvec, b, x0, warm)[0]
+    x, stats, _, _ = cg(matvec, b, x0, tol2=tol2, rel2=rel2, max_iter=max_iter, precond=precond)
     return x, stats

@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: no JAX, no JAX package, no CPU fallback
 for the chip smoke run.
 
-* In a fresh interpreter whose import system refuses ``jax`` and
-  ``python_fluid_simulation_tpu`` (the JAX package), every module of
-  ``python_fluid_simulation_tpu_torch`` and ``chip_smoke`` imports.
+* In a fresh interpreter whose import system refuses ``jax``, ``flax``,
+  ``msgpack`` (which only the Flax checkpoint reader imports, when
+  called) and ``python_fluid_simulation_tpu`` (the JAX package), every
+  module of ``python_fluid_simulation_tpu_torch`` and ``chip_smoke``
+  imports.
 * ``python3 chip_smoke.py`` on a machine without CUDA exits non-zero
   with a clear message and prints no result line; so does a copy of the
   script alone in an empty directory.
@@ -26,7 +28,7 @@ import importlib, importlib.abc, pkgutil, sys
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "python_fluid_simulation_tpu"):
+        if top in ("jax", "jaxlib", "flax", "msgpack", "python_fluid_simulation_tpu"):
             raise ImportError("refused: " + name)
         return None
 
@@ -36,7 +38,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "python_fluid_simulation_tpu")]
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "python_fluid_simulation_tpu")]
 assert not bad, bad
 print(len(names), "modules")
 """

@@ -13,7 +13,8 @@
   wrapper counts a launch.
 * ``scaled_buckling_config(r)`` equals the JAX configuration field for
   field.
-* unported options raise NotImplementedError; the viscosity MG route
+* unported options (moving solids, preconditioners the port does not
+  have) raise NotImplementedError; the viscosity MG route
   above 4M face cells (the lean two-grid route) runs.
 * the 6-step dam break against ``tests/golden_dam_break.npz`` at
   test_golden.py's config and tolerances.
@@ -184,8 +185,8 @@ def test_unported_options_raise():
     state = buckling_scene(cfg, device="cpu")
     for bad in (
         dataclasses.replace(cfg, moving_solid=True),
-        dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_mode="unet")),
-        dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_mode="unet_warm")),
+        dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, precond="ic")),
+        dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_precond="ic")),
     ):
         with pytest.raises(NotImplementedError):
             step_3d(state, bad)
