@@ -34,7 +34,12 @@ PyTorch version on the card:
   started from the network's guess, rescaled by a line search over two
   geometry matvecs), with the full-width UNet (width 64, 68,723,203
   parameters; weights drawn from ``numpy.random.default_rng(0)`` through
-  ``convert.random_flax_unet_params``) run by cuDNN in fp32, TF32 off.
+  ``convert.random_flax_unet_params``) run by cuDNN in fp32, TF32 off;
+* the sharded step (``step_3d(mesh=)``): the flagship on a 1D mesh of 4
+  slots and on a (2, 2) (x, z) mesh, and ``coiling_config(504)`` on 4
+  slots, every slot on the one card (the three solves distributed over
+  the slots' blocks, every width-1 axis-0 halo through the halo push
+  kernel, each slot's launches on its own stream).
 
 Phases, each printing one JSON line:
 
@@ -88,6 +93,18 @@ Phases, each printing one JSON line:
               repeatable and within STEP_TOL of the same step on the card
               with every kernel swapped for its plain version; the same
               step on the CPU reported (not asserted), peak memory
+  mesh_504    504 sharded over 4 slots from the same scene: 1 warm-up + 2
+              timed steps with the counters reset just before; the halo
+              kernel launched, solves converged, |dx| < 2e-4 and |dv| < 2e-3
+              against main_504's 'auto' run after the same 3 steps (the JAX
+              package's sharded-vs-unsharded bars); median step, peak
+              memory, iterations beside the unsharded ones; the unsharded
+              second step's viscosity system solved by the coupled PCG and
+              distributed on the 4 slots (iterations within 3, faces within
+              rtol 5e-3 / atol 5e-4: tests/test_parallel.py:275-281), each
+              with its residual one iteration before its exit; one profiled
+              step (`profile_step.py::profile_steps`): launches, idle share,
+              the halo kernel's device ms and launches a step
   kernels_options flagship, jacobi_precond=False, the third step: the
               materialised coupled matvec and the prepared pressure and
               density matvecs (bitwise, with library times and bounds),
@@ -141,6 +158,20 @@ Phases, each printing one JSON line:
               the CPU) reported; median step, the UNet forward's share of
               a step (CUDA events), the 'apic' viscosity iterations from
               the same states (reported), peak memory
+  halo        row 15 over meshes of 2, 4 and 8 slots of the card, on the
+              blocks of the sharded steps' fields (flagship, 128^3 and 504
+              cells and x faces, padded to the slots) and a 4-D input: 1,000
+              back-to-back exchanges with changing contents, each bitwise
+              its plain version; CUDA-event ms of the kernel (all slots,
+              launch to join), the plain route and one torch.cat a slot of
+              the pre-moved planes, the same-card byte bound and the
+              computed NVLink plane bound
+  mesh        flagship sharded on a 1D mesh of 4 slots and a (2, 2) mesh, 3
+              steps each with the counters reset just before: the halo
+              kernel launched and no PCG kernel, solves converged, every
+              step bitwise (x, v, c) the same steps with the plain halo
+              patched in, and |dx| < 2e-4, |dv| < 2e-3 against the
+              unsharded step on the card; iterations of both printed
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
@@ -225,13 +256,35 @@ UNET_LEVEL = {"enc1": 0, "enc2": 1, "enc3": 2, "enc4": 3, "enc5": 4, "dec5": 4, 
               "dec1": 0, "unpool4": 4, "unpool3": 3, "unpool2": 2, "unpool1": 1, "fc": 0}
 STEPS_UNET = 6  # 1 warm-up + 5 timed, per mode
 CHECKED_STEP_UNET = 2  # the third step: card vs plain on the card, and vs the CPU (reported)
+# the sharded step: slots of a 1D mesh on the one card, and the JAX
+# package's sharded-vs-unsharded bars (__graft_entry__.py:158-159,
+# tests/test_parallel.py:184-190)
+MESH_SLOTS = 4
+MESH_DX, MESH_DV = 2e-4, 2e-3
+# the distributed coupled solve vs the single-device one on one system
+# (tests/test_parallel.py:275-281)
+VISC_MESH_TOL, VISC_MESH_ITERS = dict(rtol=5e-3, atol=5e-4), 3
+STEPS_MESH = 3  # flagship, 1D and (2, 2): every step bitwise kernel vs plain halo, and vs unsharded
+STEPS_MESH_504 = 3  # 1 warm-up + 2 timed
+# the halo kernel: slot counts, and the global fields the sharded step
+# exchanges (the x extent padded to a multiple of the slots; the coupled
+# CG pads every face array's x to the x-face extent nx + 1)
+HALO_SLOTS = (2, 4, 8)
+HALO_FIELDS = (
+    ("flagship_cells", (48, 80, 48)), ("flagship_xfaces", (49, 80, 48)),
+    ("128_cells", (77, 128, 77)), ("128_xfaces", (78, 128, 77)),
+    ("504_cells", (126, 504, 126)), ("504_xfaces", (127, 504, 126)),
+    ("4d", (16, 6, 5, 3)),
+)
+HALO_REPS = 1000  # back-to-back exchanges with changing contents, each compared bitwise with the plain route
+HALO_TIMED = 50
 
 
 def halo_plane_bounds():
-    """Row 15 (``parallel/halo_rdma.py::halo_exchange_rdma``, not ported:
-    it needs two or more cards): its bound from its code, one width-1
-    axis-0 plane of a cell field (Y * Z float32) pushed to a neighbour
-    over NVLink, at the sizes of the step.  Computed, not measured."""
+    """Row 15's NVLink bound: one width-1 axis-0 plane of a cell field
+    (Y * Z float32) pushed to a neighbour over NVLink, at the sizes of
+    the step.  Computed, not measured: the card's machine has one card,
+    so the slots of a mesh share it and the pushes stay in its memory."""
     out = {}
     for name, ((_, y, z), _) in (("128", SHAPE_128), ("504", SHAPE_504), ("256", SHAPE_256)):
         out[name] = dict(plane=[y, z], bytes=y * z * 4, bound_ms=y * z * 4 / NVLINK_BYTES_PER_S * 1e3)
@@ -1096,9 +1149,11 @@ def plain_kernels():
     attributes, as `plain_mg_routes`): the step on the card with no kernel
     of this port."""
     from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_fold, cuda_stencils, scatter
+    from python_fluid_simulation_tpu_torch.parallel import halo_rdma
     from python_fluid_simulation_tpu_torch.solvers import pressure, viscosity
 
     with plain_mg_routes(), patched([
+        (halo_rdma, "halo_exchange_rdma", halo_rdma.halo_exchange_rdma_plain),
         (pressure, "cell_poisson_pcg", cuda_stencils.cell_poisson_pcg_plain),
         (pressure, "fused_poisson_pcg", cuda_stencils.fused_poisson_pcg_plain),
         (viscosity, "coupled_visc_pcg", cuda_cg.coupled_visc_pcg_plain),
@@ -1266,6 +1321,7 @@ def step_diff(a, b):
 
 def reset_counters():
     from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_cg, cuda_fold, cuda_mg, cuda_scan, cuda_stencils
+    from python_fluid_simulation_tpu_torch.parallel import halo_rdma
 
     wrappers = {
         "cell_poisson_pcg": cuda_stencils.cell_poisson_pcg,
@@ -1280,6 +1336,7 @@ def reset_counters():
         "coupled_matvec_geom": cuda_cg.coupled_matvec_geom,
         "fold": cuda_fold.fold,
         "coupled_stencil_matvec": cuda_stencils.coupled_stencil_matvec,
+        "halo_exchange_rdma": halo_rdma.halo_exchange_rdma,
     }
     for w in wrappers.values():
         w.launches = 0
@@ -1692,6 +1749,113 @@ def unet_forward_events(unet):
     return events, remove
 
 
+def halo_phase():
+    """Row 15 on the card: every slot count and field of `HALO_FIELDS`,
+    `HALO_REPS` exchanges with changing contents, each bitwise its plain
+    version; CUDA-event times of the kernel (all slots, launch to join),
+    the plain route and one ``torch.cat`` a slot of the pre-moved planes,
+    beside the same-card byte bound and the computed NVLink plane bound."""
+    import torch
+    from python_fluid_simulation_tpu_torch.ops import cuda_halo
+    from python_fluid_simulation_tpu_torch.parallel import halo, halo_rdma
+    from python_fluid_simulation_tpu_torch.parallel.halo import _padded_extent
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for slots in HALO_SLOTS:
+        mesh = make_mesh(slots)
+        for name, shape in HALO_FIELDS:
+            n = _padded_extent(shape[0], slots) // slots
+            bshape = (n,) + shape[1:]
+            blocks = [torch.randn(bshape, generator=gen, device="cuda") for _ in range(slots)]
+            before = halo_rdma.halo_exchange_rdma.launches
+            mismatched = torch.zeros((), dtype=torch.int64, device="cuda")
+            for _ in range(HALO_REPS):
+                for b in blocks:
+                    b.add_(1.0)
+                got = halo.halo_exchange(mesh, blocks, "x")  # the step's route: the kernel
+                want = halo_rdma.halo_exchange_rdma_plain(mesh, blocks, "x")
+                for g, w in zip(got, want):
+                    mismatched += (g != w).sum()
+            launched = halo_rdma.halo_exchange_rdma.launches - before
+            bad = int(mismatched)
+            if launched != HALO_REPS * slots or bad:
+                raise AssertionError(f"halo {name} over {slots} slots: {launched} launches, {bad} elements differ")
+            ms = cuda_time_ms(lambda: halo_rdma.halo_exchange_rdma(mesh, blocks, "x"), HALO_TIMED)
+            plain_ms = cuda_time_ms(lambda: halo_rdma.halo_exchange_rdma_plain(mesh, blocks, "x"), HALO_TIMED)
+            frames = halo_rdma.halo_exchange_rdma_plain(mesh, blocks, "x")
+            lo, hi = [f[:1].clone() for f in frames], [f[-1:].clone() for f in frames]
+            library_ms = cuda_time_ms(lambda: [torch.cat([a, b, c]) for a, b, c in zip(lo, blocks, hi)], HALO_TIMED)
+            del frames, lo, hi, blocks, got, want
+            plane = math.prod(bshape[1:])
+            rows.append(dict(
+                field=name, global_shape=list(shape), slots=slots, block=list(bshape), exchanges=HALO_REPS,
+                mismatched_elements=bad, max_abs_err=0.0, grid=cuda_halo.grid_size(n * plane, slots, torch.device("cuda", 0)),
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(slots * (2 * n + 2) * plane * 4, 0),
+                nvlink_plane_bytes=plane * 4, nvlink_bound_ms=plane * 4 / NVLINK_BYTES_PER_S * 1e3))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_phase(step_3d, cfg, state0, geom):
+    """The sharded flagship step on a 1D mesh of `MESH_SLOTS` slots and a
+    (2, 2) mesh, `STEPS_MESH` steps each with the counters reset just
+    before: the halo kernel launched and no PCG kernel (the solves are the
+    distributed ones), solves converged; every step bitwise (x, v, c) the
+    same steps with the plain halo route patched in, and within
+    MESH_DX / MESH_DV of the unsharded step on the card."""
+    import torch
+    from python_fluid_simulation_tpu_torch.parallel import halo_rdma
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, make_mesh2d, shard_state
+
+    n = int(state0.particles.x.shape[0])
+    ref = [state0]
+    ref_iters = {k: [] for k in ("density", "viscosity", "pressure")}
+    for _ in range(STEPS_MESH):
+        st, m = step_3d(ref[-1], cfg, geom=geom)
+        ref.append(st)
+        for k in ref_iters:
+            ref_iters[k].append(int(m[f"{k}_iters"]))
+    out, launches_by = {}, {}
+    for label, mesh in (("1d_4", make_mesh(MESH_SLOTS)), ("2d_2x2", make_mesh2d((2, 2)))):
+        step_m = functools.partial(step_3d, mesh=mesh)
+        start = shard_state(state0, mesh)
+        read = reset_counters()
+        state, states, step_ms, metrics = run_steps(step_m, start, cfg, geom, STEPS_MESH, STEPS_MESH)
+        launches = read()
+        check_run(state, metrics, launches, ("halo_exchange_rdma", *REDUCE_ROUTE, "binned_segment_broadcast", "fold"),
+                  f"flagship mesh {label}")
+        pcg = {k: launches[k] for k in ("cell_poisson_pcg", "fused_poisson_pcg", "coupled_visc_pcg") if launches[k]}
+        if pcg:
+            raise AssertionError(f"flagship mesh {label}: the solves launched {pcg}")
+        with patched([(halo_rdma, "halo_exchange_rdma", halo_rdma.halo_exchange_rdma_plain)]):
+            read_plain = reset_counters()
+            plain = [start]
+            for _ in range(STEPS_MESH):
+                plain.append(step_m(plain[-1], cfg, geom=geom)[0])
+            if read_plain()["halo_exchange_rdma"]:
+                raise AssertionError(f"flagship mesh {label}: the plain halo run launched the kernel")
+        errs = []
+        for i in range(1, STEPS_MESH + 1):
+            for k in ("x", "v", "c"):
+                if not torch.equal(getattr(states[i].particles, k), getattr(plain[i].particles, k)):
+                    raise AssertionError(f"flagship mesh {label} step {i - 1}: kernel vs plain halo differ in {k}")
+            dx = float((states[i].particles.x[:n] - ref[i].particles.x).abs().max())
+            dv = float((states[i].particles.v[:n] - ref[i].particles.v).abs().max())
+            if not (dx < MESH_DX and dv < MESH_DV):
+                raise AssertionError(f"flagship mesh {label} step {i - 1} vs unsharded: |dx| {dx}, |dv| {dv}")
+            errs.append({"dx": dx, "dv": dv})
+        out[label] = dict(
+            mesh=mesh.shape, step_ms=step_ms, halo_launches_per_step=launches["halo_exchange_rdma"] / STEPS_MESH,
+            kernel_vs_plain_halo_bitwise=True, vs_unsharded_by_step=errs,
+            iters={k: [m[f"{k}_iters"] for m in metrics] for k in ("density", "viscosity", "pressure")},
+            unsharded_iters=ref_iters)
+        launches_by[label] = launches
+        del state, states, plain, start
+    return out, launches_by
+
+
 def main() -> int:
     import torch
 
@@ -1711,6 +1875,8 @@ def main() -> int:
     from python_fluid_simulation_tpu_torch.ops import _cuda_build
     from python_fluid_simulation_tpu_torch.ops.cuda_cg import coupled_matvec_geom
     from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, shard_state
+    from python_fluid_simulation_tpu_torch.profile_step import profile_steps
     from python_fluid_simulation_tpu_torch.solvers import pressure
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2064,13 +2230,92 @@ def main() -> int:
             iters={k: [m[f"{k}_iters"] for m in metrics504] for k in ("density", "viscosity", "pressure")},
             visc_rel_residual=[m["viscosity_rel_residual"] for m in metrics504],
         )
-    del runs504, before, first, s504, geom504
+    auto504 = runs504["auto"]  # the unsharded 'auto' run from the scene, for mesh_504
+    del runs504, before, first
     emit({"phase": "main_504", "grid": list(cfg504.grid.res), "particles": n504, "runs": out504,
           "launches": launches_by_run504, "max_memory_allocated": peak504, "first_lean_step_bitwise_repeatable": True,
           "check": "the first lean-MG step vs the same step on the card with every kernel swapped for its plain version",
           "plain_step_seconds": plain504, "card_vs_plain_on_card": err504,
           "reported_vs_cpu": vs_cpu504, "cpu_step_seconds": cpu504, "step_tol": STEP_TOL,
           "seconds": time.perf_counter() - t0})
+
+    # -- the sharded 504 step on a 1D mesh of MESH_SLOTS slots of the card,
+    #    from the scene main_504 started from: 1 warm-up + 2 timed steps
+    #    with the counters reset just before, then 1 profiled step
+    t0 = time.perf_counter()
+    m504 = make_mesh(MESH_SLOTS)
+    step_m504 = functools.partial(step_3d, mesh=m504)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read_counts = reset_counters()
+    state, _, ms_m504, metrics_m504 = run_steps(step_m504, shard_state(s504, m504), cfg504, geom504, STEPS_MESH_504, 0)
+    launches_m504 = read_counts()
+    peak_m504 = torch.cuda.max_memory_allocated()
+    check_run(state, metrics_m504, launches_m504, ("halo_exchange_rdma", "fold", *REDUCE_ROUTE,
+                                                   "binned_segment_broadcast"), "504 mesh")
+    ref504 = auto504[0]  # the unsharded state after the same STEPS_504 steps
+    if STEPS_MESH_504 != STEPS_504:
+        raise AssertionError("mesh_504 compares with main_504's 'auto' run: take as many steps")
+    dx504 = float((state.particles.x[:n504] - ref504.particles.x).abs().max())
+    dv504 = float((state.particles.v[:n504] - ref504.particles.v).abs().max())
+    if not (dx504 < MESH_DX and dv504 < MESH_DV):
+        raise AssertionError(f"504 mesh vs unsharded after {STEPS_504} steps: |dx| {dx504}, |dv| {dv504}")
+    # the unsharded second step's own viscosity system, solved by the
+    # coupled PCG kernel and distributed on the same slots: the sharded
+    # run's exits move with its (rounding-level different) systems, a
+    # solve of one system must not; each solve's residual at its exit and
+    # one iteration before shows how close to the threshold it stopped
+    from python_fluid_simulation_tpu_torch.engine import step as step_mod
+    from python_fluid_simulation_tpu_torch.solvers import viscosity as visc_mod
+
+    calls = []
+
+    def rec_visc(*a, **kw):
+        calls.append((a, kw))
+        return visc_mod.viscosity_solve_3d(*a, **kw)
+
+    with patched([(step_mod, "viscosity_solve_3d", rec_visc)]):
+        step_3d(auto504[1][1], cfg504, geom=geom504)
+    visc_args, visc_kw = calls[0]
+    visc_kw = dict(visc_kw, precond_kind="jacobi", auto_use_mg=None)
+    same_system, faces = {}, {}
+    for label, extra in (("coupled_visc_pcg", {}), ("distributed", {"mesh": m504})):
+        solved = visc_mod.viscosity_solve_3d(*visc_args, **{**visc_kw, **extra})
+        k = int(solved.stats.iters)
+        before = visc_mod.viscosity_solve_3d(*visc_args, **{**visc_kw, **extra, "max_iter": max(k - 1, 0)})
+        same_system[label] = dict(iters=k, residual=float(solved.stats.residual),
+                                  residual_one_iteration_before=float(before.stats.residual),
+                                  tol_squared=visc_kw["tol"] ** 2)
+        faces[label] = solved.v_faces
+        del solved, before
+    if abs(same_system["distributed"]["iters"] - same_system["coupled_visc_pcg"]["iters"]) > VISC_MESH_ITERS:
+        raise AssertionError(f"504 second step's viscosity system: {same_system}")
+    for a, (got, ref) in enumerate(zip(faces["distributed"], faces["coupled_visc_pcg"])):
+        check_close(f"504 second step's viscosity system, distributed vs kernel, face {a}", got, ref, VISC_MESH_TOL)
+    same_system["max_abs_diff"] = max(max_err(g, r)[0] for g, r in zip(faces["distributed"], faces["coupled_visc_pcg"]))
+    del calls, visc_args, visc_kw, faces
+    _, prof_m504, _ = profile_steps(lambda st: step_m504(st, cfg504, geom=geom504), state, 1)
+    halo_dev = prof_m504["own_kernels_per_step"].get("halo_push_kernel", {})
+    timed = ms_m504[1:]
+    emit({"phase": "mesh_504", "grid": list(cfg504.grid.res), "particles": n504, "mesh": m504.shape,
+          "warmup_step_ms": ms_m504[0], "step_ms": timed, "median_step_ms": statistics.median(timed),
+          "max_memory_allocated": peak_m504, "launches": launches_m504,
+          "halo_launches_per_step": launches_m504["halo_exchange_rdma"] / STEPS_MESH_504,
+          "iters": {k: [m[f"{k}_iters"] for m in metrics_m504] for k in ("density", "viscosity", "pressure")},
+          "unsharded_iters": {k: [m[f"{k}_iters"] for m in auto504[3]] for k in ("density", "viscosity", "pressure")},
+          # the viscosity exits (||r||^2 and over ||r0||^2), sharded then unsharded
+          "visc_residual": [[m["viscosity_residual"] for m in run] for run in (metrics_m504, auto504[3])],
+          "visc_rel_residual": [[m["viscosity_rel_residual"] for m in run] for run in (metrics_m504, auto504[3])],
+          "vs_unsharded": {"dx": dx504, "dv": dv504, "bars": [MESH_DX, MESH_DV]},
+          "unsharded_second_step_viscosity_system": same_system,
+          "profile": {k: prof_m504[k] for k in ("step_ms", "device_busy_ms_per_step", "device_idle_share",
+                                                "cuda_events_per_step", "runtime_calls_per_step",
+                                                "own_kernels_per_step", "top_device")},
+          "halo_kernel_device_ms_per_step": halo_dev.get("device_ms"),
+          "halo_kernel_launches_per_step_profiled": halo_dev.get("launches"),
+          "seconds": time.perf_counter() - t0})
+    del state, auto504, ref504, s504, geom504, m504, prof_m504
+    torch.cuda.empty_cache()
 
     # -- the reference's unpreconditioned CG (jacobi_precond=False) and the
     #    dt-scaled pressure assembly: the kernels on the flagship's third
@@ -2339,9 +2584,24 @@ def main() -> int:
           "launches": launches_unet, "max_memory_allocated": peak_unet, "step_tol": STEP_TOL,
           "seconds": time.perf_counter() - t0})
 
+    # -- row 15: the halo kernel against its plain version at every shape
+    #    the sharded steps exchange, over 2, 4 and 8 slots of the card
+    t0 = time.perf_counter()
+    halo_rows = halo_phase()
+    emit({"phase": "halo", "rows": halo_rows, "seconds": time.perf_counter() - t0})
+
+    # -- the sharded flagship step: 1D and (2, 2) meshes of the card
+    t0 = time.perf_counter()
+    s_mesh = buckling_scene(cfg, seed=0, device="cuda")
+    geom = build_geom_cache(s_mesh.solid)
+    mesh_out, launches_mesh = mesh_phase(step_3d, cfg, s_mesh, geom)
+    del s_mesh, geom
+    emit({"phase": "mesh", "grid": list(cfg.grid.res), "particles": n_particles, "runs": mesh_out,
+          "launches": launches_mesh, "bars": [MESH_DX, MESH_DV], "seconds": time.perf_counter() - t0})
+
     # -- summary: the nvidia-smi line, the kernels line, then the result
-    every_run = [launches, launches128, launchesc, launches504, *launches_opt.values(), launches256,
-                 *launches_unet.values()]
+    every_run = [launches, launches128, launchesc, launches504, launches_m504, *launches_opt.values(), launches256,
+                 *launches_unet.values(), *launches_mesh.values()]
 
     def entry(name, source, replaces, row, library_ms=None, counter=None):
         return {"name": name, "route": "cuda", "source": f"python_fluid_simulation_tpu_torch/csrc/{source}",
@@ -2395,7 +2655,14 @@ def main() -> int:
               dict(prepared_rows[1], max_abs_err=max(r["max_abs_err"] for r in prepared_rows)),
               prepared_rows[1]["library_ms"], counter="stencil_matvec"),
     ]
-    emit({"phase": "done", "halo_rdma_bound_not_measured": halo_plane_bounds(),
+    # row 15 on the 504 cell slabs over MESH_SLOTS slots (mesh_504's exchanges);
+    # bitwise at every shape and slot count
+    halo_row = next(r for r in halo_rows if r["field"] == "504_cells" and r["slots"] == MESH_SLOTS)
+    kernels.append(dict(
+        entry("halo_exchange_rdma", "halo_rdma.cu", "", dict(halo_row, max_abs_err=max(r["max_abs_err"] for r in halo_rows)),
+              halo_row["library_ms"]),
+        replaces="python_fluid_simulation_tpu/parallel/halo_rdma.py:133"))
+    emit({"phase": "done", "halo_rdma_nvlink_bound_computed": halo_plane_bounds(),
           "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)
     emit({"kernels": kernels})

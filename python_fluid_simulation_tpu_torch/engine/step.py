@@ -30,8 +30,18 @@ non-MG solves are the generic CG over ``stencil_matvec`` and
 system scaled by dt.  The Jacobi solves make no host sync; the generic
 CG loops test their exit on the host once per iteration, and 'auto'
 reads its flag once a step.  The UNet (``models/unet3d.py``) runs on the
-device of the state, through cuDNN.  Not yet ported (they raise): moving
-solids, meshes and bucketing.
+device of the state, through cuDNN.
+
+With a ``mesh`` (``parallel/mesh.py``; the JAX package's
+``step_3d(mesh=)``) the three solves run distributed over the mesh's
+slot blocks (``parallel/halo.py``: the cell solves'
+``distributed_cell_poisson`` and the viscosity solve's
+``distributed_coupled_cg``, whatever preconditioner is configured, with
+the halo push kernel for every width-1 axis-0 exchange of CUDA blocks).
+Everything else runs globally on slot 0's device with the kernels above:
+the particles and the non-solve grid fields are not split yet (the JAX
+package's sharding constraints change no number).  Not yet ported (they
+raise): moving solids, bucketing, and the learned modes under a mesh.
 """
 
 from __future__ import annotations
@@ -70,16 +80,25 @@ class GeomCache:
     w_faces: Tuple[torch.Tensor, ...]
 
 
-def build_geom_cache(solid) -> GeomCache:
+def build_geom_cache(solid, mesh=None) -> GeomCache:
+    """The geometry of `solid`, on its device; with a ``mesh`` that must
+    be slot 0's, where the sharded step keeps every non-solve field."""
+    if mesh is not None and solid.phi.device != mesh.devices[0]:
+        raise ValueError(f"the solid is on {solid.phi.device}, the mesh's slot 0 on {mesh.devices[0]}")
     sphi_c = split_parity(solid.phi, 3)
     sv_c = tuple(split_parity(solid.v[..., c], 3) for c in range(3))
     return GeomCache(sphi_c=sphi_c, sv_c=sv_c, w_faces=tuple(compute_solid_frac_3d(sphi_c)))
 
 
-def _check_supported(cfg: SimConfig, unet=None, capture_ml=False):
+def _check_supported(cfg: SimConfig, unet=None, capture_ml=False, mesh=None, bucketed=False):
     sol = cfg.solver
     if cfg.moving_solid:
         raise NotImplementedError("moving solids are not ported yet")
+    if bucketed:
+        raise NotImplementedError("the bucketed particle mode is not ported yet (ROADMAP queue 1 item 7)")
+    if mesh is not None and sol.viscosity_mode != "apic":
+        raise NotImplementedError(
+            f"viscosity_mode={sol.viscosity_mode!r} under a mesh is not ported yet (ROADMAP queue 1 item 7)")
     if sol.viscosity_mode not in ("apic", "unet", "unet_warm"):
         raise ValueError(f"unknown viscosity_mode {sol.viscosity_mode!r}")
     if sol.viscosity_mode == "unet" and unet is None:
@@ -94,6 +113,7 @@ def _check_supported(cfg: SimConfig, unet=None, capture_ml=False):
 
 def step_3d(
     state: SimState, cfg: SimConfig, geom: GeomCache | None = None, unet=None, capture_ml=False,
+    mesh=None, bucketed: bool = False,
 ) -> Tuple[SimState, Dict[str, torch.Tensor]]:
     """One step on the device of the state's tensors.
 
@@ -102,16 +122,22 @@ def step_3d(
     solve starts cold.  ``capture_ml`` ('apic' and 'unet_warm' only):
     "raw" puts the velocities around the viscosity solve and the merged
     fluid volume in ``metrics["ml_pair"]``, ``True`` the built
-    ``models/train.py::ViscosityExample``."""
+    ``models/train.py::ViscosityExample``.
+
+    ``mesh``: run the three solves distributed over its slots (the state
+    on slot 0's device, its particles padded by
+    ``parallel/mesh.py::shard_state``).  ``bucketed`` is refused."""
     g, ph, sol = cfg.grid, cfg.physics, cfg.solver
     p = state.particles
     dev = p.x.device
-    _check_supported(cfg, unet, capture_ml)
+    _check_supported(cfg, unet, capture_ml, mesh, bucketed)
+    if mesh is not None and dev != mesh.devices[0]:
+        raise ValueError(f"the state is on {dev}, the mesh's slot 0 on {mesh.devices[0]}")
     if unet is not None and next(unet.parameters()).device != dev:
         raise ValueError(f"the UNet's parameters are on {next(unet.parameters()).device}, the state on {dev}")
     f32 = torch.float32
     if geom is None:
-        geom = build_geom_cache(state.solid)
+        geom = build_geom_cache(state.solid, mesh)
 
     # -- dt selection (cell 13 :4572-4576)
     if cfg.dt_mode == "cfl":
@@ -133,7 +159,7 @@ def step_3d(
         ph.rho, dt, px, p.m, cfg.particle_dx**3, geom.sphi_c, lphi, geom.w_faces,
         g.bound_min, g.cell_size, tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter,
         wz_bug=sol.density_wz_bug, sort_info=sort1, precond=sol.precond, mg_opts=sol.mg_opts,
-        jacobi_precond=sol.jacobi_precond,
+        jacobi_precond=sol.jacobi_precond, mesh=mesh,
     )
     px = dres.px
 
@@ -176,7 +202,7 @@ def step_3d(
         vres = viscosity_solve_3d(
             dt, ph.mu, ph.rho, tuple(gv), geom.sphi_c, lvol, g.cell_vol,
             tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter, jacobi_precond=sol.jacobi_precond,
-            precond_kind=sol.viscosity_precond, auto_use_mg=visc_mg > 0, warm_start=warm,
+            precond_kind=sol.viscosity_precond, auto_use_mg=visc_mg > 0, warm_start=warm, mesh=mesh,
         )
         if capture_ml == "raw":
             ml_pair = {"gv_before": tuple(gv), "gv_after": vres.v_faces, "lvol": merge_parity(lvol, tuple(sphi.shape))}
@@ -192,7 +218,7 @@ def step_3d(
     pres = pressure_solve_3d(
         tuple(gv), geom.sv_c, lphi, geom.w_faces, g.cell_size,
         tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter, precond=sol.precond, mg_opts=sol.mg_opts,
-        jacobi_precond=sol.jacobi_precond, dt_scale=dt if sol.pressure_dt_scaled else None,
+        jacobi_precond=sol.jacobi_precond, dt_scale=dt if sol.pressure_dt_scaled else None, mesh=mesh,
     )
     gv = list(pres.v_faces)
 
@@ -247,14 +273,15 @@ def step_3d(
     return new_state, metrics
 
 
-def simulate(state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | None = None, unet=None):
+def simulate(state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | None = None, unet=None,
+             mesh=None):
     """Run `num_steps` steps; the static geometry is built once.
     Returns (final_state, metrics) with each metric stacked over steps."""
     if geom is None:
-        geom = build_geom_cache(state.solid)
+        geom = build_geom_cache(state.solid, mesh)
     history = []
     for _ in range(num_steps):
-        state, m = step_3d(state, cfg, geom=geom, unet=unet)
+        state, m = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh)
         history.append(m)
     metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]} if history else {}
     return state, metrics

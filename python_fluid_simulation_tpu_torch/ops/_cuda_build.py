@@ -47,6 +47,8 @@ _SIGNATURES = {
     "pfs_seg_scan": [_P, _P, _L, _I, _I, _P, _P],
     "pfs_binned_broadcast": [_P, _P, _L, _I, _I, _P, _P],
     "pfs_fold": [_P, _L, _P] + [_I] * 9 + [_P, _F, _I, _P],
+    "pfs_halo_grid_cap": [_P, _P],
+    "pfs_halo_exchange": [_P] * 4 + [_I, _I, _L, _L, ctypes.c_uint, ctypes.c_uint, _I, _P],
 }
 
 

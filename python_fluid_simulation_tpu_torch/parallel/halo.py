@@ -1,0 +1,351 @@
+"""Halo exchanges and the distributed solves of the sharded step.
+
+Counterpart of ``python_fluid_simulation_tpu.parallel.halo``.  There,
+inside a ``shard_map`` region, each device owns a contiguous block of the
+grid, exchanges one-cell halos with its mesh neighbours (``ppermute``)
+and reduces CG dots with ``psum``.  Here one process drives the slots of
+a `parallel.mesh.Mesh`: a sharded field is the list of its slot blocks,
+`halo_exchange` frames every block with its neighbours' edges, and
+`psum_dot` sums the slots' fp32 partial dots on slot 0's device in slot
+order.  Width-1 exchanges along array axis 0 of CUDA blocks take the halo
+push kernel (``parallel/halo_rdma.py``); every other exchange, and every
+exchange of CPU blocks, takes the plain route, as every exchange but
+that one keeps ``ppermute`` in the JAX package.
+
+The CG loops (`distributed_cell_poisson`, `distributed_coupled_cg`) are
+the JAX package's: x0 = 0 for the cell solves, the fp32 threshold
+max(f32(tol)^2, f32(rel_tol)^2 * res0), the exit res >= thresh,
+k < max_iter, delta != 0, and the guarded alpha and beta.  They test
+their exit on the host once per iteration.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from python_fluid_simulation_tpu_torch.ops.cuda_stencils import squared_tols
+from python_fluid_simulation_tpu_torch.ops.indexing import sample, shift
+from python_fluid_simulation_tpu_torch.parallel import halo_rdma
+from python_fluid_simulation_tpu_torch.parallel.mesh import Mesh, gather_blocks, spatial_axes, split_blocks
+from python_fluid_simulation_tpu_torch.solvers.cg import threshold, tree_dot
+
+
+def halo_exchange(mesh: Mesh, blocks: Sequence[torch.Tensor], axis_name: str, width: int = 1,
+                  array_axis: int = 0) -> List[torch.Tensor]:
+    """Append `width` cells received from both neighbours along one mesh
+    axis to every slot's block.
+
+    Each output is extended by 2*width along ``array_axis``: the leading
+    halo is the high edge of the low neighbour, the trailing halo the low
+    edge of the high neighbour, zeros at the domain's ends.
+    """
+    if width == 1 and array_axis == 0 and blocks[0].ndim >= 2 and blocks[0].device.type == "cuda":
+        return halo_rdma.halo_exchange_rdma(mesh, blocks, axis_name)
+    out = [None] * len(blocks)
+    for ring in mesh.rings(axis_name):
+        for pos, s in enumerate(ring):
+            x = blocks[s]
+            size = x.shape[array_axis]
+            if pos > 0:
+                lo = blocks[ring[pos - 1]].narrow(array_axis, size - width, width).to(x.device)
+            else:
+                lo = torch.zeros_like(x.narrow(array_axis, 0, width))
+            if pos < len(ring) - 1:
+                hi = blocks[ring[pos + 1]].narrow(array_axis, 0, width).to(x.device)
+            else:
+                hi = torch.zeros_like(x.narrow(array_axis, 0, width))
+            out[s] = torch.cat([lo, x, hi], dim=array_axis)
+    return out
+
+
+def psum_dot(a: Sequence, b: Sequence) -> torch.Tensor:
+    """Distributed <a, b>: a[s], b[s] are slot s's block (or tuple of
+    blocks); the slots' fp32 partials are summed on slot 0's device in
+    slot order."""
+    total = None
+    for x, y in zip(a, b):
+        xs = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+        ys = tuple(y) if isinstance(y, (tuple, list)) else (y,)
+        part = tree_dot(xs, ys)
+        total = part if total is None else total + part.to(total.device)
+    return total
+
+
+def sharded_pressure_matvec(mesh: Mesh, w_faces, lphi):
+    """The 7-point ghost-fluid matvec over x-slabs of a 1D mesh.
+
+    Each slot computes the stencil on its slab extended by 1-cell halos
+    of (p, lphi) and the face weights; the x-face weights drop the
+    global last face (identically zero, never written by
+    ``compute_solid_frac``): the last slot's halo exchange
+    re-materialises it as zero fill.  Returns p -> A p on global arrays
+    (slot 0's device).  Requires nx % slots == 0."""
+    from python_fluid_simulation_tpu_torch.solvers.pressure import pressure_matvec_3d
+
+    axis = mesh.axis_names[0]
+    n = mesh.size
+    if lphi.shape[0] % n:
+        raise ValueError("grid x-extent must divide the mesh")
+    wx, wy, wz = w_faces
+    consts = [halo_exchange(mesh, split_blocks(mesh, f, (axis,)), axis) for f in (lphi, wx[:-1], wy, wz)]
+
+    def matvec(p):
+        p_h = halo_exchange(mesh, split_blocks(mesh, p, (axis,)), axis)
+        out = []
+        for s in range(n):
+            lphi_h, wx_h, wy_h, wz_h = (c[s] for c in consts)
+            o = pressure_matvec_3d(p_h[s], (wx_h, wy_h, wz_h), lphi_h)[1:-1]
+            # the matvec's interior mask zeroed the halo rows; re-zero only
+            # the true domain boundary planes
+            if s == 0:
+                o[0] = 0.0
+            if s == n - 1:
+                o[-1] = 0.0
+            out.append(o)
+        return gather_blocks(mesh, out, (axis,))
+
+    return matvec
+
+
+def sharded_pressure_matvec_interior_oracle(w_faces, lphi):
+    """Single-device reference for tests."""
+    from python_fluid_simulation_tpu_torch.solvers.pressure import pressure_matvec_3d
+
+    def matvec(p):
+        return pressure_matvec_3d(p, w_faces, lphi)
+
+    return matvec
+
+
+def _pad_x(a, target: int, fill=0.0):
+    """Pad an array along axis 0 to `target` planes with `fill`."""
+    return _pad_axis(a, target, 0, fill)
+
+
+def _pad_axis(a, target: int, axis: int, fill=0.0):
+    if a.shape[axis] == target:
+        return a
+    shape = list(a.shape)
+    shape[axis] = target
+    out = torch.full(shape, fill, dtype=a.dtype, device=a.device)
+    out.narrow(axis, 0, a.shape[axis]).copy_(a)
+    return out
+
+
+def _padded_extent(nx: int, n_devices: int) -> int:
+    return -(-nx // n_devices) * n_devices
+
+
+def _mesh_spatial(mesh: Mesh):
+    """[(mesh_axis_name, array_axis, slots_along_it)] of the spatial
+    decomposition: 1D meshes split array axis 0, 2D (x, z) meshes axes 0
+    and 2."""
+    return [(name, arr_axis, mesh.shape[name]) for name, arr_axis in spatial_axes(mesh)]
+
+
+def _pad_to_mesh(a, pairs, fill=0.0):
+    """Pad each split array axis to a multiple of its mesh extent."""
+    for _, arr_axis, n in pairs:
+        a = _pad_axis(a, _padded_extent(a.shape[arr_axis], n), arr_axis, fill)
+    return a
+
+
+def _block_spec(pairs, ndim):
+    spec = [None] * ndim
+    for name, arr_axis, _ in pairs:
+        spec[arr_axis] = name
+    return tuple(spec)
+
+
+def _halo_all(mesh: Mesh, blocks, pairs, width: int = 1):
+    """Halo-exchange along every split axis in turn.  The second exchange
+    moves the already x-extended planes, so the corners the cross-axis
+    couplings read arrive without an exchange of their own."""
+    for name, arr_axis, _ in pairs:
+        blocks = halo_exchange(mesh, blocks, name, width, arr_axis)
+    return blocks
+
+
+def _slice_offset(q, off, pairs, local_shape):
+    """The ``off``-shifted block of a halo-extended block: split axes
+    slice the halo, the others shift with zero fill."""
+    split = {arr_axis for _, arr_axis, _ in pairs}
+    for a in split:
+        q = q.narrow(a, 1 + off[a], local_shape[a])
+    rest = tuple(0 if a in split else off[a] for a in range(len(off)))
+    if any(rest):
+        q = shift(q, rest, 0.0)
+    return q
+
+
+def converged_threshold(tol: float, rel_tol: float, res0):
+    """The distributed solves' exit threshold, max(f32(tol)^2,
+    f32(rel_tol)^2 * res0) in fp32."""
+    return threshold(*squared_tols(tol, rel_tol), res0)
+
+
+def _scalar_on(t, dev):
+    return t if t.device == dev else t.to(dev)
+
+
+def _unpad(x, shape):
+    for a, want in enumerate(shape):
+        if x.shape[a] != want:
+            x = x.narrow(a, 0, want)
+    return x.contiguous()
+
+
+def distributed_cell_poisson(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: float = 1e-3,
+                             rel_tol: float = 1e-3, max_iter: int = 600):
+    """The distributed Jacobi-PCG of a cell-centred 7-point system from
+    x0 = 0: an iteration is one halo exchange of the search direction
+    along each split axis and the dots' slot sums.
+
+    b / diag / precond_diag and each coefficient field are global cell
+    arrays (``pressure_coefficients`` / ``density_coefficients``).  Any
+    extent works: split axes are padded to a multiple of the mesh (pad
+    rows carry diag = 0, coef = 0, precond = 1, an inert identity block
+    that stays exactly zero).  Returns (x, iters, residual, res0), x on
+    slot 0's device.
+    """
+    pairs = _mesh_spatial(mesh)
+    spec = _block_spec(pairs, b.ndim)
+    orig_shape = tuple(b.shape)
+
+    def split(a, fill=0.0):
+        return split_blocks(mesh, _pad_to_mesh(a, pairs, fill), spec)
+
+    b_l, diag_l, pd_l = split(b), split(diag), split(precond_diag, fill=1.0)
+    offs = [tuple(off) for off, _ in coefs]
+    coef_ls = [split(c) for _, c in coefs]
+    lshape = tuple(b_l[0].shape)
+    devs = mesh.devices
+    n = mesh.size
+
+    def matvec(p_l):
+        p_h = _halo_all(mesh, p_l, pairs)
+        out = []
+        for s in range(n):
+            o = diag_l[s] * p_l[s]
+            for off, c_l in zip(offs, coef_ls):
+                o = o + c_l[s] * _slice_offset(p_h[s], off, pairs, lshape)
+            out.append(o)
+        return out
+
+    r = list(b_l)
+    z = [r[s] / pd_l[s] for s in range(n)]
+    delta = psum_dot(r, z)
+    res0 = psum_dot(r, r)
+    thresh = converged_threshold(tol, rel_tol, res0)
+    x = [torch.zeros_like(t) for t in b_l]
+    d, res, k = z, res0, 0
+    while k < max_iter and bool((res >= thresh) & (delta != 0)):
+        q = matvec(d)
+        dq = psum_dot(d, q)
+        alpha = torch.where(dq != 0, delta / dq, torch.zeros_like(dq))
+        a_s = [_scalar_on(alpha, dev) for dev in devs]
+        x = [x[s] + a_s[s] * d[s] for s in range(n)]
+        r = [r[s] - a_s[s] * q[s] for s in range(n)]
+        z = [r[s] / pd_l[s] for s in range(n)]
+        nd = psum_dot(r, z)
+        res = psum_dot(r, r)
+        beta = torch.where(delta != 0, nd / delta, torch.zeros_like(nd))
+        b_s = [_scalar_on(beta, dev) for dev in devs]
+        d = [z[s] + b_s[s] * d[s] for s in range(n)]
+        delta = nd
+        k += 1
+    xg = _unpad(gather_blocks(mesh, x, spec), orig_shape)
+    return xg, torch.tensor(k, dtype=torch.int32, device=res0.device), res, res0
+
+
+def sharded_cell_poisson_cg(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: float = 1e-3,
+                            rel_tol: float = 1e-3, max_iter: int = 600):
+    """`distributed_cell_poisson` returning (x, iters, residual)."""
+    x, k, res, _ = distributed_cell_poisson(mesh, b, diag, coefs, precond_diag, tol=tol, rel_tol=rel_tol,
+                                            max_iter=max_iter)
+    return x, k, res
+
+
+def distributed_coupled_cg(mesh: Mesh, b_faces, x0_faces, diags, per_axis_terms, precond_diags, *,
+                           tol: float = 1e-3, rel_tol: float = 1e-3, max_iter: int = 600):
+    """Distributed Jacobi-PCG of the coupled 3-field viscosity system:
+    every slot owns a block of all three face arrays; an iteration is one
+    halo exchange of each of vx, vy, vz of the search direction along
+    each split axis (every term offset has |dx| <= 1) and the dots' slot
+    sums.
+
+    Arguments are ``viscosity_term_fields``' materialised fields: diags
+    and precond_diags per-axis face arrays, per_axis_terms[a] a list of
+    (field, voff, coef) with coef shaped like face array a.  The face
+    arrays' split axes are padded to one common multiple of the mesh so
+    the blocks align.  Returns (x_faces, iters, residual, res0).
+    """
+    pairs = _mesh_spatial(mesh)
+    split_axes = [arr_axis for _, arr_axis, _ in pairs]
+    d = len(b_faces)
+    shapes = [tuple(v.shape) for v in b_faces]
+    common = {arr_axis: _padded_extent(max(s[arr_axis] for s in shapes), n_dev) for _, arr_axis, n_dev in pairs}
+    spec = _block_spec(pairs, len(shapes[0]))
+    n = mesh.size
+    devs = mesh.devices
+
+    def split(v, fill=0.0):
+        for arr_axis, target in common.items():
+            v = _pad_axis(v, target, arr_axis, fill)
+        return split_blocks(mesh, v, spec)
+
+    bs = [split(v) for v in b_faces]  # bs[field][slot]
+    x0s = [split(v) for v in x0_faces]
+    ds = [split(v) for v in diags]
+    pds = [split(v, fill=1.0) for v in precond_diags]
+    terms = []  # (a, field, voff, coef blocks)
+    for a in range(d):
+        for field, voff, coef in per_axis_terms[a]:
+            terms.append((a, field, tuple(int(o) for o in voff), split(coef)))
+    lshape = tuple(bs[0][0].shape)
+    block_shapes = [tuple(bs[a][0].shape) for a in range(d)]
+
+    def matvec(vs):
+        vhs = [_halo_all(mesh, vs[f], pairs) for f in range(d)]
+        outs = [[ds[a][s] * vs[a][s] for s in range(n)] for a in range(d)]
+        for a, field, voff, c_l in terms:
+            rest_off = tuple(0 if ax in split_axes else voff[ax] for ax in range(len(voff)))
+            tgt = tuple(lshape[ax] if ax in split_axes else block_shapes[a][ax] for ax in range(len(voff)))
+            for s in range(n):
+                q = vhs[field][s]
+                for ax in split_axes:
+                    q = q.narrow(ax, 1 + voff[ax], lshape[ax])
+                outs[a][s] = outs[a][s] + c_l[s] * sample(q, rest_off, tgt, 0.0)
+        return outs
+
+    def gdot(us, vs):
+        return psum_dot([tuple(u[s] for u in us) for s in range(n)], [tuple(v[s] for v in vs) for s in range(n)])
+
+    def axpy(alpha, xs, ys):  # per field and slot: ys + alpha * xs
+        a_s = [_scalar_on(alpha, dev) for dev in devs]
+        return [[ys[f][s] + a_s[s] * xs[f][s] for s in range(n)] for f in range(d)]
+
+    q0 = matvec(x0s)
+    r = [[bs[f][s] - q0[f][s] for s in range(n)] for f in range(d)]
+    z = [[r[f][s] / pds[f][s] for s in range(n)] for f in range(d)]
+    delta = gdot(r, z)
+    res0 = gdot(r, r)
+    thresh = converged_threshold(tol, rel_tol, res0)
+    x, dd, res, k = x0s, z, res0, 0
+    while k < max_iter and bool((res >= thresh) & (delta != 0)):
+        q = matvec(dd)
+        dq = gdot(dd, q)
+        alpha = torch.where(dq != 0, delta / dq, torch.zeros_like(dq))
+        x = axpy(alpha, dd, x)
+        r = axpy(-alpha, q, r)
+        z = [[r[f][s] / pds[f][s] for s in range(n)] for f in range(d)]
+        nd = gdot(r, z)
+        res = gdot(r, r)
+        beta = torch.where(delta != 0, nd / delta, torch.zeros_like(nd))
+        dd = axpy(beta, dd, z)
+        delta = nd
+        k += 1
+    xs = tuple(_unpad(gather_blocks(mesh, x[f], spec), shapes[f]) for f in range(d))
+    return xs, torch.tensor(k, dtype=torch.int32, device=res0.device), res, res0

@@ -2,7 +2,7 @@
 
     python3 -m python_fluid_simulation_tpu_torch.profile_step [--scene buckling|coiling] [--res R]
         [--viscosity-precond jacobi|mg|auto] [--no-jacobi-precond] [--pressure-dt-scaled]
-        [--viscosity-mode apic|unet|unet_warm] [--unet-bf16] [--steps 3] [--out DIR]
+        [--viscosity-mode apic|unet|unet_warm] [--unet-bf16] [--mesh N|SXxSZ] [--steps 3] [--out DIR]
 
 Runs a step on the card.  ``--scene buckling`` (the default): the
 48x80x48 flagship (``buckling_config()`` defaults) without ``--res``,
@@ -22,19 +22,24 @@ CG over ``stencil_matvec`` and ``coupled_stencil_matvec``);
 ``--viscosity-mode unet|unet_warm`` runs the learned operator: the
 full-width UNet (``models/unet3d.py``, width 64, 68,723,203 parameters)
 with weights drawn from ``convert.random_flax_unet_params(seed=0)``, in
-fp32 (TF32 off), or with ``--unet-bf16`` computing in bf16.  Every fold
+fp32 (TF32 off), or with ``--unet-bf16`` computing in bf16.  ``--mesh 4``
+runs the sharded step on ``make_mesh(4)``, ``--mesh 2x2`` on
+``make_mesh2d((2, 2))`` (the slots share the card; the state padded by
+``shard_state``).  Every fold
 call is a ``pfs_fold`` range in the profile, every learned-operator call
 (features, network, extraction) a ``pfs_unet_delta_v`` range.  3 warm-up steps, then ``--steps``
 steps timed on the host clock without the profiler, then ``--steps``
 steps under ``torch.profiler`` (CPU + CUDA activities).  Prints one JSON
-line with the step times, the device busy time (sum of the CUDA kernel
-and memcpy/memset times: one stream, so they do not overlap), the idle
+line with the step times, the device busy time (the union of the CUDA
+kernel and memcpy/memset intervals: the halo kernels of a mesh's slots
+overlap on their streams), the idle
 share, the CUDA runtime calls per step (kernel launches, cooperative
 launches, stream synchronisations), the device time and launches of the
 port's own kernels, and the top operators by device and by host time;
 writes the full ``key_averages`` tables to
-``<out>/profile_step[_<scene>][_<R>][_<precond>][_nojacobi][_dtscaled][_<mode>[_bf16]].txt``.  Needs
-a CUDA device.
+``<out>/profile_step[_<scene>][_<R>][_<precond>][_nojacobi][_dtscaled][_<mode>[_bf16]][_mesh<M>].txt``.
+`profile_steps` is the same measurement for any step function
+(``chip_smoke.py``'s ``mesh_504`` phase calls it).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -46,9 +51,98 @@ import os
 import time
 
 
+
+def _busy_us(events) -> float:
+    """Length of the union of the events' device intervals (us)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_lo, cur_hi = 0.0, None, None
+    for lo, hi in spans:
+        if cur_hi is None or lo > cur_hi:
+            if cur_hi is not None:
+                total += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    if cur_hi is not None:
+        total += cur_hi - cur_lo
+    return total
+
+
+def profile_steps(step, state, steps: int):
+    """`steps` calls of ``step(state) -> (state, metrics)`` under
+    ``torch.profiler`` (CPU + CUDA); returns (state, summary, key
+    averages).  The summary has the step ms on the host clock, the device
+    busy ms a step (the union of the kernel and memcpy/memset intervals,
+    the ``pfs_*`` ranges left out), the idle share, the CUDA runtime calls
+    and device events a step, the port's own kernels' launches and device
+    ms a step, the ``pfs_fold`` / ``pfs_unet_delta_v`` ranges, and the top
+    operators by device and by host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    step_ms = wall / steps * 1e3
+
+    events = prof.events()
+    # the device side of the pfs_* ranges is an annotation spanning their
+    # kernels, not work of its own: left out of the busy time
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("pfs_")]
+    busy_us = _busy_us(kernels)
+    avgs = prof.key_averages()
+    runtime = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cuda"):
+            runtime[e.name] = runtime.get(e.name, 0) + 1
+    own = {}  # the port's kernels, by name
+    for e in kernels:
+        name = e.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0].split("<")[0].strip()
+        if name.endswith("_kernel") and any(k in name for k in ("pcg", "stencil", "mg_level", "binned", "seg_scan", "fold",
+                                                                "matvec", "halo")):
+            n, us = own.get(name, (0, 0.0))
+            own[name] = (n + 1, us + e.time_range.elapsed_us())
+
+    def top(key, n=15):
+        rows = sorted(avgs, key=lambda a: getattr(a, key), reverse=True)[:n]
+        return [
+            {"name": a.key, "calls_per_step": a.count / steps,
+             "device_ms_per_step": a.device_time_total / 1e3 / steps,
+             "host_self_ms_per_step": a.self_cpu_time_total / 1e3 / steps}
+            for a in rows
+        ]
+
+    def ranges(name):
+        return [{"calls": a.count / steps, "host_ms": a.cpu_time_total / 1e3 / steps,
+                 "device_ms": a.device_time_total / 1e3 / steps} for a in avgs if a.key == name]
+
+    busy_ms = busy_us / 1e3 / steps
+    summary = {
+        # the folds' ranges: host time (CPU total) and the device time of
+        # the kernels they launched, per step
+        "fold_per_step": ranges("pfs_fold"),
+        # the learned operator's range (features, network, extraction)
+        "unet_delta_v_per_step": ranges("pfs_unet_delta_v"),
+        "steps": steps,
+        "step_ms": step_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / step_ms,
+        "cuda_events_per_step": len(kernels) / steps,
+        "runtime_calls_per_step": {k: v / steps for k, v in sorted(runtime.items())},
+        "own_kernels_per_step": {k: {"launches": n / steps, "device_ms": us / 1e3 / steps}
+                                 for k, (n, us) in sorted(own.items())},
+        "top_device": top("self_device_time_total"),
+        "top_host": top("self_cpu_time_total"),
+    }
+    return state, summary, avgs
+
+
 def main() -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     from python_fluid_simulation_tpu_torch.engine.scenes import (
         buckling_config,
@@ -62,6 +156,7 @@ def main() -> int:
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
     from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
     from python_fluid_simulation_tpu_torch.ops import cuda_fold, scatter
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, make_mesh2d, shard_state
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("buckling", "coiling"), default="buckling")
@@ -72,6 +167,7 @@ def main() -> int:
     ap.add_argument("--pressure-dt-scaled", action="store_true", help="SolverConfig(pressure_dt_scaled=True)")
     ap.add_argument("--viscosity-mode", choices=("apic", "unet", "unet_warm"), default="apic")
     ap.add_argument("--unet-bf16", action="store_true", help="the UNet computes in bf16 (parameters fp32)")
+    ap.add_argument("--mesh", default=None, help="the sharded step: N slots (make_mesh), or SXxSZ (make_mesh2d)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=".")
     args = ap.parse_args()
@@ -111,54 +207,24 @@ def main() -> int:
 
     scatter.fold = fold_range
     step_mod.unet_delta_v = unet_range
-    geom = build_geom_cache(state.solid)
+    mesh = None
+    if args.mesh:
+        sx, _, sz = args.mesh.partition("x")
+        mesh = make_mesh2d((int(sx), int(sz))) if sz else make_mesh(int(sx))
+        state = shard_state(state, mesh)
+    geom = build_geom_cache(state.solid, mesh)
     for _ in range(3):
-        state, _ = step_3d(state, cfg, geom=geom, unet=unet)
+        state, _ = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh)
     torch.cuda.synchronize()
     plain_ms = []
     for _ in range(args.steps):
         t0 = time.perf_counter()
-        state, _ = step_3d(state, cfg, geom=geom, unet=unet)
+        state, _ = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh)
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            state, _ = step_3d(state, cfg, geom=geom, unet=unet)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    step_ms = wall / args.steps * 1e3
-
-    events = prof.events()
-    # the device side of the pfs_* ranges is an annotation spanning their
-    # kernels, not work of its own: left out of the busy time
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("pfs_")]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    avgs = prof.key_averages()
-    runtime = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cuda"):
-            runtime[e.name] = runtime.get(e.name, 0) + 1
-    own = {}  # the port's kernels, by name
-    for e in kernels:
-        name = e.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0].split("<")[0].strip()
-        if name.endswith("_kernel") and any(k in name for k in ("pcg", "stencil", "mg_level", "binned", "seg_scan", "fold", "matvec")):
-            n, us = own.get(name, (0, 0.0))
-            own[name] = (n + 1, us + e.time_range.elapsed_us())
-
-    def top(key, n=15):
-        rows = sorted(avgs, key=lambda a: getattr(a, key), reverse=True)[:n]
-        return [
-            {"name": a.key, "calls_per_step": a.count / args.steps,
-             "device_ms_per_step": a.device_time_total / 1e3 / args.steps,
-             "host_self_ms_per_step": a.self_cpu_time_total / 1e3 / args.steps}
-            for a in rows
-        ]
-
-    busy_ms = busy_us / 1e3 / args.steps
-    folds = [a for a in avgs if a.key == "pfs_fold"]
-    unet_calls = [a for a in avgs if a.key == "pfs_unet_delta_v"]
+    state, summary, avgs = profile_steps(lambda st: step_3d(st, cfg, geom=geom, unet=unet, mesh=mesh), state,
+                                         args.steps)
     summary = {
         "device": torch.cuda.get_device_name(0),
         "scene": args.scene,
@@ -170,25 +236,10 @@ def main() -> int:
         "pressure_dt_scaled": cfg.solver.pressure_dt_scaled,
         "viscosity_mode": cfg.solver.viscosity_mode,
         "unet_dtype": None if unet is None else str(unet.dtype),
+        "mesh": None if mesh is None else mesh.shape,
         "visc_mg_after": int(torch.as_tensor(state.visc_mg)),
-        # the folds' ranges: host time (CPU total) and the device time of
-        # the kernels they launched, per step
-        "fold_per_step": [{"calls": a.count / args.steps, "host_ms": a.cpu_time_total / 1e3 / args.steps,
-                           "device_ms": a.device_time_total / 1e3 / args.steps} for a in folds],
-        # the learned operator's range (features, network, extraction)
-        "unet_delta_v_per_step": [{"calls": a.count / args.steps, "host_ms": a.cpu_time_total / 1e3 / args.steps,
-                                   "device_ms": a.device_time_total / 1e3 / args.steps} for a in unet_calls],
-        "steps": args.steps,
         "unprofiled_step_ms": plain_ms,
-        "step_ms": step_ms,
-        "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / step_ms,
-        "cuda_events_per_step": len(kernels) / args.steps,
-        "runtime_calls_per_step": {k: v / args.steps for k, v in sorted(runtime.items())},
-        "own_kernels_per_step": {k: {"launches": n / args.steps, "device_ms": us / 1e3 / args.steps}
-                                 for k, (n, us) in sorted(own.items())},
-        "top_device": top("self_device_time_total"),
-        "top_host": top("self_cpu_time_total"),
+        **summary,
     }
     os.makedirs(args.out, exist_ok=True)
     name = "profile_step"
@@ -204,6 +255,8 @@ def main() -> int:
         name += "_dtscaled"
     if args.viscosity_mode != "apic":
         name += f"_{args.viscosity_mode}" + ("_bf16" if args.unet_bf16 else "")
+    if mesh is not None:
+        name += f"_mesh{args.mesh}"
     name += ".txt"
     with open(os.path.join(args.out, name), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))

@@ -276,12 +276,14 @@ def density_solve_3d(
     bound_min: Sequence[float], cell_size: Sequence[float], *,
     tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
     wz_bug: bool = False, sort_info=None, precond: str = "jacobi", mg_opts=None, jacobi_precond: bool = True,
+    mesh=None,
 ) -> DensityResult:
     """Full density projection; returns moved particle positions
     (DensityCGSolver3D.solve :312-350, initial guess x = 0).
     ``sort_info`` shares an existing bias-0 cell sort of `px`;
-    ``precond`` / ``mg_opts`` / ``jacobi_precond`` pick the solve
-    (`solve_cell_poisson`)."""
+    ``precond`` / ``mg_opts`` / ``jacobi_precond`` pick the solve, and
+    ``mesh`` runs it distributed (`solve_cell_poisson`); the scatter and
+    the displacement run on the particles' device."""
     gres = tuple(lphi.shape)
     d = len(gres)
     gm, gvol, sort_info = scatter_mass_volume(
@@ -291,7 +293,7 @@ def density_solve_3d(
     b = density_rhs(rho0, dt, gm, gvol, lphi, w_faces, cell_size)
     x, stats = solve_cell_poisson(
         b, density_coefficients(w_faces, lphi, wz_bug), tol=tol, rel_tol=rel_tol, max_iter=max_iter,
-        precond=precond, mg_opts=mg_opts, jacobi_precond=jacobi_precond,
+        precond=precond, mg_opts=mg_opts, jacobi_precond=jacobi_precond, mesh=mesh,
     )
     face_shapes = [tuple(n + (1 if i == a else 0) for i, n in enumerate(gres)) for a in range(d)]
     disp = compute_displacement(x, lphi, dt, cell_size, face_shapes)

@@ -187,7 +187,8 @@ def apply_pressure_3d(v_faces, p, w_faces, sv, lphi, cell_size) -> Tuple[torch.T
 
 
 def solve_cell_poisson(b, coefficients, *, tol: float, rel_tol: float, max_iter: int,
-                       precond: str = "jacobi", mg_opts=None, jacobi_precond: bool = True, dt_scale=None):
+                       precond: str = "jacobi", mg_opts=None, jacobi_precond: bool = True, dt_scale=None,
+                       mesh=None):
     """PCG solve of a cell-centred ghost-fluid system (pressure or
     density) from x0 = 0.
 
@@ -202,12 +203,28 @@ def solve_cell_poisson(b, coefficients, *, tol: float, rel_tol: float, max_iter:
     ``dt_scale`` = s solves (s A) x = s b: the Jacobi kernels take the
     scaled fields, the generic CG the operator s A and, for 'mg', the
     preconditioner mg(r) / s (JAX ``pressure.py:379-470``).
+    With a ``mesh`` (``parallel/mesh.py``) the solve is the distributed
+    Jacobi-PCG over the mesh's blocks (``parallel/halo.py::
+    distributed_cell_poisson``) whatever ``precond`` says, as in the JAX
+    package (``pressure.py:330``): s b, s diag, s coef and s pd, with
+    pd = 1 under ``jacobi_precond=False``.
     Returns (x, SolveStats).
     """
     diag, coefs, precond_diag = coefficients
     s = dt_scale
     if precond not in ("jacobi", "mg"):
         raise ValueError(f"unknown cell-Poisson preconditioner {precond!r}")
+    if mesh is not None:
+        from python_fluid_simulation_tpu_torch.parallel.halo import converged_threshold, distributed_cell_poisson
+
+        pd = precond_diag if jacobi_precond else torch.ones_like(precond_diag)
+        if s is not None:
+            b, diag, pd = s * b, s * diag, s * pd
+            coefs = [(off, s * c) for off, c in coefs]
+        x, iters, res, res0 = distributed_cell_poisson(mesh, b, diag, coefs, pd, tol=tol, rel_tol=rel_tol,
+                                                       max_iter=max_iter)
+        thresh = converged_threshold(tol, rel_tol, res0)
+        return x, SolveStats(iters=iters, residual=res, initial_residual=res0, converged=res < thresh)
     if precond == "jacobi" and jacobi_precond:
         if s is not None:
             b, diag, precond_diag = s * b, s * diag, s * precond_diag
@@ -252,14 +269,15 @@ class PressureResult(NamedTuple):
 def pressure_solve_3d(
     v_faces: Sequence[torch.Tensor], sv, lphi, w_faces, cell_size, *,
     tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
-    precond: str = "jacobi", mg_opts=None, jacobi_precond: bool = True, dt_scale=None,
+    precond: str = "jacobi", mg_opts=None, jacobi_precond: bool = True, dt_scale=None, mesh=None,
 ) -> PressureResult:
     """Full projection: RHS -> PCG -> apply (PressureCGSolver3D.solve
     :192-226, initial guess x = 0); ``dt_scale`` scales both sides of the
-    system (the solution is the same after unscaling)."""
+    system (the solution is the same after unscaling); ``mesh`` runs the
+    solve distributed (`solve_cell_poisson`)."""
     b = pressure_rhs_3d(v_faces, sv, lphi, w_faces, cell_size)
     x, stats = solve_cell_poisson(
         b, pressure_coefficients(w_faces, lphi), tol=tol, rel_tol=rel_tol, max_iter=max_iter,
-        precond=precond, mg_opts=mg_opts, jacobi_precond=jacobi_precond, dt_scale=dt_scale,
+        precond=precond, mg_opts=mg_opts, jacobi_precond=jacobi_precond, dt_scale=dt_scale, mesh=mesh,
     )
     return PressureResult(apply_pressure_3d(v_faces, x, w_faces, sv, lphi, cell_size), x, stats)

@@ -312,7 +312,7 @@ MG_FACE_CELLS = 4_000_000
 def viscosity_solve_3d(
     dt, mu: float, rho: float, v_faces: Sequence[torch.Tensor], sphi, lvol, cell_vol: float, *,
     tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
-    jacobi_precond: bool = True, precond_kind: str = "jacobi", auto_use_mg=None, warm_start=None,
+    jacobi_precond: bool = True, precond_kind: str = "jacobi", auto_use_mg=None, warm_start=None, mesh=None,
 ) -> ViscosityResult:
     """Full implicit viscosity solve (ViscosityCGSolver3D.solve :566-613):
     velocities are extrapolated 3 Jacobi layers into the solid (valid =
@@ -344,6 +344,13 @@ def viscosity_solve_3d(
     ``jacobi_precond=False``.  The system (RHS, coefficients) is still
     built from ``v_faces``.
 
+    With a ``mesh`` (``parallel/mesh.py``) the solve is the distributed
+    Jacobi-PCG over the mesh's blocks of the materialised term fields
+    (``parallel/halo.py::distributed_coupled_cg``; pdiags = 1 under
+    ``jacobi_precond=False``), taken before 'jacobi', 'mg' or 'auto' as in
+    the JAX package (``viscosity.py:636-680``), so ``auto_use_mg`` is not
+    read.  A warm start under a mesh is not ported (it raises).
+
     ``lvol`` may be the raw dual-lattice array or its parity-class dict;
     ``dt`` a float or 0-dim tensor.
     """
@@ -366,7 +373,19 @@ def viscosity_solve_3d(
         raise ValueError(f"unknown viscosity preconditioner {precond_kind!r}")
     flagged = precond_kind == "auto" and auto_use_mg is not None
     kw = dict(tol=tol, rel_tol=rel_tol, max_iter=max_iter)
-    if precond_kind == "mg" or (flagged and bool(auto_use_mg)):
+    if mesh is not None:
+        if warm is not None:
+            raise NotImplementedError("a warm start under a mesh is not ported yet (ROADMAP queue 1 item 7)")
+        from python_fluid_simulation_tpu_torch.parallel.halo import converged_threshold, distributed_coupled_cg
+
+        diags, per_axis, pdiags = viscosity_term_fields(s_mu, sphi_c, vol_c, shapes)
+        if not jacobi_precond:
+            pdiags = [torch.ones_like(p) for p in pdiags]
+        x, iters, res, res0 = distributed_coupled_cg(mesh, b, ext, diags, per_axis, pdiags, **kw)
+        del diags, per_axis, pdiags
+        stats = SolveStats(iters=iters, residual=res, initial_residual=res0,
+                           converged=res < converged_threshold(tol, rel_tol, res0))
+    elif precond_kind == "mg" or (flagged and bool(auto_use_mg)):
         x, stats = _mg_solve(b, ext, s_mu, sphi_c, vol_c, shapes, warm=warm, **kw)
     elif jacobi_precond:
         pdiags = viscosity_diag_3d(s_mu, sphi_c, vol_c, shapes)

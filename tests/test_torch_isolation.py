@@ -4,8 +4,8 @@ for the chip smoke run.
 * In a fresh interpreter whose import system refuses ``jax``, ``flax``,
   ``msgpack`` (which only the Flax checkpoint reader imports, when
   called) and ``python_fluid_simulation_tpu`` (the JAX package), every
-  module of ``python_fluid_simulation_tpu_torch`` and ``chip_smoke``
-  imports.
+  module of ``python_fluid_simulation_tpu_torch`` (the ``parallel/``
+  modules among them) and ``chip_smoke`` imports.
 * ``python3 chip_smoke.py`` on a machine without CUDA exits non-zero
   with a clear message and prints no result line; so does a copy of the
   script alone in an empty directory.
@@ -37,6 +37,9 @@ import python_fluid_simulation_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+parallel = {"python_fluid_simulation_tpu_torch." + m for m in ("parallel", "parallel.mesh", "parallel.halo",
+                                                               "parallel.halo_rdma", "ops.cuda_halo")}
+assert parallel <= set(names), sorted(parallel - set(names))
 import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "python_fluid_simulation_tpu")]
 assert not bad, bad
