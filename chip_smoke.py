@@ -45,11 +45,14 @@ Phases, each printing one JSON line:
 
   device      the card (and its ``nvidia-smi`` name / power limit)
   build       one nvcc -c per csrc/*.cu source, all in parallel, then one
-              link; with ptxas' register lines
+              link; with ptxas' register lines, and the registers, shared
+              memory and spills of the two kernels redesigned for Hopper
+              (the segment broadcast and the tiled geometry matvec)
   kernels     flagship: the two PCG kernels on the real density /
               pressure / viscosity systems of the third step vs their
               plain versions: errors, iterations, CUDA-event times, the
-              bound from bytes and operations
+              bound from bytes and operations; every segment broadcast of
+              the step bitwise, timed beside torch.index_select
   main        flagship: 1 warm-up + 10 timed steps with the launch
               counters reset just before; solves converged, particles
               finite, steps 1-3 on the card each vs the same step on the
@@ -82,7 +85,9 @@ Phases, each printing one JSON line:
               Poisson PCG (also from a random x0) vs plain, iterations
               equal, with the cell-Poisson PCG on the same systems and a
               sweep of both over 0.5M-8.0M cells (the gate); the geometry
-              matvec (full, same-axis), the coupled PCG, one lean
+              matvec (full, same-axis) beside one CSR product (360M
+              entries), every segment broadcast of the step (bitwise,
+              beside torch.index_select), the coupled PCG, one lean
               preconditioner application and the lean MG-PCG solve (both
               bitwise) at 24M faces; the 125-channel fold of a 4.0 GB
               table (bitwise)
@@ -127,7 +132,9 @@ Phases, each printing one JSON line:
               SUM_REL) and the scan route vs the serial route (bitwise),
               with CUDA-event times, the torch.segment_reduce time and
               bounds; the gate sweep: both routes on every reduce of a
-              step at all five sizes; and the streamed Poisson PCG (density, pressure) and the
+              step at all five sizes; every segment broadcast of the step
+              (bitwise, beside torch.index_select); and the streamed
+              Poisson PCG (density, pressure) and the
               coupled PCG (18M faces) on the step's systems vs their plain
               versions, with times and bounds
   main_256    256: 1 warm-up + 2 timed steps with the counters reset just
@@ -144,7 +151,8 @@ Phases, each printing one JSON line:
               extraction and the whole learned step beside their bounds
               (3.81 TFLOP a forward, counted from the layers), the peak
               memory of a forward; the step's warm start: the two
-              line-search geometry matvecs bitwise their plain version,
+              line-search geometry matvecs bitwise their plain version
+              (timed beside one CSR product),
               the rescaled x0 bitwise the step's, its residual no larger
               than the extrapolated field's, and the coupled PCG from it
               vs its plain version (iterations equal)
@@ -288,6 +296,38 @@ def halo_plane_bounds():
     out = {}
     for name, ((_, y, z), _) in (("128", SHAPE_128), ("504", SHAPE_504), ("256", SHAPE_256)):
         out[name] = dict(plane=[y, z], bytes=y * z * 4, bound_ms=y * z * 4 / NVLINK_BYTES_PER_S * 1e3)
+    return out
+
+
+# the kernels this slice redesigned, whose ptxas resources the build line lists
+REDESIGNED = ("coupled_matvec_kernel", "binned_broadcast_kernel")
+
+
+def kernel_resources(log, names=REDESIGNED):
+    """Registers, static shared memory, stack and spills of every compiled
+    entry whose mangled name holds one of `names`, from nvcc's
+    ``-Xptxas -v`` log."""
+    import re
+
+    out, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = m.group(1) if any(nm in m.group(1) for nm in names) else None
+            if entry:
+                out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[entry].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                              spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[entry]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
     return out
 
 
@@ -666,17 +706,29 @@ def binned_phase(reduces, broadcasts):
                 vals, red, offsets=offs, axis=0, unsafe=True, initial=float(fill)), 5),
             **bound(live * c * 4 + k * 8 + m * c * 4, live * c),
         ))
-    bc_rows = []
+    return red_rows, broadcast_phase(broadcasts)
+
+
+def broadcast_phase(broadcasts):
+    """Every segment broadcast of a step, (caller, (table, ids), kw): the
+    kernel bitwise its plain version, with its time, the plain version's,
+    one torch.index_select's and the bound."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
+
+    rows = []
     for label, (table, ids), _ in broadcasts:
         out_k, out_p = cbn.segment_broadcast(table, ids), cbn.segment_broadcast_plain(table, ids)
         if not torch.equal(out_k, out_p):
             raise AssertionError(f"segment_broadcast[{label}]: kernel differs from plain version")
+        del out_k, out_p
         m, c = table.shape
         k = ids.shape[0]
         valid = (ids >= 0) & (ids < m)
         used = int(torch.unique_consecutive(ids[valid]).numel())
         clamped = torch.clamp(ids, 0, m - 1)
-        bc_rows.append(dict(
+        rows.append(dict(
             caller=label, K=k, C=c, M=m, table_rows_used=used, bitwise=True, max_abs_err=0.0,
             ms=cuda_time_ms(lambda: cbn.segment_broadcast(table, ids), 20),
             plain_ms=cuda_time_ms(lambda: cbn.segment_broadcast_plain(table, ids), 5),
@@ -685,7 +737,24 @@ def binned_phase(reduces, broadcasts):
             library_ms=cuda_time_ms(lambda: torch.index_select(table, 0, clamped), 5),
             **bound(k * 8 + used * c * 4 + k * c * 4, 0),
         ))
-    return red_rows, bc_rows
+    return rows
+
+
+@contextlib.contextmanager
+def recorded_broadcasts():
+    """Record every segment broadcast of what runs inside as its caller
+    makes it: a list of (caller, (table, ids), kw)."""
+    from python_fluid_simulation_tpu_torch.ops import scatter
+
+    got = []
+    fn = scatter.segment_broadcast
+
+    def call(*args, **kw):
+        got.append((sys._getframe(2).f_code.co_name, args, kw))  # frame 2: the caller of the scatter entry point
+        return fn(*args, **kw)
+
+    with patched([(scatter, "segment_broadcast", call)]):
+        yield got
 
 
 @contextlib.contextmanager
@@ -885,6 +954,14 @@ def geom_matvec_phase(system):
     return rows
 
 
+def geom_matvec_library(system):
+    """`coupled_library` for the full geometry matvec on the system's x0."""
+    from python_fluid_simulation_tpu_torch.ops.cuda_cg import coupled_matvec_geom
+
+    (_, x0, _, sphi_c, vol_c, s_mu), _ = system
+    return coupled_library(sphi_c, vol_c, s_mu, x0, coupled_matvec_geom(sphi_c, vol_c, s_mu, x0))
+
+
 def batched_vcycle_phase(system):
     """Every chain of the batched viscosity hierarchy (B = 3) on the
     restricted right-hand sides of one cycle, the level-0 batched matvec,
@@ -1053,24 +1130,35 @@ def csr_matrix(blocks, n):
     """A torch.sparse CSR matrix from row blocks [(row offset, row shape,
     diag, [(col offset, col shape, offset, coef)])], every structural
     entry kept (zero coefficients too): the operator a matvec kernel
-    applies, assembled beforehand for the one-call library yardstick."""
+    applies, assembled beforehand for the one-call library yardstick.
+    Built a row block at a time as a (rows, 1 + terms) table of column
+    indices and values, sorted within each row, so that the 504 coupled
+    operator (360M entries) needs ~12 GB of scratch, not a coalesce of
+    all of it at once."""
     import torch
 
-    rows, cols, vals = [], [], []
+    counts, cols, vals = [], [], []
     for r0, rshape, diag, terms in blocks:
-        ridx = r0 + torch.arange(diag.numel(), device=diag.device).view(rshape)
-        rows.append(ridx.reshape(-1))
-        cols.append(ridx.reshape(-1))
-        vals.append(diag.reshape(-1))
-        for c0, cshape, off, coef in terms:
+        nr = diag.numel()
+        col = torch.full((*rshape, 1 + len(terms)), -1, dtype=torch.int64, device=diag.device)
+        val = torch.zeros((*rshape, 1 + len(terms)), dtype=diag.dtype, device=diag.device)
+        col[..., 0] = r0 + torch.arange(nr, device=diag.device).view(rshape)
+        val[..., 0] = diag
+        for j, (c0, cshape, off, coef) in enumerate(terms, start=1):
             rsl, csl = _pair_slices(rshape, cshape, off)
-            cidx = c0 + torch.arange(math.prod(cshape), device=diag.device).view(cshape)
-            rows.append(ridx[rsl].reshape(-1))
-            cols.append(cidx[csl].reshape(-1))
-            vals.append(coef[rsl].reshape(-1))
-    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
-    coo = torch.sparse_coo_tensor(idx, torch.cat(vals), (n, n)).coalesce()
-    return coo.to_sparse_csr()
+            col[rsl + (j,)] = c0 + torch.arange(math.prod(cshape), device=diag.device).view(cshape)[csl]
+            val[rsl + (j,)] = coef[rsl]
+        col, order = col.view(nr, -1).sort(dim=1)  # the missing neighbours (-1) first
+        val = val.view(nr, -1).gather(1, order)
+        del order
+        keep = col >= 0
+        counts.append(keep.sum(1))
+        cols.append(col[keep])
+        vals.append(val[keep])
+        del col, val, keep
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=cols[0].device)
+    torch.cumsum(torch.cat(counts), 0, out=crow[1:])
+    return torch.sparse_csr_tensor(crow, torch.cat(cols), torch.cat(vals), (n, n))
 
 
 def stencil_library(diag, coefs, p, q_kernel):
@@ -1107,30 +1195,32 @@ def prepared_matvec_phase(cell):
         ))
     return rows
 
-def coupled_library(system, q_kernel):
+def coupled_library(sphi_c, vol_c, s_mu, vs, q_kernel):
     """One torch.sparse CSR matrix-vector product computing the coupled
     viscosity matvec (the 45 materialised term fields assembled into the
-    matrix beforehand), on the system's x0: ms, nnz and its largest
-    difference from the kernel."""
+    matrix beforehand), on the face arrays vs: ms, nnz and its largest
+    difference from the kernel's q."""
     import torch
 
     from python_fluid_simulation_tpu_torch.solvers import viscosity
 
-    (b, x0, _, sphi_c, vol_c, s_mu), _ = system
-    shapes = [tuple(t.shape) for t in x0]
-    offs = [0, x0[0].numel(), x0[0].numel() + x0[1].numel()]
-    n = sum(t.numel() for t in x0)
+    shapes = [tuple(t.shape) for t in vs]
+    offs = [0, vs[0].numel(), vs[0].numel() + vs[1].numel()]
+    n = sum(t.numel() for t in vs)
     diags, per_axis, _ = viscosity.viscosity_term_fields(s_mu, sphi_c, vol_c, shapes)
     blocks = [(offs[a], shapes[a], diags[a], [(offs[f], shapes[f], voff, c) for f, voff, c in per_axis[a]])
               for a in range(3)]
     del diags, per_axis
     a = csr_matrix(blocks, n)
     del blocks
-    v = torch.cat([t.reshape(-1) for t in x0])
+    v = torch.cat([t.reshape(-1) for t in vs])
     q = a @ v
     ref = torch.cat([t.reshape(-1) for t in q_kernel])
-    return dict(library_ms=cuda_time_ms(lambda: a @ v, 20), library_nnz=int(a.values().numel()),
-                library_max_abs_err=max_err(q, ref)[0])
+    out = dict(library_ms=cuda_time_ms(lambda: a @ v, 20), library_nnz=int(a.values().numel()),
+               library_max_abs_err=max_err(q, ref)[0])
+    del a, v, q, ref
+    torch.cuda.empty_cache()
+    return out
 
 
 def plain_segment_reduce(vals, sorted_ids, num_segments, op="add", fill=0.0, channels_first=False):
@@ -1473,7 +1563,7 @@ def coupled_stencil_phase(system):
         **bound(COUPLED_FLOATS_PER_FACE * 4 * n, COUPLED_OPS_PER_FACE * n),
     )
     del diags, per_axis
-    row.update(coupled_library(system, q_k))
+    row.update(coupled_library(sphi_c, vol_c, s_mu, x0, q_k))
     return row
 
 
@@ -1713,7 +1803,8 @@ def warm_start_phase(line, coupled):
         residual_norm=dict(x0=r_x0, ext=r_ext, warm_unscaled=r_warm),
         matvec=dict(bitwise=True, max_abs_err=0.0,
                     ms=cuda_time_ms(lambda: mv_k(p), 50), plain_ms=cuda_time_ms(lambda: mv_p(p), 5),
-                    **bound((n_geom + 2 * n) * 4, GEOM_MV_OPS[False] * n)),
+                    **bound((n_geom + 2 * n) * 4, GEOM_MV_OPS[False] * n),
+                    **coupled_library(sphi_c, vol_c, s_mu, p, mv_k(p))),
         line_search_ms=cuda_time_ms(lambda: rescaled_warm_start(mv_k, b, ext, warm), 20),
         coupled_visc_pcg=dict(
             iters=int(it_k), plain_iters=int(it_p), cold_iters=int(it_cold), res=float(res_k),
@@ -1873,7 +1964,6 @@ def main() -> int:
     )
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
     from python_fluid_simulation_tpu_torch.ops import _cuda_build
-    from python_fluid_simulation_tpu_torch.ops.cuda_cg import coupled_matvec_geom
     from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec
     from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, shard_state
     from python_fluid_simulation_tpu_torch.profile_step import profile_steps
@@ -1901,6 +1991,7 @@ def main() -> int:
              or "bytes stack frame" in ln]
     emit({"phase": "build", "nvcc_seconds": info.seconds, "cached": info.cached,
           "sources": [p.name for p in _cuda_build.sources()], "ptxas": ptxas,
+          "redesigned_kernel_resources": kernel_resources(info.log),
           "seconds": time.perf_counter() - t0})
 
     # -- kernels on the real systems of a flagship step
@@ -1916,18 +2007,19 @@ def main() -> int:
     state2 = state0
     for _ in range(2):
         state2, _ = step_3d(state2, cfg, geom=geom)
-    with recorded_reduces() as reduces:
+    with recorded_reduces() as reduces, recorded_broadcasts() as broadcasts:
         captured = capture_systems(step_3d, state2, cfg, geom)
     del state2
     reduce_sweep = route_sweep("flagship", reduces)  # the reduce gate's data, printed in kernels_256
-    del reduces
+    bc_flag_rows = broadcast_phase(broadcasts)
+    del reduces, broadcasts
     if len(captured["cell"]) != 2 or len(captured["coupled"]) != 1:
         raise AssertionError(f"expected 2 cell solves and 1 coupled solve, got {len(captured['cell'])}, {len(captured['coupled'])}")
     cell_rows = cell_kernel_phase(captured["cell"])
     coupled_row = coupled_kernel_phase(captured["coupled"][0])
     del captured
     emit({"phase": "kernels", "cell_poisson_pcg": cell_rows, "coupled_visc_pcg": coupled_row,
-          "seconds": time.perf_counter() - t0})
+          "binned_segment_broadcast": bc_flag_rows, "seconds": time.perf_counter() - t0})
 
     # -- flagship main path: launch counts reset just before, read just after
     t0 = time.perf_counter()
@@ -2055,9 +2147,7 @@ def main() -> int:
         raise AssertionError(f"coiling capture: {[(k, len(v)) for k, v in got.items()]}")
     visc = (got["coupled"][0][1], got["coupled"][0][2])
     geom_rows = geom_matvec_phase(visc)
-    (_, x0c, _, sphi_cc, vol_cc, s_muc), _ = visc
-    geom_lib = coupled_library(visc, coupled_matvec_geom(sphi_cc, vol_cc, s_muc, x0c))
-    del x0c, sphi_cc, vol_cc, s_muc
+    geom_lib = geom_matvec_library(visc)
     level0_row, bchain_rows, bvcycle = batched_vcycle_phase(visc)
     vmg_row = visc_mg_solve_phase(visc)
     fold_rows = fold_phase(got["fold"])
@@ -2139,11 +2229,12 @@ def main() -> int:
     state2 = s504
     for _ in range(2):
         state2, _ = step_3d(state2, cfg504, geom=geom504)
-    with recorded_reduces() as reduces:
+    with recorded_reduces() as reduces, recorded_broadcasts() as broadcasts:
         got = capture_504(step_3d, state2, cfg504, geom504)
     del state2
     reduce_sweep += route_sweep("504", reduces)
-    del reduces
+    bc504_rows = broadcast_phase(broadcasts)
+    del reduces, broadcasts
     if len(got["fused"]) != 2 or got["cell"] or len(got["coupled"]) != 1 or len(got["fold"]) != 1:
         raise AssertionError(f"504 capture: {[(k, len(v)) for k, v in got.items()]}")
     cell504 = [(label, args, kw) for label, (args, kw) in zip(("density", "pressure"), got["fused"])]
@@ -2157,6 +2248,7 @@ def main() -> int:
     del x0_rand, b_p, diag_p, coefs_p, pd_p, cell504
     visc504 = got["coupled"][0]
     geom504_rows = geom_matvec_phase(visc504)
+    geom504_lib = geom_matvec_library(visc504)  # 360M entries: ~4.3 GB of CSR, ~12 GB to build
     coupled504 = coupled_kernel_phase(visc504)
     lean_row = lean_precond_phase(visc504)
     lean_pcg = visc_mg_solve_phase(visc504)
@@ -2170,6 +2262,7 @@ def main() -> int:
     emit({"phase": "kernels_504", "grid": list(cfg504.grid.res), "particles": n504,
           "fused_poisson_pcg": fused504_rows, "gate_sweep": sweep,
           "fused_poisson_cells": pressure.FUSED_POISSON_CELLS, "coupled_matvec_geom": geom504_rows,
+          "coupled_matvec_geom_library": geom504_lib, "binned_segment_broadcast": bc504_rows,
           "coupled_visc_pcg": coupled504, "lean_preconditioner": lean_row, "lean_mg_pcg": lean_pcg,
           "fold_levelset": fold504[0], "seconds": time.perf_counter() - t0})
 
@@ -2435,11 +2528,13 @@ def main() -> int:
     state2 = s256
     for _ in range(2):
         state2, _ = step_3d(state2, cfg256, geom=geom256)
-    with recorded_reduces() as reduces:
+    with recorded_reduces() as reduces, recorded_broadcasts() as broadcasts:
         got = capture_504(step_3d, state2, cfg256, geom256)
     del state2, got["fold"]
     if len(reduces) != 4:
         raise AssertionError(f"256 capture: {len(reduces)} reduces")
+    bc256_rows = broadcast_phase(broadcasts)
+    del broadcasts
     scan_rows = scan_route_phase(reduces)
     reduce_sweep += route_sweep("256", reduces)
     del reduces
@@ -2457,6 +2552,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "kernels_256", "grid": list(cfg256.grid.res), "particles": n256, "reduce": scan_rows,
           "gate_sweep": reduce_sweep, "fused_poisson_pcg": fused256_rows, "coupled_visc_pcg": coupled256,
+          "binned_segment_broadcast": bc256_rows,
           "seconds": time.perf_counter() - t0})
 
     # -- 256 main path: counters reset just before, read just after

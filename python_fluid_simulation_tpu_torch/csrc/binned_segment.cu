@@ -20,8 +20,22 @@
 //          threads on consecutive channels of one segment; channels-first
 //          output (C, M) puts them on consecutive segments of one channel,
 //          so the stores are coalesced either way.
-// broadcast out[i, c] = table[ids[i], c], 0 for ids outside [0, M); one
-//          thread per output element.
+// broadcast out[i, c] = table[ids[i], c], 0 for ids outside [0, M).  The
+//          callers (G2P, the density displacement gather) gather 54-
+//          channel corner tables (216-byte rows) over the cell-sorted
+//          particle ids, so the rows of a cell are neighbours.  A warp
+//          owns 32 consecutive rows at a time: it loads their ids once
+//          (one per lane), finds the runs of equal ids with a ballot,
+//          reads each run's table row ONCE (as float2 vectors: C even and
+//          both rows 8-byte aligned; otherwise 4-byte scalars, a shape
+//          case chosen by the launcher) and writes it to every output row
+//          of the run, lanes on consecutive vectors of a row, so each
+//          store is one contiguous row.  No division in the loop; the
+//          grid is the resident blocks, walking the rows with a stride.
+//          (The first version, one thread an output element with a 64-bit
+//          divide and modulo, re-read the id C times and the table row
+//          once a particle: 0.235 ms for a 128^3 step's two calls against
+//          index_select's 0.129-0.145, PERF.md.)
 // place    the second phase of the scan route (replaces _scan_kernel's
 //          phase B, pallas_binned.py:327): given the inclusive segmented
 //          scan of the rows (seg_scan.cu), each segment's LAST row holds
@@ -41,7 +55,8 @@
 //
 // What bounds them: bytes.  The reduce reads K*C values and K ids once
 // and writes M*C values, one add or min per value; the broadcast writes
-// K*C values and reads as many; the placement reads K ids and the
+// K*C values and reads K ids and each distinct table row in its range (a
+// run split between two warps' rows is read twice); the placement reads K ids and the
 // segment-last rows (one a non-empty segment) and writes M*C values.  The simple design pays extra for the
 // binary searches (2 log2 K id reads a segment, L2-resident) and, in the
 // channels-first layout, for reads strided by C; tuning is later work.
@@ -51,11 +66,13 @@
 // Index widths: M and C are 32-bit (the wrapper checks M < 2^31 and
 // 256 C < 2^31, the pairs a reduce block counts in an int; the placement
 // takes C <= 256); every element offset -- row * C + c, (m0 + s) * C + c,
-// c * M + m0 + s, id * C + t % C -- is computed in 64 bits, so a table may
+// c * M + m0 + s, rid * cv + c, (base + s) * cv -- is computed in 64 bits, so a table may
 // pass 2^31 entries (the level set's 125-channel reduce at 126x504x126
 // cells holds 1.0e9).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -105,15 +122,33 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// V: float2 (C even, rows 8-byte aligned) or float; cv = C in V units.
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-    binned_broadcast_kernel(const float* __restrict__ table,
+    binned_broadcast_kernel(const V* __restrict__ table,
                             const long long* __restrict__ ids, long k, int M,
-                            int C, float* __restrict__ out) {
-  const long n = k * C;
-  const long stride = (long)gridDim.x * kThreads;
-  for (long t = (long)blockIdx.x * kThreads + threadIdx.x; t < n; t += stride) {
-    const long long id = ids[t / C];
-    out[t] = (id >= 0 && id < M) ? table[id * C + t % C] : 0.f;
+                            int cv, V* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long warps = (long)gridDim.x * (kThreads / 32);
+  for (long base = (long)blockIdx.x * kThreads + threadIdx.x - lane; base < k;
+       base += warps * 32) {
+    const int n = k - base < 32 ? (int)(k - base) : 32;
+    const long long id = lane < n ? __ldg(ids + base + lane) : 0;
+    const long long prev = __shfl_up_sync(0xffffffffu, id, 1);
+    // run starts among the warp's n rows; lane 0 always starts one
+    unsigned starts = __ballot_sync(0xffffffffu, lane < n && (lane == 0 || id != prev));
+    while (starts) {
+      const int s = __ffs(starts) - 1;
+      starts &= starts - 1;
+      const int e = starts ? __ffs(starts) - 1 : n;
+      const long long rid = __shfl_sync(0xffffffffu, id, s);
+      const bool valid = rid >= 0 && rid < M;
+      V* dst = out + (base + s) * cv;
+      for (int c = lane; c < cv; c += 32) {
+        const V val = valid ? __ldg(table + rid * cv + c) : V{};
+        for (int r = 0; r < e - s; ++r) dst[(long)r * cv + c] = val;
+      }
+    }
   }
 }
 
@@ -226,13 +261,28 @@ extern "C" int pfs_binned_reduce(const void* vals, const void* ids,
 extern "C" int pfs_binned_broadcast(const void* table, const void* ids,
                                     long long k, int M, int C, void* out,
                                     void* stream) {
-  const long n = (long)k * C;
-  if (n <= 0) return 0;
-  long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > (1L << 20)) blocks = 1L << 20;
-  binned_broadcast_kernel<<<(unsigned)blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const long long*>(ids), k,
-      M, C, static_cast<float*>(out));
+  if (k <= 0 || C <= 0) return 0;
+  const bool vec = C % 2 == 0 && reinterpret_cast<uintptr_t>(table) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  const void* kernel = vec ? (const void*)binned_broadcast_kernel<float2>
+                           : (const void*)binned_broadcast_kernel<float>;
+  // the resident blocks, or fewer where the rows need fewer warps
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  const long need = (k + kThreads - 1) / kThreads;  // one warp a 32 rows
+  long blocks = (long)per_sm * sms;
+  if (blocks > need) blocks = need;
+  if (blocks < 1) blocks = 1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* id = static_cast<const long long*>(ids);
+  if (vec)
+    binned_broadcast_kernel<float2><<<(unsigned)blocks, kThreads, 0, st>>>(
+        static_cast<const float2*>(table), id, k, M, C / 2, static_cast<float2*>(out));
+  else
+    binned_broadcast_kernel<float><<<(unsigned)blocks, kThreads, 0, st>>>(
+        static_cast<const float*>(table), id, k, M, C, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

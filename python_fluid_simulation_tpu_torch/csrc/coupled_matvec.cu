@@ -1,80 +1,106 @@
 // One application of the coupled viscosity operator, q = A v, with the
 // coefficients rebuilt from the parity-class geometry (no materialised
-// coefficient fields), on the three face arrays concatenated.
+// coefficient fields), on the three face arrays.
 //
 // Replaces python_fluid_simulation_tpu/ops/pallas_cg.py::
 // make_blocked_coupled_matvec_geom (the fused CG's pass A behind a pad ->
 // kernel -> slice round trip, streaming x-slabs of 10 geometry and 3
-// velocity fields through VMEM).  Here it is the same per-face apply as
-// phase A of coupled_visc_pcg.cu (coupled_geom.cuh), one thread per face,
-// an ordinary launch.  It is the outer CG operator of the viscosity MG-PCG
-// route (solvers/viscosity.py); with same_axis it is the block-diagonal
-// sub-operator (the diagonal and the 6 same-field couplings per axis), the
-// TPU function's second form.
+// velocity fields through VMEM).  It is the outer CG operator of the
+// viscosity MG-PCG route and the 'unet_warm' line search
+// (solvers/viscosity.py); with same_axis it is the block-diagonal
+// sub-operator (the diagonal and the 6 same-field couplings per axis) of
+// the lean route, the TPU function's second form.
+//
+// What bounds it: bytes.  The 10 geometry classes and v read once and q
+// written once: 68 MB at 64x256x64 cells (0.020 ms at 3.35 TB/s), 516 MB
+// at 126x504x126 (0.154 ms); ~100 fp32 operations a face are ~20x below
+// that.  The first version (one thread a face on the flat concatenated
+// index, the plan read through a runtime axis, every one of a face's ~50
+// geometry and velocity loads behind its own bounds test, a face's
+// x-neighbours a whole plane away) ran at 14x that bound (0.289 ms and
+// 2.164 ms, PERF.md).  This one is coupled_tile.cuh's tiled operator: a
+// block stages a brick's 13 arrays with their halo into shared memory once
+// for all three fields, plane by plane through cp.async, and computes
+// from there with the term table compiled in; each array is read ~1.4
+// times (the halo of its kTY x kTZ windows, and the chunk's two extra
+// planes) instead of ~50 loads a face through L1 and L2.
 //
 // Every product and sum is rounded on its own, in viscosity_term_fields'
 // order, so the result is bitwise ops/cuda_cg.py::coupled_matvec_plain's.
-//
-// What bounds it: the recomputed stencil's ~50 geometry and velocity loads
-// a face (L1/L2 hits: neighbouring threads read neighbouring z) and its
-// ~100 fp32 operations; the device-memory bytes (10 geometry classes and v
-// read once, q written once: ~68 MB at 64x256x64) take ~20 us at 3.35 TB/s.
 
 #include <cstring>
 
-#include "coupled_geom.cuh"
-#include "pcg_common.cuh"
+#include "coupled_tile.cuh"
 
 namespace {
 
+namespace tile = pfs::coupled::tile;
 using pfs::coupled::Plan;
 
 struct MatvecArgs {
   Plan plan;
+  tile::Tiling tiling;
   const float* geom;  // the 10 classes, concatenated
-  const float* v;     // 3 face fields, concatenated
+  const float* v[3];  // the 3 face fields
   const float* s_mu;  // device scalar
-  float* q;
+  float* q[3];
 };
 
+// One brick a block, one block (127.3 KB of shared memory) a SM.
 template <int kNTerms>
-__global__ void __launch_bounds__(pfs::kThreads)
+__global__ void __launch_bounds__(tile::kThreads, 1)
     coupled_matvec_kernel(const __grid_constant__ MatvecArgs a) {
-  const long n = a.plan.off[3];
-  const long stride = (long)gridDim.x * pfs::kThreads;
+  extern __shared__ float ring[];  // tile::kRing * tile::kSlot
+  __shared__ tile::Src src[tile::kArrays];
+  if (threadIdx.x < tile::kArrays)
+    src[threadIdx.x] = tile::source(a.plan, a.geom, a.v, threadIdx.x);
   const float smu = *a.s_mu;
-  for (long i = (long)blockIdx.x * pfs::kThreads + threadIdx.x; i < n;
-       i += stride) {
-    int f, cx, cy, cz;
-    pfs::coupled::decode(a.plan, i, &f, &cx, &cy, &cz);
-    a.q[i] = pfs::coupled::apply_a<false, kNTerms>(a.plan, a.geom, a.v, f,
-                                                   cx, cy, cz, smu);
-  }
+  __syncthreads();
+  tile::matvec_brick<kNTerms>(a.plan, a.tiling, src, smu, blockIdx.x, ring, a.q);
+}
+
+template <int kNTerms>
+cudaError_t launch(const MatvecArgs& a, long blocks, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(coupled_matvec_kernel<kNTerms>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       tile::kSmemBytes);
+  if (e != cudaSuccess) return e;
+  coupled_matvec_kernel<kNTerms><<<(unsigned)blocks, tile::kThreads, tile::kSmemBytes, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// `plan` is a host buffer of `plan_bytes` bytes laid out as `Plan`.
+// `plan` is a host buffer of `plan_bytes` bytes laid out as `Plan`; its term
+// table must be the compiled one.  The bricks: tiles_y x tiles_z columns of
+// kTY x kTZ faces covering the union face box's y and z, each walking
+// `chunk` x planes (ops/cuda_cg.py::matvec_tiling).  v0-v2 and q0-q2: the
+// three face fields, each contiguous.
 extern "C" int pfs_coupled_matvec(const void* plan, int plan_bytes,
-                                  const void* geom, const void* v,
-                                  const void* s_mu, void* q, int same_axis,
-                                  void* stream) {
+                                  int tiles_y, int tiles_z, int chunk,
+                                  const void* geom, const void* v0,
+                                  const void* v1, const void* v2,
+                                  const void* s_mu, void* q0, void* q1,
+                                  void* q2, int same_axis, void* stream) {
   if (plan_bytes != (int)sizeof(Plan)) return (int)cudaErrorInvalidValue;
   MatvecArgs a;
   memcpy(&a.plan, plan, sizeof(Plan));
+  if (!tile::plan_matches(a.plan)) return (int)cudaErrorInvalidValue;
+  const int u[3] = {a.plan.n[0] + 1, a.plan.n[1] + 1, a.plan.n[2] + 1};
+  if (chunk < 1 || (long)tiles_y * tile::kTY < u[1] || (long)tiles_z * tile::kTZ < u[2])
+    return (int)cudaErrorInvalidValue;
+  if (a.plan.off[3] <= 0) return 0;
+  a.tiling = {tiles_y, tiles_z, chunk};
   a.geom = static_cast<const float*>(geom);
-  a.v = static_cast<const float*>(v);
+  a.v[0] = static_cast<const float*>(v0);
+  a.v[1] = static_cast<const float*>(v1);
+  a.v[2] = static_cast<const float*>(v2);
   a.s_mu = static_cast<const float*>(s_mu);
-  a.q = static_cast<float*>(q);
-  const long n = a.plan.off[3];
-  if (n <= 0) return 0;
-  const long blocks = (n + pfs::kThreads - 1) / pfs::kThreads;
+  a.q[0] = static_cast<float*>(q0);
+  a.q[1] = static_cast<float*>(q1);
+  a.q[2] = static_cast<float*>(q2);
+  const long blocks = (long)tiles_y * tiles_z * ((u[0] + chunk - 1) / chunk);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (same_axis)
-    coupled_matvec_kernel<pfs::coupled::kSameTerms>
-        <<<(unsigned)blocks, pfs::kThreads, 0, st>>>(a);
-  else
-    coupled_matvec_kernel<pfs::coupled::kTerms>
-        <<<(unsigned)blocks, pfs::kThreads, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  return (int)(same_axis ? launch<pfs::coupled::kSameTerms>(a, blocks, st)
+                         : launch<pfs::coupled::kTerms>(a, blocks, st));
 }

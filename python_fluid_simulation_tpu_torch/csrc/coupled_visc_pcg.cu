@@ -13,8 +13,13 @@
 //   C: d = r/pd + beta d
 // so no scalar crosses to the host.  At the flagship grid the geometry
 // (10 classes of ~49x81x49) and the 3-field CG state fit the 50 MB L2:
-// an iteration is bound by the barriers and by the ~50 L1/L2 loads per
-// face of the recomputed stencil, not by device-memory bytes.
+// an iteration there is bound by the barriers and by the ~50 L1/L2 loads
+// per face of the recomputed stencil, not by device-memory bytes.  That
+// holds only at the flagship: at 154x256x154 cells (18M faces) the
+// working set is 537.6 MB, and more at 126x504x126, ten times L2, so each
+// iteration streams it from device memory and the per-face loads miss
+// L2 (PERF.md, row 2).  coupled_tile.cuh's tiled operator (the
+// standalone matvec's) is the form phase A can take up.
 //
 // The stencil plan and the per-face apply (phase A) live in coupled_geom.cuh,
 // shared with the standalone matvec (coupled_matvec.cu); this kernel calls

@@ -18,7 +18,9 @@ and ``csrc/seg_scan.cu``:
     rows (``ops/cuda_scan.py::seg_scan_sorted``, every row read once,
     coalesced), then `place_segments` writes each segment's last row,
     combined with ``fill``, into the table and ``fill`` everywhere else;
-  * broadcast: one thread per output element, 0 for ids outside [0, M).
+  * broadcast: a warp walks 32 sorted rows at a time, reads each run of
+    equal ids' table row once and writes it to every row of the run (as
+    float2 vectors where C is even), 0 for ids outside [0, M).
 
 All are bound by bytes.  `segment_reduce` takes one reduce route or the
 other by `_scan_route`, a function of the shapes alone (set from H100

@@ -26,11 +26,14 @@ kernel receives it by value in its ``__grid_constant__`` parameter and
 
 `coupled_matvec_geom` replaces ``pallas_cg.py::
 make_blocked_coupled_matvec_geom``: one application of the same operator
-(``csrc/coupled_matvec.cu``, the PCG's phase A as an ordinary launch,
-sharing ``csrc/coupled_geom.cuh`` with it), the outer operator of the
-viscosity MG-PCG route; ``same_axis_only`` gives the block-diagonal
-sub-operator (the diagonal and the 6 same-field couplings an axis).  It
-rounds every operation on its own and is bitwise `coupled_matvec_plain`.
+(``csrc/coupled_matvec.cu``), the outer operator of the viscosity MG-PCG
+route and of the 'unet_warm' line search; ``same_axis_only`` gives the
+block-diagonal sub-operator (the diagonal and the 6 same-field couplings
+an axis).  It is the tiled form of the operator
+(``csrc/coupled_tile.cuh``): the term table compiled in, and each block
+staging a brick of the 13 arrays (`matvec_tiling` plans the bricks) into
+shared memory once for all three fields.  It rounds every operation on
+its own and is bitwise `coupled_matvec_plain`.
 
 Routing: CUDA tensors launch the kernels; CPU tensors run
 `coupled_visc_pcg_plain` / `coupled_matvec_plain`.
@@ -133,6 +136,37 @@ def plan_words(n: tuple) -> np.ndarray:
     return out
 
 
+# The bricks of the tiled operator (csrc/coupled_tile.cuh): TILE_Y x TILE_Z
+# (y, z) columns of the union face box, one a thread, walking `chunk` x
+# planes; TILE_BLOCKS_PER_SM bricks are resident on a SM at once (the
+# kernel's launch bounds and its 127.3 KB of shared memory).
+TILE_Y, TILE_Z = 16, 32
+TILE_BLOCKS_PER_SM = 1
+TILE_MIN_CHUNK = 4  # a brick stages chunk + 2 planes
+
+
+@functools.cache
+def matvec_tiling(n: tuple, sms: int):
+    """The bricks of `coupled_matvec_geom` at cell resolution n on a card
+    of `sms` SMs: (tiles_y, tiles_z, chunk, bricks).  The chunk is the one
+    whose waves of resident bricks times the planes each stages (chunk + 2)
+    is least, the longer on a tie."""
+    u = [int(k) + 1 for k in n]
+    tiles_y, tiles_z = -(-u[1] // TILE_Y), -(-u[2] // TILE_Z)
+    resident = TILE_BLOCKS_PER_SM * sms
+
+    def cost(chunk):
+        return -(-tiles_y * tiles_z * -(-u[0] // chunk) // resident) * (chunk + 2), -chunk
+
+    chunk = min(range(min(TILE_MIN_CHUNK, u[0]), u[0] + 1), key=cost)
+    return tiles_y, tiles_z, chunk, tiles_y * tiles_z * -(-u[0] // chunk)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _face_shapes(n):
     return [tuple(int(k) + (1 if i == a else 0) for i, k in enumerate(n)) for a in range(3)]
 
@@ -220,6 +254,13 @@ def _geometry_tensors(sphi_c, vol_c, n):
     ]
 
 
+@functools.cache
+def _geometry_size(n: tuple) -> int:
+    """Entries of `flat_geometry` at cell resolution n (cached: its numpy
+    products cost the host more than the launch, on host-bound paths)."""
+    return sum(int(np.prod(class_shape(c, n))) for c in VOL_CLASSES + SPHI_CLASSES)
+
+
 def flat_geometry(sphi_c, vol_c):
     """The 10 geometry classes concatenated in the kernels' order (7 vol,
     then 3 sphi); build it once per solve and pass it to
@@ -246,22 +287,23 @@ def coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, *, same_axis_only: bool = False
     _check("coupled_matvec_geom", tensors, dev)
     if geom is None:
         geom = flat_geometry(sphi_c, vol_c)
-    n_geom = sum(int(np.prod(class_shape(c, n))) for c in VOL_CLASSES + SPHI_CLASSES)
+    n_geom = _geometry_size(n)
     if geom.device != dev or geom.dtype != torch.float32 or tuple(geom.shape) != (n_geom,) or not geom.is_contiguous():
         raise ValueError(f"coupled_matvec_geom: geom must be the flat float32 ({n_geom},) geometry on {dev}")
     plan = plan_words(n)
-    vf = _flat(vs)
-    q = torch.empty_like(vf)
+    tiles_y, tiles_z, chunk, _ = matvec_tiling(n, _sm_count(dev.index))
+    vs = [v.contiguous() for v in vs]
+    q = [torch.empty_like(v) for v in vs]
     s_mu = s_mu.contiguous()
     err = cb.LIB.get().pfs_coupled_matvec(
-        plan.ctypes.data, plan.nbytes, geom.data_ptr(), vf.data_ptr(), s_mu.data_ptr(), q.data_ptr(),
-        int(bool(same_axis_only)), cb.stream_of(vf),
+        plan.ctypes.data, plan.nbytes, tiles_y, tiles_z, chunk, geom.data_ptr(), *[v.data_ptr() for v in vs],
+        s_mu.data_ptr(), *[t.data_ptr() for t in q], int(bool(same_axis_only)), cb.stream_of(vs[0]),
     )
     cb.check(err, "coupled_matvec_geom launch")
     coupled_matvec_geom.launches += 1
     if same_axis_only:
         coupled_matvec_geom.same_axis_launches += 1
-    return _split(q, shapes)
+    return tuple(q)
 
 
 coupled_matvec_geom.launches = 0
