@@ -46,13 +46,16 @@ Phases, each printing one JSON line:
   device      the card (and its ``nvidia-smi`` name / power limit)
   build       one nvcc -c per csrc/*.cu source, all in parallel, then one
               link; with ptxas' register lines, and the registers, shared
-              memory and spills of the two kernels redesigned for Hopper
-              (the segment broadcast and the tiled geometry matvec)
+              memory and spills of the kernels redesigned for Hopper
+              (the segment broadcast, the tiled geometry matvec and the
+              coupled PCG)
   kernels     flagship: the two PCG kernels on the real density /
               pressure / viscosity systems of the third step vs their
               plain versions: errors, iterations, CUDA-event times, the
-              bound from bytes and operations; every segment broadcast of
-              the step bitwise, timed beside torch.index_select
+              bound from bytes and operations (the coupled PCG: its init
+              matvec bitwise, ms an iteration beside its streaming floor);
+              every segment broadcast of the step bitwise, timed beside
+              torch.index_select
   main        flagship: 1 warm-up + 10 timed steps with the launch
               counters reset just before; solves converged, particles
               finite, steps 1-3 on the card each vs the same step on the
@@ -68,7 +71,8 @@ Phases, each printing one JSON line:
               just before; solves converged, particles finite, the first
               step bitwise repeatable, step 3 on the card vs the CPU
   kernels_coil coiling: the viscosity system and the fold inputs of the
-              third step; the geometry matvec (full and same-axis), every
+              third step; the coupled PCG (its Jacobi branch), the geometry
+              matvec (full and same-axis), every
               chain of the batched viscosity hierarchy, one batched
               V-cycle, the viscosity MG-PCG solve and every fold of the
               step, each vs its plain version, with times, library times
@@ -155,7 +159,8 @@ Phases, each printing one JSON line:
               (timed beside one CSR product),
               the rescaled x0 bitwise the step's, its residual no larger
               than the extrapolated field's, and the coupled PCG from it
-              vs its plain version (iterations equal)
+              vs its plain version (its init matvec bitwise, iterations
+              equal)
   main_unet   flagship 'unet' then 'unet_warm', 1 warm-up + 5 timed steps
               each with the counters reset just before; solves converged,
               particles finite, no coupled PCG in 'unet', the coupled PCG
@@ -299,8 +304,8 @@ def halo_plane_bounds():
     return out
 
 
-# the kernels this slice redesigned, whose ptxas resources the build line lists
-REDESIGNED = ("coupled_matvec_kernel", "binned_broadcast_kernel")
+# the kernels redesigned for Hopper, whose ptxas resources the build line lists
+REDESIGNED = ("coupled_matvec_kernel", "binned_broadcast_kernel", "coupled_visc_pcg_kernel")
 
 
 def kernel_resources(log, names=REDESIGNED):
@@ -521,9 +526,36 @@ def timed_once(fn):
     return out, start.elapsed_time(stop)
 
 
+def coupled_init_matvec(b, x0, pd, sphi_c, vol_c, s_mu, kw):
+    """Row 2's init matvec, bitwise its plain version: with b = 0 and
+    max_iter = 0 the final residual is -A x0."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops.cuda_cg import coupled_visc_pcg, coupled_visc_pcg_plain
+
+    zeros = tuple(torch.zeros_like(t) for t in b)
+    mv_kw = dict(kw, max_iter=0)
+    *_, r_k = coupled_visc_pcg(zeros, x0, pd, sphi_c, vol_c, s_mu, **mv_kw)
+    *_, r_p = coupled_visc_pcg_plain(zeros, x0, pd, sphi_c, vol_c, s_mu, **mv_kw)
+    check_bitwise("coupled_visc_pcg init matvec", r_k, r_p)
+
+
+def coupled_floor(b, sphi_c, vol_c):
+    """Row 2's streaming floor an iteration: the geometry read once and 12
+    passes over the N faces ((G + 12 N) * 4 bytes over the card's memory
+    rate), as csrc/coupled_visc_pcg.cu streams them."""
+    from python_fluid_simulation_tpu_torch.ops.cuda_cg import SPHI_CLASSES, VOL_CLASSES
+
+    n = sum(t.numel() for t in b)
+    n_geom = sum(vol_c[c].numel() for c in VOL_CLASSES) + sum(sphi_c[c].numel() for c in SPHI_CLASSES)
+    return (n_geom + 12 * n) * 4 / HBM_BYTES_PER_S * 1e3
+
+
 def coupled_kernel_phase(system):
-    """Coupled viscosity PCG (and its matvec) on the viscosity system; the
-    plain version's time is its checked solve's."""
+    """Coupled viscosity PCG on the viscosity system: its init matvec
+    bitwise its plain version, the solve within KERNEL_TOL and 2
+    iterations of it and bitwise repeated; ms an iteration beside the
+    streaming floor.  The plain version's time is its checked solve's."""
     import torch
 
     from python_fluid_simulation_tpu_torch.ops.cuda_cg import (
@@ -534,15 +566,7 @@ def coupled_kernel_phase(system):
     )
 
     (b, x0, pd, sphi_c, vol_c, s_mu), kw = system
-    # matvec: with b = 0 and max_iter = 0 the final residual is -A x0
-    zeros = tuple(torch.zeros_like(t) for t in b)
-    mv_kw = dict(kw, max_iter=0)
-    *_, r_k = coupled_visc_pcg(zeros, x0, pd, sphi_c, vol_c, s_mu, **mv_kw)
-    *_, r_p = coupled_visc_pcg_plain(zeros, x0, pd, sphi_c, vol_c, s_mu, **mv_kw)
-    mv_err = 0.0
-    for a in range(3):
-        check_close(f"coupled matvec[{a}]", r_k[a], r_p[a], MATVEC_TOL)
-        mv_err = max(mv_err, max_err(r_k[a], r_p[a])[0])
+    coupled_init_matvec(b, x0, pd, sphi_c, vol_c, s_mu, kw)
 
     x_k, it_k, res_k, *_ = coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, **kw)
     x_k2 = coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, **kw)[0]
@@ -564,8 +588,9 @@ def coupled_kernel_phase(system):
     return dict(
         system="viscosity", shapes=[list(t.shape) for t in b], iters=int(it_k),
         plain_iters=int(it_p), res=float(res_k), plain_res=float(res_p),
-        max_abs_err=err, max_rel_err=rel, matvec_max_abs_err=mv_err, bitwise_repeatable=repeatable,
-        ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
+        max_abs_err=err, max_rel_err=rel, matvec_bitwise=True,
+        bitwise_repeatable=repeatable, ms=ms, ms_per_iter=ms / max(int(it_k), 1),
+        floor_ms_per_iter=coupled_floor(b, sphi_c, vol_c), plain_ms=plain_ms, bytes=nbytes, ops=ops,
         bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
     )
 
@@ -1785,6 +1810,7 @@ def warm_start_phase(line, coupled):
     if not r_x0 <= r_ext * (1 + 1e-6):
         raise AssertionError(f"line search: |b - A x0| {r_x0} > |b - A ext| {r_ext}")
 
+    coupled_init_matvec(b, x0, pd, sphi_c, vol_c, s_mu, kw)
     x_k, it_k, res_k, *_ = coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, **kw)
     (x_p, it_p, res_p, *_), plain_ms = timed_once(lambda: coupled_visc_pcg_plain(b, x0, pd, sphi_c, vol_c, s_mu, **kw))
     if int(it_k) != int(it_p):
@@ -1798,6 +1824,7 @@ def warm_start_phase(line, coupled):
     n_geom = geom.numel()
     nbytes = (3 * n + n + n_geom) * 4  # b, x0, pd and geometry read once; x written once
     ops = (int(it_k) * FACE_OPS_PER_ITER + FACE_OPS_PER_ITER) * n
+    pcg_ms = cuda_time_ms(lambda: coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, **kw), 20)
     return dict(
         shapes=[list(t.shape) for t in b], alpha=float(alpha), alpha_plain=float(alpha_p),
         residual_norm=dict(x0=r_x0, ext=r_ext, warm_unscaled=r_warm),
@@ -1808,8 +1835,8 @@ def warm_start_phase(line, coupled):
         line_search_ms=cuda_time_ms(lambda: rescaled_warm_start(mv_k, b, ext, warm), 20),
         coupled_visc_pcg=dict(
             iters=int(it_k), plain_iters=int(it_p), cold_iters=int(it_cold), res=float(res_k),
-            plain_res=float(res_p), max_abs_err=err,
-            ms=cuda_time_ms(lambda: coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, **kw), 20),
+            plain_res=float(res_p), max_abs_err=err, matvec_bitwise=True, ms=pcg_ms,
+            ms_per_iter=pcg_ms / max(int(it_k), 1), floor_ms_per_iter=coupled_floor(b, sphi_c, vol_c),
             plain_ms=plain_ms, **bound(nbytes, ops)),
     )
 
@@ -2146,6 +2173,7 @@ def main() -> int:
     if len(got["coupled"]) != 1 or not got["fold"]:
         raise AssertionError(f"coiling capture: {[(k, len(v)) for k, v in got.items()]}")
     visc = (got["coupled"][0][1], got["coupled"][0][2])
+    coupled_coil = coupled_kernel_phase(visc)
     geom_rows = geom_matvec_phase(visc)
     geom_lib = geom_matvec_library(visc)
     level0_row, bchain_rows, bvcycle = batched_vcycle_phase(visc)
@@ -2153,7 +2181,7 @@ def main() -> int:
     fold_rows = fold_phase(got["fold"])
     del got, visc
     emit({"phase": "kernels_coil", "grid": list(cfgc.grid.res), "particles": nc,
-          "coupled_matvec_geom": geom_rows, "coupled_matvec_geom_library": geom_lib,
+          "coupled_visc_pcg": coupled_coil, "coupled_matvec_geom": geom_rows, "coupled_matvec_geom_library": geom_lib,
           "batched_level0_matvec": level0_row,
           "mg_level_chain_batched": bchain_rows, "batched_vcycle": bvcycle, "visc_mg_pcg": vmg_row,
           "fold": fold_rows, "seconds": time.perf_counter() - t0})

@@ -50,22 +50,30 @@ struct MatvecArgs {
 template <int kNTerms>
 __global__ void __launch_bounds__(tile::kThreads, 1)
     coupled_matvec_kernel(const __grid_constant__ MatvecArgs a) {
-  extern __shared__ float ring[];  // tile::kRing * tile::kSlot
+  using R = tile::ArrayRing;
+  extern __shared__ float ring[];  // tile::kRing * R::kSlot
   __shared__ tile::Src src[tile::kArrays];
   if (threadIdx.x < tile::kArrays)
     src[threadIdx.x] = tile::source(a.plan, a.geom, a.v, threadIdx.x);
   const float smu = *a.s_mu;
   __syncthreads();
-  tile::matvec_brick<kNTerms>(a.plan, a.tiling, src, smu, blockIdx.x, ring, a.q);
+  tile::matvec_brick<R, kNTerms>(
+      a.plan, a.tiling, smu, blockIdx.x, ring,
+      [&](float* slot, int x, int y0, int z0) { tile::stage_plane(src, slot, x, y0, z0); },
+      [&](const float* const*, int x, int cy, int cz, float f0, float f1, float f2) {
+        tile::store_face<0>(a.plan, a.q[0], x, cy, cz, f0);
+        tile::store_face<1>(a.plan, a.q[1], x, cy, cz, f1);
+        tile::store_face<2>(a.plan, a.q[2], x, cy, cz, f2);
+      });
 }
 
 template <int kNTerms>
 cudaError_t launch(const MatvecArgs& a, long blocks, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(coupled_matvec_kernel<kNTerms>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       tile::kSmemBytes);
+                                       tile::ArrayRing::kSmemBytes);
   if (e != cudaSuccess) return e;
-  coupled_matvec_kernel<kNTerms><<<(unsigned)blocks, tile::kThreads, tile::kSmemBytes, st>>>(a);
+  coupled_matvec_kernel<kNTerms><<<(unsigned)blocks, tile::kThreads, tile::ArrayRing::kSmemBytes, st>>>(a);
   return cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
 // The coupled viscosity operator as a tiled stencil: q = A v on the three
 // face arrays, coefficients rebuilt from the parity-class geometry, each
 // block walking a brick of faces out of shared memory.  The standalone
-// matvec (coupled_matvec.cu) launches one brick a block; a persistent
-// kernel (the coupled PCG's phase A, coupled_visc_pcg.cu) can call
-// `matvec_brick` for each brick it owns.
+// matvec (coupled_matvec.cu) launches one brick a block; the coupled PCG
+// (coupled_visc_pcg.cu) calls `matvec_brick` for each brick its persistent
+// blocks own, in its init (A x0) and in every phase A (A d).
 //
 // The term table.  ops/cuda_cg.py::stencil_plan() (built from
 // solvers/viscosity.py::_terms_for_axis) depends on no resolution, so it
@@ -11,8 +11,8 @@
 // ops/cuda_cg.py::_class_ids numbers them): every class, shift and
 // sign*factor is a compile-time constant of the kernel, so no face reads a
 // plan through a runtime axis.  tests/test_torch_kernel_plans.py holds
-// this table to stencil_plan(), and the launcher compares it with the
-// host's plan (ops/cuda_cg.py::plan_words) on every launch and refuses one
+// this table to stencil_plan(), and the launchers compare it with the
+// host's plan (ops/cuda_cg.py::plan_words) on every launch and refuse one
 // that differs.  Only the class extents and the array offsets (Plan's
 // cls_dim, cls_off, n, off) stay runtime.
 //
@@ -26,19 +26,26 @@
 // window with its one-cell halo (every shift of the table is within one
 // cell, checked below), into a ring of kRing planes of shared memory:
 // x - 1, x and x + 1 are read while x + 2 lands through cp.async, one
-// barrier a plane.  The staging writes the out-of-range values itself --
-// -1 for sphi, 0 for vol and v, the fills of the plain version's
-// `sample` -- so a face reads shared memory with no bounds test.
+// barrier a plane.  A face reads shared memory with no bounds test: the
+// staged values outside an array are its fill -- -1 for sphi, 0 for vol
+// and v, the fills of the plain version's `sample`.
 //
-// Arithmetic: the products of viscosity_term_fields, in its order, as
-// coupled_geom.cuh::apply_a computes them, each rounded on its own
-// (__fmul_rn / __fadd_rn, no FMA), so q is bitwise
+// Two stagings fill the ring (`Ring` gives each its row width):
+// - `stage_plane` (the standalone matvec, `ArrayRing`, rows of 34) reads
+//   the caller's arrays in 4-byte cp.async.ca copies behind bounds tests,
+//   and writes the fills itself;
+// - `stage_box_plane` (the coupled PCG, `BoxRing`, rows of 36) reads the
+//   PCG's padded box, where every array already holds its fills in a
+//   one-cell border and z rows start on 16 bytes: 16-byte copies, no
+//   bounds test but the box's edge.  They are cp.async.cg, through L2:
+//   other blocks of the persistent kernel wrote the staged d (and the box
+//   itself) before the last grid barrier, and L1 is not coherent with
+//   their writes.
+//
+// Arithmetic: the products of viscosity_term_fields, in its order, each
+// rounded on its own (__fmul_rn / __fadd_rn, no FMA), so q is bitwise
 // ops/cuda_cg.py::coupled_matvec_plain, full and same-axis (kNTerms =
 // kSameTerms: the first 6 terms of each axis).
-//
-// Coherence: the staging copies through L1 (cp.async.ca).  A persistent
-// kernel whose other blocks write v between grid barriers has to stage v
-// through L2 instead.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -172,13 +179,21 @@ inline bool plan_matches(const Plan& p) {
 constexpr int kTY = 16;                  // y columns of a brick
 constexpr int kTZ = 32;                  // z columns of a brick: a warp's lanes
 constexpr int kThreads = kTY * kTZ;      // one (y, z) column a thread
-constexpr int kRowW = kTZ + 2;           // a staged row, with its halo
-static_assert(kRowW > 32 && kRowW < 64, "stage_plane steps a lane at most one row at a time");
-constexpr int kPlane = (kTY + 2) * kRowW;  // a staged plane of one array
 constexpr int kArrays = kClasses + 3;    // the 10 classes, then v's 3 fields
 constexpr int kRing = 4;                 // staged planes: x-1, x, x+1 read, x+2 landing
-constexpr int kSlot = kArrays * kPlane;  // one ring slot: every array's plane
-constexpr int kSmemBytes = kRing * kSlot * (int)sizeof(float);  // 127,296
+
+// The ring's layout: staged rows of W floats (a brick's kTZ columns, the
+// halo, and any padding of the copies).
+template <int W>
+struct Ring {
+  static_assert(W >= kTZ + 2 && W < 64, "a row holds the brick's columns and halo");
+  static constexpr int kRowW = W;
+  static constexpr int kPlane = (kTY + 2) * W;  // a staged plane of one array
+  static constexpr int kSlot = kArrays * kPlane;  // one ring slot: every array's plane
+  static constexpr int kSmemBytes = kRing * kSlot * (int)sizeof(float);
+};
+using ArrayRing = Ring<kTZ + 2>;  // stage_plane: 127,296 bytes
+using BoxRing = Ring<kTZ + 4>;    // stage_box_plane, 9 copies of 16 bytes a row: 134,784 bytes
 
 struct Tiling {
   int tiles_y, tiles_z;  // bricks across the union box's y and z
@@ -214,6 +229,11 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 
+__device__ __forceinline__ void cp_async16_cg(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -233,13 +253,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // lanes wide.)
 __device__ __forceinline__ void stage_plane(const Src* src, float* slot, int x,
                                             int y0, int z0) {
+  using R = ArrayRing;
+  constexpr int kRowW = R::kRowW;
+  static_assert(kRowW > 32, "stage_plane steps a lane at most one row at a time");
   constexpr int kRows = kTY + 2, kHalf = (kRows + 1) / 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int u = warp; u < 2 * kArrays; u += kThreads / 32) {
     const Src s = src[u >> 1];
     const int r0 = (u & 1) * kHalf, rows = min(kHalf, kRows - r0);
     const bool in_x = x >= 0 && x < s.d[0];
-    float* dst = slot + (u >> 1) * kPlane + r0 * kRowW;
+    float* dst = slot + (u >> 1) * R::kPlane + r0 * kRowW;
     const int gy0 = y0 - 1 + r0;
     const float* row = s.p + ((long)x * s.d[1] + gy0) * s.d[2];
     int gy = gy0, zz = lane;  // element e's row and column (e = lane + 32 i)
@@ -261,37 +284,68 @@ __device__ __forceinline__ void stage_plane(const Src* src, float* slot, int x,
   }
 }
 
-// Array J at this thread's (x + DX, y + DY, z + DZ); pl[i] is this
-// thread's (y, z) in the staged planes x - 1, x, x + 1.
-template <int J, int DX, int DY, int DZ>
-__device__ __forceinline__ float at(const float* const* pl) {
-  return pl[DX + 1][J * kPlane + DY * kRowW + DZ];
+// The coupled PCG's padded box (csrc/coupled_visc_pcg.cu): every array in
+// one layout, the union face box with a one-cell border, X planes of Y
+// rows of Z floats (Z a multiple of 4); element (gx, gy, gz) of an array
+// at ((gx + 1) * Y + gy + 1) * Z + gz + 1 of its box (ops/cuda_cg.py::
+// pcg_box_offset).
+struct Box {
+  int X, Y, Z;
+  long size;  // X * Y * Z floats a box
+};
+
+// Plane x of the kArrays staged arrays of brick (y0, z0) from their boxes
+// (`box_of(j)`: array j's box) into `slot`: each window row is 9 copies of 16
+// bytes, box z0 .. z0 + 35 (the brick's columns and halo are z0 .. z0 +
+// 33); consecutive threads take consecutive copies, which are consecutive
+// in `slot`.  Rows and copies past the box's edge are skipped: they feed
+// only faces outside the union face box, which are not kept.
+template <class BoxOf>
+__device__ __forceinline__ void stage_box_plane(BoxOf box_of, const Box& bx, float* slot, int x,
+                                                int y0, int z0) {
+  using R = BoxRing;
+  constexpr int kQuads = R::kRowW / 4, kRows = kTY + 2, kPerArray = kRows * kQuads;
+  static_assert(R::kRowW % 4 == 0 && kPerArray * 4 == R::kPlane, "16-byte copies fill the window rows");
+  const int rows = min(kRows, bx.Y - y0), quads = min(kQuads, (bx.Z - z0) / 4);
+  const long plane = (long)(x + 1) * bx.Y + y0;
+  for (int t = threadIdx.x; t < kArrays * kPerArray; t += kThreads) {
+    const int j = t / kPerArray, e = t - j * kPerArray;
+    const int i = e / kQuads, k = e - i * kQuads;
+    if (i < rows && k < quads) cp_async16_cg(slot + 4 * t, box_of(j) + (plane + i) * bx.Z + z0 + 4 * k);
+  }
 }
 
-template <int F, int J>
+// Array J at this thread's (x + DX, y + DY, z + DZ); pl[i] is this
+// thread's (y, z) in the staged planes x - 1, x, x + 1.
+template <class R, int J, int DX, int DY, int DZ>
+__device__ __forceinline__ float at(const float* const* pl) {
+  return pl[DX + 1][J * R::kPlane + DY * R::kRowW + DZ];
+}
+
+template <class R, int F, int J>
 __device__ __forceinline__ float diag_vol(const float* const* pl) {
   constexpr int c = axis_plan(F).diag_cls[J];
   constexpr int kx = axis_plan(F).diag_k[J][0];
   constexpr int ky = axis_plan(F).diag_k[J][1];
   constexpr int kz = axis_plan(F).diag_k[J][2];
-  return at<c, kx, ky, kz>(pl);
+  return at<R, c, kx, ky, kz>(pl);
 }
 
-template <int F, int J>
+template <class R, int F, int J>
 __device__ __forceinline__ float add_diag(float extra, const float* const* pl) {
   constexpr float factor = axis_plan(F).diag_factor[J];
-  return __fadd_rn(extra, __fmul_rn(factor, diag_vol<F, J>(pl)));
+  return __fadd_rn(extra, __fmul_rn(factor, diag_vol<R, F, J>(pl)));
 }
 
-template <int F, int... J>
+template <class R, int F, int... J>
 __device__ __forceinline__ float diag_extra(const float* const* pl,
                                             std::integer_sequence<int, J...>) {
   float extra = 0.f;
-  ((extra = add_diag<F, J + 1>(extra, pl)), ...);  // neighbours 1..6, in order
+  ((extra = add_diag<R, F, J + 1>(extra, pl)), ...);  // neighbours 1..6, in order
   return extra;
 }
 
-template <int F, int T>
+template <class R, int F, int T>
 __device__ __forceinline__ float add_term(float acc, bool active, float smu,
                                           const float* const* pl) {
   constexpr Term t = axis_plan(F).terms[T];
@@ -302,74 +356,80 @@ __device__ __forceinline__ float add_term(float acc, bool active, float smu,
   constexpr int vk0 = t.vk[0], vk1 = t.vk[1], vk2 = t.vk[2];
   constexpr float sf = t.sf;
   const float w = __fmul_rn(sf, smu);
-  const bool fluid = at<scls, ck0, ck1, ck2>(pl) >= 0.f;
-  const float coef = (active && fluid) ? __fmul_rn(w, at<vcls, vk0, vk1, vk2>(pl)) : 0.f;
-  return __fadd_rn(acc, __fmul_rn(coef, at<kClasses + field, vo0, vo1, vo2>(pl)));
+  const bool fluid = at<R, scls, ck0, ck1, ck2>(pl) >= 0.f;
+  const float coef = (active && fluid) ? __fmul_rn(w, at<R, vcls, vk0, vk1, vk2>(pl)) : 0.f;
+  return __fadd_rn(acc, __fmul_rn(coef, at<R, kClasses + field, vo0, vo1, vo2>(pl)));
 }
 
-template <int F, int... T>
+template <class R, int F, int... T>
 __device__ __forceinline__ float add_terms(float acc, bool active, float smu,
                                            const float* const* pl,
                                            std::integer_sequence<int, T...>) {
-  ((acc = add_term<F, T>(acc, active, smu, pl)), ...);  // terms in table order
+  ((acc = add_term<R, F, T>(acc, active, smu, pl)), ...);  // terms in table order
   return acc;
 }
 
 // (A v) at face (cx, cy, cz) of field F, whose array is s0 x s1 x s2.
-template <int F, int kNTerms>
+template <class R, int F, int kNTerms>
 __device__ __forceinline__ float face(const float* const* pl, int cx, int cy,
                                       int cz, int s0, int s1, int s2,
                                       float smu) {
   const bool interior = cx >= 1 && cx <= s0 - 2 && cy >= 1 && cy <= s1 - 2 &&
                         cz >= 1 && cz <= s2 - 2;
   constexpr int act = axis_plan(F).active_cls;
-  const bool active = interior && at<act, 0, 0, 0>(pl) >= 0.f;
-  const float center = diag_vol<F, 0>(pl);
-  const float extra = diag_extra<F>(pl, std::make_integer_sequence<int, kDiag - 1>{});
+  const bool active = interior && at<R, act, 0, 0, 0>(pl) >= 0.f;
+  const float center = diag_vol<R, F, 0>(pl);
+  const float extra = diag_extra<R, F>(pl, std::make_integer_sequence<int, kDiag - 1>{});
   const float diag_raw = __fadd_rn(center, __fmul_rn(smu, extra));
-  const float acc = __fmul_rn(active ? diag_raw : 0.f, at<kClasses + F, 0, 0, 0>(pl));
-  return add_terms<F>(acc, active, smu, pl, std::make_integer_sequence<int, kNTerms>{});
+  const float acc = __fmul_rn(active ? diag_raw : 0.f, at<R, kClasses + F, 0, 0, 0>(pl));
+  return add_terms<R, F>(acc, active, smu, pl, std::make_integer_sequence<int, kNTerms>{});
+}
+
+// Whether face (x, cy, cz) of the union box lies in field F's array.
+template <int F>
+__device__ __forceinline__ bool in_field(const Plan& p, int x, int cy, int cz) {
+  return x < p.n[0] + (F == 0) && cy < p.n[1] + (F == 1) && cz < p.n[2] + (F == 2);
 }
 
 template <int F>
 __device__ __forceinline__ void store_face(const Plan& p, float* q, int x,
                                            int cy, int cz, float value) {
-  const int s0 = p.n[0] + (F == 0), s1 = p.n[1] + (F == 1), s2 = p.n[2] + (F == 2);
-  if (x < s0 && cy < s1 && cz < s2) q[((long)x * s1 + cy) * s2 + cz] = value;
+  const int s1 = p.n[1] + (F == 1), s2 = p.n[2] + (F == 2);
+  if (in_field<F>(p, x, cy, cz)) q[((long)x * s1 + cy) * s2 + cz] = value;
 }
 
-// q (its three fields) at every face of brick b (bricks numbered z
-// fastest, then y, then the x chunk).  Every thread of the block calls it;
-// `src` holds the kArrays staged arrays, `ring` kRing * kSlot floats of
-// shared memory.  The ring is free again when it returns.
-template <int kNTerms>
-__device__ __forceinline__ void matvec_brick(const Plan& p, const Tiling& t,
-                                             const Src* src, float smu, long b,
-                                             float* ring, float* const* q) {
+// (A v) at every face of brick b (bricks numbered z fastest, then y, then
+// the x chunk), all three fields.  Every thread of the block calls it;
+// `ring` is kRing * R::kSlot floats of shared memory, free again when it
+// returns.  `stage(slot, x, y0, z0)` stages plane x of the brick's
+// windows; `out(pl, x, cy, cz, f0, f1, f2)` takes this thread's three
+// faces at plane x (pl[i]: its (y, z) in the staged planes x - 1, x, x +
+// 1), which may lie outside their fields' arrays.
+template <class R, int kNTerms, class Stage, class Out>
+__device__ __forceinline__ void matvec_brick(const Plan& p, const Tiling& t, float smu, long b,
+                                             float* ring, Stage stage, Out out) {
   const long tiles = (long)t.tiles_y * t.tiles_z;
   const int z0 = (int)(b % t.tiles_z) * kTZ;
   const int y0 = (int)((b / t.tiles_z) % t.tiles_y) * kTY;
   const int x0 = (int)(b / tiles) * t.chunk;
   const int x1 = min(x0 + t.chunk, p.n[0] + 1);
   const int cy = y0 + (int)threadIdx.x / kTZ, cz = z0 + (int)threadIdx.x % kTZ;
-  const int mine = ((int)threadIdx.x / kTZ + 1) * kRowW + (int)threadIdx.x % kTZ + 1;
-  const auto slot = [&](int x) { return ring + (x + kRing) % kRing * kSlot; };
-  for (int x = x0 - 1; x <= x0 + 1; ++x) stage_plane(src, slot(x), x, y0, z0);
+  const int mine = ((int)threadIdx.x / kTZ + 1) * R::kRowW + (int)threadIdx.x % kTZ + 1;
+  const auto slot = [&](int x) { return ring + (x + kRing) % kRing * R::kSlot; };
+  for (int x = x0 - 1; x <= x0 + 1; ++x) stage(slot(x), x, y0, z0);
   cp_async_commit();
   for (int x = x0; x < x1; ++x) {
     cp_async_wait_all();  // plane x + 1 has landed (this thread's copies)
     __syncthreads();      // ... everyone's; and plane x - 2's slot is free
-    if (x + 2 <= x1) stage_plane(src, slot(x + 2), x + 2, y0, z0);
+    if (x + 2 <= x1) stage(slot(x + 2), x + 2, y0, z0);
     cp_async_commit();
     const float* pl[3] = {slot(x - 1) + mine, slot(x) + mine, slot(x + 1) + mine};
     // the three faces, then their stores: no global store between the
     // shared-memory reads, which the faces then share
-    const float f0 = face<0, kNTerms>(pl, x, cy, cz, p.n[0] + 1, p.n[1], p.n[2], smu);
-    const float f1 = face<1, kNTerms>(pl, x, cy, cz, p.n[0], p.n[1] + 1, p.n[2], smu);
-    const float f2 = face<2, kNTerms>(pl, x, cy, cz, p.n[0], p.n[1], p.n[2] + 1, smu);
-    store_face<0>(p, q[0], x, cy, cz, f0);
-    store_face<1>(p, q[1], x, cy, cz, f1);
-    store_face<2>(p, q[2], x, cy, cz, f2);
+    const float f0 = face<R, 0, kNTerms>(pl, x, cy, cz, p.n[0] + 1, p.n[1], p.n[2], smu);
+    const float f1 = face<R, 1, kNTerms>(pl, x, cy, cz, p.n[0], p.n[1] + 1, p.n[2], smu);
+    const float f2 = face<R, 2, kNTerms>(pl, x, cy, cz, p.n[0], p.n[1], p.n[2] + 1, smu);
+    out(pl, x, cy, cz, f0, f1, f2);
   }
   cp_async_wait_all();
   __syncthreads();

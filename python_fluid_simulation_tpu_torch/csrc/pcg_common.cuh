@@ -79,20 +79,23 @@ inline Stencil7 make_stencil7(const void* diag, const void* cxp,
   return s;
 }
 
-// Block-wide sum of one value; the result is returned to every thread.
-// `sh` needs kWarps + 1 floats.
+// Block-wide sum of one value over a kBlock-thread block; the result is
+// returned to every thread.  `sh` needs kBlock / 32 + 1 floats.
+template <int kBlock = kThreads>
 __device__ __forceinline__ float block_sum(float v, float* sh) {
+  constexpr int kBlockWarps = kBlock / 32;
+  static_assert(kBlock % 32 == 0 && kBlockWarps <= 32, "one warp sums the warps' sums");
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) sh[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < kWarps ? sh[lane] : 0.f;
+    v = lane < kBlockWarps ? sh[lane] : 0.f;
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) sh[kWarps] = v;
+    if (lane == 0) sh[kBlockWarps] = v;
   }
   __syncthreads();
-  const float total = sh[kWarps];
+  const float total = sh[kBlockWarps];
   __syncthreads();
   return total;
 }
@@ -101,28 +104,36 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
 // j < nblocks, summed in the same order by every block.  The partials
 // were written by other SMs before the last grid barrier, so they are
 // read through L2 (__ldcg), never from a possibly stale L1 line.
+template <int kBlock = kThreads>
 __device__ __forceinline__ float grid_total(const float* part, int nblocks,
                                             int stride, int k, float* sh) {
   float v = 0.f;
-  for (int j = threadIdx.x; j < nblocks; j += kThreads)
+  for (int j = threadIdx.x; j < nblocks; j += kBlock)
     v += __ldcg(part + (long)j * stride + k);
-  return block_sum(v, sh);
+  return block_sum<kBlock>(v, sh);
 }
 
-// Grid size for a cooperative launch of `kernel`: every block resident
-// at once (blocks per SM from the occupancy calculator x SM count), and
-// no more blocks than there are elements to cover.
+// Grid size for a cooperative launch of `kernel` in blocks of `block`
+// threads with `smem` bytes of dynamic shared memory: every block
+// resident at once (blocks per SM from the occupancy calculator x SM
+// count), and no more blocks than there are elements to cover.  Above the
+// default 48 KB the kernel's dynamic shared memory limit is raised first,
+// so the occupancy query counts what the launch will ask for.
 template <typename Kernel>
-inline cudaError_t coop_grid(Kernel kernel, long n, int* grid) {
+inline cudaError_t coop_grid(Kernel kernel, long n, int* grid, int block = kThreads, int smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  long need = (n + kThreads - 1) / kThreads;
+  long need = (n + block - 1) / block;
   long g = (long)per_sm * sms;
   if (need < g) g = need;
   if (g < 1) g = 1;

@@ -8,14 +8,20 @@ with the 42 couplings and 3 diagonals recomputed in the matvec from the
 of 45 materialised coefficient fields.
 
 On Hopper the whole solve is one cooperative persistent kernel
-(``csrc/coupled_visc_pcg.cu``): the CG state of the three face arrays is
-one concatenated vector, the loop runs on the device with grid barriers
-between the matvec, update and direction phases, and the scalars never
-reach the host.  What bounds it on the H100: the device-memory bytes are
-small (at the flagship grid the 10 geometry classes, b, x0 and pd read
-once and x written once: 16.5 MB, ~5 us at 3.35 TB/s) and all of it
-stays in the 50 MB L2; an iteration is bound by ~50 L1/L2 loads a face
-for the recomputed stencil and by its three grid barriers.
+(``csrc/coupled_visc_pcg.cu``): the loop runs on the device with grid
+barriers between the matvec (A), update (B) and direction (C) phases,
+and the scalars never reach the host.  Its state lives in a workspace of
+padded boxes (`pcg_box`, `pcg_boxes`): the init copies the geometry
+classes, x0 and pd into them, the last phase copies x and r out, so the
+caller's arrays are passed apart.  Phase A is the tiled operator of
+``csrc/coupled_tile.cuh`` (the bricks of `matvec_tiling`); B and C are
+float4 streams over the three fields.  What bounds it on the H100:
+device-memory bytes.  From 128^3 up the geometry (G entries) and the CG
+vectors (N faces each) do not stay in the 50 MB L2, so an iteration
+streams the geometry once and makes 12 vector passes: (G + 12 N) * 4
+bytes, 0.335 ms at 154x256x154 cells and 0.442 ms at 126x504x126 at
+3.35 TB/s.  At the flagship it stays in L2 and the grid barriers bound
+an iteration.
 
 The stencil plan — for each axis, which geometry class and offset feeds
 the active test, the 7 diagonal volumes and the 14 couplings — is built
@@ -41,7 +47,9 @@ Routing: CUDA tensors launch the kernels; CPU tensors run
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -162,6 +170,38 @@ def matvec_tiling(n: tuple, sms: int):
     return tiles_y, tiles_z, chunk, tiles_y * tiles_z * -(-u[0] // chunk)
 
 
+# The coupled PCG's workspace (csrc/coupled_visc_pcg.cu): boxes of
+# `pcg_box(n)` floats, in this order, each holding its array at offset
+# (1, 1, 1) and its fill everywhere else -- the 7 vol classes (0), the 3
+# sphi classes (-1), then three fields each of x (x0, 0), pd (1: r / pd
+# stays 0 in the pads), r, d and q (0).
+PCG_VECTORS = (("x", 0.0), ("pd", 1.0), ("r", 0.0), ("d", 0.0), ("q", 0.0))
+
+
+def pcg_box(n: tuple) -> tuple:
+    """The padded box at cell resolution n: the union face box
+    (n + 1 a side) with a one-cell border, z rows padded to a multiple of
+    4 floats (16 bytes)."""
+    return int(n[0]) + 3, int(n[1]) + 3, -(-(int(n[2]) + 3) // 4) * 4
+
+
+@functools.cache
+def pcg_boxes(n: tuple) -> tuple:
+    """((name, array shape, fill), ...) of the workspace's boxes, in order."""
+    out = [(f"vol{c}", class_shape(c, n), 0.0) for c in VOL_CLASSES]
+    out += [(f"sphi{c}", class_shape(c, n), -1.0) for c in SPHI_CLASSES]
+    for name, fill in PCG_VECTORS:
+        out += [(f"{name}[{a}]", s, fill) for a, s in enumerate(_face_shapes(n))]
+    return tuple(out)
+
+
+def pcg_box_offset(n: tuple, j: int, g) -> int:
+    """Workspace offset of element g = (gx, gy, gz) of box j's array
+    (-1 and the array's extent reach into the border)."""
+    X, Y, Z = pcg_box(n)
+    return j * X * Y * Z + ((g[0] + 1) * Y + g[1] + 1) * Z + g[2] + 1
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -223,15 +263,6 @@ def coupled_visc_pcg_plain(b, x0, pd, sphi_c, vol_c, s_mu, *, tol, rel_tol, max_
 
 def _flat(ts):
     return torch.cat([t.reshape(-1) for t in ts])
-
-
-def _split(flat, shapes):
-    out, o = [], 0
-    for s in shapes:
-        n = int(np.prod(s))
-        out.append(flat[o : o + n].view(s))
-        o += n
-    return tuple(out)
 
 
 def _grid_of(vs):
@@ -333,12 +364,13 @@ def coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, *, tol, rel_tol, max_iter):
     _check("coupled_visc_pcg", tensors, dev)
     lib = cb.LIB.get()
     plan = plan_words(n)
-    geom = flat_geometry(sphi_c, vol_c)
-    bf, x0f, pdf = _flat(b), _flat(x0), _flat(pd)
-    x = torch.empty_like(bf)
-    r = torch.empty_like(bf)
-    d = torch.empty_like(bf)
-    q = torch.empty_like(bf)
+    tiles_y, tiles_z, chunk, _ = matvec_tiling(n, _sm_count(dev.index))
+    box = pcg_box(n)
+    work = torch.empty(len(pcg_boxes(n)) * math.prod(box), dtype=torch.float32, device=dev)
+    classes = [vol_c[c].contiguous() for c in VOL_CLASSES] + [sphi_c[c].contiguous() for c in SPHI_CLASSES]
+    fields = [t.contiguous() for group in (b, x0, pd) for t in group]
+    x = tuple(torch.empty(s, dtype=torch.float32, device=dev) for s in shapes)
+    r = tuple(torch.empty(s, dtype=torch.float32, device=dev) for s in shapes)
     part = torch.empty(_PART_CAP, dtype=torch.float32, device=dev)
     iters = torch.empty((), dtype=torch.int32, device=dev)
     res = torch.empty((), dtype=torch.float32, device=dev)
@@ -346,15 +378,19 @@ def coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, *, tol, rel_tol, max_iter):
     thresh = torch.empty((), dtype=torch.float32, device=dev)
     s_mu = s_mu.contiguous()
     tol2, rel2 = squared_tols(tol, rel_tol)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
     err = lib.pfs_coupled_visc_pcg(
-        plan.ctypes.data, plan.nbytes, geom.data_ptr(), bf.data_ptr(), x0f.data_ptr(), pdf.data_ptr(),
-        s_mu.data_ptr(), x.data_ptr(), r.data_ptr(), d.data_ptr(), q.data_ptr(),
-        part.data_ptr(), _PART_CAP, iters.data_ptr(), res.data_ptr(), res0.data_ptr(),
-        thresh.data_ptr(), tol2, rel2, int(max_iter), cb.stream_of(bf),
+        plan.ctypes.data, plan.nbytes, tiles_y, tiles_z, chunk, *box, ptrs(classes), ptrs(fields),
+        s_mu.data_ptr(), ptrs(x + r), work.data_ptr(), work.numel(), part.data_ptr(), _PART_CAP,
+        iters.data_ptr(), res.data_ptr(), res0.data_ptr(), thresh.data_ptr(), tol2, rel2, int(max_iter),
+        cb.stream_of(b[0]),
     )
     cb.check(err, "coupled_visc_pcg launch")
     coupled_visc_pcg.launches += 1
-    return _split(x, shapes), iters, res, res0, thresh, _split(r, shapes)
+    return x, iters, res, res0, thresh, r
 
 
 coupled_visc_pcg.launches = 0

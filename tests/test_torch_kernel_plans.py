@@ -3,7 +3,10 @@
 (``csrc/coupled_tile.cuh::axis_plan``) against ``ops/cuda_cg.py::
 stencil_plan()``, the tiled matvec's brick plan (``matvec_tiling``, each
 brick decoded as the kernel decodes its block index) covering every face
-of each field exactly once at the five grids the engine runs, every
+of each field exactly once at the five grids the engine runs, the coupled
+PCG's block -> brick schedule on a 132-block grid and its padded box
+(``pcg_box``, ``pcg_boxes``, ``pcg_box_offset`` against the kernel's own
+checks and staging), every
 exported launcher's C signature against the ctypes argument types of
 ``ops/_cuda_build.py``, and the
 segment broadcast's CPU route against the JAX package's
@@ -112,6 +115,107 @@ def test_bricks_cover_every_face_once(n):
         for box in boxes:
             covered += math.prod(max(0, min(hi, s) - lo) for (lo, hi), s in zip(box, shape))
         assert covered == math.prod(shape), f
+
+
+PCG_SOURCE = _cuda_build.SRC_DIR / "coupled_visc_pcg.cu"
+GRID_IDS = ["flagship", "128", "coiling", "256", "504"]
+
+
+@pytest.mark.parametrize("n", GRIDS, ids=GRID_IDS)
+def test_pcg_block_schedule_covers_every_face_once(n):
+    """The coupled PCG's persistent blocks (one a SM) walk the bricks in
+    the fixed order blockIdx.x, + gridDim.x, ... (``brick_phase``): every
+    brick goes to exactly one block, at most one wave more than another
+    block's, and the blocks' bricks cover every face of each field once."""
+    tiling = cuda_cg.matvec_tiling(n, H100_SMS)
+    bricks = tiling[3]
+    assert "for (long b = blockIdx.x; b < bricks; b += gridDim.x)" in PCG_SOURCE.read_text()
+    owned = [list(range(k, bricks, H100_SMS)) for k in range(H100_SMS)]
+    assert sorted(b for bs in owned for b in bs) == list(range(bricks))
+    assert max(map(len, owned)) - min(map(len, owned)) <= 1
+    for f, shape in enumerate(cuda_cg._face_shapes(n)):
+        covered = 0
+        for bs in owned:
+            for b in bs:
+                box = _brick_box(n, tiling, b)
+                covered += math.prod(max(0, min(hi, s) - lo) for (lo, hi), s in zip(box, shape))
+        assert covered == math.prod(shape), f
+
+
+def _pcg_kernel_box():
+    """The box extents the kernel's launcher accepts, and its boxes' order."""
+    text = PCG_SOURCE.read_text()
+    m = re.search(r"box_x != n\[0\] \+ (\d+) \|\| box_y != n\[1\] \+ (\d+) \|\|\s*box_z != "
+                  r"\(n\[2\] \+ (\d+) \+ 3\) / 4 \* 4", text)
+    chain = re.findall(r"constexpr int k(\w+)Box = k(\w+)Box \+ 3;", text)
+    assert "constexpr int kXBox = kClasses;" in text and "constexpr int kBoxes = kQBox + 3;" in text
+    return tuple(int(v) for v in m.groups()), ["x"] + [new.lower() for new, _ in chain]
+
+
+@pytest.mark.parametrize("n", GRIDS, ids=GRID_IDS)
+def test_pcg_box_holds_each_array_with_its_fill(n):
+    """The padded box at every grid: the launcher's extents are the ones
+    the kernel accepts, 16-byte rows; each of the 25 arrays (the geometry
+    classes in the plan's order, then x, pd, r, d, q) lies inside its box
+    with a one-cell border of its fill (vol 0, sphi -1, pd 1, the rest 0),
+    and the boxes do not overlap."""
+    X, Y, Z = cuda_cg.pcg_box(n)
+    (ax, ay, az), order = _pcg_kernel_box()
+    assert (X, Y, Z) == (n[0] + ax, n[1] + ay, (n[2] + az + 3) // 4 * 4)
+    assert Z % 4 == 0 and Z >= n[2] + 3
+    assert [name for name, _ in cuda_cg.PCG_VECTORS] == order == ["x", "pd", "r", "d", "q"]
+    boxes = cuda_cg.pcg_boxes(n)
+    assert len(boxes) == 10 + 3 * len(cuda_cg.PCG_VECTORS)
+    classes = list(cuda_cg.VOL_CLASSES) + list(cuda_cg.SPHI_CLASSES)
+    want_fill = {"vol": 0.0, "sphi": -1.0, "x": 0.0, "pd": 1.0, "r": 0.0, "d": 0.0, "q": 0.0}
+    size = X * Y * Z
+    for j, (name, shape, fill) in enumerate(boxes):
+        kind = name.split("(")[0].split("[")[0]
+        assert fill == want_fill[kind], name
+        if j < 10:
+            assert shape == cuda_cg.class_shape(classes[j], n), name
+        else:
+            assert shape == cuda_cg._face_shapes(n)[(j - 10) % 3], name
+        assert shape[0] + 2 <= X and shape[1] + 2 <= Y and shape[2] + 2 <= Z, name
+        corners = [(0, 0, 0), tuple(s - 1 for s in shape), (-1, -1, -1), tuple(shape)]
+        offs = [cuda_cg.pcg_box_offset(n, j, g) for g in corners]
+        assert all(j * size <= o < (j + 1) * size for o in offs), name
+        assert offs[0] == j * size + (Y + 1) * Z + 1 and offs[2] == j * size, name
+        # consecutive z are consecutive, rows Z apart, planes Y * Z apart
+        g = (shape[0] // 2, shape[1] // 2, shape[2] // 2)
+        base = cuda_cg.pcg_box_offset(n, j, g)
+        assert [cuda_cg.pcg_box_offset(n, j, (g[0] + dx, g[1] + dy, g[2] + dz)) - base
+                for dx, dy, dz in ((0, 0, 1), (0, 1, 0), (1, 0, 0))] == [1, Z, Y * Z]
+
+
+@pytest.mark.parametrize("n", GRIDS, ids=GRID_IDS)
+def test_pcg_staging_reads_inside_the_box_and_covers_every_kept_face(n):
+    """``coupled_tile.cuh::stage_box_plane`` for every brick: a window row
+    is 9 copies of 16 bytes from box z0 (16-byte aligned), rows and copies
+    past the box's edge skipped; no copy leaves the box, and every element
+    that a face of the union face box reads (its one-cell neighbourhood)
+    is copied."""
+    X, Y, Z = cuda_cg.pcg_box(n)
+    tiles_y, tiles_z, chunk, _ = cuda_cg.matvec_tiling(n, H100_SMS)
+    u = [k + 1 for k in n]
+    rows_w, quads_w = cuda_cg.TILE_Y + 2, (cuda_cg.TILE_Z + 4) // 4
+    for ty in range(tiles_y):
+        y0 = ty * cuda_cg.TILE_Y
+        rows = min(rows_w, Y - y0)
+        assert rows > 0 and y0 + rows <= Y
+        kept_hi = min(y0 + cuda_cg.TILE_Y, u[1]) - 1 + 2  # box row of the last kept face's +1 neighbour
+        assert y0 + rows - 1 >= kept_hi
+    for tz in range(tiles_z):
+        z0 = tz * cuda_cg.TILE_Z
+        assert z0 % 4 == 0 and Z % 4 == 0  # each copy starts on 16 bytes
+        quads = min(quads_w, (Z - z0) // 4)
+        assert quads > 0 and z0 + 4 * quads <= Z
+        kept_hi = min(z0 + cuda_cg.TILE_Z, u[2]) - 1 + 2
+        assert z0 + 4 * quads - 1 >= kept_hi
+    # every x plane a brick stages (x0 - 1 .. x1) is a box plane
+    for c in range(-(-u[0] // chunk)):
+        x0, x1 = c * chunk, min((c + 1) * chunk, u[0])
+        assert x0 >= 0 and x1 + 1 <= X - 1  # box planes x0 .. x1 + 1
 
 
 def _c_params(text, name):
