@@ -17,7 +17,7 @@ PyTorch version on the card:
   particles, mu 5, MG cell solves, the 'auto' viscosity preconditioner:
   Jacobi-PCG or the batched block MG by the carried hysteresis flag);
 * the big grid: ``coiling_config(504)`` (126x504x126 = 8.0M cells,
-  465,868 particles, Jacobi cell solves through the streamed Poisson PCG,
+  465,868 particles, Jacobi cell solves through the live-cell Poisson PCG,
   'auto' viscosity: Jacobi-PCG at 24M faces, or the lean two-grid MG);
 * the solver options: the reference's unpreconditioned CG
   (``jacobi_precond=False``: generic CG over the 7-point and the
@@ -26,7 +26,7 @@ PyTorch version on the card:
   (``pressure_dt_scaled``) on the flagship;
 * the largest particle count: ``scaled_buckling_config(256)``
   (154x256x154 = 6.1M cells, 2,903,629 particles, Jacobi cell solves
-  through the streamed Poisson PCG, Jacobi viscosity PCG at 18M faces),
+  through the live-cell Poisson PCG, Jacobi viscosity PCG at 18M faces),
   whose segment reduces take the scan route (the segmented scan, then
   the placement kernel), as every measured reduce does;
 * the learned viscosity operator: the flagship in 'unet' (the network's
@@ -47,13 +47,19 @@ Phases, each printing one JSON line:
   build       one nvcc -c per csrc/*.cu source, all in parallel, then one
               link; with ptxas' register lines, and the registers, shared
               memory and spills of the kernels redesigned for Hopper
-              (the segment broadcast, the tiled geometry matvec and the
-              coupled PCG)
+              (the segment broadcast, the tiled geometry matvec, the
+              coupled PCG and the live-cell Poisson PCG)
   kernels     flagship: the two PCG kernels on the real density /
               pressure / viscosity systems of the third step vs their
               plain versions: errors, iterations, CUDA-event times, the
               bound from bytes and operations (the coupled PCG: its init
-              matvec bitwise, ms an iteration beside its streaming floor);
+              matvec bitwise, ms an iteration beside its streaming floor;
+              the Poisson PCG: its live cells Na, ms an iteration beside
+              its active floor; the kernel's own live list equal to the
+              plain one); the Poisson PCG's edge cases through both
+              wrappers vs plain (b != 0 on zero rows, an all-zero b, an
+              all-zero system); the Poisson PCG vs
+              tests/poisson_list_model.py's model of it, bitwise;
               every segment broadcast of the step bitwise, timed beside
               torch.index_select
   main        flagship: 1 warm-up + 10 timed steps with the launch
@@ -85,10 +91,11 @@ Phases, each printing one JSON line:
               finite, the first MG step bitwise repeatable, step 3 of
               both runs on the card vs the CPU, peak memory
   kernels_504 504: the density / pressure systems, the viscosity system
-              and the level set's fold of the third step; the streamed
+              and the level set's fold of the third step; the live-cell
               Poisson PCG (also from a random x0) vs plain, iterations
-              equal, with the cell-Poisson PCG on the same systems and a
-              sweep of both over 0.5M-8.0M cells (the gate); the geometry
+              equal, with the cell-Poisson route on the same systems and a
+              report of the kernel's ms an iteration against the cell
+              count and Na over 0.5M-8.0M-cell slabs; the geometry
               matvec (full, same-axis) beside one CSR product (360M
               entries), every segment broadcast of the step (bitwise,
               beside torch.index_select), the coupled PCG, one lean
@@ -97,7 +104,7 @@ Phases, each printing one JSON line:
               table (bitwise)
   main_504    504: 3 'auto' steps from the scene (Jacobi branch), then 3
               'auto' steps from visc_mg = 2 (the lean branch), counters
-              reset before each run; the streamed PCG and the lean route
+              reset before each run; the Poisson PCG and the lean route
               launched, solves converged, the first lean step bitwise
               repeatable and within STEP_TOL of the same step on the card
               with every kernel swapped for its plain version; the same
@@ -137,12 +144,12 @@ Phases, each printing one JSON line:
               with CUDA-event times, the torch.segment_reduce time and
               bounds; the gate sweep: both routes on every reduce of a
               step at all five sizes; every segment broadcast of the step
-              (bitwise, beside torch.index_select); and the streamed
+              (bitwise, beside torch.index_select); and the live-cell
               Poisson PCG (density, pressure) and the
               coupled PCG (18M faces) on the step's systems vs their plain
               versions, with times and bounds
   main_256    256: 1 warm-up + 2 timed steps with the counters reset just
-              before; the scan route, the streamed Poisson PCG and the
+              before; the scan route, the live-cell Poisson PCG and the
               coupled PCG launched, solves converged, particles finite,
               the first step bitwise repeatable, the last step within
               STEP_TOL of the same step on the card with every kernel
@@ -241,6 +248,12 @@ SHAPE_504 = ((126, 504, 126), 465868)
 STEPS_504 = 3  # per run: 'auto' from the scene, then 'auto' from visc_mg = 2
 SWEEP_PLANES = (8, 16, 32, 63, 126)  # x planes of the 504 pressure system: 0.5M-8.0M cells
 SWEEP_ITERS = 50
+# bytes the Poisson PCG (csrc/poisson_pcg.cu) moves a live cell an
+# iteration: A reads the list entry, diag, 6 coefficients, r, pd and
+# d_old and writes d and q (13 floats); B reads the entry, x, d, r, q and
+# pd and writes x and r (8); the neighbours' r, pd and d_old counted as
+# cache hits
+POISSON_LIVE_BYTES = (13 + 8) * 4
 # fp32 operations a face of the geometry-recompute matvec: the diagonal
 # (6 products, 6 sums, s_mu * extra, + center, * v: 15) and 4 a coupling
 # (sign*factor * s_mu, * vol, * v, +)
@@ -305,7 +318,7 @@ def halo_plane_bounds():
 
 
 # the kernels redesigned for Hopper, whose ptxas resources the build line lists
-REDESIGNED = ("coupled_matvec_kernel", "binned_broadcast_kernel", "coupled_visc_pcg_kernel")
+REDESIGNED = ("coupled_matvec_kernel", "binned_broadcast_kernel", "coupled_visc_pcg_kernel", "poisson_pcg_kernel")
 
 
 def kernel_resources(log, names=REDESIGNED):
@@ -497,17 +510,170 @@ def cell_kernel_phase(systems):
         if abs(int(it_k) - int(it_p)) > 2:
             raise AssertionError(f"cell_poisson_pcg[{label}]: iterations {int(it_k)} vs plain {int(it_p)}")
         ms = cuda_time_ms(lambda: cell_poisson_pcg(*args, **kw), 20)
+        init_ms = cuda_time_ms(lambda: cell_poisson_pcg(*args, **dict(kw, max_iter=0)), 20)
         plain_ms = cuda_time_ms(lambda: cell_poisson_pcg_plain(*args, **kw), 2)
-        n = b.numel()
-        nbytes = (9 + 1) * n * 4  # b, diag, 6 coefs, pd read once; x written once
-        ops = (int(it_k) * CELL_OPS_PER_ITER + 4) * n
+        live = poisson_live(b, None, diag, coefs, pd, ms, int(it_k), init_ms)
+        nbytes = (9 + 1) * b.numel() * 4  # b, diag, 6 coefs, pd read once; x written once
         err, rel = max_err(x_k, x_p)
         rows.append(dict(
             system=label, shape=list(b.shape), iters=int(it_k), plain_iters=int(it_p),
             res=float(res_k), plain_res=float(res_p), max_abs_err=err, max_rel_err=rel,
-            bitwise_repeatable=repeatable, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
-            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
+            bitwise_repeatable=repeatable, ms=ms, plain_ms=plain_ms,
+            **bound(nbytes, poisson_ops(int(it_k), live["live_cells"], b.numel(), False)), **live,
         ))
+    return rows
+
+
+def poisson_ops(iters, na, n, reads_x0):
+    """fp32 operations of a Poisson PCG solve: the init on every cell
+    (r = b - A x0 where an x0 is read, the Jacobi divide and the two
+    dots: 4, plus the stencil), the iterations on the Na live cells
+    only."""
+    return iters * CELL_OPS_PER_ITER * na + ((STENCIL_OPS if reads_x0 else 0) + 4) * n
+
+
+def kernel_live_cells(b, x0, diag, coefs, pd):
+    """The live list and Na that ``csrc/poisson_pcg.cu``'s init builds:
+    one max_iter=0 launch through the library's C entry (outside the
+    wrappers' counters) into a workspace this script keeps, filled with
+    -1 first: the list (n), the flag words, the blocks' counts, then Na.
+    Asserts the counts sum to Na, nothing past the list or past Na is
+    written, and the list equals `poisson_live_cells_plain`'s.  Returns
+    (Na, the launch's block count)."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import _PART_CAP, poisson_live_cells_plain
+
+    n, nwords = b.numel(), (b.numel() + 31) // 32
+    x, r, d0, d1, q = (torch.empty_like(b) for _ in range(5))
+    part = torch.empty(_PART_CAP, dtype=torch.float32, device=b.device)
+    live = torch.full((n + nwords + _PART_CAP // 3 + 1,), -1, dtype=torch.int32, device=b.device)
+    iters = torch.empty((), dtype=torch.int32, device=b.device)
+    res, res0 = (torch.empty((), dtype=torch.float32, device=b.device) for _ in range(2))
+    cb.check(cb.LIB.get().pfs_poisson_pcg(
+        b.data_ptr(), 0 if x0 is None else x0.data_ptr(), diag.data_ptr(), *[c.data_ptr() for _, c in coefs],
+        pd.data_ptr(), x.data_ptr(), r.data_ptr(), d0.data_ptr(), d1.data_ptr(), q.data_ptr(),
+        part.data_ptr(), _PART_CAP, live.data_ptr(), live.numel(),
+        iters.data_ptr(), res.data_ptr(), res0.data_ptr(), *b.shape, 0.0, 0.0, 0, cb.stream_of(b),
+    ), "poisson_pcg list launch")
+    counts = live[n + nwords:].cpu()
+    written = counts >= 0
+    grid = int(written.sum()) - 1
+    na = int(counts[grid]) if grid >= 1 else -1
+    act = live[:n].cpu()
+    plain = poisson_live_cells_plain(b, x0, diag, coefs).cpu()
+    if (grid < 1 or not bool(written[:grid + 1].all()) or int(counts[:grid].sum()) != na
+            or na != plain.numel() or not bool((act[na:] == -1).all())
+            or not torch.equal(act[:na].long(), plain)):
+        raise AssertionError(f"poisson_pcg's live list: grid {grid}, Na {na} vs plain {plain.numel()}, "
+                             f"counts sum {int(counts[:max(grid, 0)].sum())}")
+    return na, grid
+
+
+def poisson_live(b, x0, diag, coefs, pd, ms, iters, init_ms):
+    """The live cells Na of a Poisson system (the kernel's own list,
+    checked against its plain version: `kernel_live_cells`) and the
+    kernel's ms an iteration (with and without its init, a max_iter=0
+    solve) beside its active floor, POISSON_LIVE_BYTES * Na over the
+    card's memory rate."""
+    na, _ = kernel_live_cells(b, x0, diag, coefs, pd)
+    return dict(live_cells=na, live_fraction=na / b.numel(), init_ms=init_ms, ms_per_iter=ms / max(iters, 1),
+                ms_per_iter_after_init=(ms - init_ms) / max(iters, 1),
+                active_floor_ms_per_iter=POISSON_LIVE_BYTES * na / HBM_BYTES_PER_S * 1e3)
+
+
+def poisson_edge_phase(system):
+    """The Poisson PCG's edge cases through both wrappers (the cell route,
+    a null x0; the fused route, x0 = 0 as a field) vs their plain versions:
+    b != 0 on a few zero rows (those cells join the live list; b there is
+    tol / 100, so the solve still converges), an all-zero b (0 iterations,
+    x = 0, every row of the system live) and an all-zero system (Na = 0).
+    Iterations equal, x within KERNEL_TOL, a repeat bitwise; the kernel's
+    own list (from a null and from a zeros x0) equal to the plain one."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import (
+        cell_poisson_pcg,
+        cell_poisson_pcg_plain,
+        fused_poisson_pcg,
+        fused_poisson_pcg_plain,
+        poisson_live_cells_plain,
+    )
+
+    (b, diag, coefs, pd), kw = system
+    row_nz = diag != 0
+    for _, c in coefs:
+        row_nz = row_nz | (c != 0)
+    zero_rows = torch.nonzero(~row_nz.reshape(-1)).reshape(-1)
+    picked = zero_rows[::max(zero_rows.numel() // 8, 1)][:8]
+    b_zr = b.clone()
+    b_zr.view(-1)[picked] = kw["tol"] / 100
+    zeros = torch.zeros_like(b)
+    cases = {"rhs_on_zero_rows": (b_zr, diag, coefs, pd), "zero_rhs": (zeros, diag, coefs, pd),
+             "zero_system": (zeros, zeros, [(off, zeros) for off, _ in coefs], torch.ones_like(pd))}
+    rows = []
+    for label, (cb, cd, cc, cp) in cases.items():
+        live = poisson_live_cells_plain(cb, None, cd, cc)
+        na, _ = kernel_live_cells(cb, None, cd, cc, cp)
+        if kernel_live_cells(cb, zeros, cd, cc, cp)[0] != na:
+            raise AssertionError(f"poisson_pcg edge case {label}: the list from a zeros x0 differs")
+        row = dict(case=label, live_cells=na)
+        routes = (("cell", lambda: cell_poisson_pcg(cb, cd, cc, cp, **kw),
+                   lambda: cell_poisson_pcg_plain(cb, cd, cc, cp, **kw)),
+                  ("fused", lambda: fused_poisson_pcg(cb, zeros, cd, cc, cp, **kw),
+                   lambda: fused_poisson_pcg_plain(cb, zeros, cd, cc, cp, **kw)))
+        for route, kernel, plain in routes:
+            x_k, it_k, *_ = kernel()
+            x_k2 = kernel()[0]
+            x_p, it_p, *_ = plain()
+            name = f"poisson_pcg edge case {label} ({route} route)"
+            if int(it_k) != int(it_p):
+                raise AssertionError(f"{name}: iterations {int(it_k)} vs plain {int(it_p)}")
+            check_close(name, x_k, x_p, KERNEL_TOL)
+            if not torch.equal(x_k, x_k2):
+                raise AssertionError(f"{name}: a repeated solve differs")
+            if label != "rhs_on_zero_rows" and (int(it_k) != 0 or x_k.any()):
+                raise AssertionError(f"{name}: {int(it_k)} iterations, max |x| {float(x_k.abs().max())}; want 0 and 0")
+            row[route] = dict(iters=int(it_k), plain_iters=int(it_p), max_abs_err=max_err(x_k, x_p)[0],
+                              bitwise_repeatable=True)
+        if label == "rhs_on_zero_rows" and not bool(torch.isin(picked, live).all()):
+            raise AssertionError("poisson_pcg edge case: a zero row with b != 0 is not live")
+        if (label == "zero_system") != (row["live_cells"] == 0):
+            raise AssertionError(f"poisson_pcg edge case {label}: {row['live_cells']} live cells")
+        rows.append(row)
+    return rows
+
+
+def list_model_phase(systems):
+    """The Poisson PCG kernel (`cell_poisson_pcg`) on cell systems against
+    tests/poisson_list_model.py's `list_pcg`, the model of its init, list
+    and order of dot partials that the CPU tests hold against the JAX
+    package, run on the CPU at the block count the kernel launched with:
+    iterations, res, res0 and x bitwise."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import cell_poisson_pcg, squared_tols
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from poisson_list_model import list_pcg
+
+    rows = []
+    for label, ((b, diag, coefs, pd), kw) in zip(("density", "pressure"), systems):
+        _, grid = kernel_live_cells(b, None, diag, coefs, pd)
+        x_k, it_k, res_k, res0_k, _ = cell_poisson_pcg(b, diag, coefs, pd, **kw)
+        tol2, rel2 = squared_tols(kw["tol"], kw["rel_tol"])
+        x_m, it_m, res_m, res0_m, _ = list_pcg(
+            b.cpu(), None, diag.cpu(), [(off, c.cpu()) for off, c in coefs], pd.cpu(),
+            tol2=tol2, rel2=rel2, max_iter=kw["max_iter"], nb=grid)
+        x_k = x_k.cpu()
+        row = dict(system=label, grid=grid, iters=int(it_k), model_iters=int(it_m),
+                   res=float(res_k), model_res=float(res_m), res0=float(res0_k), model_res0=float(res0_m),
+                   max_abs_err=max_err(x_k, x_m)[0])
+        if not (int(it_k) == int(it_m) and torch.equal(res_k.cpu(), res_m) and torch.equal(res0_k.cpu(), res0_m)
+                and torch.equal(x_k, x_m)):
+            raise AssertionError(f"poisson_pcg vs tests/poisson_list_model.py: not bitwise: {row}")
+        rows.append(row)
     return rows
 
 
@@ -1308,10 +1474,12 @@ def capture_504(step_3d, state, cfg, geom):
 
 
 def fused_kernel_phase(systems):
-    """Row 3 (the streamed Jacobi-PCG from x0) on cell systems vs its
-    plain version: iterations equal, x within KERNEL_TOL, a repeat
-    bitwise; from x0 = 0 also the cell-Poisson PCG on the same system
-    (the other side of the gate).  The plain time is its checked solve's."""
+    """Row 3 (the Jacobi-PCG from x0, `fused_poisson_pcg`) on cell systems
+    vs its plain version: iterations equal, x within KERNEL_TOL, a repeat
+    bitwise; x0 None (the main path's null x0), a zeros field or a random
+    one; from x0 = 0 also the cell route (`cell_poisson_pcg`) on the same
+    system, the other side of the gate.  The plain time is its checked
+    solve's."""
     import torch
 
     from python_fluid_simulation_tpu_torch.ops.cuda_stencils import (
@@ -1329,16 +1497,18 @@ def fused_kernel_phase(systems):
         if int(it_k) != int(it_p):
             raise AssertionError(f"fused_poisson_pcg[{label}]: iterations {int(it_k)} vs plain {int(it_p)}")
         check_close(f"fused_poisson_pcg[{label}]", x_k, x_p, KERNEL_TOL)
-        n = b.numel()
-        nbytes = (10 + 1) * n * 4  # b, x0, diag, 6 coefs, pd read once; x written once
-        ops = (int(it_k) * CELL_OPS_PER_ITER + STENCIL_OPS + 4) * n
         err, rel = max_err(x_k, x_p)
+        ms = cuda_time_ms(lambda: fused_poisson_pcg(*args, **kw), 10)
+        init_ms = cuda_time_ms(lambda: fused_poisson_pcg(*args, **dict(kw, max_iter=0)), 10)
+        live = poisson_live(b, x0, diag, coefs, pd, ms, int(it_k), init_ms)
+        # b, (x0,) diag, 6 coefs, pd read once; x written once
+        nbytes = (9 + (x0 is not None) + 1) * b.numel() * 4
         row = dict(
-            system=label, shape=list(b.shape), zero_x0=not bool(x0.any()), iters=int(it_k), plain_iters=int(it_p),
+            system=label, shape=list(b.shape), x0=x0 is not None, zero_x0=x0 is None or not bool(x0.any()),
+            iters=int(it_k), plain_iters=int(it_p),
             res=float(res_k), plain_res=float(res_p), max_abs_err=err, max_rel_err=rel,
-            bitwise_repeatable=repeatable, ms=cuda_time_ms(lambda: fused_poisson_pcg(*args, **kw), 10),
-            plain_ms=plain_ms,
-            **bound(nbytes, ops),
+            bitwise_repeatable=repeatable, ms=ms, plain_ms=plain_ms,
+            **bound(nbytes, poisson_ops(int(it_k), live["live_cells"], b.numel(), x0 is not None)), **live,
         )
         if row["zero_x0"]:
             _, it_c, *_ = cell_poisson_pcg(b, diag, coefs, pd, **kw)
@@ -1348,15 +1518,14 @@ def fused_kernel_phase(systems):
     return rows
 
 
-def gate_sweep(b, diag, coefs, pd, planes):
-    """Both Jacobi-PCG kernels on the middle `planes` x planes of a cell
-    system (a principal submatrix: the same operator on fewer cells, the
-    fluid column included), at most SWEEP_ITERS iterations each (tol 0):
-    ms an iteration against the cell count, which sets
-    pressure.FUSED_POISSON_CELLS."""
-    import torch
-
-    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import cell_poisson_pcg, fused_poisson_pcg
+def poisson_sweep(b, diag, coefs, pd, planes):
+    """The Poisson PCG kernel (`cell_poisson_pcg`: a null x0, as both
+    routes of solve_cell_poisson launch it) on the middle `planes` x
+    planes of a cell system (a principal submatrix: the same operator on
+    fewer cells, the fluid column included), at most SWEEP_ITERS
+    iterations (tol 0): ms an iteration against the cell count and the
+    kernel's live cells Na, beside the active floor."""
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import cell_poisson_pcg
 
     fixed = dict(tol=0.0, rel_tol=0.0, max_iter=SWEEP_ITERS)
     rows = []
@@ -1364,13 +1533,12 @@ def gate_sweep(b, diag, coefs, pd, planes):
         x0 = (b.shape[0] - xc) // 2
         sb, sd, sp = b[x0:x0 + xc], diag[x0:x0 + xc], pd[x0:x0 + xc]
         sc = [(off, c[x0:x0 + xc]) for off, c in coefs]
-        z = torch.zeros_like(sb)
-        it_f = int(fused_poisson_pcg(sb, z, sd, sc, sp, **fixed)[1])
-        it_c = int(cell_poisson_pcg(sb, sd, sc, sp, **fixed)[1])
-        ms_f = cuda_time_ms(lambda: fused_poisson_pcg(sb, z, sd, sc, sp, **fixed), 5)
-        ms_c = cuda_time_ms(lambda: cell_poisson_pcg(sb, sd, sc, sp, **fixed), 5)
-        rows.append(dict(shape=list(sb.shape), cells=sb.numel(), fused_iters=it_f, cell_iters=it_c,
-                         fused_ms_per_iter=ms_f / max(it_f, 1), cell_ms_per_iter=ms_c / max(it_c, 1)))
+        na, _ = kernel_live_cells(sb, None, sd, sc, sp)
+        iters = int(cell_poisson_pcg(sb, sd, sc, sp, **fixed)[1])
+        ms = cuda_time_ms(lambda: cell_poisson_pcg(sb, sd, sc, sp, **fixed), 5)
+        rows.append(dict(shape=list(sb.shape), cells=sb.numel(), live_cells=na, live_fraction=na / sb.numel(),
+                         iters=iters, ms_per_iter=ms / max(iters, 1),
+                         active_floor_ms_per_iter=POISSON_LIVE_BYTES * na / HBM_BYTES_PER_S * 1e3))
     return rows
 
 
@@ -2043,10 +2211,13 @@ def main() -> int:
     if len(captured["cell"]) != 2 or len(captured["coupled"]) != 1:
         raise AssertionError(f"expected 2 cell solves and 1 coupled solve, got {len(captured['cell'])}, {len(captured['coupled'])}")
     cell_rows = cell_kernel_phase(captured["cell"])
+    edge_rows = poisson_edge_phase(captured["cell"][1])
+    model_rows = list_model_phase(captured["cell"])
     coupled_row = coupled_kernel_phase(captured["coupled"][0])
     del captured
-    emit({"phase": "kernels", "cell_poisson_pcg": cell_rows, "coupled_visc_pcg": coupled_row,
-          "binned_segment_broadcast": bc_flag_rows, "seconds": time.perf_counter() - t0})
+    emit({"phase": "kernels", "cell_poisson_pcg": cell_rows, "poisson_edge_cases": edge_rows,
+          "poisson_pcg_vs_model": model_rows, "coupled_visc_pcg": coupled_row, "binned_segment_broadcast": bc_flag_rows,
+          "seconds": time.perf_counter() - t0})
 
     # -- flagship main path: launch counts reset just before, read just after
     t0 = time.perf_counter()
@@ -2272,7 +2443,7 @@ def main() -> int:
     x0_rand *= b_p.abs().max()
     fused504_rows = fused_kernel_phase(
         cell504 + [("pressure_random_x0", (b_p, x0_rand, diag_p, coefs_p, pd_p), cell504[1][2])])
-    sweep = gate_sweep(b_p, diag_p, coefs_p, pd_p, SWEEP_PLANES)
+    sweep = poisson_sweep(b_p, diag_p, coefs_p, pd_p, SWEEP_PLANES)
     del x0_rand, b_p, diag_p, coefs_p, pd_p, cell504
     visc504 = got["coupled"][0]
     geom504_rows = geom_matvec_phase(visc504)
@@ -2288,7 +2459,7 @@ def main() -> int:
     del got, visc504
     torch.cuda.empty_cache()
     emit({"phase": "kernels_504", "grid": list(cfg504.grid.res), "particles": n504,
-          "fused_poisson_pcg": fused504_rows, "gate_sweep": sweep,
+          "fused_poisson_pcg": fused504_rows, "poisson_sweep": sweep,
           "fused_poisson_cells": pressure.FUSED_POISSON_CELLS, "coupled_matvec_geom": geom504_rows,
           "coupled_matvec_geom_library": geom504_lib, "binned_segment_broadcast": bc504_rows,
           "coupled_visc_pcg": coupled504, "lean_preconditioner": lean_row, "lean_mg_pcg": lean_pcg,
@@ -2749,10 +2920,10 @@ def main() -> int:
     red, bc, fold = total(red_rows), total(bc_rows), total(fold_rows)
     scan_red = total([r["scan_reduce"] for r in scan_rows])
     kernels = [
-        entry("cell_poisson_pcg", "cell_poisson_pcg.cu", "pallas_stencils.py:125", pres),
+        entry("cell_poisson_pcg", "poisson_pcg.cu", "pallas_stencils.py:125", pres),
         entry("coupled_visc_pcg", "coupled_visc_pcg.cu", "pallas_cg.py:673", coupled_row),
         # the blocked Poisson PCG on the 504 pressure system
-        entry("fused_poisson_pcg", "fused_poisson_pcg.cu", "pallas_cg.py:263",
+        entry("fused_poisson_pcg", "poisson_pcg.cu", "pallas_cg.py:263",
               dict(fused504_rows[1], max_abs_err=max(r["max_abs_err"] for r in fused504_rows))),
         entry("stencil_matvec", "stencil_matvec.cu", "pallas_stencils.py:299", sten, stencil_lib["library_ms"]),
         entry("mg_level_chain", "mg_level_chain.cu", "pallas_mg.py:100", total(chain_rows)),

@@ -79,10 +79,11 @@ inline Stencil7 make_stencil7(const void* diag, const void* cxp,
   return s;
 }
 
-// Block-wide sum of one value over a kBlock-thread block; the result is
-// returned to every thread.  `sh` needs kBlock / 32 + 1 floats.
-template <int kBlock = kThreads>
-__device__ __forceinline__ float block_sum(float v, float* sh) {
+// Block-wide sum of one value (float, or int) over a kBlock-thread
+// block; the result is returned to every thread.  `sh` needs
+// kBlock / 32 + 1 values.
+template <int kBlock = kThreads, typename T = float>
+__device__ __forceinline__ T block_sum(T v, T* sh) {
   constexpr int kBlockWarps = kBlock / 32;
   static_assert(kBlock % 32 == 0 && kBlockWarps <= 32, "one warp sums the warps' sums");
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -90,12 +91,12 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
   if (lane == 0) sh[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < kBlockWarps ? sh[lane] : 0.f;
+    v = lane < kBlockWarps ? sh[lane] : T(0);
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     if (lane == 0) sh[kBlockWarps] = v;
   }
   __syncthreads();
-  const float total = sh[kBlockWarps];
+  const T total = sh[kBlockWarps];
   __syncthreads();
   return total;
 }

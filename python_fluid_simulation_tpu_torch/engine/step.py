@@ -13,8 +13,9 @@ solve started from the network's guess).  Step order follows cell 13:
   -> G2P (:4660) -> viscosity-preconditioner hysteresis flag.
 
 The three solves run as CUDA kernels when the state lives on the GPU
-(``ops/cuda_stencils.py``: the Jacobi cell solves take the streamed PCG
-kernel above ``solvers/pressure.py::FUSED_POISSON_CELLS`` cells;
+(``ops/cuda_stencils.py``: the Jacobi cell solves take the live-cell
+Poisson PCG kernel, on its fused route above
+``solvers/pressure.py::FUSED_POISSON_CELLS`` cells;
 ``ops/cuda_cg.py``; with ``precond='mg'`` the
 cell solves are CG over ``stencil_matvec`` with the multigrid V-cycle of
 ``solvers/multigrid.py`` and ``ops/cuda_mg.py``; with

@@ -35,8 +35,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # argtypes of every exported function (pointers and the stream as void*)
 _SIGNATURES = {
-    "pfs_cell_poisson_pcg": [_P] * 9 + [_P] * 5 + [_I] + [_P] * 3 + [_I] * 3 + [_F, _F, _I, _P],
-    "pfs_fused_poisson_pcg": [_P] * 16 + [_I] + [_P] * 3 + [_I] * 3 + [_F, _F, _I, _P],
+    "pfs_poisson_pcg": [_P] * 16 + [_I, _P, _L] + [_P] * 3 + [_I] * 3 + [_F, _F, _I, _P],
     "pfs_coupled_visc_pcg": [_P] + [_I] * 7 + [_P] * 5 + [_L, _P, _I] + [_P] * 4 + [_F, _F, _I, _P],
     "pfs_coupled_matvec": [_P, _I, _I, _I, _I] + [_P] * 8 + [_I, _P],
     "pfs_stencil_matvec": [_P] * 9 + [_I] * 4 + [_P],

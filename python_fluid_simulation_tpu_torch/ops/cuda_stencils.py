@@ -1,29 +1,25 @@
 """The 7-point cell systems: Jacobi-PCG and the matvec, CUDA kernels +
 plain versions.
 
-Replaces ``python_fluid_simulation_tpu/ops/pallas_stencils.py::
-make_stencil_cg`` — the whole Jacobi-PCG for the ghost-fluid cell system
-(pressure and density) as one kernel.  On Hopper it is one cooperative
-persistent kernel (``csrc/cell_poisson_pcg.cu``): every CG vector stays
-in device memory (the flagship 48x80x48 working set of 13 fields,
-~9.6 MB, lives in the 50 MB L2), the loop never returns to the host, and
-each iteration is three grid-barrier-separated phases.
-
-What bounds it on the H100: the bytes it must move are small (9 input
-fields read once, x written once: ~7.4 MB, ~2 us at 3.35 TB/s); the
-arithmetic is ~25 flops a cell an iteration.  In practice an iteration
-is bound by its three grid barriers and the L2 traffic of ~20 field
-passes, so the design keeps everything in one launch and in L2.
-
-`fused_poisson_pcg` replaces ``pallas_cg.py::make_fused_coupled_cg``
-with F = 1 (through ``make_fused_poisson_cg``): the same Jacobi-PCG from
-an initial guess x0, for grids whose working set is several times the L2
-(``csrc/fused_poisson_pcg.cu``): two grid barriers an iteration, the
-direction update folded into the matvec phase (a neighbour's direction
-recomputed where its coupling is nonzero), every field pass a
-device-memory pass (19 an iteration, ~0.18 ms at 126x504x126
-cells and 3.35 TB/s).  Its thresholds round as the TPU solve loop's
-(``cuda_cg.squared_tols``).
+`cell_poisson_pcg` replaces ``python_fluid_simulation_tpu/ops/
+pallas_stencils.py::make_stencil_cg`` (the whole Jacobi-PCG for the
+ghost-fluid cell system, pressure and density, from x0 = 0, every CG
+vector in VMEM) and `fused_poisson_pcg` replaces ``pallas_cg.py::
+make_fused_coupled_cg`` with F = 1 (through ``make_fused_poisson_cg``:
+the same Jacobi-PCG from an initial guess x0, streamed through VMEM).
+Both launch one kernel, ``csrc/poisson_pcg.cu`` (a null x0 for x0 = 0,
+which reads no x0 field): one cooperative persistent launch a solve
+whose init builds, on the device, the ascending list of the system's
+live cells (a nonzero row, or a nonzero initial residual) and whose
+iterations walk only that list, two grid barriers an iteration (the direction update folded into
+the matvec phase).  Outside the fluid a row and b are zero, so on those
+cells r and d stay 0 and x stays x0 (`poisson_live_cells_plain` builds
+the same list in PyTorch).  What bounds it on the H100: the init's one
+pass over every cell (~13 floats a cell), then 21 floats a live cell an
+iteration, or, where few cells are live, the two grid barriers.
+`fused_poisson_pcg`'s thresholds round as the TPU solve loop's
+(``cuda_cg.squared_tols``), `cell_poisson_pcg`'s as ``make_stencil_cg``'s
+(`squared_tols`).
 
 `stencil_matvec` replaces ``pallas_stencils.py::
 make_blocked_stencil_matvec`` and ``::make_stencil_matvec`` (the same
@@ -93,16 +89,28 @@ def cell_poisson_pcg_plain(b, diag, coefs, pd, *, tol, rel_tol, max_iter):
 
 
 def fused_poisson_pcg_plain(b, x0, diag, coefs, pd, *, tol, rel_tol, max_iter):
-    """Plain PyTorch version of `fused_poisson_pcg`: returns
-    (x, iters, res, res0, thresh)."""
+    """Plain PyTorch version of `fused_poisson_pcg` (x0 None: zeros):
+    returns (x, iters, res, res0, thresh)."""
     tol2, rel2 = cuda_cg.squared_tols(tol, rel_tol)
     (x,), stats, thresh, _ = cg(
         lambda v: (stencil_matvec_plain(diag, coefs, v[0]),),
-        (b,), (x0,),
+        (b,), (torch.zeros_like(b) if x0 is None else x0,),
         tol2=tol2, rel2=rel2, max_iter=max_iter,
         precond=lambda r: (r[0] / pd,),
     )
     return x, stats.iters, stats.residual, stats.initial_residual, thresh
+
+
+def poisson_live_cells_plain(b, x0, diag, coefs):
+    """The live cells of a 7-point system as ``csrc/poisson_pcg.cu``'s
+    init flags them: a nonzero row (diag or a coefficient) or a nonzero
+    r0 = b - A x0 (x0 None: x0 = 0, r0 = b).  Returns their flat indices,
+    ascending (int64)."""
+    r0 = b if x0 is None else b - stencil_matvec_plain(diag, coefs, x0)
+    live = (r0 != 0) | (diag != 0)
+    for _, c in coefs:
+        live = live | (c != 0)
+    return torch.nonzero(live.reshape(-1)).reshape(-1)
 
 
 def check_field(name, t, shape, device):
@@ -156,8 +164,41 @@ def stencil_matvec(diag, coefs, p):
 stencil_matvec.launches = 0
 
 
+def _poisson_pcg(name, b, x0, diag, coefs, pd, tol2, rel2, max_iter):
+    """One launch of ``csrc/poisson_pcg.cu`` on CUDA tensors (x0 None:
+    x0 = 0).  Returns (x, iters, res, res0, thresh); no host sync."""
+    shape = tuple(b.shape)
+    if len(shape) != 3:
+        raise ValueError(f"{name}: 3D grids only, got {shape}")
+    n = b.numel()
+    if n >= 2**31 - 64:
+        raise ValueError(f"{name}: {n} cells, the kernel takes fewer than 2^31 - 64")
+    check_stencil(name, shape, b.device, diag, coefs)
+    for label, t in (("b", b), ("x0", x0), ("pd", pd)):
+        if t is not None:
+            check_field(label, t, shape, b.device)
+    x, r, d0, d1, q = (torch.empty_like(b) for _ in range(5))
+    part = torch.empty(_PART_CAP, dtype=torch.float32, device=b.device)
+    # the live list, its flag words, the blocks' counts and Na
+    live = torch.empty(n + (n + 31) // 32 + _PART_CAP // 3 + 1, dtype=torch.int32, device=b.device)
+    iters = torch.empty((), dtype=torch.int32, device=b.device)
+    res = torch.empty((), dtype=torch.float32, device=b.device)
+    res0 = torch.empty((), dtype=torch.float32, device=b.device)
+    err = cb.LIB.get().pfs_poisson_pcg(
+        b.data_ptr(), 0 if x0 is None else x0.data_ptr(), diag.data_ptr(), *[c.data_ptr() for _, c in coefs],
+        pd.data_ptr(), x.data_ptr(), r.data_ptr(), d0.data_ptr(), d1.data_ptr(), q.data_ptr(),
+        part.data_ptr(), _PART_CAP, live.data_ptr(), live.numel(),
+        iters.data_ptr(), res.data_ptr(), res0.data_ptr(), *shape,
+        tol2, rel2, int(max_iter), cb.stream_of(b),
+    )
+    cb.check(err, f"{name} launch")
+    return x, iters, res, res0, threshold(tol2, rel2, res0)
+
+
 def cell_poisson_pcg(b, diag, coefs, pd, *, tol, rel_tol, max_iter):
-    """Jacobi-PCG solve of the 7-point system (diag, coefs) from x0 = 0.
+    """Jacobi-PCG solve of the 7-point system (diag, coefs) from x0 = 0
+    (``make_stencil_cg``'s semantics): on CUDA tensors one launch of
+    ``csrc/poisson_pcg.cu`` with a null x0, which reads no x0 field.
 
     coefs: [(offset, field)] in `OFFSETS` order.  Returns
     (x, iters, res, res0, thresh) as tensors on b's device; the CUDA
@@ -167,29 +208,9 @@ def cell_poisson_pcg(b, diag, coefs, pd, *, tol, rel_tol, max_iter):
         return cell_poisson_pcg_plain(b, diag, coefs, pd, tol=tol, rel_tol=rel_tol, max_iter=max_iter)
     if b.device.type != "cuda":
         raise ValueError(f"cell_poisson_pcg: unsupported device {b.device}")
-    shape = tuple(b.shape)
-    check_stencil("cell_poisson_pcg", shape, b.device, diag, coefs)
-    check_field("b", b, shape, b.device)
-    check_field("pd", pd, shape, b.device)
-    lib = cb.LIB.get()
-    x = torch.empty_like(b)
-    r = torch.empty_like(b)
-    d = torch.empty_like(b)
-    q = torch.empty_like(b)
-    part = torch.empty(_PART_CAP, dtype=torch.float32, device=b.device)
-    iters = torch.empty((), dtype=torch.int32, device=b.device)
-    res = torch.empty((), dtype=torch.float32, device=b.device)
-    res0 = torch.empty((), dtype=torch.float32, device=b.device)
-    tol2, rel2 = squared_tols(tol, rel_tol)
-    err = lib.pfs_cell_poisson_pcg(
-        b.data_ptr(), diag.data_ptr(), *[c.data_ptr() for _, c in coefs], pd.data_ptr(),
-        x.data_ptr(), r.data_ptr(), d.data_ptr(), q.data_ptr(), part.data_ptr(), _PART_CAP,
-        iters.data_ptr(), res.data_ptr(), res0.data_ptr(), *shape,
-        tol2, rel2, int(max_iter), cb.stream_of(b),
-    )
-    cb.check(err, "cell_poisson_pcg launch")
+    out = _poisson_pcg("cell_poisson_pcg", b, None, diag, coefs, pd, *squared_tols(tol, rel_tol), max_iter)
     cell_poisson_pcg.launches += 1
-    return x, iters, res, res0, threshold(tol2, rel2, res0)
+    return out
 
 
 cell_poisson_pcg.launches = 0
@@ -197,7 +218,9 @@ cell_poisson_pcg.launches = 0
 
 def fused_poisson_pcg(b, x0, diag, coefs, pd, *, tol, rel_tol, max_iter):
     """Jacobi-PCG solve of the 7-point system (diag, coefs) from x0, for
-    big grids (the blocked TPU PCG's semantics).
+    big grids (the blocked TPU PCG's semantics): on CUDA tensors one
+    launch of ``csrc/poisson_pcg.cu``.  x0 None starts from zeros and
+    reads no x0 field (the kernel's null x0).
 
     coefs: [(offset, field)] in `OFFSETS` order; pd is 1 on rows outside
     the system.  Returns (x, iters, res, res0, thresh) as tensors on b's
@@ -207,28 +230,9 @@ def fused_poisson_pcg(b, x0, diag, coefs, pd, *, tol, rel_tol, max_iter):
         return fused_poisson_pcg_plain(b, x0, diag, coefs, pd, tol=tol, rel_tol=rel_tol, max_iter=max_iter)
     if b.device.type != "cuda":
         raise ValueError(f"fused_poisson_pcg: unsupported device {b.device}")
-    shape = tuple(b.shape)
-    if len(shape) != 3:
-        raise ValueError(f"fused_poisson_pcg: 3D grids only, got {shape}")
-    check_stencil("fused_poisson_pcg", shape, b.device, diag, coefs)
-    for name, t in (("b", b), ("x0", x0), ("pd", pd)):
-        check_field(name, t, shape, b.device)
-    lib = cb.LIB.get()
-    x, r, d0, d1, q = (torch.empty_like(b) for _ in range(5))
-    part = torch.empty(_PART_CAP, dtype=torch.float32, device=b.device)
-    iters = torch.empty((), dtype=torch.int32, device=b.device)
-    res = torch.empty((), dtype=torch.float32, device=b.device)
-    res0 = torch.empty((), dtype=torch.float32, device=b.device)
-    tol2, rel2 = cuda_cg.squared_tols(tol, rel_tol)
-    err = lib.pfs_fused_poisson_pcg(
-        b.data_ptr(), x0.data_ptr(), diag.data_ptr(), *[c.data_ptr() for _, c in coefs], pd.data_ptr(),
-        x.data_ptr(), r.data_ptr(), d0.data_ptr(), d1.data_ptr(), q.data_ptr(), part.data_ptr(), _PART_CAP,
-        iters.data_ptr(), res.data_ptr(), res0.data_ptr(), *shape,
-        tol2, rel2, int(max_iter), cb.stream_of(b),
-    )
-    cb.check(err, "fused_poisson_pcg launch")
+    out = _poisson_pcg("fused_poisson_pcg", b, x0, diag, coefs, pd, *cuda_cg.squared_tols(tol, rel_tol), max_iter)
     fused_poisson_pcg.launches += 1
-    return x, iters, res, res0, threshold(tol2, rel2, res0)
+    return out
 
 
 fused_poisson_pcg.launches = 0

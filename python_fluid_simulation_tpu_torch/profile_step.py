@@ -8,12 +8,12 @@ Runs a step on the card.  ``--scene buckling`` (the default): the
 48x80x48 flagship (``buckling_config()`` defaults) without ``--res``,
 else ``scaled_buckling_config(R)`` (``--res 128``: 77x128x77 cells,
 356,256 particles, MG-PCG cell solves; ``--res 256``: 154x256x154 cells,
-2,903,629 particles, Jacobi cell solves through the streamed Poisson
+2,903,629 particles, Jacobi cell solves through the live-cell Poisson
 PCG).  ``--scene coiling``:
 ``coiling_config(R)`` (default R 256: 64x256x64 cells, 73,644 particles,
 MG-PCG cell solves, the 'auto' viscosity preconditioner; ``--res 504``:
 the big grid, 126x504x126 cells, 465,868 particles, Jacobi cell solves
-through the streamed Poisson PCG, and with ``--viscosity-precond mg``
+through the live-cell Poisson PCG, and with ``--viscosity-precond mg``
 the lean two-grid viscosity MG); ``--viscosity-precond`` overrides the configuration's (``mg`` profiles
 the MG branch).  ``--no-jacobi-precond`` sets ``jacobi_precond=False``
 (the reference's unpreconditioned CG: the non-MG solves run the generic

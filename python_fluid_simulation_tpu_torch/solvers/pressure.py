@@ -4,9 +4,9 @@ Counterpart of ``python_fluid_simulation_tpu.solvers.pressure`` (the
 reference's ``solver/PressureCGSolver3D.py``): the 7-point ghost-fluid
 system, its RHS and the velocity update are PyTorch stencils (shifts +
 where).  The solve takes the configured preconditioner: 'jacobi' is the
-cell-Poisson PCG kernel (``ops/cuda_stencils.py``; above
-`FUSED_POISSON_CELLS` cells the streamed PCG kernel of the JAX package's
-big-grid route), 'mg' the generic CG
+Poisson PCG kernel (``ops/cuda_stencils.py``: `cell_poisson_pcg`, or
+above `FUSED_POISSON_CELLS` cells `fused_poisson_pcg`, the two JAX
+routes), 'mg' the generic CG
 (``solvers/cg.py``) over the 7-point matvec kernel with the multigrid
 V-cycle (``solvers/multigrid.py``) as preconditioner, and 'jacobi' with
 ``jacobi_precond=False`` the same CG with no preconditioner.  The
@@ -37,12 +37,15 @@ from python_fluid_simulation_tpu_torch.ops.indexing import (
 from python_fluid_simulation_tpu_torch.solvers.cg import SolveStats, cg
 from python_fluid_simulation_tpu_torch.solvers.multigrid import make_mg_preconditioner
 
-# Jacobi solves of more cells take `fused_poisson_pcg`, fewer
-# `cell_poisson_pcg`: both run Jacobi-PCG from x0 = 0, so the gate only
-# decides speed.  Set from both kernels' ms an iteration on slabs of the
-# coiling_504 pressure system on an H100 (chip_smoke.py, kernels_504's
-# gate sweep): within 5% of each other up to 2.0M cells, either one
-# ahead; the streamed kernel 7% faster at 4.0M cells and 10% at 8.0M.
+# Jacobi solves of more cells take the `fused_poisson_pcg` route, fewer
+# the `cell_poisson_pcg` route, mirroring the JAX package's two routes:
+# its blocked (make_fused_poisson_cg) and its VMEM (make_stencil_cg)
+# kernel.  Both routes launch one kernel (csrc/poisson_pcg.cu) with a
+# null x0 and run Jacobi-PCG from x0 = 0; they differ only in how the
+# tolerances are rounded (fused: f32(rel^2), as the blocked TPU solve
+# loop; cell: f32(rel)^2, as make_stencil_cg).  The gate is kept for
+# that alone and has no speed basis.  The JAX package chooses by whether
+# the system fits in VMEM, so its boundary differs from this one.
 FUSED_POISSON_CELLS = 3_000_000
 
 _GHOST_CLIP = (0.01, 1.0)  # frac = clamp(phi/(phi-nphi), 0.01, 1)
@@ -194,8 +197,9 @@ def solve_cell_poisson(b, coefficients, *, tol: float, rel_tol: float, max_iter:
 
     ``coefficients`` is (diag, [(off, coef)], precond_diag) from
     `pressure_coefficients` or ``density.density_coefficients``.
-    ``precond`` 'jacobi' runs the cell-Poisson kernel, or above
-    `FUSED_POISSON_CELLS` cells the streamed one; with
+    ``precond`` 'jacobi' runs the Poisson PCG kernel on the
+    `cell_poisson_pcg` route, or above `FUSED_POISSON_CELLS` cells on the
+    `fused_poisson_pcg` route; with
     ``jacobi_precond=False`` CG over `stencil_matvec` with no
     preconditioner.  'mg' (which ignores ``jacobi_precond``, as the JAX
     package does) runs CG with a V-cycle preconditioner shaped by
@@ -231,7 +235,7 @@ def solve_cell_poisson(b, coefficients, *, tol: float, rel_tol: float, max_iter:
             coefs = [(off, s * c) for off, c in coefs]
         kw = dict(tol=tol, rel_tol=rel_tol, max_iter=max_iter)
         if b.numel() > FUSED_POISSON_CELLS:
-            x, iters, res, res0, thresh = fused_poisson_pcg(b, torch.zeros_like(b), diag, coefs, precond_diag, **kw)
+            x, iters, res, res0, thresh = fused_poisson_pcg(b, None, diag, coefs, precond_diag, **kw)
         else:
             x, iters, res, res0, thresh = cell_poisson_pcg(b, diag, coefs, precond_diag, **kw)
         return x, SolveStats(iters=iters, residual=res, initial_residual=res0, converged=res < thresh)

@@ -1,6 +1,7 @@
 """The big-grid (> 4M cells) route of the PyTorch port against the JAX
 package, on CPU: the blocked Poisson PCG (the plain version of
-csrc/fused_poisson_pcg.cu) and the lean two-grid viscosity MG route.
+csrc/poisson_pcg.cu on its fused route) and the lean two-grid
+viscosity MG route.
 
 * ``fused_poisson_pcg`` (plain) against ``make_fused_poisson_cg(...,
   interpret=True)`` on tests/test_pallas.py's ghost-fluid pressure system

@@ -1,7 +1,7 @@
 """The PyTorch port's solvers and the plain versions of its two CUDA
 kernels against the JAX package, on CPU.
 
-* cell-Poisson PCG (plain version of csrc/cell_poisson_pcg.cu) vs the
+* cell-Poisson PCG (plain version of csrc/poisson_pcg.cu) vs the
   JAX Pallas kernel ``make_stencil_cg`` (interpret mode on CPU) and the
   JAX XLA route (``use_pallas="off"``): solution rtol 2e-3 / atol 2e-4,
   iterations within 2 — the tolerances of test_pallas.py's fused-CG
