@@ -48,7 +48,8 @@ Phases, each printing one JSON line:
               link; with ptxas' register lines, and the registers, shared
               memory and spills of the kernels redesigned for Hopper
               (the segment broadcast, the tiled geometry matvec, the
-              coupled PCG and the live-cell Poisson PCG)
+              coupled PCG, the live-cell Poisson PCG, the live placement
+              and the tiled fold)
   kernels     flagship: the two PCG kernels on the real density /
               pressure / viscosity systems of the third step vs their
               plain versions: errors, iterations, CUDA-event times, the
@@ -61,7 +62,8 @@ Phases, each printing one JSON line:
               all-zero system); the Poisson PCG vs
               tests/poisson_list_model.py's model of it, bitwise;
               every segment broadcast of the step bitwise, timed beside
-              torch.index_select
+              torch.index_select; the live route (below) on every reduce
+              and fold of the step
   main        flagship: 1 warm-up + 10 timed steps with the launch
               counters reset just before; solves converged, particles
               finite, steps 1-3 on the card each vs the same step on the
@@ -80,9 +82,22 @@ Phases, each printing one JSON line:
               third step; the coupled PCG (its Jacobi branch), the geometry
               matvec (full and same-axis), every
               chain of the batched viscosity hierarchy, one batched
-              V-cycle, the viscosity MG-PCG solve and every fold of the
-              step, each vs its plain version, with times, library times
-              and bounds
+              V-cycle, the viscosity MG-PCG solve, each vs its plain
+              version, with times, library times and bounds; the live
+              route on every reduce and fold of the step:
+              the live placement (from the scan kernel's rows) bitwise
+              its plain version, tests/live_table_model.py's model, the
+              dense placement kernel and the step's own table; each fold
+              of a live table bitwise its plain version, the dense route
+              (the fold kernel on the dense table) and the model; each
+              fold's whole composite (scan, placement, fold) on the
+              kernels, the plain versions, the dense route and the
+              model, bitwise; S (the nonempty segments), the ms of the
+              placement, its plain version, the dense placement and the
+              live route beside one torch.segment_reduce, of each fold,
+              its plain version and the dense route beside one
+              scatter_reduce_, and the bounds of the live and the dense
+              bytes
   main_coil   coiling: 'auto' from the scene and viscosity_precond='mg',
               1 warm-up + 5 timed steps each, and 2 steps of 'auto' with
               visc_mg = 2 (its MG branch) from the 'auto' run's state
@@ -100,8 +115,9 @@ Phases, each printing one JSON line:
               entries), every segment broadcast of the step (bitwise,
               beside torch.index_select), the coupled PCG, one lean
               preconditioner application and the lean MG-PCG solve (both
-              bitwise) at 24M faces; the 125-channel fold of a 4.0 GB
-              table (bitwise)
+              bitwise) at 24M faces; the live route on every reduce and
+              fold of the step (as in kernels_coil; the level set's dense
+              route folds a 4.0 GB table)
   main_504    504: 3 'auto' steps from the scene (Jacobi branch), then 3
               'auto' steps from visc_mg = 2 (the lean branch), counters
               reset before each run; the Poisson PCG and the lean route
@@ -138,19 +154,22 @@ Phases, each printing one JSON line:
               after 2 steps: the Jacobi branch over the materialised
               matvec); counters reset before each run, solves converged
   kernels_256 256: every segment reduce of the third step: the serial
-              kernel, the segmented scan, the placement and the scan route,
-              each vs its plain version (bitwise; the serial add within
-              SUM_REL) and the scan route vs the serial route (bitwise),
-              with CUDA-event times, the torch.segment_reduce time and
-              bounds; the gate sweep: both routes on every reduce of a
-              step at all five sizes; every segment broadcast of the step
-              (bitwise, beside torch.index_select); and the live-cell
+              kernel, the segmented scan and the scan route (scan + live
+              placement), each vs its plain version (bitwise; the serial
+              add within SUM_REL) and the scan route expanded vs the
+              serial route (bitwise), with CUDA-event times, the
+              torch.segment_reduce time and bounds; the route sweep: both
+              routes on every reduce of a step at all five sizes; the live route on every reduce and
+              fold of the step (as in kernels_coil); every segment
+              broadcast of the step (bitwise, beside torch.index_select);
+              and the live-cell
               Poisson PCG (density, pressure) and the
               coupled PCG (18M faces) on the step's systems vs their plain
               versions, with times and bounds
   main_256    256: 1 warm-up + 2 timed steps with the counters reset just
-              before; the scan route, the live-cell Poisson PCG and the
-              coupled PCG launched, solves converged, particles finite,
+              before; the scan route with the live placement, the
+              live-cell Poisson PCG and the coupled PCG launched, the
+              serial reduce not, solves converged, particles finite,
               the first step bitwise repeatable, the last step within
               STEP_TOL of the same step on the card with every kernel
               swapped for its plain version, peak memory
@@ -267,9 +286,9 @@ STEPS_OPTION = 3  # the other runs of the new options
 RES_256 = 256
 SHAPE_256 = ((154, 256, 154), 2903629)
 STEPS_256 = 3  # 1 warm-up + 2 timed
-# the kernels of the reduce route every step's reduces take (the gate
-# sends them all to the scan route, ops/cuda_binned.py::_scan_route)
-REDUCE_ROUTE = ("seg_scan_sorted", "binned_segment_place")
+# the kernels of the reduce route every step's reduces take: the scan, then
+# the live placement (ops/scatter.py::segment_reduce_cf: the live form)
+REDUCE_ROUTE = ("seg_scan_sorted", "binned_segment_place_live")
 TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 UNET_WIDTH = 64  # the reference UNet's width (model_3d.py)
@@ -318,7 +337,8 @@ def halo_plane_bounds():
 
 
 # the kernels redesigned for Hopper, whose ptxas resources the build line lists
-REDESIGNED = ("coupled_matvec_kernel", "binned_broadcast_kernel", "coupled_visc_pcg_kernel", "poisson_pcg_kernel")
+REDESIGNED = ("coupled_matvec_kernel", "binned_broadcast_kernel", "coupled_visc_pcg_kernel", "poisson_pcg_kernel",
+              "binned_place_live_kernel", "fold_kernel")
 
 
 def kernel_resources(log, names=REDESIGNED):
@@ -422,7 +442,7 @@ def capture_128(step_3d, state, cfg, geom):
     from python_fluid_simulation_tpu_torch.ops import scatter
     from python_fluid_simulation_tpu_torch.solvers import density, pressure, viscosity
 
-    got = {"cell": [], "coupled": [], "reduce": [], "broadcast": []}
+    got = {"cell": [], "coupled": [], "broadcast": []}
 
     def rec(kind, fn, label_depth=None):
         def call(*args, **kw):
@@ -431,15 +451,15 @@ def capture_128(step_3d, state, cfg, geom):
             return fn(*args, **kw)
         return call
 
-    with patched([
+    with recorded_reduces() as reduces, patched([
         (pressure, "solve_cell_poisson", rec("cell", pressure.solve_cell_poisson)),
         (density, "solve_cell_poisson", rec("cell", density.solve_cell_poisson)),
         (viscosity, "coupled_visc_pcg", rec("coupled", viscosity.coupled_visc_pcg)),
         # frame 2: the caller of the scatter entry point
-        (scatter, "segment_reduce", rec("reduce", scatter.segment_reduce, 2)),
         (scatter, "segment_broadcast", rec("broadcast", scatter.segment_broadcast, 2)),
     ]):
         step_3d(state, cfg, geom=geom)
+    got["reduce"] = reduces
     return got
 
 
@@ -872,7 +892,7 @@ def binned_phase(reduces, broadcasts):
     from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
 
     red_rows = []
-    for label, args, kw in reduces:
+    for label, args, kw, _ in reduces:
         vals, ids, m, op, fill = args
         cf = kw.get("channels_first", False)
         out_k, out_p = cbn.serial_reduce(*args, **kw), cbn.segment_reduce_plain(*args, **kw)
@@ -951,17 +971,21 @@ def recorded_broadcasts():
 @contextlib.contextmanager
 def recorded_reduces():
     """Record every segment reduce of what runs inside as its caller makes
-    it: a list of (caller, args, kw)."""
+    it (the live form, `scan_reduce`): a list of (caller, args, kw, the
+    step's own LiveTable), kw the channels-first layout of the dense
+    table the live form replaces (for the serial route)."""
     from python_fluid_simulation_tpu_torch.ops import scatter
 
     got = []
-    fn = scatter.segment_reduce
+    fn = scatter.scan_reduce
 
     def call(*args, **kw):
-        got.append((sys._getframe(2).f_code.co_name, args, kw))  # frame 2: the caller of the scatter entry point
-        return fn(*args, **kw)
+        out = fn(*args, **kw)
+        # frame 2: the caller of the scatter entry point
+        got.append((sys._getframe(2).f_code.co_name, args, {"channels_first": True}, out))
+        return out
 
-    with patched([(scatter, "segment_reduce", call)]):
+    with patched([(scatter, "scan_reduce", call)]):
         yield got
 
 
@@ -978,56 +1002,66 @@ def reduce_bound(vals, ids, m):
     return dict(live_rows=live, nonempty_segments=nonempty), bound(live * c * 4 + k * 8 + m * c * 4, live * c)
 
 
+def live_route_bound(vals, ids, m, s):
+    """The live route's bound (scan + live placement, the function row 11
+    computes): the live rows and the ids read once, the S nonempty
+    columns and the map written once; one combine a live value."""
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
+
+    k, c = vals.shape
+    offs = cbn._offsets(ids, m)
+    live = int(offs[-1] - offs[0])
+    return bound(live * c * 4 + k * 8 + s * c * 4 + m * 4, live * c)
+
+
 def route_sweep(size, reduces):
-    """Both reduce routes on each captured reduce of a step (the data
-    `_scan_route` is set from): the serial kernel's and the scan route's
-    CUDA-event ms, which one the gate takes, the reduce's bound; the two
-    routes must agree bitwise (both add in row order from fill = 0)."""
+    """Both reduce routes on each captured reduce of a step: the serial
+    kernel (row 10, the dense table) and the scan route (row 11, the
+    step's live form), CUDA-event ms of each and the dense reduce's
+    bound; the serial table and the live form expanded must agree
+    bitwise (both add in row order from fill = 0)."""
     import torch
 
     from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
 
     rows = []
-    for caller, args, kw in reduces:
+    for caller, args, kw, _ in reduces:
         vals, ids, m, op, fill = args
         k, c = vals.shape
-        if not torch.equal(cbn.serial_reduce(*args, **kw), cbn.scan_reduce(*args, **kw)):
+        if not torch.equal(cbn.serial_reduce(*args, channels_first=True), cbn.scan_reduce(*args).dense()):
             raise AssertionError(f"{size} {caller}: the scan route differs from the serial route")
         counts, bnd = reduce_bound(vals, ids, m)
         rows.append(dict(
             size=size, caller=caller, op=op, K=k, C=c, M=m, **counts, bitwise=True,
-            gate="scan" if cbn._scan_route(op, k, m, c) else "serial",
-            serial_ms=cuda_time_ms(lambda: cbn.serial_reduce(*args, **kw), 10),
-            scan_route_ms=cuda_time_ms(lambda: cbn.scan_reduce(*args, **kw), 10), **bnd,
+            serial_ms=cuda_time_ms(lambda: cbn.serial_reduce(*args, channels_first=True), 10),
+            scan_route_ms=cuda_time_ms(lambda: cbn.scan_reduce(*args), 10), **bnd,
         ))
     return rows
 
 
 def scan_route_phase(reduces):
-    """Every reduce of the step on both routes: the segmented scan, the
-    placement and the scan route each vs its plain version (bitwise), the
-    serial kernel vs its plain version (min bitwise, add within SUM_REL),
-    the scan route vs the serial route (bitwise); with CUDA-event times,
-    one torch.segment_reduce call and the bounds."""
+    """Every reduce of the step on both routes: the segmented scan and the
+    scan route (scan + live placement) each vs its plain version
+    (bitwise), the serial kernel vs its plain version (min bitwise, add
+    within SUM_REL), the scan route expanded vs the serial route
+    (bitwise); with CUDA-event times, one torch.segment_reduce call and
+    the bounds (the scan route's: the live form's bytes)."""
     import torch
 
     from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
     from python_fluid_simulation_tpu_torch.ops import cuda_scan
 
     rows = []
-    for caller, args, kw in reduces:
+    for caller, args, kw, _ in reduces:
         vals, ids, m, op, fill = args
         cf = kw.get("channels_first", False)
         k, c = vals.shape
         same = cbn.segment_same(ids)
         scan = cuda_scan.seg_scan_sorted(vals, same, op)
         check_bitwise(f"seg_scan_sorted[{caller}]", [scan], [cuda_scan.seg_scan_sorted_plain(vals, same, op)])
-        placed = cbn.place_segments(scan, ids, m, op, fill, cf)
-        check_bitwise(f"place_segments[{caller}]", [placed], [cbn.place_segments_plain(scan, ids, m, op, fill, cf)])
-        del placed
-        route = cbn.scan_reduce(*args, **kw)
-        check_bitwise(f"scan_reduce[{caller}]", [route], [cbn.scan_reduce_plain(*args, **kw)])
-        check_bitwise(f"scan route vs serial route[{caller}]", [route], [cbn.serial_reduce(*args, **kw)])
+        route = cbn.scan_reduce(*args)
+        s = same_live(f"scan_reduce[{caller}] vs its plain version", route, cbn.scan_reduce_plain(*args))
+        check_bitwise(f"scan route vs serial route[{caller}]", [route.dense()], [cbn.serial_reduce(*args, **kw)])
         del route
         serial_k, serial_p = cbn.serial_reduce(*args, **kw), cbn.segment_reduce_plain(*args, **kw)
         serial_bitwise = bool(torch.equal(serial_k, serial_p))
@@ -1046,24 +1080,17 @@ def scan_route_phase(reduces):
                 ms=cuda_time_ms(lambda: cuda_scan.seg_scan_sorted(vals, same, op), 10),
                 plain_ms=cuda_time_ms(lambda: cuda_scan.seg_scan_sorted_plain(vals, same, op), 2),
                 **bound(2 * k * c * 4 + k, k * c)),
-            # the placement alone: the ids and one scanned row a non-empty
-            # segment read, the table written
-            place_segments=dict(
-                bitwise=True, max_abs_err=0.0,
-                ms=cuda_time_ms(lambda: cbn.place_segments(scan, ids, m, op, fill, cf), 10),
-                plain_ms=cuda_time_ms(lambda: cbn.place_segments_plain(scan, ids, m, op, fill, cf), 3),
-                **bound(counts["nonempty_segments"] * c * 4 + k * 8 + m * c * 4, m * c)),
-            # row 11: the scan route as the step calls it (flags, scan,
-            # placement), the reduce's bound
+            # row 11: the scan route as the step calls it (flags, scan, live
+            # placement), the live route's bound
             scan_reduce=dict(
-                bitwise=True, max_abs_err=0.0, vs_serial_route_bitwise=True,
-                ms=cuda_time_ms(lambda: cbn.scan_reduce(*args, **kw), 10),
-                plain_ms=cuda_time_ms(lambda: cbn.scan_reduce_plain(*args, **kw), 2),
+                bitwise=True, max_abs_err=0.0, vs_serial_route_bitwise=True, S=s,
+                ms=cuda_time_ms(lambda: cbn.scan_reduce(*args), 10),
+                plain_ms=cuda_time_ms(lambda: cbn.scan_reduce_plain(*args), 2),
                 # one torch.segment_reduce call, offsets computed beforehand,
-                # (M, C) output whatever the layout asked for
+                # (M, C) output
                 library_ms=cuda_time_ms(lambda: torch.segment_reduce(
                     vals, cbn._OPS[op], offsets=offs, axis=0, unsafe=True, initial=float(fill)), 5),
-                **bnd),
+                **live_route_bound(vals, ids, m, s)),
             serial_reduce=dict(
                 bitwise=serial_bitwise, max_abs_err=err, max_rel_err=rel,
                 ms=cuda_time_ms(lambda: cbn.serial_reduce(*args, **kw), 10),
@@ -1267,42 +1294,179 @@ def fold_targets(seg, axis_shifts, out_shape):
     return torch.cat(idx)
 
 
+def bits_equal(a, b):
+    """Equal shapes and equal bits (-0.0 is not 0.0)."""
+    import torch
+
+    return tuple(a.shape) == tuple(b.shape) and torch.equal(a.contiguous().view(torch.int32),
+                                                           b.contiguous().view(torch.int32))
+
+
+def same_live(name, got, ref):
+    """Two live tables: the same map and the same written columns,
+    bitwise; returns the nonempty count S."""
+    import torch
+
+    s = int((got.slot >= 0).sum())
+    if not (torch.equal(got.slot, ref.slot) and got.live.shape == ref.live.shape
+            and bits_equal(got.live[:, :s], ref.live[:, :s])):
+        raise AssertionError(f"{name}: the live tables differ")
+    return s
+
+
+def live_model():
+    """tests/live_table_model.py: the model of the live placement's and the
+    tiled fold's index logic (torch only, no JAX)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import live_table_model
+
+    return live_table_model
+
+
+@contextlib.contextmanager
+def recorded_folds():
+    """Record every fold of what runs inside as its caller makes it: a
+    list of (caller, args, kw)."""
+    from python_fluid_simulation_tpu_torch.ops import scatter
+
+    got = []
+    fn = scatter.fold
+
+    def call(*args, **kw):
+        got.append((sys._getframe(2).f_code.co_name, args, kw))  # frame 2: the caller of scatter.fold_scattered_sep
+        return fn(*args, **kw)
+
+    with patched([(scatter, "fold", call)]):
+        yield got
+
+
 def fold_phase(folds):
-    """Every fold of the step, kernel vs plain version, with the one-call
-    PyTorch yardstick (``scatter_reduce`` over target indices computed
-    beforehand)."""
+    """Every fold of the step on its live table: the kernel bitwise its
+    plain version (the dense expansion folded), the dense route (the
+    kernel on the dense expansion) and tests/live_table_model.py's model;
+    CUDA-event ms of each, one ``scatter_reduce_`` over the dense values
+    and target indices computed beforehand (the library yardstick), S,
+    the targets whose window holds a nonempty source, and the bound of
+    the live bytes beside the dense table's."""
     import torch
 
     from python_fluid_simulation_tpu_torch.ops import cuda_fold
 
+    model = live_model()
     rows = []
     for label, args, kw in folds:
-        seg, axis_shifts, out_shape, combine, fill = args
-        out_k, out_p = cuda_fold.fold(*args, **kw), cuda_fold.fold_plain(*args, **kw)
-        bitwise = bool(torch.equal(out_k, out_p))
-        err, rel = rel_err(out_k, out_p)
-        if combine == "min" and not bitwise:
-            raise AssertionError(f"fold[{label}] min: kernel differs from plain version (max abs {err})")
-        if not rel <= SUM_REL:
-            raise AssertionError(f"fold[{label}]: kernel vs plain max rel {rel} > {SUM_REL}")
-        idx = fold_targets(seg, axis_shifts, out_shape)
-        vals = seg.contiguous().reshape(-1)
+        table, axis_shifts, out_shape, combine, fill = args
+        out_k = cuda_fold.fold(*args, **kw)
+        dense = table.dense()
+        dargs = (dense,) + tuple(args[1:])
+        for name, ref in (("its plain version", cuda_fold.fold_plain(*args, **kw)),
+                          ("the dense route", cuda_fold.fold(*dargs, **kw)),
+                          ("tests/live_table_model.py", model.fold_live_model(*args, **kw))):
+            if not bits_equal(out_k, ref):
+                raise AssertionError(f"fold[{label}]: the live kernel differs from {name} (max abs {max_err(out_k, ref)[0]})")
+            del ref
+        live_targets = int(model.fold_live_targets(table, axis_shifts, out_shape).sum())
+        idx = fold_targets(dense, axis_shifts, out_shape)
+        vals = dense.reshape(-1)
         red = "sum" if combine == "add" else "amin"
 
         def library():
-            out = torch.full(tuple(out_shape), float(fill), dtype=seg.dtype, device=seg.device)
+            out = torch.full(tuple(out_shape), float(fill), dtype=dense.dtype, device=dense.device)
             return out.view(-1).scatter_reduce_(0, idx, vals, reduce=red, include_self=True)
 
-        n_out = out_k.numel()
+        c, m, n_out = int(dense.shape[0]), int(table.slot.numel()), out_k.numel()
+        s = int((table.slot >= 0).sum())
         rows.append(dict(
-            caller=label, combine=combine, C=int(seg.shape[0]), table=list(seg.shape[1:]), out=list(out_k.shape),
-            bitwise=bitwise, max_abs_err=err, max_rel_err=rel,
+            caller=label, combine=combine, C=c, table=list(table.shape[1:]), out=list(out_k.shape), S=s,
+            live_targets=live_targets, bitwise=True, max_abs_err=0.0,
             ms=cuda_time_ms(lambda: cuda_fold.fold(*args, **kw), 20),
             plain_ms=cuda_time_ms(lambda: cuda_fold.fold_plain(*args, **kw), 5),
+            dense_ms=cuda_time_ms(lambda: cuda_fold.fold(*dargs, **kw), 20),
             library_ms=cuda_time_ms(library, 5),
-            **bound(seg.numel() * 4 + n_out * 4, seg.numel()),  # table read, grid written; a combine a source
+            # the map and the folded channels' nonempty columns read once, the
+            # grid written once; a combine a nonempty entry
+            **bound(m * 4 + s * c * 4 + n_out * 4, s * c),
+            dense_table_bytes=dense.numel() * 4,
+            dense_bound_ms=(dense.numel() + n_out) * 4 / HBM_BYTES_PER_S * 1e3,
         ))
-        del idx, vals
+        del idx, vals, dense, dargs, out_k
+        torch.cuda.empty_cache()
+    return rows
+
+
+def live_reduce_phase(reduces, folds):
+    """Every reduce of the step in live form, from the scan kernel's rows:
+    the live placement kernel bitwise its plain version,
+    tests/live_table_model.py's model, the dense placement's plain version
+    (its table expanded) and the step's own table; then the whole
+    composite of each fold the step made from that table (scan,
+    placement, fold) on the kernels, on the plain versions, on the dense
+    route (the fold kernel on the dense table) and on the model, bitwise.
+    CUDA-event ms of the placement, its plain version, the live route
+    (scan + placement) and one ``torch.segment_reduce`` call of the whole
+    reduce; S, the placement's bound, the live route's, and a dense
+    table's."""
+    import dataclasses
+
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
+    from python_fluid_simulation_tpu_torch.ops import cuda_fold, cuda_scan
+
+    model = live_model()
+    rows = []
+    for caller, (vals, ids, m, op, fill), _, out in reduces:
+        k, c = vals.shape
+        same = cbn.segment_same(ids)
+        scan = cuda_scan.seg_scan_sorted(vals, same, op)
+        live_k = cbn.place_live(scan, ids, m, op, fill)
+        s = same_live(f"place_live[{caller}] vs its plain version", live_k, cbn.place_live_plain(scan, ids, m, op, fill))
+        same_live(f"place_live[{caller}] vs tests/live_table_model.py", live_k,
+                  model.place_live_model(scan, ids, m, op, fill))
+        same_live(f"place_live[{caller}] vs the step's table", live_k, out)
+        dense_k = cbn.place_segments_plain(scan, ids, m, op, fill, True)
+        if not bits_equal(live_k.dense(), dense_k):
+            raise AssertionError(f"place_live[{caller}]: its table differs from the dense placement's")
+        composites = []
+        linked = [f for f in folds if f[1][0].live is out.live]
+        if linked:
+            live_p = cbn.scan_reduce_plain(vals, ids, m, op, fill)
+            live_m = model.place_live_model(cuda_scan.seg_scan_sorted_plain(vals, same, op), ids, m, op, fill)
+            for label, (table, *rest), kw in linked:
+                def view(t, table=table):
+                    return dataclasses.replace(t, grid_shape=table.grid_shape, channels=table.channels)
+
+                got = cuda_fold.fold(view(live_k), *rest, **kw)
+                dense_view = dense_k.reshape((c,) + tuple(table.grid_shape))[list(table.channels)]
+                for name, ref in (("the plain composite", cuda_fold.fold_plain(view(live_p), *rest, **kw)),
+                                  ("the dense route", cuda_fold.fold(dense_view, *rest, **kw)),
+                                  ("the model's composite", model.fold_live_model(view(live_m), *rest, **kw))):
+                    if not bits_equal(got, ref):
+                        raise AssertionError(f"{caller} -> fold[{label}]: the live composite differs from {name}")
+                composites.append(label)
+                del got, dense_view
+            del live_p, live_m
+        offs = cbn._offsets(ids, m)
+        route_bnd = live_route_bound(vals, ids, m, s)
+        rows.append(dict(
+            caller=caller, op=op, K=k, C=c, M=m, S=s, live_share=s / max(m, 1), cap=int(live_k.live.shape[1]),
+            bitwise=True, max_abs_err=0.0, composites=composites,
+            ms=cuda_time_ms(lambda: cbn.place_live(scan, ids, m, op, fill), 10),
+            plain_ms=cuda_time_ms(lambda: cbn.place_live_plain(scan, ids, m, op, fill), 3),
+            route_ms=cuda_time_ms(lambda: cbn.scan_reduce(vals, ids, m, op, fill), 10),
+            # one torch.segment_reduce call of the whole reduce, offsets
+            # computed beforehand, (M, C) output
+            library_ms=cuda_time_ms(lambda: torch.segment_reduce(
+                vals, cbn._OPS[op], offsets=offs, axis=0, unsafe=True, initial=float(fill)), 5),
+            # the live placement: the ids and the S last rows read, the S
+            # columns and the map written; a combine an entry
+            **bound(k * 8 + 2 * s * c * 4 + m * 4, s * c),
+            # the live route (scan + placement): `live_route_bound`
+            route_bytes_ms=route_bnd["bytes_ms"], route_ops_ms=route_bnd["ops_ms"],
+            dense_bound_ms=(s * c * 4 + k * 8 + m * c * 4) / HBM_BYTES_PER_S * 1e3,
+        ))
+        del scan, same, live_k, dense_k, offs
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1414,16 +1578,6 @@ def coupled_library(sphi_c, vol_c, s_mu, vs, q_kernel):
     return out
 
 
-def plain_segment_reduce(vals, sorted_ids, num_segments, op="add", fill=0.0, channels_first=False):
-    """`segment_reduce` with the plain version of the route its gate
-    picks."""
-    from python_fluid_simulation_tpu_torch.ops import cuda_binned
-
-    scan = cuda_binned._scan_route(op, vals.shape[0], int(num_segments), vals.shape[-1])
-    plain = cuda_binned.scan_reduce_plain if scan else cuda_binned.segment_reduce_plain
-    return plain(vals, sorted_ids, num_segments, op, fill, channels_first)
-
-
 @contextlib.contextmanager
 def plain_kernels():
     """Every kernel of the step swapped for its plain version (module
@@ -1440,7 +1594,7 @@ def plain_kernels():
         (viscosity, "coupled_visc_pcg", cuda_cg.coupled_visc_pcg_plain),
         (viscosity, "coupled_matvec_geom", plain_geom_mv),
         (viscosity, "coupled_stencil_matvec", plain_coupled_stencil_mv),
-        (scatter, "segment_reduce", plain_segment_reduce),
+        (scatter, "scan_reduce", cuda_binned.scan_reduce_plain),
         (scatter, "segment_broadcast", cuda_binned.segment_broadcast_plain),
         (scatter, "fold", cuda_fold.fold_plain),
     ]):
@@ -1449,25 +1603,30 @@ def plain_kernels():
 
 def capture_504(step_3d, state, cfg, geom):
     """One 504 step with recorders around the cell solves' two PCG
-    kernels, the coupled solve and the level set's first 125-channel
-    fold, as their callers call them."""
+    kernels, the coupled solve and every fold, as their callers call
+    them (each fold labelled with the function that made it)."""
     from python_fluid_simulation_tpu_torch.ops import scatter
     from python_fluid_simulation_tpu_torch.solvers import pressure, viscosity
 
     got = {"fused": [], "cell": [], "coupled": [], "fold": []}
 
-    def rec(kind, fn, keep=None):
+    def rec(kind, fn):
         def call(*args, **kw):
-            if keep is None or keep(args):
-                got[kind].append((args, kw))
+            got[kind].append((args, kw))
             return fn(*args, **kw)
         return call
 
+    def rec_fold(*args, **kw):
+        # frame 2: the caller of scatter.fold_scattered_sep
+        got["fold"].append((sys._getframe(2).f_code.co_name, args, kw))
+        return fold(*args, **kw)
+
+    fold = scatter.fold
     with patched([
         (pressure, "fused_poisson_pcg", rec("fused", pressure.fused_poisson_pcg)),
         (pressure, "cell_poisson_pcg", rec("cell", pressure.cell_poisson_pcg)),
         (viscosity, "coupled_visc_pcg", rec("coupled", viscosity.coupled_visc_pcg)),
-        (scatter, "fold", rec("fold", scatter.fold, lambda a: a[0].shape[0] == 125 and not got["fold"])),
+        (scatter, "fold", rec_fold),
     ]):
         step_3d(state, cfg, geom=geom)
     return got
@@ -1614,7 +1773,7 @@ def reset_counters():
         "mg_level_chain": cuda_mg.level_chain,
         "binned_segment_reduce": cuda_binned.serial_reduce,
         "seg_scan_sorted": cuda_scan.seg_scan_sorted,
-        "binned_segment_place": cuda_binned.place_segments,
+        "binned_segment_place_live": cuda_binned.place_live,
         "binned_segment_broadcast": cuda_binned.segment_broadcast,
         "coupled_matvec_geom": cuda_cg.coupled_matvec_geom,
         "fold": cuda_fold.fold,
@@ -2202,12 +2361,14 @@ def main() -> int:
     state2 = state0
     for _ in range(2):
         state2, _ = step_3d(state2, cfg, geom=geom)
-    with recorded_reduces() as reduces, recorded_broadcasts() as broadcasts:
+    with recorded_reduces() as reduces, recorded_broadcasts() as broadcasts, recorded_folds() as folds:
         captured = capture_systems(step_3d, state2, cfg, geom)
     del state2
-    reduce_sweep = route_sweep("flagship", reduces)  # the reduce gate's data, printed in kernels_256
+    reduce_sweep = route_sweep("flagship", reduces)  # rows 10 and 11 side by side, printed in kernels_256
     bc_flag_rows = broadcast_phase(broadcasts)
-    del reduces, broadcasts
+    live_flag_rows = live_reduce_phase(reduces, folds)
+    fold_flag_rows = fold_phase(folds)
+    del reduces, broadcasts, folds
     if len(captured["cell"]) != 2 or len(captured["coupled"]) != 1:
         raise AssertionError(f"expected 2 cell solves and 1 coupled solve, got {len(captured['cell'])}, {len(captured['coupled'])}")
     cell_rows = cell_kernel_phase(captured["cell"])
@@ -2217,7 +2378,7 @@ def main() -> int:
     del captured
     emit({"phase": "kernels", "cell_poisson_pcg": cell_rows, "poisson_edge_cases": edge_rows,
           "poisson_pcg_vs_model": model_rows, "coupled_visc_pcg": coupled_row, "binned_segment_broadcast": bc_flag_rows,
-          "seconds": time.perf_counter() - t0})
+          "place_live": live_flag_rows, "fold": fold_flag_rows, "seconds": time.perf_counter() - t0})
 
     # -- flagship main path: launch counts reset just before, read just after
     t0 = time.perf_counter()
@@ -2340,9 +2501,10 @@ def main() -> int:
         got = capture_coil(step_3d, state2, cfgc, geomc)
     del state2
     reduce_sweep += route_sweep("coiling", reduces)
-    del reduces
     if len(got["coupled"]) != 1 or not got["fold"]:
         raise AssertionError(f"coiling capture: {[(k, len(v)) for k, v in got.items()]}")
+    live_coil_rows = live_reduce_phase(reduces, got["fold"])
+    del reduces
     visc = (got["coupled"][0][1], got["coupled"][0][2])
     coupled_coil = coupled_kernel_phase(visc)
     geom_rows = geom_matvec_phase(visc)
@@ -2355,7 +2517,7 @@ def main() -> int:
           "coupled_visc_pcg": coupled_coil, "coupled_matvec_geom": geom_rows, "coupled_matvec_geom_library": geom_lib,
           "batched_level0_matvec": level0_row,
           "mg_level_chain_batched": bchain_rows, "batched_vcycle": bvcycle, "visc_mg_pcg": vmg_row,
-          "fold": fold_rows, "seconds": time.perf_counter() - t0})
+          "place_live": live_coil_rows, "fold": fold_rows, "seconds": time.perf_counter() - t0})
 
     # -- coiling main path: 'auto' from the scene, 'mg', and 'auto' from
     #    visc_mg = 2; each run's counters reset just before it, read just
@@ -2433,8 +2595,9 @@ def main() -> int:
     del state2
     reduce_sweep += route_sweep("504", reduces)
     bc504_rows = broadcast_phase(broadcasts)
+    live504_rows = live_reduce_phase(reduces, got["fold"])
     del reduces, broadcasts
-    if len(got["fused"]) != 2 or got["cell"] or len(got["coupled"]) != 1 or len(got["fold"]) != 1:
+    if len(got["fused"]) != 2 or got["cell"] or len(got["coupled"]) != 1 or len(got["fold"]) != 18:
         raise AssertionError(f"504 capture: {[(k, len(v)) for k, v in got.items()]}")
     cell504 = [(label, args, kw) for label, (args, kw) in zip(("density", "pressure"), got["fused"])]
     b_p, _, diag_p, coefs_p, pd_p = cell504[1][1]
@@ -2453,9 +2616,11 @@ def main() -> int:
     lean_pcg = visc_mg_solve_phase(visc504)
     if not lean_pcg["bitwise"]:
         raise AssertionError(f"504 lean MG-PCG: kernels vs plain versions not bitwise (max abs {lean_pcg['max_abs_err']})")
-    fold504 = fold_phase([("compute_fluid_levelset", *got["fold"][0])])
-    if fold504[0]["C"] * math.prod(fold504[0]["table"]) * 4 <= 2**31 or not fold504[0]["bitwise"]:
-        raise AssertionError(f"504 level-set fold: {fold504[0]}")
+    fold504 = fold_phase(got["fold"])
+    # the level set's 125-channel fold: its dense route folds a 4.0 GB table
+    ls504 = next(r for r in fold504 if r["C"] == 125)
+    if ls504["dense_table_bytes"] <= 2**31 or not ls504["bitwise"]:
+        raise AssertionError(f"504 level-set fold: {ls504}")
     del got, visc504
     torch.cuda.empty_cache()
     emit({"phase": "kernels_504", "grid": list(cfg504.grid.res), "particles": n504,
@@ -2463,7 +2628,7 @@ def main() -> int:
           "fused_poisson_cells": pressure.FUSED_POISSON_CELLS, "coupled_matvec_geom": geom504_rows,
           "coupled_matvec_geom_library": geom504_lib, "binned_segment_broadcast": bc504_rows,
           "coupled_visc_pcg": coupled504, "lean_preconditioner": lean_row, "lean_mg_pcg": lean_pcg,
-          "fold_levelset": fold504[0], "seconds": time.perf_counter() - t0})
+          "place_live": live504_rows, "fold": fold504, "seconds": time.perf_counter() - t0})
 
     # -- 504 main path: 'auto' from the scene (the Jacobi branch), then
     #    'auto' from visc_mg = 2 (the lean MG branch) from its state after
@@ -2714,7 +2879,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     # -- 256: every segment reduce of the third step on both routes, and
-    #    the gate sweep of all five sizes
+    #    the route sweep of all five sizes
     t0 = time.perf_counter()
     cfg256 = scaled_buckling_config(RES_256)
     s256 = buckling_scene(cfg256, seed=0, device="cuda")
@@ -2729,17 +2894,17 @@ def main() -> int:
         state2, _ = step_3d(state2, cfg256, geom=geom256)
     with recorded_reduces() as reduces, recorded_broadcasts() as broadcasts:
         got = capture_504(step_3d, state2, cfg256, geom256)
-    del state2, got["fold"]
-    if len(reduces) != 4:
-        raise AssertionError(f"256 capture: {len(reduces)} reduces")
+    del state2
+    if len(reduces) != 4 or len(got["fold"]) != 18:
+        raise AssertionError(f"256 capture: {len(reduces)} reduces, {len(got['fold'])} folds")
     bc256_rows = broadcast_phase(broadcasts)
     del broadcasts
     scan_rows = scan_route_phase(reduces)
     reduce_sweep += route_sweep("256", reduces)
+    live256_rows = live_reduce_phase(reduces, got["fold"])
     del reduces
+    fold256_rows = fold_phase(got.pop("fold"))
     torch.cuda.empty_cache()
-    if not any(r["gate"] == "scan" for r in reduce_sweep if r["size"] == "256"):
-        raise AssertionError("256: the gate sends no reduce to the scan route")
     # rows 3 and 2 on the step's cell systems (6.07M cells) and viscosity
     # system (18M faces)
     if len(got["fused"]) != 2 or got["cell"] or len(got["coupled"]) != 1:
@@ -2750,7 +2915,8 @@ def main() -> int:
     del got
     torch.cuda.empty_cache()
     emit({"phase": "kernels_256", "grid": list(cfg256.grid.res), "particles": n256, "reduce": scan_rows,
-          "gate_sweep": reduce_sweep, "fused_poisson_pcg": fused256_rows, "coupled_visc_pcg": coupled256,
+          "route_sweep": reduce_sweep, "place_live": live256_rows, "fold": fold256_rows,
+          "fused_poisson_pcg": fused256_rows, "coupled_visc_pcg": coupled256,
           "binned_segment_broadcast": bc256_rows,
           "seconds": time.perf_counter() - t0})
 
@@ -2928,18 +3094,20 @@ def main() -> int:
         entry("stencil_matvec", "stencil_matvec.cu", "pallas_stencils.py:299", sten, stencil_lib["library_ms"]),
         entry("mg_level_chain", "mg_level_chain.cu", "pallas_mg.py:100", total(chain_rows)),
         entry("binned_segment_reduce", "binned_segment.cu", "pallas_binned.py:423", red, red["library_ms"]),
-        # the scan route on the 256 step's four reduces: row 11 (the
+        # the scan route on the 256 step's four reduces: row 11 (the live
         # placement, with row 13 as its first phase) and row 13 (the scan)
         dict(entry("scan_reduce", "binned_segment.cu", "pallas_binned.py:327", scan_red, scan_red["library_ms"],
-                   counter="binned_segment_place"),
-             first_phase="python_fluid_simulation_tpu_torch/csrc/seg_scan.cu"),
+                   counter="binned_segment_place_live"),
+             first_phase="python_fluid_simulation_tpu_torch/csrc/seg_scan.cu",
+             placement_ms=sum(r["ms"] for r in live256_rows), placement_plain_ms=sum(r["plain_ms"] for r in live256_rows),
+             placement_bound_ms=sum(max(r["bytes_ms"], r["ops_ms"]) for r in live256_rows)),
         entry("seg_scan_sorted", "seg_scan.cu", "pallas_segscan.py:173", total([r["seg_scan_sorted"] for r in scan_rows])),
         entry("binned_segment_broadcast", "binned_segment.cu", "pallas_binned.py:179", bc, bc["library_ms"]),
         # the full operator (the MG-PCG's outer matvec); same-axis in kernels_coil
         entry("coupled_matvec_geom", "coupled_matvec.cu", "pallas_cg.py:714", geom_rows[0], geom_lib["library_ms"]),
         # the chains of one batched viscosity V-cycle (B = 3)
         entry("mg_level_chain_batched", "mg_level_chain.cu", "pallas_mg.py:100", total(bchain_rows)),
-        # the folds of one coiling step
+        # the folds of one coiling step, on their live tables
         entry("fold", "fold.cu", "pallas_fold.py:97", fold, fold["library_ms"]),
         # rows 7 and 8 in one kernel, on the flagship's fields (128^3 in kernels_128)
         dict(entry("coupled_stencil_matvec", "coupled_stencil_matvec.cu", "pallas_stencils.py:379",

@@ -39,27 +39,47 @@
 // place    the second phase of the scan route (replaces _scan_kernel's
 //          phase B, pallas_binned.py:327): given the inclusive segmented
 //          scan of the rows (seg_scan.cu), each segment's LAST row holds
-//          its reduce.  A block owns S consecutive segments: it fills an
-//          S x C tile in shared memory with `fill`, finds its row range
-//          with two binary searches, and for every segment-last row in
-//          that range (a warp ballot on ids[i] != ids[i+1]) its warp
-//          copies the row into the tile, combined with fill (add:
-//          fill + row, min: the row where it is below fill); then the
-//          tile is written out once, coalesced.  channels_first stages
-//          the tile transposed (C x (S+1): the +1 keeps a warp's row
-//          writes on distinct banks), so a warp writes consecutive
-//          segments of one channel.  Scan then place computes what the
-//          serial reduce computes: with fill = 0 (every add caller) and
-//          the scan's row-order adds it is bitwise that result, and the
-//          min is order-free.
+//          its reduce, combined with fill (add: fill + row, min: the row
+//          where it is below fill), written in LIVE FORM: only the
+//          nonempty segments (at 256 and 504 94-99% of the segments are
+//          empty, so a dense M x C table is mostly `fill`).  Column j of
+//          live (C, cap) holds the j-th nonempty in-range segment, in
+//          ascending id order -- the dense table's column, rounded the
+//          same way (scan then place computes what the serial reduce
+//          computes: with fill = 0, every add caller, and the scan's
+//          row-order adds it is bitwise that result; the min is
+//          order-free) -- and slot (M,) int32 holds each segment's column,
+//          -1 where it is empty.  One cooperative launch over tiles of
+//          kLiveTile segments, dealt to the resident blocks round robin:
+//          pass 1 walks the rows and writes each tile's first row where
+//          the rows' tile changes (sorted ids: no binary search a tile);
+//          pass 2 counts each tile's segment-last rows; pass 3 gives each
+//          tile its first column (the counts of the tiles before it,
+//          summed in a fixed order, no atomics), numbers the tile's last
+//          rows in row order with a block scan, sets their slots in a
+//          shared tile of -1s, and moves their rows to the columns
+//          through shared memory in groups of kLiveCols: a warp reads a
+//          row along its channels (coalesced), then a warp writes a
+//          channel along the group's consecutive columns (coalesced), so
+//          the row-major scan becomes the channel-major table the fold
+//          reads.  The slot tile is written once; a tile with no rows
+//          writes -1s and nothing else.  A grid barrier between the
+//          passes.  Tiles are small (512 segments) so that the fluid's
+//          dense tiles spread over every block: with 2,048 a block that
+//          drew a few of them (~15k rows each at 256) set the time.  Ids
+//          are re-read in each pass (K * 8 bytes, L2-resident at the
+//          step's sizes) rather than kept.
 //
 // What bounds them: bytes.  The reduce reads K*C values and K ids once
 // and writes M*C values, one add or min per value; the broadcast writes
 // K*C values and reads K ids and each distinct table row in its range (a
-// run split between two warps' rows is read twice); the placement reads K ids and the
-// segment-last rows (one a non-empty segment) and writes M*C values.  The simple design pays extra for the
-// binary searches (2 log2 K id reads a segment, L2-resident) and, in the
-// channels-first layout, for reads strided by C; tuning is later work.
+// run split between two warps' rows is read twice); the live placement
+// reads the K ids (twice) and the S segment-last rows and writes S*C
+// values and M slots: 0.43 GB for the 256 step's level-set call
+// (S = 0.38M, C = 125) against 3.4 GB for a dense table.  The serial
+// reduce pays extra for the binary searches (2 log2 K id reads a
+// segment, L2-resident) and, in the channels-first layout, for reads
+// strided by C; tuning is later work.
 //
 // Ids are int64, the dtype of the port's torch.sort of cell ids.
 //
@@ -70,9 +90,9 @@
 // pass 2^31 entries (the level set's 125-channel reduce at 126x504x126
 // cells holds 1.0e9).
 
-#include <cuda_runtime.h>
-
 #include <cstdint>
+
+#include "pcg_common.cuh"
 
 namespace {
 
@@ -152,85 +172,162 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kPlaceFloats = 10240;  // shared floats a placement tile holds (40 KB)
+constexpr int kLiveTile = 512;  // segments a live-placement tile covers
+constexpr int kLiveCols = 32;    // columns a transpose group stages
+constexpr int kWarps = kThreads / 32;
 
-template <bool kMin, bool kChannelsFirst>
+// Row i is its segment's last (ids sorted, so the segments' last rows
+// come in ascending id order).
+__device__ __forceinline__ bool seg_last(const long long* ids, long k, long i) {
+  return i + 1 == k || ids[i + 1] != ids[i];
+}
+
+template <bool kMin>
+__device__ __forceinline__ float place_value(float v, float fill) {
+  return kMin ? ((v != v || v < fill) ? v : fill) : __fadd_rn(fill, v);
+}
+
+// The tile of a row's id: -1 below 0, ntiles at M or above.
+__device__ __forceinline__ int live_tile(long long id, int M, int ntiles) {
+  return id < 0 ? -1 : (id >= M ? ntiles : (int)(id / kLiveTile));
+}
+
+// live (C, cap): column j of channel c at live[c * cap + j].  work:
+// ntiles + 1 row starts (tile t's rows are [start[t], start[t + 1])), then
+// ntiles counts.  stage: C x (kLiveCols + 1) floats of dynamic shared
+// memory.
+template <bool kMin>
 __global__ void __launch_bounds__(kThreads)
-    binned_place_kernel(const float* __restrict__ scan,
-                        const long long* __restrict__ ids, long k, int M,
-                        int C, int S, float fill, float* __restrict__ out) {
-  extern __shared__ float tile[];  // S x C, or C x (S + 1) channels-first
-  __shared__ long range[2];
-  const long m0 = (long)blockIdx.x * S;
-  const int nseg = (long)M - m0 < S ? (int)((long)M - m0) : S;
-  const int ld = kChannelsFirst ? S + 1 : C;
-  const int n = kChannelsFirst ? C * ld : nseg * C;
-  for (int p = threadIdx.x; p < n; p += kThreads) tile[p] = fill;
-  if (threadIdx.x < 2)
-    range[threadIdx.x] = lower_bound(ids, k, (long long)(m0 + threadIdx.x * nseg));
-  __syncthreads();
-  const long lo = range[0], hi = range[1];
-  const int lane = threadIdx.x & 31;
-  for (long base = lo + (threadIdx.x & ~31); base < hi; base += kThreads) {
-    const long i = base + lane;
-    const long long id = i < hi ? ids[i] : 0;
-    const bool last = i < hi && (i + 1 == k || ids[i + 1] != id);
-    for (unsigned mask = __ballot_sync(0xffffffffu, last); mask; mask &= mask - 1) {
-      const int b = __ffs(mask) - 1;
-      const int s = (int)(__shfl_sync(0xffffffffu, id, b) - m0);
-      const float* row = scan + (base + b) * C;
-      for (int c = lane; c < C; c += 32) {
-        const float v = row[c];
-        const float r = kMin ? ((v != v || v < fill) ? v : fill) : __fadd_rn(fill, v);
-        tile[kChannelsFirst ? c * ld + s : s * C + c] = r;
+    binned_place_live_kernel(const float* __restrict__ scan,
+                             const long long* __restrict__ ids, long k, int M,
+                             int C, float fill, long cap,
+                             float* __restrict__ live, int* __restrict__ slot,
+                             long* __restrict__ work) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  extern __shared__ float stage[];
+  __shared__ int slots[kLiveTile];
+  __shared__ long rows[kThreads + kLiveCols];  // last rows awaiting their group
+  __shared__ int shi[kWarps + 1];
+  __shared__ long shl[kWarps + 1];
+  const int ntiles = (int)(((long)M + kLiveTile - 1) / kLiveTile);
+  long* start = work;
+  long* counts = work + ntiles + 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int ld = kLiveCols + 1;  // +1: a warp's channel writes on distinct banks
+
+  // pass 1: the tiles' row starts, start[t] = the first row whose tile is
+  // t or more, each written once by the row where the tile changes (the
+  // ids are sorted: no search)
+  const long stride = (long)gridDim.x * kThreads;
+  for (long i = (long)blockIdx.x * kThreads + threadIdx.x; i < k; i += stride) {
+    const int cur = live_tile(ids[i], M, ntiles);
+    const int prev = i == 0 ? -1 : live_tile(ids[i - 1], M, ntiles);
+    for (int t = prev + 1; t <= cur; ++t) start[t] = i;
+    if (i == k - 1)
+      for (int t = cur + 1; t <= ntiles; ++t) start[t] = k;
+  }
+  if (k == 0 && blockIdx.x == 0)
+    for (int t = threadIdx.x; t <= ntiles; t += kThreads) start[t] = 0;
+  grid.sync();
+
+  // pass 2: each tile's nonempty segments (its segment-last rows)
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long lo = __ldcg(start + t), hi = __ldcg(start + t + 1);
+    int n = 0;
+    if (lo < hi) {  // the same in every thread
+      for (long i = lo + threadIdx.x; i < hi; i += kThreads) n += seg_last(ids, k, i);
+      n = pfs::block_sum<kThreads, int>(n, shi);
+    }
+    if (threadIdx.x == 0) counts[t] = n;
+  }
+  grid.sync();
+
+  // pass 3: the columns and the map
+  long before = 0, counted = 0;  // columns of tiles [0, counted)
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long m0 = (long)t * kLiveTile;
+    const int nseg = (long)M - m0 < kLiveTile ? (int)((long)M - m0) : kLiveTile;
+    const long lo = __ldcg(start + t), hi = __ldcg(start + t + 1);
+    if (lo == hi) {  // no rows: every segment empty
+      for (int s = threadIdx.x; s < nseg; s += kThreads) slot[m0 + s] = -1;
+      continue;
+    }
+    long add = 0;
+    for (long u = counted + threadIdx.x; u < t; u += kThreads) add += __ldcg(counts + u);
+    before += pfs::block_sum<kThreads, long>(add, shl);
+    counted = t;
+    for (int s = threadIdx.x; s < nseg; s += kThreads) slots[s] = -1;
+    __syncthreads();
+    int col = (int)before;  // the next column to number
+    int pending = 0;        // numbered rows in rows[] not yet moved
+    // move rows[first, first + n) to columns [c0, c0 + n), n <= kLiveCols
+    auto move = [&](int first, int n, int c0) {
+      for (int j = warp; j < n; j += kWarps) {
+        const float* row = scan + rows[first + j] * C;
+        for (int c = lane; c < C; c += 32) stage[c * ld + j] = place_value<kMin>(row[c], fill);
+      }
+      __syncthreads();
+      for (int c = warp; c < C; c += kWarps)
+        if (lane < n) live[(long)c * cap + c0 + lane] = stage[c * ld + lane];
+      __syncthreads();
+    };
+    for (long base = lo; base < hi; base += kThreads) {
+      const long i = base + threadIdx.x;
+      const bool last = i < hi && seg_last(ids, k, i);
+      int total;
+      const int pos = pfs::block_exclusive_scan<kThreads>(last, shi, &total);
+      if (last) {
+        slots[ids[i] - m0] = col + pos;
+        rows[pending + pos] = i;
+      }
+      col += total;
+      pending += total;
+      __syncthreads();
+      int done = 0;
+      for (; pending - done >= kLiveCols; done += kLiveCols) move(done, kLiveCols, col - pending + done);
+      if (done > 0) {
+        const int rest = pending - done;  // < kLiveCols <= done: no overlap
+        if (threadIdx.x < rest) rows[threadIdx.x] = rows[done + threadIdx.x];
+        pending = rest;
+        __syncthreads();
       }
     }
-  }
-  __syncthreads();
-  if (kChannelsFirst) {
-    for (int p = threadIdx.x; p < C * nseg; p += kThreads) {
-      const int c = p / nseg, s = p - c * nseg;
-      out[(long)c * M + m0 + s] = tile[c * ld + s];
-    }
-  } else {
-    float* dst = out + m0 * C;
-    for (int p = threadIdx.x; p < n; p += kThreads) dst[p] = tile[p];
+    if (pending > 0) move(0, pending, col - pending);
+    for (int s = threadIdx.x; s < nseg; s += kThreads) slot[m0 + s] = slots[s];
+    __syncthreads();
   }
 }
 
 }  // namespace
 
-// Segments a placement block owns: a multiple of 32, at most 1024, with
-// the tile within kPlaceFloats; 0 when C is too wide.
-static int place_segments(int C) {
-  const int s = (kPlaceFloats / C - 1) / 32 * 32;
-  return s < 32 ? 0 : (s > 1024 ? 1024 : s);
-}
-
-extern "C" int pfs_binned_place(const void* scan, const void* ids,
-                                long long k, int M, int C, int op_min,
-                                int channels_first, float fill, void* out,
-                                void* stream) {
-  if (M <= 0 || C <= 0) return 0;
-  const int S = place_segments(C);
-  if (S == 0) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((M + S - 1) / S);
-  const size_t smem = (size_t)(channels_first ? C * (S + 1) : S * C) * sizeof(float);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* v = static_cast<const float*>(scan);
+// The live placement: live (C, cap) with cap >= the nonempty in-range
+// segments (min(k, M) always is), slot (M,), and a workspace of
+// work_cap >= 2 ceil(M / kLiveTile) + 1 longs.  One cooperative launch.
+extern "C" int pfs_binned_place_live(const void* scan, const void* ids,
+                                     long long k, int M, int C, int op_min,
+                                     float fill, void* live, long long cap,
+                                     void* slot, void* work,
+                                     long long work_cap, void* stream) {
+  if (M <= 0) return 0;
+  if (C <= 0 || C > 256 || cap < 0) return (int)cudaErrorInvalidValue;
+  const long ntiles = ((long)M + kLiveTile - 1) / kLiveTile;
+  if (work_cap < 2 * ntiles + 1) return (int)cudaErrorInvalidValue;
+  const int smem = C * (kLiveCols + 1) * (int)sizeof(float);
+  const void* kernel = op_min ? (const void*)binned_place_live_kernel<true>
+                              : (const void*)binned_place_live_kernel<false>;
+  int grid = 0;
+  const long rows = (long)k > ntiles ? (long)k : ntiles;  // pass 1 walks the rows, passes 2-3 the tiles
+  cudaError_t e = pfs::coop_grid(kernel, rows, &grid, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  const float* sc = static_cast<const float*>(scan);
   const long long* id = static_cast<const long long*>(ids);
-  float* o = static_cast<float*>(out);
-  if (op_min) {
-    if (channels_first)
-      binned_place_kernel<true, true><<<blocks, kThreads, smem, st>>>(v, id, k, M, C, S, fill, o);
-    else
-      binned_place_kernel<true, false><<<blocks, kThreads, smem, st>>>(v, id, k, M, C, S, fill, o);
-  } else {
-    if (channels_first)
-      binned_place_kernel<false, true><<<blocks, kThreads, smem, st>>>(v, id, k, M, C, S, fill, o);
-    else
-      binned_place_kernel<false, false><<<blocks, kThreads, smem, st>>>(v, id, k, M, C, S, fill, o);
-  }
+  long kk = (long)k, cp = (long)cap;
+  float* lv = static_cast<float*>(live);
+  int* sl = static_cast<int*>(slot);
+  long* wk = static_cast<long*>(work);
+  void* args[] = {&sc, &id, &kk, &M, &C, &fill, &cp, &lv, &sl, &wk};
+  e = cudaLaunchCooperativeKernel(kernel, grid, kThreads, args, smem, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -101,6 +101,37 @@ __device__ __forceinline__ T block_sum(T v, T* sh) {
   return total;
 }
 
+// Exclusive prefix sum of one int a thread over a kBlock-thread block,
+// in thread order; *total gets the block's sum.  `sh` holds
+// kBlock / 32 + 1 ints.
+template <int kBlock = kThreads>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* sh, int* total) {
+  constexpr int kBlockWarps = kBlock / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) sh[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int s = lane < kBlockWarps ? sh[lane] : 0;
+    int si = s;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, si, o);
+      if (lane >= o) si += t;
+    }
+    if (lane < kBlockWarps) sh[lane] = si - s;
+    if (lane == kBlockWarps - 1) sh[kBlockWarps] = si;
+  }
+  __syncthreads();
+  const int out = sh[warp] + incl - v;
+  *total = sh[kBlockWarps];
+  __syncthreads();
+  return out;
+}
+
 // Grid-wide total of per-block partials part[j * stride + k] for
 // j < nblocks, summed in the same order by every block.  The partials
 // were written by other SMs before the last grid barrier, so they are

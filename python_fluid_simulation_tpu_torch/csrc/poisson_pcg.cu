@@ -132,34 +132,6 @@ __device__ __forceinline__ float coupling(const Args& a, float c, bool inside,
   return __fmul_rn(c, (inside && c != 0.f) ? direction(a, dold, j, beta) : 0.f);
 }
 
-// Exclusive prefix sum of one int a thread over the block, in thread
-// order; *total gets the block's sum.  `sh` holds kBlockWarps + 1 ints.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* sh, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += t;
-  }
-  if (lane == 31) sh[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int s = lane < kBlockWarps ? sh[lane] : 0;
-    int si = s;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, si, o);
-      if (lane >= o) si += t;
-    }
-    if (lane < kBlockWarps) sh[lane] = si - s;
-    if (lane == kBlockWarps - 1) sh[kBlockWarps] = si;
-  }
-  __syncthreads();
-  const int out = sh[warp] + incl - v;
-  *total = sh[kBlockWarps];
-  __syncthreads();
-  return out;
-}
-
 __global__ void __launch_bounds__(kBlock)
     poisson_pcg_kernel(const __grid_constant__ Args a) {
   cg::grid_group grid = cg::this_grid();
@@ -246,7 +218,7 @@ __global__ void __launch_bounds__(kBlock)
     const int w = w0 + threadIdx.x;
     unsigned word = w < wend ? __ldcg(a.flags + w) : 0u;
     int in_round = 0;
-    int pos = before + block_exclusive_scan(__popc(word), shi, &in_round);
+    int pos = before + pfs::block_exclusive_scan<kBlock>(__popc(word), shi, &in_round);
     while (word != 0u) {
       a.act[pos++] = w * 32 + __ffs(word) - 1;
       word &= word - 1u;

@@ -42,10 +42,10 @@ _SIGNATURES = {
     "pfs_coupled_stencil_matvec": [_P] * 4,
     "pfs_mg_level_chain": [_P] * 12 + [_I] * 5 + [_F, _P],
     "pfs_binned_reduce": [_P, _P, _L] + [_I] * 4 + [_F, _P, _P],
-    "pfs_binned_place": [_P, _P, _L] + [_I] * 4 + [_F, _P, _P],
+    "pfs_binned_place_live": [_P, _P, _L] + [_I] * 3 + [_F, _P, _L, _P, _P, _L, _P],
     "pfs_seg_scan": [_P, _P, _L, _I, _I, _P, _P],
     "pfs_binned_broadcast": [_P, _P, _L, _I, _I, _P, _P],
-    "pfs_fold": [_P, _L, _P] + [_I] * 9 + [_P, _F, _I, _P],
+    "pfs_fold": [_P] * 4 + [_I] * 9 + [_P, _F, _F, _I, _I, _P],
     "pfs_halo_grid_cap": [_P, _P],
     "pfs_halo_exchange": [_P] * 4 + [_I, _I, _L, _L, ctypes.c_uint, ctypes.c_uint, _I, _P],
 }

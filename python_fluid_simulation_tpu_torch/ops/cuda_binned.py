@@ -14,21 +14,22 @@ and ``csrc/seg_scan.cu``:
     sorted ids inside the kernel, the rows reduced serially in row order
     from ``fill`` (no atomics: bitwise repeatable, and the same order as
     ``torch.segment_reduce``);
-  * the scan reduce (`scan_reduce`): the inclusive segmented scan of the
-    rows (``ops/cuda_scan.py::seg_scan_sorted``, every row read once,
-    coalesced), then `place_segments` writes each segment's last row,
-    combined with ``fill``, into the table and ``fill`` everywhere else;
+  * the scan reduce (`scan_reduce`, the step's route): the inclusive
+    segmented scan of the rows (``ops/cuda_scan.py::seg_scan_sorted``,
+    every row read once, coalesced), then `place_live`, which writes each
+    segment's last row, combined with ``fill``, in live form: only the
+    nonempty segments' columns and a map over the segments, a
+    `LiveTable`, for at most `SCAN_CHANNELS` channels;
   * broadcast: a warp walks 32 sorted rows at a time, reads each run of
     equal ids' table row once and writes it to every row of the run (as
     float2 vectors where C is even), 0 for ids outside [0, M).
 
-All are bound by bytes.  `segment_reduce` takes one reduce route or the
-other by `_scan_route`, a function of the shapes alone (set from H100
-measurements of both routes on the step's reduces, PERF.md); the JAX
-package's gates (its 4e5-segment binned gate, ``PFS_SCAN_REDUCE``) are
-TPU trade-offs and do not carry over.  Both routes add in row order, so
-with ``fill`` = 0 (every add caller) they agree bitwise, and the min is
-order-free: the route changes the time, not the result.
+All are bound by bytes.  `segment_reduce` gives the dense table: the
+scan route expanded (`LiveTable.dense`) for at most `SCAN_CHANNELS`
+channels, the serial kernel for wider rows; the JAX package's gates (its
+4e5-segment binned gate, ``PFS_SCAN_REDUCE``) are TPU trade-offs and do
+not carry over.  Both routes add in row order, so with ``fill`` = 0
+(every add caller) they agree bitwise, and the min is order-free.
 
 Contract (the same on every route): ``sorted_ids`` is non-decreasing
 int64; rows whose id lies outside [0, M) (negative ids included) are
@@ -37,10 +38,15 @@ dropped by the reduce and read 0 in the broadcast; ``min`` is clamped at
 
 Routing: a CUDA tensor launches the kernels; a CPU tensor takes the same
 route and runs its plain versions (`segment_reduce_plain`,
-`scan_reduce_plain`, `segment_broadcast_plain`).
+`scan_reduce_plain`, `place_live_plain`, `segment_broadcast_plain`;
+`place_segments_plain` is the dense placement's, the yardstick of the
+live form).
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -49,6 +55,47 @@ from python_fluid_simulation_tpu_torch.ops.cuda_scan import MAX_CHANNELS as SCAN
 from python_fluid_simulation_tpu_torch.ops.cuda_scan import combine, seg_scan_sorted, seg_scan_sorted_plain
 
 _OPS = {"add": "sum", "min": "min"}
+
+
+@dataclasses.dataclass(frozen=True)
+class LiveTable:
+    """A channel-major segment table in live form: only the nonempty
+    segments' columns, and a map over the segments.
+
+    Channel k, segment m holds ``live[channels[k], slot[m]]`` where
+    ``slot[m] >= 0`` and ``fill`` where ``slot[m] == -1`` (an empty
+    segment).  ``live`` is (C, cap) float32 with contiguous rows: column j
+    is the j-th nonempty segment in ascending id order, and the columns
+    past the last nonempty segment are never written.  ``slot`` is (M,)
+    int32 over the segments of ``grid_shape`` (M = its product, z
+    fastest).  Selecting channels (a slice or a list of ints) shares the
+    columns and the map; nothing is copied.
+    """
+
+    live: torch.Tensor
+    slot: torch.Tensor
+    grid_shape: Tuple[int, ...]
+    fill: float
+    channels: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (len(self.channels),) + tuple(self.grid_shape)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            chans = self.channels[idx]
+        else:
+            chans = tuple(self.channels[int(i)] for i in idx)
+        return dataclasses.replace(self, channels=chans)
+
+    def dense(self) -> torch.Tensor:
+        """The dense (C, *grid_shape) table (the plain expansion)."""
+        live = self.live[list(self.channels)]
+        full = torch.full((live.shape[0], self.slot.shape[0]), float(self.fill), dtype=live.dtype, device=live.device)
+        has = self.slot >= 0
+        full[:, has] = live[:, self.slot[has].long()]
+        return full.reshape(self.shape)
 
 
 def _offsets(sorted_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -100,25 +147,17 @@ def _check_rows(name, vals, sorted_ids):
                          f"{sorted_ids.dtype} {tuple(sorted_ids.shape)} on {sorted_ids.device}")
 
 
-def _scan_route(op: str, k: int, m: int, c: int) -> bool:
-    """Whether `segment_reduce` takes the scan route for K rows of C
-    channels onto M segments (otherwise the serial kernel).
-
-    Set from H100 measurements of both routes on every reduce of a step
-    at five sizes (PERF.md §6, ``chip_smoke.py``'s gate sweep): the scan
-    route was the faster on all 20, by 1.2x to 4.4x (K 74k-2.9M rows,
-    M 0.18M-8.3M segments, C 54-135, add and min), so it takes every
-    reduce its kernels take, up to `SCAN_CHANNELS` channels."""
-    return c <= SCAN_CHANNELS
-
-
 def segment_reduce(vals, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0, channels_first: bool = False):
-    """Reduce the (K, C) rows of each segment: (M, C), or (C, M) with
-    `channels_first`; by the route `_scan_route` picks for the shapes."""
+    """Reduce the (K, C) rows of each segment into the dense table: (M, C),
+    or (C, M) with `channels_first`.  The scan route's live form expanded
+    for at most `SCAN_CHANNELS` channels (the scan kernels' limit), the
+    serial kernel for wider rows."""
     if op not in _OPS:
         raise ValueError(f"segment_reduce: op must be one of {tuple(_OPS)}, got {op!r}")
-    route = scan_reduce if _scan_route(op, vals.shape[0], int(num_segments), vals.shape[-1]) else serial_reduce
-    return route(vals, sorted_ids, num_segments, op, fill, channels_first)
+    if vals.shape[-1] > SCAN_CHANNELS:
+        return serial_reduce(vals, sorted_ids, num_segments, op, fill, channels_first)
+    table = scan_reduce(vals, sorted_ids, num_segments, op, fill).dense()
+    return table if channels_first else table.t().contiguous()
 
 
 def serial_reduce(vals, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0, channels_first: bool = False):
@@ -167,46 +206,66 @@ def place_segments_plain(scanned, sorted_ids, num_segments: int, op: str = "add"
     return out.t().contiguous() if channels_first else out
 
 
-def place_segments(scanned, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0,
-                   channels_first: bool = False):
-    """`place_segments_plain`; on CUDA one launch of the placement kernel,
-    for at most `SCAN_CHANNELS` channels."""
-    if scanned.device.type == "cpu":
-        return place_segments_plain(scanned, sorted_ids, num_segments, op, fill, channels_first)
-    if scanned.device.type != "cuda":
-        raise ValueError(f"place_segments: unsupported device {scanned.device}")
-    _check_rows("place_segments", scanned, sorted_ids)
+def place_live_plain(scanned, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0) -> LiveTable:
+    """`place_segments_plain` in live form: the nonempty segments'
+    columns (each segment's last scanned row combined with `fill`, in
+    ascending id order) and their map; (M,) grid, every channel."""
     k, c = scanned.shape
+    last = torch.ones(k, dtype=torch.bool, device=scanned.device)
+    torch.ne(sorted_ids[1:], sorted_ids[:-1], out=last[:-1])
+    keep = last & (sorted_ids >= 0) & (sorted_ids < num_segments)
+    rows = scanned[keep]
+    live = torch.empty((c, min(k, num_segments)), dtype=scanned.dtype, device=scanned.device)
+    live[:, : rows.shape[0]] = combine(torch.full_like(rows, float(fill)), rows, op).t()
+    slot = torch.full((num_segments,), -1, dtype=torch.int32, device=scanned.device)
+    slot[sorted_ids[keep]] = torch.arange(rows.shape[0], dtype=torch.int32, device=scanned.device)
+    return LiveTable(live, slot, (int(num_segments),), float(fill), tuple(range(c)))
+
+
+LIVE_TILE = 512  # segments a live-placement tile covers (kLiveTile, csrc/binned_segment.cu)
+
+
+def place_live(scanned, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0) -> LiveTable:
+    """`place_live_plain`; on CUDA one cooperative launch of the live
+    placement kernel, for at most `SCAN_CHANNELS` channels.  The table has
+    min(K, M) columns (no host read of the nonempty count)."""
+    if scanned.device.type == "cpu":
+        return place_live_plain(scanned, sorted_ids, num_segments, op, fill)
+    if scanned.device.type != "cuda":
+        raise ValueError(f"place_live: unsupported device {scanned.device}")
+    _check_rows("place_live", scanned, sorted_ids)
+    k, c = scanned.shape
+    m = int(num_segments)
     if sorted_ids.shape[0] != k:
-        raise ValueError(f"place_segments: {sorted_ids.shape[0]} ids for {k} rows")
-    _check_extents("place_segments", int(num_segments), c)
+        raise ValueError(f"place_live: {sorted_ids.shape[0]} ids for {k} rows")
+    _check_extents("place_live", m, c)
     if c > SCAN_CHANNELS:
-        raise ValueError(f"place_segments: at most {SCAN_CHANNELS} channels, got {c}")
-    out = torch.empty((c, num_segments) if channels_first else (num_segments, c), dtype=scanned.dtype,
-                      device=scanned.device)
-    err = cb.LIB.get().pfs_binned_place(
-        scanned.data_ptr(), sorted_ids.data_ptr(), k, int(num_segments), c, int(op == "min"),
-        int(channels_first), float(fill), out.data_ptr(), cb.stream_of(scanned),
+        raise ValueError(f"place_live: at most {SCAN_CHANNELS} channels, got {c}")
+    cap = min(k, m)
+    live = torch.empty((c, cap), dtype=scanned.dtype, device=scanned.device)
+    slot = torch.empty((m,), dtype=torch.int32, device=scanned.device)
+    work = torch.empty((2 * -(-m // LIVE_TILE) + 1,), dtype=torch.int64, device=scanned.device)  # tile starts, counts
+    err = cb.LIB.get().pfs_binned_place_live(
+        scanned.data_ptr(), sorted_ids.data_ptr(), k, m, c, int(op == "min"), float(fill),
+        live.data_ptr(), cap, slot.data_ptr(), work.data_ptr(), work.numel(), cb.stream_of(scanned),
     )
-    cb.check(err, "binned_segment_place launch")
-    place_segments.launches += 1
-    return out
+    cb.check(err, "binned_segment_place_live launch")
+    place_live.launches += 1
+    return LiveTable(live, slot, (m,), float(fill), tuple(range(c)))
 
 
-place_segments.launches = 0
+place_live.launches = 0
 
 
-def scan_reduce(vals, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0, channels_first: bool = False):
-    """The scan route: `seg_scan_sorted` of the rows, then
-    `place_segments`; the plain versions on the CPU."""
-    scanned = seg_scan_sorted(vals, segment_same(sorted_ids), op)
-    return place_segments(scanned, sorted_ids, num_segments, op, fill, channels_first)
+def scan_reduce(vals, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0) -> LiveTable:
+    """The scan route in live form: `seg_scan_sorted` of the rows, then
+    `place_live`; the plain versions on the CPU."""
+    return place_live(seg_scan_sorted(vals, segment_same(sorted_ids), op), sorted_ids, num_segments, op, fill)
 
 
-def scan_reduce_plain(vals, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0,
-                      channels_first: bool = False):
-    scanned = seg_scan_sorted_plain(vals, segment_same(sorted_ids), op)
-    return place_segments_plain(scanned, sorted_ids, num_segments, op, fill, channels_first)
+def scan_reduce_plain(vals, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0) -> LiveTable:
+    return place_live_plain(seg_scan_sorted_plain(vals, segment_same(sorted_ids), op), sorted_ids, num_segments, op,
+                            fill)
 
 
 def segment_broadcast(table, sorted_ids):

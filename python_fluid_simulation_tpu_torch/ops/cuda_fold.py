@@ -9,15 +9,19 @@ e on the target ``t = clip(e + s_c, 0, N - 1)`` per axis (the reference's
 per-corner border clamp, cell 2 :128), combining by add or min, ``fill``
 where nothing lands.
 
-On Hopper it is one launch (``csrc/fold.cu``): one thread per target
-cell walks the source positions of each channel that land on it, so the
-table is read once and the grid written once; it is bound by those bytes
-(the level set's 125-channel min table at 64x256x64 is 524 MB).  The
-plain version folds axis by axis on whole channel blocks and then
-resolves the clipped border planes (`fold_clip`), in the same order of
-operations as the kernel: the clipped planes combine in a left fold
-(not ``torch.sum``'s order), so kernel and plain version agree bitwise,
-sums included.
+The table is dense (a (C, E0, E1, E2) tensor, any channel stride) or
+the scatter's live form (``ops/cuda_binned.py::LiveTable``: the nonempty
+source cells' columns and a map over the cells).  On Hopper either is
+one launch of ``csrc/fold.cu``: a block owns a tile of targets; in the
+live form it stages the map over the tile's source box in shared memory,
+writes ``fill`` at the targets with no nonempty source (most of them)
+and walks only the nonempty columns for the rest, so it is bound by the
+map, the nonempty columns and the grid's bytes.  The plain version folds
+axis by axis on whole channel blocks and then resolves the clipped
+border planes (`fold_clip`), in the same order of operations as the
+kernel: the clipped planes combine in a left fold (not ``torch.sum``'s
+order), so kernel and plain version agree bitwise, sums included; a live
+table's plain fold is `fold_plain` of its dense expansion.
 
 Routing: a CUDA tensor launches the kernel; a CPU tensor runs
 `fold_plain`.
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
+from python_fluid_simulation_tpu_torch.ops.cuda_binned import LiveTable
 from python_fluid_simulation_tpu_torch.ops.indexing import sample
 
 MAX_SHIFTS = 5  # shifts per axis the kernel takes
@@ -44,15 +49,18 @@ def _combine(acc, piece, combine):
     return acc + piece if combine == "add" else torch.minimum(acc, piece)
 
 
-def fold_plain(seg: torch.Tensor, axis_shifts, out_shape: Sequence[int], combine: str = "add", fill=0.0) -> torch.Tensor:
+def fold_plain(seg, axis_shifts, out_shape: Sequence[int], combine: str = "add", fill=0.0) -> torch.Tensor:
     """Combine per-corner segment grids onto clipped targets, separably.
 
     seg: (K, G...) with channel k = lexicographic index into
-    product(axis_shifts); channel k contributes to target
+    product(axis_shifts), or a `LiveTable` (folded as its dense
+    expansion); channel k contributes to target
     t = clip(grid_index + shifts[k], 0, out_n - 1) per axis.  Folds axis
     by axis on whole channel blocks, then `fold_clip` resolves the
     border clamping.
     """
+    if isinstance(seg, LiveTable):
+        seg = seg.dense()
     d = len(out_shape)
     sizes = [len(s) for s in axis_shifts]
     min_s = [min(s) for s in axis_shifts]
@@ -116,38 +124,63 @@ def fold_clip(field: torch.Tensor, shifts: Sequence[int], out_shape: Sequence[in
     return out
 
 
-def fold(seg: torch.Tensor, axis_shifts, out_shape: Sequence[int], combine: str = "add", fill=0.0) -> torch.Tensor:
+def fold_shortcut(table_fill, fill, combine: str) -> bool:
+    """Whether a target whose every source reads `fill` may write `fill`
+    without combining them: the empty cells hold `fill` too (bitwise), it
+    is not NaN, and combine(fill, fill) == fill (min, or add of a zero)."""
+    f, t = np.float32(fill), np.float32(table_fill)
+    if f.tobytes() != t.tobytes() or np.isnan(f):
+        return False
+    return combine == "min" or (f + f).tobytes() == f.tobytes()
+
+
+def fold(seg, axis_shifts, out_shape: Sequence[int], combine: str = "add", fill=0.0) -> torch.Tensor:
     """The fold of `fold_plain`; on CUDA one kernel launch.
 
-    The kernel takes a 3D fold of a float32 (C, E0, E1, E2) table whose
-    three grid dims are contiguous (any channel stride: the callers pass
-    channel slices of one table) with at most `MAX_SHIFTS` shifts an axis,
-    onto at most `MAX_TARGETS` cells.
+    The kernel takes a 3D fold of a float32 table -- a (C, E0, E1, E2)
+    tensor whose three grid dims are contiguous (any channel stride: the
+    callers pass channel slices of one table), or a `LiveTable` over an
+    (E0, E1, E2) grid -- with at most `MAX_SHIFTS` shifts an axis, onto at
+    most `MAX_TARGETS` cells.
     """
-    if seg.device.type == "cpu":
+    live = isinstance(seg, LiveTable)
+    dev = (seg.live if live else seg).device
+    if dev.type == "cpu":
         return fold_plain(seg, axis_shifts, out_shape, combine, fill)
-    if seg.device.type != "cuda":
-        raise ValueError(f"fold: unsupported device {seg.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"fold: unsupported device {dev}")
     shifts = [tuple(int(s) for s in a) for a in axis_shifts]
     n_ch = int(np.prod([len(s) for s in shifts]))
-    if len(out_shape) != 3 or seg.ndim != 4 or len(shifts) != 3:
+    if len(out_shape) != 3 or len(seg.shape) != 4 or len(shifts) != 3:
         raise ValueError(f"fold: 3D folds only, got seg {tuple(seg.shape)} onto {tuple(out_shape)}")
-    if seg.dtype != torch.float32 or seg.shape[0] != n_ch or any(len(s) > MAX_SHIFTS for s in shifts):
+    values = seg.live if live else seg
+    if values.dtype != torch.float32 or seg.shape[0] != n_ch or any(len(s) > MAX_SHIFTS for s in shifts):
         raise ValueError(f"fold: need float32 ({n_ch}, E0, E1, E2) and <= {MAX_SHIFTS} shifts an axis, "
-                         f"got {seg.dtype} {tuple(seg.shape)}, shifts {shifts}")
+                         f"got {values.dtype} {tuple(seg.shape)}, shifts {shifts}")
     _, e0, e1, e2 = (int(v) for v in seg.shape)
-    if seg.stride()[1:] != (e1 * e2, e2, 1):
-        raise ValueError(f"fold: the grid dims of seg must be contiguous, strides {seg.stride()}")
+    if live:
+        if (values.ndim != 2 or values.stride(1) != 1 or seg.slot.dtype != torch.int32
+                or not seg.slot.is_contiguous() or seg.slot.shape != (e0 * e1 * e2,) or seg.slot.device != dev):
+            raise ValueError("fold: a live table needs (C, cap) columns with contiguous rows and an int32 map "
+                             f"over its {e0 * e1 * e2} cells on {dev}")
+        choff = [c * values.stride(0) for c in seg.channels]
+        slot, table_fill = seg.slot.data_ptr(), seg.fill
+    else:
+        if seg.stride()[1:] != (e1 * e2, e2, 1):
+            raise ValueError(f"fold: the grid dims of seg must be contiguous, strides {seg.stride()}")
+        choff = [c * seg.stride(0) for c in range(n_ch)]
+        slot, table_fill = None, fill
     if int(np.prod([int(n) for n in out_shape])) > MAX_TARGETS:
         raise ValueError(f"fold: more than {MAX_TARGETS} targets {tuple(out_shape)}")
     if combine not in ("add", "min"):
         raise ValueError(f"fold: unknown combine {combine!r}")
-    out = torch.empty(tuple(int(n) for n in out_shape), dtype=torch.float32, device=seg.device)
+    out = torch.empty(tuple(int(n) for n in out_shape), dtype=torch.float32, device=dev)
     flat = [s for a in shifts for s in a]
     err = cb.LIB.get().pfs_fold(
-        seg.data_ptr(), int(seg.stride()[0]), out.data_ptr(), e0, e1, e2, *out.shape,
+        values.data_ptr(), (ctypes.c_longlong * n_ch)(*choff), slot, out.data_ptr(), e0, e1, e2, *out.shape,
         *[len(s) for s in shifts], (ctypes.c_int * len(flat))(*flat), float(np.float32(fill)),
-        int(combine == "min"), cb.stream_of(seg),
+        float(np.float32(table_fill)), int(fold_shortcut(table_fill, fill, combine)), int(combine == "min"),
+        cb.stream_of(values),
     )
     cb.check(err, "fold launch")
     fold.launches += 1

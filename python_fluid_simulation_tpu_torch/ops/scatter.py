@@ -7,7 +7,9 @@ sort of the per-particle home-cell ids, then
     ``out[i] = table[sorted_ids[i]]`` — the kernels of
     ``ops/cuda_binned.py`` (a reduce adds each segment's rows in row
     order, on either of its routes, so the sums are bitwise repeatable,
-    no atomics), whose plain versions run on the CPU,
+    no atomics), whose plain versions run on the CPU; the transfers'
+    per-cell tables come in live form (`segment_reduce_cf`: only the
+    nonempty cells' columns and a map over the cells),
   * per-corner-offset folds of the per-cell tables onto the grid that
     reproduce the reference's per-corner border clamping
     (``max(0, min(gres-1, gi + offs))``, cell 2 :128) — the fold kernel
@@ -19,11 +21,12 @@ and read 0 in the broadcast.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence, Tuple
 
 import torch
 
-from python_fluid_simulation_tpu_torch.ops.cuda_binned import segment_broadcast, segment_reduce
+from python_fluid_simulation_tpu_torch.ops.cuda_binned import LiveTable, scan_reduce, segment_broadcast, segment_reduce
 from python_fluid_simulation_tpu_torch.ops.cuda_fold import fold
 
 
@@ -60,11 +63,16 @@ def segment_broadcast_sorted(table: torch.Tensor, sorted_ids: torch.Tensor) -> t
     return out.reshape(tuple(sorted_ids.shape) + tuple(table.shape[1:]))
 
 
-def segment_reduce_cf(vals, sorted_ids, num_segments: int, grid_shape: Sequence[int], op: str = "add", fill=0.0):
-    """Segmented reduce of (K, C) rows emitted channels-first:
-    (C, *grid_shape)."""
-    out = segment_reduce(vals.contiguous(), sorted_ids.contiguous(), num_segments, op, float(fill), channels_first=True)
-    return out.reshape((vals.shape[-1],) + tuple(grid_shape))
+def segment_reduce_cf(vals, sorted_ids, num_segments: int, grid_shape: Sequence[int], op: str = "add",
+                      fill=0.0) -> LiveTable:
+    """Segmented reduce of (K, C) rows emitted channels-first over
+    `grid_shape`, in live form: a `LiveTable` of shape (C, *grid_shape)
+    (its `dense()` is the (C, *grid_shape) table) for
+    `fold_scattered_sep`; channel slices and lists share its columns.
+    The scan route (`scan_reduce`), the only one that writes the live
+    form: on the card at most `cuda_binned.SCAN_CHANNELS` (256) channels."""
+    table = scan_reduce(vals.contiguous(), sorted_ids.contiguous(), num_segments, op, float(fill))
+    return dataclasses.replace(table, grid_shape=tuple(int(n) for n in grid_shape))
 
 
 def unsort_rows(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -86,9 +94,10 @@ def home_ids_extended(gi: torch.Tensor, gres: Sequence[int]) -> Tuple[torch.Tens
     return idx, ext
 
 
-def fold_scattered_sep(seg: torch.Tensor, axis_shifts, out_shape: Sequence[int], combine: str = "add", fill=0.0) -> torch.Tensor:
+def fold_scattered_sep(seg, axis_shifts, out_shape: Sequence[int], combine: str = "add", fill=0.0) -> torch.Tensor:
     """Combine per-corner segment grids onto clipped targets: channel k
-    (lexicographic index into product(axis_shifts)) of seg (K, G...)
-    contributes to target t = clip(grid_index + shifts[k], 0, out_n - 1)
-    per axis (``ops/cuda_fold.py``: one kernel launch on the card)."""
+    (lexicographic index into product(axis_shifts)) of seg (K, G...), a
+    tensor or a `LiveTable`, contributes to target
+    t = clip(grid_index + shifts[k], 0, out_n - 1) per axis
+    (``ops/cuda_fold.py``: one kernel launch on the card)."""
     return fold(seg, axis_shifts, out_shape, combine, fill)

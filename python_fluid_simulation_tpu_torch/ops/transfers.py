@@ -235,8 +235,7 @@ def _volume_classes(vol_cf, vol_rs, gres, fine_vol):
         class_res = tuple(int(n) + 1 if pp == 0 else int(n) for n, pp in zip(gres, p))
         sel = [i for i, r in enumerate(vol_rs) if all(ra % 2 == pa for ra, pa in zip(r, p))]
         axis_shifts = [(-1, 0) if pp == 0 else (-1,) for pp in p]
-        sub = vol_cf.index_select(0, const(tuple(sel), torch.int64, vol_cf.device))
-        vol = fold_scattered_sep(sub, axis_shifts, class_res, "add", 0.0)
+        vol = fold_scattered_sep(vol_cf[sel], axis_shifts, class_res, "add", 0.0)
         classes[p] = torch.clamp(vol, max=fine_vol)
     return classes
 

@@ -26,7 +26,9 @@ fp32 (TF32 off), or with ``--unet-bf16`` computing in bf16.  ``--mesh 4``
 runs the sharded step on ``make_mesh(4)``, ``--mesh 2x2`` on
 ``make_mesh2d((2, 2))`` (the slots share the card; the state padded by
 ``shard_state``).  Every fold
-call is a ``pfs_fold`` range in the profile, every learned-operator call
+call is a ``pfs_fold`` range in the profile, every live placement of a
+segment reduce (``ops/cuda_binned.py::place_live``) a ``pfs_place`` range,
+every learned-operator call
 (features, network, extraction) a ``pfs_unet_delta_v`` range.  3 warm-up steps, then ``--steps``
 steps timed on the host clock without the profiler, then ``--steps``
 steps under ``torch.profiler`` (CPU + CUDA activities).  Prints one JSON
@@ -35,7 +37,8 @@ kernel and memcpy/memset intervals: the halo kernels of a mesh's slots
 overlap on their streams), the idle
 share, the CUDA runtime calls per step (kernel launches, cooperative
 launches, stream synchronisations), the device time and launches of the
-port's own kernels, and the top operators by device and by host time;
+port's own kernels, the peak device memory, and the top operators by
+device and by host time;
 writes the full ``key_averages`` tables to
 ``<out>/profile_step[_<scene>][_<R>][_<precond>][_nojacobi][_dtscaled][_<mode>[_bf16]][_mesh<M>].txt``.
 `profile_steps` is the same measurement for any step function
@@ -46,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -101,8 +105,8 @@ def profile_steps(step, state, steps: int):
     own = {}  # the port's kernels, by name
     for e in kernels:
         name = e.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0].split("<")[0].strip()
-        if name.endswith("_kernel") and any(k in name for k in ("pcg", "stencil", "mg_level", "binned", "seg_scan", "fold",
-                                                                "matvec", "halo")):
+        if name.endswith("_kernel") and any(k in name for k in ("pcg", "stencil", "mg_level", "binned", "place_live",
+                                                                "seg_scan", "fold", "matvec", "halo")):
             n, us = own.get(name, (0, 0.0))
             own[name] = (n + 1, us + e.time_range.elapsed_us())
 
@@ -121,9 +125,10 @@ def profile_steps(step, state, steps: int):
 
     busy_ms = busy_us / 1e3 / steps
     summary = {
-        # the folds' ranges: host time (CPU total) and the device time of
-        # the kernels they launched, per step
+        # the folds' and the live placements' ranges: host time (CPU
+        # total) and the device time of the kernels they launched, per step
         "fold_per_step": ranges("pfs_fold"),
+        "place_per_step": ranges("pfs_place"),
         # the learned operator's range (features, network, extraction)
         "unet_delta_v_per_step": ranges("pfs_unet_delta_v"),
         "steps": steps,
@@ -155,7 +160,7 @@ def main() -> int:
     from python_fluid_simulation_tpu_torch.engine import step as step_mod
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
     from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
-    from python_fluid_simulation_tpu_torch.ops import cuda_fold, scatter
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_fold, scatter
     from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, make_mesh2d, shard_state
 
     ap = argparse.ArgumentParser()
@@ -199,6 +204,15 @@ def main() -> int:
         with record_function("pfs_fold"):
             return cuda_fold.fold(*a, **kw)
 
+    place_live = cuda_binned.place_live
+
+    # wraps: the range carries place_live's attributes, so the launch count
+    # place_live keeps under its module name stays an attribute to add to
+    @functools.wraps(place_live)
+    def place_range(*a, **kw):
+        with record_function("pfs_place"):
+            return place_live(*a, **kw)
+
     unet_delta_v = step_mod.unet_delta_v
 
     def unet_range(*a, **kw):
@@ -206,6 +220,7 @@ def main() -> int:
             return unet_delta_v(*a, **kw)
 
     scatter.fold = fold_range
+    cuda_binned.place_live = place_range
     step_mod.unet_delta_v = unet_range
     mesh = None
     if args.mesh:
@@ -213,6 +228,8 @@ def main() -> int:
         mesh = make_mesh2d((int(sx), int(sz))) if sz else make_mesh(int(sx))
         state = shard_state(state, mesh)
     geom = build_geom_cache(state.solid, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
         state, _ = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh)
     torch.cuda.synchronize()
@@ -239,6 +256,8 @@ def main() -> int:
         "mesh": None if mesh is None else mesh.shape,
         "visc_mg_after": int(torch.as_tensor(state.visc_mg)),
         "unprofiled_step_ms": plain_ms,
+        # the peak over the warm-up, timed and profiled steps
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
         **summary,
     }
     os.makedirs(args.out, exist_ok=True)

@@ -11,9 +11,10 @@ on O(1) values of up to 409 rows (test_pallas.py's tolerance for the TPU
 kernel against a float64 sum), against both the TPU kernel and a float64
 sum: the TPU kernel adds a chunk-crossing segment as chunk partials, the
 port adds every segment's rows in one pass in row order, and the two
-differ by ~2e-5 on that segment.  ``segment_reduce`` takes the route
-its gate picks for the shapes (the scan route here); both routes add in
-row order and agree bitwise (tests/test_torch_scan.py).
+differ by ~2e-5 on that segment.  ``segment_reduce`` takes the scan
+route (its live form expanded) up to 256 channels, the serial kernel
+above; both routes add in row order and agree bitwise
+(tests/test_torch_scan.py).
 """
 
 import jax.numpy as jnp
@@ -56,7 +57,7 @@ def _numpy_reduce(ids, vals, m, op, fill):
 @pytest.mark.parametrize("op,fill", [("add", 0.0), ("min", 0.5)])
 def test_reduce_plain_matches_binned_kernel(op, fill, channels_first):
     ids, vals, m = _rows(7)
-    counts = (cuda_binned.serial_reduce, cuda_scan.seg_scan_sorted, cuda_binned.place_segments)
+    counts = (cuda_binned.serial_reduce, cuda_scan.seg_scan_sorted, cuda_binned.place_live)
     before = [w.launches for w in counts]
     got = cuda_binned.segment_reduce(torch.from_numpy(vals), torch.from_numpy(ids), m, op, fill, channels_first)
     assert [w.launches for w in counts] == before  # the CPU runs the plain versions
@@ -96,7 +97,8 @@ def test_broadcast_plain_matches_binned_kernel():
 
 def test_scatter_entry_points_route_through_the_wrappers():
     """``ops/scatter.py`` keeps its contracts on top of the wrappers:
-    (K,) and (K, C) rows, channels-first grids, tables of any width."""
+    (K,) and (K, C) rows, channels-first grids (in live form, expanded by
+    ``dense()``), tables of any width."""
     ids, vals, m = _rows(3, k=600, c=8, m=40)
     t_ids, t_vals = torch.from_numpy(ids), torch.from_numpy(vals)
     np.testing.assert_allclose(scatter.segment_sum_sorted(t_vals[:, 2], t_ids, m).numpy(),
@@ -105,7 +107,8 @@ def test_scatter_entry_points_route_through_the_wrappers():
                                   _numpy_reduce(ids, vals, m, "min", 0.25).astype(np.float32))
     cf = scatter.segment_reduce_cf(t_vals, t_ids, m, (5, 8), "min", 0.25)
     assert cf.shape == (8, 5, 8)
-    np.testing.assert_array_equal(cf.reshape(8, m).t().numpy(), scatter.segment_min_sorted(t_vals, t_ids, m, 0.25).numpy())
+    np.testing.assert_array_equal(cf.dense().reshape(8, m).t().numpy(),
+                                  scatter.segment_min_sorted(t_vals, t_ids, m, 0.25).numpy())
     table = torch.from_numpy(vals[:m, :3].copy())
     b = scatter.segment_broadcast_sorted(table[:, 1], t_ids)
     assert b.shape == (600,)

@@ -1,7 +1,7 @@
 """The scan route of the port's segmented reduce (rows 11 and 13 of the
 kernel table: ``ops/cuda_scan.py::seg_scan_sorted``, ``csrc/seg_scan.cu``,
-and ``ops/cuda_binned.py::scan_reduce`` / ``place_segments``) against the
-JAX package on CPU, and the gate that picks it.
+and ``ops/cuda_binned.py::scan_reduce`` / ``place_live``) against the
+JAX package on CPU, and the channel limit that routes ``segment_reduce``.
 
 * The scan's plain version against ``pallas_segscan.seg_scan_sorted(...,
   interpret=True)`` (tests/test_scatter.py's inputs: K = 2 * 2048 + 513
@@ -9,16 +9,16 @@ JAX package on CPU, and the gate that picks it.
   C in {3, 54, 125}.  Tolerances: min bitwise (order-free); add rtol 2e-6
   and atol 2e-6 of max |value|: the JAX kernel adds a 128-row tile as a
   masked matmul and carries across blocks, the port adds in row order.
-* The scan route (scan, then placement) against the JAX
+* The scan route (scan, then the live placement, expanded) against the JAX
   ``binned_segment_reduce`` with ``PFS_SCAN_REDUCE=1`` (interpret mode,
   tests/test_pallas.py's K 9000, C 54, M 5000 with a segment across the
   TPU kernel's 2048-row chunks), both layouts, add and min with fill 9.5,
   ids outside [0, M).  Same tolerances.
 * The scan route against the serial route in the port: bitwise (both add
   in row order; fill = 0 for add, as every add caller passes).
-* The gate's cases, and one flagship step with every reduce sent to the
-  scan route against the exact-sum JAX step (tests/test_torch_flagship.py's
-  recipe and bounds).
+* The route by width, and one flagship step on the scan route against the
+  exact-sum JAX step (tests/test_torch_flagship.py's recipe and bounds) and
+  against the same step on the serial route's dense tables.
 * ``scaled_buckling_config(256)`` against the JAX config.  The JAX scene
   at that size seeds 2.9M particles in ~35 s on the CPU, so the particle
   count is checked on the card (chip_smoke.py), not here.
@@ -38,7 +38,8 @@ from python_fluid_simulation_tpu.ops.pallas_segscan import _BLOCK, seg_scan_sort
 from python_fluid_simulation_tpu_torch.convert import state_from_numpy
 from python_fluid_simulation_tpu_torch.engine.scenes import buckling_config, scaled_buckling_config
 from python_fluid_simulation_tpu_torch.engine.step import simulate
-from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_scan, scatter
+from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_scan, levelset, scatter, transfers
+from python_fluid_simulation_tpu_torch.solvers import density
 
 torch.set_num_threads(1)
 
@@ -53,7 +54,7 @@ def _assert_add_close(got, want, msg=""):
 
 def _launch_counts():
     return (cuda_binned.serial_reduce.launches, cuda_scan.seg_scan_sorted.launches,
-            cuda_binned.place_segments.launches)
+            cuda_binned.place_live.launches)
 
 
 def _segscan_rows(c):
@@ -86,6 +87,12 @@ def test_seg_scan_matches_pallas_interpret(op, c):
     np.testing.assert_array_equal(got[~same], vals[~same])
 
 
+def _dense(table, channels_first):
+    """A live table's dense expansion in the layout asked for."""
+    out = table.dense()
+    return out if channels_first else out.t().contiguous()
+
+
 def _reduce_rows(seed=9, k=9000, c=54, m=5000):
     rng = np.random.default_rng(seed)
     ids = np.sort(rng.integers(0, m, k))
@@ -103,7 +110,8 @@ def _reduce_rows(seed=9, k=9000, c=54, m=5000):
 def test_scan_reduce_matches_pallas_scan_mode(op, fill, channels_first, monkeypatch):
     ids, vals, m = _reduce_rows()
     before = _launch_counts()
-    got = cuda_binned.scan_reduce(torch.from_numpy(vals), torch.from_numpy(ids), m, op, fill, channels_first).numpy()
+    got = _dense(cuda_binned.scan_reduce(torch.from_numpy(vals), torch.from_numpy(ids), m, op, fill),
+                 channels_first).numpy()
     assert _launch_counts() == before
     monkeypatch.setenv("PFS_SCAN_REDUCE", "1")
     binned_segment_reduce._clear_cache()  # the switch is read when the function is traced
@@ -125,10 +133,11 @@ def test_scan_reduce_matches_pallas_scan_mode(op, fill, channels_first, monkeypa
 def test_scan_route_is_bitwise_the_serial_route(op, fill, channels_first):
     ids, vals, m = _reduce_rows(seed=4, c=27)
     vals[5, 3] = -0.0
-    args = (torch.from_numpy(vals), torch.from_numpy(ids), m, op, fill, channels_first)
-    scan, serial = cuda_binned.scan_reduce(*args), cuda_binned.serial_reduce(*args)
+    args = (torch.from_numpy(vals), torch.from_numpy(ids), m, op, fill)
+    scan, serial = _dense(cuda_binned.scan_reduce(*args), channels_first), cuda_binned.serial_reduce(*args, channels_first)
     assert torch.equal(scan, serial)
-    assert torch.equal(cuda_binned.scan_reduce_plain(*args), scan)
+    assert torch.equal(_dense(cuda_binned.scan_reduce_plain(*args), channels_first), scan)
+    assert torch.equal(cuda_binned.segment_reduce(*args, channels_first), scan)
 
 
 def test_scan_route_adds_to_a_nonzero_fill():
@@ -136,7 +145,7 @@ def test_scan_route_adds_to_a_nonzero_fill():
     rows to it one by one: equal to fp32 rounding)."""
     ids, vals, m = _reduce_rows(seed=5, c=8)
     args = (torch.from_numpy(vals), torch.from_numpy(ids), m, "add", 1.5)
-    scan, serial = cuda_binned.scan_reduce(*args).numpy(), cuda_binned.serial_reduce(*args).numpy()
+    scan, serial = _dense(cuda_binned.scan_reduce(*args), False).numpy(), cuda_binned.serial_reduce(*args).numpy()
     assert (scan == 1.5).any()
     _assert_add_close(scan, serial)
 
@@ -144,40 +153,50 @@ def test_scan_route_adds_to_a_nonzero_fill():
 def test_placement_writes_each_segments_last_row():
     ids = torch.tensor([-2, 0, 0, 2, 2, 2, 5, 7], dtype=torch.int64)
     scanned = torch.arange(8, dtype=torch.float32)[:, None].repeat(1, 2)
-    out = cuda_binned.place_segments(scanned, ids, 6, "add", 0.0)
-    np.testing.assert_array_equal(out[:, 0].numpy(), [2, 0, 5, 0, 0, 6])
-    out = cuda_binned.place_segments(scanned, ids, 6, "min", 4.0, channels_first=True)
-    np.testing.assert_array_equal(out[1].numpy(), [2, 4, 4, 4, 4, 4])
+    out = cuda_binned.place_live(scanned, ids, 6, "add", 0.0)
+    np.testing.assert_array_equal(out.slot.numpy(), [0, -1, 1, -1, -1, 2])
+    np.testing.assert_array_equal(out.live[0, :3].numpy(), [2, 5, 6])
+    np.testing.assert_array_equal(out.dense()[0].numpy(), [2, 0, 5, 0, 0, 6])
+    out = cuda_binned.place_live(scanned, ids, 6, "min", 4.0)
+    np.testing.assert_array_equal(out.dense()[1].numpy(), [2, 4, 4, 4, 4, 4])
+    np.testing.assert_array_equal(out.dense().numpy(), cuda_binned.place_segments_plain(scanned, ids, 6, "min", 4.0,
+                                                                                         channels_first=True).numpy())
 
 
-def test_gate_is_a_function_of_shapes():
-    """Every reduce of the measured steps takes the scan route (the 256
-    step's four among them); only rows wider than the scan kernels take
-    (C > 256) keep the serial kernel."""
-    route = cuda_binned._scan_route
-    # (op, K, M, C) of the step's reduces at scaled_buckling_config(256):
-    # the level-set min, the density scatter, P2G with the volumes
-    for op, m, c in (("min", 6_071_296, 125), ("add", 6_278_688, 54), ("add", 6_278_688, 135)):
-        assert route(op, 2_903_629, m, c)
-    # the flagship's level-set min and coiling_504's P2G
-    assert route("min", 89_648, 184_320, 125) and route("add", 465_868, 8_290_304, 135)
-    assert route("add", 10, 4, cuda_scan.MAX_CHANNELS) and not route("add", 10, 4, cuda_scan.MAX_CHANNELS + 1)
-
-
-def test_segment_reduce_takes_the_gated_route(monkeypatch):
-    """CPU tensors obey the gate too and run that route's plain version."""
-    ids, vals, m = _reduce_rows(seed=6, k=600, c=5, m=40)
+def _taken(monkeypatch):
+    """Record which reduce route each call takes."""
     taken = []
     for name in ("scan_reduce", "serial_reduce"):
         fn = getattr(cuda_binned, name)
         monkeypatch.setattr(cuda_binned, name, lambda *a, _fn=fn, _n=name, **kw: taken.append(_n) or _fn(*a, **kw))
-    args = (torch.from_numpy(vals), torch.from_numpy(ids), m, "min", 0.5)
-    monkeypatch.setattr(cuda_binned, "_scan_route", lambda op, k, mm, c: (op, k, mm, c) == ("min", 600, m, 5))
-    a = scatter.segment_min_sorted(args[0], args[1], m, 0.5)
-    monkeypatch.setattr(cuda_binned, "_scan_route", lambda *shape: False)
-    b = scatter.segment_min_sorted(args[0], args[1], m, 0.5)
+    return taken
+
+
+def test_gate_is_a_function_of_shapes(monkeypatch):
+    """Every reduce of the measured steps fits the scan route, the only
+    one that writes the live form (C <= 256: the level-set min's 125, the
+    density scatter's 54, P2G's 135 with the volumes); on the dense
+    contract only rows wider than the scan kernels take (C > 256) go to
+    the serial kernel."""
+    assert max(125, 54, 135) <= cuda_binned.SCAN_CHANNELS == cuda_scan.MAX_CHANNELS == 256
+    taken = _taken(monkeypatch)
+    ids = torch.tensor([0, 0, 1, 3], dtype=torch.int64)
+    for c in (cuda_scan.MAX_CHANNELS, cuda_scan.MAX_CHANNELS + 1):
+        out = cuda_binned.segment_reduce(torch.ones(4, c), ids, 4)
+        assert out.shape == (4, c) and out[:, 0].tolist() == [2, 1, 0, 1]
     assert taken == ["scan_reduce", "serial_reduce"]
-    assert torch.equal(a, b)
+
+
+def test_segment_reduce_takes_the_gated_route(monkeypatch):
+    """CPU tensors take the same route by width and run that route's plain
+    version; the two routes give the same minima."""
+    ids, vals, m = _reduce_rows(seed=6, k=600, c=cuda_scan.MAX_CHANNELS + 1, m=40)
+    taken = _taken(monkeypatch)
+    t_vals, t_ids = torch.from_numpy(vals), torch.from_numpy(ids)
+    a = scatter.segment_min_sorted(t_vals[:, :5].contiguous(), t_ids, m, 0.5)
+    b = scatter.segment_min_sorted(t_vals, t_ids, m, 0.5)
+    assert taken == ["scan_reduce", "serial_reduce"]
+    assert torch.equal(a, b[:, :5])
 
 
 def test_scan_wrappers_refuse_other_devices_and_ops():
@@ -187,11 +206,16 @@ def test_scan_wrappers_refuse_other_devices_and_ops():
     with pytest.raises(ValueError):
         cuda_scan.seg_scan_sorted(vals, same, op="max")
     with pytest.raises(ValueError):
-        cuda_binned.place_segments(vals.to("meta"), torch.zeros(8, dtype=torch.int64), 4)
+        cuda_binned.place_live(vals.to("meta"), torch.zeros(8, dtype=torch.int64), 4)
 
 
 def _exact_segment_sum(vals, sorted_ids, num_segments, widen=False):
     return jax.ops.segment_sum(vals, sorted_ids, num_segments=num_segments, indices_are_sorted=True)
+
+
+def _serial_reduce_cf(vals, sorted_ids, num_segments, grid_shape, op="add", fill=0.0):
+    out = cuda_binned.serial_reduce(vals.contiguous(), sorted_ids.contiguous(), num_segments, op, float(fill), True)
+    return out.reshape((vals.shape[-1],) + tuple(grid_shape))
 
 
 def test_flagship_step_on_the_scan_route_matches_exact_sum_jax(monkeypatch):
@@ -213,11 +237,14 @@ def test_flagship_step_on_the_scan_route_matches_exact_sum_jax(monkeypatch):
         "t": j_state.t, "step_idx": j_state.step_idx,
     }
     state = state_from_numpy({k: np.asarray(v) for k, v in start.items()}, device="cpu")
-    serial_final, _ = simulate(state, buckling_config(), 1)
+    with monkeypatch.context() as mp:
+        # the same step on the serial route's dense tables (the fold takes either form)
+        for mod in (scatter, transfers, levelset, density):
+            mp.setattr(mod, "segment_reduce_cf", _serial_reduce_cf)
+        serial_final, _ = simulate(state, buckling_config(), 1)
     scans = []
-    scan_reduce = cuda_binned.scan_reduce
-    monkeypatch.setattr(cuda_binned, "scan_reduce", lambda *a, **kw: scans.append(a[0].shape) or scan_reduce(*a, **kw))
-    monkeypatch.setattr(cuda_binned, "_scan_route", lambda op, k, m, c: True)
+    scan_reduce = scatter.scan_reduce
+    monkeypatch.setattr(scatter, "scan_reduce", lambda *a, **kw: scans.append(a[0].shape) or scan_reduce(*a, **kw))
     final, metrics = simulate(state, buckling_config(), 1)
     # every reduce of the step: two level-set mins, the density scatter, P2G with the volumes
     assert sorted(s[1] for s in scans) == [54, 125, 125, 135]
