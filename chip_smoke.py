@@ -48,8 +48,8 @@ Phases, each printing one JSON line:
               link; with ptxas' register lines, and the registers, shared
               memory and spills of the kernels redesigned for Hopper
               (the segment broadcast, the tiled geometry matvec, the
-              coupled PCG, the live-cell Poisson PCG, the live placement
-              and the tiled fold)
+              coupled PCG, the live-cell Poisson PCG, the live placement,
+              the tiled fold and the V-cycle's tail)
   kernels     flagship: the two PCG kernels on the real density /
               pressure / viscosity systems of the third step vs their
               plain versions: errors, iterations, CUDA-event times, the
@@ -69,19 +69,28 @@ Phases, each printing one JSON line:
               finite, steps 1-3 on the card each vs the same step on the
               CPU from the same state
   kernels_128 128^3: the density / pressure systems and the scatter
-              inputs of the third step; the stencil matvec, every level
-              chain of the real hierarchy, one V-cycle, both MG-PCG
-              solves, every segment reduce / broadcast of the step, and
+              inputs of the third step; the stencil matvec (its device
+              ms beside one CSR product's), the V-cycle's tail on the
+              pressure hierarchy (the inputs one V-cycle gives it: bitwise
+              its plain version and tests/vcycle_tail_model.py at every
+              split of the levels between the grid and one block that
+              fits the block's shared memory, each split's device ms;
+              ms, device ms, plain ms, bound, barriers), one V-cycle, both
+              MG-PCG solves, every segment reduce / broadcast of the
+              step, and
               the two PCG kernels and the materialised coupled matvec
               (bitwise), each vs its plain version, with times, library
               times and bounds
   main_128    128^3: 1 warm-up + 5 timed steps with the counters reset
-              just before; solves converged, particles finite, the first
-              step bitwise repeatable, step 3 on the card vs the CPU
-  kernels_coil coiling: the viscosity system and the fold inputs of the
-              third step; the coupled PCG (its Jacobi branch), the geometry
-              matvec (full and same-axis), every
-              chain of the batched viscosity hierarchy, one batched
+              just before; solves converged, particles finite, one tail
+              launch a V-cycle, the first step bitwise repeatable, step 3
+              on the card vs the CPU
+  kernels_coil coiling: the pressure system, the viscosity system and
+              the fold inputs of the third step; the tail and one V-cycle
+              of the cell solve's hierarchy (as in kernels_128); the
+              coupled PCG (its Jacobi branch), the geometry
+              matvec (full and same-axis), the tail of the batched
+              viscosity hierarchy (B = 3, as the cell one), one batched
               V-cycle, the viscosity MG-PCG solve, each vs its plain
               version, with times, library times and bounds; the live
               route on every reduce and fold of the step:
@@ -103,7 +112,8 @@ Phases, each printing one JSON line:
               visc_mg = 2 (its MG branch) from the 'auto' run's state
               after 2 steps, counters reset just before;
               the branch of every step, solves converged, particles
-              finite, the first MG step bitwise repeatable, step 3 of
+              finite, one tail launch a V-cycle (cell and batched), the
+              first MG step bitwise repeatable, step 3 of
               both runs on the card vs the CPU, peak memory
   kernels_504 504: the density / pressure systems, the viscosity system
               and the level set's fold of the third step; the live-cell
@@ -114,14 +124,16 @@ Phases, each printing one JSON line:
               matvec (full, same-axis) beside one CSR product (360M
               entries), every segment broadcast of the step (bitwise,
               beside torch.index_select), the coupled PCG, one lean
-              preconditioner application and the lean MG-PCG solve (both
+              preconditioner application (with its inner cycle's tail as
+              in kernels_128) and the lean MG-PCG solve (both
               bitwise) at 24M faces; the live route on every reduce and
               fold of the step (as in kernels_coil; the level set's dense
               route folds a 4.0 GB table)
   main_504    504: 3 'auto' steps from the scene (Jacobi branch), then 3
               'auto' steps from visc_mg = 2 (the lean branch), counters
               reset before each run; the Poisson PCG and the lean route
-              launched, solves converged, the first lean step bitwise
+              launched, one tail launch a lean V-cycle, solves converged,
+              the first lean step bitwise
               repeatable and within STEP_TOL of the same step on the card
               with every kernel swapped for its plain version; the same
               step on the CPU reported (not asserted), peak memory
@@ -139,7 +151,8 @@ Phases, each printing one JSON line:
               the halo kernel's device ms and launches a step
   kernels_options flagship, jacobi_precond=False, the third step: the
               materialised coupled matvec and the prepared pressure and
-              density matvecs (bitwise, with library times and bounds),
+              density matvecs (bitwise, with library times and bounds;
+              the matvecs' and their CSR products' device ms),
               and the unpreconditioned density, pressure and viscosity
               solves over the kernels vs over their plain versions
               (iterations equal, solutions bitwise)
@@ -242,9 +255,8 @@ CELL_OPS_PER_ITER = 27
 FACE_OPS_PER_ITER = 85
 KERNEL_TOL = dict(rtol=2e-3, atol=2e-4)  # solution vs plain version
 MATVEC_TOL = dict(rtol=1e-5, atol=1e-6)  # matvecs vs plain version
-# level chains and sums vs plain version: max |difference| over max |value|
-# (the kernels round as the plain versions do and are expected bitwise)
-CHAIN_REL = 1e-6
+# serial segment sums vs plain version: max |difference| over max |value|
+# (the kernel rounds as the plain version does and is expected bitwise)
 SUM_REL = 1e-6
 STENCIL_OPS = 13  # 7 products + 6 sums a cell
 RELAX_OPS = 17  # a relaxation: the stencil, b - Ax, * inv, x + (a cell)
@@ -338,7 +350,7 @@ def halo_plane_bounds():
 
 # the kernels redesigned for Hopper, whose ptxas resources the build line lists
 REDESIGNED = ("coupled_matvec_kernel", "binned_broadcast_kernel", "coupled_visc_pcg_kernel", "poisson_pcg_kernel",
-              "binned_place_live_kernel", "fold_kernel")
+              "binned_place_live_kernel", "fold_kernel", "mg_vcycle_tail_kernel")
 
 
 def kernel_resources(log, names=REDESIGNED):
@@ -396,6 +408,25 @@ def cuda_time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of `fn()` over `reps` back-to-back calls: the sum
+    of its CUDA kernels' intervals under torch.profiler, over `reps` (the
+    host's time between launches left out), after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("device_ms: the profiler saw no device time")
+    return us / 1e3 / reps
 
 
 def capture_systems(step_3d, state, cfg, geom):
@@ -466,22 +497,13 @@ def capture_128(step_3d, state, cfg, geom):
 @contextlib.contextmanager
 def plain_mg_routes():
     """The MG-PCG route with the plain versions of its kernels (the
-    matvec and the level chains), for holding it against the kernels."""
+    matvec and the V-cycle's tail), for holding it against the kernels."""
     from python_fluid_simulation_tpu_torch.ops import cuda_mg, cuda_stencils
     from python_fluid_simulation_tpu_torch.solvers import multigrid, pressure
 
-    def plain_level_kernels(diag, coefs, *, omega, n_smooth, coarse_iters):
-        def chain(b, x0, iters, resid):
-            return cuda_mg.level_chain_plain(diag, coefs, b, x0, iters=iters, omega=omega, emit_resid=resid)
-        return cuda_mg.LevelKernels(
-            lambda b: chain(b, None, n_smooth, True),
-            lambda x, b: chain(b, x, n_smooth, False),
-            lambda b: chain(b, None, coarse_iters, False),
-        )
-
     with patched([
         (multigrid, "stencil_matvec", cuda_stencils.stencil_matvec_plain),
-        (multigrid, "level_kernels", plain_level_kernels),
+        (multigrid, "vcycle_tail", cuda_mg.vcycle_tail_plain),
         (pressure, "stencil_matvec", cuda_stencils.stencil_matvec_plain),
     ]):
         yield
@@ -797,68 +819,146 @@ def stencil_phase(cell):
             system=label, shape=list(b.shape), bitwise=bool(torch.equal(q_k, q_p)),
             max_abs_err=max_err(q_k, q_p)[0],
             ms=cuda_time_ms(lambda: stencil_matvec(diag, coefs, b), 50),
+            device_ms=device_ms(lambda: stencil_matvec(diag, coefs, b), 200),
             plain_ms=cuda_time_ms(lambda: stencil_matvec_plain(diag, coefs, b), 20),
             **bound(9 * 4 * n, STENCIL_OPS * n),  # 8 fields read, q written
         ))
     return rows
 
 
-def chain_bound(n, iters, from_zero, resid):
-    fields = 8 + (0 if from_zero else 1) + 1 + (1 if resid else 0)  # diag, coefs, b, [x0] in; x, [r] out
+def chain_ops(n, iters, from_zero, resid):
+    """Operations of one smoothing chain on n cells: its relaxations, inv,
+    and the residual where it emits one."""
     relax = (iters - 1) * RELAX_OPS + 2 if from_zero else iters * RELAX_OPS
-    return bound(fields * 4 * n, n * (relax + 1 + (STENCIL_OPS + 1 if resid else 0)))  # + inv, + residual
+    return n * (relax + 1 + (STENCIL_OPS + 1 if resid else 0))
 
 
-def vcycle_phase(b, diag, coefs, mg_kw):
-    """Every level chain of the real hierarchy, then one whole V-cycle,
-    kernels vs plain versions."""
-    import torch
+def tail_bound(tail):
+    """The tail's least time: x and r read and the output written at level
+    0, each level's 7 stencil fields read once (the workspace is the
+    function's own); operations: each level's chains, 7 child sums a coarse
+    cell, a prolongation's add a fine cell."""
+    n0 = math.prod(tail.fine_shape)
+    ns = [lv.diag.numel() for lv in tail.levels]
+    big_l, n_s = len(ns), tail.n_smooth
+    ops = n0
+    for k, n in enumerate(ns):
+        ops += 7 * n
+        if k == big_l - 1:
+            ops += chain_ops(n, tail.coarse_iters, True, False)
+        else:
+            ops += chain_ops(n, n_s, True, True) + n + chain_ops(n, n_s, False, False)
+    return bound(4 * (3 * n0 + 7 * sum(ns)), ops)
 
-    from python_fluid_simulation_tpu_torch.ops.cuda_mg import level_chain, level_chain_plain
+
+def tail_model():
+    """tests/vcycle_tail_model.py: the model of the tail kernel's index
+    logic (torch only, no JAX)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import vcycle_tail_model
+
+    return vcycle_tail_model
+
+
+@contextlib.contextmanager
+def recorded_tails():
+    """Record the first V-cycle tail of what runs inside as the V-cycle
+    calls it: [(tail, x, r)] (copies of x and r)."""
     from python_fluid_simulation_tpu_torch.solvers import multigrid
 
-    levels = multigrid.build_hierarchy(diag, coefs, min_dim=mg_kw["min_dim"])
-    omega, n_smooth, coarse = mg_kw["omega"], mg_kw["n_smooth"], mg_kw["coarse_iters"]
-    chains = []
-    bk = b
-    for k in range(1, len(levels)):
-        lv = levels[k]
-        bk = multigrid._restrict(bk, tuple(lv.diag.shape))
-        last = k == len(levels) - 1
-        kinds = [("coarse", None, coarse, False)] if last else [("pre", None, n_smooth, True), ("post", "x", n_smooth, False)]
-        x_pre = None
-        for kind, x0, iters, resid in kinds:
-            x0 = x_pre if x0 == "x" else None
-            args = (lv.diag, lv.coefs, bk, x0)
-            kw = dict(iters=iters, omega=omega, emit_resid=resid)
-            out_k, out_p = level_chain(*args, **kw), level_chain_plain(*args, **kw)
-            outs = list(zip(out_k, out_p)) if resid else [(out_k, out_p)]
-            if kind == "pre":
-                x_pre = out_k[0]
-            err = max(rel_err(a, p)[1] for a, p in outs)
-            if not err <= CHAIN_REL:
-                raise AssertionError(f"level {k} {kind} chain: kernel vs plain max rel {err} > {CHAIN_REL}")
-            chains.append(dict(
-                level=k, shape=list(lv.diag.shape), chain=kind, iters=iters,
-                bitwise=all(bool(torch.equal(a, p)) for a, p in outs),
-                max_abs_err=max(max_err(a, p)[0] for a, p in outs), max_rel_err=err,
-                ms=cuda_time_ms(lambda: level_chain(*args, **kw), 50),
-                plain_ms=cuda_time_ms(lambda: level_chain_plain(*args, **kw), 20),
-                **chain_bound(lv.diag.numel(), iters, x0 is None, resid),
-            ))
+    got, orig = [], multigrid.vcycle_tail
 
-    mg = multigrid.make_mg_preconditioner(diag, coefs, **{k: v for k, v in mg_kw.items()})
-    z_k = mg(b)
+    def rec(tail, x, r):
+        if not got:
+            got.append((tail, x.clone(), r.clone()))
+        return orig(tail, x, r)
+
+    with patched([(multigrid, "vcycle_tail", rec)]):
+        yield got
+
+
+@contextlib.contextmanager
+def counted_tails():
+    """Count the V-cycle applications of what runs inside (each calls the
+    tail once): a one-element list."""
+    from python_fluid_simulation_tpu_torch.solvers import multigrid
+
+    calls, orig = [0], multigrid.vcycle_tail
+
+    def count(tail, x, r):
+        calls[0] += 1
+        return orig(tail, x, r)
+
+    with patched([(multigrid, "vcycle_tail", count)]):
+        yield calls
+
+
+def check_one_tail_a_cycle(launches, calls, label):
+    got = launches["mg_vcycle_tail"] + launches["mg_vcycle_tail_batched"]
+    if got != calls or not calls:
+        raise AssertionError(f"{label}: {got} tail launches for {calls} V-cycles")
+
+
+def tail_phase(label, tail, x, r):
+    """The tail kernel on a real hierarchy's tail inputs vs its plain
+    version and tests/vcycle_tail_model.py, bitwise, at the wrapper's split
+    and at every other that fits the block's shared memory (each timed as
+    device ms: the sweep that sets BLOCK_CELLS); ms (CUDA events, host-bound
+    for so short a kernel) and device ms of the kernel and the plain
+    version."""
+    from python_fluid_simulation_tpu_torch.ops.cuda_mg import (
+        BLOCK_CELLS,
+        TAIL_SMEM_BYTES,
+        launch_tail,
+        smem_bytes,
+        tail_barriers,
+        vcycle_tail,
+        vcycle_tail_plain,
+    )
+
+    out_p = vcycle_tail_plain(tail, x, r)
+    check_bitwise(f"vcycle tail[{label}]", [vcycle_tail(tail, x, r)], [out_p])
+    check_bitwise(f"vcycle tail model[{label}]", [tail_model().vcycle_tail_model(tail, x, r)], [out_p])
+    split_ms = {}  # None: the block's levels would not fit its shared memory
+    for s in range(1, len(tail.levels) + 2):
+        split_ms[s] = None
+        if smem_bytes(tail.levels, s) <= TAIL_SMEM_BYTES:
+            check_bitwise(f"vcycle tail[{label}] split {s}", [launch_tail(tail, x, r, s)], [out_p])
+            split_ms[s] = device_ms(lambda: launch_tail(tail, x, r, s), 50)
+    grid_b, block_b = tail_barriers(tail)
+    return dict(
+        system=label, levels=[list(tail.fine_shape)] + [list(lv.diag.shape) for lv in tail.levels],
+        block_level=tail.block_level, block_cells=BLOCK_CELLS, grid_barriers=grid_b, block_barriers=block_b,
+        smem_bytes=smem_bytes(tail.levels, tail.block_level),
+        bitwise=True, max_abs_err=0.0,
+        ms=cuda_time_ms(lambda: vcycle_tail(tail, x, r), 50), device_ms=device_ms(lambda: vcycle_tail(tail, x, r), 50),
+        plain_ms=cuda_time_ms(lambda: vcycle_tail_plain(tail, x, r), 10),
+        plain_device_ms=device_ms(lambda: vcycle_tail_plain(tail, x, r), 5),
+        split_device_ms=split_ms, **tail_bound(tail),
+    )
+
+
+def vcycle_phase(b, diag, coefs, mg_kw, label):
+    """The V-cycle's tail on the real hierarchy (`tail_phase`), then one
+    whole V-cycle, kernels vs plain versions."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.solvers import multigrid
+
+    mg = multigrid.make_mg_preconditioner(diag, coefs, **mg_kw)
+    with recorded_tails() as got:
+        z_k = mg(b)
+    tail_row = tail_phase(label, *got[0])
     with plain_mg_routes():
         mg_p = multigrid.make_mg_preconditioner(diag, coefs, **mg_kw)
         z_p = mg_p(b)
         plain_ms = cuda_time_ms(lambda: mg_p(b), 10)
     check_close("V-cycle", z_k, z_p, KERNEL_TOL)
     vcycle = dict(
-        levels=[list(lv.diag.shape) for lv in levels], bitwise=bool(torch.equal(z_k, z_p)),
+        levels=tail_row["levels"], bitwise=bool(torch.equal(z_k, z_p)),
         max_abs_err=max_err(z_k, z_p)[0], ms=cuda_time_ms(lambda: mg(b), 20), plain_ms=plain_ms,
     )
-    return chains, vcycle
+    return tail_row, vcycle
 
 
 def mg_solve_phase(cell, kw):
@@ -1102,13 +1202,13 @@ def scan_route_phase(reduces):
 
 
 def capture_coil(step_3d, state, cfg, geom):
-    """One coiling step with recorders around the coupled solve and the
-    fold as their callers call them; each fold is labelled with the
-    function that made it."""
+    """One coiling step with recorders around the cell solves, the coupled
+    solve and the fold as their callers call them; each fold is labelled
+    with the function that made it."""
     from python_fluid_simulation_tpu_torch.ops import scatter
-    from python_fluid_simulation_tpu_torch.solvers import viscosity
+    from python_fluid_simulation_tpu_torch.solvers import density, pressure, viscosity
 
-    got = {"coupled": [], "fold": []}
+    got = {"cell": [], "coupled": [], "fold": []}
 
     def rec(kind, fn, label_depth=None):
         def call(*args, **kw):
@@ -1118,6 +1218,8 @@ def capture_coil(step_3d, state, cfg, geom):
         return call
 
     with patched([
+        (pressure, "solve_cell_poisson", rec("cell", pressure.solve_cell_poisson)),
+        (density, "solve_cell_poisson", rec("cell", density.solve_cell_poisson)),
         (viscosity, "coupled_visc_pcg", rec("coupled", viscosity.coupled_visc_pcg)),
         # frame 2: the caller of scatter.fold_scattered_sep
         (scatter, "fold", rec("fold", scatter.fold, 2)),
@@ -1181,12 +1283,11 @@ def geom_matvec_library(system):
 
 
 def batched_vcycle_phase(system):
-    """Every chain of the batched viscosity hierarchy (B = 3) on the
-    restricted right-hand sides of one cycle, the level-0 batched matvec,
-    and one batched V-cycle, kernels vs plain versions."""
+    """The level-0 batched matvec, the tail of the batched viscosity
+    hierarchy (B = 3; `tail_phase`) on one cycle's inputs, and one batched
+    V-cycle, kernels vs plain versions."""
     import torch
 
-    from python_fluid_simulation_tpu_torch.ops.cuda_mg import level_chain, level_chain_plain
     from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec, stencil_matvec_plain
     from python_fluid_simulation_tpu_torch.solvers import multigrid, viscosity
 
@@ -1195,7 +1296,6 @@ def batched_vcycle_phase(system):
     diags, same, _ = viscosity.viscosity_term_fields(s_mu, sphi_c, vol_c, [t.shape for t in b], same_axis_only=True)
     mg = viscosity.make_viscosity_mg_preconditioner(diags, same)
     levels = mg.levels
-    omega, n_smooth, coarse = 0.8, 2, 24
     bk = torch.stack([multigrid._pad_to(t, tuple(levels[0].diag.shape[1:])) for t in b])
     top = levels[0]
     q_k, q_p = stencil_matvec(top.diag, top.coefs, bk), stencil_matvec_plain(top.diag, top.coefs, bk)
@@ -1206,29 +1306,9 @@ def batched_vcycle_phase(system):
         plain_ms=cuda_time_ms(lambda: stencil_matvec_plain(top.diag, top.coefs, bk), 20),
         **bound(9 * 4 * bk.numel(), STENCIL_OPS * bk.numel()),
     )
-    chains = []
-    for k in range(1, len(levels)):
-        lv = levels[k]
-        bk = multigrid._restrict(bk, tuple(lv.diag.shape[1:]))
-        last = k == len(levels) - 1
-        kinds = [("coarse", None, coarse, False)] if last else [("pre", None, n_smooth, True), ("post", "x", n_smooth, False)]
-        x_pre = None
-        for kind, x0, iters, resid in kinds:
-            x0 = x_pre if x0 == "x" else None
-            args = (lv.diag, lv.coefs, bk, x0)
-            kw = dict(iters=iters, omega=omega, emit_resid=resid)
-            out_k, out_p = level_chain(*args, **kw), level_chain_plain(*args, **kw)
-            outs = list(zip(out_k, out_p)) if resid else [(out_k, out_p)]
-            if kind == "pre":
-                x_pre = out_k[0]
-            check_bitwise(f"batched level {k} {kind} chain", [a for a, _ in outs], [p for _, p in outs])
-            chains.append(dict(
-                level=k, shape=list(lv.diag.shape), chain=kind, iters=iters, bitwise=True, max_abs_err=0.0,
-                ms=cuda_time_ms(lambda: level_chain(*args, **kw), 50),
-                plain_ms=cuda_time_ms(lambda: level_chain_plain(*args, **kw), 20),
-                **chain_bound(lv.diag.numel(), iters, x0 is None, resid),
-            ))
-    z_k = mg(b)
+    with recorded_tails() as got:
+        z_k = mg(b)
+    tail_row = tail_phase("coiling viscosity (batched)", *got[0])
     with plain_mg_routes():
         mg_p = viscosity.make_viscosity_mg_preconditioner(diags, same)
         z_p = mg_p(b)
@@ -1241,7 +1321,7 @@ def batched_vcycle_phase(system):
         max_abs_err=max(max_err(u, w)[0] for u, w in zip(z_k, z_p)),
         ms=cuda_time_ms(lambda: mg(b), 20), plain_ms=plain_ms,
     )
-    return level0, chains, vcycle
+    return level0, tail_row, vcycle
 
 
 def visc_mg_solve_phase(system):
@@ -1518,21 +1598,22 @@ def csr_matrix(blocks, n):
 
 def stencil_library(diag, coefs, p, q_kernel):
     """One torch.sparse CSR matrix-vector product computing the 7-point
-    matvec (matrix assembled beforehand): ms, nnz and its largest
-    difference from the kernel."""
+    matvec (matrix assembled beforehand): ms (CUDA events), device ms
+    (`device_ms`), nnz and its largest difference from the kernel."""
     shape = tuple(diag.shape)
     a = csr_matrix([(0, shape, diag, [(0, shape, off, c) for off, c in coefs])], diag.numel())
     v = p.reshape(-1)
     q = (a @ v).view(shape)
-    return dict(library_ms=cuda_time_ms(lambda: a @ v, 50), library_nnz=int(a.values().numel()),
-                library_max_abs_err=max_err(q, q_kernel)[0])
+    return dict(library_ms=cuda_time_ms(lambda: a @ v, 50), library_device_ms=device_ms(lambda: a @ v, 200),
+                library_nnz=int(a.values().numel()), library_max_abs_err=max_err(q, q_kernel)[0])
 
 
 def prepared_matvec_phase(cell):
     """Row 5: the prepared cell matvecs (`prepare_stencil_matvec`, as
     `prepare_pressure_matvec` / `prepare_density_matvec` make them) on the
     step's systems (p = b) vs the plain version: bitwise; with the CSR
-    library yardstick."""
+    library yardstick; the kernel's and the library's device ms beside
+    their event ms."""
     from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec_plain
     from python_fluid_simulation_tpu_torch.solvers import pressure
 
@@ -1545,7 +1626,8 @@ def prepared_matvec_phase(cell):
         n = b.numel()
         rows.append(dict(
             system=label, shape=list(b.shape), bitwise=True, max_abs_err=0.0,
-            ms=cuda_time_ms(lambda: mv(b), 50), plain_ms=cuda_time_ms(lambda: stencil_matvec_plain(diag, coefs, b), 20),
+            ms=cuda_time_ms(lambda: mv(b), 50), device_ms=device_ms(lambda: mv(b), 200),
+            plain_ms=cuda_time_ms(lambda: stencil_matvec_plain(diag, coefs, b), 20),
             **bound(9 * 4 * n, STENCIL_OPS * n), **stencil_library(diag, coefs, b, q_k),
         ))
     return rows
@@ -1704,7 +1786,7 @@ def poisson_sweep(b, diag, coefs, pd, planes):
 def lean_precond_phase(system):
     """One application of the lean two-grid viscosity preconditioner (the
     > 4M-face-cell route) to the viscosity right-hand side, kernels vs
-    plain versions: bitwise."""
+    plain versions: bitwise; its inner cycle's tail (`tail_phase`)."""
     from python_fluid_simulation_tpu_torch.ops.cuda_cg import flat_geometry
     from python_fluid_simulation_tpu_torch.solvers import viscosity
 
@@ -1718,7 +1800,10 @@ def lean_precond_phase(system):
             lambda vs: viscosity.coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, same_axis_only=True, geom=geom))
 
     pre = build()
-    z_k = pre(b)
+    with recorded_tails() as got:
+        z_k = pre(b)
+    tail_row = tail_phase("504 lean inner (batched)", *got[0])
+    del got
     with plain_mg_routes(), patched([(viscosity, "coupled_matvec_geom", plain_geom_mv)]):
         pre_p = build()
         z_p, plain_ms = timed_once(lambda: pre_p(b))
@@ -1726,7 +1811,7 @@ def lean_precond_phase(system):
     del pre_p
     return dict(
         levels=[list(lv.diag.shape) for lv in pre.inner.levels], bitwise=True, max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: pre(b), 5), plain_ms=plain_ms, setup_ms=cuda_time_ms(build, 2),
+        ms=cuda_time_ms(lambda: pre(b), 5), plain_ms=plain_ms, setup_ms=cuda_time_ms(build, 2), tail=tail_row,
     )
 
 
@@ -1770,7 +1855,7 @@ def reset_counters():
         "fused_poisson_pcg": cuda_stencils.fused_poisson_pcg,
         "coupled_visc_pcg": cuda_cg.coupled_visc_pcg,
         "stencil_matvec": cuda_stencils.stencil_matvec,
-        "mg_level_chain": cuda_mg.level_chain,
+        "mg_vcycle_tail": cuda_mg.vcycle_tail,
         "binned_segment_reduce": cuda_binned.serial_reduce,
         "seg_scan_sorted": cuda_scan.seg_scan_sorted,
         "binned_segment_place_live": cuda_binned.place_live,
@@ -1782,14 +1867,14 @@ def reset_counters():
     }
     for w in wrappers.values():
         w.launches = 0
-    cuda_mg.level_chain.batched_launches = 0
+    cuda_mg.vcycle_tail.batched_launches = 0
     cuda_cg.coupled_matvec_geom.same_axis_launches = 0
 
     def read():
         out = {name: w.launches for name, w in wrappers.items()}
-        # the chain wrapper counts both forms: report them apart
-        out["mg_level_chain_batched"] = cuda_mg.level_chain.batched_launches
-        out["mg_level_chain"] -= out["mg_level_chain_batched"]
+        # the tail wrapper counts both forms: report them apart
+        out["mg_vcycle_tail_batched"] = cuda_mg.vcycle_tail.batched_launches
+        out["mg_vcycle_tail"] -= out["mg_vcycle_tail_batched"]
         # of the geometry matvecs, the same-axis form (only the lean route's)
         out["coupled_matvec_geom_same_axis"] = cuda_cg.coupled_matvec_geom.same_axis_launches
         return out
@@ -2437,7 +2522,7 @@ def main() -> int:
     stencil_rows = stencil_phase(cell)
     b_p, (diag_p, coefs_p, _) = cell[1][1]
     stencil_lib = stencil_library(diag_p, coefs_p, b_p, stencil_matvec(diag_p, coefs_p, b_p))
-    chain_rows, vcycle = vcycle_phase(b_p, diag_p, coefs_p, mg_kw)
+    tail128, vcycle = vcycle_phase(b_p, diag_p, coefs_p, mg_kw, "128^3 pressure")
     mg_rows = mg_solve_phase(cell, solve_kw)
     red_rows, bc_rows = binned_phase(got["reduce"], got["broadcast"])
     reduce_sweep += route_sweep("128", got["reduce"])
@@ -2451,7 +2536,7 @@ def main() -> int:
     coupled_stencil128 = coupled_stencil_phase((got["coupled"][0][1], got["coupled"][0][2]))
     del got, cell
     emit({"phase": "kernels_128", "grid": list(cfg128.grid.res), "particles": n128,
-          "stencil_matvec": stencil_rows, "stencil_matvec_library": stencil_lib, "mg_level_chain": chain_rows, "vcycle": vcycle, "mg_pcg": mg_rows,
+          "stencil_matvec": stencil_rows, "stencil_matvec_library": stencil_lib, "mg_vcycle_tail": tail128, "vcycle": vcycle, "mg_pcg": mg_rows,
           "binned_segment_reduce": red_rows, "binned_segment_broadcast": bc_rows,
           "cell_poisson_pcg_jacobi": cell128_rows, "fused_poisson_pcg_jacobi": fused128_rows,
           "coupled_visc_pcg": coupled128, "coupled_stencil_matvec": coupled_stencil128,
@@ -2462,10 +2547,13 @@ def main() -> int:
     read_counts = reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state, states, step_ms128, metrics128 = run_steps(step_3d, s128, cfg128, geom128, STEPS_128, CHECKED_STEP_128 + 1)
+    with counted_tails() as cycles128:
+        state, states, step_ms128, metrics128 = run_steps(step_3d, s128, cfg128, geom128, STEPS_128,
+                                                          CHECKED_STEP_128 + 1)
     launches128 = read_counts()
+    check_one_tail_a_cycle(launches128, cycles128[0], "128^3")
     peak128 = torch.cuda.max_memory_allocated()
-    check_run(state, metrics128, launches128, ("coupled_visc_pcg", "stencil_matvec", "mg_level_chain",
+    check_run(state, metrics128, launches128, ("coupled_visc_pcg", "stencil_matvec", "mg_vcycle_tail",
                                                *REDUCE_ROUTE, "binned_segment_broadcast", "fold"), "128^3")
     first = state_to_numpy(states[1])
     again, _ = step_3d(s128, cfg128, geom=geom128)
@@ -2481,7 +2569,8 @@ def main() -> int:
     emit({"phase": "main_128", "grid": list(cfg128.grid.res), "particles": n128,
           "warmup_step_ms": step_ms128[0], "step_ms": timed128, "median_step_ms": statistics.median(timed128),
           "iters": {s: [m[f"{s}_iters"] for m in metrics128] for s in ("density", "viscosity", "pressure")},
-          "launches": launches128, "max_memory_allocated": peak128, "first_step_bitwise_repeatable": True,
+          "launches": launches128, "vcycles": cycles128[0], "max_memory_allocated": peak128,
+          "first_step_bitwise_repeatable": True,
           "cpu_step_seconds": cpu128, "card_vs_cpu": {CHECKED_STEP_128: err128}, "step_tol": STEP_TOL,
           "seconds": time.perf_counter() - t0})
 
@@ -2501,22 +2590,31 @@ def main() -> int:
         got = capture_coil(step_3d, state2, cfgc, geomc)
     del state2
     reduce_sweep += route_sweep("coiling", reduces)
-    if len(got["coupled"]) != 1 or not got["fold"]:
+    if len(got["coupled"]) != 1 or not got["fold"] or len(got["cell"]) != 2:
         raise AssertionError(f"coiling capture: {[(k, len(v)) for k, v in got.items()]}")
+    _, (b_c, (diag_c, coefs_c, _)), kw_c = got["cell"][1]  # the pressure solve
+    if kw_c.get("precond") != "mg":
+        raise AssertionError(f"coiling cell solves are not MG-PCG: {kw_c}")
+    mg_kw_c = dict(n_smooth=2, omega=0.8, coarse_iters=24, min_dim=4)
+    if kw_c.get("mg_opts") is not None:
+        n_s, m_d, c_i = kw_c["mg_opts"]
+        mg_kw_c.update(n_smooth=int(n_s), min_dim=int(m_d), coarse_iters=int(c_i))
+    tail_coil, vcycle_coil = vcycle_phase(b_c, diag_c, coefs_c, mg_kw_c, "coiling pressure")
     live_coil_rows = live_reduce_phase(reduces, got["fold"])
     del reduces
     visc = (got["coupled"][0][1], got["coupled"][0][2])
     coupled_coil = coupled_kernel_phase(visc)
     geom_rows = geom_matvec_phase(visc)
     geom_lib = geom_matvec_library(visc)
-    level0_row, bchain_rows, bvcycle = batched_vcycle_phase(visc)
+    level0_row, btail_row, bvcycle = batched_vcycle_phase(visc)
     vmg_row = visc_mg_solve_phase(visc)
     fold_rows = fold_phase(got["fold"])
     del got, visc
     emit({"phase": "kernels_coil", "grid": list(cfgc.grid.res), "particles": nc,
           "coupled_visc_pcg": coupled_coil, "coupled_matvec_geom": geom_rows, "coupled_matvec_geom_library": geom_lib,
           "batched_level0_matvec": level0_row,
-          "mg_level_chain_batched": bchain_rows, "batched_vcycle": bvcycle, "visc_mg_pcg": vmg_row,
+          "mg_vcycle_tail": tail_coil, "vcycle": vcycle_coil,
+          "mg_vcycle_tail_batched": btail_row, "batched_vcycle": bvcycle, "visc_mg_pcg": vmg_row,
           "place_live": live_coil_rows, "fold": fold_rows, "seconds": time.perf_counter() - t0})
 
     # -- coiling main path: 'auto' from the scene, 'mg', and 'auto' from
@@ -2526,25 +2624,29 @@ def main() -> int:
     cfg_mg = dataclasses.replace(cfgc, solver=dataclasses.replace(cfgc.solver, viscosity_precond="mg"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    runs, launches_by_run = {}, {}
+    runs, launches_by_run, cycles_by_run = {}, {}, {}
     for label, run_cfg in (("auto", cfgc), ("mg", cfg_mg)):
         read_counts = reset_counters()
-        runs[label] = run_coil(step_3d, sc, run_cfg, geomc, STEPS_COIL, CHECKED_STEP_COIL + 1)
-        launches_by_run[label] = read_counts()
+        with counted_tails() as cycles:
+            runs[label] = run_coil(step_3d, sc, run_cfg, geomc, STEPS_COIL, CHECKED_STEP_COIL + 1)
+        launches_by_run[label], cycles_by_run[label] = read_counts(), cycles[0]
     # 'auto' with the flag set takes its MG branch: from the 'auto' run's
     # state after 2 steps (the first two steps from rest solve nothing)
     read_counts = reset_counters()
-    runs["auto_from_visc_mg_2"] = run_coil(step_3d, dataclasses.replace(runs["auto"][1][2], visc_mg=2), cfgc,
-                                           geomc, 2, 0)
-    launches_by_run["auto_from_visc_mg_2"] = read_counts()
+    with counted_tails() as cycles:
+        runs["auto_from_visc_mg_2"] = run_coil(step_3d, dataclasses.replace(runs["auto"][1][2], visc_mg=2), cfgc,
+                                               geomc, 2, 0)
+    launches_by_run["auto_from_visc_mg_2"], cycles_by_run["auto_from_visc_mg_2"] = read_counts(), cycles[0]
+    for label, n_cycles in cycles_by_run.items():
+        check_one_tail_a_cycle(launches_by_run[label], n_cycles, f"coiling {label}")
     peakc = torch.cuda.max_memory_allocated()
-    every_path = ("stencil_matvec", "mg_level_chain", "fold", *REDUCE_ROUTE, "binned_segment_broadcast")
+    every_path = ("stencil_matvec", "mg_vcycle_tail", "fold", *REDUCE_ROUTE, "binned_segment_broadcast")
     for label, (state, _, _, metrics, branch) in runs.items():
         need = every_path  # the cell MG-PCG and the scatters; then each viscosity branch the run took
         if "jacobi" in branch:
             need += ("coupled_visc_pcg",)
         if "mg" in branch:
-            need += ("coupled_matvec_geom", "mg_level_chain_batched")
+            need += ("coupled_matvec_geom", "mg_vcycle_tail_batched")
         check_run(state, metrics, launches_by_run[label], need, f"coiling {label}")
         if label != "auto" and branch != ["mg"] * len(branch):
             raise AssertionError(f"coiling {label}: the viscosity solve left the MG branch: {branch}")
@@ -2572,7 +2674,8 @@ def main() -> int:
     coil_state2 = runs["auto"][1][2]  # for 'auto' with jacobi_precond=False
     del runs
     emit({"phase": "main_coil", "grid": list(cfgc.grid.res), "particles": nc, "runs": coil_out,
-          "launches": launches_by_run, "max_memory_allocated": peakc, "first_mg_step_bitwise_repeatable": True,
+          "launches": launches_by_run, "vcycles": cycles_by_run, "max_memory_allocated": peakc,
+          "first_mg_step_bitwise_repeatable": True,
           "cpu_steps_seconds": cpuc, "card_vs_cpu": errc, "step_tol": STEP_TOL,
           "seconds": time.perf_counter() - t0})
 
@@ -2641,14 +2744,16 @@ def main() -> int:
     runs504["auto"] = run_coil(step_3d, s504, cfg504, geom504, STEPS_504, 2)
     launches_by_run504["auto"] = read_counts()
     read_counts = reset_counters()
-    runs504["auto_from_visc_mg_2"] = run_coil(step_3d, dataclasses.replace(runs504["auto"][1][2], visc_mg=2),
-                                              cfg504, geom504, STEPS_504, 1)
+    with counted_tails() as cycles504:
+        runs504["auto_from_visc_mg_2"] = run_coil(step_3d, dataclasses.replace(runs504["auto"][1][2], visc_mg=2),
+                                                  cfg504, geom504, STEPS_504, 1)
     launches_by_run504["auto_from_visc_mg_2"] = read_counts()
+    check_one_tail_a_cycle(launches_by_run504["auto_from_visc_mg_2"], cycles504[0], "504 lean")
     peak504 = torch.cuda.max_memory_allocated()
     every_path = ("fused_poisson_pcg", "fold", *REDUCE_ROUTE, "binned_segment_broadcast")
     need_by_run = {"auto": every_path + ("coupled_visc_pcg",),
                    "auto_from_visc_mg_2": every_path + ("coupled_matvec_geom", "coupled_matvec_geom_same_axis",
-                                                        "mg_level_chain_batched", "stencil_matvec")}
+                                                        "mg_vcycle_tail_batched", "stencil_matvec")}
     for label, (state, _, _, metrics, branch) in runs504.items():
         check_run(state, metrics, launches_by_run504[label], need_by_run[label], f"504 {label}")
         if launches_by_run504[label]["cell_poisson_pcg"]:
@@ -2690,7 +2795,8 @@ def main() -> int:
     auto504 = runs504["auto"]  # the unsharded 'auto' run from the scene, for mesh_504
     del runs504, before, first
     emit({"phase": "main_504", "grid": list(cfg504.grid.res), "particles": n504, "runs": out504,
-          "launches": launches_by_run504, "max_memory_allocated": peak504, "first_lean_step_bitwise_repeatable": True,
+          "launches": launches_by_run504, "lean_vcycles": cycles504[0], "max_memory_allocated": peak504,
+          "first_lean_step_bitwise_repeatable": True,
           "check": "the first lean-MG step vs the same step on the card with every kernel swapped for its plain version",
           "plain_step_seconds": plain504, "card_vs_plain_on_card": err504,
           "reported_vs_cpu": vs_cpu504, "cpu_step_seconds": cpu504, "step_tol": STEP_TOL,
@@ -2856,7 +2962,7 @@ def main() -> int:
     state, _, ms128_nj, metrics128_nj = run_steps(step_3d, s128, cfg128_nj, geom128, STEPS_OPTION, 0)
     launches_opt["128_nojac"] = read_counts()
     check_run(state, metrics128_nj, launches_opt["128_nojac"],
-              ("coupled_stencil_matvec", "stencil_matvec", "mg_level_chain") + every_path, "128^3 jacobi_precond=False")
+              ("coupled_stencil_matvec", "stencil_matvec", "mg_vcycle_tail") + every_path, "128^3 jacobi_precond=False")
     refuse("128^3 jacobi_precond=False", launches_opt["128_nojac"], ("coupled_visc_pcg",))
     opt_out["128_nojac"] = summary(ms128_nj, metrics128_nj)
     del state, s128, geom128
@@ -2868,7 +2974,7 @@ def main() -> int:
     if branch_nj[0] != "jacobi":
         raise AssertionError(f"coiling 'auto' jacobi_precond=False: the first step took {branch_nj}")
     check_run(state, metricsc_nj, launches_opt["coil_auto_nojac"],
-              ("coupled_stencil_matvec", "stencil_matvec", "mg_level_chain") + every_path
+              ("coupled_stencil_matvec", "stencil_matvec", "mg_vcycle_tail") + every_path
               + (("coupled_matvec_geom",) if "mg" in branch_nj else ()), "coiling 'auto' jacobi_precond=False")
     refuse("coiling 'auto' jacobi_precond=False", launches_opt["coil_auto_nojac"], ("coupled_visc_pcg",))
     opt_out["coil_auto_nojac"] = dict(step_ms=msc_nj, branch=branch_nj, iters={
@@ -3092,7 +3198,8 @@ def main() -> int:
         entry("fused_poisson_pcg", "poisson_pcg.cu", "pallas_cg.py:263",
               dict(fused504_rows[1], max_abs_err=max(r["max_abs_err"] for r in fused504_rows))),
         entry("stencil_matvec", "stencil_matvec.cu", "pallas_stencils.py:299", sten, stencil_lib["library_ms"]),
-        entry("mg_level_chain", "mg_level_chain.cu", "pallas_mg.py:100", total(chain_rows)),
+        # the tail of one 128^3 pressure V-cycle (coiling's cell tail in kernels_coil)
+        entry("mg_vcycle_tail", "mg_vcycle.cu", "pallas_mg.py:100", tail128),
         entry("binned_segment_reduce", "binned_segment.cu", "pallas_binned.py:423", red, red["library_ms"]),
         # the scan route on the 256 step's four reduces: row 11 (the live
         # placement, with row 13 as its first phase) and row 13 (the scan)
@@ -3105,8 +3212,8 @@ def main() -> int:
         entry("binned_segment_broadcast", "binned_segment.cu", "pallas_binned.py:179", bc, bc["library_ms"]),
         # the full operator (the MG-PCG's outer matvec); same-axis in kernels_coil
         entry("coupled_matvec_geom", "coupled_matvec.cu", "pallas_cg.py:714", geom_rows[0], geom_lib["library_ms"]),
-        # the chains of one batched viscosity V-cycle (B = 3)
-        entry("mg_level_chain_batched", "mg_level_chain.cu", "pallas_mg.py:100", total(bchain_rows)),
+        # the tail of one batched viscosity V-cycle (B = 3; the lean 504 inner tail in kernels_504)
+        entry("mg_vcycle_tail_batched", "mg_vcycle.cu", "pallas_mg.py:100", btail_row),
         # the folds of one coiling step, on their live tables
         entry("fold", "fold.cu", "pallas_fold.py:97", fold, fold["library_ms"]),
         # rows 7 and 8 in one kernel, on the flagship's fields (128^3 in kernels_128)

@@ -364,10 +364,8 @@ extern "C" int pfs_binned_broadcast(const void* table, const void* ids,
   const void* kernel = vec ? (const void*)binned_broadcast_kernel<float2>
                            : (const void*)binned_broadcast_kernel<float>;
   // the resident blocks, or fewer where the rows need fewer warps
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  int sms = 0, per_sm = 0;
+  const cudaError_t e = pfs::coop_capacity(kernel, kThreads, 0, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   const long need = (k + kThreads - 1) / kThreads;  // one warp a 32 rows
   long blocks = (long)per_sm * sms;

@@ -15,6 +15,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 namespace pfs {
 
 constexpr int kThreads = 256;
@@ -145,24 +147,61 @@ __device__ __forceinline__ float grid_total(const float* part, int nblocks,
   return block_sum<kBlock>(v, sh);
 }
 
-// Grid size for a cooperative launch of `kernel` in blocks of `block`
-// threads with `smem` bytes of dynamic shared memory: every block
-// resident at once (blocks per SM from the occupancy calculator x SM
-// count), and no more blocks than there are elements to cover.  Above the
-// default 48 KB the kernel's dynamic shared memory limit is raised first,
+// Resident blocks a SM of `kernel` in blocks of `block` threads with
+// `smem` bytes of dynamic shared memory, and the SM count, on the current
+// device.  The device queries (SM count, occupancy calculator) run once
+// per (device, kernel, block, smem) and are cached, so a launch repeats
+// none of them.  Above the default 48 KB the kernel's dynamic shared
+// memory limit is raised first (never lowered below an earlier entry's),
 // so the occupancy query counts what the launch will ask for.
-template <typename Kernel>
-inline cudaError_t coop_grid(Kernel kernel, long n, int* grid, int block = kThreads, int smem = 0) {
-  int dev = 0, sms = 0, per_sm = 0;
+inline cudaError_t coop_capacity(const void* kernel, int block, int smem, int* per_sm, int* sms) {
+  struct Entry {
+    int dev;
+    const void* kernel;
+    int block, smem, per_sm, sms;
+  };
+  constexpr int kEntries = 64;
+  static std::mutex mu;
+  static Entry cache[kEntries];
+  static int used = 0;
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  std::lock_guard<std::mutex> lock(mu);
+  for (int j = 0; j < used; ++j) {
+    const Entry& c = cache[j];
+    if (c.dev == dev && c.kernel == kernel && c.block == block && c.smem == smem) {
+      *per_sm = c.per_sm;
+      *sms = c.sms;
+      return cudaSuccess;
+    }
+  }
+  int n_sm = 0, p = 0, raised = 48 * 1024;  // the kernel's limit: the largest smem asked for so far
+  for (int j = 0; j < used; ++j)
+    if (cache[j].dev == dev && cache[j].kernel == kernel && cache[j].smem > raised) raised = cache[j].smem;
+  e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  if (smem > 48 * 1024) {
+  if (smem > raised) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p, kernel, block, smem);
+  if (e != cudaSuccess) return e;
+  if (used < kEntries) cache[used++] = Entry{dev, kernel, block, smem, p, n_sm};
+  *per_sm = p;
+  *sms = n_sm;
+  return cudaSuccess;
+}
+
+// Grid size for a cooperative launch of `kernel` in blocks of `block`
+// threads with `smem` bytes of dynamic shared memory: every block
+// resident at once (blocks per SM from the occupancy calculator x SM
+// count, `coop_capacity`), and no more blocks than there are elements to
+// cover.
+template <typename Kernel>
+inline cudaError_t coop_grid(Kernel kernel, long n, int* grid, int block = kThreads, int smem = 0) {
+  int per_sm = 0, sms = 0;
+  cudaError_t e = coop_capacity((const void*)kernel, block, smem, &per_sm, &sms);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   long need = (n + block - 1) / block;

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "pfs_coupled_matvec": [_P, _I, _I, _I, _I] + [_P] * 8 + [_I, _P],
     "pfs_stencil_matvec": [_P] * 9 + [_I] * 4 + [_P],
     "pfs_coupled_stencil_matvec": [_P] * 4,
-    "pfs_mg_level_chain": [_P] * 12 + [_I] * 5 + [_F, _P],
+    "pfs_mg_vcycle_tail": [_P, _I, _I] + [_P] * 3 + [_I] * 6 + [_F, _P],
     "pfs_binned_reduce": [_P, _P, _L] + [_I] * 4 + [_F, _P, _P],
     "pfs_binned_place_live": [_P, _P, _L] + [_I] * 3 + [_F, _P, _L, _P, _P, _L, _P],
     "pfs_seg_scan": [_P, _P, _L, _I, _I, _P, _P],

@@ -28,7 +28,9 @@ runs the sharded step on ``make_mesh(4)``, ``--mesh 2x2`` on
 ``shard_state``).  Every fold
 call is a ``pfs_fold`` range in the profile, every live placement of a
 segment reduce (``ops/cuda_binned.py::place_live``) a ``pfs_place`` range,
-every learned-operator call
+every multigrid V-cycle application a ``pfs_vcycle`` range (the cell
+solves' and the batched viscosity preconditioner's, and the lean route's
+inner cycle), every learned-operator call
 (features, network, extraction) a ``pfs_unet_delta_v`` range.  3 warm-up steps, then ``--steps``
 steps timed on the host clock without the profiler, then ``--steps``
 steps under ``torch.profiler`` (CPU + CUDA activities).  Prints one JSON
@@ -37,8 +39,9 @@ kernel and memcpy/memset intervals: the halo kernels of a mesh's slots
 overlap on their streams), the idle
 share, the CUDA runtime calls per step (kernel launches, cooperative
 launches, stream synchronisations), the device time and launches of the
-port's own kernels, the peak device memory, and the top operators by
-device and by host time;
+port's own kernels, the profiled steps' solver iterations, the peak
+device memory, a hash of the final particles (x, v, c), and the top
+operators by device and by host time;
 writes the full ``key_averages`` tables to
 ``<out>/profile_step[_<scene>][_<R>][_<precond>][_nojacobi][_dtscaled][_<mode>[_bf16]][_mesh<M>].txt``.
 `profile_steps` is the same measurement for any step function
@@ -50,6 +53,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import hashlib
 import json
 import os
 import time
@@ -79,15 +83,18 @@ def profile_steps(step, state, steps: int):
     busy ms a step (the union of the kernel and memcpy/memset intervals,
     the ``pfs_*`` ranges left out), the idle share, the CUDA runtime calls
     and device events a step, the port's own kernels' launches and device
-    ms a step, the ``pfs_fold`` / ``pfs_unet_delta_v`` ranges, and the top
+    ms a step, the ``pfs_fold`` / ``pfs_place`` / ``pfs_vcycle`` /
+    ``pfs_unet_delta_v`` ranges, and the top
     operators by device and by host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    metrics = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = step(state)
+            state, m = step(state)
+            metrics.append(m)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     step_ms = wall / steps * 1e3
@@ -105,7 +112,7 @@ def profile_steps(step, state, steps: int):
     own = {}  # the port's kernels, by name
     for e in kernels:
         name = e.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0].split("<")[0].strip()
-        if name.endswith("_kernel") and any(k in name for k in ("pcg", "stencil", "mg_level", "binned", "place_live",
+        if name.endswith("_kernel") and any(k in name for k in ("pcg", "stencil", "mg_", "binned", "place_live",
                                                                 "seg_scan", "fold", "matvec", "halo")):
             n, us = own.get(name, (0, 0.0))
             own[name] = (n + 1, us + e.time_range.elapsed_us())
@@ -129,9 +136,14 @@ def profile_steps(step, state, steps: int):
         # total) and the device time of the kernels they launched, per step
         "fold_per_step": ranges("pfs_fold"),
         "place_per_step": ranges("pfs_place"),
+        # the multigrid V-cycle applications' range
+        "vcycle_per_step": ranges("pfs_vcycle"),
         # the learned operator's range (features, network, extraction)
         "unet_delta_v_per_step": ranges("pfs_unet_delta_v"),
         "steps": steps,
+        # each profiled step's solver iterations (read after the window)
+        "solver_iters": {k: [int(m[k]) for m in metrics] for k in ("density_iters", "viscosity_iters", "pressure_iters")
+                         if k in metrics[0]},
         "step_ms": step_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / step_ms,
@@ -162,6 +174,7 @@ def main() -> int:
     from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
     from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_fold, scatter
     from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, make_mesh2d, shard_state
+    from python_fluid_simulation_tpu_torch.solvers import pressure, viscosity
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("buckling", "coiling"), default="buckling")
@@ -219,8 +232,26 @@ def main() -> int:
         with record_function("pfs_unet_delta_v"):
             return unet_delta_v(*a, **kw)
 
+    def vcycle_ranges(make):
+        """`make` (a preconditioner factory) with each application of what
+        it returns in a ``pfs_vcycle`` range."""
+        @functools.wraps(make)
+        def build(*a, **kw):
+            pre = make(*a, **kw)
+
+            @functools.wraps(pre)
+            def apply(r):
+                with record_function("pfs_vcycle"):
+                    return pre(r)
+
+            return apply
+
+        return build
+
     scatter.fold = fold_range
     cuda_binned.place_live = place_range
+    pressure.make_mg_preconditioner = vcycle_ranges(pressure.make_mg_preconditioner)
+    viscosity.make_batched_mg_preconditioner = vcycle_ranges(viscosity.make_batched_mg_preconditioner)
     step_mod.unet_delta_v = unet_range
     mesh = None
     if args.mesh:
@@ -256,6 +287,10 @@ def main() -> int:
         "mesh": None if mesh is None else mesh.shape,
         "visc_mg_after": int(torch.as_tensor(state.visc_mg)),
         "unprofiled_step_ms": plain_ms,
+        # the particles after every step of the run, for comparing two
+        # builds' runs from the same scene bit for bit
+        "particles_sha256": hashlib.sha256(b"".join(
+            getattr(state.particles, k).cpu().numpy().tobytes() for k in ("x", "v", "c"))).hexdigest(),
         # the peak over the warm-up, timed and profiled steps
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         **summary,

@@ -18,11 +18,12 @@ SPD operator, safe inside plain PCG.
 The transfers and the coarsening are plain tensor code (pair sums of
 zero-padded axes, broadcasts), taken axis by axis in the JAX package's
 order, so each pair sum rounds as there.  Level 0 smooths with
-`stencil_matvec` (the CUDA matvec on the card); levels k >= 1 run their
-smoothing chains through ``ops/cuda_mg.py`` (one kernel launch per chain
-on the card).  The batched cycle stacks its systems' levels as
-(B, X, Y, Z) fields and runs the same kernels on the stack.  Nothing in
-the cycle reads a value back to the host.
+`stencil_matvec` (the CUDA matvec on the card); everything below it, the
+levels k >= 1 with their transfers, is the tail of ``ops/cuda_mg.py``
+(one kernel launch a V-cycle on the card), made once per preconditioner.
+The batched cycle stacks its systems' levels as (B, X, Y, Z) fields and
+runs the same kernels on the stack.  Nothing in the cycle reads a value
+back to the host.
 """
 
 from __future__ import annotations
@@ -31,7 +32,11 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from python_fluid_simulation_tpu_torch.ops.cuda_mg import level_kernels
+from python_fluid_simulation_tpu_torch.ops.cuda_mg import halve as _halve
+from python_fluid_simulation_tpu_torch.ops.cuda_mg import make_vcycle_tail
+from python_fluid_simulation_tpu_torch.ops.cuda_mg import prolong as _prolong
+from python_fluid_simulation_tpu_torch.ops.cuda_mg import restrict as _restrict
+from python_fluid_simulation_tpu_torch.ops.cuda_mg import vcycle_tail
 from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec
 
 
@@ -39,20 +44,6 @@ class _Level(NamedTuple):
     diag: torch.Tensor
     coefs: Tuple  # ((off, coef), ...) both signs per axis
     safe_diag: torch.Tensor
-
-
-def _halve(a, axis: int, parity):
-    """Halve one axis (zero-padded to even): parity None sums each child
-    pair, 0 / 1 takes the even / odd child."""
-    if a.shape[axis] % 2:
-        pad = list(a.shape)
-        pad[axis] = 1
-        a = torch.cat([a, a.new_zeros(pad)], dim=axis)
-    shp = a.shape[:axis] + (a.shape[axis] // 2, 2) + a.shape[axis + 1 :]
-    r = a.reshape(shp)
-    if parity is None:
-        return r.select(axis + 1, 0) + r.select(axis + 1, 1)
-    return r.select(axis + 1, parity)
 
 
 def _coarsen(diag, coefs):
@@ -98,37 +89,13 @@ def build_hierarchy(diag, coefs, min_dim: int = 4, max_levels: int = 10) -> List
     return levels
 
 
-def _restrict(r, coarse_shape):
-    """P^T r: 2^d-child sum onto the coarse grid over the trailing
-    len(coarse_shape) dims (x, then z, then y, the JAX package's order);
-    leading dims are a batch and ride along."""
-    lead = r.ndim - len(coarse_shape)
-    assert all(c == (s + 1) // 2 for s, c in zip(r.shape[lead:], coarse_shape)), (r.shape, coarse_shape)
-    d = len(coarse_shape)
-    for axis in tuple(range(d - 2)) + (d - 1, d - 2):
-        r = _halve(r, lead + axis, None)
-    return r
-
-
-def _prolong(e, fine_shape):
-    """P e: inject the parent value into all children (over the trailing
-    len(fine_shape) dims; leading dims are a batch)."""
-    lead = e.ndim - len(fine_shape)
-    for k, n in enumerate(fine_shape):
-        axis = lead + k
-        shp = list(e.shape)
-        e = e.unsqueeze(axis + 1).expand(*shp[: axis + 1], 2, *shp[axis + 1 :])
-        e = e.reshape(*shp[:axis], 2 * shp[axis], *shp[axis + 1 :]).narrow(axis, 0, n)
-    return e.contiguous()
-
-
-def _vcycle(levels, chains, *, omega, n_smooth, coarse_iters):
+def _vcycle(levels, tail, *, omega, n_smooth, coarse_iters):
     """One symmetric V-cycle from a zero guess over `levels` (fields
     (X, Y, Z), or (B, X, Y, Z) stacks of independent systems): level 0
     smooths in the XLA V-cycle's form with `stencil_matvec` (the CUDA
-    matvec on the card), levels k >= 1 run their chains (`chains[k]`)."""
+    matvec on the card), the levels below it are `tail` (None for a
+    one-level hierarchy: level 0 is the coarse solve)."""
     top = levels[0]
-    nd = len(top.coefs[0][0])  # spatial dims (the offsets' length)
 
     def matvec0(p):
         return stencil_matvec(top.diag, top.coefs, p)
@@ -143,34 +110,28 @@ def _vcycle(levels, chains, *, omega, n_smooth, coarse_iters):
             x = x + omega * (b - matvec0(x)) / top.safe_diag
         return x
 
-    def vcycle(k: int, b):
-        if k == len(levels) - 1:
-            if k in chains:
-                return chains[k].coarse_solve(b)
+    def cycle(b):
+        if tail is None:
             return smooth0(None, b, coarse_iters)
-        if k in chains:
-            x, r = chains[k].presmooth_resid(b)
-        else:
-            x = smooth0(None, b, n_smooth)
-            r = b - matvec0(x)
-        ec = vcycle(k + 1, _restrict(r, tuple(levels[k + 1].diag.shape[-nd:])))
-        x = x + _prolong(ec, tuple(b.shape[-nd:]))
-        if k in chains:
-            return chains[k].postsmooth(x, b)
+        x = smooth0(None, b, n_smooth)
+        x = vcycle_tail(tail, x, b - matvec0(x))
         return smooth0(x, b, n_smooth)
 
-    return lambda b: vcycle(0, b)
+    return cycle
+
+
+def _tail(levels, *, omega, n_smooth, coarse_iters):
+    if len(levels) < 2:
+        return None
+    return make_vcycle_tail(levels, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
 
 
 def make_mg_preconditioner(diag, coefs, *, n_smooth: int = 2, omega: float = 0.8, coarse_iters: int = 24, min_dim: int = 4):
     """Returns M^{-1}: r -> z, one symmetric V-cycle with zero initial
     guess, restricted to the active rows (diag > 0)."""
     levels = build_hierarchy(diag, coefs, min_dim=min_dim)
-    chains = {
-        k: level_kernels(lv.diag, lv.coefs, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
-        for k, lv in enumerate(levels) if k >= 1
-    }
-    cycle = _vcycle(levels, chains, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
+    tail = _tail(levels, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
+    cycle = _vcycle(levels, tail, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
     active = levels[0].diag > 0
 
     def precond(r):
@@ -179,13 +140,14 @@ def make_mg_preconditioner(diag, coefs, *, n_smooth: int = 2, omega: float = 0.8
         # cannot see it
         return torch.where(active, cycle(r), r)
 
+    precond.tail = tail  # the levels below level 0, for inspection
     return precond
 
 
 # ---------------------------------------------------------------------------
 # Batched V-cycle: one cycle for several same-shaped independent systems
 # (the per-axis diagonal blocks of the coupled viscosity operator), each
-# level a (B, X, Y, Z) stack: one kernel launch a chain for all B systems.
+# level a (B, X, Y, Z) stack: one tail launch a cycle for all B systems.
 # ---------------------------------------------------------------------------
 
 
@@ -235,11 +197,8 @@ def make_batched_mg_preconditioner(systems, *, n_smooth: int = 2, omega: float =
                   for j, off in enumerate(offs)),
             torch.stack([_pad_to(h[k].safe_diag, common, 1.0) for h in hiers]),
         ))
-    chains = {
-        k: level_kernels(lv.diag, lv.coefs, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
-        for k, lv in enumerate(levels) if k >= 1
-    }
-    cycle = _vcycle(levels, chains, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
+    tail = _tail(levels, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
+    cycle = _vcycle(levels, tail, omega=omega, n_smooth=n_smooth, coarse_iters=coarse_iters)
     active = levels[0].diag > 0
     shapes = [tuple(h[0].diag.shape) for h in hiers]
     common0 = tuple(levels[0].diag.shape[1:])
@@ -250,4 +209,5 @@ def make_batched_mg_preconditioner(systems, *, n_smooth: int = 2, omega: float =
         return tuple(zb[i][tuple(slice(0, s) for s in shapes[i])] for i in range(len(shapes)))
 
     precond.levels = levels  # the stacked hierarchy, for inspection
+    precond.tail = tail
     return precond

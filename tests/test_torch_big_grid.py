@@ -180,14 +180,14 @@ def _masked(rng, act):
 @pytest.mark.parametrize("seed", [29, 37])
 def test_lean_preconditioner_matches_jax(seed):
     rng, _, _, jpre, tpre, act = _lean_pair(seed)
-    before = (cuda_cg.coupled_matvec_geom.launches, cuda_mg.level_chain.launches, cuda_stencils.stencil_matvec.launches)
+    before = (cuda_cg.coupled_matvec_geom.launches, cuda_mg.vcycle_tail.launches, cuda_stencils.stencil_matvec.launches)
     for _ in range(2):
         r = _masked(rng, act)
         want = jpre(tuple(jnp.asarray(x) for x in r))
         got = tpre(tuple(torch.from_numpy(x) for x in r))
         for a in range(3):
             np.testing.assert_allclose(got[a].numpy(), np.asarray(want[a]), **LEAN_TOL)
-    assert (cuda_cg.coupled_matvec_geom.launches, cuda_mg.level_chain.launches,
+    assert (cuda_cg.coupled_matvec_geom.launches, cuda_mg.vcycle_tail.launches,
             cuda_stencils.stencil_matvec.launches) == before
 
 

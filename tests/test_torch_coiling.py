@@ -65,7 +65,7 @@ TIGHT = dict(tol=1e-5, rel_tol=1e-5, max_iter=500)
 def _launch_counts():
     return [f.launches for f in (
         cuda_stencils.cell_poisson_pcg, cuda_stencils.stencil_matvec, cuda_cg.coupled_visc_pcg,
-        cuda_cg.coupled_matvec_geom, cuda_mg.level_chain, cuda_binned.serial_reduce, cuda_scan.seg_scan_sorted,
+        cuda_cg.coupled_matvec_geom, cuda_mg.vcycle_tail, cuda_binned.serial_reduce, cuda_scan.seg_scan_sorted,
         cuda_binned.place_live, cuda_binned.segment_broadcast, cuda_fold.fold,
     )]
 
@@ -233,31 +233,39 @@ def _close_rel(got, want, rel):
 def test_batched_level_chains_plain_match_pallas_interpret(visc_system):
     _, _, s_mu, sphi_c, vol_c, shapes = visc_system
     diags, same, _ = viscosity.viscosity_term_fields(s_mu, sphi_c, vol_c, shapes, same_axis_only=True)
-    lv = viscosity.make_viscosity_mg_preconditioner(diags, same).levels[1]
+    mg = viscosity.make_viscosity_mg_preconditioner(diags, same)
+    lv = mg.levels[1]
     assert lv.diag.shape == (3, 7, 25, 7)
     kw = dict(omega=0.8, n_smooth=2, coarse_iters=24)
     kj = pallas_mg.make_level_kernels(
         jnp.asarray(lv.diag.numpy()), [(o, jnp.asarray(c.numpy())) for o, c in lv.coefs], interpret=True, **kw)
-    before = cuda_mg.level_chain.launches
-    kt = cuda_mg.level_kernels(lv.diag, lv.coefs, **kw)
+    before = (cuda_mg.vcycle_tail.launches, cuda_mg.vcycle_tail.batched_launches)
+
+    def chain(b, x0, iters, resid):
+        return cuda_mg.level_chain_plain(lv.diag, lv.coefs, b, x0, iters=iters, omega=0.8, emit_resid=resid)
+
     rng = np.random.default_rng(11)
     b = rng.standard_normal(lv.diag.shape).astype(np.float32)
     x = rng.standard_normal(lv.diag.shape).astype(np.float32)
     xj, rj = kj.presmooth_resid(jnp.asarray(b))
-    xt, rt = kt.presmooth_resid(torch.from_numpy(b))
+    xt, rt = chain(torch.from_numpy(b), None, 2, True)
     _close_rel(xt.numpy(), xj, CHAIN_REL)
     _close_rel(rt.numpy(), rj, CHAIN_REL)
-    _close_rel(kt.postsmooth(torch.from_numpy(x), torch.from_numpy(b)).numpy(),
+    _close_rel(chain(torch.from_numpy(b), torch.from_numpy(x), 2, False).numpy(),
                kj.postsmooth(jnp.asarray(x), jnp.asarray(b)), CHAIN_REL)
-    _close_rel(kt.coarse_solve(torch.from_numpy(b)).numpy(), kj.coarse_solve(jnp.asarray(b)), CHAIN_REL)
+    _close_rel(chain(torch.from_numpy(b), None, 24, False).numpy(), kj.coarse_solve(jnp.asarray(b)), CHAIN_REL)
     # each system relaxes on its own: the stack equals the systems one by one
     for i in range(3):
         one = cuda_mg.level_chain_plain(lv.diag[i], [(o, c[i]) for o, c in lv.coefs], torch.from_numpy(b[i]), None,
                                         iters=24, omega=0.8, emit_resid=False)
-        np.testing.assert_array_equal(kt.coarse_solve(torch.from_numpy(b))[i].numpy(), one.numpy())
-    assert cuda_mg.level_chain.launches == before  # the CPU runs the plain version
+        np.testing.assert_array_equal(chain(torch.from_numpy(b), None, 24, False)[i].numpy(), one.numpy())
+    # the chains' wrapper is the V-cycle's tail: the CPU runs its plain
+    # version, and a meta tensor is refused
+    r0 = torch.from_numpy(rng.standard_normal(mg.tail.fine_shape).astype(np.float32))
+    cuda_mg.vcycle_tail(mg.tail, r0, r0)
+    assert (cuda_mg.vcycle_tail.launches, cuda_mg.vcycle_tail.batched_launches) == before
     with pytest.raises(ValueError):
-        kt.presmooth_resid(torch.from_numpy(b).to("meta"))
+        cuda_mg.vcycle_tail(mg.tail, r0.to("meta"), r0.to("meta"))
 
 
 def _geom_case(seed, n=(8, 10, 12)):

@@ -1,6 +1,6 @@
 """The port's cell-Poisson multigrid (``solvers/multigrid.py``) and the
 plain versions of its two kernels (``ops/cuda_stencils.py::
-stencil_matvec``, ``ops/cuda_mg.py`` level chains) against the JAX
+stencil_matvec``, ``ops/cuda_mg.py`` level chains of the V-cycle's tail) against the JAX
 package, on CPU.
 
 * hierarchy (Galerkin diag / coefficients at every level), ``_restrict``
@@ -91,20 +91,28 @@ def test_level_chains_plain_match_pallas_interpret():
     lj, lt = jmg.build_hierarchy(dj, cj)[1], tmg.build_hierarchy(dt, ct)[1]
     kw = dict(omega=0.8, n_smooth=2, coarse_iters=24)
     kj = pallas_mg.make_level_kernels(lj.diag, lj.coefs, interpret=True, **kw)
-    before = cuda_mg.level_chain.launches
-    kt = cuda_mg.level_kernels(lt.diag, lt.coefs, **kw)
+    before = cuda_mg.vcycle_tail.launches
+
+    def chain(b, x0, iters, resid):
+        return cuda_mg.level_chain_plain(lt.diag, lt.coefs, b, x0, iters=iters, omega=0.8, emit_resid=resid)
+
     b = rng.standard_normal(lt.diag.shape).astype(np.float32)
     x = rng.standard_normal(lt.diag.shape).astype(np.float32)
     xj, rj = kj.presmooth_resid(jnp.asarray(b))
-    xt, rt = kt.presmooth_resid(torch.from_numpy(b))
+    xt, rt = chain(torch.from_numpy(b), None, 2, True)
     _close_rel(xt.numpy(), xj, CHAIN_REL)
     _close_rel(rt.numpy(), rj, CHAIN_REL)
-    _close_rel(kt.postsmooth(torch.from_numpy(x), torch.from_numpy(b)).numpy(),
+    _close_rel(chain(torch.from_numpy(b), torch.from_numpy(x), 2, False).numpy(),
                kj.postsmooth(jnp.asarray(x), jnp.asarray(b)), CHAIN_REL)
-    _close_rel(kt.coarse_solve(torch.from_numpy(b)).numpy(), kj.coarse_solve(jnp.asarray(b)), CHAIN_REL)
-    assert cuda_mg.level_chain.launches == before  # the CPU runs the plain version
+    _close_rel(chain(torch.from_numpy(b), None, 24, False).numpy(), kj.coarse_solve(jnp.asarray(b)), CHAIN_REL)
+    # the chains' wrapper is the V-cycle's tail: the CPU runs its plain
+    # version, and a meta tensor is refused
+    tail = cuda_mg.make_vcycle_tail(tmg.build_hierarchy(dt, ct), **kw)
+    r0 = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    cuda_mg.vcycle_tail(tail, r0, r0)
+    assert cuda_mg.vcycle_tail.launches == before
     with pytest.raises(ValueError):
-        kt.presmooth_resid(torch.from_numpy(b).to("meta"))
+        cuda_mg.vcycle_tail(tail, r0.to("meta"), r0.to("meta"))
 
 
 def test_vcycle_matches_jax_fused_and_xla(monkeypatch):

@@ -133,7 +133,7 @@ def _launch_counts():
 
     return [f.launches for f in (
         cuda_stencils.cell_poisson_pcg, cuda_stencils.stencil_matvec, cuda_cg.coupled_visc_pcg,
-        cuda_cg.coupled_matvec_geom, cuda_mg.level_chain, cuda_binned.serial_reduce, cuda_scan.seg_scan_sorted,
+        cuda_cg.coupled_matvec_geom, cuda_mg.vcycle_tail, cuda_binned.serial_reduce, cuda_scan.seg_scan_sorted,
         cuda_binned.place_live, cuda_binned.segment_broadcast, cuda_fold.fold,
     )]
 
