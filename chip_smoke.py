@@ -38,8 +38,9 @@ PyTorch version on the card:
 * the sharded step (``step_3d(mesh=)``): the flagship on a 1D mesh of 4
   slots and on a (2, 2) (x, z) mesh, and ``coiling_config(504)`` on 4
   slots, every slot on the one card (the three solves distributed over
-  the slots' blocks, every width-1 axis-0 halo through the halo push
-  kernel, each slot's launches on its own stream).
+  the slots' blocks, every width-1 axis-0 halo through the halo pull
+  kernel, one launch an exchange on the caller's stream; the push kernel
+  of rings that span cards is called directly in ``halo``).
 
 Phases, each printing one JSON line:
 
@@ -49,7 +50,8 @@ Phases, each printing one JSON line:
               memory and spills of the kernels redesigned for Hopper
               (the segment broadcast, the tiled geometry matvec, the
               coupled PCG, the live-cell Poisson PCG, the live placement,
-              the tiled fold and the V-cycle's tail)
+              the tiled fold, the V-cycle's tail, the tiled serial reduce
+              and the halo pull)
   kernels     flagship: the two PCG kernels on the real density /
               pressure / viscosity systems of the third step vs their
               plain versions: errors, iterations, CUDA-event times, the
@@ -170,8 +172,12 @@ Phases, each printing one JSON line:
               kernel, the segmented scan and the scan route (scan + live
               placement), each vs its plain version (bitwise; the serial
               add within SUM_REL) and the scan route expanded vs the
-              serial route (bitwise), with CUDA-event times, the
-              torch.segment_reduce time and bounds; the route sweep: both
+              serial route (bitwise), with CUDA-event times (and the
+              serial kernel's device ms), the torch.segment_reduce time
+              and bounds; a 320-channel reduce of the step's ids with
+              seeded values through the dense segment_reduce (the serial
+              kernel's route): add within SUM_REL of torch.segment_reduce,
+              min bitwise its plain version, one launch each; the route sweep: both
               routes on every reduce of a step at all five sizes; the live route on every reduce and
               fold of the step (as in kernels_coil); every segment
               broadcast of the step (bitwise, beside torch.index_select);
@@ -213,11 +219,13 @@ Phases, each printing one JSON line:
   halo        row 15 over meshes of 2, 4 and 8 slots of the card, on the
               blocks of the sharded steps' fields (flagship, 128^3 and 504
               cells and x faces, padded to the slots) and a 4-D input: 1,000
-              back-to-back exchanges with changing contents, each bitwise
-              its plain version; CUDA-event ms of the kernel (all slots,
-              launch to join), the plain route and one torch.cat a slot of
-              the pre-moved planes, the same-card byte bound and the
-              computed NVLink plane bound
+              back-to-back exchanges with changing contents on each route,
+              the pull (through halo.halo_exchange, one launch an exchange)
+              and the push (halo_exchange_push called directly, one launch
+              a slot), each bitwise its plain version; CUDA-event ms of
+              both routes (launch to join) and their device ms, the plain
+              route and one torch.cat a slot of the pre-moved planes, the
+              same-card byte bound and the computed NVLink plane bound
   mesh        flagship sharded on a 1D mesh of 4 slots and a (2, 2) mesh, 3
               steps each with the counters reset just before: the halo
               kernel launched and no PCG kernel, solves converged, every
@@ -258,6 +266,7 @@ MATVEC_TOL = dict(rtol=1e-5, atol=1e-6)  # matvecs vs plain version
 # serial segment sums vs plain version: max |difference| over max |value|
 # (the kernel rounds as the plain version does and is expected bitwise)
 SUM_REL = 1e-6
+WIDE_CHANNELS = 320  # above the scan route's 256 channels: the dense segment_reduce takes the serial kernel
 STENCIL_OPS = 13  # 7 products + 6 sums a cell
 RELAX_OPS = 17  # a relaxation: the stencil, b - Ax, * inv, x + (a cell)
 # card step vs the port's CPU step from the same state: fp32 rounding of
@@ -350,7 +359,8 @@ def halo_plane_bounds():
 
 # the kernels redesigned for Hopper, whose ptxas resources the build line lists
 REDESIGNED = ("coupled_matvec_kernel", "binned_broadcast_kernel", "coupled_visc_pcg_kernel", "poisson_pcg_kernel",
-              "binned_place_live_kernel", "fold_kernel", "mg_vcycle_tail_kernel")
+              "binned_place_live_kernel", "fold_kernel", "mg_vcycle_tail_kernel", "binned_reduce_kernel",
+              "halo_pull_kernel")
 
 
 def kernel_resources(log, names=REDESIGNED):
@@ -410,10 +420,24 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device time of `fn()` over `reps` back-to-back calls: the sum
-    of its CUDA kernels' intervals under torch.profiler, over `reps` (the
-    host's time between launches left out), after one warm-up call."""
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_us() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` a microsecond, timed once."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    stop.record()
+    torch.cuda.synchronize()
+    return 10_000_000 / (start.elapsed_time(stop) * 1e3)
+
+
+def profiled_ms(fn, reps: int) -> float:
+    """Mean of the CUDA kernels' intervals of `reps` back-to-back calls of
+    `fn()` under torch.profiler (the host's time between launches left
+    out), after one warm-up call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -425,8 +449,54 @@ def device_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
     if us <= 0:
-        raise AssertionError("device_ms: the profiler saw no device time")
+        raise AssertionError("profiled_ms: the profiler saw no device time")
     return us / 1e3 / reps
+
+
+def device_times(fns, reps: int) -> dict:
+    """Mean device time of each `fns[name]()` over `reps` back-to-back
+    calls, after one warm-up call: the calls are queued behind a spin
+    kernel that holds the caller's stream for twice the host's time to
+    queue them, between two CUDA events, so the device runs them with no
+    host time between (what is left between its kernels is the device's
+    own); once more with a longer spin where the host took more than 0.8
+    of it.  Where the host still cannot queue the calls ahead (a host
+    sync inside, or more launches than the device's queue holds: the
+    plain versions), `profiled_ms`."""
+    import torch
+
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        spin_us = max(2e6 * (time.perf_counter() - t0), 200.0)
+        torch.cuda.synchronize()
+        out[name] = None
+        for _ in range(2):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(spin_us * spin_cycles_per_us()))
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            queued_us = 1e6 * (time.perf_counter() - t0)
+            stop.record()
+            torch.cuda.synchronize()
+            if queued_us < 0.8 * spin_us:
+                out[name] = start.elapsed_time(stop) / reps
+                break
+            spin_us *= 2
+        if out[name] is None:
+            out[name] = profiled_ms(fn, reps)
+    return out
+
+
+def device_ms(fn, reps: int) -> float:
+    """`device_times` of one function."""
+    return device_times({"fn": fn}, reps)["fn"]
 
 
 def capture_systems(step_3d, state, cfg, geom):
@@ -919,19 +989,20 @@ def tail_phase(label, tail, x, r):
     out_p = vcycle_tail_plain(tail, x, r)
     check_bitwise(f"vcycle tail[{label}]", [vcycle_tail(tail, x, r)], [out_p])
     check_bitwise(f"vcycle tail model[{label}]", [tail_model().vcycle_tail_model(tail, x, r)], [out_p])
-    split_ms = {}  # None: the block's levels would not fit its shared memory
-    for s in range(1, len(tail.levels) + 2):
-        split_ms[s] = None
-        if smem_bytes(tail.levels, s) <= TAIL_SMEM_BYTES:
-            check_bitwise(f"vcycle tail[{label}] split {s}", [launch_tail(tail, x, r, s)], [out_p])
-            split_ms[s] = device_ms(lambda: launch_tail(tail, x, r, s), 50)
+    fits = [s for s in range(1, len(tail.levels) + 2) if smem_bytes(tail.levels, s) <= TAIL_SMEM_BYTES]
+    for s in fits:
+        check_bitwise(f"vcycle tail[{label}] split {s}", [launch_tail(tail, x, r, s)], [out_p])
+    times = device_times({**{s: functools.partial(launch_tail, tail, x, r, s) for s in fits},
+                          "tail": lambda: vcycle_tail(tail, x, r)}, 50)
+    # None: the block's levels would not fit its shared memory
+    split_ms = {s: times.get(s) for s in range(1, len(tail.levels) + 2)}
     grid_b, block_b = tail_barriers(tail)
     return dict(
         system=label, levels=[list(tail.fine_shape)] + [list(lv.diag.shape) for lv in tail.levels],
         block_level=tail.block_level, block_cells=BLOCK_CELLS, grid_barriers=grid_b, block_barriers=block_b,
         smem_bytes=smem_bytes(tail.levels, tail.block_level),
         bitwise=True, max_abs_err=0.0,
-        ms=cuda_time_ms(lambda: vcycle_tail(tail, x, r), 50), device_ms=device_ms(lambda: vcycle_tail(tail, x, r), 50),
+        ms=cuda_time_ms(lambda: vcycle_tail(tail, x, r), 50), device_ms=times["tail"],
         plain_ms=cuda_time_ms(lambda: vcycle_tail_plain(tail, x, r), 10),
         plain_device_ms=device_ms(lambda: vcycle_tail_plain(tail, x, r), 5),
         split_device_ms=split_ms, **tail_bound(tail),
@@ -1017,6 +1088,10 @@ def binned_phase(reduces, broadcasts):
                 vals, red, offsets=offs, axis=0, unsafe=True, initial=float(fill)), 5),
             **bound(live * c * 4 + k * 8 + m * c * 4, live * c),
         ))
+    dev = device_times({i: functools.partial(cbn.serial_reduce, *args, **kw)
+                        for i, (_, args, kw, _) in enumerate(reduces)}, 20)
+    for i, row in enumerate(red_rows):
+        row["device_ms"] = dev[i]
     return red_rows, broadcast_phase(broadcasts)
 
 
@@ -1198,6 +1273,59 @@ def scan_route_phase(reduces):
         ))
         del scan, same, offs
         torch.cuda.empty_cache()
+    dev = device_times({i: functools.partial(cbn.serial_reduce, *args, **kw)
+                        for i, (_, args, kw, _) in enumerate(reduces)}, 10)
+    for i, row in enumerate(rows):
+        row["serial_reduce"]["device_ms"] = dev[i]
+    return rows
+
+
+def wide_reduce_phase(reduces):
+    """A `WIDE_CHANNELS`-channel reduce of the step's first reduce's ids
+    with seeded values, through the dense ``segment_reduce`` (channels
+    first): the serial kernel's route, one launch a call.  The add within
+    SUM_REL of one torch.segment_reduce, the min bitwise its plain
+    version; CUDA-event and device ms, the library call's ms, the bound."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
+
+    caller, (_, ids, m, _, _), _, _ = reduces[0]
+    k = ids.shape[0]
+    vals = torch.randn((k, WIDE_CHANNELS), generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    offs = cbn._offsets(ids, m)
+    rows = {}
+    for op in ("add", "min"):
+        def run():
+            return cbn.segment_reduce(vals, ids, m, op, 0.0, channels_first=True)
+
+        def library():
+            return torch.segment_reduce(vals, cbn._OPS[op], offsets=offs, axis=0, unsafe=True, initial=0.0)
+
+        before = cbn.serial_reduce.launches
+        got = run()
+        if cbn.serial_reduce.launches - before != 1:
+            raise AssertionError(f"{WIDE_CHANNELS}-channel {op}: the dense reduce did not launch the serial kernel once")
+        if op == "add":
+            lib = library()
+            err, rel = rel_err(got, lib.t())
+            del lib
+            if not rel <= SUM_REL:
+                raise AssertionError(f"{WIDE_CHANNELS}-channel add vs torch.segment_reduce: max rel {rel} > {SUM_REL}")
+        else:
+            check_bitwise(f"{WIDE_CHANNELS}-channel min", [got], [cbn.segment_reduce_plain(vals, ids, m, op, 0.0,
+                                                                                           channels_first=True)])
+            err, rel = 0.0, 0.0
+        del got
+        torch.cuda.empty_cache()
+        counts, bnd = reduce_bound(vals, ids, m)
+        rows[op] = dict(caller=caller, K=k, C=WIDE_CHANNELS, M=m, **counts, max_abs_err=err, max_rel_err=rel,
+                        ms=cuda_time_ms(run, 5), library_ms=cuda_time_ms(library, 3), **bnd)
+        torch.cuda.empty_cache()
+    dev = device_times({op: functools.partial(cbn.segment_reduce, vals, ids, m, op, 0.0, channels_first=True)
+                        for op in rows}, 5)
+    for op, row in rows.items():
+        row["device_ms"] = dev[op]
     return rows
 
 
@@ -1864,6 +1992,7 @@ def reset_counters():
         "fold": cuda_fold.fold,
         "coupled_stencil_matvec": cuda_stencils.coupled_stencil_matvec,
         "halo_exchange_rdma": halo_rdma.halo_exchange_rdma,
+        "halo_exchange_push": halo_rdma.halo_exchange_push,
     }
     for w in wrappers.values():
         w.launches = 0
@@ -2281,10 +2410,14 @@ def unet_forward_events(unet):
 
 def halo_phase():
     """Row 15 on the card: every slot count and field of `HALO_FIELDS`,
-    `HALO_REPS` exchanges with changing contents, each bitwise its plain
-    version; CUDA-event times of the kernel (all slots, launch to join),
-    the plain route and one ``torch.cat`` a slot of the pre-moved planes,
-    beside the same-card byte bound and the computed NVLink plane bound."""
+    `HALO_REPS` exchanges with changing contents on each route, the pull
+    (``halo.halo_exchange``, the step's route: one launch an exchange, the
+    slots sharing the card) and the push (``halo_exchange_push`` called
+    directly: one launch a slot), each bitwise its plain version;
+    CUDA-event times (launch to join) and device times of both routes
+    (`device_times`: the calls queued ahead of the device), the plain
+    route and one ``torch.cat`` a slot of the pre-moved planes, beside the
+    same-card byte bound and the computed NVLink plane bound."""
     import torch
     from python_fluid_simulation_tpu_torch.ops import cuda_halo
     from python_fluid_simulation_tpu_torch.parallel import halo, halo_rdma
@@ -2292,38 +2425,60 @@ def halo_phase():
     from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    routes = {
+        "pull": (lambda mesh, blocks: halo.halo_exchange(mesh, blocks, "x"), halo_rdma.halo_exchange_rdma, 1),
+        "push": (lambda mesh, blocks: halo_rdma.halo_exchange_push(mesh, blocks, "x"), halo_rdma.halo_exchange_push,
+                 None),
+    }
     rows = []
     for slots in HALO_SLOTS:
         mesh = make_mesh(slots)
+        if halo_rdma.halo_route(mesh, "x") != "pull":
+            raise AssertionError(f"{mesh}: the slots share the card, the exchange must pull")
+        timed = {}  # (field, route) -> the exchange, device-timed after the slot count's fields
         for name, shape in HALO_FIELDS:
             n = _padded_extent(shape[0], slots) // slots
             bshape = (n,) + shape[1:]
+            plane = math.prod(bshape[1:])
             blocks = [torch.randn(bshape, generator=gen, device="cuda") for _ in range(slots)]
-            before = halo_rdma.halo_exchange_rdma.launches
-            mismatched = torch.zeros((), dtype=torch.int64, device="cuda")
-            for _ in range(HALO_REPS):
-                for b in blocks:
-                    b.add_(1.0)
-                got = halo.halo_exchange(mesh, blocks, "x")  # the step's route: the kernel
-                want = halo_rdma.halo_exchange_rdma_plain(mesh, blocks, "x")
-                for g, w in zip(got, want):
-                    mismatched += (g != w).sum()
-            launched = halo_rdma.halo_exchange_rdma.launches - before
-            bad = int(mismatched)
-            if launched != HALO_REPS * slots or bad:
-                raise AssertionError(f"halo {name} over {slots} slots: {launched} launches, {bad} elements differ")
-            ms = cuda_time_ms(lambda: halo_rdma.halo_exchange_rdma(mesh, blocks, "x"), HALO_TIMED)
-            plain_ms = cuda_time_ms(lambda: halo_rdma.halo_exchange_rdma_plain(mesh, blocks, "x"), HALO_TIMED)
+            row = dict(field=name, global_shape=list(shape), slots=slots, block=list(bshape), exchanges=HALO_REPS,
+                       max_abs_err=0.0, **bound(slots * (2 * n + 2) * plane * 4, 0),
+                       nvlink_plane_bytes=plane * 4, nvlink_bound_ms=plane * 4 / NVLINK_BYTES_PER_S * 1e3)
+            for route, (call, counter, per_exchange) in routes.items():
+                before = counter.launches
+                mismatched = torch.zeros((), dtype=torch.int64, device="cuda")
+                for _ in range(HALO_REPS):
+                    for b in blocks:
+                        b.add_(1.0)
+                    got = call(mesh, blocks)
+                    want = halo_rdma.halo_exchange_rdma_plain(mesh, blocks, "x")
+                    for g, w in zip(got, want):
+                        mismatched += (g != w).sum()
+                launched = counter.launches - before
+                bad = int(mismatched)
+                need = HALO_REPS * (per_exchange or slots)
+                if launched != need or bad:
+                    raise AssertionError(f"halo {route} {name} over {slots} slots: {launched} launches (not {need}), "
+                                         f"{bad} elements differ")
+                row[route] = dict(launches_per_exchange=launched / HALO_REPS, mismatched_elements=bad,
+                                  ms=cuda_time_ms(lambda: call(mesh, blocks), HALO_TIMED))
+                timed[(name, route)] = functools.partial(call, mesh, blocks)
+            (_, entries), = halo_rdma.pull_plan(mesh, "x")
+            buf = torch.empty((slots, n + 2) + bshape[1:], device="cuda")
+            row["pull"]["vector_floats"] = halo_rdma.vector_floats(
+                plane, halo_rdma.pull_table(entries, blocks, buf, n, plane))
+            del buf
+            row["push"]["grid"] = cuda_halo.grid_size(n * plane, slots, torch.device("cuda", 0))
+            row["plain_ms"] = cuda_time_ms(lambda: halo_rdma.halo_exchange_rdma_plain(mesh, blocks, "x"), HALO_TIMED)
             frames = halo_rdma.halo_exchange_rdma_plain(mesh, blocks, "x")
             lo, hi = [f[:1].clone() for f in frames], [f[-1:].clone() for f in frames]
-            library_ms = cuda_time_ms(lambda: [torch.cat([a, b, c]) for a, b, c in zip(lo, blocks, hi)], HALO_TIMED)
+            row["library_ms"] = cuda_time_ms(lambda: [torch.cat([a, b, c]) for a, b, c in zip(lo, blocks, hi)],
+                                             HALO_TIMED)
             del frames, lo, hi, blocks, got, want
-            plane = math.prod(bshape[1:])
-            rows.append(dict(
-                field=name, global_shape=list(shape), slots=slots, block=list(bshape), exchanges=HALO_REPS,
-                mismatched_elements=bad, max_abs_err=0.0, grid=cuda_halo.grid_size(n * plane, slots, torch.device("cuda", 0)),
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound(slots * (2 * n + 2) * plane * 4, 0),
-                nvlink_plane_bytes=plane * 4, nvlink_bound_ms=plane * 4 / NVLINK_BYTES_PER_S * 1e3))
+            rows.append(row)
+        for (name, route), ms in device_times(timed, HALO_TIMED).items():
+            next(r for r in rows if r["slots"] == slots and r["field"] == name)[route]["device_ms"] = ms
+        del timed
         torch.cuda.empty_cache()
     return rows
 
@@ -2858,7 +3013,7 @@ def main() -> int:
     same_system["max_abs_diff"] = max(max_err(g, r)[0] for g, r in zip(faces["distributed"], faces["coupled_visc_pcg"]))
     del calls, visc_args, visc_kw, faces
     _, prof_m504, _ = profile_steps(lambda st: step_m504(st, cfg504, geom=geom504), state, 1)
-    halo_dev = prof_m504["own_kernels_per_step"].get("halo_push_kernel", {})
+    halo_dev = prof_m504["own_kernels_per_step"].get("halo_pull_kernel", {})
     timed = ms_m504[1:]
     emit({"phase": "mesh_504", "grid": list(cfg504.grid.res), "particles": n504, "mesh": m504.shape,
           "warmup_step_ms": ms_m504[0], "step_ms": timed, "median_step_ms": statistics.median(timed),
@@ -3006,6 +3161,7 @@ def main() -> int:
     bc256_rows = broadcast_phase(broadcasts)
     del broadcasts
     scan_rows = scan_route_phase(reduces)
+    wide_rows = wide_reduce_phase(reduces)
     reduce_sweep += route_sweep("256", reduces)
     live256_rows = live_reduce_phase(reduces, got["fold"])
     del reduces
@@ -3021,7 +3177,7 @@ def main() -> int:
     del got
     torch.cuda.empty_cache()
     emit({"phase": "kernels_256", "grid": list(cfg256.grid.res), "particles": n256, "reduce": scan_rows,
-          "route_sweep": reduce_sweep, "place_live": live256_rows, "fold": fold256_rows,
+          "serial_reduce_wide": wide_rows, "route_sweep": reduce_sweep, "place_live": live256_rows, "fold": fold256_rows,
           "fused_poisson_pcg": fused256_rows, "coupled_visc_pcg": coupled256,
           "binned_segment_broadcast": bc256_rows,
           "seconds": time.perf_counter() - t0})
@@ -3179,7 +3335,7 @@ def main() -> int:
                 "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations",
                 "library_ms": library_ms}
 
-    def total(rows, keys=("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")):
+    def total(rows, keys=("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")):
         """One step's (or one V-cycle's) calls summed."""
         out = {k: sum(r[k] for r in rows) for k in keys if k in rows[0]}
         out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
@@ -3200,7 +3356,8 @@ def main() -> int:
         entry("stencil_matvec", "stencil_matvec.cu", "pallas_stencils.py:299", sten, stencil_lib["library_ms"]),
         # the tail of one 128^3 pressure V-cycle (coiling's cell tail in kernels_coil)
         entry("mg_vcycle_tail", "mg_vcycle.cu", "pallas_mg.py:100", tail128),
-        entry("binned_segment_reduce", "binned_segment.cu", "pallas_binned.py:423", red, red["library_ms"]),
+        dict(entry("binned_segment_reduce", "binned_segment.cu", "pallas_binned.py:423", red, red["library_ms"]),
+             device_ms=red["device_ms"]),
         # the scan route on the 256 step's four reduces: row 11 (the live
         # placement, with row 13 as its first phase) and row 13 (the scan)
         dict(entry("scan_reduce", "binned_segment.cu", "pallas_binned.py:327", scan_red, scan_red["library_ms"],
@@ -3228,10 +3385,12 @@ def main() -> int:
     # row 15 on the 504 cell slabs over MESH_SLOTS slots (mesh_504's exchanges);
     # bitwise at every shape and slot count
     halo_row = next(r for r in halo_rows if r["field"] == "504_cells" and r["slots"] == MESH_SLOTS)
-    kernels.append(dict(
-        entry("halo_exchange_rdma", "halo_rdma.cu", "", dict(halo_row, max_abs_err=max(r["max_abs_err"] for r in halo_rows)),
-              halo_row["library_ms"]),
-        replaces="python_fluid_simulation_tpu/parallel/halo_rdma.py:133"))
+    for name, route, source in (("halo_exchange_rdma", "pull", "halo_pull.cu"),
+                                ("halo_exchange_push", "push", "halo_rdma.cu")):
+        kernels.append(dict(
+            entry(name, source, "", dict(halo_row, max_abs_err=max(r["max_abs_err"] for r in halo_rows),
+                                         ms=halo_row[route]["ms"]), halo_row["library_ms"]),
+            device_ms=halo_row[route]["device_ms"], replaces="python_fluid_simulation_tpu/parallel/halo_rdma.py:133"))
     emit({"phase": "done", "halo_rdma_nvlink_bound_computed": halo_plane_bounds(),
           "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

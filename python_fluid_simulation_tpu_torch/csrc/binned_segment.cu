@@ -7,19 +7,34 @@
 // row range of each tile found by searchsorted in XLA beforehand.  On
 // Hopper every (segment, channel) pair gets its own thread instead:
 //
-// reduce   a block owns 256 consecutive segments.  Its threads first find
-//          the row range of each segment by binary search on the sorted
-//          ids (into shared memory), then each (segment, channel) pair is
-//          reduced SERIALLY IN ROW ORDER from `fill`: add sums, min takes
-//          the minimum clamped at fill.  Sums stay segment-local, use no
-//          atomics and are bitwise repeatable; they match PyTorch's
-//          segment_reduce (the plain version), which reduces in the same
-//          order from the same initial value.  Negative ids sort before
-//          segment 0 and ids >= M after segment M-1, so both fall outside
-//          every range and are dropped.  Row-major output puts consecutive
-//          threads on consecutive channels of one segment; channels-first
-//          output (C, M) puts them on consecutive segments of one channel,
-//          so the stores are coalesced either way.
+// reduce   tiles of kTile (128) consecutive segments, dealt round robin to
+//          the resident blocks (small tiles spread the fluid's dense
+//          segments over every block).  A block finds the row ranges of its
+//          next kBatch tiles at once, one binary search a thread on the
+//          sorted ids (two a tile, not one a segment); inside a tile the
+//          segments' first rows come from one pass over the tile's rows
+//          that marks where the id changes (as the live placement's pass
+//          1).  A warp then takes a segment x 32-channel group, lanes on
+//          consecutive channels, so every row is read as one contiguous
+//          run; each lane reduces its channel SERIALLY IN ROW ORDER from
+//          `fill` (add: __fadd_rn sums, min: the minimum clamped at fill,
+//          NaN propagating), four rows' loads in flight at a time.  Sums
+//          stay segment-local, use no atomics and are bitwise repeatable;
+//          they are the scan route's result (fill 0) and the order of
+//          PyTorch's segment_reduce, the plain version.  The results go
+//          through shared memory, kGroup (64) channels x (kTile + 1) at a
+//          time, and are written along segments (channels-first (C, M): a
+//          warp a channel's 128 segments) or along channels (row-major
+//          (M, C)), so every store is coalesced.  Where M is not a
+//          multiple of 8 a channel's row starts inside a 32-byte sector,
+//          and a tile's edge sectors are shared with the next tile's: the
+//          longer the tile, the fewer such sectors (a sweep of 32, 64 and
+//          128 segments a tile chose 128: no slower where M is a multiple
+//          of 8, much faster where it is not).  A tile with no rows writes `fill`
+//          and does nothing else (at 256 and 504 94-99% of the segments
+//          are empty).  Negative ids sort before segment 0 and ids >= M
+//          after segment M-1, so both fall outside every tile and are
+//          dropped.
 // broadcast out[i, c] = table[ids[i], c], 0 for ids outside [0, M).  The
 //          callers (G2P, the density displacement gather) gather 54-
 //          channel corner tables (216-byte rows) over the cell-sorted
@@ -76,17 +91,16 @@
 // run split between two warps' rows is read twice); the live placement
 // reads the K ids (twice) and the S segment-last rows and writes S*C
 // values and M slots: 0.43 GB for the 256 step's level-set call
-// (S = 0.38M, C = 125) against 3.4 GB for a dense table.  The serial
-// reduce pays extra for the binary searches (2 log2 K id reads a
-// segment, L2-resident) and, in the channels-first layout, for reads
-// strided by C; tuning is later work.
+// (S = 0.38M, C = 125) against 3.4 GB for a dense table.  The reduce also
+// reads each tile's ids once more to mark its segments, and pays two
+// binary searches a tile (2 log2 K id reads, L2-resident).
 //
 // Ids are int64, the dtype of the port's torch.sort of cell ids.
 //
 // Index widths: M and C are 32-bit (the wrapper checks M < 2^31 and
-// 256 C < 2^31, the pairs a reduce block counts in an int; the placement
-// takes C <= 256); every element offset -- row * C + c, (m0 + s) * C + c,
-// c * M + m0 + s, rid * cv + c, (base + s) * cv -- is computed in 64 bits, so a table may
+// 256 C < 2^31; the placement takes C <= 256); every element offset --
+// row * C + c, (m0 + s) * C + c, c * M + m0 + s, rid * cv + c,
+// (base + s) * cv -- is computed in 64 bits, so a table may
 // pass 2^31 entries (the level set's 125-channel reduce at 126x504x126
 // cells holds 1.0e9).
 
@@ -97,7 +111,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSegs = 256;  // segments per reduce block
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 128;            // segments a reduce tile
+constexpr int kGroup = 64;            // channels a reduce tile stages at once
+constexpr int kBatch = kThreads / 2;  // tiles whose row ranges a block searches at once
 
 __device__ __forceinline__ long lower_bound(const long long* ids, long k,
                                             long long v) {
@@ -112,33 +129,93 @@ __device__ __forceinline__ long lower_bound(const long long* ids, long k,
   return lo;
 }
 
+template <bool kMin>
+__device__ __forceinline__ float reduce_step(float acc, float v) {
+  return kMin ? ((v != v || v < acc) ? v : acc)  // NaN propagates, as in torch
+              : __fadd_rn(acc, v);
+}
+
 template <bool kMin, bool kChannelsFirst>
 __global__ void __launch_bounds__(kThreads)
     binned_reduce_kernel(const float* __restrict__ vals,
                          const long long* __restrict__ ids, long k, int M,
                          int C, float fill, float* __restrict__ out) {
-  __shared__ long rows[kSegs + 1];
-  const long m0 = (long)blockIdx.x * kSegs;
-  const int nseg = (long)M - m0 < kSegs ? (int)((long)M - m0) : kSegs;
-  for (int j = threadIdx.x; j <= nseg; j += kThreads)
-    rows[j] = lower_bound(ids, k, (long long)(m0 + j));
-  __syncthreads();
-  const int pairs = nseg * C;
-  for (int p = threadIdx.x; p < pairs; p += kThreads) {
-    const int s = kChannelsFirst ? p % nseg : p / C;
-    const int c = kChannelsFirst ? p / nseg : p % C;
-    float acc = fill;
-    for (long row = rows[s]; row < rows[s + 1]; ++row) {
-      const float v = vals[row * C + c];
-      if (kMin)
-        acc = (v != v || v < acc) ? v : acc;  // NaN propagates, as in torch
-      else
-        acc = __fadd_rn(acc, v);
+  constexpr int ld = kTile + 1;  // +1: a warp's channel column on distinct banks
+  __shared__ float stage[kGroup * ld];
+  __shared__ long start[kTile + 1];   // the tile's segments' first rows, and its end
+  __shared__ long bounds[2 * kBatch];  // the batch's tiles' row ranges
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long ntiles = ((long)M + kTile - 1) / kTile;
+  for (long first = blockIdx.x; first < ntiles; first += (long)gridDim.x * kBatch) {
+    __syncthreads();  // every thread is done with the last batch's bounds
+    {
+      const long t = first + (long)(threadIdx.x >> 1) * gridDim.x;
+      if (t < ntiles) {
+        long m = (t + (threadIdx.x & 1)) * kTile;
+        if (m > M) m = M;
+        bounds[threadIdx.x] = lower_bound(ids, k, (long long)m);
+      }
     }
-    if (kChannelsFirst)
-      out[(long)c * M + m0 + s] = acc;
-    else
-      out[(m0 + s) * C + c] = acc;
+    __syncthreads();
+    for (int j = 0; j < kBatch; ++j) {
+      const long t = first + (long)j * gridDim.x;
+      if (t >= ntiles) break;
+      const long m0 = t * kTile;
+      const int nseg = (long)M - m0 < kTile ? (int)((long)M - m0) : kTile;
+      const long lo = bounds[2 * j], hi = bounds[2 * j + 1];
+      if (lo == hi) {  // no rows: every segment is fill
+        if (kChannelsFirst) {
+          for (int c = warp; c < C; c += kWarps)
+            for (int s = lane; s < nseg; s += 32) out[(long)c * M + m0 + s] = fill;
+        } else {
+          float* o = out + m0 * C;
+          const long n = (long)nseg * C;
+          for (long e = threadIdx.x; e < n; e += kThreads) o[e] = fill;
+        }
+        continue;
+      }
+      // the segments' first rows: row i is the first of segments
+      // (id[i - 1], id[i]] (the ids are sorted), the tile's end follows
+      // its last row
+      for (long i = lo + threadIdx.x; i < hi; i += kThreads) {
+        const int cur = (int)(ids[i] - m0);
+        const int prev = i == lo ? -1 : (int)(ids[i - 1] - m0);
+        for (int s = prev + 1; s <= cur; ++s) start[s] = i;
+        if (i == hi - 1)
+          for (int s = cur + 1; s <= nseg; ++s) start[s] = hi;
+      }
+      __syncthreads();
+      for (int c0 = 0; c0 < C; c0 += kGroup) {
+        const int g = C - c0 < kGroup ? C - c0 : kGroup;
+        const int nch = (g + 31) >> 5;  // 32-channel groups
+        for (int u = warp; u < nseg * nch; u += kWarps) {
+          const int s = u / nch;
+          const int cc = ((u - s * nch) << 5) + lane;  // the lane's channel in the group
+          if (cc >= g) continue;
+          float acc = fill;
+          const float* p = vals + start[s] * (long)C + c0 + cc;
+          long rows = start[s + 1] - start[s];
+          for (; rows >= 4; rows -= 4, p += 4 * (long)C) {
+            const float v0 = p[0], v1 = p[C], v2 = p[2 * (long)C], v3 = p[3 * (long)C];
+            acc = reduce_step<kMin>(acc, v0);
+            acc = reduce_step<kMin>(acc, v1);
+            acc = reduce_step<kMin>(acc, v2);
+            acc = reduce_step<kMin>(acc, v3);
+          }
+          for (; rows > 0; --rows, p += C) acc = reduce_step<kMin>(acc, *p);
+          stage[cc * ld + s] = acc;
+        }
+        __syncthreads();
+        if (kChannelsFirst) {
+          for (int cc = warp; cc < g; cc += kWarps)
+            for (int s = lane; s < nseg; s += 32) out[(long)(c0 + cc) * M + m0 + s] = stage[cc * ld + s];
+        } else {
+          for (int s = warp; s < nseg; s += kWarps)
+            for (int cc = lane; cc < g; cc += 32) out[(m0 + s) * C + c0 + cc] = stage[cc * ld + s];
+        }
+        __syncthreads();
+      }
+    }
   }
 }
 
@@ -174,7 +251,6 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kLiveTile = 512;  // segments a live-placement tile covers
 constexpr int kLiveCols = 32;    // columns a transpose group stages
-constexpr int kWarps = kThreads / 32;
 
 // Row i is its segment's last (ids sorted, so the segments' last rows
 // come in ascending id order).
@@ -331,27 +407,32 @@ extern "C" int pfs_binned_place_live(const void* scan, const void* ids,
   return (int)cudaGetLastError();
 }
 
+// The reduce: the resident blocks, or fewer where there are fewer tiles.
 extern "C" int pfs_binned_reduce(const void* vals, const void* ids,
                                  long long k, int M, int C, int op_min,
                                  int channels_first, float fill, void* out,
                                  void* stream) {
   if (M <= 0 || C <= 0) return 0;
-  const unsigned blocks = (unsigned)((M + kSegs - 1) / kSegs);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* kernel =
+      op_min ? (channels_first ? (const void*)binned_reduce_kernel<true, true>
+                               : (const void*)binned_reduce_kernel<true, false>)
+             : (channels_first ? (const void*)binned_reduce_kernel<false, true>
+                               : (const void*)binned_reduce_kernel<false, false>);
+  int per_sm = 0, sms = 0;
+  cudaError_t e = pfs::coop_capacity(kernel, kThreads, 0, &per_sm, &sms);
+  if (e != cudaSuccess) return (int)e;
+  const long ntiles = ((long)M + kTile - 1) / kTile;
+  long blocks = (long)per_sm * sms;
+  if (blocks > ntiles) blocks = ntiles;
+  if (blocks < 1) blocks = 1;
+  const unsigned grid = (unsigned)blocks;
   const float* v = static_cast<const float*>(vals);
   const long long* id = static_cast<const long long*>(ids);
+  long kk = (long)k;
   float* o = static_cast<float*>(out);
-  if (op_min) {
-    if (channels_first)
-      binned_reduce_kernel<true, true><<<blocks, kThreads, 0, st>>>(v, id, k, M, C, fill, o);
-    else
-      binned_reduce_kernel<true, false><<<blocks, kThreads, 0, st>>>(v, id, k, M, C, fill, o);
-  } else {
-    if (channels_first)
-      binned_reduce_kernel<false, true><<<blocks, kThreads, 0, st>>>(v, id, k, M, C, fill, o);
-    else
-      binned_reduce_kernel<false, false><<<blocks, kThreads, 0, st>>>(v, id, k, M, C, fill, o);
-  }
+  void* args[] = {&v, &id, &kk, &M, &C, &fill, &o};
+  e = cudaLaunchKernel(kernel, grid, kThreads, args, 0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

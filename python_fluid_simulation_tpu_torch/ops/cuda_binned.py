@@ -9,11 +9,14 @@ sets, volumes, density scatter) and cell -> particle gathers (G2P,
 density displacement).  The kernels are in ``csrc/binned_segment.cu``
 and ``csrc/seg_scan.cu``:
 
-  * the serial reduce (`serial_reduce`): one thread per (segment,
-    channel), the segment's row range found by binary search on the
-    sorted ids inside the kernel, the rows reduced serially in row order
+  * the serial reduce (`serial_reduce`): tiles of 128 segments dealt to
+    the resident blocks, each tile's row range from two binary searches
+    and its segments' rows from one marking pass; a warp reduces a
+    segment x 32-channel group, a lane a channel, serially in row order
     from ``fill`` (no atomics: bitwise repeatable, and the same order as
-    ``torch.segment_reduce``);
+    ``torch.segment_reduce``), staged through shared memory so that both
+    layouts are written coalesced; a tile with no rows writes ``fill``
+    only;
   * the scan reduce (`scan_reduce`, the step's route): the inclusive
     segmented scan of the rows (``ops/cuda_scan.py::seg_scan_sorted``,
     every row read once, coalesced), then `place_live`, which writes each
@@ -125,10 +128,10 @@ def segment_broadcast_plain(table, sorted_ids):
 
 
 # The kernels take the segment count and the channel count as 32-bit ints
-# and a reduce block walks its 256 segments' (segment, channel) pairs with
-# a 32-bit counter; every element offset (row * C + c, segment * C + c,
-# c * M + segment) is 64-bit, so a table may hold more than 2^31 entries
-# (the level set's 125-channel reduce at 126x504x126 cells: 1.0e9).
+# (channels at most 2^31 / 256, so no 32-bit channel index a kernel steps
+# through can overflow); every element offset (row * C + c, segment * C +
+# c, c * M + segment) is 64-bit, so a table may hold more than 2^31
+# entries (the level set's 125-channel reduce at 126x504x126 cells: 1.0e9).
 MAX_SEGMENTS = 2**31 - 1
 MAX_CHANNELS = (2**31 - 1) // 256
 

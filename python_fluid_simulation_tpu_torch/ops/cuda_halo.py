@@ -1,9 +1,11 @@
-"""The halo push kernel (``csrc/halo_rdma.cu``): one slot's launch, and
-the grid an exchange may use.
+"""The halo kernels' launches: the pull (``csrc/halo_pull.cu``, one launch
+a device an exchange, for rings whose slots share a device) and the push
+(``csrc/halo_rdma.cu``, one launch a slot, for rings that span devices),
+with the grid a push exchange may use.
 
-Replaces the Pallas kernel of ``python_fluid_simulation_tpu/parallel/
-halo_rdma.py::halo_exchange_rdma``; the wrapper that orders the slots'
-launches, counts them and holds the plain version is
+Both replace the Pallas kernel of ``python_fluid_simulation_tpu/parallel/
+halo_rdma.py::halo_exchange_rdma``; the wrapper that picks the route,
+orders the launches, counts them and holds the plain version is
 ``parallel/halo_rdma.py``.  Nothing here runs without a CUDA tensor.
 """
 
@@ -17,8 +19,9 @@ import torch
 
 from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
 
-THREADS = 256  # the kernel's block size (kThreads)
+THREADS = 256  # the push kernel's block size (kThreads)
 MAX_RING = 64  # slots along one mesh axis (kMaxRing)
+MAX_PULL_SLOTS = 64  # slots of one device a pull launch (kMaxSlots)
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,3 +53,13 @@ def launch(x: torch.Tensor, table: np.ndarray, sem_ptr: int, err_ptr: int, pos: 
         stream.cuda_stream,
     )
     cb.check(err, "halo_exchange_rdma launch")
+
+
+def pull(table, n: int, plane: int, vec: int, device: torch.device, stream: torch.cuda.Stream):
+    """One device's pull launch on `stream` of `device`: table the flat
+    addresses, four a slot (block, left neighbour's top plane or 0, right
+    neighbour's bottom plane or 0, output), n and plane in floats, vec 4
+    or 1 (`parallel.halo_rdma.vector_floats`)."""
+    addresses = (ctypes.c_uint64 * len(table))(*table)
+    err = cb.LIB.get().pfs_halo_pull(addresses, len(table) // 4, n, plane, vec, device.index, stream.cuda_stream)
+    cb.check(err, "halo_exchange_rdma pull launch")

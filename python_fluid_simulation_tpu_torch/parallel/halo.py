@@ -8,7 +8,8 @@ a `parallel.mesh.Mesh`: a sharded field is the list of its slot blocks,
 `halo_exchange` frames every block with its neighbours' edges, and
 `psum_dot` sums the slots' fp32 partial dots on slot 0's device in slot
 order.  Width-1 exchanges along array axis 0 of CUDA blocks take the halo
-push kernel (``parallel/halo_rdma.py``); every other exchange, and every
+kernels (``parallel/halo_rdma.py``: one pull launch a device, or the push
+where a ring spans devices); every other exchange, and every
 exchange of CPU blocks, takes the plain route, as every exchange but
 that one keeps ``ppermute`` in the JAX package.
 

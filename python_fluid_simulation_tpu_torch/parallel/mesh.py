@@ -7,8 +7,10 @@ process's ordered list of device *slots* over named axes (``"x"``, or
 ``"x"`` and ``"z"``), and each slot owns one block of every sharded
 grid field.  A slot may repeat a device, so one card holds several
 slots (``make_mesh(4)`` puts four slabs on ``cuda:0``; the CPU tests put
-four on ``cpu``).  On CUDA each slot has a stream of its own, on which
-the halo kernel of that slot runs (``parallel/halo_rdma.py``).
+four on ``cpu``).  A halo exchange whose rings each sit on one device
+is one launch a device on the caller's stream; where a ring spans
+devices each slot pushes on a stream of its own
+(``parallel/halo_rdma.py``).
 
 Grid arrays decompose along array axis 0 over mesh axis "x" and, on a 2D
 mesh, along array axis 2 over "z"; trailing axes stay whole.  A sharded
@@ -43,12 +45,13 @@ class Mesh:
     (i, k) of an (x, z) mesh is ``devices[i * sz + k]``); ``shape`` maps
     each axis name to its extent, as JAX's ``Mesh.shape`` does.
 
-    The halo kernel's per-mesh state lives here and is made at first
-    use: one stream a CUDA slot, the events that order those streams
+    The halo kernels' per-mesh state lives here and is made at first
+    use: each axis's route and pull launches (``halo_plans``), and for the
+    push route one stream a CUDA slot, the events that order those streams
     against the caller's, and the semaphore buffer (3 counters a slot and
     an error word) with the epoch and the block sum the kernels count to
-    (both grow with every exchange, so no counter is ever reset).  Two
-    meshes share none of it.
+    (both grow with every push exchange, so no counter is ever reset).
+    Two meshes share none of it.
     """
 
     def __init__(self, devices: Sequence, axis_names: Sequence[str], extents: Sequence[int]):
@@ -60,6 +63,7 @@ class Mesh:
         if math.prod(self.shape.values()) != len(self.devices) or not self.devices:
             raise ValueError(f"{len(self.devices)} slots do not fill a {tuple(extents)} mesh")
         self.size = len(self.devices)
+        self.halo_plans = {}  # axis name -> (route, pull launches): parallel/halo_rdma.py
         self._streams = None
         self._events = None
         self._sem = None
@@ -81,7 +85,7 @@ class Mesh:
             return [[i * sz + k for i in range(sx)] for k in range(sz)]
         return [[i * sz + k for k in range(sz)] for i in range(sx)]
 
-    # -- the halo kernel's per-mesh state (CUDA slots only)
+    # -- the push route's per-mesh state (CUDA slots only)
 
     def slot_streams(self) -> List[torch.cuda.Stream]:
         """One stream a slot, never shared by two slots of this mesh."""

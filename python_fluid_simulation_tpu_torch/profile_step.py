@@ -35,8 +35,8 @@ inner cycle), every learned-operator call
 steps timed on the host clock without the profiler, then ``--steps``
 steps under ``torch.profiler`` (CPU + CUDA activities).  Prints one JSON
 line with the step times, the device busy time (the union of the CUDA
-kernel and memcpy/memset intervals: the halo kernels of a mesh's slots
-overlap on their streams), the idle
+kernel and memcpy/memset intervals: kernels on several streams, as the
+halo push route's slots, overlap), the idle
 share, the CUDA runtime calls per step (kernel launches, cooperative
 launches, stream synchronisations), the device time and launches of the
 port's own kernels, the profiled steps' solver iterations, the peak
