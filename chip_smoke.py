@@ -35,6 +35,10 @@ PyTorch version on the card:
   geometry matvecs), with the full-width UNet (width 64, 68,723,203
   parameters; weights drawn from ``numpy.random.default_rng(0)`` through
   ``convert.random_flax_unet_params``) run by cuDNN in fp32, TF32 off;
+* the learned operator's trainer (``models/train.py``): flagship training
+  pairs captured by the 'apic' step, full-width Adam steps in fp32 and
+  bf16 (cuDNN forward and backward, deterministic), and the capture ->
+  train -> eval pipeline (``models/train_unet_prod.py``) at small counts;
 * the sharded step (``step_3d(mesh=)``): the flagship on a 1D mesh of 4
   slots and on a (2, 2) (x, z) mesh, and ``coiling_config(504)`` on 4
   slots, every slot on the one card (the three solves distributed over
@@ -216,6 +220,29 @@ Phases, each printing one JSON line:
               the CPU) reported; median step, the UNet forward's share of
               a step (CUDA events), the 'apic' viscosity iterations from
               the same states (reported), peak memory
+  train       the trainer (models/train.py) on the pipeline's config (the
+              flagship at a fixed dt): 5 pairs captured by
+              generate_training_data at the full box (finite; pairs 1-4
+              with nonzero targets); the width-64 trainer from a fixed
+              seed, fp32 (1 warm-up + 3 timed steps) and bf16 (1 warm-up +
+              10 timed on pair 1, then a timed pass over pairs 1-4): the
+              loss falls, ms a step split into forward, backward and
+              optimiser by CUDA events beside their bounds (3 x 3.81
+              TFLOP over the fp32 / bf16 peak; Adam's bytes), the peak
+              memory of a step; the first step of a fresh trainer run
+              twice, bitwise in the loss and every parameter (fp32 and
+              bf16); a width-8 trainer, 3 steps on the card and on the
+              CPU (losses within 1e-5 relative, the first step's gradients
+              within 1e-5 of each tensor's largest, parameters within 1e-2
+              x lr x steps, and within lr x steps where the first gradient
+              is at Adam's eps or at its rounding); the full-width forward
+              with both unpool forms
+              (fp32 within UNPOOL_REL, bf16 reported), each form's and
+              each unpool's ms; models/train_unet_prod.py capture (6
+              steps) -> train (1 bf16 epoch over 5 pairs) -> eval (6
+              steps of 'apic', 'unet', 'unet_warm'), counters reset just
+              before and read just after: the IoU series and the warm
+              start's iterations
   halo        row 15 over meshes of 2, 4 and 8 slots of the card, on the
               blocks of the sharded steps' fields (flagship, 128^3 and 504
               cells and x faces, padded to the slots) and a 4-D input: 1,000
@@ -235,7 +262,8 @@ Phases, each printing one JSON line:
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
-total seconds.  Any failure raises and
+total seconds (about 330 s on one H100 80GB HBM3 at 700 W, the kernels'
+build included).  Any failure raises and
 exits non-zero; without a CUDA device it exits non-zero before any
 result.
 """
@@ -322,6 +350,34 @@ UNET_LEVEL = {"enc1": 0, "enc2": 1, "enc3": 2, "enc4": 3, "enc5": 4, "dec5": 4, 
               "dec1": 0, "unpool4": 4, "unpool3": 3, "unpool2": 2, "unpool1": 1, "fc": 0}
 STEPS_UNET = 6  # 1 warm-up + 5 timed, per mode
 CHECKED_STEP_UNET = 2  # the third step: card vs plain on the card, and vs the CPU (reported)
+# the trainer (models/train.py): flagship pairs captured on the pipeline's
+# config (step 0 solves no viscosity: its target is zero), full-width steps
+TRAIN_PAIRS = 5
+TRAIN_SEED = 0
+TRAIN_LR = 1e-4  # make_trainer's default
+TRAIN_FP32_STEPS = 3  # timed on pair 1, after 1 warm-up
+TRAIN_BF16_STEPS = 10  # timed on pair 1, after 1 warm-up; then one pass over pairs 1-4
+# card vs CPU: a width-8 trainer, 3 steps on tests/test_train.py's 16^3
+# pair (tests/test_torch_train.py's bounds: losses 1e-5 relative,
+# parameters 1e-2 * lr * steps, but see TRAIN_EPS_MARGIN)
+TRAIN_SMALL_WIDTH = 8
+TRAIN_SMALL_STEPS = 3
+TRAIN_LOSS_REL = 1e-5
+TRAIN_PARAM_ATOL_PER_LR_STEP = 1e-2
+# the first step's gradients, card vs CPU: max |d| over each tensor's max
+# |g| (measured 1.6e-6 in a first run of this check)
+TRAIN_GRAD_REL = 1e-5
+# entries whose first CPU gradient is below this many times the larger of
+# Adam's eps (1e-8, optax's) and the gradient's rounding (TRAIN_GRAD_REL of
+# its tensor's largest) are held within lr * steps instead (see
+# train_card_vs_cpu; a run of this check: 4.8e-6 among those entries,
+# 8.2e-8 among the rest, against 3e-6). A gradient gap dg moves the first
+# update by lr * dg * eps / (|g| + eps)^2, under the bound 1e-2 * lr *
+# steps once |g| is 10 times both
+TRAIN_EPS_MARGIN = 10
+UNPOOL_REL = 1e-5  # fast_unpool vs the transposed conv, fp32 forward: max |d| / max |out|
+# models/train_unet_prod.py at small counts
+PIPE_CAPTURE, PIPE_PAIRS, PIPE_EVAL = 6, 5, 6
 # the sharded step: slots of a 1D mesh on the one card, and the JAX
 # package's sharded-vs-unsharded bars (__graft_entry__.py:158-159,
 # tests/test_parallel.py:184-190)
@@ -2541,6 +2597,357 @@ def mesh_phase(step_3d, cfg, state0, geom):
     return out, launches_by
 
 
+def train_step_events(model, optimizer):
+    """CUDA events at the network's forward start and end (module hooks)
+    and at the optimiser step's start and end (optimiser hooks), one list
+    entry a training step; returns (events, remove)."""
+    import torch
+
+    events = []
+
+    def mark(slot):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            if slot == 0:
+                events.append([ev, None, None, None])
+            else:
+                events[-1][slot] = ev
+        return hook
+
+    handles = [model.register_forward_pre_hook(mark(0)), model.register_forward_hook(mark(1)),
+               optimizer.register_step_pre_hook(mark(2)), optimizer.register_step_post_hook(mark(3))]
+
+    def remove():
+        for h in handles:
+            h.remove()
+
+    return events, remove
+
+
+def timed_train_steps(model, ts, train_step, pairs):
+    """One training step a pair through ``make_trainer``'s ``train_step``,
+    split by CUDA events into the forward (the network), the backward (the
+    loss and its backward) and the optimiser step; the peak memory of the
+    first step.  Returns (ts, losses, rows, peak bytes above the step's
+    start)."""
+    import torch
+
+    events, remove = train_step_events(model, ts.optimizer)
+    starts, losses = [], []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i, ex in enumerate(pairs):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ts, loss = train_step(ts, ex)
+        starts.append(start)
+        losses.append(loss)
+        if i == 0:
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.synchronize()
+    remove()
+    rows = [dict(forward_ms=f0.elapsed_time(f1), backward_ms=f1.elapsed_time(b1), optimizer_ms=b1.elapsed_time(o1),
+                 step_ms=s.elapsed_time(o1)) for s, (f0, f1, b1, o1) in zip(starts, events)]
+    return ts, [float(v) for v in losses], rows, peak
+
+
+def train_bounds(model, dtype):
+    """The training step's bounds: the forward's operations (`unet_ops` at
+    the flagship box) over the dtype's peak, the backward twice that, the
+    optimiser Adam's bytes (parameter, gradient and two moments read; the
+    parameter and the moments written; fp32) over the memory rate."""
+    import torch
+
+    rate = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    ops = unet_ops(model, UNET_BOX)
+    n = sum(p.numel() for p in model.parameters())
+    fwd = ops / rate * 1e3
+    opt = 7 * 4 * n / HBM_BYTES_PER_S * 1e3
+    return dict(forward_ms=fwd, backward_ms=2 * fwd, optimizer_ms=opt, step_ms=3 * fwd + opt, forward_ops=ops,
+                rate_ops_per_s=rate)
+
+
+def summarize_steps(rows):
+    keys = ("forward_ms", "backward_ms", "optimizer_ms", "step_ms")
+    return {k: statistics.median(r[k] for r in rows) for k in keys} | {"each": rows}
+
+
+def fresh_trainer(dtype, example_x, seed=TRAIN_SEED, width=UNET_WIDTH, device="cuda", lr=TRAIN_LR):
+    import torch
+
+    from python_fluid_simulation_tpu_torch.models.train import make_trainer
+    from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
+
+    model = UNet3D(width=width, dtype=dtype).to(device)
+    init, train_step = make_trainer(model, lr)
+    return model, init(torch.Generator().manual_seed(seed), example_x), train_step
+
+
+def repeat_first_step(dtype, ex, label):
+    """The first training step of a fresh trainer (the same seed, so the
+    same parameters and an empty Adam state) on the same pair, twice:
+    asserted bitwise in the loss and every parameter."""
+    import torch
+
+    runs = []
+    for _ in range(2):
+        model, ts, train_step = fresh_trainer(dtype, ex.x)
+        ts, loss = train_step(ts, ex)
+        runs.append((loss.clone(), {k: p.detach().clone() for k, p in model.named_parameters()}))
+        del model, ts
+    (loss_a, pa), (loss_b, pb) = runs
+    if not torch.equal(loss_a, loss_b):
+        raise AssertionError(f"{label}: the first training step run twice differs in its loss: {loss_a} vs {loss_b}")
+    differ = [k for k in pa if not torch.equal(pa[k], pb[k])]
+    if differ:
+        raise AssertionError(f"{label}: the first training step run twice differs in {differ}")
+    return dict(bitwise_repeatable=True, loss=float(loss_a), params_compared=len(pa))
+
+
+def train_card_vs_cpu():
+    """A width-TRAIN_SMALL_WIDTH trainer from the same seed on the CPU
+    tests' pair (tests/test_train.py::_example: a 16^3 box of seeded
+    fields), TRAIN_SMALL_STEPS steps on the card and on this machine's CPU:
+    losses within TRAIN_LOSS_REL and parameters within
+    TRAIN_PARAM_ATOL_PER_LR_STEP * lr * steps (tests/test_torch_train.py's
+    bounds), the first step's gradients within TRAIN_GRAD_REL; the entries
+    whose first gradient is at Adam's eps or at its own rounding
+    (TRAIN_EPS_MARGIN) are held within lr * steps and counted (those with a
+    zero gradient too: a 3x3x3 kernel's outer taps on a 1^3 level)."""
+    import numpy as np
+    import torch
+
+    from python_fluid_simulation_tpu_torch.config import GridConfig3D, PhysicsConfig, SimConfig
+    from python_fluid_simulation_tpu_torch.models.train import EPS, capture_viscosity_pair
+
+    cfg = SimConfig(grid=GridConfig3D(bound_min=(0.0, 0.0, 0.0), bound_size=(1.0, 1.0, 1.0), dx=1.0 / 6),
+                    physics=PhysicsConfig(dt=1.0 / 60.0), particle_dx=1.0 / 12)
+    rng = np.random.default_rng(TRAIN_SEED)
+    n, dual = cfg.grid.res, cfg.grid.dual_res
+    shapes = [tuple(k + (1 if i == a else 0) for i, k in enumerate(n)) for a in range(3)]
+    gv0 = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+    sphi = torch.from_numpy(rng.standard_normal(dual).astype(np.float32))
+    lvol = torch.from_numpy(rng.random(dual).astype(np.float32) * np.float32(cfg.grid.dx**3))
+    out = {}
+    for device in ("cuda", "cpu"):
+        ex = capture_viscosity_pair(tuple(v.to(device) for v in gv0),
+                                    tuple(v.to(device) * np.float32(0.9) for v in gv0), sphi.to(device),
+                                    lvol.to(device), cfg)
+        model, ts, train_step = fresh_trainer(torch.float32, ex.x, width=TRAIN_SMALL_WIDTH, device=device)
+        losses = []
+        tc = time.perf_counter()
+        for k in range(TRAIN_SMALL_STEPS):
+            ts, loss = train_step(ts, ex)
+            losses.append(float(loss))
+            if k == 0:
+                grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        out[device] = (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                       time.perf_counter() - tc, tuple(ex.x.shape), grads)
+    (lk, pk, sk, box, gk), (lc, pc, sc, _, gc) = out["cuda"], out["cpu"]
+    grad_rel = max(((gk[n] - gc[n]).abs().max() / gc[n].abs().max().clamp(min=1e-30)).item() for n in gk)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lc))
+    atol = TRAIN_PARAM_ATOL_PER_LR_STEP * TRAIN_LR * TRAIN_SMALL_STEPS
+    # Adam's first update is lr * g / (|g| + eps): where |g| is near eps or
+    # near its own rounding (TRAIN_GRAD_REL of its tensor's largest) it
+    # turns that rounding into a move of up to lr, so there the parameters
+    # are held within Adam's reach, lr * steps
+    gap, gap_eps, n_eps, n_zero = 0.0, 0.0, 0, 0
+    for k in pk:
+        d = (pk[k] - pc[k]).abs()
+        floor = TRAIN_EPS_MARGIN * max(EPS, TRAIN_GRAD_REL * gc[k].abs().max().item())
+        near_eps = gc[k].abs() < floor
+        n_eps += int(near_eps.sum())
+        n_zero += int((gc[k] == 0).sum())
+        gap = max(gap, float(d[~near_eps].max()) if (~near_eps).any() else 0.0)
+        gap_eps = max(gap_eps, float(d[near_eps].max()) if near_eps.any() else 0.0)
+    if not (loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL and gap <= atol
+            and gap_eps <= TRAIN_LR * TRAIN_SMALL_STEPS):
+        raise AssertionError(
+            f"width-{TRAIN_SMALL_WIDTH} training, card vs CPU: losses {lk} vs {lc} (rel {loss_rel}, bound "
+            f"{TRAIN_LOSS_REL}); first-step gradients rel {grad_rel} (bound {TRAIN_GRAD_REL}); parameters max |d| "
+            f"{gap} (bound {atol}), at {n_eps} entries whose gradient is at the rounding floor {gap_eps} "
+            f"(bound {TRAIN_LR * TRAIN_SMALL_STEPS})")
+    return dict(width=TRAIN_SMALL_WIDTH, box=list(box), steps=TRAIN_SMALL_STEPS, lr=TRAIN_LR, card_losses=lk,
+                cpu_losses=lc, loss_rel=loss_rel, loss_tol=TRAIN_LOSS_REL, first_step_grad_max_rel=grad_rel,
+                grad_tol=TRAIN_GRAD_REL, param_max_abs=gap, param_atol=atol, near_eps_entries=n_eps,
+                zero_grad_entries=n_zero,
+                near_eps_param_max_abs=gap_eps, near_eps_atol=TRAIN_LR * TRAIN_SMALL_STEPS,
+                params=sum(v.numel() for v in pk.values()), card_seconds=sk, cpu_seconds=sc)
+
+
+def unpool_phase(state_dict, x):
+    """The full-width forward with both unpool forms (the transposed conv,
+    `FastUnpool`) on the same weights and box, fp32 and bf16: fp32 max |d| /
+    max |out| <= UNPOOL_REL (bf16 reported); each form's forward ms and the
+    four unpools' ms on the inputs the fast forward gives them, beside their
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from python_fluid_simulation_tpu_torch.models.unet3d import FastUnpool, UNet3D, fast_unpool, precise_flags
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        nets = {}
+        for fast in (False, True):
+            net = UNet3D(width=UNET_WIDTH, dtype=dtype, fast_unpool=fast).eval()
+            net.load_state_dict(state_dict)
+            nets[fast] = net.to("cuda")
+        inputs = {}
+        hooks = [m.register_forward_pre_hook(lambda m, a, name=name: inputs.__setitem__(name, a[0]))
+                 for name, m in nets[True].named_modules() if isinstance(m, FastUnpool)]
+        with torch.no_grad():
+            ref, got = nets[False](x), nets[True](x)
+            for h in hooks:
+                h.remove()
+            d, rel = max_err(got, ref)
+            if dtype == torch.float32 and not rel <= UNPOOL_REL:
+                raise AssertionError(f"fast_unpool vs the transposed conv, fp32 forward: max |d| / max |out| {rel} > "
+                                     f"{UNPOOL_REL}")
+            fwd = {form: cuda_time_ms(lambda: nets[fast](x), 5) for form, fast in (("conv_transpose", False),
+                                                                                   ("fast_unpool", True))}
+            unpools = {}
+            with precise_flags():
+                for name, v in inputs.items():
+                    m = getattr(nets[False], name)
+                    w, b = m.weight.to(dtype), m.bias.to(dtype)
+                    nbytes = (v.numel() * 9 + w.numel()) * v.element_size()  # input, weight, 8x output
+                    ops = 2 * v.numel() * w.shape[1] * 8 + 8 * v.numel() // v.shape[1] * w.shape[1]
+                    rate = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+                    unpools[name] = dict(
+                        input=list(v.shape),
+                        conv_transpose_ms=cuda_time_ms(lambda: F.conv_transpose3d(v, w, b, stride=2), 20),
+                        fast_unpool_ms=cuda_time_ms(lambda: fast_unpool(v, w, b), 20),
+                        bound_ms=max(nbytes / HBM_BYTES_PER_S, ops / rate) * 1e3)
+        out["fp32" if dtype == torch.float32 else "bf16"] = dict(
+            max_abs=d, rel=rel, tol=UNPOOL_REL if dtype == torch.float32 else None, forward_ms=fwd,
+            unpools=unpools, unpools_ms={k: sum(u[f"{k}_ms"] for u in unpools.values())
+                                         for k in ("conv_transpose", "fast_unpool", "bound")})
+        del nets, ref, got, inputs
+        torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_phase():
+    """``models/train_unet_prod.py`` at small counts, through its entry
+    points, in a scratch directory of the checkout (removed after):
+    capture PIPE_CAPTURE flagship steps, one bf16 epoch over the first
+    PIPE_PAIRS pairs, eval PIPE_EVAL steps; the counters reset just before
+    and read just after."""
+    import shutil
+
+    from python_fluid_simulation_tpu_torch.models import train_unet_prod as prod
+
+    out = os.path.join(prod.OUT, "chip_smoke")
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        read_counts = reset_counters()
+        t0 = time.perf_counter()
+        prod.capture(PIPE_CAPTURE, out=out)
+        t1 = time.perf_counter()
+        losses = prod.train(1, width=UNET_WIDTH, steps_cap=PIPE_PAIRS, out=out)
+        t2 = time.perf_counter()
+        rec, series = prod.evaluate(PIPE_EVAL, width=UNET_WIDTH, out=out)
+        t3 = time.perf_counter()
+        launches = read_counts()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    need = ("cell_poisson_pcg", *REDUCE_ROUTE, "binned_segment_broadcast", "fold", "coupled_visc_pcg",
+            "coupled_matvec_geom")
+    for name in need:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched on the capture -> train -> eval path")
+    if len(losses) != PIPE_PAIRS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"pipeline train losses {losses}")
+    if len(series["iou"]) != PIPE_EVAL or not all(0.0 <= v <= 1.0 for v in series["iou"]):
+        raise AssertionError(f"pipeline eval IoU {series['iou']}")
+    return dict(capture_steps=PIPE_CAPTURE, train_pairs=PIPE_PAIRS, eval_steps=PIPE_EVAL, losses=losses,
+                metrics=rec, iou=series["iou"], apic_visc_iters=series["apic_visc_iters"],
+                warm_visc_iters=series["warm_visc_iters"], capture_seconds=t1 - t0, train_seconds=t2 - t1,
+                eval_seconds=t3 - t2), launches
+
+
+def train_phase():
+    """The trainer on the card: TRAIN_PAIRS flagship pairs captured, full-
+    width fp32 and bf16 training steps (timed, split, beside their bounds,
+    the loss falling, the first step bitwise repeatable), the card against
+    the CPU at width TRAIN_SMALL_WIDTH, both unpool forms, and the pipeline
+    at small counts (its launches are the phase's)."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.scenes import buckling_scene
+    from python_fluid_simulation_tpu_torch.models import train_unet_prod as prod
+    from python_fluid_simulation_tpu_torch.models.train import generate_training_data
+
+    out = {}
+    # 1. capture on the pipeline's config (the flagship at a fixed dt)
+    t0 = time.perf_counter()
+    cfg = prod._cfg()
+    pairs = list(generate_training_data(buckling_scene(cfg, seed=0, device="cuda"), cfg, TRAIN_PAIRS))
+    torch.cuda.synchronize()
+    for i, ex in enumerate(pairs):
+        if tuple(ex.x.shape) != UNET_BOX or tuple(ex.y.shape) != (1, 3) + UNET_BOX[2:]:
+            raise AssertionError(f"pair {i}: x {tuple(ex.x.shape)}, y {tuple(ex.y.shape)}")
+        for k in ("x", "y", "mask"):
+            if not torch.isfinite(getattr(ex, k)).all():
+                raise AssertionError(f"pair {i}: non-finite {k}")
+        if i and not ex.y.abs().max().item() > 0:
+            raise AssertionError(f"pair {i}: the target is zero (step {i} solves viscosity)")
+    out["capture"] = dict(pairs=TRAIN_PAIRS, box=list(UNET_BOX), seconds=time.perf_counter() - t0,
+                          max_abs_target=[ex.y.abs().max().item() for ex in pairs])
+
+    # 2-3. full-width training steps, fp32 then bf16; the first step of each
+    # run twice from a fresh trainer, bitwise
+    t0 = time.perf_counter()
+    for dtype, label in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        det = repeat_first_step(dtype, pairs[1], f"{label} training")
+        torch.cuda.empty_cache()
+        model, ts, train_step = fresh_trainer(dtype, pairs[1].x)
+        n_params = sum(p.numel() for p in model.parameters())
+        if n_params != UNET_PARAMS:
+            raise AssertionError(f"the width-{UNET_WIDTH} UNet has {n_params} parameters, expected {UNET_PARAMS}")
+        ts, warm_loss = train_step(ts, pairs[1])
+        steps = TRAIN_FP32_STEPS if dtype == torch.float32 else TRAIN_BF16_STEPS
+        ts, losses, rows, peak = timed_train_steps(model, ts, train_step, [pairs[1]] * steps)
+        # fp32: over the warm-up and the 3 timed steps; bf16: over the 10
+        falls = [float(warm_loss)] + losses if dtype == torch.float32 else losses
+        if not falls[-1] < falls[0]:
+            raise AssertionError(f"{label} training on pair 1: the loss did not fall: {falls}")
+        row = dict(determinism=det, warmup_loss=float(warm_loss), losses_pair1=losses,
+                   steps_pair1=summarize_steps(rows), peak_bytes_above_start=peak,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(), bound=train_bounds(model, dtype))
+        if dtype == torch.bfloat16:
+            ts, losses_pass, rows_pass, _ = timed_train_steps(model, ts, train_step, pairs[1:])
+            row.update(losses_pass=losses_pass, steps_pass=summarize_steps(rows_pass))
+        else:
+            fp32_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        out[label] = row
+        del model, ts
+        torch.cuda.empty_cache()
+    out["steps_seconds"] = time.perf_counter() - t0
+
+    # 4. the card against the CPU, width TRAIN_SMALL_WIDTH
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = train_card_vs_cpu()
+    out["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+
+    # 5. both unpool forms, on the fp32 run's weights and pair 1's box
+    t0 = time.perf_counter()
+    out["unpool"] = unpool_phase(fp32_state, pairs[1].x)
+    out["unpool"]["seconds"] = time.perf_counter() - t0
+    del pairs, fp32_state
+    torch.cuda.empty_cache()
+
+    # 6. the pipeline at small counts
+    t0 = time.perf_counter()
+    out["pipeline"], launches = pipeline_phase()
+    out["pipeline"]["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -3307,6 +3714,14 @@ def main() -> int:
           "launches": launches_unet, "max_memory_allocated": peak_unet, "step_tol": STEP_TOL,
           "seconds": time.perf_counter() - t0})
 
+    # -- the trainer: captured flagship pairs, full-width training steps,
+    #    determinism, the card vs the CPU, both unpool forms, and the
+    #    capture -> train -> eval pipeline at small counts (counted)
+    t0 = time.perf_counter()
+    train_out, launches_train = train_phase()
+    emit({"phase": "train", "grid": list(cfg.grid.res), "width": UNET_WIDTH, **train_out,
+          "launches": launches_train, "seconds": time.perf_counter() - t0})
+
     # -- row 15: the halo kernel against its plain version at every shape
     #    the sharded steps exchange, over 2, 4 and 8 slots of the card
     t0 = time.perf_counter()
@@ -3324,7 +3739,7 @@ def main() -> int:
 
     # -- summary: the nvidia-smi line, the kernels line, then the result
     every_run = [launches, launches128, launchesc, launches504, launches_m504, *launches_opt.values(), launches256,
-                 *launches_unet.values(), *launches_mesh.values()]
+                 *launches_unet.values(), launches_train, *launches_mesh.values()]
 
     def entry(name, source, replaces, row, library_ms=None, counter=None):
         return {"name": name, "route": "cuda", "source": f"python_fluid_simulation_tpu_torch/csrc/{source}",
