@@ -259,11 +259,32 @@ Phases, each printing one JSON line:
               step bitwise (x, v, c) the same steps with the plain halo
               patched in, and |dx| < 2e-4, |dv| < 2e-3 against the
               unsharded step on the card; iterations of both printed
+  graph       the step as one captured program (engine/step.py::
+              make_step: a CUDA graph a state's shapes and 'auto' branch,
+              the generic CG loops as WHILE nodes): on the flagship 1
+              warm-up of each side, then 10 eager steps (step_3d, the
+              geometry built inside) and 10 replays from the same state;
+              3 of each on the flagship in 'unet', 'unet_warm' (seeded
+              weights) and jacobi_precond=False, 128^3, coiling 256 and
+              504 'auto' from the state after 2 steps with the carried
+              flag forced to 0 and to 2 (both branches), and 256; 5 on the
+              moving box (moving_box_config(1/64)): every step's
+              particles, t, step_idx, visc_mg (and the moving solid) and
+              metrics bitwise equal, no wrapper launch during the replays,
+              one replay a step, the replays of every configuration
+              without 'auto' under torch.cuda.set_sync_debug_mode("error"),
+              one WHILE node a generic CG solve captured; ms a step of
+              each side (CUDA events, and host clock), launches a step,
+              capture seconds and the graph pools' bytes, the moving
+              body's displacement and the geometry rebuild's ms (eager,
+              and replayed alone); the WHILE node's test kernel against
+              the host loop on edge cases, its ms a launch beside the
+              host test's
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
-total seconds (about 330 s on one H100 80GB HBM3 at 700 W, the kernels'
-build included).  Any failure raises and
+total seconds (about 280-440 s on one H100 80GB HBM3 at 700 W, the
+kernels' build included).  Any failure raises and
 exits non-zero; without a CUDA device it exits non-zero before any
 result.
 """
@@ -398,6 +419,12 @@ HALO_FIELDS = (
     ("504_cells", (126, 504, 126)), ("504_xfaces", (127, 504, 126)),
     ("4d", (16, 6, 5, 3)),
 )
+# the captured step (graph phase): the flagship's eager and replayed steps,
+# the other configurations', and the moving box's
+GRAPH_STEPS = 10
+GRAPH_CHECK_STEPS = 3
+MOVING_STEPS = 5
+MOVING_DX = 1.0 / 64
 HALO_REPS = 1000  # back-to-back exchanges with changing contents, each compared bitwise with the plain route
 HALO_TIMED = 50
 
@@ -2948,6 +2975,296 @@ def train_phase():
     return out, launches
 
 
+def same_bits(a, b):
+    """Equal dtypes, shapes and bits: fp32 compared as int32 words (-0.0
+    is not 0.0, a NaN equals its own bits), other types by value."""
+    import torch
+
+    if a.dtype != b.dtype or a.device != b.device:
+        return False
+    return bits_equal(a, b) if a.dtype == torch.float32 else torch.equal(a, b)
+
+
+def state_differences(a, b, solid=False):
+    """The fields of two states that differ in a bit (particles x, v, c,
+    t, step_idx, visc_mg; with ``solid`` the solid's phi, v and table)."""
+    import torch
+
+    pairs = [(k, getattr(a.particles, k), getattr(b.particles, k)) for k in ("x", "v", "c")]
+    pairs += [(k, torch.as_tensor(getattr(a, k)), torch.as_tensor(getattr(b, k))) for k in ("t", "step_idx", "visc_mg")]
+    if solid:
+        pairs += [(f"solid.{k}", getattr(a.solid, k), getattr(b.solid, k)) for k in ("phi", "v", "rb")]
+    return [k for k, x, y in pairs if not same_bits(x, y)]
+
+
+def metric_differences(a, b):
+    return sorted(set(a) ^ set(b)) + [k for k in a if k in b and not same_bits(a[k], b[k])]
+
+
+def generic_solves(cfg, mg_branch):
+    """The solves of a step that run the generic CG (`solvers/cg.py`:
+    under capture a WHILE node each), from the configuration and the
+    'auto' branch."""
+    sol, mu = cfg.solver, cfg.physics.mu
+    out = [s for s in ("density", "pressure") if sol.precond == "mg" or not sol.jacobi_precond]
+    if mu > 0 and sol.viscosity_mode != "unet":
+        mg = sol.viscosity_precond == "mg" or (sol.viscosity_precond == "auto" and mg_branch)
+        if mg or not sol.jacobi_precond:
+            out.append("viscosity")
+    return out
+
+
+def event_timed(fn, sync_error=False):
+    """(fn(), ms between CUDA events around it, host ms to a synchronize);
+    with ``sync_error`` fn runs under ``set_sync_debug_mode("error")``."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    if sync_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop), (time.perf_counter() - t0) * 1e3
+
+
+def eager_vs_graph(label, cfg, state0, steps, unet=None, sync_check=True):
+    """`steps` eager steps (``step_3d``, the geometry built inside as the
+    captured step builds it) and `steps` replays of ``make_step``'s graph
+    from the same state, after one warm-up of each (the graph's is its
+    capture): every step's particles, t, step_idx, visc_mg and metrics
+    bitwise equal; no wrapper launches a kernel during the replays, and
+    with ``sync_check`` the replays run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any host sync fails).
+    Returns the row and the WHILE-node test launches of the replays."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.step import make_step, step_3d
+    from python_fluid_simulation_tpu_torch.ops.cuda_graph import captured_while
+
+    step = make_step(cfg, unet=unet)
+    event_timed(lambda: step_3d(state0, cfg, unet=unet))
+    nodes0 = captured_while.nodes
+    _, capture_event_ms, capture_host_ms = event_timed(lambda: step(state0))
+    read_counts = reset_counters()
+    eager, eager_ms, eager_host_ms = [state0], [], []
+    eager_metrics = []
+    for _ in range(steps):
+        (st, m), ms, host = event_timed(lambda: step_3d(eager[-1], cfg, unet=unet))
+        eager.append(st)
+        eager_metrics.append(m)
+        eager_ms.append(ms)
+        eager_host_ms.append(host)
+    eager_launches = read_counts()
+    read_counts = reset_counters()
+    rep = next(iter(step.replayers.values()))
+    replays0 = rep.replays
+    graph, graph_ms, graph_host_ms, graph_metrics = [state0], [], [], []
+    for i in range(steps):
+        (st, m), ms, host = event_timed(lambda: step(graph[-1]), sync_error=sync_check)
+        graph.append(st)
+        graph_metrics.append(m)
+        graph_ms.append(ms)
+        graph_host_ms.append(host)
+    graph_launches = read_counts()
+    replays = rep.replays - replays0
+    if replays != steps or any(graph_launches.values()):
+        raise AssertionError(f"{label}: {replays} replays for {steps} steps, wrapper launches {graph_launches}")
+    for i in range(steps):
+        bad = state_differences(eager[i + 1], graph[i + 1], solid=cfg.moving_solid)
+        bad += metric_differences(eager_metrics[i], graph_metrics[i])
+        if bad:
+            raise AssertionError(f"{label} step {i}: graph and eager differ in {bad}")
+    branches = sorted(str(k) for k in rep.captured)
+    nodes = captured_while.nodes - nodes0  # every capture of this step (one a branch)
+    want_nodes = sum(len(generic_solves(cfg, b)) for b in rep.captured)
+    if nodes != want_nodes:
+        raise AssertionError(f"{label}: {nodes} WHILE nodes recorded, {want_nodes} generic CG solves captured")
+    # the test kernel runs once before each node's loop and once an iteration
+    test_launches = 0
+    for i, m in enumerate(graph_metrics):
+        mg_branch = int(torch.as_tensor(graph[i].visc_mg)) > 0
+        test_launches += sum(int(m[f"{s}_iters"]) + 1 for s in generic_solves(cfg, mg_branch))
+    caps = list(rep.captured.values())
+    return dict(
+        steps=steps, branches=branches, bitwise=True, sync_debug_mode_error=sync_check,
+        eager_ms=eager_ms, graph_ms=graph_ms, median_eager_ms=statistics.median(eager_ms),
+        median_graph_ms=statistics.median(graph_ms),
+        eager_host_ms=eager_host_ms, graph_host_ms=graph_host_ms,
+        eager_wrapper_launches_per_step=sum(eager_launches.values()) / steps,
+        graph_wrapper_launches_per_step=0, graph_replays_per_step=replays / steps,
+        while_nodes=nodes, while_test_launches=test_launches,
+        capture_seconds=[c.seconds for c in caps], capture_call_event_ms=capture_event_ms,
+        capture_call_host_ms=capture_host_ms, graph_pool_bytes=[c.pool_bytes for c in caps],
+        iters={k: [int(m[f"{k}_iters"]) for m in graph_metrics] for k in ("density", "viscosity", "pressure")},
+    ), test_launches
+
+
+def while_node_phase():
+    """The WHILE node's test kernel (``csrc/cuda_graph.cu``) against its
+    plain version, the eager loop's host test: iterations of captured
+    loops equal to the host loop's on edge cases (capped, converged
+    before the loop, delta 0, max_iter 0, a body that halves res), and
+    the ms of one test launch (a 1000-iteration loop with an empty body,
+    its count reset inside the graph) beside one host test."""
+    import numpy as np
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops.cuda_graph import captured_while, graph_capture
+
+    def scalar(v, dtype=torch.float32):
+        return torch.full((), v, dtype=dtype, device="cuda")
+
+    def host_loop(res, thresh, delta, max_iter, halve):
+        k = 0
+        while res >= thresh and k < max_iter and delta != 0:
+            res = float(np.float32(res) * np.float32(0.5)) if halve else res
+            k += 1
+        return k
+
+    cases = [(1.0, 0.0, 1.0, 1000, False), (0.0, 1.0, 1.0, 1000, False), (1.0, 0.0, 0.0, 1000, False),
+             (1.0, 0.0, 1.0, 0, False), (1.0, 1e-3, 1.0, 1000, True)]
+    rows, worst = [], 0
+    for res_v, thresh_v, delta_v, max_iter, halve in cases:
+        k, res, thresh, delta = scalar(0, torch.int32), scalar(res_v), scalar(thresh_v), scalar(delta_v)
+        graph = torch.cuda.CUDAGraph()
+        with graph_capture(graph) as body_pool:
+            k.zero_()
+            res.fill_(res_v)
+            captured_while((lambda: res.mul_(0.5)) if halve else (lambda: None), k, res, thresh, delta, max_iter)
+        graph.replay()
+        graph.replay()  # the graph resets k and res itself
+        torch.cuda.synchronize()
+        want = host_loop(res_v, thresh_v, delta_v, max_iter, halve)
+        worst = max(worst, abs(int(k) - want))
+        row = dict(res=res_v, thresh=thresh_v, delta=delta_v, max_iter=max_iter, body="halve res" if halve else "empty",
+                   iters=int(k), host_iters=want)
+        if max_iter == 1000 and not halve and res_v >= thresh_v and delta_v:
+            reps = 20
+            row["ms_per_test"] = cuda_time_ms(graph.replay, reps) / (max_iter + 1)
+        rows.append(row)
+        del graph, body_pool
+    if worst:
+        raise AssertionError(f"while node vs the host loop: {rows}")
+    res, thresh, delta = scalar(1.0), scalar(0.0), scalar(1.0)
+    plain_ms = cuda_time_ms(lambda: bool((res >= thresh) & (delta != 0)), 200)
+    timed = next(r for r in rows if "ms_per_test" in r)
+    return dict(cases=rows, max_abs_err=worst, ms=timed["ms_per_test"], plain_ms=plain_ms,
+                # reads res, thresh, delta and k, writes k (20 bytes); 3 compares and an add
+                **bound(20, 4))
+
+
+def rebuild_geometry(cfg, solid, dt):
+    """The moving-solid step's geometry rebuild (engine/step.py): the
+    bodies advanced by dt, the level set and velocity on the dual lattice,
+    the geometry cache."""
+    from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache
+    from python_fluid_simulation_tpu_torch.ops import sdf
+    from python_fluid_simulation_tpu_torch.ops.indexing import grid_positions
+    from python_fluid_simulation_tpu_torch.state import SolidState
+
+    g = cfg.grid
+    rb = sdf.advance_rigid_bodies(solid.rb, dt)
+    phi, v = sdf.evaluate(rb, grid_positions(g.dual_res, g.bound_min, g.dual_cell_size, (0.0,) * 3, device=rb.device))
+    return build_geom_cache(SolidState(phi=phi, v=v, rb=rb))
+
+
+def graph_phase(unet_sd):
+    """The step as one captured program (``make_step``): eager against
+    graph, bitwise, on every configuration the card runs; ms and launches
+    a step of each; the moving box; the WHILE node's test kernel."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.scenes import (
+        buckling_config,
+        buckling_scene,
+        coiling_config,
+        coiling_scene,
+        moving_box_config,
+        moving_box_scene,
+        scaled_buckling_config,
+    )
+    from python_fluid_simulation_tpu_torch.engine.step import step_3d
+    from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
+
+    def with_solver(c, **kw):
+        return dataclasses.replace(c, solver=dataclasses.replace(c.solver, **kw))
+
+    def flagged(state, v):
+        return dataclasses.replace(state, visc_mg=torch.full((), v, dtype=torch.int32, device="cuda"))
+
+    rows, test_launches = {}, 0
+
+    def run(label, *a, **kw):
+        nonlocal test_launches
+        rows[label], n = eager_vs_graph(label, *a, **kw)
+        test_launches += n
+        torch.cuda.empty_cache()
+
+    cfg = buckling_config()
+    s0 = buckling_scene(cfg, seed=0, device="cuda")
+    run("flagship", cfg, s0, GRAPH_STEPS)
+    unet = UNet3D(width=UNET_WIDTH).eval()
+    unet.load_state_dict(unet_sd)
+    unet = unet.to("cuda")
+    for mode in ("unet", "unet_warm"):
+        run(f"flagship_{mode}", with_solver(cfg, viscosity_mode=mode), s0, GRAPH_CHECK_STEPS, unet=unet)
+    del unet
+    run("flagship_nojac", with_solver(cfg, jacobi_precond=False), s0, GRAPH_CHECK_STEPS)
+    del s0
+    cfg = scaled_buckling_config(RES_128)
+    run("128", cfg, buckling_scene(cfg, seed=0, device="cuda"), GRAPH_CHECK_STEPS)
+    for res in (RES_COIL, RES_504):
+        cfg = coiling_config(res)
+        s2 = coiling_scene(cfg, seed=0, device="cuda")
+        for _ in range(2):  # the first steps from rest solve no viscosity
+            s2, _ = step_3d(s2, cfg)
+        for flag, branch in ((0, "jacobi"), (2, "mg")):
+            label = f"coil_{res}_auto_{branch}"
+            run(label, cfg, flagged(s2, flag), GRAPH_CHECK_STEPS, sync_check=False)
+            if ("True" if flag else "False") not in rows[label]["branches"]:
+                raise AssertionError(f"{label}: the first step did not take the {branch} branch: {rows[label]}")
+        del s2
+    cfg = scaled_buckling_config(RES_256)
+    run("256", cfg, buckling_scene(cfg, seed=0, device="cuda"), GRAPH_CHECK_STEPS)
+
+    # the moving box: the geometry rebuilt inside every step
+    cfg = moving_box_config(dx=MOVING_DX)
+    s0 = moving_box_scene(cfg, seed=0, device="cuda")
+    run("moving_box", cfg, s0, MOVING_STEPS)
+    from python_fluid_simulation_tpu_torch.engine.step import make_step
+
+    final = s0
+    step = make_step(cfg)
+    for _ in range(MOVING_STEPS):
+        final, m = step(final)
+    dt = m["dt"]
+    rebuild_eager_ms = cuda_time_ms(lambda: rebuild_geometry(cfg, s0.solid, dt), 20)
+    graph = torch.cuda.CUDAGraph()
+    rebuild_geometry(cfg, s0.solid, dt)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        rebuild_geometry(cfg, s0.solid, dt)
+    rebuild_graph_ms = cuda_time_ms(graph.replay, 20)
+    del graph, step
+    moving = rows["moving_box"]
+    moving.update(
+        grid=list(cfg.grid.res), particles=int(s0.particles.x.shape[0]),
+        body_displacement=(final.solid.rb[1, 1:4, 3] - s0.solid.rb[1, 1:4, 3]).tolist(),
+        rebuild_geometry_eager_ms=rebuild_eager_ms, rebuild_geometry_graph_ms=rebuild_graph_ms,
+        rebuild_share_of_graph_step=rebuild_graph_ms / moving["median_graph_ms"])
+    if not moving["body_displacement"][1] < -1e-3:
+        raise AssertionError(f"moving box: the body did not sink: {moving['body_displacement']}")
+    torch.cuda.empty_cache()
+    return rows, test_launches, while_node_phase()
+
+
 def main() -> int:
     import torch
 
@@ -3737,6 +4054,13 @@ def main() -> int:
     emit({"phase": "mesh", "grid": list(cfg.grid.res), "particles": n_particles, "runs": mesh_out,
           "launches": launches_mesh, "bars": [MESH_DX, MESH_DV], "seconds": time.perf_counter() - t0})
 
+    # -- the step as one captured program: make_step's graph replayed
+    #    against the eager step, bitwise, on every configuration
+    t0 = time.perf_counter()
+    graph_rows, while_launches, while_row = graph_phase(unet_sd)
+    emit({"phase": "graph", "nvidia_smi": smi, "runs": graph_rows, "while_node": while_row,
+          "seconds": time.perf_counter() - t0})
+
     # -- summary: the nvidia-smi line, the kernels line, then the result
     every_run = [launches, launches128, launchesc, launches504, launches_m504, *launches_opt.values(), launches256,
                  *launches_unet.values(), launches_train, *launches_mesh.values()]
@@ -3806,6 +4130,17 @@ def main() -> int:
             entry(name, source, "", dict(halo_row, max_abs_err=max(r["max_abs_err"] for r in halo_rows),
                                          ms=halo_row[route]["ms"]), halo_row["library_ms"]),
             device_ms=halo_row[route]["device_ms"], replaces="python_fluid_simulation_tpu/parallel/halo_rdma.py:133"))
+    # not a TPU kernel: the exit test of the captured CG loops, whose JAX
+    # counterpart is the cond of lax.while_loop in the generic cg; its
+    # plain version is the eager loop's host test; launched by the graph
+    # phase's replays (once before each WHILE node's loop, once an iteration)
+    kernels.append({"name": "while_test", "route": "cuda",
+                    "source": "python_fluid_simulation_tpu_torch/csrc/cuda_graph.cu",
+                    "replaces": "python_fluid_simulation_tpu/solvers/cg.py:70", "launches": while_launches,
+                    "max_abs_err": while_row["max_abs_err"], "ms": while_row["ms"], "plain_ms": while_row["plain_ms"],
+                    "bound_ms": max(while_row["bytes_ms"], while_row["ops_ms"]),
+                    "bound_by": "bytes" if while_row["bytes_ms"] >= while_row["ops_ms"] else "operations",
+                    "library_ms": None})
     emit({"phase": "done", "halo_rdma_nvlink_bound_computed": halo_plane_bounds(),
           "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

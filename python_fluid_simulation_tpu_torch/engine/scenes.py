@@ -4,7 +4,8 @@ Counterpart of ``python_fluid_simulation_tpu.engine.scenes``.  The
 reference (notebook cell 10, :650-812) builds one scene — the 3D
 viscous-buckling funnel; the coiling column is the JAX package's
 high-viscosity scene (BASELINE config 5); the dam break is a small scene
-for the golden regression.  Scenes map a SimConfig to a SimState on
+for the golden regression; the moving box drives a moving solid
+(``SimConfig.moving_solid``).  Scenes map a SimConfig to a SimState on
 ``device``.
 """
 
@@ -149,3 +150,35 @@ def dam_break_scene(cfg: SimConfig | None = None, seed: int = 0, device="cuda") 
     lo = [m + 2.5 * g.dx for m in g.bound_min]
     size = [0.35 * s for s in g.bound_size]
     return _state(cfg, rbs, [lo[i] + 0.5 * size[i] for i in range(3)], size, seed, device)
+
+
+def moving_box_config(dx: float = 1.0 / 16, mu: float = 0.2) -> SimConfig:
+    """A descending box obstacle over a pool: the moving-solid path
+    (``SimConfig.moving_solid``; the reference's transform_rb / set_vel_rb
+    API, sdf3D.py:329-336, driven inside the step)."""
+    return SimConfig(
+        grid=GridConfig3D(bound_min=(0.0, 0.0, 0.0), bound_size=(1.0, 1.0, 1.0), dx=dx),
+        physics=PhysicsConfig(rho=1000.0, mu=mu, dt=1.0 / 120.0),
+        solver=SolverConfig(max_iter=300),
+        particle_dx=dx / 2,
+        dt_mode="cfl",
+        duration=1.0,
+        moving_solid=True,
+    )
+
+
+def moving_box_scene(cfg: SimConfig | None = None, seed: int = 0, device="cuda") -> SimState:
+    """Container + bottom pool + a box sinking toward the surface at
+    0.5 m/s (its velocity row drives both the per-step translation and the
+    solid velocity in the solves)."""
+    cfg = cfg or moving_box_config()
+    g = cfg.grid
+    rbs = RigidBodySet()
+    c = [m + 0.5 * s for m, s in zip(g.bound_min, g.bound_size)]
+    rbs.add("container", "box", [s - 4 * g.dx for s in g.bound_size], flip=True, center=c)
+    rbs.add("sinker", "box", [0.3, 0.2, 0.3], center=[c[0], g.bound_min[1] + 0.72 * g.bound_size[1], c[2]],
+            velocity=[0.0, -0.5, 0.0])
+    return _state(
+        cfg, rbs, [c[0], g.bound_min[1] + 0.25 * g.bound_size[1], c[2]],
+        [g.bound_size[0] - 5 * g.dx, 0.35 * g.bound_size[1], g.bound_size[2] - 5 * g.dx], seed, device,
+    )

@@ -42,12 +42,23 @@ the halo push kernel for every width-1 axis-0 exchange of CUDA blocks).
 Everything else runs globally on slot 0's device with the kernels above:
 the particles and the non-solve grid fields are not split yet (the JAX
 package's sharding constraints change no number).  Not yet ported (they
-raise): moving solids, bucketing, and the learned modes under a mesh.
+raise): bucketing, and the learned modes under a mesh.
+
+With ``cfg.moving_solid`` each step advances the rigid bodies by dt,
+re-evaluates the solid level set and velocity on the dual lattice and
+rebuilds the geometry (JAX ``engine/step.py:156-183``).
+
+``make_step`` is the counterpart of the JAX package's jitted step, and
+``simulate`` of its ``lax.scan``: on CUDA the step is captured once into
+a CUDA graph and replayed (the generic CG loops as WHILE nodes with a
+device-side exit test, ``solvers/cg.py``); on the CPU they run the eager
+``step_3d``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Tuple
 
 import torch
@@ -57,15 +68,16 @@ from python_fluid_simulation_tpu_torch.models.features import unet_delta_v
 from python_fluid_simulation_tpu_torch.models.train import capture_viscosity_pair
 from python_fluid_simulation_tpu_torch.ops import sdf as sdf3d
 from python_fluid_simulation_tpu_torch.ops.boundary import apply_boundary_condition
+from python_fluid_simulation_tpu_torch.ops.cuda_graph import graph_capture
 from python_fluid_simulation_tpu_torch.ops.extrapolate import extrapolate
 from python_fluid_simulation_tpu_torch.ops.fractions import compute_solid_frac_3d
-from python_fluid_simulation_tpu_torch.ops.indexing import const, merge_parity, split_parity
+from python_fluid_simulation_tpu_torch.ops.indexing import const, grid_positions, merge_parity, split_parity
 from python_fluid_simulation_tpu_torch.ops.levelset import compute_fluid_levelset
 from python_fluid_simulation_tpu_torch.ops.transfers import g2p_all, make_sort_info, p2g_all
 from python_fluid_simulation_tpu_torch.solvers.density import density_solve_3d
 from python_fluid_simulation_tpu_torch.solvers.pressure import pressure_solve_3d
 from python_fluid_simulation_tpu_torch.solvers.viscosity import viscosity_solve_3d
-from python_fluid_simulation_tpu_torch.state import Particles, SimState
+from python_fluid_simulation_tpu_torch.state import Particles, SimState, SolidState
 
 _FACE_BIAS = ((0.0, 0.5, 0.5), (0.5, 0.0, 0.5), (0.5, 0.5, 0.0))
 
@@ -93,8 +105,6 @@ def build_geom_cache(solid, mesh=None) -> GeomCache:
 
 def _check_supported(cfg: SimConfig, unet=None, capture_ml=False, mesh=None, bucketed=False):
     sol = cfg.solver
-    if cfg.moving_solid:
-        raise NotImplementedError("moving solids are not ported yet")
     if bucketed:
         raise NotImplementedError("the bucketed particle mode is not ported yet (ROADMAP queue 1 item 7)")
     if mesh is not None and sol.viscosity_mode != "apic":
@@ -114,7 +124,7 @@ def _check_supported(cfg: SimConfig, unet=None, capture_ml=False, mesh=None, buc
 
 def step_3d(
     state: SimState, cfg: SimConfig, geom: GeomCache | None = None, unet=None, capture_ml=False,
-    mesh=None, bucketed: bool = False,
+    mesh=None, bucketed: bool = False, auto_mg: bool | None = None,
 ) -> Tuple[SimState, Dict[str, torch.Tensor]]:
     """One step on the device of the state's tensors.
 
@@ -127,7 +137,13 @@ def step_3d(
 
     ``mesh``: run the three solves distributed over its slots (the state
     on slot 0's device, its particles padded by
-    ``parallel/mesh.py::shard_state``).  ``bucketed`` is refused."""
+    ``parallel/mesh.py::shard_state``).  ``bucketed`` is refused.
+
+    ``geom``: the static geometry (`build_geom_cache`), built here when
+    None; with ``cfg.moving_solid`` it is rebuilt here every step.
+    ``auto_mg``: the 'auto' viscosity branch (MG when True) where the
+    caller has read the carried flag itself, as `make_step` does before
+    each replay; None reads ``state.visc_mg`` here."""
     g, ph, sol = cfg.grid, cfg.physics, cfg.solver
     p = state.particles
     dev = p.x.device
@@ -137,8 +153,6 @@ def step_3d(
     if unet is not None and next(unet.parameters()).device != dev:
         raise ValueError(f"the UNet's parameters are on {next(unet.parameters()).device}, the state on {dev}")
     f32 = torch.float32
-    if geom is None:
-        geom = build_geom_cache(state.solid, mesh)
 
     # -- dt selection (cell 13 :4572-4576)
     if cfg.dt_mode == "cfl":
@@ -148,8 +162,21 @@ def step_3d(
     else:
         dt = const(ph.dt, f32, dev)
 
+    # -- moving bodies: advance each body's translation by its velocity
+    #    row and re-evaluate the solid level set and the geometry for this
+    #    step (the reference's transform_rb / set_vel_rb, sdf3D.py:329-336)
+    solid = state.solid
+    if cfg.moving_solid:
+        rb = sdf3d.advance_rigid_bodies(solid.rb, dt)
+        dual_pos = grid_positions(g.dual_res, g.bound_min, g.dual_cell_size, (0.0,) * 3, device=dev)
+        s_phi, s_vel = sdf3d.evaluate(rb, dual_pos)
+        solid = SolidState(phi=s_phi, v=s_vel, rb=rb)
+        geom = None
+    if geom is None:
+        geom = build_geom_cache(solid, mesh)
+
     # -- advect + project out of solids (:4582-4584)
-    px = sdf3d.project(state.solid.rb, p.x + p.v * dt)
+    px = sdf3d.project(solid.rb, p.x + p.v * dt)
 
     # -- density/position projection (:4587-4590): one bias-0 cell sort
     #    serves the level set, the mass/volume scatter and the
@@ -187,7 +214,7 @@ def step_3d(
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     visc_iters, visc_resid = zero_i, torch.zeros((), dtype=f32, device=dev)
     visc_rel, visc_conv = visc_resid, torch.ones((), dtype=torch.bool, device=dev)
-    sphi = state.solid.phi
+    sphi = solid.phi
     if ph.mu > 0 and sol.viscosity_mode == "unet":
         # g.v += Δv, zero where the face has no mass (cell 13 :4635-4640);
         # the viscosity stats stay at 0 iterations, converged
@@ -203,7 +230,8 @@ def step_3d(
         vres = viscosity_solve_3d(
             dt, ph.mu, ph.rho, tuple(gv), geom.sphi_c, lvol, g.cell_vol,
             tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter, jacobi_precond=sol.jacobi_precond,
-            precond_kind=sol.viscosity_precond, auto_use_mg=visc_mg > 0, warm_start=warm, mesh=mesh,
+            precond_kind=sol.viscosity_precond, auto_use_mg=visc_mg > 0 if auto_mg is None else auto_mg,
+            warm_start=warm, mesh=mesh,
         )
         if capture_ml == "raw":
             ml_pair = {"gv_before": tuple(gv), "gv_after": vres.v_faces, "lvol": merge_parity(lvol, tuple(sphi.shape))}
@@ -244,7 +272,7 @@ def step_3d(
 
     new_state = SimState(
         particles=Particles(x=px, v=pv, c=pc, m=p.m),
-        solid=state.solid,
+        solid=solid,
         t=state.t + dt,
         step_idx=state.step_idx + 1,
         visc_mg=new_visc_mg,
@@ -274,15 +302,207 @@ def step_3d(
     return new_state, metrics
 
 
+def _state_tensors(state: SimState) -> list:
+    """The tensors of a state in a fixed order (`_state_of` inverts it)."""
+    p, sol = state.particles, state.solid
+    return [p.x, p.v, p.c, p.m, sol.phi, sol.v, sol.rb, state.t, state.step_idx, state.visc_mg]
+
+
+def _state_of(ts) -> SimState:
+    x, v, c, m, phi, sv, rb, t, k, visc_mg = ts
+    return SimState(Particles(x, v, c, m), SolidState(phi, sv, rb), t, k, visc_mg)
+
+
+def _branch(cfg: SimConfig, visc_mg) -> bool | None:
+    """The 'auto' branch of a step from its carried flag: one host read,
+    only where the step has the branch (None elsewhere)."""
+    sol = cfg.solver
+    if sol.viscosity_precond == "auto" and cfg.physics.mu > 0 and sol.viscosity_mode != "unet":
+        return int(visc_mg) > 0
+    return None
+
+
+def pool_bytes(*pools) -> int:
+    """Bytes of device memory the caching allocator holds in the given
+    private pools (ids, as ``CUDAGraph.pool()`` and ``MemPool.id`` give
+    them)."""
+    ids = {tuple(p) for p in pools}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in ids)
+
+
+@dataclasses.dataclass
+class CapturedStep:
+    """One captured step: its graph and the private pool of its loop
+    bodies (held as long as the graph), the output tensors it writes on
+    every replay (state in `_state_tensors` order, and metrics), the
+    seconds the warm-up and the capture took, and both pools' bytes after
+    capture."""
+
+    graph: "torch.cuda.CUDAGraph"
+    body_pool: "torch.cuda.MemPool"
+    outputs: list
+    metrics: Dict[str, torch.Tensor]
+    seconds: float
+    pool_bytes: int
+
+
+class StepReplayer:
+    """The step on one state's shapes, captured into CUDA graphs over
+    static input buffers: one graph a value of the 'auto' branch.
+
+    A capture first runs one eager step from the inputs on a side stream
+    (it builds the kernel library, the cached constants, the cuDNN plans
+    and the cooperative-launch capacities), then records `step_3d` under
+    ``torch.cuda.graph``.  Each graph has its own memory pool.  ``geom``
+    (static solids) is read in place by every replay; None rebuilds the
+    geometry inside the graph.  The UNet's parameters are read in place
+    too: updating them in place is seen by the next replay, replacing a
+    parameter tensor needs a new replayer."""
+
+    def __init__(self, cfg: SimConfig, like: SimState, geom: GeomCache | None = None, unet=None):
+        self.cfg, self.geom, self.unet = cfg, geom, unet
+        # visc_mg int32, whatever it came as (a scene's is a Python 0)
+        self.inputs = [torch.empty_like(t) for t in _state_tensors(like)[:-1]]
+        self.inputs.append(torch.zeros((), dtype=torch.int32, device=like.particles.x.device))
+        self.captured: Dict[bool | None, CapturedStep] = {}
+        self.replays = 0  # graph launches, every branch
+
+    def load(self, state: SimState):
+        """Copy a state into the input buffers (on the device, no sync)."""
+        for dst, src in zip(self.inputs, _state_tensors(state)):
+            if isinstance(src, torch.Tensor):
+                dst.copy_(src)
+            else:
+                dst.fill_(src)
+
+    def graph(self, branch: bool | None) -> CapturedStep:
+        """The step's graph for an 'auto' branch, captured at first use
+        from what the input buffers hold then."""
+        if branch not in self.captured:
+            self.captured[branch] = self._capture(branch)
+        return self.captured[branch]
+
+    def _capture(self, branch) -> CapturedStep:
+        dev = self.inputs[0].device
+        state = _state_of(self.inputs)
+        kw = dict(geom=self.geom, unet=self.unet, auto_mg=branch)
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step_3d(state, self.cfg, **kw)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with graph_capture(graph, capture_error_mode="thread_local") as body_pool:
+            out, metrics = step_3d(state, self.cfg, **kw)
+        torch.cuda.synchronize(dev)
+        return CapturedStep(graph, body_pool, _state_tensors(out), metrics, time.perf_counter() - t0,
+                            pool_bytes(graph.pool(), body_pool.id))
+
+    def replay(self, branch: bool | None) -> CapturedStep:
+        cap = self.graph(branch)
+        cap.graph.replay()
+        self.replays += 1
+        return cap
+
+    def advance(self, cap: CapturedStep):
+        """Copy a replay's state into the input buffers, on the device."""
+        for dst, src in zip(self.inputs, cap.outputs):
+            if src is not dst:
+                dst.copy_(src)
+
+    def result(self, cap: CapturedStep, caller: SimState) -> SimState:
+        """The replay's state as tensors no later replay writes: clones,
+        and the caller's own tensors where the step passed an input
+        through (the masses, a static solid)."""
+        passed = {id(i): t for i, t in zip(self.inputs, _state_tensors(caller))}
+        return _state_of([passed[id(o)] if id(o) in passed else o.clone() for o in cap.outputs])
+
+
+def replaying_step(cfg: SimConfig, geom: GeomCache | None = None, unet=None):
+    """``step(state) -> (state, metrics)`` on CUDA states by CUDA graph
+    replay: the first call on a state's shapes captures `step_3d` with
+    ``geom`` (None: the geometry built inside the graph) into a
+    `StepReplayer`, and every call copies the state into its inputs,
+    reads the 'auto' flag on the host where the configuration has one,
+    replays that branch's graph and returns clones that no later replay
+    writes.  ``step.replayers`` holds the captures."""
+    replayers: Dict[tuple, StepReplayer] = {}
+
+    def step(state: SimState):
+        ts = _state_tensors(state)
+        key = tuple((tuple(t.shape), t.dtype, t.device) for t in ts[:-1])
+        if key not in replayers:
+            replayers[key] = StepReplayer(cfg, state, geom=geom, unet=unet)
+        rep = replayers[key]
+        rep.load(state)
+        cap = rep.replay(_branch(cfg, state.visc_mg))
+        return rep.result(cap, state), {k: v.clone() for k, v in cap.metrics.items()}
+
+    step.replayers = replayers
+    return step
+
+
+def make_step(cfg: SimConfig, unet=None, mesh=None, bucketed: bool = False):
+    """The step with a static config, ``step(state) -> (state, metrics)``
+    (JAX ``make_step``).
+
+    On CUDA the step is `replaying_step`'s: the first call on a state's
+    shapes captures `step_3d` (the geometry built inside, as the JAX
+    package's jitted step builds it) into a CUDA graph and every call
+    replays it, the returned state and metrics clones that no later
+    replay writes.  With ``viscosity_precond='auto'`` each call reads the
+    state's flag on the host once and replays that branch's graph.  A
+    capture that fails raises; there is no eager route on CUDA.  On the
+    CPU ``step`` is the eager `step_3d`.
+
+    ``unet``'s parameters are read in place by the replays: update them in
+    place (as an optimiser does), or make a new step after replacing a
+    parameter tensor.  ``mesh`` and ``bucketed`` raise
+    NotImplementedError."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_step with a mesh: the sharded step's distributed solves test their exit on the host every "
+            "iteration (parallel/halo.py), so it is not captured (ROADMAP queue 1 item 7)")
+    _check_supported(cfg, unet, bucketed=bucketed)
+    replayed = replaying_step(cfg, unet=unet)
+
+    def step(state: SimState):
+        if state.particles.x.device.type != "cuda":
+            return step_3d(state, cfg, unet=unet)
+        return replayed(state)
+
+    step.replayers = replayed.replayers  # the captures, for inspection
+    return step
+
+
 def simulate(state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | None = None, unet=None,
              mesh=None):
-    """Run `num_steps` steps; the static geometry is built once.
-    Returns (final_state, metrics) with each metric stacked over steps."""
-    if geom is None:
+    """Run `num_steps` steps (JAX ``simulate``); the static geometry is
+    built once, outside the steps (none with ``cfg.moving_solid``).
+    Returns (final_state, metrics) with each metric stacked over steps.
+
+    On CUDA the step is captured once (`StepReplayer`, the geometry read
+    in place) and replayed ``num_steps`` times, each replay's state copied
+    into the inputs of the next on the device; 'auto' reads the carried
+    flag once a step.  With a ``mesh`` (whose distributed solves are host
+    loops) and on the CPU the steps run eagerly."""
+    if geom is None and not cfg.moving_solid:
         geom = build_geom_cache(state.solid, mesh)
     history = []
-    for _ in range(num_steps):
-        state, m = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh)
-        history.append(m)
+    if num_steps > 0 and mesh is None and state.particles.x.device.type == "cuda":
+        rep = StepReplayer(cfg, state, geom=geom, unet=unet)
+        rep.load(state)
+        for i in range(num_steps):
+            if i:
+                rep.advance(cap)
+            cap = rep.replay(_branch(cfg, rep.inputs[-1]))
+            history.append({k: v.clone() for k, v in cap.metrics.items()})
+        state = rep.result(cap, state)
+    else:
+        for _ in range(num_steps):
+            state, m = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh)
+            history.append(m)
     metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]} if history else {}
     return state, metrics

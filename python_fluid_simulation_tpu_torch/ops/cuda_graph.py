@@ -1,0 +1,84 @@
+"""The device-side loop of a captured step: a CUDA graph WHILE node
+(``csrc/cuda_graph.cu``) around a body recorded from Python.
+
+`captured_while` runs only while the current stream is being captured
+into a CUDA graph by `graph_capture` (``torch.cuda.graph``, as
+``engine/step.py::make_step`` captures the step): it adds the node,
+records ``body()`` into the node's own body graph on a second stream,
+and ends the body with the exit test kernel.  The body's allocations go
+to a private pool that `graph_capture` makes for the graph and the
+caller holds as long as the graph, so no replay writes memory that the
+caching allocator has handed to anyone else.  Its plain version is the
+host test of the eager loop (``solvers/cg.py::cg``), which the CPU takes.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+
+import torch
+
+from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
+
+_POOLS: list = []  # the body pools of the graphs `graph_capture` is capturing, innermost last
+
+
+@contextlib.contextmanager
+def graph_capture(graph: "torch.cuda.CUDAGraph", **kw):
+    """``torch.cuda.graph(graph, **kw)`` with a private pool of its own for
+    the loop bodies `captured_while` records, which it yields: the body
+    graphs keep using its memory, so it must live as long as ``graph``.
+    (The caching allocator refuses a second route to the graph's own pool
+    while the graph is being captured.)"""
+    body_pool = torch.cuda.MemPool()
+    with torch.cuda.graph(graph, **kw):
+        _POOLS.append(body_pool)
+        try:
+            yield body_pool
+        finally:
+            _POOLS.pop()
+
+
+@functools.lru_cache(maxsize=None)
+def body_stream(index: int) -> torch.cuda.Stream:
+    """The stream device `index`'s loop bodies are recorded on, made once."""
+    return torch.cuda.Stream(device=index)
+
+
+def captured_while(body, k, res, thresh, delta, max_iter: int):
+    """Record ``while res >= thresh and k < max_iter and delta != 0:
+    body(); k += 1`` into the graph being captured on the current stream.
+
+    ``k`` (int32) and ``res``, ``thresh``, ``delta`` (float32) are 0-dim
+    tensors on one CUDA device.  ``body()`` must leave its results in
+    place, in tensors made before this call (``res`` and ``delta`` among
+    them): the graph runs the same recorded work on the same memory every
+    iteration.  The test kernel adds one to ``k`` after each body."""
+    dev = k.device
+    for name, t, dtype in (("k", k, torch.int32), ("res", res, torch.float32),
+                           ("thresh", thresh, torch.float32), ("delta", delta, torch.float32)):
+        if t.device != dev or t.dtype != dtype or t.dim() != 0:
+            raise ValueError(f"captured_while: {name} must be a 0-dim {dtype} tensor on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if dev.type != "cuda" or not torch.cuda.is_current_stream_capturing() or not _POOLS:
+        raise RuntimeError("captured_while: the current stream is not being captured by graph_capture")
+    lib = cb.LIB.get()
+    side = body_stream(torch.cuda.current_device() if dev.index is None else dev.index)
+    handle = ctypes.c_ulonglong(0)
+    args = (k.data_ptr(), res.data_ptr(), thresh.data_ptr(), delta.data_ptr(), int(max_iter))
+    cb.check(lib.pfs_while_begin(torch.cuda.current_stream(dev).cuda_stream, side.cuda_stream, *args,
+                                 ctypes.byref(handle)), "while node")
+    recorded = False
+    try:
+        with torch.cuda.stream(side), torch.cuda.use_mem_pool(_POOLS[-1], device=dev):
+            body()
+        recorded = True
+    finally:
+        err = lib.pfs_while_end(side.cuda_stream, ctypes.byref(handle), *args, int(recorded))
+    cb.check(err, "while node body")
+    captured_while.nodes += 1
+
+
+captured_while.nodes = 0  # WHILE nodes recorded (a replay runs each one's test kernel once an iteration)

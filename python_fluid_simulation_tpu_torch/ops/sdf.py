@@ -115,6 +115,18 @@ class RigidBodySet:
         return torch.as_tensor(np.stack(self._blocks), dtype=torch.float32, device=device)
 
 
+def advance_rigid_bodies(rb: torch.Tensor, dt) -> torch.Tensor:
+    """Every body's translation advanced by its velocity row, T += v dt
+    (JAX ``ops/sdf.py::advance_rigid_bodies``): the per-step motion of
+    ``SimConfig.moving_solid``, run inside the step.  ``dt`` is a float or
+    a 0-dim tensor; returns a new table."""
+    if rb.shape[0] == 0:
+        return rb
+    out = rb.clone()
+    out[:, 1:4, 3] = rb[:, 1:4, 3] + rb[:, 9, 0:3] * dt
+    return out
+
+
 def _decode(rb: torch.Tensor):
     """Split the packed table into (kind, flip, params, t, R, vel)."""
     code = rb[:, 0, 0].to(torch.int32)

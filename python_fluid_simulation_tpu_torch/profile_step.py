@@ -2,7 +2,7 @@
 
     python3 -m python_fluid_simulation_tpu_torch.profile_step [--scene buckling|coiling] [--res R]
         [--viscosity-precond jacobi|mg|auto] [--no-jacobi-precond] [--pressure-dt-scaled]
-        [--viscosity-mode apic|unet|unet_warm] [--unet-bf16] [--mesh N|SXxSZ] [--steps 3] [--out DIR]
+        [--viscosity-mode apic|unet|unet_warm] [--unet-bf16] [--mesh N|SXxSZ] [--graph] [--steps 3] [--out DIR]
 
 Runs a step on the card.  ``--scene buckling`` (the default): the
 48x80x48 flagship (``buckling_config()`` defaults) without ``--res``,
@@ -25,7 +25,13 @@ with weights drawn from ``convert.random_flax_unet_params(seed=0)``, in
 fp32 (TF32 off), or with ``--unet-bf16`` computing in bf16.  ``--mesh 4``
 runs the sharded step on ``make_mesh(4)``, ``--mesh 2x2`` on
 ``make_mesh2d((2, 2))`` (the slots share the card; the state padded by
-``shard_state``).  Every fold
+``shard_state``).  ``--graph`` profiles the step as a CUDA graph replays
+it (``engine/step.py::replaying_step``, with the geometry built once as
+here: the first warm-up step captures it, each step copies the state in,
+reads the 'auto' flag where there is one, replays and clones the state
+out); the ranges below are recorded at capture and are empty in its
+replays, where the kernels are still reported by name, and the JSON line
+adds the capture's seconds and its pools' bytes.  Every fold
 call is a ``pfs_fold`` range in the profile, every live placement of a
 segment reduce (``ops/cuda_binned.py::place_live``) a ``pfs_place`` range,
 every multigrid V-cycle application a ``pfs_vcycle`` range (the cell
@@ -186,6 +192,7 @@ def main() -> int:
     ap.add_argument("--viscosity-mode", choices=("apic", "unet", "unet_warm"), default="apic")
     ap.add_argument("--unet-bf16", action="store_true", help="the UNet computes in bf16 (parameters fp32)")
     ap.add_argument("--mesh", default=None, help="the sharded step: N slots (make_mesh), or SXxSZ (make_mesh2d)")
+    ap.add_argument("--graph", action="store_true", help="replay the step as a captured CUDA graph")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=".")
     args = ap.parse_args()
@@ -258,21 +265,27 @@ def main() -> int:
         sx, _, sz = args.mesh.partition("x")
         mesh = make_mesh2d((int(sx), int(sz))) if sz else make_mesh(int(sx))
         state = shard_state(state, mesh)
+    if args.graph and mesh is not None:
+        raise SystemExit("profile_step: the sharded step is not captured (--graph with --mesh)")
     geom = build_geom_cache(state.solid, mesh)
+    if args.graph:
+        step = step_mod.replaying_step(cfg, geom=geom, unet=unet)
+    else:
+        step = functools.partial(step_3d, cfg=cfg, geom=geom, unet=unet, mesh=mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
-        state, _ = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh)
+        state, _ = step(state)
     torch.cuda.synchronize()
     plain_ms = []
     for _ in range(args.steps):
         t0 = time.perf_counter()
-        state, _ = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh)
+        state, _ = step(state)
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
 
-    state, summary, avgs = profile_steps(lambda st: step_3d(st, cfg, geom=geom, unet=unet, mesh=mesh), state,
-                                         args.steps)
+    state, summary, avgs = profile_steps(step, state, args.steps)
+    captures = [c for r in getattr(step, "replayers", {}).values() for c in r.captured.values()]
     summary = {
         "device": torch.cuda.get_device_name(0),
         "scene": args.scene,
@@ -285,6 +298,9 @@ def main() -> int:
         "viscosity_mode": cfg.solver.viscosity_mode,
         "unet_dtype": None if unet is None else str(unet.dtype),
         "mesh": None if mesh is None else mesh.shape,
+        "graph": args.graph,
+        "capture_seconds": [c.seconds for c in captures],
+        "graph_pool_bytes": [c.pool_bytes for c in captures],
         "visc_mg_after": int(torch.as_tensor(state.visc_mg)),
         "unprofiled_step_ms": plain_ms,
         # the particles after every step of the run, for comparing two
@@ -311,6 +327,8 @@ def main() -> int:
         name += f"_{args.viscosity_mode}" + ("_bf16" if args.unet_bf16 else "")
     if mesh is not None:
         name += f"_mesh{args.mesh}"
+    if args.graph:
+        name += "_graph"
     name += ".txt"
     with open(os.path.join(args.out, name), "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))

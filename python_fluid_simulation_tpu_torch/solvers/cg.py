@@ -8,10 +8,16 @@ rel_tol^2 * ||r0||^2 against fp32 stagnation:
     loop while  res >= max(tol^2, rel_tol^2 * res0)  and  k < max_iter
                 and  delta != 0
 
-This loop tests its scalars on the host every iteration, so it is the
-plain version of the solver kernels (``ops/cuda_stencils.py``,
-``ops/cuda_cg.py``), which run the whole loop on the device.
-Non-convergence is reported in `SolveStats`, not raised.
+The loop body is one function over the carried tensors
+(`cg_iteration`).  Eagerly the loop tests its scalars on the host every
+iteration (one read), so it is the plain version of the solver kernels
+(``ops/cuda_stencils.py``, ``ops/cuda_cg.py``), which run the whole loop
+on the device.  While the current stream is being captured into a CUDA
+graph (``engine/step.py::make_step``) the same body is recorded once as
+the body of a WHILE node whose test runs on the device
+(``ops/cuda_graph.py::captured_while``), as the JAX package's
+``lax.while_loop`` keeps it there.  Both count the iterations in a device
+int32 ``k``.  Non-convergence is reported in `SolveStats`, not raised.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from python_fluid_simulation_tpu_torch.ops.cuda_graph import captured_while
 
 
 class SolveStats(NamedTuple):
@@ -42,6 +50,65 @@ def threshold(tol2, rel2, res0) -> torch.Tensor:
     return torch.clamp(rel2 * res0, min=tol2)
 
 
+class CGCarry(NamedTuple):
+    """What one CG iteration carries to the next."""
+
+    x: tuple
+    r: tuple
+    d: tuple  # search direction
+    delta: torch.Tensor  # <r, z>
+    res: torch.Tensor  # ||r||^2 (f32)
+    k: torch.Tensor  # iterations done (int32)
+
+
+def cg_init(matvec: Callable, b, x0, *, tol2: float, rel2: float, precond: Callable | None = None):
+    """The carry before the first iteration from x0, with ||r0||^2 and the
+    exit threshold: (CGCarry, res0, thresh)."""
+    q0 = matvec(x0)
+    r = tuple(bb - q for bb, q in zip(b, q0))
+    z = precond(r) if precond is not None else r
+    delta = tree_dot(r, z)
+    res0 = tree_dot(r, r) if precond is not None else delta
+    thresh = threshold(tol2, rel2, res0)
+    k = torch.zeros((), dtype=torch.int32, device=res0.device)
+    return CGCarry(tuple(x0), r, z, delta, res0, k), res0, thresh
+
+
+def cg_iteration(carry: CGCarry, matvec: Callable, precond: Callable | None = None) -> CGCarry:
+    """One CG iteration, the loop body; ``k`` is passed through (the loop
+    counts it)."""
+    x, r, d, delta, _, k = carry
+    q = matvec(d)
+    dq = tree_dot(d, q)
+    alpha = torch.where(dq != 0, delta / dq, torch.zeros_like(dq))
+    x = tuple(alpha * dd + xx for dd, xx in zip(d, x))
+    r = tuple(-alpha * qq + rr for qq, rr in zip(q, r))
+    z = precond(r) if precond is not None else r
+    new_delta = tree_dot(r, z)
+    res = tree_dot(r, r) if precond is not None else new_delta
+    beta = torch.where(delta != 0, new_delta / delta, torch.zeros_like(delta))
+    d = tuple(beta * dd + zz for dd, zz in zip(d, z))
+    return CGCarry(x, r, d, new_delta, res, k)
+
+
+def _captured_loop(carry: CGCarry, thresh, max_iter: int, matvec, precond) -> CGCarry:
+    """The loop as a WHILE node of the graph being captured: the carry
+    goes to buffers of its own (x0 is the caller's, and without a
+    preconditioner d is r and res is delta), which each recorded
+    iteration overwrites in place."""
+    buf = CGCarry(*(tuple(t.clone() for t in f) for f in carry[:3]),
+                  carry.delta.clone(), carry.res.clone(), carry.k.clone())
+
+    def body():
+        new = cg_iteration(buf, matvec, precond)
+        for dst, src in zip((*buf.x, *buf.r, *buf.d, buf.delta, buf.res),
+                            (*new.x, *new.r, *new.d, new.delta, new.res)):
+            dst.copy_(src)
+
+    captured_while(body, buf.k, buf.res, thresh, buf.delta, max_iter)
+    return buf
+
+
 def cg(
     matvec: Callable,
     b,
@@ -58,30 +125,19 @@ def cg(
     rounding follows the JAX function each caller stands in for).
     Returns (x, SolveStats, threshold, r) with r the final residual.
     """
-    q0 = matvec(x0)
-    r = tuple(bb - q for bb, q in zip(b, q0))
-    z = precond(r) if precond is not None else r
-    delta = tree_dot(r, z)
-    res0 = tree_dot(r, r) if precond is not None else delta
-    thresh = threshold(tol2, rel2, res0)
-    x, d, res, k = tuple(x0), z, res0, 0
-    while bool(res >= thresh) and k < max_iter and bool(delta != 0):
-        q = matvec(d)
-        dq = tree_dot(d, q)
-        alpha = torch.where(dq != 0, delta / dq, torch.zeros_like(dq))
-        x = tuple(alpha * dd + xx for dd, xx in zip(d, x))
-        r = tuple(-alpha * qq + rr for qq, rr in zip(q, r))
-        z = precond(r) if precond is not None else r
-        new_delta = tree_dot(r, z)
-        res = tree_dot(r, r) if precond is not None else new_delta
-        beta = torch.where(delta != 0, new_delta / delta, torch.zeros_like(delta))
-        d = tuple(beta * dd + zz for dd, zz in zip(d, z))
-        delta = new_delta
-        k += 1
+    carry, res0, thresh = cg_init(matvec, b, x0, tol2=tol2, rel2=rel2, precond=precond)
+    if res0.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        carry = _captured_loop(carry, thresh, max_iter, matvec, precond)
+    else:
+        n = 0
+        while n < max_iter and bool((carry.res >= thresh) & (carry.delta != 0)):
+            carry = cg_iteration(carry, matvec, precond)
+            carry = carry._replace(k=carry.k + 1)
+            n += 1
     stats = SolveStats(
-        iters=torch.tensor(k, dtype=torch.int32, device=res0.device),
-        residual=res,
+        iters=carry.k,
+        residual=carry.res,
         initial_residual=res0,
-        converged=res < thresh,
+        converged=carry.res < thresh,
     )
-    return x, stats, thresh, r
+    return carry.x, stats, thresh, carry.r

@@ -13,8 +13,9 @@
   wrapper counts a launch.
 * ``scaled_buckling_config(r)`` equals the JAX configuration field for
   field.
-* unported options (moving solids, preconditioners the port does not
-  have) raise NotImplementedError; the viscosity MG route
+* unported options (preconditioners the port does not have) raise
+  NotImplementedError (moving solids are ported:
+  ``tests/test_torch_moving_solid.py``); the viscosity MG route
   above 4M face cells (the lean two-grid route) runs.
 * the 6-step dam break against ``tests/golden_dam_break.npz`` at
   test_golden.py's config and tolerances.
@@ -184,7 +185,6 @@ def test_unported_options_raise():
     cfg = buckling_config(dx=0.05)
     state = buckling_scene(cfg, device="cpu")
     for bad in (
-        dataclasses.replace(cfg, moving_solid=True),
         dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, precond="ic")),
         dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_precond="ic")),
     ):
