@@ -280,6 +280,23 @@ Phases, each printing one JSON line:
               and replayed alone); the WHILE node's test kernel against
               the host loop on edge cases, its ms a launch beside the
               host test's
+  cli         the port's CLI (run.main, in a temporary directory): the
+              flagship, 30 steps in blocks of 15 with --metrics,
+              --snapshot-pickle, --export-obj, --export-html and
+              --checkpoint-every 15: every artifact written, every solve
+              converged, one capture for the run; resumed from the step-15
+              checkpoint: the step-30 state bitwise the uninterrupted
+              run's, one capture; the same 30 steps as one simulate call
+              (bitwise the CLI's), and the same two blocks with the held
+              capture kept and cleared before each (the capture seconds a
+              block saves); p2g_axis (each axis) and compute_fluid_volume
+              on the final particles through the scan, the live placement
+              and the fold kernels (4, 4 and 7 launches), bitwise their
+              plain versions; coiling 'auto' through the CLI, 6 steps in
+              blocks of 3, one capture a branch reached, and four blocks
+              of one replayer from the flags 0, 2, 0, 2: two captures; the
+              CLI's steps/s, the per-block overhead, the marching cubes'
+              g++ seconds and the surface's triangles
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
@@ -425,6 +442,12 @@ GRAPH_STEPS = 10
 GRAPH_CHECK_STEPS = 3
 MOVING_STEPS = 5
 MOVING_DX = 1.0 / 64
+# the CLI (cli phase): the flagship in blocks, resumed from its middle
+# checkpoint, and coiling; the captures a run counted
+CLI_STEPS = 30
+CLI_BLOCK = 15
+CLI_COIL_STEPS = 6
+CLI_COIL_BLOCK = 3
 HALO_REPS = 1000  # back-to-back exchanges with changing contents, each compared bitwise with the plain route
 HALO_TIMED = 50
 
@@ -3265,6 +3288,212 @@ def graph_phase(unet_sd):
     return rows, test_launches, while_node_phase()
 
 
+def run_cli(argv):
+    """``run.main(argv)`` with its standard output kept: (seconds, the
+    steps/s of its last block line, the output, the graphs `simulate`
+    captured and the replayers it made during the run)."""
+    import io
+
+    from python_fluid_simulation_tpu_torch import run as cli
+    from python_fluid_simulation_tpu_torch.engine.step import simulate
+
+    held = simulate.capture
+    captures, replayers = held.captures, held.replayers
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"run.main({argv}) returned {rc}:\n{out}")
+    rates = [float(ln.split("(")[1].split()[0]) for ln in out.splitlines() if ln.endswith("steps/s)")]
+    return seconds, rates[-1], out, held.captures - captures, held.replayers - replayers
+
+
+def npz_leaves(path):
+    import numpy as np
+
+    with np.load(path) as d:
+        return [d[f"arr_{i}"] for i in range(len(d.files))]
+
+
+def cli_phase(smi):
+    """The port's CLI (``run.main``) on the card: the flagship in blocks
+    with every output, resumed from its middle checkpoint (bitwise), one
+    capture a run (one an 'auto' branch), the same steps as one
+    ``simulate`` call, and the two unit APIs on the step's kernels vs
+    their plain versions (bitwise)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from python_fluid_simulation_tpu_torch import native
+    from python_fluid_simulation_tpu_torch.engine.scenes import (
+        buckling_config,
+        buckling_scene,
+        coiling_config,
+        coiling_scene,
+    )
+    from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, simulate
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_fold, levelset, scatter, transfers
+
+    held = simulate.capture
+    held.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    native.load()  # the marching cubes' g++ build (nothing is built before this phase)
+    mc_load_seconds = time.perf_counter() - t0
+    out = {"marching_cubes_build_seconds": native.LIB.build_seconds, "marching_cubes_load_seconds": mc_load_seconds}
+    n_blocks = CLI_STEPS // CLI_BLOCK
+    with tempfile.TemporaryDirectory(prefix="pfs_cli_") as tmp:
+        full, resumed, from_mid = (os.path.join(tmp, n) for n in ("full", "resumed", "from_mid"))
+        flag = ["--scene", "buckling", "--max-steps", str(CLI_STEPS), "--block", str(CLI_BLOCK)]
+        seconds, rate, text, captures, replayers = run_cli(
+            [*flag, "--out", full, "--metrics", "--snapshot-pickle", "--export-obj", "--export-html",
+             "--checkpoint-every", str(CLI_BLOCK)])
+        if (captures, replayers) != (1, 1):
+            raise AssertionError(f"cli flagship: {captures} captures by {replayers} replayers over {n_blocks} blocks")
+        capture_s = held.replayer.captured[None].seconds
+        names = sorted(os.listdir(full))
+        for name in ("ckpt", "metrics.jsonl", "ps.pickle", "replay.html", "surface.obj"):
+            if name not in names:
+                raise AssertionError(f"cli flagship: no {name} in {names}")
+        with open(os.path.join(full, "surface.obj")) as f:
+            triangles = sum(1 for ln in f if ln.startswith("f "))
+        with open(os.path.join(full, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        if [r["step"] for r in recs] != list(range(CLI_STEPS)) or not all(
+                r[f"{k}_converged"] for r in recs for k in ("density", "viscosity", "pressure")):
+            raise AssertionError(f"cli flagship: metrics {[(r['step'], r['pressure_converged']) for r in recs]}")
+        if "solid mesh skipped" in text:
+            raise AssertionError(f"cli flagship: {text}")
+        out["flagship"] = dict(
+            steps=CLI_STEPS, block=CLI_BLOCK, seconds=seconds, cli_steps_per_s=rate, captures=captures,
+            capture_seconds=capture_s, surface_triangles=triangles,
+            html_bytes=os.path.getsize(os.path.join(full, "replay.html")),
+            checkpoint_bytes=os.path.getsize(os.path.join(full, "ckpt", f"state_{CLI_STEPS}.npz")))
+
+        # resume from the middle checkpoint: bitwise the uninterrupted run
+        os.makedirs(from_mid)
+        for name in ("config.json", f"state_{CLI_BLOCK}.npz"):
+            shutil.copy(os.path.join(full, "ckpt", name), os.path.join(from_mid, name))
+        r_seconds, r_rate, _, r_captures, r_replayers = run_cli(
+            [*flag, "--out", resumed, "--checkpoint-every", str(CLI_BLOCK), "--resume", from_mid])
+        want = npz_leaves(os.path.join(full, "ckpt", f"state_{CLI_STEPS}.npz"))
+        got = npz_leaves(os.path.join(resumed, "ckpt", f"state_{CLI_STEPS}.npz"))
+        differ = [i for i, (a, b) in enumerate(zip(got, want)) if a.dtype != b.dtype or a.tobytes() != b.tobytes()]
+        if differ or (r_captures, r_replayers) != (1, 1):
+            raise AssertionError(f"cli resume: leaves {differ} differ; {r_captures} captures, {r_replayers} replayers")
+        out["resume"] = dict(from_step=CLI_BLOCK, to_step=CLI_STEPS, seconds=r_seconds, cli_steps_per_s=r_rate,
+                             captures=r_captures, bitwise_the_uninterrupted_run=True)
+
+    # the same steps as one simulate call (a fresh capture), its final state
+    # bitwise the CLI's; then the same blocks re-capturing each one, as a
+    # simulate without the held capture would
+    cfg = buckling_config()
+    s0 = buckling_scene(cfg, seed=0, device="cuda")
+    geom = build_geom_cache(s0.solid)
+    held.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one, _ = simulate(s0, cfg, CLI_STEPS, geom=geom)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_capture_s = held.replayer.captured[None].seconds
+    for i, k in enumerate(("x", "v", "c")):
+        if getattr(one.particles, k).cpu().numpy().tobytes() != want[i].tobytes():
+            raise AssertionError(f"cli: one simulate call of {CLI_STEPS} steps differs from the CLI run in {k}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = s0
+    for _ in range(n_blocks):
+        state, _ = simulate(state, cfg, CLI_BLOCK, geom=geom)
+    torch.cuda.synchronize()
+    kept_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = s0
+    for _ in range(n_blocks):
+        held.clear()
+        state, _ = simulate(state, cfg, CLI_BLOCK, geom=geom)
+    torch.cuda.synchronize()
+    recapture_s = time.perf_counter() - t0
+    out["one_simulate_call"] = dict(
+        steps=CLI_STEPS, seconds=one_s, steps_per_s=CLI_STEPS / one_s, capture_seconds=one_capture_s,
+        bitwise_the_cli_run=True,
+        cli_overhead_per_block_s=(CLI_STEPS / out["flagship"]["cli_steps_per_s"] - one_s) / n_blocks,
+        blocks_capture_kept_s=kept_s, blocks_recaptured_s=recapture_s,
+        capture_saved_per_block_s=(recapture_s - kept_s) / n_blocks)
+
+    # the unit APIs on the flagship's final particles: p2g_axis (each axis)
+    # and compute_fluid_volume through rows 13, 11 and 14, bitwise their
+    # plain versions on the same CUDA tensors
+    g = cfg.grid
+    p = one.particles
+    face_bias = ((0.0, 0.5, 0.5), (0.5, 0.0, 0.5), (0.5, 0.5, 0.0))
+
+    def units():
+        res = []
+        for a in range(3):
+            fshape = tuple(n + (1 if i == a else 0) for i, n in enumerate(g.res))
+            res += transfers.p2g_axis(p.x, p.m, p.v, p.c[:, a], a, g.res, fshape, face_bias[a], g.bound_min,
+                                      g.cell_size)
+        res.append(levelset.compute_fluid_volume(p.x, cfg.particle_dx**3, g.dual_res, g.bound_min,
+                                                 g.dual_cell_size, pm=p.m))
+        return res
+
+    read_counts = reset_counters()
+    got = units()
+    torch.cuda.synchronize()
+    unit_launches = {k: v for k, v in read_counts().items() if v}
+    with patched([(scatter, "scan_reduce", cuda_binned.scan_reduce_plain), (scatter, "fold", cuda_fold.fold_plain)]):
+        plain = units()
+    if unit_launches != {"seg_scan_sorted": 4, "binned_segment_place_live": 4, "fold": 7}:
+        raise AssertionError(f"cli units: launches {unit_launches}")
+    names = [f"p2g_axis_{a}_{q}" for a in range(3) for q in ("gm", "gv")] + ["compute_fluid_volume"]
+    differ = [n for n, a, b in zip(names, got, plain) if not bits_equal(a, b)]
+    if differ or not all(bool(torch.isfinite(t).all()) for t in got):
+        raise AssertionError(f"cli units: {differ} differ from the plain versions")
+    out["unit_apis"] = dict(launches=unit_launches, bitwise_the_plain_versions=names,
+                            particles=int(p.x.shape[0]), fluid_volume_sum=float(got[-1].sum()))
+    del one, state, s0, geom, got, plain
+    held.clear()
+    torch.cuda.empty_cache()
+
+    # coiling 'auto' through the CLI: one capture a branch reached; then the
+    # same configuration's two branches across blocks of one replayer
+    with tempfile.TemporaryDirectory(prefix="pfs_cli_coil_") as tmp:
+        c_seconds, c_rate, _, c_captures, c_replayers = run_cli(
+            ["--scene", "coiling", "--max-steps", str(CLI_COIL_STEPS), "--block", str(CLI_COIL_BLOCK),
+             "--out", tmp, "--metrics"])
+        branches = sorted(str(b) for b in held.replayer.captured)
+    if c_replayers != 1 or c_captures != len(branches):
+        raise AssertionError(f"cli coiling: {c_captures} captures by {c_replayers} replayers, branches {branches}")
+    cfg = coiling_config(RES_COIL)
+    s = coiling_scene(cfg, seed=0, device="cuda")
+    geom = build_geom_cache(s.solid)
+    held.clear()
+    flags = (0, 2, 0, 2)
+    captures, replayers = held.captures, held.replayers
+    for v in flags:
+        s = dataclasses.replace(s, visc_mg=torch.full((), v, dtype=torch.int32, device="cuda"))
+        s, _ = simulate(s, cfg, CLI_COIL_BLOCK, geom=geom)
+    both = sorted(str(b) for b in held.replayer.captured)
+    if (held.captures - captures, held.replayers - replayers) != (2, 1) or both != ["False", "True"]:
+        raise AssertionError(f"cli coiling auto: {held.captures - captures} captures by "
+                             f"{held.replayers - replayers} replayers for the flags {flags}, branches {both}")
+    out["coiling"] = dict(steps=CLI_COIL_STEPS, block=CLI_COIL_BLOCK, seconds=c_seconds, cli_steps_per_s=c_rate,
+                          captures=c_captures, branches=branches,
+                          auto_blocks_flags=list(flags), auto_blocks_captures=2, auto_blocks_branches=both)
+    del s, geom
+    held.clear()
+    torch.cuda.empty_cache()
+    out["nvidia_smi"] = smi
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4060,6 +4289,12 @@ def main() -> int:
     graph_rows, while_launches, while_row = graph_phase(unet_sd)
     emit({"phase": "graph", "nvidia_smi": smi, "runs": graph_rows, "while_node": while_row,
           "seconds": time.perf_counter() - t0})
+
+    # -- the CLI: run.main on the flagship (blocks, every output, resume
+    #    bitwise, one capture a run), coiling 'auto', and the unit APIs
+    t0 = time.perf_counter()
+    cli_out = cli_phase(smi)
+    emit({"phase": "cli", **cli_out, "seconds": time.perf_counter() - t0})
 
     # -- summary: the nvidia-smi line, the kernels line, then the result
     every_run = [launches, launches128, launchesc, launches504, launches_m504, *launches_opt.values(), launches256,

@@ -160,8 +160,7 @@ class SimConfig:
     # 'fixed' (unet mode) or 'cfl' (apic mode) dt selection, cell 13 :4572-76
     dt_mode: str = "cfl"
     duration: float = 3.0
-    # animate rigid bodies inside the step (reference API: sdf3D.py:329-336);
-    # not yet supported by this package's step, which raises on it
+    # animate rigid bodies inside the step (reference API: sdf3D.py:329-336)
     moving_solid: bool = False
 
     def to_json(self) -> str:
@@ -205,7 +204,7 @@ class SimConfig:
             solver=SolverConfig(**d.get("solver", {})),
             **{
                 k: d[k]
-                for k in ("particle_dx", "dt_mode", "duration")
+                for k in ("particle_dx", "dt_mode", "duration", "moving_solid")
                 if k in d
             },
         )

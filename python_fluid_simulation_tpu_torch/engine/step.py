@@ -477,22 +477,74 @@ def make_step(cfg: SimConfig, unet=None, mesh=None, bucketed: bool = False):
     return step
 
 
+class SimulateCapture:
+    """The captured step `simulate` keeps across its calls, as the JAX
+    package's module-level jit of ``_simulate_jit`` keeps its compiled
+    program: one `StepReplayer`, reused by a call with an equal config,
+    the same ``geom`` and ``unet`` objects (or, where ``geom`` is None,
+    the same solid tensors the geometry was built from) and the same
+    state shapes, dtypes and devices, and replaced otherwise.  One, not a
+    cache of many: its graph pools hold 0.57 GB on the flagship and 15 GB
+    at 256.  ``captures`` counts the graphs captured by `simulate` so far
+    (one a replayer and 'auto' branch), ``replayers`` the replayers it
+    made; `clear` frees the held one."""
+
+    def __init__(self):
+        self.replayer: StepReplayer | None = None
+        self._key = None
+        self.captures = 0
+        self.replayers = 0
+
+    @staticmethod
+    def _key_of(cfg, state, geom, unet):
+        """(values compared by equality, objects compared by identity)."""
+        shapes = tuple((tuple(t.shape), t.dtype, t.device) for t in _state_tensors(state)[:-1])
+        objects = (geom, unet)
+        if geom is None and not cfg.moving_solid:  # the geometry is built from these
+            objects += (state.solid.phi, state.solid.v, state.solid.rb)
+        return (cfg, shapes), objects
+
+    @staticmethod
+    def _same(a, b) -> bool:
+        return a[0] == b[0] and len(a[1]) == len(b[1]) and all(x is y for x, y in zip(a[1], b[1]))
+
+    def replayer_for(self, cfg: SimConfig, state: SimState, geom: GeomCache | None, unet) -> StepReplayer:
+        """The held replayer if it was made for this call's arguments,
+        else a new one (the geometry built here where ``geom`` is None
+        and the solids are static)."""
+        key = self._key_of(cfg, state, geom, unet)
+        if self.replayer is None or not self._same(self._key, key):
+            self.clear()
+            if geom is None and not cfg.moving_solid:
+                geom = build_geom_cache(state.solid)
+            self.replayer, self._key = StepReplayer(cfg, state, geom=geom, unet=unet), key
+            self.replayers += 1
+        return self.replayer
+
+    def clear(self):
+        self.replayer, self._key = None, None
+
+
 def simulate(state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | None = None, unet=None,
              mesh=None):
     """Run `num_steps` steps (JAX ``simulate``); the static geometry is
     built once, outside the steps (none with ``cfg.moving_solid``).
     Returns (final_state, metrics) with each metric stacked over steps.
 
-    On CUDA the step is captured once (`StepReplayer`, the geometry read
-    in place) and replayed ``num_steps`` times, each replay's state copied
-    into the inputs of the next on the device; 'auto' reads the carried
-    flag once a step.  With a ``mesh`` (whose distributed solves are host
-    loops) and on the CPU the steps run eagerly."""
-    if geom is None and not cfg.moving_solid:
-        geom = build_geom_cache(state.solid, mesh)
+    On CUDA the step is captured once and replayed ``num_steps`` times,
+    each replay's state copied into the inputs of the next on the device;
+    'auto' reads the carried flag once a step.  The capture outlives the
+    call (``simulate.capture``, a `SimulateCapture`): a later call with
+    the same config, ``geom``, ``unet`` and state shapes replays the same
+    graphs from the state it is given, as repeated calls of the JAX
+    package's jitted ``simulate`` reuse its program; 'auto' captures
+    each branch once.  The returned state and metrics are tensors no
+    later replay writes.  With a ``mesh`` (whose distributed solves are
+    host loops) and on the CPU the steps run eagerly."""
     history = []
     if num_steps > 0 and mesh is None and state.particles.x.device.type == "cuda":
-        rep = StepReplayer(cfg, state, geom=geom, unet=unet)
+        rep = simulate.capture.replayer_for(cfg, state, geom, unet)
+        before = len(rep.captured)
         rep.load(state)
         for i in range(num_steps):
             if i:
@@ -500,9 +552,15 @@ def simulate(state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | 
             cap = rep.replay(_branch(cfg, rep.inputs[-1]))
             history.append({k: v.clone() for k, v in cap.metrics.items()})
         state = rep.result(cap, state)
+        simulate.capture.captures += len(rep.captured) - before
     else:
+        if geom is None and not cfg.moving_solid:
+            geom = build_geom_cache(state.solid, mesh)
         for _ in range(num_steps):
             state, m = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh)
             history.append(m)
     metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]} if history else {}
     return state, metrics
+
+
+simulate.capture = SimulateCapture()

@@ -39,3 +39,16 @@ def extrapolate(v: torch.Tensor, valid: torch.Tensor, num_iter: int) -> Tuple[to
         v = torch.where(upd, nb_sum / torch.clamp(nb_cnt, min=1.0), v)
         valid = valid | upd
     return v, valid
+
+
+def extrapolate_velocities(vs, valids, num_iter: int):
+    """Extrapolate each face-velocity field with its own validity mask
+    (reference extrapolate() loop, cell 7 :535-567, with valid = mass > 0,
+    and ViscosityCGSolver3D.extrapolate :472-502 with valid = sphi >= 0).
+    Returns (fields, valids), tuples."""
+    out_v, out_valid = [], []
+    for v, m in zip(vs, valids):
+        nv, nval = extrapolate(v, m, num_iter)
+        out_v.append(nv)
+        out_valid.append(nval)
+    return tuple(out_v), tuple(out_valid)

@@ -24,6 +24,7 @@ from python_fluid_simulation_tpu_torch.ops.scatter import (
 )
 from python_fluid_simulation_tpu_torch.ops.transfers import (
     _corner_setup,
+    _corner_weight,
     _flat_index,
     _vec,
     _volume_classes,
@@ -95,6 +96,44 @@ def compute_fluid_levelset(
         vals = torch.where(pm_s[:, None] > 0, vals, background)
     seg_cf = segment_reduce_cf(vals, sorted_ids, size, tuple(res), "min", background)
     return fold_scattered_sep(seg_cf, [tuple(range(-2, 3))] * d, tuple(res), "min", background)
+
+
+def compute_fluid_volume(
+    px: torch.Tensor,
+    pvol: float,
+    dual_res: Sequence[int],
+    bound_min: Sequence[float],
+    fine_cell_size: Sequence[float],
+    pm: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Particle volume scattered onto the (2N+1)^d dual lattice, clamped
+    (JAX ``compute_fluid_volume``; reference cell 6: node-biased trilinear
+    scatter, bias 0, with border clamping, then the per-node clamp to the
+    fine cell volume, constrain_fluid_volume_kernel :528-533).
+
+    One sort of the home nodes on the extended lattice (zero-mass padding
+    rows sent past it by `padding_dump_ids`), one segmented sum of the
+    2^d corner channels in live form and one fold onto the lattice: on
+    the card the segmented scan, the live placement and the fold kernel.
+    `compute_fluid_volume_classes` is its parity split (``split_parity``),
+    computed from the coarse home cells instead."""
+    d = px.shape[-1]
+    gi, _, w = _corner_setup(px, bound_min, fine_cell_size, (0.0,) * d)
+    # zero-mass particles are padding (see compute_fluid_levelset)
+    pv = pvol if pm is None else pvol * (pm > 0)
+    vals = torch.stack([_corner_weight(w, offs) * pv for offs in itertools.product((0, 1), repeat=d)], dim=-1)
+    ids, ext = home_ids_extended(gi, dual_res)
+    ids = padding_dump_ids(ids, pm, ext)
+    sorted_ids, sorted_vals = sort_by_segment(ids, vals)
+    size = 1
+    for e in ext:
+        size *= e
+    seg_cf = segment_reduce_cf(sorted_vals, sorted_ids, size, ext)
+    vol = fold_scattered_sep(seg_cf, [(-1, 0)] * d, tuple(int(n) for n in dual_res), "add", 0.0)
+    fine_vol = 1.0
+    for c in fine_cell_size:
+        fine_vol *= c
+    return torch.clamp(vol, max=fine_vol)
 
 
 def compute_fluid_volume_classes(

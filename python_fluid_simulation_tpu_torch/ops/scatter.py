@@ -27,7 +27,8 @@ from typing import Sequence, Tuple
 import torch
 
 from python_fluid_simulation_tpu_torch.ops.cuda_binned import LiveTable, scan_reduce, segment_broadcast, segment_reduce
-from python_fluid_simulation_tpu_torch.ops.cuda_fold import fold
+from python_fluid_simulation_tpu_torch.ops.cuda_fold import fold, fold_clip
+from python_fluid_simulation_tpu_torch.ops.indexing import sample
 
 
 def sort_by_segment(ids: torch.Tensor, *vals: torch.Tensor):
@@ -75,6 +76,12 @@ def segment_reduce_cf(vals, sorted_ids, num_segments: int, grid_shape: Sequence[
     return dataclasses.replace(table, grid_shape=tuple(int(n) for n in grid_shape))
 
 
+def channels_first(seg_mc: torch.Tensor, grid_shape: Sequence[int]) -> torch.Tensor:
+    """(M, C) segment table -> (C, *grid_shape) channel-major grids (a
+    copy; the transfers take the live form of `segment_reduce_cf`)."""
+    return seg_mc.movedim(-1, 0).reshape((seg_mc.shape[-1],) + tuple(int(n) for n in grid_shape))
+
+
 def unsort_rows(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """Invert a sort permutation: out[order[i]] = values[i]."""
     out = torch.empty_like(values)
@@ -101,3 +108,27 @@ def fold_scattered_sep(seg, axis_shifts, out_shape: Sequence[int], combine: str 
     t = clip(grid_index + shifts[k], 0, out_n - 1) per axis
     (``ops/cuda_fold.py``: one kernel launch on the card)."""
     return fold(seg, axis_shifts, out_shape, combine, fill)
+
+
+def fold_scattered(seg: torch.Tensor, shifts, out_shape: Sequence[int], combine: str = "add", fill=0.0) -> torch.Tensor:
+    """Combine per-corner segment grids onto clipped targets in one fold,
+    over an arbitrary shift list: channel k of seg (K, G...) contributes
+    to target u = grid_index + shifts[k], clipped to t = clip(u, 0,
+    out_n - 1) per axis.  Every channel is sampled onto the
+    target-extended grid, then one `fold_clip` resolves the border
+    clamping.  Plain PyTorch ops, as the JAX package computes it in XLA
+    (`fold_scattered_sep` is the separable form the transfers take)."""
+    d = len(out_shape)
+    min_s = [min(s[a] for s in shifts) for a in range(d)]
+    max_s = [max(s[a] for s in shifts) for a in range(d)]
+    target = tuple(seg.shape[1 + a] + max_s[a] - min_s[a] for a in range(d))
+    acc = None
+    for k, s in enumerate(shifts):
+        piece = sample(seg[k], tuple(min_s[a] - s[a] for a in range(d)), target, fill)
+        if acc is None:
+            acc = piece
+        elif combine == "add":
+            acc = acc + piece
+        else:
+            acc = torch.minimum(acc, piece)
+    return fold_clip(acc, tuple(min_s), out_shape, combine, fill)

@@ -33,6 +33,7 @@ from python_fluid_simulation_tpu_torch.ops.scatter import (
     home_ids_extended,
     segment_broadcast_sorted,
     segment_reduce_cf,
+    sort_by_segment,
     unsort_rows,
 )
 
@@ -60,6 +61,15 @@ def _corner_setup(px, bound_min, cell_size, bias):
     disp = gx - px
     w = torch.abs(disp) / h
     return gi, disp, w
+
+
+def _corner_weight(w, offs):
+    """The trilinear weight of corner `offs`: prod_d (w_d if offs_d else 1 - w_d)."""
+    out = None
+    for d, o in enumerate(offs):
+        wd = (1.0 - w[:, d]) if o == 0 else w[:, d]
+        out = wd if out is None else out * wd
+    return out
 
 
 def _flat_index(gi_corner, shape):
@@ -91,6 +101,73 @@ def make_sort_info(px, pm, gres, bound_min, cell_size) -> SortInfo:
     ids = padding_dump_ids(ids, pm, ext)
     sorted_ids, order = torch.sort(ids, stable=True)
     return SortInfo(sorted_ids=sorted_ids, order=order, ext=ext, px_sorted=px[order])
+
+
+def p2g_axis(px, pm, pv, pc_a, axis: int, gres, face_shape, bias, bound_min, cell_size):
+    """Scatter the mass and momentum of one velocity component to its face
+    grid (reference p2g_particle + p2g_grid, cell 2 :96-177; JAX
+    ``p2g_axis``).  ``pc_a`` is the component's (K, d) affine row.
+
+    One home-cell sort, one segmented sum of the 2^d corners x (mass,
+    momentum) channels in live form (`segment_reduce_cf`: on the card the
+    segmented scan and the live placement), and per-corner folds onto the
+    base grid with the border clamp to gres - 1 (`fold_scattered_sep`: on
+    the card the fold kernel); the trailing face plane never receives
+    mass.  JAX's ``widen=True`` (a TPU layout workaround for narrow
+    channel counts) has no counterpart here.  Returns (gm, gv) of
+    ``face_shape``, gv divided by the mass (0 where there is none)."""
+    d = px.shape[-1]
+    gi, disp, w = _corner_setup(px, bound_min, cell_size, bias)
+    chans = []
+    for offs in itertools.product((0, 1), repeat=d):
+        weight = _corner_weight(w, offs)
+        # APIC affine term: cv = sum_d (disp_d + offs_d h_d) c_a[:, d]
+        off_h = const(tuple(float(o * h) for o, h in zip(offs, cell_size)), px.dtype, px.device)
+        cv = torch.sum((disp + off_h) * pc_a, dim=-1)
+        chans.append(weight * pm)
+        chans.append(weight * pm * (pv[:, axis] + cv))
+    vals = torch.stack(chans, dim=-1)
+    ids, ext = home_ids_extended(gi, gres)
+    sorted_ids, sorted_vals = sort_by_segment(ids, vals)
+    size = 1
+    for s in ext:
+        size *= s
+    seg_cf = segment_reduce_cf(sorted_vals, sorted_ids, size, ext)
+    base_shape = tuple(int(n) for n in gres)
+    gm = _pad_to(fold_scattered_sep(seg_cf[0::2], [(-1, 0)] * d, base_shape, "add", 0.0), face_shape)
+    gv_m = _pad_to(fold_scattered_sep(seg_cf[1::2], [(-1, 0)] * d, base_shape, "add", 0.0), face_shape)
+    gv = torch.where(gm > 0, gv_m / torch.where(gm > 0, gm, 1.0), 0.0)
+    return gm, gv
+
+
+def g2p_axis(px, gv, axis: int, gres, bias, bound_min, cell_size):
+    """Gather one velocity component and its APIC affine-gradient row
+    (reference g2p_particle, cell 3 :174-209; JAX ``g2p_axis``): plain
+    gathers, each corner index clamped to gres - 1.  Returns (pv_a (K,),
+    pc_a (K, d))."""
+    d = px.shape[-1]
+    gi, _, w = _corner_setup(px, bound_min, cell_size, bias)
+    clamp_hi = const(tuple(int(n) - 1 for n in gres), torch.int32, px.device)
+    flat = gv.reshape(-1)
+    pv_a = torch.zeros(px.shape[0], dtype=px.dtype, device=px.device)
+    cols = [torch.zeros(px.shape[0], dtype=px.dtype, device=px.device) for _ in range(d)]
+    for offs in itertools.product((0, 1), repeat=d):
+        oi = const(tuple(offs), torch.int32, px.device)
+        corner = torch.minimum(torch.clamp(gi + oi, min=0), clamp_hi)
+        v = flat[_flat_index(corner, gv.shape)]
+        # per-axis weights and their signed derivatives (cell 3 :196-205)
+        wd = [(w[:, k] if o == 1 else 1.0 - w[:, k]) for k, o in enumerate(offs)]
+        weight = wd[0]
+        for k in range(1, d):
+            weight = weight * wd[k]
+        pv_a = pv_a + weight * v
+        for k in range(d):
+            grad_k = torch.full((), float(2 * offs[k] - 1), dtype=px.dtype, device=px.device)
+            for j in range(d):
+                if j != k:
+                    grad_k = grad_k * wd[j]
+            cols[k] = cols[k] + grad_k * v / cell_size[k]
+    return pv_a, torch.stack(cols, dim=-1)
 
 
 def _weight_cols(offs_list, delta, w, dd):

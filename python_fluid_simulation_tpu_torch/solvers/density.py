@@ -23,6 +23,7 @@ import torch
 
 from python_fluid_simulation_tpu_torch.ops.fractions import edge_in_fraction
 from python_fluid_simulation_tpu_torch.ops.indexing import (
+    const,
     dual_sample,
     interior_mask,
     sample,
@@ -36,6 +37,8 @@ from python_fluid_simulation_tpu_torch.ops.scatter import (
 )
 from python_fluid_simulation_tpu_torch.ops.transfers import (
     _corner_setup,
+    _corner_weight,
+    _flat_index,
     _weight_cols,
     corner_table,
     make_sort_info,
@@ -233,6 +236,27 @@ def compute_displacement(p, lphi, dt, cell_size, face_shapes) -> Tuple[torch.Ten
         active = interior_mask(fshape, active_hi=gres, device=lphi.device)
         out.append(torch.where(active, disp, 0.0))
     return tuple(out)
+
+
+def apply_displacement(px, disp_faces, bound_min, cell_size) -> torch.Tensor:
+    """Gather the face displacement fields onto particle positions
+    (reference apply_displacement_kernel, DensityCGSolver3D.py:211-238;
+    JAX ``apply_displacement``): plain gathers, each corner index clamped
+    to the *face array* dims (``shape - 1``), unlike P2G, which clamps
+    to the base resolution.  Returns the moved positions."""
+    d = px.shape[-1]
+    moved = []
+    for a in range(d):
+        arr = disp_faces[a]
+        gi, _, w = _corner_setup(px, bound_min, cell_size, _face_bias(a, d))
+        hi = const(tuple(int(n) - 1 for n in arr.shape), torch.int32, px.device)
+        flat = arr.reshape(-1)
+        acc = torch.zeros(px.shape[0], dtype=px.dtype, device=px.device)
+        for offs in itertools.product((0, 1), repeat=d):
+            corner = torch.minimum(torch.clamp(gi + const(tuple(offs), torch.int32, px.device), min=0), hi)
+            acc = acc + _corner_weight(w, offs) * flat[_flat_index(corner, arr.shape)]
+        moved.append(px[:, a] + acc)
+    return torch.stack(moved, dim=-1)
 
 
 def apply_displacement_all(disp_faces, sort_info, bound_min, cell_size) -> torch.Tensor:

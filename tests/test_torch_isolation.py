@@ -6,6 +6,9 @@ for the chip smoke run.
   called) and ``python_fluid_simulation_tpu`` (the JAX package), every
   module of ``python_fluid_simulation_tpu_torch`` (the ``parallel/``
   modules among them) and ``chip_smoke`` imports.
+* The CLI (``run``), ``utils`` and ``native`` are among those modules,
+  and importing them starts no process: the native library is built
+  with ``g++`` at its first use, never at import.
 * ``python3 chip_smoke.py`` on a machine without CUDA exits non-zero
   with a clear message and prints no result line; so does a copy of the
   script alone in an empty directory.
@@ -45,6 +48,48 @@ bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "m
 assert not bad, bad
 print(len(names), "modules")
 """
+
+
+_HOST_MODULES = r"""
+import importlib, importlib.abc, pkgutil, subprocess, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "python_fluid_simulation_tpu"):
+            raise ImportError("refused: " + name)
+        return None
+
+started = []
+
+class NoProcess(subprocess.Popen):
+    def __init__(self, args, *a, **kw):
+        started.append(args)
+        raise AssertionError("a process was started at import: %r" % (args,))
+
+sys.meta_path.insert(0, Refuse())
+subprocess.Popen = NoProcess
+import python_fluid_simulation_tpu_torch as pkg
+names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+want = {"python_fluid_simulation_tpu_torch." + m for m in (
+    "run", "native", "utils", "utils.metrics", "utils.io", "utils.checkpoint", "utils.timers", "utils.roofline",
+    "utils.viewer")}
+assert want <= names, sorted(want - names)
+for name in sorted(want):
+    importlib.import_module(name)
+assert not started, started
+run = sys.modules["python_fluid_simulation_tpu_torch.run"]
+assert callable(run.build_argparser) and callable(run.main)
+print("ok")
+"""
+
+
+def test_cli_utils_and_native_import_without_jax_or_a_build():
+    out = subprocess.run(
+        [sys.executable, "-c", _HOST_MODULES], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def _env():
