@@ -44,7 +44,15 @@ PyTorch version on the card:
   slots, every slot on the one card (the three solves distributed over
   the slots' blocks, every width-1 axis-0 halo through the halo pull
   kernel, one launch an exchange on the caller's stream; the push kernel
-  of rings that span cards is called directly in ``halo``).
+  of rings that span cards is called directly in ``halo``);
+* the 2D engine (``engine/step2d.py``): the dam break and the droplet at
+  ``SimConfig2D()`` (64x64 cells, the CLI's configuration) and the dam
+  break at dx 1/256 (256x256 cells, ~55k particles), eager and captured;
+  its folds are row 14's kernel as 3D folds with a unit axis, its solves
+  the generic CG (no kernel, as the JAX package's 2D runs in XLA);
+* bucketed residency on 1D slab meshes (``parallel/particles.py``,
+  ``step_3d(mesh=, bucketed=True)``): the flagship on ``make_mesh(4)``
+  and ``coiling_config(504)`` on ``make_mesh(2)``.
 
 Phases, each printing one JSON line:
 
@@ -297,10 +305,37 @@ Phases, each printing one JSON line:
               of one replayer from the flags 0, 2, 0, 2: two captures; the
               CLI's steps/s, the per-block overhead, the marching cubes'
               g++ seconds and the surface's triangles
+  twod        the 2D dam break and droplet at SimConfig2D() and the dam
+              break at dx 1/256: 1 warm-up of each side, then 10 eager
+              steps (step_2d) and 10 replays of make_step_2d's graph,
+              bitwise, no wrapper launch and no host sync in a replay,
+              one WHILE node a solve; the eager run launches rows 11, 13
+              and 14 and none of rows 1-10; the third step vs the same
+              step with every kernel swapped for its plain version
+              (STEP_TOL), the CPU from the card's state reported; every
+              fold of that step bitwise fold_plain in 2D, then fold_phase
+              on the kernel's 3D form (bitwise plain, the dense route and
+              the model; ms, plain ms, scatter_reduce_ ms, bound);
+              simulate_2d's held capture bitwise the eager steps; ms a
+              step of each side, capture seconds; run.main --scene
+              dam_break_2d, 3 steps with --metrics, every solve under
+              max_iter
+  bucketed    the flagship bucketed on make_mesh(4) (masses made
+              unique), 3 steps with the counters reset just before: the
+              halo kernel and rows 11-14 launched, bucket_lost 0, solves
+              converged, |dx| < 2e-4 and |dv| < 2e-3 against the unsharded
+              step on the card (particles matched by mass), every step
+              bitwise the same steps with every kernel swapped for its
+              plain version; coiling_config(504) on make_mesh(2) (slab
+              width 63), 2 steps the same way, the first against the
+              unsharded step; ms a step, launches a step, peak memory;
+              run.main --scene
+              buckling --mesh 4 --bucketed, 3 steps with --metrics: every
+              solve converged and bucket_lost 0
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
-total seconds (about 280-440 s on one H100 80GB HBM3 at 700 W, the
+total seconds (about 460-520 s on one H100 80GB HBM3 at 700 W, the
 kernels' build included).  Any failure raises and
 exits non-zero; without a CUDA device it exits non-zero before any
 result.
@@ -448,6 +483,16 @@ CLI_STEPS = 30
 CLI_BLOCK = 15
 CLI_COIL_STEPS = 6
 CLI_COIL_BLOCK = 3
+TWOD_STEPS = 10  # each 2D scene: 10 eager steps and 10 replays after one warm-up each
+TWOD_FINE = (1.0 / 256, 1.0 / 512)  # the timed 2D dam break: dx, particle_dx (256x256 cells, ~55k particles)
+ROWS_1_TO_10 = ("cell_poisson_pcg", "fused_poisson_pcg", "coupled_visc_pcg", "stencil_matvec", "mg_vcycle_tail",
+                "mg_vcycle_tail_batched", "binned_segment_reduce", "coupled_matvec_geom", "coupled_stencil_matvec")
+BUCKET_SLOTS = 4  # the flagship bucketed on make_mesh(4): slab width 12
+BUCKET_STEPS = 3
+BUCKET_504_SLOTS = 2  # coiling_config(504): nx = 126 is not a multiple of 4
+BUCKET_504_STEPS = 2
+BUCKET_MASS_STEP = 1e-6  # masses m (1 + 1e-6 i): distinct in fp32 (89,648 and 465,868 particles, within 9% / 47% of m)
+CLI_2D_STEPS = 3
 HALO_REPS = 1000  # back-to-back exchanges with changing contents, each compared bitwise with the plain route
 HALO_TIMED = 50
 
@@ -3494,6 +3539,322 @@ def cli_phase(smi):
     return out
 
 
+def twod_fold_rows(cfg, state):
+    """Every fold of one 2D step (eager, on the card): the 2D fold bitwise
+    its plain version, then `fold_phase` on the 3D fold the kernel runs
+    (``cuda_fold.lift_2d``): the live kernel bitwise its plain version,
+    the dense route and tests/live_table_model.py's model, with ms, plain
+    ms, the scatter_reduce_ yardstick and the bound."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.step2d import step_2d
+    from python_fluid_simulation_tpu_torch.ops import cuda_fold
+
+    with recorded_folds() as folds:
+        step_2d(state, cfg)
+    lifted = []
+    for label, args, kw in folds:
+        got, ref = cuda_fold.fold(*args, **kw), cuda_fold.fold_plain(*args, **kw)
+        if len(args[2]) != 2 or not bits_equal(got, ref):
+            raise AssertionError(f"2D fold[{label}]: {tuple(args[2])}, the kernel differs from its plain version")
+        lifted.append((label, cuda_fold.lift_2d(*args[:3]) + tuple(args[3:]), kw))
+    rows = fold_phase(lifted)
+    # the device time of the kernel and of the scatter_reduce_ yardstick
+    # (the event ms above are the host's: small folds are launch-bound)
+    for row, (_, args, kw) in zip(rows, lifted):
+        table, axis_shifts, out_shape, combine, fill = args
+        dense = table.dense()
+        idx, vals = fold_targets(dense, axis_shifts, out_shape), dense.reshape(-1)
+
+        def library():
+            out = torch.full(tuple(out_shape), float(fill), dtype=dense.dtype, device=dense.device)
+            return out.view(-1).scatter_reduce_(0, idx, vals, reduce="sum" if combine == "add" else "amin",
+                                                include_self=True)
+
+        dev = device_times({"kernel": lambda: cuda_fold.fold(*args, **kw), "library": library}, 20)
+        row.update(device_ms=dev["kernel"], library_device_ms=dev["library"])
+    return rows
+
+
+def eager_vs_graph_2d(label, cfg, state0, steps):
+    """`eager_vs_graph` for the 2D step: `steps` eager ``step_2d`` calls and
+    `steps` replays of ``make_step_2d``'s graph from the same state after
+    one warm-up each, bitwise (particles, t, step_idx, metrics); no wrapper
+    launch and no host sync (``set_sync_debug_mode("error")``) in the
+    replays; one WHILE node a generic CG solve (density, pressure and,
+    with mu > 0, viscosity).  Returns the row, the eager states and the
+    eager run's launches."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.step2d import make_step_2d, step_2d
+    from python_fluid_simulation_tpu_torch.ops.cuda_graph import captured_while
+
+    step = make_step_2d(cfg)
+    event_timed(lambda: step_2d(state0, cfg))
+    nodes0 = captured_while.nodes
+    _, capture_event_ms, capture_host_ms = event_timed(lambda: step(state0))
+    read = reset_counters()
+    eager, eager_metrics, eager_ms = [state0], [], []
+    for _ in range(steps):
+        (st, m), ms, _ = event_timed(lambda: step_2d(eager[-1], cfg))
+        eager.append(st)
+        eager_metrics.append(m)
+        eager_ms.append(ms)
+    launches = read()
+    read = reset_counters()
+    rep = next(iter(step.replayers.values()))
+    replays0 = rep.replays
+    graph, graph_metrics, graph_ms = [state0], [], []
+    for _ in range(steps):
+        (st, m), ms, _ = event_timed(lambda: step(graph[-1]), sync_error=True)
+        graph.append(st)
+        graph_metrics.append(m)
+        graph_ms.append(ms)
+    graph_launches = read()
+    if rep.replays - replays0 != steps or any(graph_launches.values()):
+        raise AssertionError(f"{label}: {rep.replays - replays0} replays, wrapper launches {graph_launches}")
+    for i in range(steps):
+        bad = state_differences(eager[i + 1], graph[i + 1]) + metric_differences(eager_metrics[i], graph_metrics[i])
+        if bad:
+            raise AssertionError(f"{label} step {i}: graph and eager differ in {bad}")
+    nodes = captured_while.nodes - nodes0
+    want_nodes = 3 if cfg.physics.mu > 0 else 2
+    if nodes != want_nodes:
+        raise AssertionError(f"{label}: {nodes} WHILE nodes, {want_nodes} generic CG solves")
+    per_step = {k: v / steps for k, v in launches.items()}
+    need = ("seg_scan_sorted", "binned_segment_place_live", "fold")
+    if any(not launches[k] for k in need) or any(launches[k] for k in ROWS_1_TO_10):
+        raise AssertionError(f"{label}: launches {launches} (rows 11, 13, 14 and none of rows 1-10)")
+    iters = {k: [int(m[f"{k}_iters"]) for m in graph_metrics] for k in ("density", "viscosity", "pressure")}
+    if any(i >= cfg.solver.max_iter for v in iters.values() for i in v):
+        raise AssertionError(f"{label}: a solve hit max_iter: {iters}")
+    for k in ("x", "v", "c"):
+        if not bool(torch.isfinite(getattr(graph[-1].particles, k)).all()):
+            raise AssertionError(f"{label}: non-finite particle {k}")
+    cap = next(iter(rep.captured.values()))
+    return dict(
+        grid=list(cfg.grid.res), particles=int(state0.particles.x.shape[0]), steps=steps, bitwise=True,
+        sync_debug_mode_error=True, eager_ms=eager_ms, graph_ms=graph_ms,
+        median_eager_ms=statistics.median(eager_ms), median_graph_ms=statistics.median(graph_ms),
+        capture_seconds=cap.seconds, capture_call_event_ms=capture_event_ms, capture_call_host_ms=capture_host_ms,
+        graph_pool_bytes=cap.pool_bytes, while_nodes=nodes, iters=iters,
+        launches_per_step={k: v for k, v in per_step.items() if v},
+    ), eager, launches
+
+
+def twod_phase(smi):
+    """The 2D engine on the card: the dam break and the droplet at
+    ``SimConfig2D()`` (the CLI's 64x64 cells) and the dam break at dx
+    1/256 (about 55k particles), each eager against its graph, bitwise;
+    the third step on the kernels against the same step with every kernel
+    swapped for its plain version (STEP_TOL), the CPU from the card's
+    state reported; every fold of a step (the 2D fold as the kernel's 3D
+    fold) bitwise; the CLI's 2D dam break."""
+    import tempfile
+
+    import torch
+
+    from python_fluid_simulation_tpu_torch.config import GridConfig2D
+    from python_fluid_simulation_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from python_fluid_simulation_tpu_torch.engine.step2d import (
+        SimConfig2D,
+        dam_break_scene_2d,
+        droplet_scene_2d,
+        simulate_2d,
+        step_2d,
+    )
+
+    rows, launches_by, folds = {}, {}, {}
+    fine = SimConfig2D(grid=GridConfig2D(dx=TWOD_FINE[0]), particle_dx=TWOD_FINE[1])
+    for label, maker, cfg in (("dam_break_2d", dam_break_scene_2d, SimConfig2D()),
+                              ("droplet_2d", droplet_scene_2d, SimConfig2D()),
+                              ("dam_break_2d_256", dam_break_scene_2d, fine)):
+        cfg, s0 = maker(cfg, seed=0, device="cuda")
+        row, states, launches = eager_vs_graph_2d(label, cfg, s0, TWOD_STEPS)
+        before, after = states[2], states[3]
+        read = reset_counters()
+        with plain_kernels():
+            plain_after, _ = step_2d(before, cfg)
+        if any(read().values()):
+            raise AssertionError(f"{label}: the plain step launched a kernel")
+        err = {k: float((getattr(after.particles, k) - getattr(plain_after.particles, k)).abs().max())
+               for k in STEP_TOL}
+        if any(err[k] > tol for k, tol in STEP_TOL.items()):
+            raise AssertionError(f"{label} step 2 vs the plain step on the card: {err}")
+        cpu_after, _ = step_2d(state_from_numpy(state_to_numpy(before), device="cpu"), cfg)
+        vs_cpu = step_diff(state_to_numpy(after), state_to_numpy(cpu_after))
+        row.update(card_vs_plain_on_card=err, card_vs_plain_bitwise=not state_differences(after, plain_after),
+                   reported_vs_cpu=vs_cpu)
+        folds[label] = twod_fold_rows(cfg, before)
+        # simulate_2d replays the held capture, bitwise the eager steps
+        held = simulate_2d.capture
+        held.clear()
+        captures = held.captures
+        sim_state, _ = simulate_2d(s0, cfg, 3)
+        bad = state_differences(sim_state, states[3])
+        if bad or held.captures - captures != 1:
+            raise AssertionError(f"{label}: simulate_2d differs from the eager steps in {bad} "
+                                 f"({held.captures - captures} captures)")
+        held.clear()
+        rows[label], launches_by[label] = row, launches
+        del states, before, after, plain_after, cpu_after, sim_state, s0
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="pfs_cli_2d_") as tmp:
+        seconds, rate, _, _, _ = run_cli(["--scene", "dam_break_2d", "--max-steps", str(CLI_2D_STEPS), "--block",
+                                          str(CLI_2D_STEPS), "--out", tmp, "--metrics"])
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+    max_iter = SimConfig2D().solver.max_iter
+    if [r["step"] for r in recs] != list(range(CLI_2D_STEPS)) or any(
+            r[f"{k}_iters"] >= max_iter for r in recs for k in ("density", "viscosity", "pressure")):
+        raise AssertionError(f"cli dam_break_2d: metrics {recs}")
+    cli_row = dict(steps=CLI_2D_STEPS, seconds=seconds, cli_steps_per_s=rate, every_solve_converged=True,
+                   iters={k: [r[f"{k}_iters"] for r in recs] for k in ("density", "viscosity", "pressure")})
+    return dict(runs=rows, folds=folds, cli=cli_row, nvidia_smi=smi), launches_by
+
+
+def matched(state, n):
+    """(x, v, m) of the live particles, ordered by mass (unique masses
+    match a particle across the two layouts)."""
+    import torch
+
+    m = state.particles.m
+    live = m > 0
+    if int(live.sum()) != n:
+        raise AssertionError(f"{int(live.sum())} live particles, want {n}")
+    order = torch.argsort(m[live])
+    return state.particles.x[live][order], state.particles.v[live][order], m[live][order]
+
+
+def bucketed_run(label, cfg, state0, geom, slots, steps, ref_states=None, plain=False):
+    """`steps` bucketed steps on ``make_mesh(slots)`` from `state0` (masses
+    unique), the counters reset just before; against ``ref_states`` (the
+    state and the unsharded steps from it, as many as given) by mass; with
+    ``plain`` the same steps with every kernel swapped for its plain
+    version, bitwise.  Returns the row and the launches."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.step import step_3d
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, shard_state
+    from python_fluid_simulation_tpu_torch.parallel.particles import bucket_particles, make_bucket_spec
+
+    g = cfg.grid
+    n = int(state0.particles.x.shape[0])
+    mesh = make_mesh(slots)
+    spec = make_bucket_spec(slots, g.res[0], n, positions=state0.particles.x, bound_min=g.bound_min,
+                            cell_size=g.cell_size)
+    start = shard_state(state0, mesh)
+    start = dataclasses.replace(start, particles=bucket_particles(start.particles, mesh, spec, g.bound_min,
+                                                                  g.cell_size))
+    step_b = functools.partial(step_3d, mesh=mesh, bucketed=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = reset_counters()
+    state, states, step_ms, metrics = run_steps(step_b, start, cfg, geom, steps, steps)
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    check_run(state, metrics, launches, ("halo_exchange_rdma", *REDUCE_ROUTE, "binned_segment_broadcast", "fold"),
+              label)
+    lost = [m["bucket_lost"] for m in metrics]
+    if any(lost):
+        raise AssertionError(f"{label}: bucket_lost {lost}")
+    row = dict(mesh=mesh.shape, spec=spec._asdict(), particles=n, step_ms=step_ms,
+               median_step_ms=statistics.median(step_ms[1:] if len(step_ms) > 1 else step_ms), bucket_lost=lost,
+               max_memory_allocated=peak, launches_per_step={k: v / steps for k, v in launches.items() if v},
+               iters={k: [m[f"{k}_iters"] for m in metrics] for k in ("density", "viscosity", "pressure")})
+    if ref_states is not None:
+        errs = []
+        for i in range(1, len(ref_states)):
+            xb, vb, mb = matched(states[i], n)
+            xr, vr, mr = matched(ref_states[i], n)
+            if not torch.equal(mb, mr):
+                raise AssertionError(f"{label} step {i - 1}: the particle sets differ")
+            dx, dv = float((xb - xr).abs().max()), float((vb - vr).abs().max())
+            if not (dx < MESH_DX and dv < MESH_DV):
+                raise AssertionError(f"{label} step {i - 1} vs unsharded: |dx| {dx}, |dv| {dv}")
+            errs.append({"dx": dx, "dv": dv})
+        row["vs_unsharded_by_step"] = errs
+    if plain:
+        read = reset_counters()
+        with plain_kernels():
+            pl = [start]
+            for _ in range(steps):
+                pl.append(step_b(pl[-1], cfg, geom=geom)[0])
+        if any(read().values()):
+            raise AssertionError(f"{label}: the plain steps launched kernels")
+        for i in range(1, steps + 1):
+            bad = [k for k in "xvcm" if not same_bits(getattr(states[i].particles, k), getattr(pl[i].particles, k))]
+            if bad:
+                raise AssertionError(f"{label} step {i - 1}: kernels vs plain versions differ in {bad}")
+        row["kernels_vs_plain_bitwise"] = True
+        del pl
+    del state, states, start
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def bucketed_phase(smi):
+    """Bucketed residency on 1D slab meshes of the card, masses made
+    unique: the flagship on 4 slots (slab width 12) against the unsharded
+    steps and ``coiling_config(504)`` on 2 slots (slab width 63, the one
+    odd slab) against the unsharded first step, each bitwise its
+    plain-kernel steps; the CLI's ``--scene buckling --mesh 4
+    --bucketed``."""
+    import tempfile
+
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.scenes import (
+        buckling_config,
+        buckling_scene,
+        coiling_config,
+        coiling_scene,
+    )
+    from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
+
+    def unique_masses(state):
+        n = state.particles.x.shape[0]
+        scale = 1.0 + BUCKET_MASS_STEP * torch.arange(n, dtype=torch.float32, device="cuda")
+        m = state.particles.m * scale
+        if int(torch.unique(m).numel()) != n:
+            raise AssertionError("the scaled masses are not distinct")
+        return dataclasses.replace(state, particles=dataclasses.replace(state.particles, m=m))
+
+    out, launches_by = {}, {}
+    cfg = buckling_config()
+    s0 = unique_masses(buckling_scene(cfg, seed=0, device="cuda"))
+    geom = build_geom_cache(s0.solid)
+    ref = [s0]
+    for _ in range(BUCKET_STEPS):
+        ref.append(step_3d(ref[-1], cfg, geom=geom)[0])
+    out["flagship_4"], launches_by["flagship_4"] = bucketed_run(
+        "flagship bucketed", cfg, s0, geom, BUCKET_SLOTS, BUCKET_STEPS, ref_states=ref, plain=True)
+    del ref, s0, geom
+    torch.cuda.empty_cache()
+    cfg504 = coiling_config(RES_504)
+    s504 = unique_masses(coiling_scene(cfg504, seed=0, device="cuda"))
+    geom504 = build_geom_cache(s504.solid)
+    ref = [s504, step_3d(s504, cfg504, geom=geom504)[0]]
+    out["coil_504_2"], launches_by["coil_504_2"] = bucketed_run(
+        "504 bucketed", cfg504, s504, geom504, BUCKET_504_SLOTS, BUCKET_504_STEPS, ref_states=ref, plain=True)
+    del ref, s504, geom504
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="pfs_cli_bucketed_") as tmp:
+        seconds, rate, text, _, _ = run_cli(["--scene", "buckling", "--mesh", str(BUCKET_SLOTS), "--bucketed",
+                                             "--max-steps", "3", "--block", "3", "--out", tmp, "--metrics"])
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+    if len(recs) != 3 or any(r["bucket_lost"] for r in recs) or not all(
+            r[f"{k}_converged"] for r in recs for k in ("density", "viscosity", "pressure")):
+        raise AssertionError(f"cli bucketed: metrics {recs}")
+    if "bucket-sharded over" not in text:
+        raise AssertionError(f"cli bucketed: {text}")
+    out["cli"] = dict(steps=3, seconds=seconds, cli_steps_per_s=rate, bucket_lost=[0, 0, 0],
+                      every_solve_converged=True)
+    out["nvidia_smi"] = smi
+    return out, launches_by
+
+
 def main() -> int:
     import torch
 
@@ -4296,9 +4657,22 @@ def main() -> int:
     cli_out = cli_phase(smi)
     emit({"phase": "cli", **cli_out, "seconds": time.perf_counter() - t0})
 
+    # -- the 2D engine: both scenes and the fine dam break, eager vs graph,
+    #    kernels vs plain versions, every 2D fold, the CLI's 2D scene
+    t0 = time.perf_counter()
+    twod_out, launches_2d = twod_phase(smi)
+    emit({"phase": "twod", **twod_out, "launches": launches_2d, "seconds": time.perf_counter() - t0})
+
+    # -- bucketed residency on 1D slab meshes: the flagship on 4 slots, 504
+    #    on 2, the CLI's --mesh 4 --bucketed
+    t0 = time.perf_counter()
+    bucket_out, launches_bucket = bucketed_phase(smi)
+    emit({"phase": "bucketed", **bucket_out, "launches": launches_bucket, "seconds": time.perf_counter() - t0})
+
     # -- summary: the nvidia-smi line, the kernels line, then the result
     every_run = [launches, launches128, launchesc, launches504, launches_m504, *launches_opt.values(), launches256,
-                 *launches_unet.values(), launches_train, *launches_mesh.values()]
+                 *launches_unet.values(), launches_train, *launches_mesh.values(), *launches_2d.values(),
+                 *launches_bucket.values()]
 
     def entry(name, source, replaces, row, library_ms=None, counter=None):
         return {"name": name, "route": "cuda", "source": f"python_fluid_simulation_tpu_torch/csrc/{source}",
@@ -4320,6 +4694,10 @@ def main() -> int:
     pres = dict(cell_rows[1], max_abs_err=max(r["max_abs_err"] for r in cell_rows))
     sten = dict(stencil_rows[1], max_abs_err=max(r["max_abs_err"] for r in stencil_rows))
     red, bc, fold = total(red_rows), total(bc_rows), total(fold_rows)
+    fold2d = total(twod_out["folds"]["dam_break_2d_256"])
+    fold2d["library_device_ms"] = sum(r["library_device_ms"] for r in twod_out["folds"]["dam_break_2d_256"])
+    fold2d["bound_ms"] = max(fold2d.pop("bytes_ms"), fold2d.pop("ops_ms"))
+    fold2d["launches_per_step"] = twod_out["runs"]["dam_break_2d_256"]["launches_per_step"]["fold"]
     scan_red = total([r["scan_reduce"] for r in scan_rows])
     kernels = [
         entry("cell_poisson_pcg", "poisson_pcg.cu", "pallas_stencils.py:125", pres),
@@ -4345,8 +4723,10 @@ def main() -> int:
         entry("coupled_matvec_geom", "coupled_matvec.cu", "pallas_cg.py:714", geom_rows[0], geom_lib["library_ms"]),
         # the tail of one batched viscosity V-cycle (B = 3; the lean 504 inner tail in kernels_504)
         entry("mg_vcycle_tail_batched", "mg_vcycle.cu", "pallas_mg.py:100", btail_row),
-        # the folds of one coiling step, on their live tables
-        entry("fold", "fold.cu", "pallas_fold.py:97", fold, fold["library_ms"]),
+        # the folds of one coiling step, on their live tables; the 2D folds of
+        # one step of the 256x256 dam break (as 3D folds with a unit axis) apart
+        dict(entry("fold", "fold.cu", "pallas_fold.py:97", fold, fold["library_ms"]),
+             fold_2d={k: v for k, v in fold2d.items() if k != "max_abs_err"}),
         # rows 7 and 8 in one kernel, on the flagship's fields (128^3 in kernels_128)
         dict(entry("coupled_stencil_matvec", "coupled_stencil_matvec.cu", "pallas_stencils.py:379",
                    coupled_stencil_row, coupled_stencil_row["library_ms"]),

@@ -4,7 +4,9 @@ learned operator's weights.
 ``state_to_numpy`` / ``state_from_numpy`` map a `SimState` to and from a
 flat dict of numpy arrays whose keys name the fields of the JAX
 package's ``SimState`` (particles x/v/c/m, solid phi/v/rb, t, step_idx,
-visc_mg), so the same state can be fed to both packages.
+visc_mg), so the same state can be fed to both packages; a 2D state
+((K, 2) positions, (K, 2, 2) APIC rows, the (B, 8, 3) ``sdf2d`` table)
+carries the same way.
 
 The UNet's weights carry from a Flax params tree (the JAX package's
 ``UNet3D``: channels-last kernels) to the port's ``models/unet3d.py``

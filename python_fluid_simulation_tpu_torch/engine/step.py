@@ -41,8 +41,14 @@ slot blocks (``parallel/halo.py``: the cell solves'
 the halo push kernel for every width-1 axis-0 exchange of CUDA blocks).
 Everything else runs globally on slot 0's device with the kernels above:
 the particles and the non-solve grid fields are not split yet (the JAX
-package's sharding constraints change no number).  Not yet ported (they
-raise): bucketing, and the learned modes under a mesh.
+package's sharding constraints change no number).  With ``bucketed=True``
+on a 1D mesh (the JAX package's bucketed step) the particles reside in
+the slot that owns their x-slab (``parallel/particles.py``): they are
+rebucketed after the advection and after the density projection, and the
+level sets, the density scatter and displacement, P2G and G2P run
+shard-local, slot by slot, on the same kernels; ``metrics["bucket_lost"]``
+counts the particles an overflow dropped.  Not yet ported (they raise):
+bucketing on an (x, z) mesh, and the learned modes under a mesh.
 
 With ``cfg.moving_solid`` each step advances the rigid bodies by dt,
 re-evaluates the solid level set and velocity on the dual lattice and
@@ -105,8 +111,11 @@ def build_geom_cache(solid, mesh=None) -> GeomCache:
 
 def _check_supported(cfg: SimConfig, unet=None, capture_ml=False, mesh=None, bucketed=False):
     sol = cfg.solver
-    if bucketed:
-        raise NotImplementedError("the bucketed particle mode is not ported yet (ROADMAP queue 1 item 7)")
+    if bucketed and mesh is None:
+        raise ValueError("bucketed mode needs a mesh")
+    if bucketed and len(mesh.axis_names) != 1:
+        raise NotImplementedError("bucketed residency on an (x, z) mesh (the JAX package's parallel/particles2d.py) "
+                                  "is not ported yet (ROADMAP queue 1 item 7)")
     if mesh is not None and sol.viscosity_mode != "apic":
         raise NotImplementedError(
             f"viscosity_mode={sol.viscosity_mode!r} under a mesh is not ported yet (ROADMAP queue 1 item 7)")
@@ -137,7 +146,10 @@ def step_3d(
 
     ``mesh``: run the three solves distributed over its slots (the state
     on slot 0's device, its particles padded by
-    ``parallel/mesh.py::shard_state``).  ``bucketed`` is refused.
+    ``parallel/mesh.py::shard_state``).  ``bucketed`` (a 1D mesh only):
+    the particles are in the slot-major layout of
+    ``parallel/particles.py::bucket_particles`` and the transfers run
+    shard-local; ``metrics["bucket_lost"]`` is added.
 
     ``geom``: the static geometry (`build_geom_cache`), built here when
     None; with ``cfg.moving_solid`` it is rebuilt here every step.
@@ -178,31 +190,57 @@ def step_3d(
     # -- advect + project out of solids (:4582-4584)
     px = sdf3d.project(solid.rb, p.x + p.v * dt)
 
+    # -- bucketed residency: after every particle move a bounded one-slab
+    #    exchange restores the slot-major layout (JAX engine/step.py:192-240)
+    bspec = None
+    if bucketed:
+        from python_fluid_simulation_tpu_torch.parallel import particles as bucket
+
+        bspec = bucket.spec_from_state(p.x.shape[0], mesh.size, g.res[0])
+        p, lost = bucket.rebucket(Particles(x=px, v=p.v, c=p.c, m=p.m), mesh, bspec, g.bound_min, g.cell_size)
+        px = p.x
+
     # -- density/position projection (:4587-4590): one bias-0 cell sort
     #    serves the level set, the mass/volume scatter and the
-    #    displacement broadcast
-    sort1 = make_sort_info(px, p.m, g.res, g.bound_min, g.cell_size)
-    lphi = compute_fluid_levelset(px, g.res, g.bound_min, g.cell_size, g.dx, pm=p.m, sort_info=sort1)
+    #    displacement broadcast (bucketed: the shard-local level set, and
+    #    the density solve's own per-slot sort)
+    sort1 = None
+    if bspec is None:
+        sort1 = make_sort_info(px, p.m, g.res, g.bound_min, g.cell_size)
+        lphi = compute_fluid_levelset(px, g.res, g.bound_min, g.cell_size, g.dx, pm=p.m, sort_info=sort1)
+    else:
+        lphi = bucket.sharded_fluid_levelset(px, p.m, mesh, bspec, g.res, g.bound_min, g.cell_size, g.dx)
     dres = density_solve_3d(
         ph.rho, dt, px, p.m, cfg.particle_dx**3, geom.sphi_c, lphi, geom.w_faces,
         g.bound_min, g.cell_size, tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter,
         wz_bug=sol.density_wz_bug, sort_info=sort1, precond=sol.precond, mg_opts=sol.mg_opts,
-        jacobi_precond=sol.jacobi_precond, mesh=mesh,
+        jacobi_precond=sol.jacobi_precond, mesh=mesh, bucket=(mesh, bspec) if bspec is not None else None,
     )
     px = dres.px
+    if bspec is not None:
+        p, lost2 = bucket.rebucket(Particles(x=px, v=p.v, c=p.c, m=p.m), mesh, bspec, g.bound_min, g.cell_size)
+        px = p.x
+        lost = lost + lost2
 
     # -- level-set rebuild (:4593) + merged P2G and fluid-volume classes
     #    (:4597-4604) over one shared sort, reused by G2P
-    shared_sort = make_sort_info(px, p.m, g.res, g.bound_min, g.cell_size)
-    lphi = compute_fluid_levelset(px, g.res, g.bound_min, g.cell_size, g.dx, pm=p.m, sort_info=shared_sort)
     fshapes = [tuple(n + (1 if i == a else 0) for i, n in enumerate(g.res)) for a in range(3)]
     # faces carrying < 1e-7 of one particle mass are numerically empty
     mass_floor = 1e-7 * ph.rho * cfg.particle_dx**3
-    gm, gv, lvol, sort_info = p2g_all(
-        px, p.m, p.v, p.c, g.res, fshapes, _FACE_BIAS, g.bound_min, g.cell_size,
-        volume=(cfg.particle_dx**3, g.dual_cell_size), with_sort_info=True,
-        sort_info=shared_sort, mass_floor=mass_floor,
-    )
+    if bspec is None:
+        shared_sort = make_sort_info(px, p.m, g.res, g.bound_min, g.cell_size)
+        lphi = compute_fluid_levelset(px, g.res, g.bound_min, g.cell_size, g.dx, pm=p.m, sort_info=shared_sort)
+        gm, gv, lvol, sort_info = p2g_all(
+            px, p.m, p.v, p.c, g.res, fshapes, _FACE_BIAS, g.bound_min, g.cell_size,
+            volume=(cfg.particle_dx**3, g.dual_cell_size), with_sort_info=True,
+            sort_info=shared_sort, mass_floor=mass_floor,
+        )
+    else:
+        lphi = bucket.sharded_fluid_levelset(px, p.m, mesh, bspec, g.res, g.bound_min, g.cell_size, g.dx)
+        gm, gv, lvol, sort_info = bucket.sharded_p2g_all(
+            p, mesh, bspec, g.res, fshapes, _FACE_BIAS, g.bound_min, g.cell_size,
+            volume=(cfg.particle_dx**3, g.dual_cell_size), mass_floor=mass_floor,
+        )
     gv = list(gv)
 
     # -- gravity (:4608)
@@ -259,7 +297,10 @@ def step_3d(
     gv = apply_boundary_condition(gv, gm, geom.sphi_c, geom.sv_c, g.dx, mass_floor=mass_floor)
 
     # -- G2P (:4660) over P2G's cell sort (positions unchanged since)
-    pv, pc = g2p_all(gv, g.res, _FACE_BIAS, g.bound_min, g.cell_size, sort_info)
+    if bspec is None:
+        pv, pc = g2p_all(gv, g.res, _FACE_BIAS, g.bound_min, g.cell_size, sort_info)
+    else:
+        pv, pc = bucket.sharded_g2p_all(gv, mesh, bspec, g.res, _FACE_BIAS, g.bound_min, g.cell_size, sort_info)
 
     # -- viscosity-preconditioner hysteresis (0 Jacobi, 1 MG entered on
     #    cost, 2 MG entered on non-convergence, sticky)
@@ -297,6 +338,8 @@ def step_3d(
         "pressure_rel_residual": _rel(pres.stats),
         "pressure_converged": pres.stats.converged,
     }
+    if bucketed:
+        metrics["bucket_lost"] = lost
     if capture_ml:
         metrics["ml_pair"] = ml_pair
     return new_state, metrics
@@ -360,6 +403,8 @@ class StepReplayer:
     too: updating them in place is seen by the next replay, replacing a
     parameter tensor needs a new replayer."""
 
+    needs_geom = True  # the step reads a static geometry (`SimulateCapture` builds one where none is given)
+
     def __init__(self, cfg: SimConfig, like: SimState, geom: GeomCache | None = None, unet=None):
         self.cfg, self.geom, self.unet = cfg, geom, unet
         # visc_mg int32, whatever it came as (a scene's is a Python 0)
@@ -383,19 +428,26 @@ class StepReplayer:
             self.captured[branch] = self._capture(branch)
         return self.captured[branch]
 
+    def run(self, state: SimState, branch):
+        """The step this replayer captures, run once on `state`."""
+        return step_3d(state, self.cfg, geom=self.geom, unet=self.unet, auto_mg=branch)
+
+    def branch(self, visc_mg) -> bool | None:
+        """The graph to replay for a state's 'auto' flag (`_branch`)."""
+        return _branch(self.cfg, visc_mg)
+
     def _capture(self, branch) -> CapturedStep:
         dev = self.inputs[0].device
         state = _state_of(self.inputs)
-        kw = dict(geom=self.geom, unet=self.unet, auto_mg=branch)
         t0 = time.perf_counter()
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            step_3d(state, self.cfg, **kw)
+            self.run(state, branch)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with graph_capture(graph, capture_error_mode="thread_local") as body_pool:
-            out, metrics = step_3d(state, self.cfg, **kw)
+            out, metrics = self.run(state, branch)
         torch.cuda.synchronize(dev)
         return CapturedStep(graph, body_pool, _state_tensors(out), metrics, time.perf_counter() - t0,
                             pool_bytes(graph.pool(), body_pool.id))
@@ -420,11 +472,12 @@ class StepReplayer:
         return _state_of([passed[id(o)] if id(o) in passed else o.clone() for o in cap.outputs])
 
 
-def replaying_step(cfg: SimConfig, geom: GeomCache | None = None, unet=None):
+def replaying_step(cfg: SimConfig, geom: GeomCache | None = None, unet=None, replayer=StepReplayer):
     """``step(state) -> (state, metrics)`` on CUDA states by CUDA graph
     replay: the first call on a state's shapes captures `step_3d` with
     ``geom`` (None: the geometry built inside the graph) into a
-    `StepReplayer`, and every call copies the state into its inputs,
+    `StepReplayer` (or a subclass of it, ``replayer``, that captures
+    another step), and every call copies the state into its inputs,
     reads the 'auto' flag on the host where the configuration has one,
     replays that branch's graph and returns clones that no later replay
     writes.  ``step.replayers`` holds the captures."""
@@ -434,10 +487,10 @@ def replaying_step(cfg: SimConfig, geom: GeomCache | None = None, unet=None):
         ts = _state_tensors(state)
         key = tuple((tuple(t.shape), t.dtype, t.device) for t in ts[:-1])
         if key not in replayers:
-            replayers[key] = StepReplayer(cfg, state, geom=geom, unet=unet)
+            replayers[key] = replayer(cfg, state, geom=geom, unet=unet)
         rep = replayers[key]
         rep.load(state)
-        cap = rep.replay(_branch(cfg, state.visc_mg))
+        cap = rep.replay(rep.branch(state.visc_mg))
         return rep.result(cap, state), {k: v.clone() for k, v in cap.metrics.items()}
 
     step.replayers = replayers
@@ -459,13 +512,13 @@ def make_step(cfg: SimConfig, unet=None, mesh=None, bucketed: bool = False):
 
     ``unet``'s parameters are read in place by the replays: update them in
     place (as an optimiser does), or make a new step after replacing a
-    parameter tensor.  ``mesh`` and ``bucketed`` raise
-    NotImplementedError."""
-    if mesh is not None:
+    parameter tensor.  ``mesh`` and ``bucketed`` (which runs on a mesh)
+    raise NotImplementedError."""
+    if mesh is not None or bucketed:
         raise NotImplementedError(
-            "make_step with a mesh: the sharded step's distributed solves test their exit on the host every "
-            "iteration (parallel/halo.py), so it is not captured (ROADMAP queue 1 item 7)")
-    _check_supported(cfg, unet, bucketed=bucketed)
+            "make_step with a mesh (and so bucketed=True): the sharded step's distributed solves test their exit "
+            "on the host every iteration (parallel/halo.py), so it is not captured (ROADMAP queue 1 item 7)")
+    _check_supported(cfg, unet)
     replayed = replaying_step(cfg, unet=unet)
 
     def step(state: SimState):
@@ -480,27 +533,31 @@ def make_step(cfg: SimConfig, unet=None, mesh=None, bucketed: bool = False):
 class SimulateCapture:
     """The captured step `simulate` keeps across its calls, as the JAX
     package's module-level jit of ``_simulate_jit`` keeps its compiled
-    program: one `StepReplayer`, reused by a call with an equal config,
-    the same ``geom`` and ``unet`` objects (or, where ``geom`` is None,
-    the same solid tensors the geometry was built from) and the same
-    state shapes, dtypes and devices, and replaced otherwise.  One, not a
-    cache of many: its graph pools hold 0.57 GB on the flagship and 15 GB
-    at 256.  ``captures`` counts the graphs captured by `simulate` so far
-    (one a replayer and 'auto' branch), ``replayers`` the replayers it
-    made; `clear` frees the held one."""
+    program: one replayer of class ``replayer`` (`StepReplayer`, or a
+    subclass that captures another step), reused by a call with an equal
+    config, the same ``geom`` and ``unet`` objects (or, where ``geom`` is
+    None and the step reads one, the same solid tensors the geometry was
+    built from) and the same state shapes, dtypes and devices, and
+    replaced otherwise.  One, not a cache of many: its graph pools hold
+    0.57 GB on the flagship and 15 GB at 256.  ``captures`` counts the
+    graphs captured by `run` so far (one a replayer and 'auto' branch),
+    ``replayers`` the replayers it made; `clear` frees the held one."""
 
-    def __init__(self):
+    def __init__(self, replayer=StepReplayer):
+        self.kind = replayer
         self.replayer: StepReplayer | None = None
         self._key = None
         self.captures = 0
         self.replayers = 0
 
-    @staticmethod
-    def _key_of(cfg, state, geom, unet):
+    def _builds_geom(self, cfg, geom) -> bool:
+        return geom is None and self.kind.needs_geom and not cfg.moving_solid
+
+    def _key_of(self, cfg, state, geom, unet):
         """(values compared by equality, objects compared by identity)."""
         shapes = tuple((tuple(t.shape), t.dtype, t.device) for t in _state_tensors(state)[:-1])
         objects = (geom, unet)
-        if geom is None and not cfg.moving_solid:  # the geometry is built from these
+        if self._builds_geom(cfg, geom):  # the geometry is built from these
             objects += (state.solid.phi, state.solid.v, state.solid.rb)
         return (cfg, shapes), objects
 
@@ -508,25 +565,48 @@ class SimulateCapture:
     def _same(a, b) -> bool:
         return a[0] == b[0] and len(a[1]) == len(b[1]) and all(x is y for x, y in zip(a[1], b[1]))
 
-    def replayer_for(self, cfg: SimConfig, state: SimState, geom: GeomCache | None, unet) -> StepReplayer:
+    def replayer_for(self, cfg: SimConfig, state: SimState, geom: GeomCache | None = None,
+                     unet=None) -> StepReplayer:
         """The held replayer if it was made for this call's arguments,
         else a new one (the geometry built here where ``geom`` is None
-        and the solids are static)."""
+        and the step reads static solids)."""
         key = self._key_of(cfg, state, geom, unet)
         if self.replayer is None or not self._same(self._key, key):
             self.clear()
-            if geom is None and not cfg.moving_solid:
+            if self._builds_geom(cfg, geom):
                 geom = build_geom_cache(state.solid)
-            self.replayer, self._key = StepReplayer(cfg, state, geom=geom, unet=unet), key
+            self.replayer, self._key = self.kind(cfg, state, geom=geom, unet=unet), key
             self.replayers += 1
         return self.replayer
+
+    def run(self, state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | None = None, unet=None):
+        """``num_steps`` replays from ``state`` (at least one), each
+        replay's state copied into the next's inputs on the device: (the
+        last state, as tensors no later replay writes; each step's metrics,
+        cloned)."""
+        rep = self.replayer_for(cfg, state, geom, unet)
+        before = len(rep.captured)
+        rep.load(state)
+        history = []
+        for i in range(num_steps):
+            if i:
+                rep.advance(cap)
+            cap = rep.replay(rep.branch(rep.inputs[-1]))
+            history.append({k: v.clone() for k, v in cap.metrics.items()})
+        self.captures += len(rep.captured) - before
+        return rep.result(cap, state), history
 
     def clear(self):
         self.replayer, self._key = None, None
 
 
+def stack_metrics(history: list) -> Dict[str, torch.Tensor]:
+    """Each metric stacked over the steps, as ``lax.scan`` stacks them."""
+    return {k: torch.stack([m[k] for m in history]) for k in history[0]} if history else {}
+
+
 def simulate(state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | None = None, unet=None,
-             mesh=None):
+             mesh=None, bucketed: bool = False):
     """Run `num_steps` steps (JAX ``simulate``); the static geometry is
     built once, outside the steps (none with ``cfg.moving_solid``).
     Returns (final_state, metrics) with each metric stacked over steps.
@@ -540,27 +620,20 @@ def simulate(state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | 
     package's jitted ``simulate`` reuse its program; 'auto' captures
     each branch once.  The returned state and metrics are tensors no
     later replay writes.  With a ``mesh`` (whose distributed solves are
-    host loops) and on the CPU the steps run eagerly."""
+    host loops; ``bucketed`` with it, the particles bucketed as
+    `step_3d` takes them) and on the CPU the steps run eagerly."""
+    if bucketed and mesh is None:
+        raise ValueError("bucketed mode needs a mesh")
     history = []
     if num_steps > 0 and mesh is None and state.particles.x.device.type == "cuda":
-        rep = simulate.capture.replayer_for(cfg, state, geom, unet)
-        before = len(rep.captured)
-        rep.load(state)
-        for i in range(num_steps):
-            if i:
-                rep.advance(cap)
-            cap = rep.replay(_branch(cfg, rep.inputs[-1]))
-            history.append({k: v.clone() for k, v in cap.metrics.items()})
-        state = rep.result(cap, state)
-        simulate.capture.captures += len(rep.captured) - before
+        state, history = simulate.capture.run(state, cfg, num_steps, geom, unet)
     else:
         if geom is None and not cfg.moving_solid:
             geom = build_geom_cache(state.solid, mesh)
         for _ in range(num_steps):
-            state, m = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh)
+            state, m = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh, bucketed=bucketed)
             history.append(m)
-    metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]} if history else {}
-    return state, metrics
+    return state, stack_metrics(history)
 
 
 simulate.capture = SimulateCapture()

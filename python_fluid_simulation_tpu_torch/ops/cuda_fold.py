@@ -23,6 +23,9 @@ kernel: the clipped planes combine in a left fold (not ``torch.sum``'s
 order), so kernel and plain version agree bitwise, sums included; a live
 table's plain fold is `fold_plain` of its dense expansion.
 
+A 2D fold (the 2D engine's transfers, level set and volume) runs on the
+same kernel as a 3D fold with a unit leading axis (`lift_2d`).
+
 Routing: a CUDA tensor launches the kernel; a CPU tensor runs
 `fold_plain`.
 """
@@ -30,6 +33,7 @@ Routing: a CUDA tensor launches the kernel; a CPU tensor runs
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Sequence
 
 import numpy as np
@@ -104,6 +108,9 @@ def fold_clip(field: torch.Tensor, shifts: Sequence[int], out_shape: Sequence[in
             shape[axis] = k
             return torch.full(shape, fill, dtype=ref.dtype, device=ref.device)
 
+        if out_n == 1:  # one target takes every plane (the unit axis of a lifted 2D fold)
+            out = reduce_planes(0, n)
+            continue
         # source groups: [0, L) -> t=0;  [L, R) -> t=c+s;  [R, n) -> t=out_n-1
         L = min(max(1 - s, 0), n)
         R = max(min(max(out_n - 1 - s, 0), n), L)
@@ -134,6 +141,23 @@ def fold_shortcut(table_fill, fill, combine: str) -> bool:
     return combine == "min" or (f + f).tobytes() == f.tobytes()
 
 
+def lift_2d(seg, axis_shifts, out_shape):
+    """A 2D fold as the 3D fold the kernel runs: the table over (1, E0, E1)
+    (a dense (C, E0, E1) tensor gains a unit axis, a `LiveTable` the same
+    grid with a unit axis in front: its map over E0 * E1 cells is
+    unchanged), the shift list (0,) on that axis, and the targets
+    (1, N0, N1).  The unit axis leads so that the kernel's warps, which
+    run along the last axis, run along E1 (a trailing unit axis would
+    leave 31 of a warp's 32 lanes idle); the arithmetic is the 2D fold's
+    in either place (one shift and one plane on the unit axis combine
+    nothing)."""
+    if isinstance(seg, LiveTable):
+        seg3 = dataclasses.replace(seg, grid_shape=(1,) + tuple(seg.grid_shape))
+    else:
+        seg3 = seg.unsqueeze(1)
+    return seg3, [(0,)] + [tuple(a) for a in axis_shifts], (1,) + tuple(int(n) for n in out_shape)
+
+
 def fold(seg, axis_shifts, out_shape: Sequence[int], combine: str = "add", fill=0.0) -> torch.Tensor:
     """The fold of `fold_plain`; on CUDA one kernel launch.
 
@@ -141,7 +165,8 @@ def fold(seg, axis_shifts, out_shape: Sequence[int], combine: str = "add", fill=
     tensor whose three grid dims are contiguous (any channel stride: the
     callers pass channel slices of one table), or a `LiveTable` over an
     (E0, E1, E2) grid -- with at most `MAX_SHIFTS` shifts an axis, onto at
-    most `MAX_TARGETS` cells.
+    most `MAX_TARGETS` cells, and a 2D fold (a (C, E0, E1) table or a
+    `LiveTable` over (E0, E1)) as the 3D fold of `lift_2d`.
     """
     live = isinstance(seg, LiveTable)
     dev = (seg.live if live else seg).device
@@ -149,10 +174,13 @@ def fold(seg, axis_shifts, out_shape: Sequence[int], combine: str = "add", fill=
         return fold_plain(seg, axis_shifts, out_shape, combine, fill)
     if dev.type != "cuda":
         raise ValueError(f"fold: unsupported device {dev}")
+    if len(out_shape) == 2 and len(seg.shape) == 3 and len(axis_shifts) == 2:
+        seg3, shifts3, out3 = lift_2d(seg, axis_shifts, out_shape)
+        return fold(seg3, shifts3, out3, combine, fill).reshape(tuple(int(n) for n in out_shape))
     shifts = [tuple(int(s) for s in a) for a in axis_shifts]
     n_ch = int(np.prod([len(s) for s in shifts]))
     if len(out_shape) != 3 or len(seg.shape) != 4 or len(shifts) != 3:
-        raise ValueError(f"fold: 3D folds only, got seg {tuple(seg.shape)} onto {tuple(out_shape)}")
+        raise ValueError(f"fold: 2D or 3D folds only, got seg {tuple(seg.shape)} onto {tuple(out_shape)}")
     values = seg.live if live else seg
     if values.dtype != torch.float32 or seg.shape[0] != n_ch or any(len(s) > MAX_SHIFTS for s in shifts):
         raise ValueError(f"fold: need float32 ({n_ch}, E0, E1, E2) and <= {MAX_SHIFTS} shifts an axis, "

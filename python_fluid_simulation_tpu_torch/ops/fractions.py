@@ -1,7 +1,8 @@
 """Cut-cell solid fractions: edge/tri/face in-fractions + face weights.
 
 Counterpart of ``python_fluid_simulation_tpu.ops.fractions`` (the
-reference's ``solver/SolidFractionCommon.py`` and ``SolidFraction3D.py``).
+reference's ``solver/SolidFractionCommon.py``, ``SolidFraction3D.py`` and
+``SolidFraction2D.py``).
 Elementwise over SDF samples.  The tri/face formulas reproduce the
 reference exactly, including its branch selection
 (SolidFractionCommon.py:18-60).
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from python_fluid_simulation_tpu_torch.ops.indexing import P3_NODE, parity_view
+from python_fluid_simulation_tpu_torch.ops.indexing import P2_NODE, P3_NODE, parity_view
 
 
 def edge_in_fraction(lval, rval):
@@ -98,3 +99,22 @@ def compute_solid_frac_3d(sphi):
     wy = F.pad(wy_in, (0, 0, 0, 1, 0, 0))
     wz = F.pad(wz_in, (0, 1, 0, 0, 0, 0))
     return wx, wy, wz
+
+
+def compute_solid_frac_2d(sphi):
+    """2D face weights (wx, wy) from the edge in-fractions of the
+    dual-lattice node endpoints (a raw (2N+1)^2 array or its parity-class
+    dict).
+
+    Reference: SolidFraction2D.compute_solid_frac_kernel (:6-20):
+      wx[x,y]   = 1 - edge_in_fraction(sphi[2x,  2y+2], sphi[2x,  2y])
+      wy[x,y]   = 1 - edge_in_fraction(sphi[2x+2,2y  ], sphi[2x,  2y])
+    over cells x, y in [0, gres-2] (the kernel's ``x >= gres-1: return``,
+    :9; the 3D kernel covers every cell).  Faces outside the written range
+    keep their zero initialisation.  Returns wx (nx+1, ny), wy (nx, ny+1).
+    """
+    nodes = sphi[P2_NODE] if isinstance(sphi, dict) else parity_view(sphi, P2_NODE)
+    nx, ny = (s - 1 for s in nodes.shape)
+    wx_in = 1.0 - edge_in_fraction(nodes[0:nx, 1:ny], nodes[0:nx, 0 : ny - 1])  # x in [0, nx-1], y in [0, ny-2]
+    wy_in = 1.0 - edge_in_fraction(nodes[1:nx, 0:ny], nodes[0 : nx - 1, 0:ny])  # x in [0, nx-2], y in [0, ny-1]
+    return F.pad(wx_in, (0, 1, 0, 1)), F.pad(wy_in, (0, 1, 0, 1))

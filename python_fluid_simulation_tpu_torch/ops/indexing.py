@@ -117,6 +117,12 @@ P3_YFACE = (1, 0, 1)
 P3_ZFACE = (1, 1, 0)
 P3_NODE = (0, 0, 0)
 
+# Canonical parity tuples (2D)
+P2_CENTER = (1, 1)
+P2_XFACE = (0, 1)
+P2_YFACE = (1, 0)
+P2_NODE = (0, 0)
+
 
 def face_parity(axis: int, ndim: int) -> Tuple[int, ...]:
     p = [1] * ndim

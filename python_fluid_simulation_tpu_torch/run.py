@@ -18,7 +18,11 @@ run resumed from step 15 with ``--max-steps 30`` takes 15 more steps.
 
 ``--device`` is ``cuda`` (the default; an error where there is no CUDA
 device) or ``cpu``, where every kernel runs its plain PyTorch version.
-The 2D scenes and ``--bucketed`` are refused: they are not ported yet.
+The 2D scenes (``dam_break_2d``, ``droplet_2d``) run ``engine/step2d.py::
+simulate_2d`` on ``SimConfig2D()``'s defaults, as the JAX CLI does; they
+take no ``--mesh`` and have no surface for ``--export-obj``.  ``--mesh N
+--bucketed`` buckets the particles by x-slab (``parallel/particles.py``)
+and runs the bucketed sharded step.
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ def build_argparser():
     p.add_argument("--resume", default=None, help="a checkpoint directory; its latest step is restored")
     p.add_argument("--profile-dir", default=None, help="write a torch.profiler Chrome trace of the run here")
     p.add_argument("--bucketed", action="store_true",
-                   help="with --mesh: spatially-bucketed particle sharding (not ported yet)")
+                   help="with --mesh: spatially-bucketed particle sharding (per-slot residency + bounded exchange) "
+                        "instead of index sharding")
     p.add_argument("--mesh", type=int, default=0,
                    help="shard the 3D step over an N-slot mesh of the device (grid slab-decomposed along x, "
                         "distributed solves)")
@@ -126,19 +131,17 @@ def load_unet(args, device):
     return model.to(device).eval()
 
 
-def refuse_unported(args):
-    """Exit with a message for the flags whose paths are not ported."""
+def refuse_flags(args):
+    """Exit with the JAX CLI's message for flags that do not go together."""
     if args.bucketed and not (args.mesh and args.mesh > 1):
         raise SystemExit("--bucketed requires --mesh N")
-    if args.bucketed:
-        raise SystemExit("--bucketed: bucketed particle residency is not ported yet (ROADMAP queue 1 item 7)")
-    if args.scene in _SCENES_2D:
-        raise SystemExit(f"--scene {args.scene}: the 2D engine is not ported yet (ROADMAP queue 1 item 6)")
+    if args.mesh and args.mesh > 1 and args.scene in _SCENES_2D:
+        raise SystemExit("--mesh applies to 3D scenes only")
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    refuse_unported(args)
+    refuse_flags(args)
 
     import torch
 
@@ -148,17 +151,23 @@ def main(argv=None):
     os.makedirs(args.out, exist_ok=True)
 
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, simulate
+    from python_fluid_simulation_tpu_torch.engine.step2d import dam_break_scene_2d, droplet_scene_2d, simulate_2d
     from python_fluid_simulation_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
     from python_fluid_simulation_tpu_torch.utils.io import ParticleSeries, export_levelset_obj
     from python_fluid_simulation_tpu_torch.utils.metrics import MetricsLogger
     from python_fluid_simulation_tpu_torch.utils.timers import profiler_trace
 
-    cfg, make_scene = make_config(args)
+    two_d = args.scene in _SCENES_2D
     step_count = 0
+    if two_d:
+        maker = droplet_scene_2d if args.scene == "droplet_2d" else dam_break_scene_2d
+        cfg, state = maker(device=device)
+    else:
+        cfg, make_scene = make_config(args)
     if args.resume:
         state, cfg, step_count = restore_checkpoint(args.resume, device=device)
         print(f"resumed from step {step_count}")
-    else:
+    elif not two_d:
         state = make_scene(cfg, device=device)
     if args.duration is not None:
         cfg = dataclasses.replace(cfg, duration=args.duration)
@@ -169,9 +178,22 @@ def main(argv=None):
 
         mesh = make_mesh(args.mesh, device)
         state = shard_state(state, mesh)
-        print(f"spatially sharded over {args.mesh} slots of {device}")
+        if args.bucketed:
+            from python_fluid_simulation_tpu_torch.parallel.particles import bucket_particles, make_bucket_spec
 
-    unet = load_unet(args, device) if cfg.solver.viscosity_mode in ("unet", "unet_warm") else None
+            g = cfg.grid
+            spec = make_bucket_spec(args.mesh, g.res[0], state.particles.x.shape[0], positions=state.particles.x,
+                                    bound_min=g.bound_min, cell_size=g.cell_size)
+            state = dataclasses.replace(state, particles=bucket_particles(state.particles, mesh, spec, g.bound_min,
+                                                                          g.cell_size))
+            print(f"bucket-sharded over {args.mesh} slots of {device} (cap {spec.cap}/slot, exchange "
+                  f"{spec.exchange_cap})")
+        else:
+            print(f"spatially sharded over {args.mesh} slots of {device}")
+
+    unet = None
+    if not two_d and cfg.solver.viscosity_mode in ("unet", "unet_warm"):
+        unet = load_unet(args, device)
 
     logger = MetricsLogger(os.path.join(args.out, "metrics.jsonl") if args.metrics else None)
     series = ParticleSeries()
@@ -182,7 +204,7 @@ def main(argv=None):
 
     # static solid geometry: built once for the whole run and passed to
     # every block, which then replays the one captured step
-    geom = None if cfg.moving_solid else build_geom_cache(state.solid, mesh)
+    geom = None if two_d or cfg.moving_solid else build_geom_cache(state.solid, mesh)
 
     def sync():
         if device == "cuda":
@@ -194,7 +216,10 @@ def main(argv=None):
     with profiler_trace(args.profile_dir):
         while step_count < max_steps and float(state.t) < duration:
             n = min(args.block, max_steps - step_count)
-            state, metrics = simulate(state, cfg, n, geom=geom, unet=unet, mesh=mesh)
+            if two_d:
+                state, metrics = simulate_2d(state, cfg, n)
+            else:
+                state, metrics = simulate(state, cfg, n, geom=geom, unet=unet, mesh=mesh, bucketed=args.bucketed)
             sync()
             logger.log_scan(metrics, start_step=step_count)
             step_count += n
@@ -223,7 +248,9 @@ def main(argv=None):
         except Exception as e:  # noqa: BLE001 - the viewer works without the solid
             print(f"solid mesh skipped: {e!r}")
         export_html_replay(series.series, os.path.join(args.out, "replay.html"), solid_mesh=solid_mesh)
-    if args.export_obj:
+    if args.export_obj and two_d:
+        print("surface.obj skipped: a 2D scene has no surface to triangulate")
+    elif args.export_obj:
         from python_fluid_simulation_tpu_torch.ops.levelset import compute_fluid_levelset
 
         g = cfg.grid

@@ -8,6 +8,13 @@ clamp -> RHS b = (1 - rho_frac)/dt with solid imputation -> 7-point PCG
 (unit-weight diagonal; Jacobi or multigrid, as configured) -> face displacement field ->
 trilinear gather onto particles.
 
+The 2D variant (`density_solve_2d`, the reference's
+``solver/DensityCGSolver2D.py``) scatters mass only (the reference's
+volume scatter is commented out, :33), takes the cell volume from the
+9-point weighted sum of the dual-lattice fluid volume (`fix_volume_2d`),
+gathers the displacement plainly, and solves with the generic CG over
+the plain 5-point matvec (``pressure.py::solve_cell_poisson``).
+
 Documented divergence (as in the JAX package): the reference's -z matvec
 face weight reads ``wz[x,y,z+1]`` instead of ``wz[x,y,z]``
 (DensityCGSolver3D.py:184); fixed by default, ``wz_bug=True``
@@ -300,19 +307,30 @@ def density_solve_3d(
     bound_min: Sequence[float], cell_size: Sequence[float], *,
     tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
     wz_bug: bool = False, sort_info=None, precond: str = "jacobi", mg_opts=None, jacobi_precond: bool = True,
-    mesh=None,
+    mesh=None, bucket=None,
 ) -> DensityResult:
     """Full density projection; returns moved particle positions
     (DensityCGSolver3D.solve :312-350, initial guess x = 0).
     ``sort_info`` shares an existing bias-0 cell sort of `px`;
     ``precond`` / ``mg_opts`` / ``jacobi_precond`` pick the solve, and
     ``mesh`` runs it distributed (`solve_cell_poisson`); the scatter and
-    the displacement run on the particles' device."""
+    the displacement run on the particles' device.  ``bucket=(mesh,
+    BucketSpec)`` takes the shard-local scatter and displacement gather
+    of bucketed particles (``parallel/particles.py``) instead."""
     gres = tuple(lphi.shape)
     d = len(gres)
-    gm, gvol, sort_info = scatter_mass_volume(
-        px, pm, pvol, gres, bound_min, cell_size, with_sort_info=True, sort_info=sort_info,
-    )
+    if bucket is not None:
+        from python_fluid_simulation_tpu_torch.parallel.particles import (
+            sharded_apply_displacement,
+            sharded_scatter_mass_volume,
+        )
+
+        gm, gvol, sort_info = sharded_scatter_mass_volume(px, pm, bucket[0], bucket[1], gres, pvol, bound_min,
+                                                          cell_size)
+    else:
+        gm, gvol, sort_info = scatter_mass_volume(
+            px, pm, pvol, gres, bound_min, cell_size, with_sort_info=True, sort_info=sort_info,
+        )
     gvol = fix_volume(gvol, sphi, lphi, w_faces, cell_size)
     b = density_rhs(rho0, dt, gm, gvol, lphi, w_faces, cell_size)
     x, stats = solve_cell_poisson(
@@ -321,4 +339,54 @@ def density_solve_3d(
     )
     face_shapes = [tuple(n + (1 if i == a else 0) for i, n in enumerate(gres)) for a in range(d)]
     disp = compute_displacement(x, lphi, dt, cell_size, face_shapes)
+    if bucket is not None:
+        return DensityResult(px + sharded_apply_displacement(disp, bucket[0], bucket[1], gres, bound_min, cell_size,
+                                                             sort_info), stats)
     return DensityResult(px + apply_displacement_all(disp, sort_info, bound_min, cell_size), stats)
+
+
+def fix_volume_2d(lvol, sphi, lphi, w_faces, cell_size, gvol0):
+    """The 2D cell volume (fix_volume_kernel, DensityCGSolver2D.py:36-57):
+    the 9-point weighted sum of the dual-lattice fluid volume ``lvol``
+    about each cell center (a raw array or its parity-class dict), full
+    in interior fluid cells away from solids, clamped by cell_vol * the
+    non-solid fraction; ``gvol0`` outside the interior."""
+    shape = tuple(lphi.shape)
+    cvol = cell_size[0] * cell_size[1]
+    dx = min(cell_size)
+
+    def lv(i, j):
+        return dual_sample(lvol, (1, 1), (i, j), shape, 0.0)
+
+    fluid_vol = (
+        lv(0, 0)
+        + 0.5 * (lv(1, 0) + lv(-1, 0) + lv(0, 1) + lv(0, -1))
+        + 0.25 * (lv(1, 1) + lv(-1, 1) + lv(1, -1) + lv(-1, -1))
+    )
+    near_solid = dual_sample(sphi, (1, 1), (0, 0), shape, 1e9) < dx
+    fluid_internal = lphi < 0
+    for a in range(2):
+        for side in (+1, -1):
+            fluid_internal = fluid_internal & (shift(lphi, _offset(2, a, side), 1.0) < 0)
+    fluid_vol = torch.where(fluid_internal & ~near_solid, cvol, fluid_vol)
+    new = torch.minimum(fluid_vol, cvol * _nonsolid_frac(w_faces, shape))
+    return torch.where(interior_mask(shape, device=lphi.device), new, gvol0)
+
+
+def density_solve_2d(
+    rho0: float, dt, px, pm, pvol: float, sphi, lphi, lvol, w_faces,
+    bound_min: Sequence[float], cell_size: Sequence[float], *,
+    tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000, jacobi_precond: bool = True,
+) -> DensityResult:
+    """The 2D density projection (DensityCGSolver2D.solve :262-295): the
+    mass scatter, `fix_volume_2d`, the RHS, the CG solve from x = 0 and
+    the plain displacement gather; returns the moved positions."""
+    gres = tuple(lphi.shape)
+    gm, _ = scatter_mass_volume(px, pm, 0.0, gres, bound_min, cell_size)
+    gvol = fix_volume_2d(lvol, sphi, lphi, w_faces, cell_size, torch.zeros_like(gm))
+    b = density_rhs(rho0, dt, gm, gvol, lphi, w_faces, cell_size)
+    x, stats = solve_cell_poisson(b, density_coefficients(w_faces, lphi), tol=tol, rel_tol=rel_tol,
+                                  max_iter=max_iter, jacobi_precond=jacobi_precond)
+    face_shapes = [tuple(n + (1 if i == a else 0) for i, n in enumerate(gres)) for a in range(2)]
+    disp = compute_displacement(x, lphi, dt, cell_size, face_shapes)
+    return DensityResult(apply_displacement(px, disp, bound_min, cell_size), stats)

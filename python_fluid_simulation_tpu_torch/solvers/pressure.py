@@ -25,7 +25,12 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from python_fluid_simulation_tpu_torch.ops.cuda_cg import squared_tols
-from python_fluid_simulation_tpu_torch.ops.cuda_stencils import cell_poisson_pcg, fused_poisson_pcg, stencil_matvec
+from python_fluid_simulation_tpu_torch.ops.cuda_stencils import (
+    cell_poisson_pcg,
+    fused_poisson_pcg,
+    stencil_matvec,
+    stencil_matvec_plain,
+)
 from python_fluid_simulation_tpu_torch.ops.fractions import edge_in_fraction
 from python_fluid_simulation_tpu_torch.ops.indexing import (
     dual_sample,
@@ -212,12 +217,30 @@ def solve_cell_poisson(b, coefficients, *, tol: float, rel_tol: float, max_iter:
     distributed_cell_poisson``) whatever ``precond`` says, as in the JAX
     package (``pressure.py:330``): s b, s diag, s coef and s pd, with
     pd = 1 under ``jacobi_precond=False``.
+    A 2D system (the 2D engine's pressure and density) is the generic CG
+    over the plain 5-point matvec (`stencil_matvec_plain`), Jacobi or
+    unpreconditioned: the JAX package takes its kernels for ``d == 3``
+    only (``pressure.py:226``, ``:355``, ``:412``) and solves in 2D in XLA.
     Returns (x, SolveStats).
     """
     diag, coefs, precond_diag = coefficients
     s = dt_scale
     if precond not in ("jacobi", "mg"):
         raise ValueError(f"unknown cell-Poisson preconditioner {precond!r}")
+    if b.ndim != 3:
+        # the dimension gate of JAX pressure.py:226 / :355 / :412
+        if mesh is not None or precond != "jacobi":
+            raise NotImplementedError("a 2D cell solve takes the Jacobi preconditioner (or none) and no mesh")
+
+        def matvec2(v):
+            q = stencil_matvec_plain(diag, coefs, v[0])
+            return (q if s is None else s * q,)
+
+        pd2 = precond_diag if s is None else s * precond_diag
+        tol2, rel2 = squared_tols(tol, rel_tol)
+        (x,), stats, _, _ = cg(matvec2, (b if s is None else s * b,), (torch.zeros_like(b),), tol2=tol2, rel2=rel2,
+                               max_iter=max_iter, precond=(lambda r: (r[0] / pd2,)) if jacobi_precond else None)
+        return x, stats
     if mesh is not None:
         from python_fluid_simulation_tpu_torch.parallel.halo import converged_threshold, distributed_cell_poisson
 
@@ -285,3 +308,12 @@ def pressure_solve_3d(
         precond=precond, mg_opts=mg_opts, jacobi_precond=jacobi_precond, dt_scale=dt_scale, mesh=mesh,
     )
     return PressureResult(apply_pressure_3d(v_faces, x, w_faces, sv, lphi, cell_size), x, stats)
+
+
+# 2D aliases (JAX ``pressure.py:479-483``): the same stencils with 5
+# points (PressureCGSolver2D.py:46-120)
+pressure_rhs_2d = pressure_rhs_3d
+pressure_matvec_2d = pressure_matvec_3d
+pressure_diag_2d = pressure_diag_3d
+apply_pressure_2d = apply_pressure_3d
+pressure_solve_2d = pressure_solve_3d

@@ -104,15 +104,17 @@ def _terms_for_axis(a: int, d: int = 3):
     return terms
 
 
-def _is_fluid(sphi_vals):
-    """3D convention: fluid = sphi >= 0 (ViscosityCGSolver3D.py:272)."""
-    return sphi_vals >= 0
+def _is_fluid(sphi_vals, strict: bool = False):
+    """3D convention: fluid = sphi >= 0 (ViscosityCGSolver3D.py:272);
+    2D (``strict``): fluid = sphi > 0 (ViscosityCGSolver2D.py:129), so a
+    face site with sphi == 0 is solid there."""
+    return sphi_vals > 0 if strict else sphi_vals >= 0
 
 
-def _active(a, sphi, shape):
+def _active(a, sphi, shape, strict: bool = False):
     d = len(shape)
     sph0 = dual_sample(sphi, face_parity(a, d), (0,) * d, shape, -1.0)
-    return interior_mask(shape, device=sph0.device) & _is_fluid(sph0)
+    return interior_mask(shape, device=sph0.device) & _is_fluid(sph0, strict)
 
 
 def _diag_axis(a, s_mu, vol, shape):
@@ -141,20 +143,21 @@ def _neighbour_interior(shape, voff, device):
     return m
 
 
-def _axis_system(a, s_mu, sphi, vol, shape, same_axis_only=False, symmetrize=False):
+def _axis_system(a, s_mu, sphi, vol, shape, same_axis_only=False, symmetrize=False, strict=False):
     """Face axis a's rows: (diag, [(field, voff, coef)], pdiag, active) in
     `_terms_for_axis` order, only the 6 same-field couplings with
     ``same_axis_only``; ``symmetrize`` also masks each coupling with the
-    neighbour's interior test (see `viscosity_axis_block_stencil`)."""
+    neighbour's interior test (see `viscosity_axis_block_stencil`);
+    ``strict`` is the 2D fluid test (`_is_fluid`)."""
     d = len(shape)
     p = face_parity(a, d)
-    active = _active(a, sphi, shape)
+    active = _active(a, sphi, shape, strict)
     diag_raw = _diag_axis(a, s_mu, vol, shape)
     terms = []
     for cond_off, field, voff, vol_off, factor, sign in _terms_for_axis(a, d):
         if same_axis_only and field != a:
             continue
-        mask = active & _is_fluid(dual_sample(sphi, p, cond_off, shape, -1.0))
+        mask = active & _is_fluid(dual_sample(sphi, p, cond_off, shape, -1.0), strict)
         if symmetrize:
             mask = mask & _neighbour_interior(shape, voff, active.device)
         vcoef = dual_sample(vol, p, vol_off, shape, 0.0)
@@ -164,14 +167,16 @@ def _axis_system(a, s_mu, sphi, vol, shape, same_axis_only=False, symmetrize=Fal
     return diag, terms, pdiag, active
 
 
-def viscosity_term_fields(s_mu, sphi, vol, face_shapes, same_axis_only: bool = False):
-    """The 14-term coefficient fields per axis: (diags, per_axis, pdiags)
-    where per_axis[a] is a list of (field, voff, coef) with coef shaped
-    like face array a.  ``same_axis_only`` builds only the 6 same-field
-    terms an axis (what the MG block preconditioner reads)."""
+def viscosity_term_fields(s_mu, sphi, vol, face_shapes, same_axis_only: bool = False, strict_fluid: bool = False):
+    """The 14-term coefficient fields per axis (6 in 2D): (diags,
+    per_axis, pdiags) where per_axis[a] is a list of (field, voff, coef)
+    with coef shaped like face array a.  ``same_axis_only`` builds only
+    the 6 same-field terms an axis (what the MG block preconditioner
+    reads); ``strict_fluid`` is the 2D fluid test (`_is_fluid`)."""
     diags, per_axis, pdiags = [], [], []
     for a in range(len(face_shapes)):
-        diag, terms, pdiag, _ = _axis_system(a, s_mu, sphi, vol, tuple(face_shapes[a]), same_axis_only)
+        diag, terms, pdiag, _ = _axis_system(a, s_mu, sphi, vol, tuple(face_shapes[a]), same_axis_only,
+                                             strict=strict_fluid)
         diags.append(diag)
         per_axis.append(terms)
         pdiags.append(pdiag)
@@ -194,9 +199,10 @@ def viscosity_axis_block_stencil(a, s_mu, sphi, vol, shape, symmetrize: bool = F
     return diag, [(voff, coef) for _, voff, coef in terms], pdiag, active
 
 
-def viscosity_matvec_3d(v_faces, s_mu, sphi, vol):
-    """One application of the coupled operator to (vx, vy, vz)."""
-    diags, per_axis, _ = viscosity_term_fields(s_mu, sphi, vol, [v.shape for v in v_faces])
+def viscosity_matvec_3d(v_faces, s_mu, sphi, vol, strict_fluid: bool = False):
+    """One application of the coupled operator to (vx, vy, vz) (or the
+    2D pair, with ``strict_fluid``)."""
+    diags, per_axis, _ = viscosity_term_fields(s_mu, sphi, vol, [v.shape for v in v_faces], strict_fluid=strict_fluid)
     return coupled_stencil_matvec_plain(diags, per_axis, v_faces)
 
 
@@ -209,10 +215,10 @@ def prepare_viscosity_matvec(s_mu, sphi, vol, face_shapes, fields=None):
     return (lambda vs: coupled_stencil_matvec(diags, per_axis, vs, packed=packed)), tuple(pdiags)
 
 
-def viscosity_rhs_3d(v_faces, s_mu, sphi, vol):
+def viscosity_rhs_3d(v_faces, s_mu, sphi, vol, strict_fluid: bool = False):
     """b_a = vol_c*v_a + sum of solid-neighbour Dirichlet terms
     (initialize_solver_{x,y,z}_kernel, :41-246); the input velocities
-    must already be extrapolated into the solid."""
+    must already be extrapolated into the solid (in 3D)."""
     d = len(v_faces)
     out = []
     for a in range(d):
@@ -220,21 +226,21 @@ def viscosity_rhs_3d(v_faces, s_mu, sphi, vol):
         p = face_parity(a, d)
         b = dual_sample(vol, p, (0,) * d, shape, 0.0) * v_faces[a]
         for cond_off, field, voff, vol_off, factor, sign in _terms_for_axis(a, d):
-            solid_n = ~_is_fluid(dual_sample(sphi, p, cond_off, shape, -1.0))
+            solid_n = ~_is_fluid(dual_sample(sphi, p, cond_off, shape, -1.0), strict_fluid)
             vv = sample(v_faces[field], voff, shape, 0.0)
             vcoef = dual_sample(vol, p, vol_off, shape, 0.0)
             b = b + torch.where(solid_n, -sign * factor * s_mu * vcoef * vv, 0.0)
-        out.append(torch.where(_active(a, sphi, shape), b, 0.0))
+        out.append(torch.where(_active(a, sphi, shape, strict_fluid), b, 0.0))
     return tuple(out)
 
 
-def viscosity_diag_3d(s_mu, sphi, vol, face_shapes):
+def viscosity_diag_3d(s_mu, sphi, vol, face_shapes, strict_fluid: bool = False):
     """Operator diagonal for Jacobi preconditioning (1 where inactive)."""
     out = []
     for a in range(len(face_shapes)):
         shape = tuple(face_shapes[a])
         diag = _diag_axis(a, s_mu, vol, shape)
-        out.append(torch.where(_active(a, sphi, shape) & (diag > 0), diag, 1.0))
+        out.append(torch.where(_active(a, sphi, shape, strict_fluid) & (diag > 0), diag, 1.0))
     return tuple(out)
 
 
@@ -313,6 +319,7 @@ def viscosity_solve_3d(
     dt, mu: float, rho: float, v_faces: Sequence[torch.Tensor], sphi, lvol, cell_vol: float, *,
     tol: float = 1e-3, rel_tol: float = 1e-6, max_iter: int = 2000,
     jacobi_precond: bool = True, precond_kind: str = "jacobi", auto_use_mg=None, warm_start=None, mesh=None,
+    extrap_iters: int = 3, strict_fluid: bool = False,
 ) -> ViscosityResult:
     """Full implicit viscosity solve (ViscosityCGSolver3D.solve :566-613):
     velocities are extrapolated 3 Jacobi layers into the solid (valid =
@@ -351,6 +358,14 @@ def viscosity_solve_3d(
     the JAX package (``viscosity.py:636-680``), so ``auto_use_mg`` is not
     read.  A warm start under a mesh is not ported (it raises).
 
+    ``extrap_iters`` (3 in 3D, 0 in 2D: no pre-extrapolation) and
+    ``strict_fluid`` (the 2D fluid test, solid = sphi <= 0) carry the 2D
+    reference's conventions (`viscosity_solve_2d`).  A 2D system takes the
+    generic CG over the plain coupled matvec (`coupled_stencil_matvec_plain`)
+    with the Jacobi preconditioner or none, as the JAX package, whose
+    Pallas routes are for ``d == 3`` only (``viscosity.py:497``, ``:696``),
+    runs its 2D solve in XLA.
+
     ``lvol`` may be the raw dual-lattice array or its parity-class dict;
     ``dt`` a float or 0-dim tensor.
     """
@@ -362,18 +377,32 @@ def viscosity_solve_3d(
     vol_c = {k: v / (cell_vol * 0.125) for k, v in split_parity(lvol, d).items()}
 
     def extrapolated(fields):
-        return tuple(extrapolate(fields[a], _is_fluid(sphi_c[face_parity(a, d)]), 3)[0] for a in range(d))
+        if not extrap_iters:
+            return tuple(fields)
+        return tuple(extrapolate(fields[a], _is_fluid(sphi_c[face_parity(a, d)], strict_fluid), extrap_iters)[0]
+                     for a in range(d))
 
     ext = extrapolated(v_faces)
     warm = None if warm_start is None else extrapolated(warm_start)
     shapes = [tuple(v.shape) for v in v_faces]
-    b = viscosity_rhs_3d(ext, s_mu, sphi_c, vol_c)
+    b = viscosity_rhs_3d(ext, s_mu, sphi_c, vol_c, strict_fluid)
 
     if precond_kind not in ("jacobi", "mg", "auto"):
         raise ValueError(f"unknown viscosity preconditioner {precond_kind!r}")
     flagged = precond_kind == "auto" and auto_use_mg is not None
     kw = dict(tol=tol, rel_tol=rel_tol, max_iter=max_iter)
-    if mesh is not None:
+    if d != 3:
+        # the dimension gate of JAX viscosity.py:497 and :696 (Pallas for
+        # d == 3 only): a 2D solve is the generic CG, its matvec plain
+        if mesh is not None or warm is not None or precond_kind != "jacobi":
+            raise NotImplementedError("a 2D viscosity solve takes the Jacobi preconditioner (or none), no mesh and "
+                                      "no warm start")
+        diags, per_axis, pdiags = viscosity_term_fields(s_mu, sphi_c, vol_c, shapes, strict_fluid=strict_fluid)
+        precond = (lambda rs: tuple(r / p for r, p in zip(rs, pdiags))) if jacobi_precond else None
+        tol2, rel2 = squared_tols(tol, rel_tol)
+        x, stats, _, _ = cg(lambda vs: coupled_stencil_matvec_plain(diags, per_axis, vs), b, ext,
+                            tol2=tol2, rel2=rel2, max_iter=max_iter, precond=precond)
+    elif mesh is not None:
         if warm is not None:
             raise NotImplementedError("a warm start under a mesh is not ported yet (ROADMAP queue 1 item 7)")
         from python_fluid_simulation_tpu_torch.parallel.halo import converged_threshold, distributed_coupled_cg
@@ -406,7 +435,7 @@ def viscosity_solve_3d(
     for a in range(d):
         shape = shapes[a]
         hi = tuple(s - (1 if i == a else 0) for i, s in enumerate(shape))
-        active = interior_mask(shape, active_hi=hi, device=dev) & _is_fluid(sphi_c[face_parity(a, d)])
+        active = interior_mask(shape, active_hi=hi, device=dev) & _is_fluid(sphi_c[face_parity(a, d)], strict_fluid)
         out.append(torch.where(active, x[a], v_faces[a]))
     return ViscosityResult(tuple(out), stats)
 
@@ -456,3 +485,19 @@ def _mg_solve(b, x0, s_mu, sphi_c, vol_c, shapes, *, tol, rel_tol, max_iter, war
         x0 = rescaled_warm_start(matvec, b, x0, warm)[0]
     x, stats, _, _ = cg(matvec, b, x0, tol2=tol2, rel2=rel2, max_iter=max_iter, precond=precond)
     return x, stats
+
+
+# 2D aliases (JAX ``viscosity.py:948-961``): the same generic operators
+# with the 2D reference's conventions, solid = sphi <= 0 and no
+# pre-extrapolation (ViscosityCGSolver2D.solve :275-318)
+viscosity_matvec_2d = viscosity_matvec_3d
+viscosity_rhs_2d = viscosity_rhs_3d
+viscosity_diag_2d = viscosity_diag_3d
+
+
+def viscosity_solve_2d(dt, mu, rho, v_faces, sphi, lvol, cell_vol, *, tol=1e-4, rel_tol=1e-6, max_iter=2000,
+                       jacobi_precond=True) -> ViscosityResult:
+    """The 2D implicit viscosity solve: `viscosity_solve_3d` with
+    ``extrap_iters=0`` and ``strict_fluid=True``."""
+    return viscosity_solve_3d(dt, mu, rho, v_faces, sphi, lvol, cell_vol, tol=tol, rel_tol=rel_tol,
+                              max_iter=max_iter, jacobi_precond=jacobi_precond, extrap_iters=0, strict_fluid=True)

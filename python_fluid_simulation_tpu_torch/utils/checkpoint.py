@@ -14,7 +14,10 @@ checkpoints:
 
 The reference has no mid-run checkpointing (SURVEY §5).  A restore puts
 the state on an explicit device, with t, step_idx and visc_mg as 0-d
-tensors, so that a resumed run continues bitwise.  Orbax directories
+tensors, so that a resumed run continues bitwise.  A 2D checkpoint (its
+config's ``bound_min`` has two entries) carries an
+``engine/step2d.py::SimConfig2D`` and a 2D state (``c`` (K, 2, 2), the
+``ops/sdf2d.py`` table), as the JAX package writes and reads it.  Orbax directories
 (what the JAX package writes where Orbax is installed) are not read.
 """
 
@@ -52,7 +55,7 @@ def _config_to_json(cfg) -> str:
 LEAVES = ("x", "v", "c", "m", "phi", "sv", "rb", "t", "step_idx", "visc_mg")
 
 
-def save_checkpoint(path: str, state: SimState, cfg: SimConfig, step: int):
+def save_checkpoint(path: str, state: SimState, cfg, step: int):
     """Write the config and the state; `path` is a directory (a re-save
     of a step overwrites it)."""
     os.makedirs(path, exist_ok=True)
@@ -74,15 +77,30 @@ def latest_step(path: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def config_2d_from_json(text: str):
+    """The `SimConfig2D` of a 2D checkpoint's config.json (JAX
+    ``utils/checkpoint.py:87-100``)."""
+    from python_fluid_simulation_tpu_torch.config import GridConfig2D, PhysicsConfig, SolverConfig
+    from python_fluid_simulation_tpu_torch.engine.step2d import SimConfig2D
+
+    d = json.loads(text)
+    g = d["grid"]
+    return SimConfig2D(
+        grid=GridConfig2D(bound_min=tuple(g["bound_min"]), bound_size=tuple(g["bound_size"]), dx=g["dx"]),
+        physics=PhysicsConfig(**d["physics"]), solver=SolverConfig(**d["solver"]),
+        particle_dx=d["particle_dx"], dt_mode=d["dt_mode"], duration=d["duration"],
+    )
+
+
 def restore_checkpoint(path: str, step: Optional[int] = None, device="cuda") -> Tuple[SimState, SimConfig, int]:
     """(state on ``device``, config, step) of the checkpoint at ``step``
-    (the latest by default).  A 2D checkpoint raises NotImplementedError."""
+    (the latest by default); a 2D checkpoint gives a `SimConfig2D`."""
     with open(os.path.join(path, "config.json")) as f:
         text = f.read()
     if len(json.loads(text).get("grid", {}).get("bound_min", [0] * 3)) == 2:
-        raise NotImplementedError(f"{path} holds a 2D checkpoint: the 2D engine is not ported yet "
-                                  "(ROADMAP queue 1 item 6)")
-    cfg = SimConfig.from_json(text)
+        cfg = config_2d_from_json(text)
+    else:
+        cfg = SimConfig.from_json(text)
     if step is None:
         step = latest_step(path)
         if step is None:

@@ -7,8 +7,13 @@ the CPU, on ``--device cpu --scene dam_break --dx 0.125`` (8^3 cells,
   uninterrupted run and to one ``simulate(..., 4)`` call;
 * the metrics JSONL keys are those of JAX ``step_3d`` (read from its
   traced output, ``jax.eval_shape``: no compile);
-* the unported paths (``--bucketed``, the 2D scenes) and ``--device
-  cuda`` without a CUDA device exit with their messages;
+* ``--bucketed`` without ``--mesh``, ``--mesh`` with a 2D scene and
+  ``--device cuda`` without a CUDA device exit with their messages (the
+  JAX CLI's);
+* the 2D scenes and ``--mesh 2 --bucketed`` run: ``dam_break_2d`` 3 steps
+  with every output (its metrics keys those of JAX ``step_2d``, its
+  checkpoint a 2D state), ``droplet_2d`` 2 steps, and the bucketed dam
+  break with ``bucket_lost`` 0 at every step;
 * ``--mesh 2`` runs the sharded step, and the learned modes take seeded
   weights with the JAX CLI's warning line;
 * ``simulate``'s held capture is reused or replaced by its key.
@@ -109,14 +114,58 @@ def test_cli_metric_keys_are_jax_step_3d_keys(full_run):
 
 @pytest.mark.parametrize("argv, message", [
     (["--bucketed"], "--bucketed requires --mesh N"),
-    (["--bucketed", "--mesh", "2"], "ROADMAP queue 1 item 7"),
-    (["--scene", "dam_break_2d"], "ROADMAP queue 1 item 6"),
-    (["--scene", "droplet_2d"], "ROADMAP queue 1 item 6"),
+    (["--scene", "dam_break_2d", "--mesh", "2"], "--mesh applies to 3D scenes only"),
+    (["--scene", "droplet_2d", "--mesh", "2", "--bucketed"], "--mesh applies to 3D scenes only"),
 ])
 def test_cli_refuses_unported_paths(argv, message, tmp_path):
     with pytest.raises(SystemExit) as e:
-        cli.main([*argv, "--out", str(tmp_path / "x")])
+        cli.main([*argv, "--device", "cpu", "--out", str(tmp_path / "x")])
     assert message in str(e.value.code)
+
+
+@pytest.mark.parametrize("scene", ["droplet_2d", "dam_break_2d"])
+def test_cli_runs_the_2d_scenes(scene, tmp_path, capsys):
+    """``simulate_2d`` on ``SimConfig2D()``'s defaults (64x64 cells); the
+    dam break with every output: the 2D checkpoint restores to the run's
+    state, and the metrics keys are JAX ``step_2d``'s."""
+    import jax
+
+    from python_fluid_simulation_tpu.engine import step2d as j_step2d
+    from python_fluid_simulation_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    out = str(tmp_path / scene)
+    steps = 3 if scene == "dam_break_2d" else 2
+    extra = ALL_OUTPUTS if scene == "dam_break_2d" else ["--metrics"]
+    assert cli.main(["--device", "cpu", "--scene", scene, "--max-steps", str(steps), "--block", "2", "--out", out,
+                     *extra]) == 0
+    recs = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    assert [r["step"] for r in recs] == list(range(steps))
+    assert all(0 < r["density_iters"] < 600 for r in recs) and all(r["pressure_iters"] < 600 for r in recs)
+    cfg, j_state = j_step2d.droplet_scene_2d() if scene == "droplet_2d" else j_step2d.dam_break_scene_2d()
+    _, metrics = jax.eval_shape(lambda s: j_step2d.step_2d(s, cfg), j_state)
+    assert set(recs[0]) == set(metrics) | {"step", "wall_time_s"}
+    if scene == "dam_break_2d":
+        assert {"ps.pickle", "replay.html", "ckpt"} <= set(os.listdir(out)) and "surface.obj" not in os.listdir(out)
+        assert "surface.obj skipped" in capsys.readouterr().out
+        state, cfg2, step = restore_checkpoint(os.path.join(out, "ckpt"), device="cpu")
+        assert step == 3 and cfg2.grid.res == (64, 64) and cfg2.particle_dx == 1.0 / 128
+        assert state.particles.x.shape[1] == 2 and state.particles.c.shape[1:] == (2, 2) and int(state.step_idx) == 3
+        with open(os.path.join(out, "ps.pickle"), "rb") as f:
+            series = pickle.load(f)
+        last = series[max(series)]
+        assert np.array_equal(last, state.particles.x.numpy())
+
+
+def test_cli_mesh_bucketed_runs_the_bucketed_step(tmp_path, capsys):
+    out = str(tmp_path / "bucketed")
+    assert cli.main([*BASE, "--max-steps", "3", "--block", "3", "--out", out, "--mesh", "2", "--bucketed",
+                     "--metrics", "--checkpoint-every", "3"]) == 0
+    assert "bucket-sharded over 2 slots" in capsys.readouterr().out
+    recs = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    assert [r["bucket_lost"] for r in recs] == [0, 0, 0]
+    assert all(r[f"{k}_converged"] for r in recs for k in ("density", "viscosity", "pressure"))
+    x, m = _final(out, 3)[0], _final(out, 3)[3]
+    assert int((m > 0).sum()) == 125 and np.isfinite(x).all()
 
 
 def test_cli_cuda_without_a_device_exits(tmp_path, monkeypatch):

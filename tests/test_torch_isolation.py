@@ -41,7 +41,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 parallel = {"python_fluid_simulation_tpu_torch." + m for m in ("parallel", "parallel.mesh", "parallel.halo",
-                                                               "parallel.halo_rdma", "ops.cuda_halo")}
+                                                               "parallel.halo_rdma", "ops.cuda_halo",
+                                                               "parallel.particles", "engine.step2d", "ops.sdf2d")}
 assert parallel <= set(names), sorted(parallel - set(names))
 import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "python_fluid_simulation_tpu")]

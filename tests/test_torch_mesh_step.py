@@ -164,7 +164,13 @@ def test_learned_modes_under_a_mesh_raise(runs, mode):
 
 
 def test_bucketed_raises(runs):
+    """Bucketed residency on an (x, z) mesh is not ported (a 1D mesh runs
+    it: tests/test_torch_bucketed.py), nor without a mesh."""
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh2d
+
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        step_3d(runs["start"], _cfg(), mesh=make_mesh(2, "cpu"), bucketed=True)
+        step_3d(runs["start"], _cfg(), mesh=make_mesh2d((2, 2), "cpu"), bucketed=True)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        step_3d(runs["start"], _cfg(), bucketed=True)
     with pytest.raises(ValueError, match="slot 0"):
         step_3d(runs["start"], _cfg(), mesh=make_mesh(2))  # the mesh's slots are on the card

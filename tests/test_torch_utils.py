@@ -122,12 +122,36 @@ def test_checkpoint_latest_step_and_config_fields(tmp_path):
         restore_checkpoint(str(tmp_path / "empty"), device="cpu")
 
 
-def test_checkpoint_2d_is_refused(tmp_path):
-    ck = tmp_path / "ck2d"
-    ck.mkdir()
-    (ck / "config.json").write_text(json.dumps({"grid": {"bound_min": [0.0, 0.0]}}))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        restore_checkpoint(str(ck), device="cpu")
+def test_checkpoint_2d_round_trips_with_jax(tmp_path, monkeypatch):
+    """A 2D checkpoint (``SimConfig2D``, (K, 2, 2) APIC rows, the sdf2d
+    table): JAX ``restore_checkpoint`` reads the port's to the same arrays
+    and an equal config, and the port reads JAX's (written without
+    Orbax) back to the state it came from."""
+    from python_fluid_simulation_tpu.engine import step2d as j_step2d
+    from python_fluid_simulation_tpu_torch.engine.step2d import SimConfig2D, dam_break_scene_2d
+
+    cfg = SimConfig2D()
+    _, state = dam_break_scene_2d(cfg, device="cpu")
+    state = dataclasses.replace(state, t=torch.tensor(0.25), step_idx=torch.tensor(9, dtype=torch.int32),
+                                visc_mg=torch.tensor(0, dtype=torch.int32))
+    save_checkpoint(str(tmp_path / "ck"), state, cfg, 9)
+    j_state, j_cfg, step = j_checkpoint.restore_checkpoint(str(tmp_path / "ck"))
+    assert step == 9 and isinstance(j_cfg, j_step2d.SimConfig2D)
+    assert j_checkpoint._config_to_json(j_cfg) == (tmp_path / "ck" / "config.json").read_text()
+    j_leaves = [np.asarray(a) for a in (j_state.particles.x, j_state.particles.v, j_state.particles.c,
+                                        j_state.particles.m, j_state.solid.phi, j_state.solid.v, j_state.solid.rb,
+                                        j_state.t, j_state.step_idx, j_state.visc_mg)]
+    for name, got, want in zip(LEAVES, j_leaves, _leaves(state)):
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    assert j_leaves[2].shape[1:] == (2, 2) and j_leaves[6].shape[1:] == (8, 3)
+
+    monkeypatch.setattr(j_checkpoint, "_HAS_ORBAX", False)
+    j_checkpoint.save_checkpoint(str(tmp_path / "jk"), j_state, j_cfg, 11)
+    restored, cfg2, step = restore_checkpoint(str(tmp_path / "jk"), device="cpu")
+    assert step == 11 and cfg2 == cfg
+    for name, got, want in zip(LEAVES, _leaves(restored), _leaves(state)):
+        np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 def test_port_checkpoint_restored_by_jax(tmp_path):
