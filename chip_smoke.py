@@ -320,18 +320,30 @@ Phases, each printing one JSON line:
               step of each side, capture seconds; run.main --scene
               dam_break_2d, 3 steps with --metrics, every solve under
               max_iter
-  bucketed    the flagship bucketed on make_mesh(4) (masses made
-              unique), 3 steps with the counters reset just before: the
-              halo kernel and rows 11-14 launched, bucket_lost 0, solves
+  bucketed    the flagship bucketed on make_mesh(4) and on
+              make_mesh2d((2, 2)) (slabs 24 x 24; masses made unique), 3
+              steps each with the counters reset just before: the halo
+              kernel and rows 11-14 launched, bucket_lost 0, solves
               converged, |dx| < 2e-4 and |dv| < 2e-3 against the unsharded
               step on the card (particles matched by mass), every step
               bitwise the same steps with every kernel swapped for its
               plain version; coiling_config(504) on make_mesh(2) (slab
-              width 63), 2 steps the same way, the first against the
-              unsharded step; ms a step, launches a step, peak memory;
-              run.main --scene
+              width 63) and on (2, 2) (63 x 63), 2 steps the same way, the
+              first against the unsharded step; ms a step, launches and
+              halo launches a step, peak memory; run.main --scene
               buckling --mesh 4 --bucketed, 3 steps with --metrics: every
               solve converged and bucket_lost 0
+  mesh_learned
+              the flagship (masses unique) in 'unet' and 'unet_warm' with
+              the full-width UNet on make_mesh(4) and (2, 2), and
+              'unet_warm' bucketed on (2, 2), 3 steps each with the
+              counters reset just before: rows 11-15 launched, 'unet_warm'
+              rows 7/8 twice a step (its line search) and no PCG kernel,
+              solves converged, every step within |dx| < 2e-4 and |dv| <
+              2e-3 of the unsharded learned step on the card (by mass) and
+              bitwise the same steps with every kernel swapped for its
+              plain version; ms a step, the viscosity iterations and the
+              line search's alpha beside the unsharded run's
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
@@ -491,6 +503,8 @@ BUCKET_SLOTS = 4  # the flagship bucketed on make_mesh(4): slab width 12
 BUCKET_STEPS = 3
 BUCKET_504_SLOTS = 2  # coiling_config(504): nx = 126 is not a multiple of 4
 BUCKET_504_STEPS = 2
+BUCKET_2D = (2, 2)  # the (x, z) mesh of the bucketed and learned mesh runs: flagship slabs 24 x 24, 504 63 x 63
+MESH_LEARNED_STEPS = 3
 BUCKET_MASS_STEP = 1e-6  # masses m (1 + 1e-6 i): distinct in fp32 (89,648 and 465,868 particles, within 9% / 47% of m)
 CLI_2D_STEPS = 3
 HALO_REPS = 1000  # back-to-back exchanges with changing contents, each compared bitwise with the plain route
@@ -3726,26 +3740,71 @@ def matched(state, n):
     return state.particles.x[live][order], state.particles.v[live][order], m[live][order]
 
 
-def bucketed_run(label, cfg, state0, geom, slots, steps, ref_states=None, plain=False):
-    """`steps` bucketed steps on ``make_mesh(slots)`` from `state0` (masses
-    unique), the counters reset just before; against ``ref_states`` (the
-    state and the unsharded steps from it, as many as given) by mass; with
-    ``plain`` the same steps with every kernel swapped for its plain
-    version, bitwise.  Returns the row and the launches."""
+def unique_masses(state):
+    """The state with masses m (1 + BUCKET_MASS_STEP i), distinct in fp32,
+    so that a particle is matched across two layouts by its mass."""
+    import torch
+
+    n = state.particles.x.shape[0]
+    scale = 1.0 + BUCKET_MASS_STEP * torch.arange(n, dtype=torch.float32, device=state.particles.m.device)
+    m = state.particles.m * scale
+    if int(torch.unique(m).numel()) != n:
+        raise AssertionError("the scaled masses are not distinct")
+    return dataclasses.replace(state, particles=dataclasses.replace(state.particles, m=m))
+
+
+def vs_unsharded(label, states, ref_states, n):
+    """max |dx|, |dv| of each step of `states` against `ref_states` (as
+    many as given), the particles matched by mass; both under the mesh
+    bars."""
+    import torch
+
+    errs = []
+    for i in range(1, len(ref_states)):
+        xb, vb, mb = matched(states[i], n)
+        xr, vr, mr = matched(ref_states[i], n)
+        if not torch.equal(mb, mr):
+            raise AssertionError(f"{label} step {i - 1}: the particle sets differ")
+        dx, dv = float((xb - xr).abs().max()), float((vb - vr).abs().max())
+        if not (dx < MESH_DX and dv < MESH_DV):
+            raise AssertionError(f"{label} step {i - 1} vs unsharded: |dx| {dx}, |dv| {dv}")
+        errs.append({"dx": dx, "dv": dv})
+    return errs
+
+
+def plain_steps_bitwise(label, step, start, states, cfg, geom, steps):
+    """The same steps with every kernel swapped for its plain version: no
+    launch, and every step's particles bitwise the kernels' steps."""
+    read = reset_counters()
+    with plain_kernels():
+        pl = [start]
+        for _ in range(steps):
+            pl.append(step(pl[-1], cfg, geom=geom)[0])
+    if any(read().values()):
+        raise AssertionError(f"{label}: the plain steps launched kernels")
+    for i in range(1, steps + 1):
+        bad = [k for k in "xvcm" if not same_bits(getattr(states[i].particles, k), getattr(pl[i].particles, k))]
+        if bad:
+            raise AssertionError(f"{label} step {i - 1}: kernels vs plain versions differ in {bad}")
+
+
+def bucketed_run(label, cfg, state0, geom, mesh, steps, ref_states=None, plain=False):
+    """`steps` bucketed steps on `mesh` (1D: by x-slab, (x, z): by x-by-z
+    block) from `state0` (masses unique), the counters reset just before;
+    against ``ref_states`` (the state and the unsharded steps from it, as
+    many as given) by mass; with ``plain`` the same steps with every kernel
+    swapped for its plain version, bitwise.  Returns the row and the
+    launches."""
     import torch
 
     from python_fluid_simulation_tpu_torch.engine.step import step_3d
-    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, shard_state
-    from python_fluid_simulation_tpu_torch.parallel.particles import bucket_particles, make_bucket_spec
+    from python_fluid_simulation_tpu_torch.parallel.mesh import shard_state
+    from python_fluid_simulation_tpu_torch.profile_step import bucketed_particles
 
-    g = cfg.grid
     n = int(state0.particles.x.shape[0])
-    mesh = make_mesh(slots)
-    spec = make_bucket_spec(slots, g.res[0], n, positions=state0.particles.x, bound_min=g.bound_min,
-                            cell_size=g.cell_size)
     start = shard_state(state0, mesh)
-    start = dataclasses.replace(start, particles=bucket_particles(start.particles, mesh, spec, g.bound_min,
-                                                                  g.cell_size))
+    spec, particles = bucketed_particles(start, cfg, mesh)
+    start = dataclasses.replace(start, particles=particles)
     step_b = functools.partial(step_3d, mesh=mesh, bucketed=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3760,46 +3819,26 @@ def bucketed_run(label, cfg, state0, geom, slots, steps, ref_states=None, plain=
         raise AssertionError(f"{label}: bucket_lost {lost}")
     row = dict(mesh=mesh.shape, spec=spec._asdict(), particles=n, step_ms=step_ms,
                median_step_ms=statistics.median(step_ms[1:] if len(step_ms) > 1 else step_ms), bucket_lost=lost,
-               max_memory_allocated=peak, launches_per_step={k: v / steps for k, v in launches.items() if v},
+               max_memory_allocated=peak, halo_launches_per_step=launches["halo_exchange_rdma"] / steps,
+               launches_per_step={k: v / steps for k, v in launches.items() if v},
                iters={k: [m[f"{k}_iters"] for m in metrics] for k in ("density", "viscosity", "pressure")})
     if ref_states is not None:
-        errs = []
-        for i in range(1, len(ref_states)):
-            xb, vb, mb = matched(states[i], n)
-            xr, vr, mr = matched(ref_states[i], n)
-            if not torch.equal(mb, mr):
-                raise AssertionError(f"{label} step {i - 1}: the particle sets differ")
-            dx, dv = float((xb - xr).abs().max()), float((vb - vr).abs().max())
-            if not (dx < MESH_DX and dv < MESH_DV):
-                raise AssertionError(f"{label} step {i - 1} vs unsharded: |dx| {dx}, |dv| {dv}")
-            errs.append({"dx": dx, "dv": dv})
-        row["vs_unsharded_by_step"] = errs
+        row["vs_unsharded_by_step"] = vs_unsharded(label, states, ref_states, n)
     if plain:
-        read = reset_counters()
-        with plain_kernels():
-            pl = [start]
-            for _ in range(steps):
-                pl.append(step_b(pl[-1], cfg, geom=geom)[0])
-        if any(read().values()):
-            raise AssertionError(f"{label}: the plain steps launched kernels")
-        for i in range(1, steps + 1):
-            bad = [k for k in "xvcm" if not same_bits(getattr(states[i].particles, k), getattr(pl[i].particles, k))]
-            if bad:
-                raise AssertionError(f"{label} step {i - 1}: kernels vs plain versions differ in {bad}")
+        plain_steps_bitwise(label, step_b, start, states, cfg, geom, steps)
         row["kernels_vs_plain_bitwise"] = True
-        del pl
     del state, states, start
     torch.cuda.empty_cache()
     return row, launches
 
 
 def bucketed_phase(smi):
-    """Bucketed residency on 1D slab meshes of the card, masses made
-    unique: the flagship on 4 slots (slab width 12) against the unsharded
-    steps and ``coiling_config(504)`` on 2 slots (slab width 63, the one
-    odd slab) against the unsharded first step, each bitwise its
-    plain-kernel steps; the CLI's ``--scene buckling --mesh 4
-    --bucketed``."""
+    """Bucketed residency on meshes of the card, masses made unique: the
+    flagship on 4 slots (slab width 12) and on (2, 2) (24 x 24) against
+    the unsharded steps, ``coiling_config(504)`` on 2 slots (slab width 63)
+    and on (2, 2) (63 x 63, both odd) against the unsharded first step,
+    each bitwise its plain-kernel steps; the CLI's ``--scene buckling
+    --mesh 4 --bucketed``."""
     import tempfile
 
     import torch
@@ -3811,14 +3850,7 @@ def bucketed_phase(smi):
         coiling_scene,
     )
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
-
-    def unique_masses(state):
-        n = state.particles.x.shape[0]
-        scale = 1.0 + BUCKET_MASS_STEP * torch.arange(n, dtype=torch.float32, device="cuda")
-        m = state.particles.m * scale
-        if int(torch.unique(m).numel()) != n:
-            raise AssertionError("the scaled masses are not distinct")
-        return dataclasses.replace(state, particles=dataclasses.replace(state.particles, m=m))
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
 
     out, launches_by = {}, {}
     cfg = buckling_config()
@@ -3827,18 +3859,25 @@ def bucketed_phase(smi):
     ref = [s0]
     for _ in range(BUCKET_STEPS):
         ref.append(step_3d(ref[-1], cfg, geom=geom)[0])
-    out["flagship_4"], launches_by["flagship_4"] = bucketed_run(
-        "flagship bucketed", cfg, s0, geom, BUCKET_SLOTS, BUCKET_STEPS, ref_states=ref, plain=True)
+    for key, label, mesh in (("flagship_4", "flagship bucketed", make_mesh(BUCKET_SLOTS)),
+                             ("flagship_2x2", "flagship bucketed (2, 2)", make_mesh2d(BUCKET_2D))):
+        out[key], launches_by[key] = bucketed_run(label, cfg, s0, geom, mesh, BUCKET_STEPS, ref_states=ref,
+                                                  plain=True)
     del ref, s0, geom
     torch.cuda.empty_cache()
     cfg504 = coiling_config(RES_504)
     s504 = unique_masses(coiling_scene(cfg504, seed=0, device="cuda"))
     geom504 = build_geom_cache(s504.solid)
     ref = [s504, step_3d(s504, cfg504, geom=geom504)[0]]
-    out["coil_504_2"], launches_by["coil_504_2"] = bucketed_run(
-        "504 bucketed", cfg504, s504, geom504, BUCKET_504_SLOTS, BUCKET_504_STEPS, ref_states=ref, plain=True)
+    for key, label, mesh in (("coil_504_2", "504 bucketed", make_mesh(BUCKET_504_SLOTS)),
+                             ("coil_504_2x2", "504 bucketed (2, 2)", make_mesh2d(BUCKET_2D))):
+        out[key], launches_by[key] = bucketed_run(label, cfg504, s504, geom504, mesh, BUCKET_504_STEPS,
+                                                  ref_states=ref, plain=True)
     del ref, s504, geom504
     torch.cuda.empty_cache()
+    widths = {k: (r["spec"].get("slab_wx"), r["spec"].get("slab_wz")) for k, r in out.items() if "2x2" in k}
+    if widths != {"flagship_2x2": (24, 24), "coil_504_2x2": (63, 63)}:
+        raise AssertionError(f"bucketed (2, 2) slabs: {widths}")
     with tempfile.TemporaryDirectory(prefix="pfs_cli_bucketed_") as tmp:
         seconds, rate, text, _, _ = run_cli(["--scene", "buckling", "--mesh", str(BUCKET_SLOTS), "--bucketed",
                                              "--max-steps", "3", "--block", "3", "--out", tmp, "--metrics"])
@@ -3852,6 +3891,97 @@ def bucketed_phase(smi):
     out["cli"] = dict(steps=3, seconds=seconds, cli_steps_per_s=rate, bucket_lost=[0, 0, 0],
                       every_solve_converged=True)
     out["nvidia_smi"] = smi
+    return out, launches_by
+
+
+def mesh_learned_phase(smi, unet_sd):
+    """The learned modes under a mesh: the flagship (masses unique) in
+    'unet' and 'unet_warm' with the full-width UNet on
+    ``make_mesh(MESH_SLOTS)`` and ``make_mesh2d((2, 2))``, and 'unet_warm'
+    bucketed on (2, 2), `MESH_LEARNED_STEPS` steps each with the counters
+    reset just before: every step within MESH_DX / MESH_DV of the
+    unsharded learned step on the card (by mass), bitwise the same steps
+    with every kernel swapped for its plain version, every solve
+    converged; 'unet_warm' launches rows 7/8 twice a step (its line
+    search) and no PCG kernel, 'unet' neither.  Reported: ms a step, the
+    viscosity iterations and the line search's α beside the unsharded
+    run's."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.scenes import buckling_config, buckling_scene
+    from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
+    from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, make_mesh2d, shard_state
+    from python_fluid_simulation_tpu_torch.profile_step import bucketed_particles
+    from python_fluid_simulation_tpu_torch.solvers import viscosity
+
+    unet = UNet3D(width=UNET_WIDTH).eval()
+    unet.load_state_dict(unet_sd)
+    unet = unet.to("cuda")
+    cfg0 = buckling_config()
+    s0 = unique_masses(buckling_scene(cfg0, seed=0, device="cuda"))
+    n = int(s0.particles.x.shape[0])
+    geom = build_geom_cache(s0.solid)
+    line, alphas = viscosity.rescaled_warm_start, []
+
+    def rec_line(*a, **kw):
+        x0, alpha = line(*a, **kw)
+        alphas.append(alpha)
+        return x0, alpha
+
+    def summary(ms, metrics):
+        return dict(step_ms=ms, median_step_ms=statistics.median(ms[1:]),
+                    iters={k: [m[f"{k}_iters"] for m in metrics] for k in ("density", "viscosity", "pressure")},
+                    alpha=[float(a) for a in alphas])
+
+    out, launches_by = {}, {}
+    steps = MESH_LEARNED_STEPS
+    for mode in ("unet", "unet_warm"):
+        cfg = dataclasses.replace(cfg0, solver=dataclasses.replace(cfg0.solver, viscosity_mode=mode))
+        alphas.clear()
+        with patched([(viscosity, "rescaled_warm_start", rec_line)]):
+            _, ref, ms, metrics = run_steps(functools.partial(step_3d, unet=unet), s0, cfg, geom, steps, steps)
+        out[f"{mode}_unsharded"] = summary(ms, metrics)
+        runs = [("1d_4", make_mesh(MESH_SLOTS), False), ("2d_2x2", make_mesh2d(BUCKET_2D), False)]
+        if mode == "unet_warm":
+            runs.append(("2d_2x2_bucketed", make_mesh2d(BUCKET_2D), True))
+        for label, mesh, bucketed in runs:
+            key, name = f"{mode}_{label}", f"flagship {mode} {label}"
+            start = shard_state(s0, mesh)
+            if bucketed:
+                start = dataclasses.replace(start, particles=bucketed_particles(start, cfg, mesh)[1])
+            step_m = functools.partial(step_3d, unet=unet, mesh=mesh, bucketed=bucketed)
+            alphas.clear()
+            with patched([(viscosity, "rescaled_warm_start", rec_line)]):
+                read = reset_counters()
+                state, states, ms, metrics = run_steps(step_m, start, cfg, geom, steps, steps)
+                launches = read()
+            need = ("halo_exchange_rdma", *REDUCE_ROUTE, "binned_segment_broadcast", "fold")
+            if mode == "unet_warm":
+                need += ("coupled_stencil_matvec",)
+            check_run(state, metrics, launches, need, name)
+            refused = ("cell_poisson_pcg", "fused_poisson_pcg", "coupled_visc_pcg", "coupled_matvec_geom")
+            if mode == "unet":
+                refused += ("coupled_stencil_matvec",)
+            wrong = {k: launches[k] for k in refused if launches[k]}
+            if wrong:
+                raise AssertionError(f"{name}: launched {wrong}")
+            if mode == "unet_warm" and launches["coupled_stencil_matvec"] != 2 * steps:
+                raise AssertionError(f"{name}: {launches['coupled_stencil_matvec']} line-search matvecs in {steps} steps")
+            if bucketed and any(m["bucket_lost"] for m in metrics):
+                raise AssertionError(f"{name}: bucket_lost {[m['bucket_lost'] for m in metrics]}")
+            row = summary(ms, metrics)
+            row.update(mesh=mesh.shape, bucketed=bucketed, vs_unsharded_by_step=vs_unsharded(name, states, ref, n),
+                       halo_launches_per_step=launches["halo_exchange_rdma"] / steps,
+                       coupled_stencil_matvec_launches_per_step=launches["coupled_stencil_matvec"] / steps)
+            plain_steps_bitwise(name, step_m, start, states, cfg, geom, steps)
+            row["kernels_vs_plain_bitwise"] = True
+            out[key], launches_by[key] = row, launches
+            del state, states, start
+        del ref
+    out["unet_width"], out["nvidia_smi"] = UNET_WIDTH, smi
+    del unet, s0, geom
+    torch.cuda.empty_cache()
     return out, launches_by
 
 
@@ -4669,10 +4799,16 @@ def main() -> int:
     bucket_out, launches_bucket = bucketed_phase(smi)
     emit({"phase": "bucketed", **bucket_out, "launches": launches_bucket, "seconds": time.perf_counter() - t0})
 
+    # -- the learned modes under a mesh: 'unet' and 'unet_warm' on 4 slots
+    #    and on (2, 2), 'unet_warm' bucketed on (2, 2)
+    t0 = time.perf_counter()
+    learned_out, launches_learned = mesh_learned_phase(smi, unet_sd)
+    emit({"phase": "mesh_learned", **learned_out, "launches": launches_learned, "seconds": time.perf_counter() - t0})
+
     # -- summary: the nvidia-smi line, the kernels line, then the result
     every_run = [launches, launches128, launchesc, launches504, launches_m504, *launches_opt.values(), launches256,
                  *launches_unet.values(), launches_train, *launches_mesh.values(), *launches_2d.values(),
-                 *launches_bucket.values()]
+                 *launches_bucket.values(), *launches_learned.values()]
 
     def entry(name, source, replaces, row, library_ms=None, counter=None):
         return {"name": name, "route": "cuda", "source": f"python_fluid_simulation_tpu_torch/csrc/{source}",

@@ -41,14 +41,16 @@ slot blocks (``parallel/halo.py``: the cell solves'
 the halo push kernel for every width-1 axis-0 exchange of CUDA blocks).
 Everything else runs globally on slot 0's device with the kernels above:
 the particles and the non-solve grid fields are not split yet (the JAX
-package's sharding constraints change no number).  With ``bucketed=True``
-on a 1D mesh (the JAX package's bucketed step) the particles reside in
-the slot that owns their x-slab (``parallel/particles.py``): they are
-rebucketed after the advection and after the density projection, and the
-level sets, the density scatter and displacement, P2G and G2P run
-shard-local, slot by slot, on the same kernels; ``metrics["bucket_lost"]``
-counts the particles an overflow dropped.  Not yet ported (they raise):
-bucketing on an (x, z) mesh, and the learned modes under a mesh.
+package's sharding constraints change no number), the UNet of 'unet' and
+'unet_warm' on the whole grid; 'unet_warm' starts the distributed
+viscosity solve from the line search over the materialised operator.
+With ``bucketed=True`` (the JAX package's bucketed step) the particles
+reside in the slot that owns their x-slab (``parallel/particles.py``),
+or on an (x, z) mesh their x-by-z block (``parallel/particles2d.py``):
+they are rebucketed after the advection and after the density
+projection, and the level sets, the density scatter and displacement,
+P2G and G2P run shard-local, slot by slot, on the same kernels;
+``metrics["bucket_lost"]`` counts the particles an overflow dropped.
 
 With ``cfg.moving_solid`` each step advances the rigid bodies by dt,
 re-evaluates the solid level set and velocity on the dual lattice and
@@ -113,12 +115,6 @@ def _check_supported(cfg: SimConfig, unet=None, capture_ml=False, mesh=None, buc
     sol = cfg.solver
     if bucketed and mesh is None:
         raise ValueError("bucketed mode needs a mesh")
-    if bucketed and len(mesh.axis_names) != 1:
-        raise NotImplementedError("bucketed residency on an (x, z) mesh (the JAX package's parallel/particles2d.py) "
-                                  "is not ported yet (ROADMAP queue 1 item 7)")
-    if mesh is not None and sol.viscosity_mode != "apic":
-        raise NotImplementedError(
-            f"viscosity_mode={sol.viscosity_mode!r} under a mesh is not ported yet (ROADMAP queue 1 item 7)")
     if sol.viscosity_mode not in ("apic", "unet", "unet_warm"):
         raise ValueError(f"unknown viscosity_mode {sol.viscosity_mode!r}")
     if sol.viscosity_mode == "unet" and unet is None:
@@ -146,9 +142,10 @@ def step_3d(
 
     ``mesh``: run the three solves distributed over its slots (the state
     on slot 0's device, its particles padded by
-    ``parallel/mesh.py::shard_state``).  ``bucketed`` (a 1D mesh only):
-    the particles are in the slot-major layout of
-    ``parallel/particles.py::bucket_particles`` and the transfers run
+    ``parallel/mesh.py::shard_state``).  ``bucketed``: the particles are
+    in the slot-major layout of ``parallel/particles.py::
+    bucket_particles`` (a 1D mesh) or ``parallel/particles2d.py::
+    bucket_particles_2d`` (an (x, z) mesh) and the transfers run
     shard-local; ``metrics["bucket_lost"]`` is added.
 
     ``geom``: the static geometry (`build_geom_cache`), built here when
@@ -194,10 +191,27 @@ def step_3d(
     #    exchange restores the slot-major layout (JAX engine/step.py:192-240)
     bspec = None
     if bucketed:
-        from python_fluid_simulation_tpu_torch.parallel import particles as bucket
+        if len(mesh.axis_names) == 2:  # (x, z) slot-by-slot residency
+            from python_fluid_simulation_tpu_torch.parallel.particles2d import (
+                rebucket_2d as rebucket,
+                sharded_fluid_levelset_2d as sharded_fluid_levelset,
+                sharded_g2p_all_2d as sharded_g2p_all,
+                sharded_p2g_all_2d as sharded_p2g_all,
+                spec_from_state_2d,
+            )
 
-        bspec = bucket.spec_from_state(p.x.shape[0], mesh.size, g.res[0])
-        p, lost = bucket.rebucket(Particles(x=px, v=p.v, c=p.c, m=p.m), mesh, bspec, g.bound_min, g.cell_size)
+            bspec = spec_from_state_2d(p.x.shape[0], mesh, g.res[0], g.res[2])
+        else:
+            from python_fluid_simulation_tpu_torch.parallel.particles import (
+                rebucket,
+                sharded_fluid_levelset,
+                sharded_g2p_all,
+                sharded_p2g_all,
+                spec_from_state,
+            )
+
+            bspec = spec_from_state(p.x.shape[0], mesh.size, g.res[0])
+        p, lost = rebucket(Particles(x=px, v=p.v, c=p.c, m=p.m), mesh, bspec, g.bound_min, g.cell_size)
         px = p.x
 
     # -- density/position projection (:4587-4590): one bias-0 cell sort
@@ -209,7 +223,7 @@ def step_3d(
         sort1 = make_sort_info(px, p.m, g.res, g.bound_min, g.cell_size)
         lphi = compute_fluid_levelset(px, g.res, g.bound_min, g.cell_size, g.dx, pm=p.m, sort_info=sort1)
     else:
-        lphi = bucket.sharded_fluid_levelset(px, p.m, mesh, bspec, g.res, g.bound_min, g.cell_size, g.dx)
+        lphi = sharded_fluid_levelset(px, p.m, mesh, bspec, g.res, g.bound_min, g.cell_size, g.dx)
     dres = density_solve_3d(
         ph.rho, dt, px, p.m, cfg.particle_dx**3, geom.sphi_c, lphi, geom.w_faces,
         g.bound_min, g.cell_size, tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter,
@@ -218,7 +232,7 @@ def step_3d(
     )
     px = dres.px
     if bspec is not None:
-        p, lost2 = bucket.rebucket(Particles(x=px, v=p.v, c=p.c, m=p.m), mesh, bspec, g.bound_min, g.cell_size)
+        p, lost2 = rebucket(Particles(x=px, v=p.v, c=p.c, m=p.m), mesh, bspec, g.bound_min, g.cell_size)
         px = p.x
         lost = lost + lost2
 
@@ -236,8 +250,8 @@ def step_3d(
             sort_info=shared_sort, mass_floor=mass_floor,
         )
     else:
-        lphi = bucket.sharded_fluid_levelset(px, p.m, mesh, bspec, g.res, g.bound_min, g.cell_size, g.dx)
-        gm, gv, lvol, sort_info = bucket.sharded_p2g_all(
+        lphi = sharded_fluid_levelset(px, p.m, mesh, bspec, g.res, g.bound_min, g.cell_size, g.dx)
+        gm, gv, lvol, sort_info = sharded_p2g_all(
             p, mesh, bspec, g.res, fshapes, _FACE_BIAS, g.bound_min, g.cell_size,
             volume=(cfg.particle_dx**3, g.dual_cell_size), mass_floor=mass_floor,
         )
@@ -300,7 +314,7 @@ def step_3d(
     if bspec is None:
         pv, pc = g2p_all(gv, g.res, _FACE_BIAS, g.bound_min, g.cell_size, sort_info)
     else:
-        pv, pc = bucket.sharded_g2p_all(gv, mesh, bspec, g.res, _FACE_BIAS, g.bound_min, g.cell_size, sort_info)
+        pv, pc = sharded_g2p_all(gv, mesh, bspec, g.res, _FACE_BIAS, g.bound_min, g.cell_size, sort_info)
 
     # -- viscosity-preconditioner hysteresis (0 Jacobi, 1 MG entered on
     #    cost, 2 MG entered on non-convergence, sticky)

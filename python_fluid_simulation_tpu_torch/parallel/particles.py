@@ -129,28 +129,22 @@ def _mask_rows(ok, a):
     return torch.where(ok.reshape((-1,) + (1,) * (a.ndim - 1)), a, torch.zeros((), dtype=a.dtype, device=a.device))
 
 
-def bucket_particles(particles: Particles, mesh: Mesh, spec: BucketSpec, bound_min, cell_size) -> Particles:
-    """The first bucketing, over the whole set, into the slot-major
-    layout (on slot 0's device): rows sorted stably by slab (inert rows
-    last), numbered within their slab; rows past a slab's ``cap`` and
-    inert rows are dropped."""
-    _check_mesh(mesh, spec)
-    n_dev, cap = spec.n_dev, spec.cap
-    dev = mesh.devices[0]
-    p = Particles(*(t.to(dev) for t in (particles.x, particles.v, particles.c, particles.m)))
-    slab = torch.div(_home_x(p.x[:, 0], bound_min[0], cell_size[0], spec.slab_w * n_dev), spec.slab_w,
-                     rounding_mode="floor")
-    slab = torch.where(p.m > 0, slab, n_dev)  # inert rows sort after every slab
-    order = _argsort(slab)
+def _place_by_slot(p: Particles, slot, n_dev: int, cap: int) -> Particles:
+    """The rows of `p` (on one device) placed by their slot: sorted stably
+    by slot (``slot`` n_dev for inert rows, which sort last), numbered
+    within their slot; rows past a slot's ``cap`` and inert rows are
+    dropped.  Returns the (n_dev * cap, ...) slot-major arrays."""
+    dev = p.x.device
+    order = _argsort(slot)
     xs, vs, cs, ms = (t[order] for t in (p.x, p.v, p.c, p.m))
-    slab_s = slab[order]
-    k = slab_s.shape[0]
+    slot_s = slot[order]
+    k = slot_s.shape[0]
     first = torch.ones(k, dtype=torch.bool, device=dev)
-    first[1:] = slab_s[1:] != slab_s[:-1]
+    first[1:] = slot_s[1:] != slot_s[:-1]
     ar = torch.arange(k, dtype=torch.int32, device=dev)
     within = ar - torch.cummax(torch.where(first, ar, 0), dim=0).values
-    valid = (ms > 0) & (within < cap) & (slab_s < n_dev)
-    dest = torch.where(valid, slab_s * cap + within, n_dev * cap).long()  # row n_dev * cap is dropped
+    valid = (ms > 0) & (within < cap) & (slot_s < n_dev)
+    dest = torch.where(valid, slot_s * cap + within, n_dev * cap).long()  # row n_dev * cap is dropped
 
     def place(a):
         buf = torch.zeros((n_dev * cap + 1,) + tuple(a.shape[1:]), dtype=a.dtype, device=dev)
@@ -160,6 +154,79 @@ def bucket_particles(particles: Particles, mesh: Mesh, spec: BucketSpec, bound_m
     return Particles(x=place(xs), v=place(vs), c=place(cs), m=place(ms))
 
 
+def bucket_particles(particles: Particles, mesh: Mesh, spec: BucketSpec, bound_min, cell_size) -> Particles:
+    """The first bucketing, over the whole set, into the slot-major
+    layout (on slot 0's device): rows sorted stably by slab (inert rows
+    last), numbered within their slab; rows past a slab's ``cap`` and
+    inert rows are dropped."""
+    _check_mesh(mesh, spec)
+    n_dev = spec.n_dev
+    dev = mesh.devices[0]
+    p = Particles(*(t.to(dev) for t in (particles.x, particles.v, particles.c, particles.m)))
+    slab = torch.div(_home_x(p.x[:, 0], bound_min[0], cell_size[0], spec.slab_w * n_dev), spec.slab_w,
+                     rounding_mode="floor")
+    return _place_by_slot(p, torch.where(p.m > 0, slab, n_dev), n_dev, spec.cap)
+
+
+def _group(mask, rows, ex: int):
+    """The rows where mask, compacted stably into ex rows (m = 0 past them)."""
+    order = _argsort(torch.where(mask, 0, 1).to(torch.int32))[:ex]
+    ok = mask[order]
+    return tuple(_mask_rows(ok, t[order]) for t in rows)
+
+
+def _exchange(blocks, rings, slab_of, cap: int, ex: int):
+    """The bounded one-slab exchange along each ring of slots: each
+    slot's block ``blocks[s]`` (x, v, c, m on its device) sends at most
+    ``ex`` rows to each ring neighbour (zeros past the ring's ends) and
+    compacts its survivors and arrivals stably into ``cap`` rows.
+    ``slab_of(x)`` is each row's position along the ring.  Returns (the
+    new blocks, each slot's overflow count, int32)."""
+    out, overflow = list(blocks), [None] * len(blocks)
+    for ring in rings:
+        n = len(ring)
+        sends, kept = [], []
+        for j, s in enumerate(ring):
+            x, v, c, m = blocks[s]
+            live = m > 0
+            # under CFL |slab - j| <= 1; anything wilder goes to the
+            # neighbour, and the next rebucket carries it on
+            dest = torch.clamp(slab_of(x), j - 1, j + 1)
+            go_l, go_r, stay = live & (dest < j), live & (dest > j), live & (dest == j)
+            sends.append((_group(go_l, blocks[s], ex), _group(go_r, blocks[s], ex)))
+            overflow[s] = (torch.clamp(go_l.sum(dtype=torch.int32) - ex, min=0)
+                           + torch.clamp(go_r.sum(dtype=torch.int32) - ex, min=0))
+            kept.append((x, v, c, torch.where(stay, m, torch.zeros((), dtype=m.dtype, device=m.device))))
+        for j, s in enumerate(ring):
+            dev = kept[j][0].device
+            # arrivals: the left neighbour's right-going rows, the right
+            # neighbour's left-going rows; zeros at the ring's ends
+            zeros = tuple(torch.zeros_like(t) for t in sends[j][0])
+            in_l = tuple(t.to(dev) for t in sends[j - 1][1]) if j > 0 else zeros
+            in_r = tuple(t.to(dev) for t in sends[j + 1][0]) if j < n - 1 else zeros
+            merged = [torch.cat([a, b, c]) for a, b, c in zip(kept[j], in_l, in_r)]
+            mm = merged[3]
+            overflow[s] = overflow[s] + torch.clamp((mm > 0).sum(dtype=torch.int32) - cap, min=0)
+            order = _argsort(torch.where(mm > 0, 0, 1).to(torch.int32))[:cap]
+            out[s] = tuple(t[order] for t in merged)
+    return out, overflow
+
+
+def _slot_blocks(mesh: Mesh, particles: Particles, cap: int):
+    return [tuple(_rows(t, k, cap, dev) for t in (particles.x, particles.v, particles.c, particles.m))
+            for k, dev in enumerate(mesh.devices)]
+
+
+def _join_slots(mesh: Mesh, blocks, overflow):
+    """(the slots' blocks as slot-major particles on slot 0's device, the
+    overflow counts summed there)."""
+    dev0 = mesh.devices[0]
+    lost = torch.zeros((), dtype=torch.int32, device=dev0)
+    for of in overflow:
+        lost = lost + of.to(dev0)
+    return Particles(*(torch.cat([b[i].to(dev0) for b in blocks]) for i in range(4))), lost
+
+
 def rebucket(particles: Particles, mesh: Mesh, spec: BucketSpec, bound_min, cell_size):
     """The bounded one-slab exchange that restores residency after a move.
 
@@ -167,43 +234,14 @@ def rebucket(particles: Particles, mesh: Mesh, spec: BucketSpec, bound_min, cell
     the particles dropped to inert because an exchange buffer or a bucket
     overflowed (0 in a healthy run: the caps carry 1.6x / 0.25x slack)."""
     _check_mesh(mesh, spec)
-    n, cap, ex = spec.n_dev, spec.cap, spec.exchange_cap
-    nx = spec.slab_w * n
-    dev0 = mesh.devices[0]
-    blocks, sends, overflow = [], [], []
-    for k, dev in enumerate(mesh.devices):
-        x, v, c, m = (_rows(t, k, cap, dev) for t in (particles.x, particles.v, particles.c, particles.m))
-        slab = torch.div(_home_x(x[:, 0], bound_min[0], cell_size[0], nx), spec.slab_w, rounding_mode="floor")
-        live = m > 0
-        # under CFL |slab - k| <= 1; anything wilder goes to the neighbour,
-        # and the next rebucket carries it on
-        dest = torch.clamp(slab, k - 1, k + 1)
-        go_l, go_r, stay = live & (dest < k), live & (dest > k), live & (dest == k)
+    nx = spec.slab_w * spec.n_dev
 
-        def group(mask):
-            """The rows where mask, compacted stably into ex rows (m = 0 past them)."""
-            order = _argsort(torch.where(mask, 0, 1).to(torch.int32))[:ex]
-            ok = mask[order]
-            return tuple(_mask_rows(ok, t[order]) for t in (x, v, c, m))
+    def slab_of(x):
+        return torch.div(_home_x(x[:, 0], bound_min[0], cell_size[0], nx), spec.slab_w, rounding_mode="floor")
 
-        sends.append((group(go_l), group(go_r)))
-        overflow.append(torch.clamp(go_l.sum(dtype=torch.int32) - ex, min=0)
-                        + torch.clamp(go_r.sum(dtype=torch.int32) - ex, min=0))
-        blocks.append((x, v, c, torch.where(stay, m, torch.zeros((), dtype=m.dtype, device=dev))))
-    out, lost = [], torch.zeros((), dtype=torch.int32, device=dev0)
-    for k, dev in enumerate(mesh.devices):
-        # arrivals: slot k-1's right-going rows, slot k+1's left-going rows;
-        # zeros at the domain's ends
-        zeros = tuple(torch.zeros_like(t) for t in sends[k][0])
-        in_l = tuple(t.to(dev) for t in sends[k - 1][1]) if k > 0 else zeros
-        in_r = tuple(t.to(dev) for t in sends[k + 1][0]) if k < n - 1 else zeros
-        merged = [torch.cat([a, b, c]) for a, b, c in zip(blocks[k], in_l, in_r)]
-        mm = merged[3]
-        overflow[k] = overflow[k] + torch.clamp((mm > 0).sum(dtype=torch.int32) - cap, min=0)
-        order = _argsort(torch.where(mm > 0, 0, 1).to(torch.int32))[:cap]
-        out.append([t[order] for t in merged])
-        lost = lost + overflow[k].to(dev0)
-    return Particles(*(torch.cat([o[i].to(dev0) for o in out]) for i in range(4))), lost
+    blocks, overflow = _exchange(_slot_blocks(mesh, particles, spec.cap), [list(range(spec.n_dev))], slab_of,
+                                 spec.cap, spec.exchange_cap)
+    return _join_slots(mesh, blocks, overflow)
 
 
 # ---------------------------------------------------------------------------
@@ -281,12 +319,12 @@ def _local_ext_ids(gi, lo: int, slab_w: int, dims_yz):
     return idx, ext
 
 
-def _fold_x_extended(seg, axis_shifts, out_shape, combine="add", fill=0.0):
-    """JAX's ``fold_scattered_sep(..., noclip_axes=(0,))``: axis 0 folds
-    onto its extended extent E + max - min with no clamp (target e + s -
-    min_s), i.e. the fold with the x shifts moved to start at 0."""
-    x0 = min(axis_shifts[0])
-    shifts = [tuple(s - x0 for s in axis_shifts[0])] + [tuple(a) for a in axis_shifts[1:]]
+def _fold_extended(seg, axis_shifts, out_shape, combine="add", fill=0.0, noclip_axes=(0,)):
+    """JAX's ``fold_scattered_sep(..., noclip_axes=...)``: each noclip axis
+    folds onto its extended extent E + max - min with no clamp (target
+    e + s - min_s), i.e. the fold with that axis' shifts moved to start
+    at 0."""
+    shifts = [tuple(s - min(a) for s in a) if i in noclip_axes else tuple(a) for i, a in enumerate(axis_shifts)]
     return fold_scattered_sep(seg, shifts, out_shape, combine, fill)
 
 
@@ -336,7 +374,7 @@ def sharded_p2g_all(particles: Particles, mesh: Mesh, spec: BucketSpec, gres, fa
             x_lo, x_hi = min(axis_shifts[0]), max(axis_shifts[0])
             acc_x = (W + 2) + (x_hi - x_lo)
             for chsel in ([2 * j for j in idxs], [2 * j + 1 for j in idxs]):
-                folded = _fold_x_extended(seg_cf[chsel], axis_shifts, (acc_x,) + ny_nz)
+                folded = _fold_extended(seg_cf[chsel], axis_shifts, (acc_x,) + ny_nz)
                 # plane j is global row lo + j + x_lo; the targets lie in [lo - 1, hi]
                 s0 = -1 - x_lo
                 slot_outs.append(folded[s0:s0 + W + 2])
@@ -348,7 +386,7 @@ def sharded_p2g_all(particles: Particles, mesh: Mesh, spec: BucketSpec, gres, fa
                 axis_shifts = [(-1, 0) if pp == 0 else (-1,) for pp in p]
                 yz_res = tuple(int(n) + 1 if pp == 0 else int(n) for n, pp in zip(gres[1:], p[1:]))
                 acc_x = (W + 2) + (max(axis_shifts[0]) - min(axis_shifts[0]))
-                folded = _fold_x_extended(seg_cf[sel], axis_shifts, (acc_x,) + yz_res)
+                folded = _fold_extended(seg_cf[sel], axis_shifts, (acc_x,) + yz_res)
                 if p[0] == 0:
                     # entries [lo, hi] on W + 1 planes: entry hi is the right
                     # neighbour's entry lo, or the (nx + 1)-array's tail on
@@ -416,7 +454,7 @@ def sharded_fluid_levelset(p_x, p_m, mesh: Mesh, spec: BucketSpec, gres, bound_m
             dist2 = cd * cd if dist2 is None else dist2 + cd * cd
         vals = torch.where(pm_s[:, None] > 0, torch.sqrt(dist2) - r, background)
         seg = segment_reduce_cf(vals, sorted_ids, W * math.prod(ny_nz), (W,) + ny_nz, "min", background)
-        exts.append(_fold_x_extended(seg, [tuple(range(-2, 3))] * d, (W + 4,) + ny_nz, "min", background))
+        exts.append(_fold_extended(seg, [tuple(range(-2, 3))] * d, (W + 4,) + ny_nz, "min", background))
     return _gather(mesh, _x_halo_fold(exts, 2, "min", background)[0])
 
 
@@ -499,7 +537,7 @@ def sharded_scatter_mass_volume(p_x, p_m, mesh: Mesh, spec: BucketSpec, gres, pv
         for i, chsel in enumerate((list(range(0, 2 * len(corners), 2)), list(range(1, 2 * len(corners), 2)))):
             # corner shifts {-1, 0} (the ids are +1-extended); plane j is
             # global row lo + j - 1, the targets [lo - 1, hi]
-            acc = _fold_x_extended(seg_cf[chsel], [(-1, 0)] * d, (W + 3,) + ny_nz)
+            acc = _fold_extended(seg_cf[chsel], [(-1, 0)] * d, (W + 3,) + ny_nz)
             exts[i].append(acc[:W + 2])
     gm, gvol = (_gather(mesh, _x_halo_fold(e, 1, "add", 0.0)[0]) for e in exts)
     return gm, gvol, _cat_sort(mesh, sorts, (W + 2,) + tuple(int(n) + 2 for n in gres[1:]))

@@ -2,7 +2,8 @@
 
     python3 -m python_fluid_simulation_tpu_torch.profile_step [--scene buckling|coiling] [--res R]
         [--viscosity-precond jacobi|mg|auto] [--no-jacobi-precond] [--pressure-dt-scaled]
-        [--viscosity-mode apic|unet|unet_warm] [--unet-bf16] [--mesh N|SXxSZ] [--graph] [--steps 3] [--out DIR]
+        [--viscosity-mode apic|unet|unet_warm] [--unet-bf16] [--mesh N|SXxSZ [--bucketed]] [--graph] [--steps 3]
+        [--out DIR]
 
 Runs a step on the card.  ``--scene buckling`` (the default): the
 48x80x48 flagship (``buckling_config()`` defaults) without ``--res``,
@@ -25,7 +26,10 @@ with weights drawn from ``convert.random_flax_unet_params(seed=0)``, in
 fp32 (TF32 off), or with ``--unet-bf16`` computing in bf16.  ``--mesh 4``
 runs the sharded step on ``make_mesh(4)``, ``--mesh 2x2`` on
 ``make_mesh2d((2, 2))`` (the slots share the card; the state padded by
-``shard_state``).  ``--graph`` profiles the step as a CUDA graph replays
+``shard_state``); with ``--bucketed`` the particles are bucketed by
+slot (``parallel/particles.py`` on ``N`` slots, ``parallel/particles2d.py``
+on ``SXxSZ``, the caps sized from the scene's positions) and the step is
+the bucketed one.  ``--graph`` profiles the step as a CUDA graph replays
 it (``engine/step.py::replaying_step``, with the geometry built once as
 here: the first warm-up step captures it, each step copies the state in,
 reads the 'auto' flag where there is one, replays and clones the state
@@ -49,7 +53,7 @@ port's own kernels, the profiled steps' solver iterations, the peak
 device memory, a hash of the final particles (x, v, c), and the top
 operators by device and by host time;
 writes the full ``key_averages`` tables to
-``<out>/profile_step[_<scene>][_<R>][_<precond>][_nojacobi][_dtscaled][_<mode>[_bf16]][_mesh<M>].txt``.
+``<out>/profile_step[_<scene>][_<R>][_<precond>][_nojacobi][_dtscaled][_<mode>[_bf16]][_mesh<M>[_bucketed]].txt``.
 `profile_steps` is the same measurement for any step function
 (``chip_smoke.py``'s ``mesh_504`` phase calls it).  Needs a CUDA device.
 """
@@ -163,6 +167,23 @@ def profile_steps(step, state, steps: int):
     return state, summary, avgs
 
 
+def bucketed_particles(state, cfg, mesh):
+    """(spec, particles): the (shard_state'd) particles bucketed by slot
+    on `mesh`, by x-slab on a 1D mesh, by x-by-z block on an (x, z) mesh,
+    the caps sized from the positions."""
+    from python_fluid_simulation_tpu_torch.parallel import particles, particles2d
+
+    g, p = cfg.grid, state.particles
+    n = int(p.x.shape[0])
+    if len(mesh.axis_names) == 2:
+        spec = particles2d.make_bucket_spec_2d(tuple(mesh.shape.values()), g.res[0], g.res[2], n, positions=p.x,
+                                               bound_min=g.bound_min, cell_size=g.cell_size)
+        return spec, particles2d.bucket_particles_2d(p, mesh, spec, g.bound_min, g.cell_size)
+    spec = particles.make_bucket_spec(mesh.size, g.res[0], n, positions=p.x, bound_min=g.bound_min,
+                                      cell_size=g.cell_size)
+    return spec, particles.bucket_particles(p, mesh, spec, g.bound_min, g.cell_size)
+
+
 def main() -> int:
     import torch
     from torch.profiler import record_function
@@ -192,6 +213,7 @@ def main() -> int:
     ap.add_argument("--viscosity-mode", choices=("apic", "unet", "unet_warm"), default="apic")
     ap.add_argument("--unet-bf16", action="store_true", help="the UNet computes in bf16 (parameters fp32)")
     ap.add_argument("--mesh", default=None, help="the sharded step: N slots (make_mesh), or SXxSZ (make_mesh2d)")
+    ap.add_argument("--bucketed", action="store_true", help="with --mesh: the particles bucketed by slot")
     ap.add_argument("--graph", action="store_true", help="replay the step as a captured CUDA graph")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=".")
@@ -265,13 +287,17 @@ def main() -> int:
         sx, _, sz = args.mesh.partition("x")
         mesh = make_mesh2d((int(sx), int(sz))) if sz else make_mesh(int(sx))
         state = shard_state(state, mesh)
+        if args.bucketed:
+            state = dataclasses.replace(state, particles=bucketed_particles(state, cfg, mesh)[1])
+    elif args.bucketed:
+        raise SystemExit("profile_step: --bucketed needs --mesh")
     if args.graph and mesh is not None:
         raise SystemExit("profile_step: the sharded step is not captured (--graph with --mesh)")
     geom = build_geom_cache(state.solid, mesh)
     if args.graph:
         step = step_mod.replaying_step(cfg, geom=geom, unet=unet)
     else:
-        step = functools.partial(step_3d, cfg=cfg, geom=geom, unet=unet, mesh=mesh)
+        step = functools.partial(step_3d, cfg=cfg, geom=geom, unet=unet, mesh=mesh, bucketed=args.bucketed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
@@ -298,6 +324,7 @@ def main() -> int:
         "viscosity_mode": cfg.solver.viscosity_mode,
         "unet_dtype": None if unet is None else str(unet.dtype),
         "mesh": None if mesh is None else mesh.shape,
+        "bucketed": args.bucketed,
         "graph": args.graph,
         "capture_seconds": [c.seconds for c in captures],
         "graph_pool_bytes": [c.pool_bytes for c in captures],
@@ -326,7 +353,7 @@ def main() -> int:
     if args.viscosity_mode != "apic":
         name += f"_{args.viscosity_mode}" + ("_bf16" if args.unet_bf16 else "")
     if mesh is not None:
-        name += f"_mesh{args.mesh}"
+        name += f"_mesh{args.mesh}" + ("_bucketed" if args.bucketed else "")
     if args.graph:
         name += "_graph"
     name += ".txt"

@@ -316,17 +316,18 @@ def density_solve_3d(
     ``mesh`` runs it distributed (`solve_cell_poisson`); the scatter and
     the displacement run on the particles' device.  ``bucket=(mesh,
     BucketSpec)`` takes the shard-local scatter and displacement gather
-    of bucketed particles (``parallel/particles.py``) instead."""
+    of bucketed particles (``parallel/particles.py``; with a
+    ``BucketSpec2D``, ``parallel/particles2d.py``) instead."""
     gres = tuple(lphi.shape)
     d = len(gres)
     if bucket is not None:
-        from python_fluid_simulation_tpu_torch.parallel.particles import (
-            sharded_apply_displacement,
-            sharded_scatter_mass_volume,
-        )
+        from python_fluid_simulation_tpu_torch.parallel import particles, particles2d
 
-        gm, gvol, sort_info = sharded_scatter_mass_volume(px, pm, bucket[0], bucket[1], gres, pvol, bound_min,
-                                                          cell_size)
+        if isinstance(bucket[1], particles2d.BucketSpec2D):
+            scatter, displace = particles2d.sharded_scatter_mass_volume_2d, particles2d.sharded_apply_displacement_2d
+        else:
+            scatter, displace = particles.sharded_scatter_mass_volume, particles.sharded_apply_displacement
+        gm, gvol, sort_info = scatter(px, pm, bucket[0], bucket[1], gres, pvol, bound_min, cell_size)
     else:
         gm, gvol, sort_info = scatter_mass_volume(
             px, pm, pvol, gres, bound_min, cell_size, with_sort_info=True, sort_info=sort_info,
@@ -340,8 +341,7 @@ def density_solve_3d(
     face_shapes = [tuple(n + (1 if i == a else 0) for i, n in enumerate(gres)) for a in range(d)]
     disp = compute_displacement(x, lphi, dt, cell_size, face_shapes)
     if bucket is not None:
-        return DensityResult(px + sharded_apply_displacement(disp, bucket[0], bucket[1], gres, bound_min, cell_size,
-                                                             sort_info), stats)
+        return DensityResult(px + displace(disp, bucket[0], bucket[1], gres, bound_min, cell_size, sort_info), stats)
     return DensityResult(px + apply_displacement_all(disp, sort_info, bound_min, cell_size), stats)
 
 

@@ -356,7 +356,8 @@ def viscosity_solve_3d(
     (``parallel/halo.py::distributed_coupled_cg``; pdiags = 1 under
     ``jacobi_precond=False``), taken before 'jacobi', 'mg' or 'auto' as in
     the JAX package (``viscosity.py:636-680``), so ``auto_use_mg`` is not
-    read.  A warm start under a mesh is not ported (it raises).
+    read; a warm start there takes the line search over the materialised
+    matvec (``coupled_stencil_matvec`` of those fields, rows 7-8).
 
     ``extrap_iters`` (3 in 3D, 0 in 2D: no pre-extrapolation) and
     ``strict_fluid`` (the 2D fluid test, solid = sphi <= 0) carry the 2D
@@ -403,14 +404,16 @@ def viscosity_solve_3d(
         x, stats, _, _ = cg(lambda vs: coupled_stencil_matvec_plain(diags, per_axis, vs), b, ext,
                             tol2=tol2, rel2=rel2, max_iter=max_iter, precond=precond)
     elif mesh is not None:
-        if warm is not None:
-            raise NotImplementedError("a warm start under a mesh is not ported yet (ROADMAP queue 1 item 7)")
         from python_fluid_simulation_tpu_torch.parallel.halo import converged_threshold, distributed_coupled_cg
 
         diags, per_axis, pdiags = viscosity_term_fields(s_mu, sphi_c, vol_c, shapes)
         if not jacobi_precond:
             pdiags = [torch.ones_like(p) for p in pdiags]
-        x, iters, res, res0 = distributed_coupled_cg(mesh, b, ext, diags, per_axis, pdiags, **kw)
+        x0 = ext
+        if warm is not None:  # the line search over the materialised operator (JAX viscosity.py:650-664)
+            matvec, _ = prepare_viscosity_matvec(s_mu, sphi_c, vol_c, shapes, fields=(diags, per_axis, pdiags))
+            x0 = rescaled_warm_start(matvec, b, ext, warm)[0]
+        x, iters, res, res0 = distributed_coupled_cg(mesh, b, x0, diags, per_axis, pdiags, **kw)
         del diags, per_axis, pdiags
         stats = SolveStats(iters=iters, residual=res, initial_residual=res0,
                            converged=res < converged_threshold(tol, rel_tol, res0))

@@ -13,8 +13,8 @@ against the JAX package, on the CPU: JAX on its 8-CPU mesh, the port on
 * one bucketed step on tests/test_parallel.py:346-387's scene (the dam
   break at dx 1/16, masses made unique) against JAX ``make_step(cfg,
   mesh=make_mesh(8), bucketed=True)``: the same particle set, |dx| <
-  2e-4, |dv| < 2e-3, ``bucket_lost`` 0 on both sides; and the bucketed
-  step refused on an (x, z) mesh;
+  2e-4, |dv| < 2e-3, ``bucket_lost`` 0 on both sides; and the same
+  particles bucketed on an (x, z) mesh, one step at the same bars;
 * on slabs of an odd width (3, 5 and 7 cells): the transfers and two
   bucketed steps against the port's unsharded ones.
 """
@@ -240,11 +240,25 @@ def test_bucketed_step_matches_jax_bucketed_make_step(meshes):
         got = getattr(out.particles, k).numpy()[mb > 0][ob]
         want = np.asarray(getattr(out_j.particles, k))[mj > 0][oj]
         assert float(np.abs(got - want).max()) < bar, k
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh2d
-
-        step_3d(t_state, cfg, mesh=make_mesh2d((2, 2), "cpu"), bucketed=True)
     assert dataclasses.is_dataclass(out)
+    # the same particles bucketed on an (x, z) mesh: the same bars against JAX's step
+    from python_fluid_simulation_tpu_torch.parallel import particles2d as p2d
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh2d
+
+    m2 = make_mesh2d((2, 2), "cpu")
+    spec2 = p2d.make_bucket_spec_2d((2, 2), g.res[0], g.res[2], n, positions=t_state.particles.x,
+                                    bound_min=g.bound_min, cell_size=g.cell_size)
+    s2 = dataclasses.replace(t_state, particles=p2d.bucket_particles_2d(t_state.particles, m2, spec2, g.bound_min,
+                                                                        g.cell_size))
+    out2, m_2 = step_3d(s2, cfg, mesh=m2, bucketed=True)
+    assert int(m_2["bucket_lost"]) == 0
+    m2b = out2.particles.m.numpy()
+    o2 = np.argsort(m2b[m2b > 0])
+    np.testing.assert_array_equal(m2b[m2b > 0][o2], mj[mj > 0][oj])
+    for k, bar in (("x", 2e-4), ("v", 2e-3)):
+        got = getattr(out2.particles, k).numpy()[m2b > 0][o2]
+        want = np.asarray(getattr(out_j.particles, k))[mj > 0][oj]
+        assert float(np.abs(got - want).max()) < bar, k
 
 
 @pytest.mark.parametrize("slots, res", [(2, 10), (5, 15)])

@@ -17,8 +17,9 @@ Both at the JAX package's sharded-vs-single bars, |dx| < 2e-4 and
 ``tests/test_parallel.py:184-190``).  On a 3-slot mesh
 ``shard_state`` pads the particles as the JAX package's does (bitwise),
 and the padding particles stay inert: the real particles meet the same
-bars and the padding keeps zero mass.  ``_check_supported`` refuses
-bucketing and the learned modes under a mesh.
+bars and the padding keeps zero mass.  The learned modes run under a
+mesh, and bucketing on an (x, z) mesh, each against the port's
+unsharded step at the same bars.
 """
 
 import dataclasses
@@ -157,19 +158,54 @@ def test_cpu_mesh_launches_no_kernel(runs):
 
 @pytest.mark.parametrize("mode", ["unet", "unet_warm"])
 def test_learned_modes_under_a_mesh_raise(runs, mode):
+    """The learned modes under a mesh raise nothing: one step of each
+    (from the port's state after two steps) on a 2-slot mesh and on (2, 2) (a width-4 network, seeded Flax weights
+    through ``convert.py``) within MESH_DX / MESH_DV of the port's
+    unsharded step of that mode, every solve converged.
+    (tests/test_torch_mesh_learned.py holds them against JAX.)"""
+    from python_fluid_simulation_tpu_torch.convert import random_flax_unet_params, unet_state_dict_from_flax
+    from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
+
+    net = UNet3D(width=4).eval()
+    net.load_state_dict(unet_state_dict_from_flax(random_flax_unet_params(4, seed=1)))
     cfg = _cfg()
     cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_mode=mode))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        step_3d(runs["start"], cfg, unet=torch.nn.Identity(), mesh=make_mesh(2, "cpu"))
+    start = runs["final"]  # after two steps: the viscosity solve has work
+    ref, _ = step_3d(start, cfg, unet=net)
+    n = start.particles.x.shape[0]
+    for mesh in (make_mesh(2, "cpu"), make_mesh2d((2, 2), "cpu")):
+        out, m = step_3d(shard_state(start, mesh), cfg, unet=net, mesh=mesh)
+        assert all(bool(m[f"{k}_converged"]) for k in ("density", "viscosity", "pressure"))
+        assert (int(m["viscosity_iters"]) == 0) == (mode == "unet")
+        dx, dv = _errs(out, ref, n)
+        assert dx < DX_BAR and dv < DV_BAR, (mesh, dx, dv)
 
 
 def test_bucketed_raises(runs):
-    """Bucketed residency on an (x, z) mesh is not ported (a 1D mesh runs
-    it: tests/test_torch_bucketed.py), nor without a mesh."""
-    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh2d
+    """Bucketed residency runs on an (x, z) mesh (one step, masses made
+    unique, against the port's unsharded step by mass, nothing lost); it
+    still needs a mesh, and the mesh's slot 0 must hold the state."""
+    from python_fluid_simulation_tpu_torch.parallel import particles2d as p2d
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        step_3d(runs["start"], _cfg(), mesh=make_mesh2d((2, 2), "cpu"), bucketed=True)
+    start = runs["start"]
+    n = start.particles.x.shape[0]
+    pm = start.particles.m * (1.0 + 1e-6 * torch.arange(n, dtype=torch.float32))
+    start = dataclasses.replace(start, particles=dataclasses.replace(start.particles, m=pm))
+    mesh, g = make_mesh2d((2, 2), "cpu"), _cfg().grid
+    spec = p2d.make_bucket_spec_2d((2, 2), g.res[0], g.res[2], n, positions=start.particles.x, bound_min=g.bound_min,
+                                   cell_size=g.cell_size)
+    sharded = shard_state(start, mesh)
+    b = dataclasses.replace(sharded, particles=p2d.bucket_particles_2d(sharded.particles, mesh, spec, g.bound_min,
+                                                                       g.cell_size))
+    out, m = step_3d(b, _cfg(), mesh=mesh, bucketed=True)
+    ref, _ = step_3d(start, _cfg())
+    assert int(m["bucket_lost"]) == 0
+    live = out.particles.m > 0
+    ob, ou = torch.argsort(out.particles.m[live]), torch.argsort(ref.particles.m)
+    assert torch.equal(out.particles.m[live][ob], ref.particles.m[ou])
+    for k, bar in (("x", DX_BAR), ("v", DV_BAR)):
+        err = float((getattr(out.particles, k)[live][ob] - getattr(ref.particles, k)[ou]).abs().max())
+        assert err < bar, (k, err)
     with pytest.raises(ValueError, match="needs a mesh"):
         step_3d(runs["start"], _cfg(), bucketed=True)
     with pytest.raises(ValueError, match="slot 0"):
