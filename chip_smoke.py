@@ -52,7 +52,10 @@ PyTorch version on the card:
   the generic CG (no kernel, as the JAX package's 2D runs in XLA);
 * bucketed residency on 1D slab meshes (``parallel/particles.py``,
   ``step_3d(mesh=, bucketed=True)``): the flagship on ``make_mesh(4)``
-  and ``coiling_config(504)`` on ``make_mesh(2)``.
+  and ``coiling_config(504)`` on ``make_mesh(2)``;
+* the mesh steps as captured programs (``make_step(cfg, mesh=,
+  bucketed=)``, ``simulate(mesh=)``): the sharded, bucketed and learned
+  mesh configurations replayed as one CUDA graph each.
 
 Phases, each printing one JSON line:
 
@@ -303,8 +306,11 @@ Phases, each printing one JSON line:
               plain versions; coiling 'auto' through the CLI, 6 steps in
               blocks of 3, one capture a branch reached, and four blocks
               of one replayer from the flags 0, 2, 0, 2: two captures; the
-              CLI's steps/s, the per-block overhead, the marching cubes'
-              g++ seconds and the surface's triangles
+              flagship bucketed on 4 slots (--mesh 4 --bucketed), 10 steps
+              in blocks of 5: one capture a run, bucket_lost 0, resumed
+              from the step-5 checkpoint bitwise the uninterrupted run,
+              one capture; the CLI's steps/s, the per-block overhead, the
+              marching cubes' g++ seconds and the surface's triangles
   twod        the 2D dam break and droplet at SimConfig2D() and the dam
               break at dx 1/256: 1 warm-up of each side, then 10 eager
               steps (step_2d) and 10 replays of make_step_2d's graph,
@@ -344,10 +350,27 @@ Phases, each printing one JSON line:
               bitwise the same steps with every kernel swapped for its
               plain version; ms a step, the viscosity iterations and the
               line search's alpha beside the unsharded run's
+  graph_mesh  the mesh steps captured (make_step(cfg, mesh=, bucketed=):
+              one CUDA graph, the three distributed solves as WHILE
+              nodes): the flagship sharded and bucketed on make_mesh(4)
+              and (2, 2), 'unet' and 'unet_warm' (full-width UNet) on
+              both meshes and 'unet_warm' bucketed on (2, 2), and
+              coiling_config(504) sharded on 4 slots and bucketed on 2 and
+              on (2, 2), 3 steps each as in graph: 1 warm-up of each
+              side, eager steps and replays from the same state bitwise
+              (particles, t, step_idx, visc_mg, every metric, bucket_lost
+              0), the replays under set_sync_debug_mode("error"), one
+              WHILE node a distributed solve, the halo launches of a
+              replayed step counted from its iterations and equal to the
+              eager steps' counted launches; ms a step of each side,
+              capture seconds, pool bytes; simulate(mesh=, bucketed=True)
+              twice on the bucketed flagship (one capture, the first call
+              bitwise the eager steps); the halo push raising under
+              capture
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
-total seconds (about 460-520 s on one H100 80GB HBM3 at 700 W, the
+total seconds (about 460-600 s on one H100 80GB HBM3 at 700 W, the
 kernels' build included).  Any failure raises and
 exits non-zero; without a CUDA device it exits non-zero before any
 result.
@@ -495,6 +518,8 @@ CLI_STEPS = 30
 CLI_BLOCK = 15
 CLI_COIL_STEPS = 6
 CLI_COIL_BLOCK = 3
+CLI_MESH_STEPS = 10  # the bucketed flagship on 4 slots through run.main: 2 blocks, resumed from the first
+CLI_MESH_BLOCK = 5
 TWOD_STEPS = 10  # each 2D scene: 10 eager steps and 10 replays after one warm-up each
 TWOD_FINE = (1.0 / 256, 1.0 / 512)  # the timed 2D dam break: dx, particle_dx (256x256 cells, ~55k particles)
 ROWS_1_TO_10 = ("cell_poisson_pcg", "fused_poisson_pcg", "coupled_visc_pcg", "stencil_matvec", "mg_vcycle_tail",
@@ -504,6 +529,9 @@ BUCKET_STEPS = 3
 BUCKET_504_SLOTS = 2  # coiling_config(504): nx = 126 is not a multiple of 4
 BUCKET_504_STEPS = 2
 BUCKET_2D = (2, 2)  # the (x, z) mesh of the bucketed and learned mesh runs: flagship slabs 24 x 24, 504 63 x 63
+GRAPH_MESH_STEPS = 3  # graph_mesh: eager and replayed steps of each flagship mesh configuration
+GRAPH_MESH_UNET_STEPS = 3  # the learned modes under a mesh
+GRAPH_MESH_504_STEPS = 3  # coiling_config(504) under a mesh
 MESH_LEARNED_STEPS = 3
 BUCKET_MASS_STEP = 1e-6  # masses m (1 + 1e-6 i): distinct in fp32 (89,648 and 465,868 particles, within 9% / 47% of m)
 CLI_2D_STEPS = 3
@@ -3096,6 +3124,30 @@ def generic_solves(cfg, mg_branch):
     return out
 
 
+def mesh_solves(cfg):
+    """The distributed solves of a mesh step (``parallel/halo.py``: under
+    capture a WHILE node each): density, pressure and, with mu > 0
+    outside 'unet', viscosity."""
+    solves = ["density", "pressure"]
+    if cfg.physics.mu > 0 and cfg.solver.viscosity_mode != "unet":
+        solves.append("viscosity")
+    return solves
+
+
+def mesh_halo_launches(cfg, metrics):
+    """The halo pull launches of mesh steps with these metrics, counted
+    from their iterations (the slots on one card: one launch an exchange
+    along x; z exchanges are plain): the search direction's exchange each
+    iteration of the cell solves, and of the viscosity solve's three
+    fields each iteration and once before its loop (the init matvec)."""
+    n = 0
+    for m in metrics:
+        n += int(m["density_iters"]) + int(m["pressure_iters"])
+        if "viscosity" in mesh_solves(cfg):
+            n += 3 * (int(m["viscosity_iters"]) + 1)
+    return n
+
+
 def event_timed(fn, sync_error=False):
     """(fn(), ms between CUDA events around it, host ms to a synchronize);
     with ``sync_error`` fn runs under ``set_sync_debug_mode("error")``."""
@@ -3116,7 +3168,8 @@ def event_timed(fn, sync_error=False):
     return out, start.elapsed_time(stop), (time.perf_counter() - t0) * 1e3
 
 
-def eager_vs_graph(label, cfg, state0, steps, unet=None, sync_check=True):
+def eager_vs_graph(label, cfg, state0, steps, unet=None, sync_check=True, mesh=None, bucketed=False,
+                   eager_states=None):
     """`steps` eager steps (``step_3d``, the geometry built inside as the
     captured step builds it) and `steps` replays of ``make_step``'s graph
     from the same state, after one warm-up of each (the graph's is its
@@ -3124,21 +3177,27 @@ def eager_vs_graph(label, cfg, state0, steps, unet=None, sync_check=True):
     bitwise equal; no wrapper launches a kernel during the replays, and
     with ``sync_check`` the replays run under
     ``torch.cuda.set_sync_debug_mode("error")`` (any host sync fails).
-    Returns the row and the WHILE-node test launches of the replays."""
+    With a ``mesh`` (and ``bucketed``) the sharded step: its distributed
+    solves are the WHILE nodes, and the halo launches of the replays,
+    counted from their iterations (`mesh_halo_launches`), equal the eager
+    steps' counted launches.  ``eager_states`` (a list) receives the eager
+    states.  Returns the row (with the eager steps' counted launches) and
+    the WHILE-node test launches of the replays."""
     import torch
 
     from python_fluid_simulation_tpu_torch.engine.step import make_step, step_3d
     from python_fluid_simulation_tpu_torch.ops.cuda_graph import captured_while
 
-    step = make_step(cfg, unet=unet)
-    event_timed(lambda: step_3d(state0, cfg, unet=unet))
+    step = make_step(cfg, unet=unet, mesh=mesh, bucketed=bucketed)
+    eager_step = functools.partial(step_3d, unet=unet, mesh=mesh, bucketed=bucketed)
+    event_timed(lambda: eager_step(state0, cfg))
     nodes0 = captured_while.nodes
     _, capture_event_ms, capture_host_ms = event_timed(lambda: step(state0))
     read_counts = reset_counters()
     eager, eager_ms, eager_host_ms = [state0], [], []
     eager_metrics = []
     for _ in range(steps):
-        (st, m), ms, host = event_timed(lambda: step_3d(eager[-1], cfg, unet=unet))
+        (st, m), ms, host = event_timed(lambda: eager_step(eager[-1], cfg))
         eager.append(st)
         eager_metrics.append(m)
         eager_ms.append(ms)
@@ -3165,16 +3224,42 @@ def eager_vs_graph(label, cfg, state0, steps, unet=None, sync_check=True):
             raise AssertionError(f"{label} step {i}: graph and eager differ in {bad}")
     branches = sorted(str(k) for k in rep.captured)
     nodes = captured_while.nodes - nodes0  # every capture of this step (one a branch)
-    want_nodes = sum(len(generic_solves(cfg, b)) for b in rep.captured)
+
+    def loops(mg_branch):
+        return mesh_solves(cfg) if mesh is not None else generic_solves(cfg, mg_branch)
+
+    want_nodes = sum(len(loops(b)) for b in rep.captured)
     if nodes != want_nodes:
-        raise AssertionError(f"{label}: {nodes} WHILE nodes recorded, {want_nodes} generic CG solves captured")
+        raise AssertionError(f"{label}: {nodes} WHILE nodes recorded, {want_nodes} CG solves captured")
     # the test kernel runs once before each node's loop and once an iteration
     test_launches = 0
     for i, m in enumerate(graph_metrics):
-        mg_branch = int(torch.as_tensor(graph[i].visc_mg)) > 0
-        test_launches += sum(int(m[f"{s}_iters"]) + 1 for s in generic_solves(cfg, mg_branch))
+        mg_branch = mesh is None and int(torch.as_tensor(graph[i].visc_mg)) > 0
+        test_launches += sum(int(m[f"{s}_iters"]) + 1 for s in loops(mg_branch))
+    mesh_row = {}
+    if mesh is not None:
+        replay_halo = mesh_halo_launches(cfg, graph_metrics)
+        if replay_halo != eager_launches["halo_exchange_rdma"]:
+            raise AssertionError(f"{label}: {replay_halo} halo launches from the replays' iterations, "
+                                 f"{eager_launches['halo_exchange_rdma']} counted in the eager steps")
+        lost = [int(m["bucket_lost"]) for m in graph_metrics] if bucketed else None
+        if bucketed and any(lost):
+            raise AssertionError(f"{label}: bucket_lost {lost}")
+        mesh_row = dict(mesh=mesh.shape, bucketed=bucketed, bucket_lost=lost,
+                        halo_launches_per_replayed_step=replay_halo / steps,
+                        halo_launches_counted="from the replays' iterations (mesh_halo_launches), equal to the "
+                                              "eager steps' counter")
+    if eager_states is not None:
+        eager_states.extend(eager)
     caps = list(rep.captured.values())
-    return dict(
+    if len(caps) == 1:  # the nodes a replay runs: the top level, and each WHILE body once an iteration
+        order = [s for s in ("density", "viscosity", "pressure") if s in loops(next(iter(rep.captured)))]
+        if len(caps[0].loop_nodes) != len(order):
+            raise AssertionError(f"{label}: WHILE bodies {caps[0].loop_nodes} for the solves {order}")
+        mesh_row["nodes_per_replayed_step"] = [
+            caps[0].nodes - len(order) + sum(n * int(m[f"{s}_iters"]) for s, n in zip(order, caps[0].loop_nodes))
+            for m in graph_metrics]
+    return dict(**mesh_row,
         steps=steps, branches=branches, bitwise=True, sync_debug_mode_error=sync_check,
         eager_ms=eager_ms, graph_ms=graph_ms, median_eager_ms=statistics.median(eager_ms),
         median_graph_ms=statistics.median(graph_ms),
@@ -3184,7 +3269,9 @@ def eager_vs_graph(label, cfg, state0, steps, unet=None, sync_check=True):
         while_nodes=nodes, while_test_launches=test_launches,
         capture_seconds=[c.seconds for c in caps], capture_call_event_ms=capture_event_ms,
         capture_call_host_ms=capture_host_ms, graph_pool_bytes=[c.pool_bytes for c in caps],
+        graph_nodes=[c.nodes for c in caps], loop_body_nodes=[list(c.loop_nodes) for c in caps],
         iters={k: [int(m[f"{k}_iters"]) for m in graph_metrics] for k in ("density", "viscosity", "pressure")},
+        eager_launches=eager_launches,
     ), test_launches
 
 
@@ -3448,6 +3535,36 @@ def cli_phase(smi):
             raise AssertionError(f"cli resume: leaves {differ} differ; {r_captures} captures, {r_replayers} replayers")
         out["resume"] = dict(from_step=CLI_BLOCK, to_step=CLI_STEPS, seconds=r_seconds, cli_steps_per_s=r_rate,
                              captures=r_captures, bitwise_the_uninterrupted_run=True)
+
+        # the bucketed flagship on 4 slots of the card: one capture a run,
+        # resumed from the middle checkpoint bitwise
+        m_full, m_resumed, m_mid = (os.path.join(tmp, n) for n in ("mesh_full", "mesh_resumed", "mesh_from_mid"))
+        m_flag = ["--scene", "buckling", "--mesh", str(MESH_SLOTS), "--bucketed", "--max-steps", str(CLI_MESH_STEPS),
+                  "--block", str(CLI_MESH_BLOCK), "--checkpoint-every", str(CLI_MESH_BLOCK)]
+        m_seconds, m_rate, m_text, m_captures, m_replayers = run_cli([*m_flag, "--out", m_full, "--metrics"])
+        with open(os.path.join(m_full, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        if (m_captures, m_replayers) != (1, 1) or "bucket-sharded over" not in m_text or any(
+                r["bucket_lost"] for r in recs) or len(recs) != CLI_MESH_STEPS:
+            raise AssertionError(f"cli bucketed flagship: {m_captures} captures by {m_replayers} replayers, "
+                                 f"lost {[r['bucket_lost'] for r in recs]}")
+        m_capture_s = held.replayer.captured[None].seconds
+        os.makedirs(m_mid)
+        for name in ("config.json", f"state_{CLI_MESH_BLOCK}.npz"):
+            shutil.copy(os.path.join(m_full, "ckpt", name), os.path.join(m_mid, name))
+        mr_seconds, mr_rate, _, mr_captures, mr_replayers = run_cli([*m_flag, "--out", m_resumed, "--resume", m_mid])
+        m_want = npz_leaves(os.path.join(m_full, "ckpt", f"state_{CLI_MESH_STEPS}.npz"))
+        m_got = npz_leaves(os.path.join(m_resumed, "ckpt", f"state_{CLI_MESH_STEPS}.npz"))
+        differ = [i for i, (a, b) in enumerate(zip(m_got, m_want)) if a.dtype != b.dtype or a.tobytes() != b.tobytes()]
+        if differ or (mr_captures, mr_replayers) != (1, 1):
+            raise AssertionError(f"cli bucketed resume: leaves {differ} differ; {mr_captures} captures, "
+                                 f"{mr_replayers} replayers")
+        out["flagship_mesh_bucketed"] = dict(
+            mesh=MESH_SLOTS, steps=CLI_MESH_STEPS, block=CLI_MESH_BLOCK, seconds=m_seconds, cli_steps_per_s=m_rate,
+            captures=m_captures, capture_seconds=m_capture_s, bucket_lost=0,
+            resume=dict(from_step=CLI_MESH_BLOCK, seconds=mr_seconds, cli_steps_per_s=mr_rate, captures=mr_captures,
+                        bitwise_the_uninterrupted_run=True))
+        held.clear()
 
     # the same steps as one simulate call (a fresh capture), its final state
     # bitwise the CLI's; then the same blocks re-capturing each one, as a
@@ -3983,6 +4100,133 @@ def mesh_learned_phase(smi, unet_sd):
     del unet, s0, geom
     torch.cuda.empty_cache()
     return out, launches_by
+
+
+def push_refuses_capture():
+    """The push route under CUDA graph capture raises (its epoch is a host
+    counter a replay would repeat stale); returns its message."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.parallel import halo_rdma
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2)
+    blocks = [torch.zeros((4, 64), device="cuda") for _ in range(2)]
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            halo_rdma.halo_exchange_push(mesh, blocks, "x")
+    except NotImplementedError as e:
+        if "More than one card" not in str(e):
+            raise AssertionError(f"the push under capture: {e}") from e
+        return str(e)
+    raise AssertionError("the push was recorded into a CUDA graph")
+
+
+def graph_mesh_phase(smi, unet_sd):
+    """The sharded, bucketed and learned mesh steps as captured programs
+    (``make_step(cfg, mesh=, bucketed=)``), every slot on the card: eager
+    against graph, bitwise, with no host sync in a replay, on the flagship
+    sharded and bucketed on ``make_mesh(4)`` and ``make_mesh2d((2, 2))``,
+    ``coiling_config(504)`` sharded on 4 slots and bucketed on 2 and on
+    (2, 2), the flagship with the full-width UNet in 'unet' and
+    'unet_warm' on both meshes and 'unet_warm' bucketed on (2, 2); ms a
+    step of each, capture seconds, pool bytes, WHILE nodes, halo launches
+    a replayed step.  Then ``simulate(mesh=, bucketed=True)``: two calls,
+    one capture, the first bitwise the eager steps; the push refusing
+    capture."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.scenes import (
+        buckling_config,
+        buckling_scene,
+        coiling_config,
+        coiling_scene,
+    )
+    from python_fluid_simulation_tpu_torch.engine.step import simulate
+    from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, make_mesh2d, shard_state
+    from python_fluid_simulation_tpu_torch.profile_step import bucketed_particles
+
+    rows, test_launches, launches_by = {}, 0, {}
+
+    def start_on(state, cfg, mesh, bucketed):
+        start = shard_state(state, mesh)
+        if bucketed:
+            start = dataclasses.replace(start, particles=bucketed_particles(start, cfg, mesh)[1])
+        return start
+
+    def run(label, cfg, state, mesh, bucketed, steps, unet=None, eager_states=None):
+        nonlocal test_launches
+        row, n = eager_vs_graph(label, cfg, start_on(state, cfg, mesh, bucketed), steps, unet=unet, mesh=mesh,
+                                bucketed=bucketed, eager_states=eager_states)
+        launches_by[label] = row.pop("eager_launches")
+        rows[label], test_launches = row, test_launches + n
+        torch.cuda.empty_cache()
+
+    meshes = {"4": lambda: make_mesh(MESH_SLOTS), "2x2": lambda: make_mesh2d(BUCKET_2D)}
+    cfg = buckling_config()
+    s0 = buckling_scene(cfg, seed=0, device="cuda")
+    kept = []
+    for bucketed in (False, True):
+        for name, make in meshes.items():
+            label = f"flagship_{'bucketed' if bucketed else 'sharded'}_{name}"
+            run(label, cfg, s0, make(), bucketed, GRAPH_MESH_STEPS,
+                eager_states=kept if (bucketed and name == "4") else None)
+
+    # simulate(mesh=, bucketed=True): one capture across two calls, the
+    # first call bitwise the eager steps from the same state
+    held = simulate.capture
+    held.clear()
+    mesh = make_mesh(MESH_SLOTS)
+    start = start_on(s0, cfg, mesh, True)
+    captures, replayers = held.captures, held.replayers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, _ = simulate(start, cfg, GRAPH_MESH_STEPS, mesh=mesh, bucketed=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second, m2 = simulate(first, cfg, GRAPH_MESH_STEPS, mesh=mesh, bucketed=True)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    bad = state_differences(kept[-1], first)
+    made = (held.captures - captures, held.replayers - replayers)
+    if bad or made != (1, 1) or any(int(v) for v in m2["bucket_lost"]):
+        raise AssertionError(f"simulate(mesh=, bucketed=True): differs from the eager steps in {bad}; "
+                             f"{made[0]} captures by {made[1]} replayers; lost {m2['bucket_lost'].tolist()}")
+    rows["simulate_flagship_bucketed_4"] = dict(
+        calls=2, steps_per_call=GRAPH_MESH_STEPS, captures=1, first_call_s=first_s, second_call_s=second_s,
+        second_call_ms_per_step=second_s / GRAPH_MESH_STEPS * 1e3, bitwise_the_eager_steps=True,
+        capture_seconds=held.replayer.captured[None].seconds, graph_pool_bytes=held.replayer.captured[None].pool_bytes)
+    held.clear()
+    del kept, first, second, start
+    torch.cuda.empty_cache()
+
+    unet = UNet3D(width=UNET_WIDTH).eval()
+    unet.load_state_dict(unet_sd)
+    unet = unet.to("cuda")
+    for mode in ("unet", "unet_warm"):
+        cfg_u = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_mode=mode))
+        for name, make in meshes.items():
+            run(f"flagship_{mode}_{name}", cfg_u, s0, make(), False, GRAPH_MESH_UNET_STEPS, unet=unet)
+        if mode == "unet_warm":
+            run(f"flagship_{mode}_bucketed_2x2", cfg_u, s0, make_mesh2d(BUCKET_2D), True, GRAPH_MESH_UNET_STEPS,
+                unet=unet)
+    del unet, s0
+    torch.cuda.empty_cache()
+
+    cfg504 = coiling_config(RES_504)
+    s504 = coiling_scene(cfg504, seed=0, device="cuda")
+    for label, mesh, bucketed in (("coil_504_sharded_4", make_mesh(MESH_SLOTS), False),
+                                  ("coil_504_bucketed_2", make_mesh(BUCKET_504_SLOTS), True),
+                                  ("coil_504_bucketed_2x2", make_mesh2d(BUCKET_2D), True)):
+        run(label, cfg504, s504, mesh, bucketed, GRAPH_MESH_504_STEPS)
+    del s504
+    torch.cuda.empty_cache()
+    rows["push_under_capture"] = push_refuses_capture()
+    rows["nvidia_smi"] = smi
+    return rows, test_launches, launches_by
 
 
 def main() -> int:
@@ -4805,10 +5049,18 @@ def main() -> int:
     learned_out, launches_learned = mesh_learned_phase(smi, unet_sd)
     emit({"phase": "mesh_learned", **learned_out, "launches": launches_learned, "seconds": time.perf_counter() - t0})
 
+    # -- the sharded, bucketed and learned mesh steps as captured programs:
+    #    make_step(mesh=, bucketed=)'s graphs against the eager steps, bitwise
+    t0 = time.perf_counter()
+    graph_mesh_out, mesh_while_launches, launches_graph_mesh = graph_mesh_phase(smi, unet_sd)
+    while_launches += mesh_while_launches
+    emit({"phase": "graph_mesh", "runs": graph_mesh_out, "launches": launches_graph_mesh,
+          "seconds": time.perf_counter() - t0})
+
     # -- summary: the nvidia-smi line, the kernels line, then the result
     every_run = [launches, launches128, launchesc, launches504, launches_m504, *launches_opt.values(), launches256,
                  *launches_unet.values(), launches_train, *launches_mesh.values(), *launches_2d.values(),
-                 *launches_bucket.values(), *launches_learned.values()]
+                 *launches_bucket.values(), *launches_learned.values(), *launches_graph_mesh.values()]
 
     def entry(name, source, replaces, row, library_ms=None, counter=None):
         return {"name": name, "route": "cuda", "source": f"python_fluid_simulation_tpu_torch/csrc/{source}",

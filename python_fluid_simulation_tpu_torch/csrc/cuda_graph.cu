@@ -77,10 +77,13 @@ extern "C" int pfs_while_begin(void* stream, void* body_stream, void* k, const v
 }
 
 // Ends the body begun by pfs_while_begin (`handle` as it wrote it): with
-// `test` set, the body's last node is the test (k + 1 first); without it
-// (the body failed while it was recorded) the capture is only closed.
+// `test` set, the body's last node is the test (k + 1 first) and
+// `body_nodes` receives the nodes of the body (the test among them);
+// without it (the body failed while it was recorded) the capture is only
+// closed.
 extern "C" int pfs_while_end(void* body_stream, const unsigned long long* handle, void* k, const void* res,
-                             const void* thresh, const void* delta, int max_iter, int test) {
+                             const void* thresh, const void* delta, int max_iter, int test,
+                             unsigned long long* body_nodes) {
   cudaStream_t s = static_cast<cudaStream_t>(body_stream);
   cudaError_t launch = cudaSuccess;
   if (test) {
@@ -91,5 +94,25 @@ extern "C" int pfs_while_end(void* body_stream, const unsigned long long* handle
   }
   cudaGraph_t body = nullptr;  // the node's own body graph: not ours to destroy
   cudaError_t e = cudaStreamEndCapture(s, &body);
+  if (launch == cudaSuccess && e == cudaSuccess && test) {
+    size_t n = 0;
+    e = cudaGraphGetNodes(body, nullptr, &n);
+    *body_nodes = n;
+  }
   return (int)(launch != cudaSuccess ? launch : e);
+}
+
+// The top-level nodes of the graph being captured on `stream` so far (a
+// WHILE node counts once, its body apart).
+extern "C" int pfs_capture_nodes(void* stream, unsigned long long* count) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph = nullptr;
+  cudaError_t e = cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, nullptr, &graph, nullptr,
+                                           nullptr);
+  if (e != cudaSuccess) return (int)e;
+  if (status != cudaStreamCaptureStatusActive) return (int)cudaErrorIllegalState;
+  size_t n = 0;
+  e = cudaGraphGetNodes(graph, nullptr, &n);
+  *count = n;
+  return (int)e;
 }

@@ -58,14 +58,16 @@ rebuilds the geometry (JAX ``engine/step.py:156-183``).
 
 ``make_step`` is the counterpart of the JAX package's jitted step, and
 ``simulate`` of its ``lax.scan``: on CUDA the step is captured once into
-a CUDA graph and replayed (the generic CG loops as WHILE nodes with a
-device-side exit test, ``solvers/cg.py``); on the CPU they run the eager
+a CUDA graph and replayed (the generic CG loops, and with a mesh the
+distributed solves, as WHILE nodes with a device-side exit test,
+``solvers/cg.py``, ``parallel/halo.py``); on the CPU they run the eager
 ``step_3d``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Dict, Tuple
 
@@ -76,7 +78,7 @@ from python_fluid_simulation_tpu_torch.models.features import unet_delta_v
 from python_fluid_simulation_tpu_torch.models.train import capture_viscosity_pair
 from python_fluid_simulation_tpu_torch.ops import sdf as sdf3d
 from python_fluid_simulation_tpu_torch.ops.boundary import apply_boundary_condition
-from python_fluid_simulation_tpu_torch.ops.cuda_graph import graph_capture
+from python_fluid_simulation_tpu_torch.ops.cuda_graph import captured_while, graph_capture
 from python_fluid_simulation_tpu_torch.ops.extrapolate import extrapolate
 from python_fluid_simulation_tpu_torch.ops.fractions import compute_solid_frac_3d
 from python_fluid_simulation_tpu_torch.ops.indexing import const, grid_positions, merge_parity, split_parity
@@ -393,8 +395,9 @@ class CapturedStep:
     """One captured step: its graph and the private pool of its loop
     bodies (held as long as the graph), the output tensors it writes on
     every replay (state in `_state_tensors` order, and metrics), the
-    seconds the warm-up and the capture took, and both pools' bytes after
-    capture."""
+    seconds the warm-up and the capture took, both pools' bytes after
+    capture, the graph's top-level nodes (a WHILE node once) and each
+    WHILE body's nodes, in the order the step records them."""
 
     graph: "torch.cuda.CUDAGraph"
     body_pool: "torch.cuda.MemPool"
@@ -402,11 +405,14 @@ class CapturedStep:
     metrics: Dict[str, torch.Tensor]
     seconds: float
     pool_bytes: int
+    nodes: int
+    loop_nodes: Tuple[int, ...]
 
 
 class StepReplayer:
     """The step on one state's shapes, captured into CUDA graphs over
-    static input buffers: one graph a value of the 'auto' branch.
+    static input buffers: one graph a value of the 'auto' branch (one
+    graph with a ``mesh``, whose viscosity solve reads no flag).
 
     A capture first runs one eager step from the inputs on a side stream
     (it builds the kernel library, the cached constants, the cuDNN plans
@@ -415,12 +421,19 @@ class StepReplayer:
     (static solids) is read in place by every replay; None rebuilds the
     geometry inside the graph.  The UNet's parameters are read in place
     too: updating them in place is seen by the next replay, replacing a
-    parameter tensor needs a new replayer."""
+    parameter tensor needs a new replayer.  ``mesh`` and ``bucketed``
+    capture the sharded step (`step_3d`'s); every slot of the mesh must
+    be on one device, the one a graph records."""
 
     needs_geom = True  # the step reads a static geometry (`SimulateCapture` builds one where none is given)
 
-    def __init__(self, cfg: SimConfig, like: SimState, geom: GeomCache | None = None, unet=None):
-        self.cfg, self.geom, self.unet = cfg, geom, unet
+    def __init__(self, cfg: SimConfig, like: SimState, geom: GeomCache | None = None, unet=None, mesh=None,
+                 bucketed: bool = False):
+        if mesh is not None and len(set(mesh.devices)) > 1:
+            raise NotImplementedError(
+                f"a captured step needs every slot of the mesh on one device, got {mesh}: a CUDA graph records one "
+                "device's stream (ROADMAP queue 1 item 7, \"More than one card\")")
+        self.cfg, self.geom, self.unet, self.mesh, self.bucketed = cfg, geom, unet, mesh, bucketed
         # visc_mg int32, whatever it came as (a scene's is a Python 0)
         self.inputs = [torch.empty_like(t) for t in _state_tensors(like)[:-1]]
         self.inputs.append(torch.zeros((), dtype=torch.int32, device=like.particles.x.device))
@@ -444,11 +457,13 @@ class StepReplayer:
 
     def run(self, state: SimState, branch):
         """The step this replayer captures, run once on `state`."""
-        return step_3d(state, self.cfg, geom=self.geom, unet=self.unet, auto_mg=branch)
+        return step_3d(state, self.cfg, geom=self.geom, unet=self.unet, mesh=self.mesh, bucketed=self.bucketed,
+                       auto_mg=branch)
 
     def branch(self, visc_mg) -> bool | None:
-        """The graph to replay for a state's 'auto' flag (`_branch`)."""
-        return _branch(self.cfg, visc_mg)
+        """The graph to replay for a state's 'auto' flag (`_branch`); with
+        a mesh the one graph, read from nothing."""
+        return None if self.mesh is not None else _branch(self.cfg, visc_mg)
 
     def _capture(self, branch) -> CapturedStep:
         dev = self.inputs[0].device
@@ -460,11 +475,13 @@ class StepReplayer:
             self.run(state, branch)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        loops = len(captured_while.body_nodes)
         with graph_capture(graph, capture_error_mode="thread_local") as body_pool:
             out, metrics = self.run(state, branch)
         torch.cuda.synchronize(dev)
         return CapturedStep(graph, body_pool, _state_tensors(out), metrics, time.perf_counter() - t0,
-                            pool_bytes(graph.pool(), body_pool.id))
+                            pool_bytes(graph.pool(), body_pool.id), graph_capture.nodes,
+                            tuple(captured_while.body_nodes[loops:]))
 
     def replay(self, branch: bool | None) -> CapturedStep:
         cap = self.graph(branch)
@@ -526,18 +543,17 @@ def make_step(cfg: SimConfig, unet=None, mesh=None, bucketed: bool = False):
 
     ``unet``'s parameters are read in place by the replays: update them in
     place (as an optimiser does), or make a new step after replacing a
-    parameter tensor.  ``mesh`` and ``bucketed`` (which runs on a mesh)
-    raise NotImplementedError."""
-    if mesh is not None or bucketed:
-        raise NotImplementedError(
-            "make_step with a mesh (and so bucketed=True): the sharded step's distributed solves test their exit "
-            "on the host every iteration (parallel/halo.py), so it is not captured (ROADMAP queue 1 item 7)")
-    _check_supported(cfg, unet)
-    replayed = replaying_step(cfg, unet=unet)
+    parameter tensor.  With a ``mesh`` (and ``bucketed``, which needs one)
+    the step is `step_3d`'s sharded step, captured the same way: its
+    distributed solves are WHILE nodes, and it reads no 'auto' flag (the
+    mesh's viscosity solve is the distributed Jacobi-PCG).  A mesh whose
+    slots span several CUDA devices raises NotImplementedError on CUDA."""
+    _check_supported(cfg, unet, mesh=mesh, bucketed=bucketed)
+    replayed = replaying_step(cfg, unet=unet, replayer=functools.partial(StepReplayer, mesh=mesh, bucketed=bucketed))
 
     def step(state: SimState):
         if state.particles.x.device.type != "cuda":
-            return step_3d(state, cfg, unet=unet)
+            return step_3d(state, cfg, unet=unet, mesh=mesh, bucketed=bucketed)
         return replayed(state)
 
     step.replayers = replayed.replayers  # the captures, for inspection
@@ -549,10 +565,10 @@ class SimulateCapture:
     package's module-level jit of ``_simulate_jit`` keeps its compiled
     program: one replayer of class ``replayer`` (`StepReplayer`, or a
     subclass that captures another step), reused by a call with an equal
-    config, the same ``geom`` and ``unet`` objects (or, where ``geom`` is
-    None and the step reads one, the same solid tensors the geometry was
-    built from) and the same state shapes, dtypes and devices, and
-    replaced otherwise.  One, not a cache of many: its graph pools hold
+    config and ``bucketed``, the same ``geom``, ``unet`` and ``mesh``
+    objects (or, where ``geom`` is None and the step reads one, the same
+    solid tensors the geometry was built from) and the same state shapes,
+    dtypes and devices, and replaced otherwise.  One, not a cache of many: its graph pools hold
     0.57 GB on the flagship and 15 GB at 256.  ``captures`` counts the
     graphs captured by `run` so far (one a replayer and 'auto' branch),
     ``replayers`` the replayers it made; `clear` frees the held one."""
@@ -567,38 +583,40 @@ class SimulateCapture:
     def _builds_geom(self, cfg, geom) -> bool:
         return geom is None and self.kind.needs_geom and not cfg.moving_solid
 
-    def _key_of(self, cfg, state, geom, unet):
+    def _key_of(self, cfg, state, geom, unet, mesh, bucketed):
         """(values compared by equality, objects compared by identity)."""
         shapes = tuple((tuple(t.shape), t.dtype, t.device) for t in _state_tensors(state)[:-1])
-        objects = (geom, unet)
+        objects = (geom, unet, mesh)
         if self._builds_geom(cfg, geom):  # the geometry is built from these
             objects += (state.solid.phi, state.solid.v, state.solid.rb)
-        return (cfg, shapes), objects
+        return (cfg, shapes, bucketed), objects
 
     @staticmethod
     def _same(a, b) -> bool:
         return a[0] == b[0] and len(a[1]) == len(b[1]) and all(x is y for x, y in zip(a[1], b[1]))
 
-    def replayer_for(self, cfg: SimConfig, state: SimState, geom: GeomCache | None = None,
-                     unet=None) -> StepReplayer:
+    def replayer_for(self, cfg: SimConfig, state: SimState, geom: GeomCache | None = None, unet=None, mesh=None,
+                     bucketed: bool = False) -> StepReplayer:
         """The held replayer if it was made for this call's arguments,
         else a new one (the geometry built here where ``geom`` is None
         and the step reads static solids)."""
-        key = self._key_of(cfg, state, geom, unet)
+        key = self._key_of(cfg, state, geom, unet, mesh, bucketed)
         if self.replayer is None or not self._same(self._key, key):
             self.clear()
             if self._builds_geom(cfg, geom):
-                geom = build_geom_cache(state.solid)
-            self.replayer, self._key = self.kind(cfg, state, geom=geom, unet=unet), key
+                geom = build_geom_cache(state.solid, mesh)
+            self.replayer = self.kind(cfg, state, geom=geom, unet=unet, mesh=mesh, bucketed=bucketed)
+            self._key = key
             self.replayers += 1
         return self.replayer
 
-    def run(self, state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | None = None, unet=None):
+    def run(self, state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | None = None, unet=None,
+            mesh=None, bucketed: bool = False):
         """``num_steps`` replays from ``state`` (at least one), each
         replay's state copied into the next's inputs on the device: (the
         last state, as tensors no later replay writes; each step's metrics,
         cloned)."""
-        rep = self.replayer_for(cfg, state, geom, unet)
+        rep = self.replayer_for(cfg, state, geom, unet, mesh, bucketed)
         before = len(rep.captured)
         rep.load(state)
         history = []
@@ -633,14 +651,14 @@ def simulate(state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | 
     graphs from the state it is given, as repeated calls of the JAX
     package's jitted ``simulate`` reuse its program; 'auto' captures
     each branch once.  The returned state and metrics are tensors no
-    later replay writes.  With a ``mesh`` (whose distributed solves are
-    host loops; ``bucketed`` with it, the particles bucketed as
-    `step_3d` takes them) and on the CPU the steps run eagerly."""
+    later replay writes.  A ``mesh`` (``bucketed`` with it, the particles
+    bucketed as `step_3d` takes them) is captured the same way, one graph
+    (`make_step`'s).  On the CPU the steps run eagerly."""
     if bucketed and mesh is None:
         raise ValueError("bucketed mode needs a mesh")
     history = []
-    if num_steps > 0 and mesh is None and state.particles.x.device.type == "cuda":
-        state, history = simulate.capture.run(state, cfg, num_steps, geom, unet)
+    if num_steps > 0 and state.particles.x.device.type == "cuda":
+        state, history = simulate.capture.run(state, cfg, num_steps, geom, unet, mesh, bucketed)
     else:
         if geom is None and not cfg.moving_solid:
             geom = build_geom_cache(state.solid, mesh)

@@ -50,7 +50,8 @@ _SIGNATURES = {
     "pfs_halo_exchange": [_P] * 4 + [_I, _I, _L, _L, ctypes.c_uint, ctypes.c_uint, _I, _P],
     "pfs_halo_pull": [_P, _I, _L, _L, _I, _I, _P],
     "pfs_while_begin": [_P] * 6 + [_I, _P],
-    "pfs_while_end": [_P] * 6 + [_I, _I],
+    "pfs_while_end": [_P] * 6 + [_I, _I, _P],
+    "pfs_capture_nodes": [_P, _P],
 }
 
 

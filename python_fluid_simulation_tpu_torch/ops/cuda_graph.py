@@ -31,14 +31,23 @@ def graph_capture(graph: "torch.cuda.CUDAGraph", **kw):
     the loop bodies `captured_while` records, which it yields: the body
     graphs keep using its memory, so it must live as long as ``graph``.
     (The caching allocator refuses a second route to the graph's own pool
-    while the graph is being captured.)"""
+    while the graph is being captured.)  ``graph_capture.nodes`` is then
+    the top-level node count of the graph it captured last (a WHILE node
+    once; ``captured_while.body_nodes`` has each body's)."""
     body_pool = torch.cuda.MemPool()
     with torch.cuda.graph(graph, **kw):
         _POOLS.append(body_pool)
         try:
             yield body_pool
+            count = ctypes.c_ulonglong(0)
+            cb.check(cb.LIB.get().pfs_capture_nodes(torch.cuda.current_stream().cuda_stream, ctypes.byref(count)),
+                     "graph node count")
+            graph_capture.nodes = count.value
         finally:
             _POOLS.pop()
+
+
+graph_capture.nodes = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,14 +80,17 @@ def captured_while(body, k, res, thresh, delta, max_iter: int):
     cb.check(lib.pfs_while_begin(torch.cuda.current_stream(dev).cuda_stream, side.cuda_stream, *args,
                                  ctypes.byref(handle)), "while node")
     recorded = False
+    nodes = ctypes.c_ulonglong(0)
     try:
         with torch.cuda.stream(side), torch.cuda.use_mem_pool(_POOLS[-1], device=dev):
             body()
         recorded = True
     finally:
-        err = lib.pfs_while_end(side.cuda_stream, ctypes.byref(handle), *args, int(recorded))
+        err = lib.pfs_while_end(side.cuda_stream, ctypes.byref(handle), *args, int(recorded), ctypes.byref(nodes))
     cb.check(err, "while node body")
     captured_while.nodes += 1
+    captured_while.body_nodes.append(nodes.value)
 
 
 captured_while.nodes = 0  # WHILE nodes recorded (a replay runs each one's test kernel once an iteration)
+captured_while.body_nodes = []  # the nodes of each body recorded, in order (its test kernel among them)

@@ -16,8 +16,18 @@ that one keeps ``ppermute`` in the JAX package.
 The CG loops (`distributed_cell_poisson`, `distributed_coupled_cg`) are
 the JAX package's: x0 = 0 for the cell solves, the fp32 threshold
 max(f32(tol)^2, f32(rel_tol)^2 * res0), the exit res >= thresh,
-k < max_iter, delta != 0, and the guarded alpha and beta.  They test
-their exit on the host once per iteration.
+k < max_iter, delta != 0, and the guarded alpha and beta, in the JAX
+package's order of operations (not ``solvers/cg.py::cg_iteration``'s).
+Each is an init (`cell_poisson_setup`, `coupled_cg_setup`) and one
+iteration over a `solvers/cg.py::CGCarry` of per-slot (and per-field)
+blocks, looped by ``solvers/cg.py::loop``: eagerly the exit is tested on
+the host once per iteration; while the current stream is being captured
+into a CUDA graph (``engine/step.py::make_step`` with a mesh) the
+iteration is recorded once as the body of a WHILE node whose test runs
+on the device, the carry in buffers of its own.  A captured loop needs
+every slot on one device (a graph records one device's stream): a mesh
+over several devices raises there (ROADMAP queue 1 item 7, "More than
+one card").
 """
 
 from __future__ import annotations
@@ -30,7 +40,8 @@ from python_fluid_simulation_tpu_torch.ops.cuda_stencils import squared_tols
 from python_fluid_simulation_tpu_torch.ops.indexing import sample, shift
 from python_fluid_simulation_tpu_torch.parallel import halo_rdma
 from python_fluid_simulation_tpu_torch.parallel.mesh import Mesh, gather_blocks, spatial_axes, split_blocks
-from python_fluid_simulation_tpu_torch.solvers.cg import threshold, tree_dot
+from python_fluid_simulation_tpu_torch.solvers import cg
+from python_fluid_simulation_tpu_torch.solvers.cg import CGCarry, threshold, tree_dot
 
 
 def halo_exchange(mesh: Mesh, blocks: Sequence[torch.Tensor], axis_name: str, width: int = 1,
@@ -198,19 +209,22 @@ def _unpad(x, shape):
     return x.contiguous()
 
 
-def distributed_cell_poisson(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: float = 1e-3,
-                             rel_tol: float = 1e-3, max_iter: int = 600):
-    """The distributed Jacobi-PCG of a cell-centred 7-point system from
-    x0 = 0: an iteration is one halo exchange of the search direction
-    along each split axis and the dots' slot sums.
+def _solve_loop(mesh: Mesh, carry: CGCarry, thresh, max_iter: int, iteration) -> CGCarry:
+    """``solvers/cg.py::loop`` of a distributed iteration; under capture
+    every slot must be on the one device the graph records."""
+    if len(set(mesh.devices)) > 1 and cg.capturing(thresh.device):
+        raise NotImplementedError(
+            f"a captured distributed solve needs every slot on one device, got {mesh}: a CUDA graph records one "
+            "device's stream (ROADMAP queue 1 item 7, \"More than one card\")")
+    return cg.loop(carry, thresh, max_iter, iteration)
 
-    b / diag / precond_diag and each coefficient field are global cell
-    arrays (``pressure_coefficients`` / ``density_coefficients``).  Any
-    extent works: split axes are padded to a multiple of the mesh (pad
-    rows carry diag = 0, coef = 0, precond = 1, an inert identity block
-    that stays exactly zero).  Returns (x, iters, residual, res0), x on
-    slot 0's device.
-    """
+
+def cell_poisson_setup(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: float = 1e-3, rel_tol: float = 1e-3):
+    """The distributed Jacobi-PCG of `distributed_cell_poisson` before its
+    loop: (carry, res0, thresh, iteration, finish).  The carry holds each
+    slot's block of x (0), r and d, delta, res (res0) and a device int32
+    k (0) on slot 0's device; ``iteration(carry)`` is one iteration (k
+    passed through); ``finish(x blocks)`` is the global x."""
     pairs = _mesh_spatial(mesh)
     spec = _block_spec(pairs, b.ndim)
     orig_shape = tuple(b.shape)
@@ -235,14 +249,8 @@ def distributed_cell_poisson(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: f
             out.append(o)
         return out
 
-    r = list(b_l)
-    z = [r[s] / pd_l[s] for s in range(n)]
-    delta = psum_dot(r, z)
-    res0 = psum_dot(r, r)
-    thresh = converged_threshold(tol, rel_tol, res0)
-    x = [torch.zeros_like(t) for t in b_l]
-    d, res, k = z, res0, 0
-    while k < max_iter and bool((res >= thresh) & (delta != 0)):
+    def iteration(c: CGCarry) -> CGCarry:
+        x, r, d, delta, _, k = c
         q = matvec(d)
         dq = psum_dot(d, q)
         alpha = torch.where(dq != 0, delta / dq, torch.zeros_like(dq))
@@ -255,10 +263,38 @@ def distributed_cell_poisson(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: f
         beta = torch.where(delta != 0, nd / delta, torch.zeros_like(nd))
         b_s = [_scalar_on(beta, dev) for dev in devs]
         d = [z[s] + b_s[s] * d[s] for s in range(n)]
-        delta = nd
-        k += 1
-    xg = _unpad(gather_blocks(mesh, x, spec), orig_shape)
-    return xg, torch.tensor(k, dtype=torch.int32, device=res0.device), res, res0
+        return CGCarry(x, r, d, nd, res, k)
+
+    def finish(x):
+        return _unpad(gather_blocks(mesh, x, spec), orig_shape)
+
+    r = list(b_l)
+    z = [r[s] / pd_l[s] for s in range(n)]
+    delta = psum_dot(r, z)
+    res0 = psum_dot(r, r)
+    thresh = converged_threshold(tol, rel_tol, res0)
+    x = [torch.zeros_like(t) for t in b_l]
+    k = torch.zeros((), dtype=torch.int32, device=res0.device)
+    return CGCarry(x, r, z, delta, res0, k), res0, thresh, iteration, finish
+
+
+def distributed_cell_poisson(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: float = 1e-3,
+                             rel_tol: float = 1e-3, max_iter: int = 600):
+    """The distributed Jacobi-PCG of a cell-centred 7-point system from
+    x0 = 0: an iteration is one halo exchange of the search direction
+    along each split axis and the dots' slot sums.
+
+    b / diag / precond_diag and each coefficient field are global cell
+    arrays (``pressure_coefficients`` / ``density_coefficients``).  Any
+    extent works: split axes are padded to a multiple of the mesh (pad
+    rows carry diag = 0, coef = 0, precond = 1, an inert identity block
+    that stays exactly zero).  Returns (x, iters, residual, res0), x on
+    slot 0's device, iters a device int32.
+    """
+    carry, res0, thresh, iteration, finish = cell_poisson_setup(mesh, b, diag, coefs, precond_diag, tol=tol,
+                                                                rel_tol=rel_tol)
+    carry = _solve_loop(mesh, carry, thresh, max_iter, iteration)
+    return finish(carry.x), carry.k, carry.res, res0
 
 
 def sharded_cell_poisson_cg(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: float = 1e-3,
@@ -269,20 +305,11 @@ def sharded_cell_poisson_cg(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: fl
     return x, k, res
 
 
-def distributed_coupled_cg(mesh: Mesh, b_faces, x0_faces, diags, per_axis_terms, precond_diags, *,
-                           tol: float = 1e-3, rel_tol: float = 1e-3, max_iter: int = 600):
-    """Distributed Jacobi-PCG of the coupled 3-field viscosity system:
-    every slot owns a block of all three face arrays; an iteration is one
-    halo exchange of each of vx, vy, vz of the search direction along
-    each split axis (every term offset has |dx| <= 1) and the dots' slot
-    sums.
-
-    Arguments are ``viscosity_term_fields``' materialised fields: diags
-    and precond_diags per-axis face arrays, per_axis_terms[a] a list of
-    (field, voff, coef) with coef shaped like face array a.  The face
-    arrays' split axes are padded to one common multiple of the mesh so
-    the blocks align.  Returns (x_faces, iters, residual, res0).
-    """
+def coupled_cg_setup(mesh: Mesh, b_faces, x0_faces, diags, per_axis_terms, precond_diags, *,
+                     tol: float = 1e-3, rel_tol: float = 1e-3):
+    """The distributed Jacobi-PCG of `distributed_coupled_cg` before its
+    loop: (carry, res0, thresh, iteration, finish), as
+    `cell_poisson_setup`'s, x, r and d per field and slot."""
     pairs = _mesh_spatial(mesh)
     split_axes = [arr_axis for _, arr_axis, _ in pairs]
     d = len(b_faces)
@@ -328,14 +355,8 @@ def distributed_coupled_cg(mesh: Mesh, b_faces, x0_faces, diags, per_axis_terms,
         a_s = [_scalar_on(alpha, dev) for dev in devs]
         return [[ys[f][s] + a_s[s] * xs[f][s] for s in range(n)] for f in range(d)]
 
-    q0 = matvec(x0s)
-    r = [[bs[f][s] - q0[f][s] for s in range(n)] for f in range(d)]
-    z = [[r[f][s] / pds[f][s] for s in range(n)] for f in range(d)]
-    delta = gdot(r, z)
-    res0 = gdot(r, r)
-    thresh = converged_threshold(tol, rel_tol, res0)
-    x, dd, res, k = x0s, z, res0, 0
-    while k < max_iter and bool((res >= thresh) & (delta != 0)):
+    def iteration(c: CGCarry) -> CGCarry:
+        x, r, dd, delta, _, k = c
         q = matvec(dd)
         dq = gdot(dd, q)
         alpha = torch.where(dq != 0, delta / dq, torch.zeros_like(dq))
@@ -346,7 +367,37 @@ def distributed_coupled_cg(mesh: Mesh, b_faces, x0_faces, diags, per_axis_terms,
         res = gdot(r, r)
         beta = torch.where(delta != 0, nd / delta, torch.zeros_like(nd))
         dd = axpy(beta, dd, z)
-        delta = nd
-        k += 1
-    xs = tuple(_unpad(gather_blocks(mesh, x[f], spec), shapes[f]) for f in range(d))
-    return xs, torch.tensor(k, dtype=torch.int32, device=res0.device), res, res0
+        return CGCarry(x, r, dd, nd, res, k)
+
+    def finish(x):
+        return tuple(_unpad(gather_blocks(mesh, x[f], spec), shapes[f]) for f in range(d))
+
+    q0 = matvec(x0s)
+    r = [[bs[f][s] - q0[f][s] for s in range(n)] for f in range(d)]
+    z = [[r[f][s] / pds[f][s] for s in range(n)] for f in range(d)]
+    delta = gdot(r, z)
+    res0 = gdot(r, r)
+    thresh = converged_threshold(tol, rel_tol, res0)
+    k = torch.zeros((), dtype=torch.int32, device=res0.device)
+    return CGCarry(x0s, r, z, delta, res0, k), res0, thresh, iteration, finish
+
+
+def distributed_coupled_cg(mesh: Mesh, b_faces, x0_faces, diags, per_axis_terms, precond_diags, *,
+                           tol: float = 1e-3, rel_tol: float = 1e-3, max_iter: int = 600):
+    """Distributed Jacobi-PCG of the coupled 3-field viscosity system:
+    every slot owns a block of all three face arrays; an iteration is one
+    halo exchange of each of vx, vy, vz of the search direction along
+    each split axis (every term offset has |dx| <= 1) and the dots' slot
+    sums.
+
+    Arguments are ``viscosity_term_fields``' materialised fields: diags
+    and precond_diags per-axis face arrays, per_axis_terms[a] a list of
+    (field, voff, coef) with coef shaped like face array a.  The face
+    arrays' split axes are padded to one common multiple of the mesh so
+    the blocks align.  Returns (x_faces, iters, residual, res0), iters a
+    device int32.
+    """
+    carry, res0, thresh, iteration, finish = coupled_cg_setup(mesh, b_faces, x0_faces, diags, per_axis_terms,
+                                                              precond_diags, tol=tol, rel_tol=rel_tol)
+    carry = _solve_loop(mesh, carry, thresh, max_iter, iteration)
+    return finish(carry.x), carry.k, carry.res, res0

@@ -29,6 +29,14 @@ The route comes from the mesh's devices alone (`halo_route`):
   through the caller's stream: call them from one stream, as every
   caller here does.
 
+Under CUDA graph capture (the sharded step's captured loops) the pull
+records its launch once: the table holds the addresses the recording
+saw, which are the loop's carried buffers and the body pool's, fixed for
+every replay, and ``halo_exchange_rdma.launches`` counts recordings, not
+replays (a replayed step's launches follow from its iterations).  The
+push takes a host epoch a replay would repeat stale, and raises under
+capture (ROADMAP queue 1 item 7, "More than one card").
+
 On CPU blocks either wrapper runs the plain version (slices, ``.to()``,
 ``torch.cat``).
 """
@@ -150,7 +158,7 @@ def halo_exchange_rdma(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x
     return outs
 
 
-halo_exchange_rdma.launches = 0  # one a device an exchange (the pull route)
+halo_exchange_rdma.launches = 0  # one a device an exchange (the pull route), as recorded: not a graph's replays
 
 
 def halo_exchange_push(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x") -> List[torch.Tensor]:
@@ -160,6 +168,10 @@ def halo_exchange_push(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x
     device pointers).  CPU blocks run the plain version."""
     if all(b.device.type == "cpu" for b in blocks):
         return halo_exchange_rdma_plain(mesh, blocks, axis_name)
+    if torch.cuda.is_current_stream_capturing():
+        raise NotImplementedError(
+            "halo_exchange_push under CUDA graph capture: its epoch is a host counter that a replay would repeat "
+            "stale (ROADMAP queue 1 item 7, \"More than one card\")")
     shape = _check_blocks("halo_exchange_push", mesh, blocks)
     rings = mesh.rings(axis_name)
     if len(rings[0]) > cuda_halo.MAX_RING:

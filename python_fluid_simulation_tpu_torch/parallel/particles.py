@@ -107,6 +107,19 @@ def spec_from_state(n_rows: int, n_dev: int, nx: int) -> BucketSpec:
     return BucketSpec(n_dev, cap, max(64, -(-cap // 4 // 8) * 8), nx // n_dev)
 
 
+def resident(particles: Particles, n_dev: int, nx: int, bound_min, cell_size) -> bool:
+    """Whether a particle array already has the slot-major layout over
+    ``n_dev`` slots, as a bucketed run's state (and its checkpoints) holds
+    it: n_dev equal row blocks, every live row in its own slot's x-slab.
+    One host read."""
+    n = particles.x.shape[0]
+    if n % n_dev or nx % n_dev or nx // n_dev < 2:
+        return False
+    slab = torch.div(_home_x(particles.x[:, 0], bound_min[0], cell_size[0], nx), nx // n_dev, rounding_mode="floor")
+    slot = torch.div(torch.arange(n, device=slab.device), n // n_dev, rounding_mode="floor")
+    return bool(((slab == slot) | (particles.m <= 0)).all())
+
+
 def _check_mesh(mesh: Mesh, spec: BucketSpec):
     if len(mesh.axis_names) != 1 or mesh.size != spec.n_dev:
         raise ValueError(f"the bucketed layout of {spec.n_dev} slots needs a 1D mesh of as many slots, got {mesh}")

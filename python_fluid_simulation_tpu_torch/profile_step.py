@@ -33,9 +33,13 @@ the bucketed one.  ``--graph`` profiles the step as a CUDA graph replays
 it (``engine/step.py::replaying_step``, with the geometry built once as
 here: the first warm-up step captures it, each step copies the state in,
 reads the 'auto' flag where there is one, replays and clones the state
-out); the ranges below are recorded at capture and are empty in its
-replays, where the kernels are still reported by name, and the JSON line
-adds the capture's seconds and its pools' bytes.  Every fold
+out; with ``--mesh`` the sharded or bucketed step, its distributed
+solves as WHILE nodes, no flag read); the ranges below are recorded at
+capture and are empty in its replays, where the kernels are still
+reported by name (but for the kernels of a WHILE body, which the
+profiler does not report: the busy time and launches leave them out),
+and the JSON line adds the capture's seconds, its pools' bytes and its
+nodes.  Every fold
 call is a ``pfs_fold`` range in the profile, every live placement of a
 segment reduce (``ops/cuda_binned.py::place_live``) a ``pfs_place`` range,
 every multigrid V-cycle application a ``pfs_vcycle`` range (the cell
@@ -291,11 +295,10 @@ def main() -> int:
             state = dataclasses.replace(state, particles=bucketed_particles(state, cfg, mesh)[1])
     elif args.bucketed:
         raise SystemExit("profile_step: --bucketed needs --mesh")
-    if args.graph and mesh is not None:
-        raise SystemExit("profile_step: the sharded step is not captured (--graph with --mesh)")
     geom = build_geom_cache(state.solid, mesh)
     if args.graph:
-        step = step_mod.replaying_step(cfg, geom=geom, unet=unet)
+        step = step_mod.replaying_step(cfg, geom=geom, unet=unet, replayer=functools.partial(
+            step_mod.StepReplayer, mesh=mesh, bucketed=args.bucketed))
     else:
         step = functools.partial(step_3d, cfg=cfg, geom=geom, unet=unet, mesh=mesh, bucketed=args.bucketed)
     torch.cuda.synchronize()
@@ -328,6 +331,10 @@ def main() -> int:
         "graph": args.graph,
         "capture_seconds": [c.seconds for c in captures],
         "graph_pool_bytes": [c.pool_bytes for c in captures],
+        # the graph's top-level nodes and each WHILE body's (the profiler
+        # reports no kernel of a WHILE body: its busy time leaves them out)
+        "graph_nodes": [c.nodes for c in captures],
+        "loop_body_nodes": [list(c.loop_nodes) for c in captures],
         "visc_mg_after": int(torch.as_tensor(state.visc_mg)),
         "unprofiled_step_ms": plain_ms,
         # the particles after every step of the run, for comparing two

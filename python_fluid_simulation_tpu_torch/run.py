@@ -21,8 +21,12 @@ device) or ``cpu``, where every kernel runs its plain PyTorch version.
 The 2D scenes (``dam_break_2d``, ``droplet_2d``) run ``engine/step2d.py::
 simulate_2d`` on ``SimConfig2D()``'s defaults, as the JAX CLI does; they
 take no ``--mesh`` and have no surface for ``--export-obj``.  ``--mesh N
---bucketed`` buckets the particles by x-slab (``parallel/particles.py``)
-and runs the bucketed sharded step.
+[--bucketed]`` runs the sharded step on N slots of the device (through
+``simulate``, so on CUDA one capture a run), with ``--bucketed`` the
+particles bucketed by x-slab (``parallel/particles.py``); a resumed
+bucketed run keeps its checkpoint's layout where that is already
+bucketed over N slots (the JAX CLI re-buckets), so it continues the
+uninterrupted run bit for bit.
 """
 
 from __future__ import annotations
@@ -179,13 +183,24 @@ def main(argv=None):
         mesh = make_mesh(args.mesh, device)
         state = shard_state(state, mesh)
         if args.bucketed:
-            from python_fluid_simulation_tpu_torch.parallel.particles import bucket_particles, make_bucket_spec
+            from python_fluid_simulation_tpu_torch.parallel.particles import (
+                bucket_particles,
+                make_bucket_spec,
+                resident,
+                spec_from_state,
+            )
 
             g = cfg.grid
-            spec = make_bucket_spec(args.mesh, g.res[0], state.particles.x.shape[0], positions=state.particles.x,
-                                    bound_min=g.bound_min, cell_size=g.cell_size)
-            state = dataclasses.replace(state, particles=bucket_particles(state.particles, mesh, spec, g.bound_min,
-                                                                          g.cell_size))
+            n = state.particles.x.shape[0]
+            if args.resume and resident(state.particles, args.mesh, g.res[0], g.bound_min, g.cell_size):
+                # a bucketed run's checkpoint: its layout and caps kept as
+                # saved, so the resumed run continues the uninterrupted one
+                spec = spec_from_state(n, args.mesh, g.res[0])
+            else:
+                spec = make_bucket_spec(args.mesh, g.res[0], n, positions=state.particles.x, bound_min=g.bound_min,
+                                        cell_size=g.cell_size)
+                state = dataclasses.replace(state, particles=bucket_particles(state.particles, mesh, spec, g.bound_min,
+                                                                              g.cell_size))
             print(f"bucket-sharded over {args.mesh} slots of {device} (cap {spec.cap}/slot, exchange "
                   f"{spec.exchange_cap})")
         else:

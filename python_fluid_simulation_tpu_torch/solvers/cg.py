@@ -18,6 +18,8 @@ the body of a WHILE node whose test runs on the device
 (``ops/cuda_graph.py::captured_while``), as the JAX package's
 ``lax.while_loop`` keeps it there.  Both count the iterations in a device
 int32 ``k``.  Non-convergence is reported in `SolveStats`, not raised.
+`loop` runs any such body either way; the distributed solves
+(``parallel/halo.py``) loop their own bodies through it.
 """
 
 from __future__ import annotations
@@ -91,22 +93,54 @@ def cg_iteration(carry: CGCarry, matvec: Callable, precond: Callable | None = No
     return CGCarry(x, r, d, new_delta, res, k)
 
 
-def _captured_loop(carry: CGCarry, thresh, max_iter: int, matvec, precond) -> CGCarry:
-    """The loop as a WHILE node of the graph being captured: the carry
-    goes to buffers of its own (x0 is the caller's, and without a
-    preconditioner d is r and res is delta), which each recorded
-    iteration overwrites in place."""
-    buf = CGCarry(*(tuple(t.clone() for t in f) for f in carry[:3]),
-                  carry.delta.clone(), carry.res.clone(), carry.k.clone())
+def capturing(device: torch.device) -> bool:
+    """Whether the current stream of a CUDA ``device`` is being captured
+    into a CUDA graph (never on the CPU)."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _clone(t):
+    return t.clone() if isinstance(t, torch.Tensor) else tuple(_clone(u) for u in t)
+
+
+def _leaves(t) -> list:
+    return [t] if isinstance(t, torch.Tensor) else [leaf for u in t for leaf in _leaves(u)]
+
+
+def captured_loop(carry: CGCarry, thresh, max_iter: int, iteration: Callable) -> CGCarry:
+    """The loop of ``iteration`` (carry -> carry, ``k`` passed through) as
+    a WHILE node of the graph being captured: the carry goes to buffers of
+    its own (x0 is the caller's, and without a preconditioner d is r and
+    res is delta), which each recorded iteration overwrites in place.  x,
+    r and d may nest (a slot's blocks, a field's slots)."""
+    buf = CGCarry(*(_clone(f) for f in carry))
 
     def body():
-        new = cg_iteration(buf, matvec, precond)
-        for dst, src in zip((*buf.x, *buf.r, *buf.d, buf.delta, buf.res),
-                            (*new.x, *new.r, *new.d, new.delta, new.res)):
+        new = iteration(buf)
+        for dst, src in zip(_leaves(buf[:5]), _leaves(new[:5])):
             dst.copy_(src)
 
     captured_while(body, buf.k, buf.res, thresh, buf.delta, max_iter)
     return buf
+
+
+def _captured_loop(carry: CGCarry, thresh, max_iter: int, matvec, precond) -> CGCarry:
+    """`captured_loop` of `cg_iteration`."""
+    return captured_loop(carry, thresh, max_iter, lambda c: cg_iteration(c, matvec, precond))
+
+
+def loop(carry: CGCarry, thresh, max_iter: int, iteration: Callable) -> CGCarry:
+    """``while res >= thresh and k < max_iter and delta != 0: carry =
+    iteration(carry); k += 1``: on the host eagerly, as a WHILE node
+    (`captured_loop`) while the current stream is being captured."""
+    if capturing(thresh.device):
+        return captured_loop(carry, thresh, max_iter, iteration)
+    n = 0
+    while n < max_iter and bool((carry.res >= thresh) & (carry.delta != 0)):
+        carry = iteration(carry)
+        carry = carry._replace(k=carry.k + 1)
+        n += 1
+    return carry
 
 
 def cg(
@@ -126,14 +160,7 @@ def cg(
     Returns (x, SolveStats, threshold, r) with r the final residual.
     """
     carry, res0, thresh = cg_init(matvec, b, x0, tol2=tol2, rel2=rel2, precond=precond)
-    if res0.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-        carry = _captured_loop(carry, thresh, max_iter, matvec, precond)
-    else:
-        n = 0
-        while n < max_iter and bool((carry.res >= thresh) & (carry.delta != 0)):
-            carry = cg_iteration(carry, matvec, precond)
-            carry = carry._replace(k=carry.k + 1)
-            n += 1
+    carry = loop(carry, thresh, max_iter, lambda c: cg_iteration(c, matvec, precond))
     stats = SolveStats(
         iters=carry.k,
         residual=carry.res,

@@ -23,8 +23,8 @@ against the JAX package, on CPU.
   in-place carry (``_captured_loop``: the body writes the buffers a CUDA
   graph WHILE node iterates on) is run with a host stand-in for the
   node, bitwise the eager loop.
-* ``make_step`` with a mesh or ``bucketed=True`` raises
-  NotImplementedError.
+* ``make_step`` takes a mesh; ``bucketed=True`` without one raises
+  ValueError, an unported preconditioner NotImplementedError.
 """
 
 import dataclasses
@@ -280,12 +280,15 @@ def test_factored_cg_matches_jax_cg(system, precond):
 
 
 def test_make_step_refuses_mesh_and_bucketed():
+    """A mesh is taken (``tests/test_torch_mesh_make_step.py`` holds the
+    step against JAX's); ``bucketed`` without one and an unported
+    preconditioner are refused."""
     from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh
 
     cfg = buckling_config(dx=0.05)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_step(cfg, mesh=make_mesh(4, "cpu"))
-    with pytest.raises(NotImplementedError, match="bucketed"):
+    assert callable(make_step(cfg, mesh=make_mesh(4, "cpu")))
+    assert callable(make_step(cfg, mesh=make_mesh(4, "cpu"), bucketed=True))
+    with pytest.raises(ValueError, match="bucketed mode needs a mesh"):
         make_step(cfg, bucketed=True)
     with pytest.raises(NotImplementedError):
         make_step(dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, precond="ic")))
