@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (and on four).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase; the cards phase needs 4 cards
+    python3 chip_smoke.py --cards    # the build and the cards phase alone (4 cards)
 
 Drives ``python_fluid_simulation_tpu_torch`` (never JAX) through its
 main paths and checks every CUDA kernel of them against its plain
@@ -256,7 +257,7 @@ Phases, each printing one JSON line:
               start's iterations
   halo        row 15 over meshes of 2, 4 and 8 slots of the card, on the
               blocks of the sharded steps' fields (flagship, 128^3 and 504
-              cells and x faces, padded to the slots) and a 4-D input: 1,000
+              cells and x faces, padded to the slots) and a 4-D input: 200
               back-to-back exchanges with changing contents on each route,
               the pull (through halo.halo_exchange, one launch an exchange)
               and the push (halo_exchange_push called directly, one launch
@@ -367,6 +368,26 @@ Phases, each printing one JSON line:
               twice on the bucketed flagship (one capture, the first call
               bitwise the eager steps); the halo push raising under
               capture
+  cards       on a host of at least four cards (one line saying so on
+              fewer): every card's nvidia-smi line; path 1, the
+              single-card step with its state on cuda:3 and cuda:0
+              current, eagerly and through make_step (the flagship,
+              128^3, coiling 'auto' from visc_mg = 2, the flagship with
+              jacobi_precond=False, one lean 504 step), each step bitwise
+              the same step on cuda:0 and every launch on cuda:3, the
+              halo pull and a 320-channel reduce there too (rows 1-15
+              off cuda:0); row 15's push across 2 and 4 cards at every
+              field of the sharded steps, bitwise the plain route, event
+              and device ms beside one card's push and pull and the
+              NVLink bound; path 2, slot i on cuda:i: the flagship
+              sharded and bucketed on 4 slots and (2, 2), 504 sharded on
+              4, 'unet_warm' bucketed on (2, 2), 3 steps each (504: 2),
+              bitwise the same mesh layout on cuda:0 and the plain-kernel
+              steps on the cards, within 2e-4 / 2e-3 of the unsharded
+              step by mass, bucket_lost 0, every x ring pushing and no
+              pull; eager ms, each card's idle share and the copies of
+              one profiled step; make_step(mesh=<four cards>) and the
+              push under capture raising NotImplementedError
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
@@ -378,6 +399,7 @@ result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -535,8 +557,15 @@ GRAPH_MESH_504_STEPS = 3  # coiling_config(504) under a mesh
 MESH_LEARNED_STEPS = 3
 BUCKET_MASS_STEP = 1e-6  # masses m (1 + 1e-6 i): distinct in fp32 (89,648 and 465,868 particles, within 9% / 47% of m)
 CLI_2D_STEPS = 3
-HALO_REPS = 1000  # back-to-back exchanges with changing contents, each compared bitwise with the plain route
+HALO_REPS = 200  # back-to-back exchanges with changing contents, each compared bitwise with the plain route
 HALO_TIMED = 50
+# the cards phase (a host of four or more cards): path 1 on the last of
+# them, path 2 over four; steps a configuration, the push's exchanges
+CARDS = 4
+CARDS_STEPS = 3
+CARDS_504_STEPS = 2
+CARDS_HALO_SLOTS = (2, 4)
+CARDS_HALO_REPS = 100
 
 
 def halo_plane_bounds():
@@ -856,12 +885,13 @@ def kernel_live_cells(b, x0, diag, coefs, pd):
     live = torch.full((n + nwords + _PART_CAP // 3 + 1,), -1, dtype=torch.int32, device=b.device)
     iters = torch.empty((), dtype=torch.int32, device=b.device)
     res, res0 = (torch.empty((), dtype=torch.float32, device=b.device) for _ in range(2))
-    cb.check(cb.LIB.get().pfs_poisson_pcg(
-        b.data_ptr(), 0 if x0 is None else x0.data_ptr(), diag.data_ptr(), *[c.data_ptr() for _, c in coefs],
-        pd.data_ptr(), x.data_ptr(), r.data_ptr(), d0.data_ptr(), d1.data_ptr(), q.data_ptr(),
-        part.data_ptr(), _PART_CAP, live.data_ptr(), live.numel(),
-        iters.data_ptr(), res.data_ptr(), res0.data_ptr(), *b.shape, 0.0, 0.0, 0, cb.stream_of(b),
-    ), "poisson_pcg list launch")
+    with cb.launching("poisson_pcg list", b, x0, diag, pd) as stream:
+        cb.check(cb.LIB.get().pfs_poisson_pcg(
+            b.data_ptr(), 0 if x0 is None else x0.data_ptr(), diag.data_ptr(), *[c.data_ptr() for _, c in coefs],
+            pd.data_ptr(), x.data_ptr(), r.data_ptr(), d0.data_ptr(), d1.data_ptr(), q.data_ptr(),
+            part.data_ptr(), _PART_CAP, live.data_ptr(), live.numel(),
+            iters.data_ptr(), res.data_ptr(), res0.data_ptr(), *b.shape, 0.0, 0.0, 0, stream,
+        ), "poisson_pcg list launch")
     counts = live[n + nwords:].cpu()
     written = counts >= 0
     grid = int(written.sum()) - 1
@@ -4229,9 +4259,507 @@ def graph_mesh_phase(smi, unet_sd):
     return rows, test_launches, launches_by
 
 
-def main() -> int:
+def all_nvidia_smi_lines():
+    """Every card's ``nvidia-smi --query-gpu=name,power.limit`` line."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()
+
+
+def sync_all():
+    """Wait for every card (``torch.cuda.synchronize()`` waits for the
+    current one only)."""
     import torch
 
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+@contextlib.contextmanager
+def launch_devices():
+    """Every kernel launch inside, by wrapper name and card: the launches
+    pass through ``ops/_cuda_build.py::launching``, which each wrapper
+    enters once where it counts one launch; a Counter of (name, device)."""
+    from python_fluid_simulation_tpu_torch.ops import _cuda_build
+
+    seen = collections.Counter()
+    real = _cuda_build.launching
+
+    @contextlib.contextmanager
+    def recorded(name, *tensors, stream=None):
+        with real(name, *tensors, stream=stream) as handle:
+            seen[(name, str(_cuda_build.launch_device(name, *tensors)))] += 1
+            yield handle
+
+    _cuda_build.launching = recorded
+    try:
+        yield seen
+    finally:
+        _cuda_build.launching = real
+
+
+def by_card(seen):
+    """{device: {wrapper name: launches}} of a `launch_devices` record."""
+    out = {}
+    for (name, dev), n in sorted(seen.items()):
+        out.setdefault(dev, {})[name] = n
+    return out
+
+
+def state_on(state, dev):
+    """A copy of `state` on `dev` (through the host, bit for bit)."""
+    from python_fluid_simulation_tpu_torch.convert import state_from_numpy, state_to_numpy
+
+    return state_from_numpy(state_to_numpy(state), device=dev)
+
+
+def cpu_bits_differ(a, b):
+    """The fields of two states (any devices) that differ in a bit."""
+    import torch
+
+    pairs = [(k, getattr(a.particles, k), getattr(b.particles, k)) for k in ("x", "v", "c", "m")]
+    pairs += [(k, torch.as_tensor(getattr(a, k)), torch.as_tensor(getattr(b, k))) for k in ("t", "step_idx")]
+    return [k for k, x, y in pairs if not same_bits(x.cpu(), y.cpu())]
+
+
+def one_card_runs(label, cfg, s0, steps, unet=None):
+    """`steps` eager steps (``step_3d``, the geometry built inside, as the
+    captured step builds it) and `steps` replays of ``make_step``'s graph
+    from `s0`, with its tensors' card not the current one where `s0` is
+    off cuda:0; every replay bitwise its eager step.  Returns (eager
+    states, replayed states, eager ms a step)."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.step import make_step, step_3d
+
+    eager, ms = [s0], []
+    for _ in range(steps):
+        sync_all()
+        t0 = time.perf_counter()
+        eager.append(step_3d(eager[-1], cfg, unet=unet)[0])
+        sync_all()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    step = make_step(cfg, unet=unet)
+    replayed = [s0]
+    for _ in range(steps):
+        replayed.append(step(replayed[-1])[0])
+    sync_all()
+    for i in range(1, steps + 1):
+        bad = cpu_bits_differ(eager[i], replayed[i])
+        if bad:
+            raise AssertionError(f"{label} on {s0.particles.x.device} step {i - 1}: the replay differs from the eager "
+                                 f"step in {bad}")
+    del step
+    torch.cuda.empty_cache()
+    return eager, replayed, ms
+
+
+# the rows each path-1 configuration must launch on the other card (by
+# the name its wrapper passes to ``launching``)
+CARDS_PATH1_NEEDS = {
+    "flagship": ("cell_poisson_pcg", "coupled_visc_pcg", "seg_scan_sorted", "place_live", "segment_broadcast", "fold"),
+    "128": ("stencil_matvec", "mg_vcycle_tail"),
+    "coiling_auto_mg": ("coupled_matvec_geom", "stencil_matvec", "mg_vcycle_tail"),
+    "flagship_nojac": ("stencil_matvec", "coupled_stencil_matvec"),
+    "coil_504_lean": ("fused_poisson_pcg",),
+    "halo_pull": ("halo_exchange_rdma",),
+    "wide_reduce": ("segment_reduce",),
+}
+
+
+def cards_path1(other):
+    """Path 1: the single-device step with its tensors on `other`, cuda:0
+    current, eagerly and through ``make_step``, each step bitwise the same
+    step on cuda:0 in this run: the flagship (rows 1, 2, 11-14), 128^3
+    (6, 9), coiling 'auto' from visc_mg = 2 (4, 6, 9 batched), the
+    flagship with ``jacobi_precond=False`` (5, 7, 8), one lean 504 step
+    (3); then the halo pull over 4 slots of `other` (15) and a
+    `WIDE_CHANNELS`-channel reduce through the serial kernel (10), each
+    bitwise its plain version and the same call on cuda:0.  Every
+    launch of the other card's runs is on that card, none on cuda:0."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.scenes import (
+        buckling_config,
+        buckling_scene,
+        coiling_config,
+        coiling_scene,
+        scaled_buckling_config,
+    )
+    from python_fluid_simulation_tpu_torch.engine.step import step_3d
+    from python_fluid_simulation_tpu_torch.ops import cuda_binned as cbn
+    from python_fluid_simulation_tpu_torch.parallel import halo_rdma
+    from python_fluid_simulation_tpu_torch.parallel.halo import _padded_extent
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.current_device() != 0:
+        raise AssertionError("path 1 runs with cuda:0 current")
+    home = torch.device("cuda", 0)
+
+    def with_solver(c, **kw):
+        return dataclasses.replace(c, solver=dataclasses.replace(c.solver, **kw))
+
+    def warmed(cfg, s, n):  # steps on cuda:0 so the systems are not at rest
+        for _ in range(n):
+            s, _ = step_3d(s, cfg)
+        return s
+
+    flag = buckling_config()
+    configs = [
+        ("flagship", flag, lambda: buckling_scene(flag, seed=0, device=home), CARDS_STEPS),
+        ("128", scaled_buckling_config(RES_128),
+         lambda: buckling_scene(scaled_buckling_config(RES_128), seed=0, device=home), CARDS_STEPS),
+        ("coiling_auto_mg", coiling_config(RES_COIL),
+         lambda: dataclasses.replace(warmed(coiling_config(RES_COIL), coiling_scene(coiling_config(RES_COIL), seed=0,
+                                                                                     device=home), 2), visc_mg=2),
+         CARDS_STEPS),
+        ("flagship_nojac", with_solver(flag, jacobi_precond=False),
+         lambda: buckling_scene(flag, seed=0, device=home), CARDS_STEPS),
+        ("coil_504_lean", coiling_config(RES_504),
+         lambda: dataclasses.replace(warmed(coiling_config(RES_504), coiling_scene(coiling_config(RES_504), seed=0,
+                                                                                    device=home), 2), visc_mg=2), 1),
+    ]
+    rows = {}
+    for label, cfg, make, steps in configs:
+        s0 = state_on(make(), home)  # both cards start from the same host copy
+        t0 = time.perf_counter()
+        eager0, replay0, ms0 = one_card_runs(label, cfg, s0, steps)
+        with launch_devices() as seen:
+            eager1, replay1, ms1 = one_card_runs(label, cfg, state_on(s0, other), steps)
+        cards = by_card(seen)
+        if set(cards) != {str(other)} and other != home:
+            raise AssertionError(f"{label} on {other}: launches on {sorted(cards)}")
+        missing = [k for k in CARDS_PATH1_NEEDS[label] if not cards.get(str(other), {}).get(k)]
+        if missing:
+            raise AssertionError(f"{label} on {other}: {missing} never launched there")
+        for i in range(1, steps + 1):
+            for kind, a, b in (("eager", eager0, eager1), ("replayed", replay0, replay1)):
+                bad = cpu_bits_differ(a[i], b[i])
+                if bad:
+                    raise AssertionError(f"{label} {kind} step {i - 1}: {other} differs from cuda:0 in {bad}")
+        rows[label] = dict(steps=steps, launches_by_card=cards, eager_ms_cuda0=ms0, eager_ms_other=ms1,
+                           bitwise_cuda0_eager_and_replayed=True, replay_bitwise_eager=True,
+                           seconds=time.perf_counter() - t0)
+        del s0, eager0, replay0, eager1, replay1
+        torch.cuda.empty_cache()
+
+    # row 15: the pull over 4 slots of the other card, bitwise its plain
+    # version and the same exchange on cuda:0
+    gen = torch.Generator(device=home).manual_seed(0)
+    shape = (_padded_extent(126, MESH_SLOTS) // MESH_SLOTS, 504, 126)
+    blocks0 = [torch.randn(shape, generator=gen, device=home) for _ in range(MESH_SLOTS)]
+    outs = {}
+    with launch_devices() as seen:
+        for dev in (home, other):
+            mesh = make_mesh(MESH_SLOTS, device=dev)
+            blocks = [b.to(dev) for b in blocks0]
+            got = halo_rdma.halo_exchange_rdma(mesh, blocks, "x")
+            want = halo_rdma.halo_exchange_rdma_plain(mesh, blocks, "x")
+            if not all(bits_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"halo pull on {dev}: differs from its plain version")
+            outs[str(dev)] = [g.cpu() for g in got]
+    if not all(bits_equal(a, b) for a, b in zip(outs[str(home)], outs[str(other)])):
+        raise AssertionError(f"halo pull: {other} differs from cuda:0")
+    rows["halo_pull"] = dict(block=list(shape), slots=MESH_SLOTS, launches_by_card=by_card(seen),
+                             bitwise_plain_and_cuda0=True)
+    del blocks0, blocks, got, want, outs
+
+    # row 10: a WIDE_CHANNELS-channel reduce of sorted ids through the dense
+    # segment_reduce (the serial kernel), add and min
+    k, m = 200_000, FLAGSHIP[0][0] * FLAGSHIP[0][1] * FLAGSHIP[0][2]
+    ids0 = torch.sort(torch.randint(0, m, (k,), generator=gen, device=home)).values
+    vals0 = torch.randn((k, WIDE_CHANNELS), generator=gen, device=home)
+    res = {}
+    with launch_devices() as seen:
+        for dev in (home, other):
+            ids, vals = ids0.to(dev), vals0.to(dev)
+            for op in ("add", "min"):
+                got = cbn.segment_reduce(vals, ids, m, op, 0.0, channels_first=True)
+                if op == "min" and not bits_equal(got, cbn.segment_reduce_plain(vals, ids, m, op, 0.0,
+                                                                                channels_first=True)):
+                    raise AssertionError(f"wide min reduce on {dev}: differs from its plain version")
+                res[(str(dev), op)] = got.cpu()
+    for op in ("add", "min"):
+        if not bits_equal(res[(str(home), op)], res[(str(other), op)]):
+            raise AssertionError(f"wide {op} reduce: {other} differs from cuda:0")
+    rows["wide_reduce"] = dict(K=k, C=WIDE_CHANNELS, M=m, launches_by_card=by_card(seen),
+                               min_bitwise_plain=True, bitwise_cuda0=True)
+    del ids0, vals0, res
+    for label in ("halo_pull", "wide_reduce"):
+        got = rows[label]["launches_by_card"]
+        if set(got) != {str(home), str(other)} or not all(got[str(other)].get(n) for n in CARDS_PATH1_NEEDS[label]):
+            raise AssertionError(f"{label}: launches {got}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def profiled_idle(step, state):
+    """One step under torch.profiler: the host ms, each card's busy ms
+    (the union of its kernel and copy intervals) and idle share, and the
+    copies a step by kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from python_fluid_simulation_tpu_torch.profile_step import _busy_us
+
+    sync_all()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state)
+        sync_all()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("pfs_")]
+    if not dev_events:
+        raise AssertionError("the profiler saw no device event")
+    cards = {}
+    for idx in sorted({e.device_index for e in dev_events}):
+        busy = _busy_us([e for e in dev_events if e.device_index == idx]) / 1e3
+        cards[f"cuda:{idx}"] = dict(busy_ms=busy, idle_share=1.0 - busy / wall_ms)
+    copies = collections.Counter(e.name for e in dev_events if e.name.startswith("Memcpy"))
+    iters = sum(int(m[f"{k}_iters"]) for k in ("density", "viscosity", "pressure"))
+    return dict(step_ms=wall_ms, cards=cards, idle_share_mean=statistics.mean(c["idle_share"] for c in cards.values()),
+                copies_per_step=dict(copies), solver_iterations=iters,
+                copies_per_iteration=sum(copies.values()) / max(iters, 1))
+
+
+def cards_mesh_run(label, cfg, s0, meshes, bucketed, steps, ref_states, unet=None):
+    """Path 2, one configuration: `steps` eager steps of ``step_3d(mesh=,
+    bucketed=)`` from `s0` (masses unique) with slot i on cuda:i, bitwise
+    the same steps on the same mesh layout with every slot on cuda:0 and
+    the same steps on the cards with every kernel swapped for its plain
+    version; within MESH_DX / MESH_DV of `ref_states` by mass;
+    ``bucket_lost`` 0; the routes: every ring across cards pushes, no pull
+    on the cards.  Then one more step profiled: each card's idle share and
+    the copies a step and an iteration."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.step import step_3d
+    from python_fluid_simulation_tpu_torch.parallel import halo_rdma
+    from python_fluid_simulation_tpu_torch.parallel.mesh import shard_state
+    from python_fluid_simulation_tpu_torch.profile_step import bucketed_particles
+
+    cards_mesh, one_mesh = meshes
+    n = int(s0.particles.x.shape[0])
+
+    def start_on(mesh):
+        start = shard_state(s0, mesh)
+        if bucketed:
+            start = dataclasses.replace(start, particles=bucketed_particles(start, cfg, mesh)[1])
+        return start
+
+    def run(mesh, start):
+        step = functools.partial(step_3d, mesh=mesh, bucketed=bucketed, unet=unet)
+        states, ms, metrics = [start], [], []
+        for _ in range(steps):
+            sync_all()
+            t0 = time.perf_counter()
+            st, m = step(states[-1], cfg)
+            sync_all()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            states.append(st)
+            metrics.append({k: v.item() for k, v in m.items()})
+        return step, states, ms, metrics
+
+    routes = {ax: halo_rdma.halo_route(cards_mesh, ax) for ax in cards_mesh.axis_names}
+    start = start_on(cards_mesh)
+    read = reset_counters()
+    with launch_devices() as seen:
+        step, states, ms, metrics = run(cards_mesh, start)
+    launches = read()
+    check_run(states[-1], metrics, launches, ("halo_exchange_push", *REDUCE_ROUTE, "binned_segment_broadcast", "fold"),
+              label)
+    cards = by_card(seen)
+    pulls = {d: c.get("halo_exchange_rdma", 0) for d, c in cards.items() if c.get("halo_exchange_rdma")}
+    pushes = {d: c.get("halo_exchange_push", 0) for d, c in cards.items()}
+    if routes["x"] != "push" or pulls or launches["halo_exchange_rdma"] or len(set(pushes.values())) != 1:
+        raise AssertionError(f"{label}: routes {routes}, pulls {pulls}, pushes by card {pushes}")
+    lost = [m["bucket_lost"] for m in metrics] if bucketed else []
+    if any(lost):
+        raise AssertionError(f"{label}: bucket_lost {lost}")
+    _, one, one_ms, _ = run(one_mesh, start_on(one_mesh))
+    for i in range(1, steps + 1):
+        bad = [k for k in "xvcm" if not same_bits(getattr(states[i].particles, k), getattr(one[i].particles, k))]
+        if bad:
+            raise AssertionError(f"{label} step {i - 1}: four cards vs one card differ in {bad}")
+    del one
+    plain_steps_bitwise(label, step, start, states, cfg, None, steps)
+    errs = vs_unsharded(label, states, ref_states, n)
+    profile = profiled_idle(lambda s: step(s, cfg), states[-1])
+    row = dict(mesh=cards_mesh.shape, devices=[str(d) for d in cards_mesh.devices], bucketed=bucketed, steps=steps,
+               step_ms=ms, median_step_ms=statistics.median(ms), one_card_step_ms=one_ms, routes=routes,
+               push_launches_per_step=launches["halo_exchange_push"] / steps, launches_by_card=cards,
+               iters={k: [m[f"{k}_iters"] for m in metrics] for k in ("density", "viscosity", "pressure")},
+               bucket_lost=lost, bitwise_one_card=True, kernels_vs_plain_bitwise=True, vs_unsharded_by_step=errs,
+               profiled_step=profile)
+    del states, start
+    torch.cuda.empty_cache()
+    return row
+
+
+def cards_path2(unet_sd):
+    """Path 2 on four cards (`cards_mesh_run` each): the flagship sharded
+    on 4 slots and (2, 2), bucketed on 4 slots and (2, 2),
+    ``coiling_config(504)`` sharded on 4 slots, the flagship in
+    'unet_warm' bucketed on (2, 2) with the full-width UNet; then
+    ``make_step(mesh=<four cards>)`` refusing capture, and the push."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.scenes import (
+        buckling_config,
+        buckling_scene,
+        coiling_config,
+        coiling_scene,
+    )
+    from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, make_step, step_3d
+    from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
+    from python_fluid_simulation_tpu_torch.parallel import halo_rdma
+    from python_fluid_simulation_tpu_torch.parallel.mesh import cuda_devices, make_mesh, make_mesh2d, shard_state
+
+    cards = cuda_devices(CARDS)
+    meshes = {"4": (make_mesh(CARDS, devices=cards), make_mesh(CARDS)),
+              "2x2": (make_mesh2d(BUCKET_2D, devices=cards), make_mesh2d(BUCKET_2D))}
+    rows = {}
+
+    def unsharded(cfg, s0, steps, unet=None):
+        geom = build_geom_cache(s0.solid)
+        ref = [s0]
+        for _ in range(steps):
+            ref.append(step_3d(ref[-1], cfg, geom=geom, unet=unet)[0])
+        return ref
+
+    cfg = buckling_config()
+    s0 = unique_masses(buckling_scene(cfg, seed=0, device="cuda:0"))
+    ref = unsharded(cfg, s0, CARDS_STEPS)
+    for bucketed in (False, True):
+        for name, pair in meshes.items():
+            label = f"flagship_{'bucketed' if bucketed else 'sharded'}_{name}"
+            rows[label] = cards_mesh_run(label, cfg, s0, pair, bucketed, CARDS_STEPS, ref)
+
+    # the captured step over four cards stays refused, as does the push under capture
+    try:
+        make_step(cfg, mesh=meshes["4"][0])(shard_state(s0, meshes["4"][0]))
+    except NotImplementedError as e:
+        rows["make_step_four_cards"] = str(e)
+    else:
+        raise AssertionError("make_step(mesh=<four cards>) captured a step")
+    blocks = [torch.zeros((4, 64), device=d) for d in cards]
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            halo_rdma.halo_exchange_rdma(meshes["4"][0], blocks, "x")
+    except NotImplementedError as e:
+        rows["push_under_capture"] = str(e)
+    else:
+        raise AssertionError("the push across cards was recorded into a CUDA graph")
+    del graph, blocks
+
+    cfg_w = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_mode="unet_warm"))
+    unet = UNet3D(width=UNET_WIDTH).eval()
+    unet.load_state_dict(unet_sd)
+    unet = unet.to("cuda:0")
+    ref = unsharded(cfg_w, s0, CARDS_STEPS, unet)
+    rows["flagship_unet_warm_bucketed_2x2"] = cards_mesh_run("flagship unet_warm bucketed 2x2", cfg_w, s0,
+                                                             meshes["2x2"], True, CARDS_STEPS, ref, unet=unet)
+    del unet, ref, s0
+    torch.cuda.empty_cache()
+
+    cfg504 = coiling_config(RES_504)
+    s504 = unique_masses(coiling_scene(cfg504, seed=0, device="cuda:0"))
+    ref = unsharded(cfg504, s504, CARDS_504_STEPS)
+    rows["coil_504_sharded_4"] = cards_mesh_run("504 sharded 4", cfg504, s504, meshes["4"], False, CARDS_504_STEPS,
+                                                ref)
+    del ref, s504
+    torch.cuda.empty_cache()
+    return rows
+
+
+def cards_halo():
+    """Row 15's push across cards: at every field of `HALO_FIELDS`, on 2
+    and 4 cards (slot i on cuda:i), `CARDS_HALO_REPS` exchanges with
+    changing contents through ``halo.halo_exchange`` (the push: the rings
+    span cards), bitwise the plain route; CUDA-event and device ms beside
+    the same exchange on one card (the push called directly, and the
+    pull), the computed NVLink plane bound and the same-card byte bound."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.parallel import halo, halo_rdma
+    from python_fluid_simulation_tpu_torch.parallel.halo import _padded_extent
+    from python_fluid_simulation_tpu_torch.parallel.mesh import cuda_devices, make_mesh
+
+    gen = torch.Generator(device="cuda:0").manual_seed(0)
+    rows = []
+    for slots in CARDS_HALO_SLOTS:
+        across = make_mesh(slots, devices=cuda_devices(slots))
+        one = make_mesh(slots, device="cuda:0")
+        if halo_rdma.halo_route(across, "x") != "push" or halo_rdma.halo_route(one, "x") != "pull":
+            raise AssertionError(f"halo routes over {slots} slots")
+        timed = {}
+        for name, shape in HALO_FIELDS:
+            n = _padded_extent(shape[0], slots) // slots
+            bshape = (n,) + shape[1:]
+            plane = math.prod(bshape[1:])
+            base = [torch.randn(bshape, generator=gen, device="cuda:0") for _ in range(slots)]
+            b_across = [b.to(d) for b, d in zip(base, across.devices)]
+            before = halo_rdma.halo_exchange_push.launches
+            bad = 0
+            for _ in range(CARDS_HALO_REPS):
+                for b in (*base, *b_across):
+                    b.add_(1.0)
+                got = halo.halo_exchange(across, b_across, "x")
+                want = halo_rdma.halo_exchange_rdma_plain(one, base, "x")
+                bad += sum(int((g.to(w.device) != w).sum()) for g, w in zip(got, want))
+            launched = halo_rdma.halo_exchange_push.launches - before
+            if bad or launched != CARDS_HALO_REPS * slots:
+                raise AssertionError(f"push across {slots} cards, {name}: {bad} elements differ, {launched} launches")
+            calls = {
+                "push_across_cards": functools.partial(halo.halo_exchange, across, b_across, "x"),
+                "push_one_card": functools.partial(halo_rdma.halo_exchange_push, one, base, "x"),
+                "pull_one_card": functools.partial(halo.halo_exchange, one, base, "x"),
+            }
+            row = dict(field=name, global_shape=list(shape), slots=slots, block=list(bshape), exchanges=CARDS_HALO_REPS,
+                       mismatched_elements=0, **bound(slots * (2 * n + 2) * plane * 4, 0),
+                       nvlink_plane_bytes=plane * 4, nvlink_bound_ms=plane * 4 / NVLINK_BYTES_PER_S * 1e3,
+                       ms={k: cuda_time_ms(f, HALO_TIMED) for k, f in calls.items()})
+            for k, f in calls.items():
+                timed[(name, k)] = f
+            rows.append(row)
+        for (name, k), ms in device_times(timed, HALO_TIMED).items():
+            row = next(r for r in rows if r["slots"] == slots and r["field"] == name)
+            row.setdefault("device_ms", {})[k] = ms
+        del timed, base, b_across
+        torch.cuda.empty_cache()
+    return rows
+
+
+def cards_phase(unet_sd):
+    """The port on four cards: every card's nvidia-smi line, path 1 on
+    cuda:3, path 2 across the four cards, row 15's push timed across
+    cards.  Returns the phase's JSON."""
+    import torch
+
+    t0 = time.perf_counter()
+    smi = all_nvidia_smi_lines()
+    for ln in smi:
+        print(ln, flush=True)
+    other = torch.device("cuda", CARDS - 1)
+    out = {"phase": "cards", "nvidia_smi": smi, "count": torch.cuda.device_count()}
+    t = time.perf_counter()
+    out["path1"] = dict(card=str(other), runs=cards_path1(other), seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    out["halo"] = dict(rows=cards_halo(), seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    out["path2"] = dict(runs=cards_path2(unet_sd), seconds=time.perf_counter() - t)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def main(argv=()) -> int:
+    import torch
+
+    cards_only = "--cards" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script only runs on an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -4275,6 +4803,17 @@ def main() -> int:
           "sources": [p.name for p in _cuda_build.sources()], "ptxas": ptxas,
           "redesigned_kernel_resources": kernel_resources(info.log),
           "seconds": time.perf_counter() - t0})
+
+    if cards_only:  # python3 chip_smoke.py --cards: the cards phase alone
+        if count < CARDS:
+            emit({"phase": "cards", "skipped": f"needs {CARDS} cards, this host has {count}"})
+            return 2
+        from python_fluid_simulation_tpu_torch.convert import random_flax_unet_params, unet_state_dict_from_flax
+
+        emit(cards_phase(unet_state_dict_from_flax(random_flax_unet_params(UNET_WIDTH, seed=0))))
+        emit({"phase": "done", "seconds": time.perf_counter() - t_all})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+        return 0
 
     # -- kernels on the real systems of a flagship step
     t0 = time.perf_counter()
@@ -5057,6 +5596,13 @@ def main() -> int:
     emit({"phase": "graph_mesh", "runs": graph_mesh_out, "launches": launches_graph_mesh,
           "seconds": time.perf_counter() - t0})
 
+    # -- the port on four cards: path 1 on another card, path 2 across four,
+    #    the push across cards; on a host of fewer cards one line
+    if count >= CARDS:
+        emit(cards_phase(unet_sd))
+    else:
+        emit({"phase": "cards", "skipped": f"needs {CARDS} cards, this host has {count}"})
+
     # -- summary: the nvidia-smi line, the kernels line, then the result
     every_run = [launches, launches128, launchesc, launches504, launches_m504, *launches_opt.values(), launches256,
                  *launches_unet.values(), launches_train, *launches_mesh.values(), *launches_2d.values(),
@@ -5153,4 +5699,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -110,23 +110,14 @@ cudaError_t launch_pull(const void* table, int slots, long long n, long long pla
 
 }  // namespace
 
-// One device's launch on `stream` of `device` (made current for the launch
-// where it is not).  table: host array of `slots` x 4 pointers (x, lo, hi,
-// out) as PullSlot lays them out; n, plane in floats; vec 4 (every pointer
-// 16-byte aligned, plane % 4 == 0) or 1.
-extern "C" int pfs_halo_pull(const void* table, int slots, long long n, long long plane, int vec, int device,
-                             void* stream) {
+// One device's launch on `stream`, a stream of the current device (the
+// wrapper makes the slots' device current, ops/_cuda_build.py::launching).
+// table: host array of `slots` x 4 pointers (x, lo, hi, out) as PullSlot
+// lays them out; n, plane in floats; vec 4 (every pointer 16-byte aligned,
+// plane % 4 == 0) or 1.
+extern "C" int pfs_halo_pull(const void* table, int slots, long long n, long long plane, int vec, void* stream) {
   if (slots < 1 || slots > kMaxSlots || n < 1 || plane < 1 || (vec != 1 && vec != 4) || plane % vec)
     return (int)cudaErrorInvalidValue;
-  int current = 0;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  e = launch_pull(table, slots, n, plane, vec, static_cast<cudaStream_t>(stream));
-  if (current != device) {
-    const cudaError_t back = cudaSetDevice(current);
-    if (e == cudaSuccess) e = back;
-  }
-  return (int)e;
+  return (int)launch_pull(table, slots, n, plane, vec, static_cast<cudaStream_t>(stream));
 }
 

@@ -11,8 +11,10 @@
 // barrier semaphore; this kernel does the same with plain stores through
 // the neighbours' output pointers and system-scope atomic counters, so the
 // code is the same whether a neighbour's buffer is on this card or is a
-// peer pointer to another (only the one-card form is run: the slots of a
-// mesh share cuda:0).
+// peer pointer to another card: the route of rings that span cards, each
+// slot's launch on its own card, its pushes and the counters (all on slot
+// 0's card) crossing NVLink as peer stores and system-scope atomics
+// (pfs_enable_peer opens every pair a ring or the counters span).
 //
 // One launch a slot, each on its slot's own stream (parallel/halo_rdma.py
 // enqueues every launch of an exchange before any of its completion events,
@@ -49,7 +51,8 @@
 // the two frame planes once (the edge planes are read twice); no
 // arithmetic.  On one card both pushes are device-memory copies, so the
 // exchange's bound is (n + 2 + n) * plane * 4 bytes a slot at 3.35 TB/s;
-// the NVLink bound of a two-card form is one plane a direction at 450 GB/s.
+// across cards each slot also sends one plane a direction over NVLink, at
+// most 450 GB/s each way.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -162,7 +165,24 @@ extern "C" int pfs_halo_grid_cap(int* sms, int* blocks_per_sm) {
   return (int)e;
 }
 
-// One slot's launch.  outs: host array of the ring's `size` output
+// Let the current device's kernels reach `peer`'s memory (one direction).
+// Already enabled (by this library or by PyTorch's own peer copies) is
+// not an error; the sticky error it leaves is cleared.
+extern "C" int pfs_enable_peer(int peer) {
+  int dev = 0, can = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (e != cudaSuccess) return (int)e;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    e = cudaSuccess;
+  }
+  return (int)e;
+}
+
+// One slot's launch (on a stream of the current device, the slot's).  outs: host array of the ring's `size` output
 // pointers, by ring position; sem: this ring's 3 * size counters; err: the
 // mesh's error word; epoch: the mesh's exchange count, this one included;
 // recv_target: the blocks a slot has launched over those exchanges.

@@ -432,7 +432,8 @@ class StepReplayer:
         if mesh is not None and len(set(mesh.devices)) > 1:
             raise NotImplementedError(
                 f"a captured step needs every slot of the mesh on one device, got {mesh}: a CUDA graph records one "
-                "device's stream (ROADMAP queue 1 item 7, \"More than one card\")")
+                "device's stream, and a WHILE body spanning cards is not ported (ROADMAP queue 1 item 7, \"More than "
+                "one card\": the captured form); step such a mesh eagerly with step_3d(mesh=)")
         self.cfg, self.geom, self.unet, self.mesh, self.bucketed = cfg, geom, unet, mesh, bucketed
         # visc_mg int32, whatever it came as (a scene's is a Python 0)
         self.inputs = [torch.empty_like(t) for t in _state_tensors(like)[:-1]]
@@ -476,7 +477,7 @@ class StepReplayer:
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         loops = len(captured_while.body_nodes)
-        with graph_capture(graph, capture_error_mode="thread_local") as body_pool:
+        with graph_capture(graph, dev, capture_error_mode="thread_local") as body_pool:
             out, metrics = self.run(state, branch)
         torch.cuda.synchronize(dev)
         return CapturedStep(graph, body_pool, _state_tensors(out), metrics, time.perf_counter() - t0,
@@ -485,7 +486,8 @@ class StepReplayer:
 
     def replay(self, branch: bool | None) -> CapturedStep:
         cap = self.graph(branch)
-        cap.graph.replay()
+        with torch.cuda.device(self.inputs[0].device):
+            cap.graph.replay()
         self.replays += 1
         return cap
 
@@ -547,7 +549,8 @@ def make_step(cfg: SimConfig, unet=None, mesh=None, bucketed: bool = False):
     the step is `step_3d`'s sharded step, captured the same way: its
     distributed solves are WHILE nodes, and it reads no 'auto' flag (the
     mesh's viscosity solve is the distributed Jacobi-PCG).  A mesh whose
-    slots span several CUDA devices raises NotImplementedError on CUDA."""
+    slots span several CUDA devices raises NotImplementedError at the
+    first call on a CUDA state (its eager step is `step_3d(mesh=)`)."""
     _check_supported(cfg, unet, mesh=mesh, bucketed=bucketed)
     replayed = replaying_step(cfg, unet=unet, replayer=functools.partial(StepReplayer, mesh=mesh, bucketed=bucketed))
 

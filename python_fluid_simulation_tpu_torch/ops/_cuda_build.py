@@ -12,6 +12,7 @@ kernel launch, so the CPU-only tests never need ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -48,7 +49,8 @@ _SIGNATURES = {
     "pfs_fold": [_P] * 4 + [_I] * 9 + [_P, _F, _F, _I, _I, _P],
     "pfs_halo_grid_cap": [_P, _P],
     "pfs_halo_exchange": [_P] * 4 + [_I, _I, _L, _L, ctypes.c_uint, ctypes.c_uint, _I, _P],
-    "pfs_halo_pull": [_P, _I, _L, _L, _I, _I, _P],
+    "pfs_halo_pull": [_P, _I, _L, _L, _I, _P],
+    "pfs_enable_peer": [_I],
     "pfs_while_begin": [_P] * 6 + [_I, _P],
     "pfs_while_end": [_P] * 6 + [_I, _I, _P],
     "pfs_capture_nodes": [_P, _P],
@@ -145,7 +147,35 @@ def check(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def stream_of(t) -> int:
+def launch_device(name: str, *tensors):
+    """The one CUDA device of `tensors` (None entries skipped): a launch
+    runs there.  Raises ValueError where two of them lie on different
+    devices; there is no copy to a common device."""
+    dev = None
+    for t in tensors:
+        if t is None:
+            continue
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: inputs on {dev} and {t.device}; a launch takes tensors of one device")
+    if dev is None or dev.type != "cuda":
+        raise ValueError(f"{name}: a launch needs CUDA tensors, got {dev}")
+    return dev
+
+
+@contextlib.contextmanager
+def launching(name: str, *tensors, stream=None):
+    """The context of every kernel launch: the tensors' one device
+    (`launch_device`) made current, so the launcher's device queries,
+    attributes and cooperative launches are that card's, and the handle
+    of the stream to launch on yielded: ``stream`` (a stream of that
+    device), by default the device's current stream.  The previous
+    device is current again afterwards."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    dev = launch_device(name, *tensors)
+    if stream is not None and stream.device != dev:
+        raise ValueError(f"{name}: a stream of {stream.device} for tensors on {dev}")
+    with torch.cuda.device(dev):
+        yield (stream or torch.cuda.current_stream(dev)).cuda_stream

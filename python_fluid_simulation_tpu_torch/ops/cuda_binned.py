@@ -175,10 +175,11 @@ def serial_reduce(vals, sorted_ids, num_segments: int, op: str = "add", fill: fl
         raise ValueError(f"segment_reduce: {sorted_ids.shape[0]} ids for {k} rows")
     _check_extents("segment_reduce", int(num_segments), c)
     out = torch.empty((c, num_segments) if channels_first else (num_segments, c), dtype=vals.dtype, device=vals.device)
-    err = cb.LIB.get().pfs_binned_reduce(
-        vals.data_ptr(), sorted_ids.data_ptr(), k, int(num_segments), c, int(op == "min"),
-        int(channels_first), float(fill), out.data_ptr(), cb.stream_of(vals),
-    )
+    with cb.launching("segment_reduce", vals, sorted_ids) as stream:
+        err = cb.LIB.get().pfs_binned_reduce(
+            vals.data_ptr(), sorted_ids.data_ptr(), k, int(num_segments), c, int(op == "min"),
+            int(channels_first), float(fill), out.data_ptr(), stream,
+        )
     cb.check(err, "binned_segment_reduce launch")
     serial_reduce.launches += 1
     return out
@@ -248,10 +249,11 @@ def place_live(scanned, sorted_ids, num_segments: int, op: str = "add", fill: fl
     live = torch.empty((c, cap), dtype=scanned.dtype, device=scanned.device)
     slot = torch.empty((m,), dtype=torch.int32, device=scanned.device)
     work = torch.empty((2 * -(-m // LIVE_TILE) + 1,), dtype=torch.int64, device=scanned.device)  # tile starts, counts
-    err = cb.LIB.get().pfs_binned_place_live(
-        scanned.data_ptr(), sorted_ids.data_ptr(), k, m, c, int(op == "min"), float(fill),
-        live.data_ptr(), cap, slot.data_ptr(), work.data_ptr(), work.numel(), cb.stream_of(scanned),
-    )
+    with cb.launching("place_live", scanned, sorted_ids) as stream:
+        err = cb.LIB.get().pfs_binned_place_live(
+            scanned.data_ptr(), sorted_ids.data_ptr(), k, m, c, int(op == "min"), float(fill),
+            live.data_ptr(), cap, slot.data_ptr(), work.data_ptr(), work.numel(), stream,
+        )
     cb.check(err, "binned_segment_place_live launch")
     place_live.launches += 1
     return LiveTable(live, slot, (m,), float(fill), tuple(range(c)))
@@ -282,9 +284,10 @@ def segment_broadcast(table, sorted_ids):
     _check_extents("segment_broadcast", m, c)
     k = sorted_ids.shape[0]
     out = torch.empty((k, c), dtype=table.dtype, device=table.device)
-    err = cb.LIB.get().pfs_binned_broadcast(
-        table.data_ptr(), sorted_ids.data_ptr(), k, m, c, out.data_ptr(), cb.stream_of(table),
-    )
+    with cb.launching("segment_broadcast", table, sorted_ids) as stream:
+        err = cb.LIB.get().pfs_binned_broadcast(
+            table.data_ptr(), sorted_ids.data_ptr(), k, m, c, out.data_ptr(), stream,
+        )
     cb.check(err, "binned_segment_broadcast launch")
     segment_broadcast.launches += 1
     return out

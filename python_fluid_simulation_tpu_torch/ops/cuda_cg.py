@@ -326,10 +326,11 @@ def coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, *, same_axis_only: bool = False
     vs = [v.contiguous() for v in vs]
     q = [torch.empty_like(v) for v in vs]
     s_mu = s_mu.contiguous()
-    err = cb.LIB.get().pfs_coupled_matvec(
-        plan.ctypes.data, plan.nbytes, tiles_y, tiles_z, chunk, geom.data_ptr(), *[v.data_ptr() for v in vs],
-        s_mu.data_ptr(), *[t.data_ptr() for t in q], int(bool(same_axis_only)), cb.stream_of(vs[0]),
-    )
+    with cb.launching("coupled_matvec_geom", *vs, s_mu, geom) as stream:
+        err = cb.LIB.get().pfs_coupled_matvec(
+            plan.ctypes.data, plan.nbytes, tiles_y, tiles_z, chunk, geom.data_ptr(), *[v.data_ptr() for v in vs],
+            s_mu.data_ptr(), *[t.data_ptr() for t in q], int(bool(same_axis_only)), stream,
+        )
     cb.check(err, "coupled_matvec_geom launch")
     coupled_matvec_geom.launches += 1
     if same_axis_only:
@@ -382,12 +383,13 @@ def coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, *, tol, rel_tol, max_iter):
     def ptrs(ts):
         return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
-    err = lib.pfs_coupled_visc_pcg(
-        plan.ctypes.data, plan.nbytes, tiles_y, tiles_z, chunk, *box, ptrs(classes), ptrs(fields),
-        s_mu.data_ptr(), ptrs(x + r), work.data_ptr(), work.numel(), part.data_ptr(), _PART_CAP,
-        iters.data_ptr(), res.data_ptr(), res0.data_ptr(), thresh.data_ptr(), tol2, rel2, int(max_iter),
-        cb.stream_of(b[0]),
-    )
+    with cb.launching("coupled_visc_pcg", *fields, *classes, s_mu) as stream:
+        err = lib.pfs_coupled_visc_pcg(
+            plan.ctypes.data, plan.nbytes, tiles_y, tiles_z, chunk, *box, ptrs(classes), ptrs(fields),
+            s_mu.data_ptr(), ptrs(x + r), work.data_ptr(), work.numel(), part.data_ptr(), _PART_CAP,
+            iters.data_ptr(), res.data_ptr(), res0.data_ptr(), thresh.data_ptr(), tol2, rel2, int(max_iter),
+            stream,
+        )
     cb.check(err, "coupled_visc_pcg launch")
     coupled_visc_pcg.launches += 1
     return x, iters, res, res0, thresh, r

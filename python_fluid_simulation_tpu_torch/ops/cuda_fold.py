@@ -204,12 +204,13 @@ def fold(seg, axis_shifts, out_shape: Sequence[int], combine: str = "add", fill=
         raise ValueError(f"fold: unknown combine {combine!r}")
     out = torch.empty(tuple(int(n) for n in out_shape), dtype=torch.float32, device=dev)
     flat = [s for a in shifts for s in a]
-    err = cb.LIB.get().pfs_fold(
-        values.data_ptr(), (ctypes.c_longlong * n_ch)(*choff), slot, out.data_ptr(), e0, e1, e2, *out.shape,
-        *[len(s) for s in shifts], (ctypes.c_int * len(flat))(*flat), float(np.float32(fill)),
-        float(np.float32(table_fill)), int(fold_shortcut(table_fill, fill, combine)), int(combine == "min"),
-        cb.stream_of(values),
-    )
+    with cb.launching("fold", values, seg.slot if live else None) as stream:
+        err = cb.LIB.get().pfs_fold(
+            values.data_ptr(), (ctypes.c_longlong * n_ch)(*choff), slot, out.data_ptr(), e0, e1, e2, *out.shape,
+            *[len(s) for s in shifts], (ctypes.c_int * len(flat))(*flat), float(np.float32(fill)),
+            float(np.float32(table_fill)), int(fold_shortcut(table_fill, fill, combine)), int(combine == "min"),
+            stream,
+        )
     cb.check(err, "fold launch")
     fold.launches += 1
     return out

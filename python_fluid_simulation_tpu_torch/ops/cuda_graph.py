@@ -25,26 +25,38 @@ from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
 _POOLS: list = []  # the body pools of the graphs `graph_capture` is capturing, innermost last
 
 
+@functools.lru_cache(maxsize=None)
+def capture_stream(index: int) -> torch.cuda.Stream:
+    """The stream device `index`'s graphs are captured on, made once
+    (``torch.cuda.graph``'s own default is one stream of whichever device
+    was current at its first use, for every later capture)."""
+    return torch.cuda.Stream(device=index)
+
+
 @contextlib.contextmanager
-def graph_capture(graph: "torch.cuda.CUDAGraph", **kw):
-    """``torch.cuda.graph(graph, **kw)`` with a private pool of its own for
-    the loop bodies `captured_while` records, which it yields: the body
-    graphs keep using its memory, so it must live as long as ``graph``.
-    (The caching allocator refuses a second route to the graph's own pool
-    while the graph is being captured.)  ``graph_capture.nodes`` is then
-    the top-level node count of the graph it captured last (a WHILE node
+def graph_capture(graph: "torch.cuda.CUDAGraph", device=None, **kw):
+    """``torch.cuda.graph(graph, **kw)`` on ``device`` (default: the
+    current one), made current for the capture and recorded on its
+    `capture_stream`, with a private pool of its own for the loop bodies
+    `captured_while` records, which it yields: the body graphs keep using
+    its memory, so it must live as long as ``graph``.  (The caching
+    allocator refuses a second route to the graph's own pool while the
+    graph is being captured.)  ``graph_capture.nodes`` is then the
+    top-level node count of the graph it captured last (a WHILE node
     once; ``captured_while.body_nodes`` has each body's)."""
-    body_pool = torch.cuda.MemPool()
-    with torch.cuda.graph(graph, **kw):
-        _POOLS.append(body_pool)
-        try:
-            yield body_pool
-            count = ctypes.c_ulonglong(0)
-            cb.check(cb.LIB.get().pfs_capture_nodes(torch.cuda.current_stream().cuda_stream, ctypes.byref(count)),
-                     "graph node count")
-            graph_capture.nodes = count.value
-        finally:
-            _POOLS.pop()
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+    with torch.cuda.device(dev):
+        body_pool = torch.cuda.MemPool()  # a pool belongs to the device current at its making
+        with torch.cuda.graph(graph, stream=capture_stream(dev.index), **kw):
+            _POOLS.append(body_pool)
+            try:
+                yield body_pool
+                count = ctypes.c_ulonglong(0)
+                cb.check(cb.LIB.get().pfs_capture_nodes(torch.cuda.current_stream().cuda_stream,
+                                                        ctypes.byref(count)), "graph node count")
+                graph_capture.nodes = count.value
+            finally:
+                _POOLS.pop()
 
 
 graph_capture.nodes = 0
@@ -74,9 +86,12 @@ def captured_while(body, k, res, thresh, delta, max_iter: int):
     if dev.type != "cuda" or not torch.cuda.is_current_stream_capturing() or not _POOLS:
         raise RuntimeError("captured_while: the current stream is not being captured by graph_capture")
     lib = cb.LIB.get()
-    side = body_stream(torch.cuda.current_device() if dev.index is None else dev.index)
+    side = body_stream(dev.index)
     handle = ctypes.c_ulonglong(0)
     args = (k.data_ptr(), res.data_ptr(), thresh.data_ptr(), delta.data_ptr(), int(max_iter))
+    if torch.cuda.current_device() != dev.index:
+        raise RuntimeError(f"captured_while: the loop's tensors are on {dev}, the capture on "
+                           f"cuda:{torch.cuda.current_device()}")
     cb.check(lib.pfs_while_begin(torch.cuda.current_stream(dev).cuda_stream, side.cuda_stream, *args,
                                  ctypes.byref(handle)), "while node")
     recorded = False

@@ -42,24 +42,40 @@ def grid_size(elems: int, n_launches: int, device: torch.device) -> int:
     return max(1, min(cap, -(-elems // THREADS)))
 
 
-def launch(x: torch.Tensor, table: np.ndarray, sem_ptr: int, err_ptr: int, pos: int, n: int, plane: int,
-           epoch: int, recv_target: int, grid: int, stream: torch.cuda.Stream):
-    """One slot's launch on `stream`: x is its (n, plane) block, table the
-    uint64 output pointers of its ring by position, sem_ptr the ring's
-    counters; epoch and recv_target as `parallel.mesh.Mesh.next_exchange`
-    gives them."""
-    err = cb.LIB.get().pfs_halo_exchange(
-        x.data_ptr(), table.ctypes.data, sem_ptr, err_ptr, pos, len(table), n, plane, epoch, recv_target, grid,
-        stream.cuda_stream,
-    )
+def launch(x: torch.Tensor, out: torch.Tensor, table: np.ndarray, sem_ptr: int, err_ptr: int, pos: int, n: int,
+           plane: int, epoch: int, recv_target: int, grid: int, stream: torch.cuda.Stream):
+    """One slot's launch on `stream`, a stream of its device: x is its
+    (n, plane) block, out its output (both on that device), table the
+    uint64 output pointers of its ring by position (a neighbour's on
+    another card is a peer pointer), sem_ptr the ring's counters; epoch
+    and recv_target as `parallel.mesh.Mesh.next_exchange` gives them."""
+    with cb.launching("halo_exchange_push", x, out, stream=stream) as st:
+        err = cb.LIB.get().pfs_halo_exchange(
+            x.data_ptr(), table.ctypes.data, sem_ptr, err_ptr, pos, len(table), n, plane, epoch, recv_target,
+            grid, st,
+        )
     cb.check(err, "halo_exchange_rdma launch")
 
 
-def pull(table, n: int, plane: int, vec: int, device: torch.device, stream: torch.cuda.Stream):
-    """One device's pull launch on `stream` of `device`: table the flat
-    addresses, four a slot (block, left neighbour's top plane or 0, right
-    neighbour's bottom plane or 0, output), n and plane in floats, vec 4
-    or 1 (`parallel.halo_rdma.vector_floats`)."""
+def pull(table, n: int, plane: int, vec: int, out: torch.Tensor):
+    """One device's pull launch on the current stream of `out`'s device:
+    table the flat addresses, four a slot (block, left neighbour's top
+    plane or 0, right neighbour's bottom plane or 0, output, in `out`),
+    n and plane in floats, vec 4 or 1
+    (`parallel.halo_rdma.vector_floats`)."""
     addresses = (ctypes.c_uint64 * len(table))(*table)
-    err = cb.LIB.get().pfs_halo_pull(addresses, len(table) // 4, n, plane, vec, device.index, stream.cuda_stream)
+    with cb.launching("halo_exchange_rdma", out) as stream:
+        err = cb.LIB.get().pfs_halo_pull(addresses, len(table) // 4, n, plane, vec, stream)
     cb.check(err, "halo_exchange_rdma pull launch")
+
+
+def enable_peer_access(device: torch.device, peer: torch.device):
+    """Let kernels on `device` read and write `peer`'s memory (one
+    direction; already enabled is fine).  Raises where the pair has no
+    peer access: no push route runs without it."""
+    if device == peer:
+        return
+    if not torch.cuda.can_device_access_peer(device, peer):
+        raise RuntimeError(f"{device} has no peer access to {peer}: a push ring or its counters span the pair")
+    with torch.cuda.device(device):
+        cb.check(cb.LIB.get().pfs_enable_peer(peer.index), f"peer access {device} -> {peer}")

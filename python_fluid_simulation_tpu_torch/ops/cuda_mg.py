@@ -226,10 +226,11 @@ def launch_tail(tail: VcycleTail, x, r, block_level: int):
     if tail.levels[0].diag.device != x.device:
         raise ValueError(f"vcycle_tail: the hierarchy is on {tail.levels[0].diag.device}, x on {x.device}")
     out = torch.empty_like(x)
-    err = cb.LIB.get().pfs_mg_vcycle_tail(
-        tail.desc.ctypes.data, len(tail.levels), int(block_level), x.data_ptr(), r.data_ptr(), out.data_ptr(),
-        *batched(tail.fine_shape), tail.n_smooth, tail.coarse_iters, tail.omega, cb.stream_of(x),
-    )
+    with cb.launching("mg_vcycle_tail", x, r, tail.levels[0].diag) as stream:
+        err = cb.LIB.get().pfs_mg_vcycle_tail(
+            tail.desc.ctypes.data, len(tail.levels), int(block_level), x.data_ptr(), r.data_ptr(), out.data_ptr(),
+            *batched(tail.fine_shape), tail.n_smooth, tail.coarse_iters, tail.omega, stream,
+        )
     cb.check(err, "mg_vcycle_tail launch")
     return out
 

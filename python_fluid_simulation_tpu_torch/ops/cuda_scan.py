@@ -82,8 +82,9 @@ def seg_scan_sorted(vals: torch.Tensor, same: torch.Tensor, op: str = "add") -> 
     if not 0 < c <= MAX_CHANNELS:
         raise ValueError(f"seg_scan_sorted: 1 to {MAX_CHANNELS} channels, got {c}")
     out = torch.empty_like(vals)
-    err = cb.LIB.get().pfs_seg_scan(vals.data_ptr(), same.data_ptr(), k, c, int(op == "min"), out.data_ptr(),
-                                    cb.stream_of(vals))
+    with cb.launching("seg_scan_sorted", vals, same) as stream:
+        err = cb.LIB.get().pfs_seg_scan(vals.data_ptr(), same.data_ptr(), k, c, int(op == "min"), out.data_ptr(),
+                                        stream)
     cb.check(err, "seg_scan_sorted launch")
     seg_scan_sorted.launches += 1
     return out

@@ -152,10 +152,11 @@ def stencil_matvec(diag, coefs, p):
     check_stencil("stencil_matvec", shape, p.device, diag, coefs)
     check_field("p", p, shape, p.device)
     q = torch.empty_like(p)
-    err = cb.LIB.get().pfs_stencil_matvec(
-        diag.data_ptr(), *[c.data_ptr() for _, c in coefs], p.data_ptr(), q.data_ptr(),
-        *batched(shape), cb.stream_of(p),
-    )
+    with cb.launching("stencil_matvec", p, diag) as stream:
+        err = cb.LIB.get().pfs_stencil_matvec(
+            diag.data_ptr(), *[c.data_ptr() for _, c in coefs], p.data_ptr(), q.data_ptr(),
+            *batched(shape), stream,
+        )
     cb.check(err, "stencil_matvec launch")
     stencil_matvec.launches += 1
     return q
@@ -184,13 +185,14 @@ def _poisson_pcg(name, b, x0, diag, coefs, pd, tol2, rel2, max_iter):
     iters = torch.empty((), dtype=torch.int32, device=b.device)
     res = torch.empty((), dtype=torch.float32, device=b.device)
     res0 = torch.empty((), dtype=torch.float32, device=b.device)
-    err = cb.LIB.get().pfs_poisson_pcg(
-        b.data_ptr(), 0 if x0 is None else x0.data_ptr(), diag.data_ptr(), *[c.data_ptr() for _, c in coefs],
-        pd.data_ptr(), x.data_ptr(), r.data_ptr(), d0.data_ptr(), d1.data_ptr(), q.data_ptr(),
-        part.data_ptr(), _PART_CAP, live.data_ptr(), live.numel(),
-        iters.data_ptr(), res.data_ptr(), res0.data_ptr(), *shape,
-        tol2, rel2, int(max_iter), cb.stream_of(b),
-    )
+    with cb.launching(name, b, x0, diag, pd) as stream:
+        err = cb.LIB.get().pfs_poisson_pcg(
+            b.data_ptr(), 0 if x0 is None else x0.data_ptr(), diag.data_ptr(), *[c.data_ptr() for _, c in coefs],
+            pd.data_ptr(), x.data_ptr(), r.data_ptr(), d0.data_ptr(), d1.data_ptr(), q.data_ptr(),
+            part.data_ptr(), _PART_CAP, live.data_ptr(), live.numel(),
+            iters.data_ptr(), res.data_ptr(), res0.data_ptr(), *shape,
+            tol2, rel2, int(max_iter), stream,
+        )
     cb.check(err, f"{name} launch")
     return x, iters, res, res0, threshold(tol2, rel2, res0)
 
@@ -313,9 +315,10 @@ def coupled_stencil_matvec(diags, per_axis, vs, *, packed: CoupledStencil | None
         check_field(f"v[{a}]", vs[a], packed.shapes[a], packed.device)
     q = tuple(torch.empty_like(v) for v in vs)
     ptrs = np.concatenate((packed.ptrs, np.array([t.data_ptr() for t in (*vs, *q)], dtype=np.uint64)))
-    err = cb.LIB.get().pfs_coupled_stencil_matvec(
-        ptrs.ctypes.data, packed.dims.ctypes.data, packed.terms.ctypes.data, cb.stream_of(vs[0]),
-    )
+    with cb.launching("coupled_stencil_matvec", *vs) as stream:
+        err = cb.LIB.get().pfs_coupled_stencil_matvec(
+            ptrs.ctypes.data, packed.dims.ctypes.data, packed.terms.ctypes.data, stream,
+        )
     cb.check(err, "coupled_stencil_matvec launch")
     coupled_stencil_matvec.launches += 1
     return q

@@ -115,6 +115,9 @@ P3_CENTER = (1, 1, 1)
 P3_XFACE = (0, 1, 1)
 P3_YFACE = (1, 0, 1)
 P3_ZFACE = (1, 1, 0)
+P3_XYEDGE = (0, 0, 1)  # dual sites offset in x and y (a z-aligned edge)
+P3_XZEDGE = (0, 1, 0)
+P3_YZEDGE = (1, 0, 0)
 P3_NODE = (0, 0, 0)
 
 # Canonical parity tuples (2D)

@@ -1,4 +1,5 @@
-"""Spatial decomposition: meshes of device slots, halo exchanges and the
-distributed solves of the sharded step, and bucketed particle residency
-on 1D slab meshes (counterpart of ``python_fluid_simulation_tpu.parallel``;
-the (x, z) residency of its ``particles2d.py`` is not ported)."""
+"""Spatial decomposition: meshes of device slots (on one card or over
+several), the placements, halo exchanges and the distributed solves of
+the sharded step, and bucketed particle residency on 1D slab meshes and
+(x, z) meshes (counterpart of ``python_fluid_simulation_tpu.parallel``,
+all of it)."""

@@ -7,11 +7,15 @@ and reduces CG dots with ``psum``.  Here one process drives the slots of
 a `parallel.mesh.Mesh`: a sharded field is the list of its slot blocks,
 `halo_exchange` frames every block with its neighbours' edges, and
 `psum_dot` sums the slots' fp32 partial dots on slot 0's device in slot
-order.  Width-1 exchanges along array axis 0 of CUDA blocks take the halo
+order.  Each slot's blocks live on its own device (card i for slot i of
+a mesh over the cards), so a dot's partials, the scalars of the carry
+(`_scalar_on`) and every exchange cross cards once an iteration.
+Width-1 exchanges along array axis 0 of CUDA blocks take the halo
 kernels (``parallel/halo_rdma.py``: one pull launch a device, or the push
-where a ring spans devices); every other exchange, and every
-exchange of CPU blocks, takes the plain route, as every exchange but
-that one keeps ``ppermute`` in the JAX package.
+over NVLink where a ring spans devices); every other exchange, and every
+exchange of CPU blocks, takes the plain route (peer copies between
+cards), as every exchange but that one keeps ``ppermute`` in the JAX
+package.
 
 The CG loops (`distributed_cell_poisson`, `distributed_coupled_cg`) are
 the JAX package's: x0 = 0 for the cell solves, the fp32 threshold
@@ -26,8 +30,8 @@ into a CUDA graph (``engine/step.py::make_step`` with a mesh) the
 iteration is recorded once as the body of a WHILE node whose test runs
 on the device, the carry in buffers of its own.  A captured loop needs
 every slot on one device (a graph records one device's stream): a mesh
-over several devices raises there (ROADMAP queue 1 item 7, "More than
-one card").
+over several cards runs eagerly and raises under capture (ROADMAP queue
+1 item 7, "More than one card": the captured form).
 """
 
 from __future__ import annotations
@@ -215,7 +219,7 @@ def _solve_loop(mesh: Mesh, carry: CGCarry, thresh, max_iter: int, iteration) ->
     if len(set(mesh.devices)) > 1 and cg.capturing(thresh.device):
         raise NotImplementedError(
             f"a captured distributed solve needs every slot on one device, got {mesh}: a CUDA graph records one "
-            "device's stream (ROADMAP queue 1 item 7, \"More than one card\")")
+            "device's stream (ROADMAP queue 1 item 7, \"More than one card\": the captured form)")
     return cg.loop(carry, thresh, max_iter, iteration)
 
 

@@ -9,15 +9,19 @@ domain's ends.
 
 The route comes from the mesh's devices alone (`halo_route`):
 
-* **pull** (every ring along the axis on one device; on a one-card
-  machine every mesh): ``csrc/halo_pull.cu``, one launch a device an
-  exchange on the caller's current stream, covering every ring of that
-  device.  Each output is written whole: the interior from the slot's
+* **pull** (every ring along the axis on one device: every mesh of
+  `make_mesh` / `make_mesh2d`, whose slots share one card):
+  ``csrc/halo_pull.cu``, one launch a device an exchange on the caller's
+  current stream, covering every ring of that device.  Each output is written whole: the interior from the slot's
   own block, each frame plane read straight from the neighbour's block,
   which stream order has completed.  The outputs of a device are one
   (slots, n + 2, ...) allocation, handed back as per-slot views.
-* **push** (a ring spans devices; `halo_exchange_push`): ``csrc/
-  halo_rdma.cu``, one launch a slot, each on its own stream: the streams
+* **push** (a ring spans devices, as on a mesh over several cards;
+  `halo_exchange_push`): ``csrc/halo_rdma.cu``, one launch a slot, each
+  on its own card and stream, the pushes to a neighbour on another card
+  peer stores over NVLink, the counters system-scope atomics on slot 0's
+  card (`peer_pairs`: every such pair gets peer access at the first
+  exchange, and a pair without it raises); the streams
   wait on an event of the caller's stream, every launch of the exchange
   is enqueued before any completion event (so no launch queues behind
   another slot's), then the caller's stream waits on every slot's event,
@@ -35,7 +39,8 @@ saw, which are the loop's carried buffers and the body pool's, fixed for
 every replay, and ``halo_exchange_rdma.launches`` counts recordings, not
 replays (a replayed step's launches follow from its iterations).  The
 push takes a host epoch a replay would repeat stale, and raises under
-capture (ROADMAP queue 1 item 7, "More than one card").
+capture (ROADMAP queue 1 item 7, "More than one card": its captured
+form is not ported).
 
 On CPU blocks either wrapper runs the plain version (slices, ``.to()``,
 ``torch.cat``).
@@ -43,6 +48,7 @@ On CPU blocks either wrapper runs the plain version (slices, ``.to()``,
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import List, Sequence
 
@@ -84,11 +90,28 @@ def pull_plan(mesh, axis_name: str):
     return list(by_device.items())
 
 
+def peer_pairs(mesh, axis_name: str):
+    """The (device, peer) pairs of distinct devices whose kernels a push
+    exchange along `axis_name` lets write the peer's memory: each ring's
+    neighbours both ways (each pushes a plane into the other's output),
+    and every slot's device towards slot 0's, which holds the counters."""
+    pairs = set()
+    for ring in mesh.rings(axis_name):
+        for a, b in zip(ring, ring[1:]):
+            pairs |= {(mesh.devices[a], mesh.devices[b]), (mesh.devices[b], mesh.devices[a])}
+    pairs |= {(d, mesh.devices[0]) for d in mesh.devices}
+    return sorted(((a, b) for a, b in pairs if a != b), key=str)
+
+
 def _plan(mesh, axis_name: str):
-    """(route, pull plan) of an axis, made once a mesh."""
+    """(route, pull plan) of an axis, made once a mesh; the push route's
+    peer access is opened here, once."""
     plan = mesh.halo_plans.get(axis_name)
     if plan is None:
         route = halo_route(mesh, axis_name)
+        if route == "push":
+            for dev, peer in peer_pairs(mesh, axis_name):
+                cuda_halo.enable_peer_access(dev, peer)
         plan = mesh.halo_plans[axis_name] = (route, pull_plan(mesh, axis_name) if route == "pull" else None)
     return plan
 
@@ -151,7 +174,7 @@ def halo_exchange_rdma(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x
             raise ValueError(f"halo_exchange_rdma: at most {cuda_halo.MAX_PULL_SLOTS} slots a device")
         buf = torch.empty((len(entries), n + 2) + shape[1:], dtype=torch.float32, device=dev)
         table = pull_table(entries, blocks, buf, n, plane)
-        cuda_halo.pull(table, n, plane, vector_floats(plane, table), dev, torch.cuda.current_stream(dev))
+        cuda_halo.pull(table, n, plane, vector_floats(plane, table), buf)
         halo_exchange_rdma.launches += 1
         for (s, _, _), view in zip(entries, buf.unbind(0)):
             outs[s] = view
@@ -163,16 +186,17 @@ halo_exchange_rdma.launches = 0  # one a device an exchange (the pull route), as
 
 def halo_exchange_push(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x") -> List[torch.Tensor]:
     """`halo_exchange_rdma` by remote push, one launch a slot on its own
-    stream: the route of rings that span devices, and callable on any
-    mesh of CUDA blocks (the slots of one device push through plain
-    device pointers).  CPU blocks run the plain version."""
+    card and stream: the route of rings that span devices, and callable
+    on any mesh of CUDA blocks (the slots of one device push through
+    plain device pointers).  CPU blocks run the plain version."""
     if all(b.device.type == "cpu" for b in blocks):
         return halo_exchange_rdma_plain(mesh, blocks, axis_name)
     if torch.cuda.is_current_stream_capturing():
         raise NotImplementedError(
             "halo_exchange_push under CUDA graph capture: its epoch is a host counter that a replay would repeat "
-            "stale (ROADMAP queue 1 item 7, \"More than one card\")")
+            "stale (ROADMAP queue 1 item 7, \"More than one card\": its captured form is not ported)")
     shape = _check_blocks("halo_exchange_push", mesh, blocks)
+    _plan(mesh, axis_name)  # the pairs' peer access, once a mesh and axis
     rings = mesh.rings(axis_name)
     if len(rings[0]) > cuda_halo.MAX_RING:
         raise ValueError(f"halo_exchange_push: at most {cuda_halo.MAX_RING} slots along {axis_name!r}")
@@ -184,7 +208,10 @@ def halo_exchange_push(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x
     streams = mesh.slot_streams()
     ready, done = mesh.halo_events()
     sem = mesh.halo_semaphores()
-    grid = cuda_halo.grid_size(n * plane, mesh.size, blocks[0].device)
+    # one grid for every launch (the counters count blocks), sized for the
+    # device that holds the most of the exchange's spinning launches
+    per_device = collections.Counter(mesh.devices)
+    grid = min(cuda_halo.grid_size(n * plane, k, dev) for dev, k in per_device.items())
     epoch, recv_target = mesh.next_exchange(grid)
     tables = [np.array([outs[s].data_ptr() for s in ring], dtype=np.uint64) for ring in rings]
     err_ptr = sem.data_ptr() + 4 * 3 * mesh.size
@@ -195,7 +222,8 @@ def halo_exchange_push(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x
     for r, (ring, table) in enumerate(zip(rings, tables)):
         sem_ptr = sem.data_ptr() + 4 * 3 * len(ring) * r
         for pos, s in enumerate(ring):
-            cuda_halo.launch(blocks[s], table, sem_ptr, err_ptr, pos, n, plane, epoch, recv_target, grid, streams[s])
+            cuda_halo.launch(blocks[s], outs[s], table, sem_ptr, err_ptr, pos, n, plane, epoch, recv_target, grid,
+                             streams[s])
             halo_exchange_push.launches += 1
     for s, st in enumerate(streams):
         done[s].record(st)

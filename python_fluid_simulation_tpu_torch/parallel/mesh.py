@@ -5,23 +5,30 @@ package is single-controller: one process drives a ``jax.sharding.Mesh``
 through ``shard_map``.  The port keeps that model: a `Mesh` is one
 process's ordered list of device *slots* over named axes (``"x"``, or
 ``"x"`` and ``"z"``), and each slot owns one block of every sharded
-grid field.  A slot may repeat a device, so one card holds several
-slots (``make_mesh(4)`` puts four slabs on ``cuda:0``; the CPU tests put
-four on ``cpu``).  A halo exchange whose rings each sit on one device
-is one launch a device on the caller's stream; where a ring spans
-devices each slot pushes on a stream of its own
-(``parallel/halo_rdma.py``).
+grid field, on its device.  A slot may repeat a device, so one card
+holds several slots: ``make_mesh(4)`` puts four slabs on the current
+card (the CPU tests put four on ``cpu``).  A mesh over several cards, as
+JAX's ``make_mesh(n)`` takes the first n of ``jax.devices()``, is
+``make_mesh(n, devices=cuda_devices(n))`` (or ``make_mesh2d(shape,
+devices=...)``, or `Mesh` itself): slot i on ``cuda:i``.  A halo
+exchange whose rings each sit on one device is one launch a device on
+the caller's stream; where a ring spans devices each slot pushes on its
+own card and stream, over NVLink (``parallel/halo_rdma.py``).
 
 Grid arrays decompose along array axis 0 over mesh axis "x" and, on a 2D
-mesh, along array axis 2 over "z"; trailing axes stay whole.  A sharded
-field is the list of its blocks in slot order (`split_blocks`,
-`gather_blocks`: the counterpart of ``grid_pspec``'s layout).
+mesh, along array axis 2 over "z"; trailing axes stay whole; particles
+along their rows over every slot.  The three placements
+(`particle_sharding`, `grid_sharding`, `replicated`: JAX's
+``NamedSharding`` objects of the same names) say which slices each slot holds
+(`Placement.devices_indices_map`) and cut a global array into its slot
+blocks on the slots' devices (`Placement.split`; `split_blocks`,
+`gather_blocks` for grid fields).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -124,20 +131,39 @@ class Mesh:
         return self._epoch, self._blocks
 
 
-def make_mesh(n_devices: Optional[int] = None, device=None, axis: str = GRID_AXIS) -> Mesh:
+def cuda_devices(n: int) -> List[torch.device]:
+    """The first ``n`` CUDA devices, ``cuda:0`` to ``cuda:n-1`` (JAX's
+    ``jax.devices()[:n]``); raises where the process sees fewer."""
+    have = torch.cuda.device_count()
+    if n > have:
+        raise ValueError(f"requested {n} devices, have {have}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _slots(n: int, device, devices) -> list:
+    if devices is None:
+        return [device or "cuda"] * n
+    if device is not None or len(devices) != n:
+        raise ValueError(f"give either one device or {n} devices, one a slot; got {device!r} and {devices!r}")
+    return list(devices)
+
+
+def make_mesh(n_devices: Optional[int] = None, device=None, axis: str = GRID_AXIS, devices=None) -> Mesh:
     """1D mesh of ``n_devices`` slots (x-slab decomposition), every slot
-    on ``device`` (by default ``cuda``, the current card).  Without
-    ``n_devices``: as many slots as CUDA devices.  A mesh over several
-    devices is built with `Mesh` itself."""
-    n = n_devices or torch.cuda.device_count()
-    return Mesh([device or "cuda"] * n, (axis,), (n,))
+    on ``device`` (by default ``cuda``, the current card), or slot i on
+    ``devices[i]``: ``make_mesh(4, devices=cuda_devices(4))`` is JAX's
+    ``make_mesh(4)`` over four cards.  Without ``n_devices``: as many
+    slots as CUDA devices (or as ``devices`` lists)."""
+    n = n_devices or (len(devices) if devices is not None else torch.cuda.device_count())
+    return Mesh(_slots(n, device, devices), (axis,), (n,))
 
 
-def make_mesh2d(shape: Tuple[int, int], device=None) -> Mesh:
-    """2D (x, z) mesh, every slot on ``device`` (default ``cuda``): grid
-    arrays split along both spatial axes 0 and 2; an (nx, ny, nz) field
-    owns (nx/sx, ny, nz/sz) blocks."""
-    return Mesh([device or "cuda"] * (shape[0] * shape[1]), (GRID_AXIS, GRID_AXIS_Z), tuple(shape))
+def make_mesh2d(shape: Tuple[int, int], device=None, devices=None) -> Mesh:
+    """2D (x, z) mesh, every slot on ``device`` (default ``cuda``), or
+    slot (i, k) on ``devices[i * sz + k]`` (JAX's row-major reshape of
+    ``jax.devices()[:sx * sz]``): grid arrays split along both spatial
+    axes 0 and 2; an (nx, ny, nz) field owns (nx/sx, ny, nz/sz) blocks."""
+    return Mesh(_slots(shape[0] * shape[1], device, devices), (GRID_AXIS, GRID_AXIS_Z), tuple(shape))
 
 
 def spatial_axes(mesh: Mesh) -> Sequence[Tuple[str, int]]:
@@ -167,43 +193,107 @@ def _slot_coords(mesh: Mesh, slot: int) -> dict:
     return {names[0]: slot // sz, names[1]: slot % sz}
 
 
+class Placement:
+    """How a global array lies over a mesh's slots: the port's JAX
+    ``NamedSharding(mesh, PartitionSpec(*spec))``.  ``spec`` names, for
+    each leading array axis, the mesh axis it is split over, a tuple of
+    mesh axes (split over their product, the first the slowest), or None
+    (whole); axes past it are whole."""
+
+    def __init__(self, mesh: Mesh, spec: Sequence = ()):
+        self.mesh, self.spec = mesh, tuple(spec)
+
+    def __repr__(self):
+        return f"Placement({self.mesh}, {self.spec})"
+
+    def devices_indices_map(self, shape) -> Dict[int, Tuple[slice, ...]]:
+        """{slot: the index of the block it holds}, one slice an axis, as
+        JAX's ``NamedSharding.devices_indices_map`` gives them (keyed by
+        slot, not device: slots may share a device).  Every split extent
+        must divide its mesh extent."""
+        if len(self.spec) > len(shape):
+            raise ValueError(f"{self.spec} names more axes than {tuple(shape)} has")
+        spec = self.spec + (None,) * (len(shape) - len(self.spec))
+        out = {}
+        for s in range(self.mesh.size):
+            coords = _slot_coords(self.mesh, s)
+            idx = []
+            for arr_axis, names in enumerate(spec):
+                if names is None:
+                    idx.append(slice(None))
+                    continue
+                names = (names,) if isinstance(names, str) else tuple(names)
+                parts, pos = 1, 0
+                for name in names:
+                    parts, pos = parts * self.mesh.shape[name], pos * self.mesh.shape[name] + coords[name]
+                if shape[arr_axis] % parts:
+                    raise ValueError(f"axis {arr_axis} of {tuple(shape)} does not divide mesh axis {names}")
+                w = shape[arr_axis] // parts
+                idx.append(slice(pos * w, (pos + 1) * w))
+            out[s] = tuple(idx)
+        return out
+
+    def block(self, a: torch.Tensor, slot: int, index=None) -> torch.Tensor:
+        """Slot ``slot``'s block of `a`, contiguous, on the slot's device."""
+        index = self.devices_indices_map(a.shape)[slot] if index is None else index
+        return a[index].to(self.mesh.devices[slot]).contiguous()
+
+    def split(self, a: torch.Tensor) -> List[torch.Tensor]:
+        """`a` cut into its slot blocks, in slot order, each contiguous
+        and on its slot's device."""
+        return [self.block(a, s, idx) for s, idx in self.devices_indices_map(a.shape).items()]
+
+    def gather(self, blocks: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The global array from its slot blocks, on slot 0's device (a
+        replicated axis from the first slot that holds it)."""
+        spec = self.spec + (None,) * (blocks[0].ndim - len(self.spec))
+        shape = list(blocks[0].shape)
+        for arr_axis, names in enumerate(spec):
+            for name in (() if names is None else (names,) if isinstance(names, str) else names):
+                shape[arr_axis] *= self.mesh.shape[name]
+        index = self.devices_indices_map(shape)
+        dev = self.mesh.devices[0]
+        first = {}  # each distinct block's first slot
+        for s, idx in index.items():
+            first.setdefault(tuple((i.start, i.stop) for i in idx), s)
+        if len(first) == 1:
+            return blocks[0].to(dev)
+        out = torch.empty(shape, dtype=blocks[0].dtype, device=dev)
+        for s in first.values():
+            out[index[s]].copy_(blocks[s])
+        return out
+
+
+def particle_sharding(mesh: Mesh) -> Placement:
+    """Particles split along their rows over every slot (both axes of a
+    2D mesh flatten onto the rows, slot ix * sz + iz), as JAX's."""
+    names = mesh.axis_names
+    return Placement(mesh, (names[0] if len(names) == 1 else tuple(names),))
+
+
+def grid_sharding(mesh: Mesh, ndim: int) -> Placement:
+    """Grid fields split along the spatial x (and, on a 2D mesh, z) axes
+    (`grid_pspec`), as JAX's; every split extent must divide the mesh
+    (the solves pad first: ``halo._pad_to_mesh``)."""
+    return Placement(mesh, grid_pspec(mesh, ndim))
+
+
+def replicated(mesh: Mesh) -> Placement:
+    """Every slot holds the whole array, as JAX's."""
+    return Placement(mesh, ())
+
+
 def split_blocks(mesh: Mesh, a: torch.Tensor, spec=None) -> List[torch.Tensor]:
     """A global field cut into its slot blocks, each contiguous and on
-    its slot's device.  ``spec`` (default `grid_pspec`) names the mesh
-    axis of each array axis; every split extent must divide its mesh
+    its slot's device: `grid_sharding`'s split, or ``spec``'s (the mesh
+    axis of each array axis).  Every split extent must divide its mesh
     extent (pad first: ``halo._pad_to_mesh``)."""
-    spec = grid_pspec(mesh, a.ndim) if spec is None else spec
-    for arr_axis, name in enumerate(spec):
-        if name is not None and a.shape[arr_axis] % mesh.shape[name]:
-            raise ValueError(f"axis {arr_axis} of {tuple(a.shape)} does not divide mesh axis {name!r}")
-    out = []
-    for s, dev in enumerate(mesh.devices):
-        coords = _slot_coords(mesh, s)
-        blk = a
-        for arr_axis, name in enumerate(spec):
-            if name is not None:
-                n = a.shape[arr_axis] // mesh.shape[name]
-                blk = blk.narrow(arr_axis, coords[name] * n, n)
-        out.append(blk.to(dev).contiguous())
-    return out
+    return (grid_sharding(mesh, a.ndim) if spec is None else Placement(mesh, spec)).split(a)
 
 
 def gather_blocks(mesh: Mesh, blocks: Sequence[torch.Tensor], spec=None) -> torch.Tensor:
     """The global field from its slot blocks, on slot 0's device."""
-    spec = grid_pspec(mesh, blocks[0].ndim) if spec is None else spec
-    dev = mesh.devices[0]
-    names = mesh.axis_names
-    if len(names) == 1:
-        rows = [[b.to(dev) for b in blocks]]
-    else:
-        sz = mesh.shape[names[1]]
-        rows = [[b.to(dev) for b in blocks[i * sz:(i + 1) * sz]] for i in range(mesh.shape[names[0]])]
-    axis_of = {name: arr_axis for arr_axis, name in enumerate(spec) if name is not None}
-    if len(names) == 2:
-        inner = [torch.cat(r, dim=axis_of[names[1]]) if names[1] in axis_of else r[0] for r in rows]
-    else:
-        inner = rows[0]
-    return torch.cat(inner, dim=axis_of[names[0]]) if names[0] in axis_of else inner[0]
+    return (grid_sharding(mesh, blocks[0].ndim) if spec is None else Placement(mesh, spec)).gather(blocks)
 
 
 def shard_state(state: SimState, mesh: Mesh) -> SimState:
@@ -211,7 +301,13 @@ def shard_state(state: SimState, mesh: Mesh) -> SimState:
     everything outside the three solves runs, with the particles padded
     to a multiple of the slot count as the JAX package pads them:
     zero-mass particles (inert: every scatter gates on m > 0) placed on
-    particle 0, with zero velocity and APIC rows."""
+    particle 0, with zero velocity and APIC rows.  The rows divide by the
+    slots: ``particle_sharding(mesh).split(state.particles.x)`` is each
+    slot's block on its device, JAX's ``addressable_shards``.  JAX's
+    ``shard_grid`` is not taken: it places the solid's dual lattices
+    only when their extents divide the mesh, which the (2N + 1) lattice
+    never does on an even mesh; the port's solid stays on slot 0's
+    device, as JAX's then stays replicated."""
     dev = mesh.devices[0]
     p = state.particles
     n = p.x.shape[0]

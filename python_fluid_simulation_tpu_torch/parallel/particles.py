@@ -13,8 +13,9 @@ slot-major -- rows [k * cap, (k + 1) * cap) are slot k's and hold the
 particles whose bias-0 home cell x-index falls in slab k, padded with
 inert zero-mass rows.  As everywhere in the port's single-controller
 mesh, the arrays live on slot 0's device, and each slot's work runs on
-its block on its own device (every slot of ``make_mesh(n)`` is the one
-card).
+its block (`particle_sharding`'s split) on its own device: one card for
+every slot of ``make_mesh(n)``, card i for slot i of a mesh over the
+cards, where the crossers and the spill planes move over NVLink.
 
 Residency: `rebucket` runs after each particle move.  Under the CFL
 limit a particle moves less than one cell a step, so crossers only reach
@@ -63,7 +64,7 @@ from python_fluid_simulation_tpu_torch.ops.transfers import (
     _vec,
     padding_dump_ids,
 )
-from python_fluid_simulation_tpu_torch.parallel.mesh import Mesh
+from python_fluid_simulation_tpu_torch.parallel.mesh import Mesh, particle_sharding, split_blocks
 from python_fluid_simulation_tpu_torch.state import Particles
 
 
@@ -133,9 +134,10 @@ def _argsort(key):
     return torch.sort(key, stable=True).indices
 
 
-def _rows(a, k: int, cap: int, dev):
-    """Slot k's block of a slot-major array, on the slot's device."""
-    return a[k * cap:(k + 1) * cap].to(dev)
+def _rows(mesh: Mesh, a, k: int):
+    """Slot k's block of a slot-major array, on the slot's device
+    (`particle_sharding`'s)."""
+    return particle_sharding(mesh).block(a, k)
 
 
 def _mask_rows(ok, a):
@@ -226,7 +228,7 @@ def _exchange(blocks, rings, slab_of, cap: int, ex: int):
 
 
 def _slot_blocks(mesh: Mesh, particles: Particles, cap: int):
-    return [tuple(_rows(t, k, cap, dev) for t in (particles.x, particles.v, particles.c, particles.m))
+    return [tuple(_rows(mesh, t, k) for t in (particles.x, particles.v, particles.c, particles.m))
             for k, dev in enumerate(mesh.devices)]
 
 
@@ -373,7 +375,7 @@ def sharded_p2g_all(particles: Particles, mesh: Mesh, spec: BucketSpec, gres, fa
     outs = None  # per output: the slots' extended fields
     vol_exts, sorts = {}, []
     for k, dev in enumerate(mesh.devices):
-        px, pm, pv, pc = (_rows(t, k, cap, dev) for t in (particles.x, particles.m, particles.v, particles.c))
+        px, pm, pv, pc = (_rows(mesh, t, k) for t in (particles.x, particles.m, particles.v, particles.c))
         gi0, _, _ = _corner_setup(px, bound_min, cell_size, (0.0,) * d)
         ids, ext = _local_ext_ids(gi0, k * W, W, ny_nz)
         sorted_ids, order, px_s, pm_s, pv_s, pc_s = _slot_sort(padding_dump_ids(ids, pm, ext), px, pm, pv, pc)
@@ -450,7 +452,7 @@ def sharded_fluid_levelset(p_x, p_m, mesh: Mesh, spec: BucketSpec, gres, bound_m
     offsets = list(itertools.product(range(-2, 3), repeat=d))
     exts = []
     for k, dev in enumerate(mesh.devices):
-        px, pm = _rows(p_x, k, cap, dev), _rows(p_m, k, cap, dev)
+        px, pm = _rows(mesh, p_x, k), _rows(mesh, p_m, k)
         hi_clip = const(tuple(int(n) - 1 for n in gres), torch.int32, dev)
         gi = torch.minimum(torch.clamp(torch.floor((px - _vec(bound_min, px)) / _vec(cell_size, px)).to(torch.int32),
                                        min=0), hi_clip)
@@ -471,10 +473,6 @@ def sharded_fluid_levelset(p_x, p_m, mesh: Mesh, spec: BucketSpec, gres, bound_m
     return _gather(mesh, _x_halo_fold(exts, 2, "min", background)[0])
 
 
-def _split_x(mesh: Mesh, a, W: int):
-    return [a[k * W:(k + 1) * W].to(dev) for k, dev in enumerate(mesh.devices)]
-
-
 def _padded_edge(a, pads):
     """`a` (3D) edge-padded by (lo, hi) an axis, axis 0 first."""
     flat = []
@@ -485,7 +483,7 @@ def _padded_edge(a, pads):
 
 def _unsort_slots(mesh, spec, res_blocks, sort_info):
     cap = spec.cap
-    return torch.cat([unsort_rows(res, sort_info.order[k * cap:(k + 1) * cap].to(res.device)).to(mesh.devices[0])
+    return torch.cat([unsort_rows(res, _rows(mesh, sort_info.order, k)).to(mesh.devices[0])
                       for k, res in enumerate(res_blocks)])
 
 
@@ -501,7 +499,7 @@ def sharded_g2p_all(gvs, mesh: Mesh, spec: BucketSpec, gres, biases, bound_min, 
     base_shape = tuple(int(n) for n in gres)
     sizes = (W + 2,) + tuple(int(n) + 2 for n in gres[1:])
     # the trailing face planes are never read (clamp to gres - 1)
-    halos = [_x_halo_exchange_clamped(_split_x(mesh, g[tuple(slice(0, n) for n in base_shape)], W), 1) for g in gvs]
+    halos = [_x_halo_exchange_clamped(split_blocks(mesh, g[tuple(slice(0, n) for n in base_shape)]), 1) for g in gvs]
     res_blocks = []
     for k, dev in enumerate(mesh.devices):
         chans = []
@@ -513,8 +511,8 @@ def sharded_g2p_all(gvs, mesh: Mesh, spec: BucketSpec, gres, biases, bound_min, 
                 start = (o[0] + 1,) + tuple(1 + oo for oo in o[1:])
                 win = padded[tuple(slice(s, s + z) for s, z in zip(start, sizes))]
                 chans.append(win.reshape(-1))
-        vals = segment_broadcast_sorted(torch.stack(chans, dim=-1), sort_info.sorted_ids[k * cap:(k + 1) * cap].to(dev))
-        px_s = sort_info.px_sorted[k * cap:(k + 1) * cap].to(dev)
+        vals = segment_broadcast_sorted(torch.stack(chans, dim=-1), _rows(mesh, sort_info.sorted_ids, k))
+        px_s = _rows(mesh, sort_info.px_sorted, k)
         res_blocks.append(_g2p_reduce(vals, px_s, offs_lists, biases, bound_min, cell_size))
     res = _unsort_slots(mesh, spec, res_blocks, sort_info)
     pv = res[:, 0::(1 + d)]
@@ -534,7 +532,7 @@ def sharded_scatter_mass_volume(p_x, p_m, mesh: Mesh, spec: BucketSpec, gres, pv
     corners = list(itertools.product((0, 1), repeat=d))
     exts, sorts = ([], []), []
     for k, dev in enumerate(mesh.devices):
-        px, pm = _rows(p_x, k, cap, dev), _rows(p_m, k, cap, dev)
+        px, pm = _rows(mesh, p_x, k), _rows(mesh, p_m, k)
         gi, _, _ = _corner_setup(px, bound_min, cell_size, (0.5,) * d)
         ids, ext = _local_ext_ids(gi, k * W, W, ny_nz)
         sorted_ids, order, px_s, pm_s = _slot_sort(padding_dump_ids(ids, pm, ext), px, pm)
@@ -571,7 +569,7 @@ def sharded_apply_displacement(disp_faces, mesh: Mesh, spec: BucketSpec, gres, b
     W, cap = spec.slab_w, spec.cap
     nx = int(gres[0])
     offs_lists = [list(itertools.product(*[(0, 1, 2) if k == a else (0, 1) for k in range(d)])) for a in range(d)]
-    halos = [_x_halo_exchange_clamped(_split_x(mesh, f[:nx], W), 2) for f in disp_faces]
+    halos = [_x_halo_exchange_clamped(split_blocks(mesh, f[:nx]), 2) for f in disp_faces]
     tail_x = disp_faces[0][nx]
     sizes = (W + 2,) + tuple(int(n) + 2 for n in gres[1:])
     res_blocks = []
@@ -588,8 +586,8 @@ def sharded_apply_displacement(disp_faces, mesh: Mesh, spec: BucketSpec, gres, b
                 start = [o[0] + 2] + [o[j] if j == a else 1 + o[j] for j in range(1, d)]
                 win = padded[tuple(slice(s, s + z) for s, z in zip(start, sizes))]
                 chans.append(win.reshape(-1))
-        vals = segment_broadcast_sorted(torch.stack(chans, dim=-1), sort_info.sorted_ids[k * cap:(k + 1) * cap].to(dev))
-        px_s = sort_info.px_sorted[k * cap:(k + 1) * cap].to(dev)
+        vals = segment_broadcast_sorted(torch.stack(chans, dim=-1), _rows(mesh, sort_info.sorted_ids, k))
+        px_s = _rows(mesh, sort_info.px_sorted, k)
         gi_c, _, _ = _corner_setup(px_s, bound_min, cell_size, (0.5,) * d)
         outs, col = [], 0
         for a in range(d):

@@ -212,8 +212,9 @@ def _fold_owned(mesh: Mesh, exts, width: int, combine: str = "add", fill=0.0):
     return _halo_fold_ax(mesh, owned, width, ax_z, 2, combine, fill)[0]
 
 
-def _ring_cat(tails, dim: int):
-    return torch.cat([t.to(tails[0].device) for t in tails], dim=dim)
+def _ring_cat(tails, dim: int, device):
+    """The tails of a ring's slots (each on its slot's device) joined on `device`."""
+    return torch.cat([t.to(device) for t in tails], dim=dim)
 
 
 def sharded_p2g_all_2d(particles: Particles, mesh: Mesh, spec: BucketSpec2D, gres, face_shapes, biases, bound_min,
@@ -233,7 +234,7 @@ def sharded_p2g_all_2d(particles: Particles, mesh: Mesh, spec: BucketSpec2D, gre
     ext = (wx + 2, ny + 2, wz + 2)
     outs, vol_exts, sorts = None, {}, []
     for s, dev, lo_x, lo_z in _slots(mesh, spec):
-        px, pm, pv, pc = (_rows(t, s, cap, dev) for t in (particles.x, particles.m, particles.v, particles.c))
+        px, pm, pv, pc = (_rows(mesh, t, s) for t in (particles.x, particles.m, particles.v, particles.c))
         gi0, _, _ = _corner_setup(px, bound_min, cell_size, (0.0,) * d)
         ids, _ = _local_ext_ids_2d(gi0, lo_x, wx, ny, lo_z, wz)
         sorted_ids, order, px_s, pm_s, pv_s, pc_s = _slot_sort(padding_dump_ids(ids, pm, ext), px, pm, pv, pc)
@@ -300,16 +301,17 @@ def _volume_class(mesh: Mesh, p, exts, fine_vol: float):
                                      ax_z, 2, keep_high_tail=True)
     cls = gather_blocks(mesh, exts)
     if ztails is not None:  # one a z ring, that is an x slot: (wx, ny_c) each
-        cls = torch.cat([cls, _ring_cat(ztails, 0)[:, :, None]], dim=2)
+        cls = torch.cat([cls, _ring_cat(ztails, 0, cls.device)[:, :, None]], dim=2)
     if xtails is not None:  # one an x ring, that is a z slot: (ny_c, wz [+ 1]) each
         if p[2] == 0:
             # the x tails are z-sharded: fold their z spill along the z ring,
             # the last slot's kept as the corner line
             xt, corner = _x_halo_fold([torch.cat([torch.zeros_like(t[:, :1]), t], dim=1).movedim(1, 0)
                                        for t in xtails], 1, keep_high_tail=True)
-            plane = torch.cat([_ring_cat([t.movedim(0, 1) for t in xt], 1), corner.to(cls.device)[:, None]], dim=1)
+            xplane = _ring_cat([t.movedim(0, 1) for t in xt], 1, cls.device)
+            plane = torch.cat([xplane, corner.to(cls.device)[:, None]], dim=1)
         else:
-            plane = _ring_cat(xtails, 1)
+            plane = _ring_cat(xtails, 1, cls.device)
         cls = torch.cat([cls, plane[None]], dim=0)
     return torch.clamp(cls, max=fine_vol)
 
@@ -327,7 +329,7 @@ def sharded_fluid_levelset_2d(p_x, p_m, mesh: Mesh, spec: BucketSpec2D, gres, bo
     offsets = list(itertools.product(range(-2, 3), repeat=d))
     exts = []
     for s, dev, lo_x, lo_z in _slots(mesh, spec):
-        px, pm = _rows(p_x, s, cap, dev), _rows(p_m, s, cap, dev)
+        px, pm = _rows(mesh, p_x, s), _rows(mesh, p_m, s)
         hi_clip = const(tuple(int(n) - 1 for n in gres), torch.int32, dev)
         gi = torch.minimum(torch.clamp(torch.floor((px - _vec(bound_min, px)) / _vec(cell_size, px)).to(torch.int32),
                                        min=0), hi_clip)
@@ -356,8 +358,8 @@ def _table(mesh: Mesh, spec: BucketSpec2D, chans_of, sort_info: SortInfo, reduce
     res = []
     for s, dev in enumerate(mesh.devices):
         vals = segment_broadcast_sorted(torch.stack(chans_of(s), dim=-1),
-                                        sort_info.sorted_ids[s * cap:(s + 1) * cap].to(dev))
-        res.append(reduce_slot(vals, sort_info.px_sorted[s * cap:(s + 1) * cap].to(dev)))
+                                        _rows(mesh, sort_info.sorted_ids, s))
+        res.append(reduce_slot(vals, _rows(mesh, sort_info.px_sorted, s)))
     return _unsort_slots(mesh, spec, res, sort_info)
 
 
@@ -409,7 +411,7 @@ def sharded_scatter_mass_volume_2d(p_x, p_m, mesh: Mesh, spec: BucketSpec2D, gre
     corners = list(itertools.product((0, 1), repeat=d))
     exts, sorts = ([], []), []
     for s, dev, lo_x, lo_z in _slots(mesh, spec):
-        px, pm = _rows(p_x, s, cap, dev), _rows(p_m, s, cap, dev)
+        px, pm = _rows(mesh, p_x, s), _rows(mesh, p_m, s)
         gi, _, _ = _corner_setup(px, bound_min, cell_size, (0.5,) * d)
         ids, ext = _local_ext_ids_2d(gi, lo_x, wx, ny, lo_z, wz)
         sorted_ids, order, px_s, pm_s = _slot_sort(padding_dump_ids(ids, pm, ext), px, pm)
