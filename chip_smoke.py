@@ -265,6 +265,13 @@ Phases, each printing one JSON line:
               both routes (launch to join) and their device ms, the plain
               route and one torch.cat a slot of the pre-moved planes, the
               same-card byte bound and the computed NVLink plane bound
+  psum        the cross-card sum of the distributed dots (mesh_psum.cu,
+              one launch a slot, each spinning until every slot's
+              partials have landed) over 2 and 4 slots of the card, 1, 2
+              and 3 dots, 200 calls with changing partials each bitwise
+              the plain slot-order sum; event and device ms beside the
+              plain version's and the byte bound (and the NVLink bound of
+              the same bytes)
   mesh        flagship sharded on a 1D mesh of 4 slots and a (2, 2) mesh, 3
               steps each with the counters reset just before: the halo
               kernel launched and no PCG kernel, solves converged, every
@@ -366,8 +373,9 @@ Phases, each printing one JSON line:
               eager steps' counted launches; ms a step of each side,
               capture seconds, pool bytes; simulate(mesh=, bucketed=True)
               twice on the bucketed flagship (one capture, the first call
-              bitwise the eager steps); the halo push raising under
-              capture
+              bitwise the eager steps); the halo push captured over
+              make_mesh(2) and replayed three times, each bitwise the
+              eager push, its device epochs advancing with every exchange
   cards       on a host of at least four cards (one line saying so on
               fewer): every card's nvidia-smi line; path 1, the
               single-card step with its state on cuda:3 and cuda:0
@@ -379,15 +387,30 @@ Phases, each printing one JSON line:
               off cuda:0); row 15's push across 2 and 4 cards at every
               field of the sharded steps, bitwise the plain route, event
               and device ms beside one card's push and pull and the
-              NVLink bound; path 2, slot i on cuda:i: the flagship
+              NVLink bound; the cross-card sum over 2 and 4 cards, 1-3
+              dots, 200 calls each bitwise the plain sum on every card,
+              its ms a call eagerly and replayed (200 calls in one graph
+              over the cards); path 2, slot i on cuda:i: the flagship
               sharded and bucketed on 4 slots and (2, 2), 504 sharded on
               4, 'unet_warm' bucketed on (2, 2), 3 steps each (504: 2),
               bitwise the same mesh layout on cuda:0 and the plain-kernel
               steps on the cards, within 2e-4 / 2e-3 of the unsharded
               step by mass, bucket_lost 0, every x ring pushing and no
               pull; eager ms, each card's idle share and the copies of
-              one profiled step; make_step(mesh=<four cards>) and the
-              push under capture raising NotImplementedError
+              one profiled step; then each of them through
+              make_step(mesh=<four cards>) (one CUDA graph over the cards,
+              launched on cuda:0, each distributed solve one WHILE node a
+              card): 3 replays (504: 2) each bitwise the eager four-card
+              step, no host sync and no wrapper launch in a replay, every
+              card's iteration count of each solve equal after each
+              replay (the captured loops' k replicas) and equal to the
+              metric; replayed ms, each card's idle share (its eager busy
+              over the replayed ms), capture seconds, pool bytes, nodes;
+              simulate(mesh=<four cards>, bucketed=True) twice on the
+              bucketed flagship ×4 (one capture, bitwise the eager
+              steps); run.main --mesh 4 and --mesh 4 --bucketed over the
+              cards, 10 steps in blocks of 5, one capture a run, resumed
+              from the step-5 checkpoint bitwise
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
@@ -566,6 +589,12 @@ CARDS_STEPS = 3
 CARDS_504_STEPS = 2
 CARDS_HALO_SLOTS = (2, 4)
 CARDS_HALO_REPS = 100
+CARDS_CLI_STEPS = 10  # run.main --mesh 4 [--bucketed] over the cards: 2 blocks, resumed from the first
+CARDS_CLI_BLOCK = 5
+SPIN_KERNELS = ("halo_push_kernel", "mesh_psum_kernel")  # kernels that wait on other cards' launches
+PSUM_SLOTS = (2, 4)  # the cross-card sum on one card: slots of cuda:0, one launch a slot
+PSUM_REPS = 200  # calls with changing partials, each compared bitwise with the plain version
+PSUM_TIMED = 200
 
 
 def halo_plane_bounds():
@@ -2022,6 +2051,8 @@ def plain_kernels():
 
     with plain_mg_routes(), patched([
         (halo_rdma, "halo_exchange_rdma", halo_rdma.halo_exchange_rdma_plain),
+        (halo_rdma, "halo_exchange_push", halo_rdma.halo_exchange_rdma_plain),
+        (halo_rdma, "mesh_psum", halo_rdma.mesh_psum_plain),
         (pressure, "cell_poisson_pcg", cuda_stencils.cell_poisson_pcg_plain),
         (pressure, "fused_poisson_pcg", cuda_stencils.fused_poisson_pcg_plain),
         (viscosity, "coupled_visc_pcg", cuda_cg.coupled_visc_pcg_plain),
@@ -2216,6 +2247,7 @@ def reset_counters():
         "coupled_stencil_matvec": cuda_stencils.coupled_stencil_matvec,
         "halo_exchange_rdma": halo_rdma.halo_exchange_rdma,
         "halo_exchange_push": halo_rdma.halo_exchange_push,
+        "mesh_psum": halo_rdma.mesh_psum,
     }
     for w in wrappers.values():
         w.launches = 0
@@ -4132,25 +4164,95 @@ def mesh_learned_phase(smi, unet_sd):
     return out, launches_by
 
 
-def push_refuses_capture():
-    """The push route under CUDA graph capture raises (its epoch is a host
-    counter a replay would repeat stale); returns its message."""
+def push_captured():
+    """Row 15's push recorded into a CUDA graph on one card over
+    ``make_mesh(2)`` (``ops/cuda_graph.py::graph_capture``) and replayed
+    three times, new block contents and one eager push between replays:
+    every replay's outputs bitwise the eager push of the same blocks, and
+    the slots' device epochs advanced by every exchange, replayed or
+    eager.  Returns the row."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops.cuda_graph import graph_capture
+    from python_fluid_simulation_tpu_torch.parallel import halo_rdma
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    blocks = [torch.randn((16, 64, 32), generator=gen, device="cuda") for _ in range(2)]
+    halo_rdma.halo_exchange_push(mesh, blocks, "x")  # the mesh's counters, made eagerly
+    graph = torch.cuda.CUDAGraph()
+    before = halo_rdma.halo_exchange_push.launches
+    with graph_capture(graph, capture_error_mode="thread_local") as pools:
+        outs = halo_rdma.halo_exchange_push(mesh, blocks, "x")
+    recorded = halo_rdma.halo_exchange_push.launches - before
+    sem, counters = mesh.push_state("x")
+    epochs = []
+    for rep in range(3):
+        for b in blocks:
+            b.add_(1.0)
+        graph.replay()
+        want = halo_rdma.halo_exchange_push(mesh, blocks, "x")
+        torch.cuda.synchronize()
+        if not all(bits_equal(g, w) for g, w in zip(outs, want)):
+            raise AssertionError(f"the captured push, replay {rep}: differs from the eager push")
+        epochs.append([c.tolist() for c in counters])
+    want_epochs = [1 + 2 * (rep + 1) for rep in range(3)]
+    if [[c[0] for c in e] for e in epochs] != [[w, w] for w in want_epochs] or any(c[2] for e in epochs for c in e) \
+            or int(sem[-1]):
+        raise AssertionError(f"the captured push: slot counters {epochs} (epochs {want_epochs} wanted), error word "
+                             f"{int(sem[-1])}")
+    del graph, pools
+    return dict(slots=2, block=list(blocks[0].shape), recorded_launches=recorded, replays=3,
+                bitwise_the_eager_push=True, slot_counters_after_each_replay_and_push=epochs)
+
+
+def psum_phase():
+    """The cross-card sum (``csrc/mesh_psum.cu``) on one card: over
+    `PSUM_SLOTS` slots of cuda:0 (one launch a slot, each on its slot's
+    stream, each spinning until every slot's partials have landed), 1, 2
+    and 3 dots of seeded partials, `PSUM_REPS` calls each with changing
+    partials, bitwise its plain version (the slot-order sum); CUDA-event
+    and device ms of a call beside the plain version's and the bound (the
+    bytes a call moves: every slot's partials stored into every slot's
+    buffer and read back once, the counters, over 3.35 TB/s; the same
+    bytes over NVLink at 450 GB/s, where the slots are cards)."""
     import torch
 
     from python_fluid_simulation_tpu_torch.parallel import halo_rdma
     from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(2)
-    blocks = [torch.zeros((4, 64), device="cuda") for _ in range(2)]
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            halo_rdma.halo_exchange_push(mesh, blocks, "x")
-    except NotImplementedError as e:
-        if "More than one card" not in str(e):
-            raise AssertionError(f"the push under capture: {e}") from e
-        return str(e)
-    raise AssertionError("the push was recorded into a CUDA graph")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows, timed = [], {}
+    for slots in PSUM_SLOTS:
+        mesh = make_mesh(slots)
+        for dots in (1, 2, 3):
+            parts = [tuple(torch.randn((), generator=gen, device="cuda") for _ in range(dots)) for _ in range(slots)]
+            before = halo_rdma.mesh_psum.launches
+            bad = torch.zeros((), dtype=torch.int64, device="cuda")
+            for _ in range(PSUM_REPS):
+                for p in parts:
+                    for t in p:
+                        t.mul_(1.0001).add_(0.5)
+                got = halo_rdma.mesh_psum(mesh, parts)
+                want = halo_rdma.mesh_psum_plain(mesh, parts)
+                for g, w in zip(got, want):
+                    bad += (g[0].view(torch.int32) != w[0].view(torch.int32)).sum()
+            launched = halo_rdma.mesh_psum.launches - before
+            if int(bad) or launched != PSUM_REPS * slots:
+                raise AssertionError(f"mesh_psum over {slots} slots, {dots} dots: {int(bad)} sums differ, "
+                                     f"{launched} launches")
+            nbytes = slots * (2 * slots * dots * 4 + slots * 4 + 2 * dots * 4)
+            row = dict(slots=slots, dots=dots, calls=PSUM_REPS, max_abs_err=0.0, launches_per_call=slots,
+                       ms=cuda_time_ms(lambda: halo_rdma.mesh_psum(mesh, parts), PSUM_TIMED),
+                       plain_ms=cuda_time_ms(lambda: halo_rdma.mesh_psum_plain(mesh, parts), PSUM_TIMED),
+                       library_ms=None, **bound(nbytes, dots * (slots - 1)),
+                       nvlink_bytes=nbytes, nvlink_bound_ms=nbytes / NVLINK_BYTES_PER_S * 1e3)
+            timed[(slots, dots)] = functools.partial(halo_rdma.mesh_psum, mesh, parts)
+            rows.append(row)
+    for (slots, dots), ms in device_times(timed, PSUM_TIMED).items():
+        next(r for r in rows if r["slots"] == slots and r["dots"] == dots)["device_ms"] = ms
+    return rows
 
 
 def graph_mesh_phase(smi, unet_sd):
@@ -4163,8 +4265,8 @@ def graph_mesh_phase(smi, unet_sd):
     'unet_warm' on both meshes and 'unet_warm' bucketed on (2, 2); ms a
     step of each, capture seconds, pool bytes, WHILE nodes, halo launches
     a replayed step.  Then ``simulate(mesh=, bucketed=True)``: two calls,
-    one capture, the first bitwise the eager steps; the push refusing
-    capture."""
+    one capture, the first bitwise the eager steps; the push captured and
+    replayed (`push_captured`)."""
     import torch
 
     from python_fluid_simulation_tpu_torch.engine.scenes import (
@@ -4254,7 +4356,7 @@ def graph_mesh_phase(smi, unet_sd):
         run(label, cfg504, s504, mesh, bucketed, GRAPH_MESH_504_STEPS)
     del s504
     torch.cuda.empty_cache()
-    rows["push_under_capture"] = push_refuses_capture()
+    rows["push_captured"] = push_captured()
     rows["nvidia_smi"] = smi
     return rows, test_launches, launches_by
 
@@ -4497,8 +4599,9 @@ def cards_path1(other):
 
 def profiled_idle(step, state):
     """One step under torch.profiler: the host ms, each card's busy ms
-    (the union of its kernel and copy intervals) and idle share, and the
-    copies a step by kind."""
+    (the union of its kernel and copy intervals; also without the
+    kernels that spin on other cards, `SPIN_KERNELS`) and idle share, and
+    the copies a step by kind."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4516,8 +4619,13 @@ def profiled_idle(step, state):
         raise AssertionError("the profiler saw no device event")
     cards = {}
     for idx in sorted({e.device_index for e in dev_events}):
-        busy = _busy_us([e for e in dev_events if e.device_index == idx]) / 1e3
-        cards[f"cuda:{idx}"] = dict(busy_ms=busy, idle_share=1.0 - busy / wall_ms)
+        on_card = [e for e in dev_events if e.device_index == idx]
+        busy = _busy_us(on_card) / 1e3
+        # the kernels that wait for other cards (the push, the cross-card
+        # sum) are busy while they spin on launches the host has not made yet
+        working = [e for e in on_card if not any(k in e.name for k in SPIN_KERNELS)]
+        cards[f"cuda:{idx}"] = dict(busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+                                    busy_ms_without_spins=_busy_us(working) / 1e3)
     copies = collections.Counter(e.name for e in dev_events if e.name.startswith("Memcpy"))
     iters = sum(int(m[f"{k}_iters"]) for k in ("density", "viscosity", "pressure"))
     return dict(step_ms=wall_ms, cards=cards, idle_share_mean=statistics.mean(c["idle_share"] for c in cards.values()),
@@ -4525,7 +4633,7 @@ def profiled_idle(step, state):
                 copies_per_iteration=sum(copies.values()) / max(iters, 1))
 
 
-def cards_mesh_run(label, cfg, s0, meshes, bucketed, steps, ref_states, unet=None):
+def cards_mesh_run(label, cfg, s0, meshes, bucketed, steps, ref_states, unet=None, replays=None, simulate_calls=False):
     """Path 2, one configuration: `steps` eager steps of ``step_3d(mesh=,
     bucketed=)`` from `s0` (masses unique) with slot i on cuda:i, bitwise
     the same steps on the same mesh layout with every slot on cuda:0 and
@@ -4533,7 +4641,11 @@ def cards_mesh_run(label, cfg, s0, meshes, bucketed, steps, ref_states, unet=Non
     version; within MESH_DX / MESH_DV of `ref_states` by mass;
     ``bucket_lost`` 0; the routes: every ring across cards pushes, no pull
     on the cards.  Then one more step profiled: each card's idle share and
-    the copies a step and an iteration."""
+    the copies a step and an iteration.  Then the same configuration
+    through ``make_step(mesh=<cards>)`` (`cards_replayed`: `replays` of
+    the first eager steps, default all), and with ``simulate_calls`` two
+    ``simulate(mesh=<cards>)`` calls of `steps` steps, one capture, the
+    first bitwise the eager steps."""
     import torch
 
     from python_fluid_simulation_tpu_torch.engine.step import step_3d
@@ -4560,17 +4672,18 @@ def cards_mesh_run(label, cfg, s0, meshes, bucketed, steps, ref_states, unet=Non
             sync_all()
             ms.append((time.perf_counter() - t0) * 1e3)
             states.append(st)
-            metrics.append({k: v.item() for k, v in m.items()})
+            metrics.append(m)
         return step, states, ms, metrics
 
     routes = {ax: halo_rdma.halo_route(cards_mesh, ax) for ax in cards_mesh.axis_names}
     start = start_on(cards_mesh)
     read = reset_counters()
     with launch_devices() as seen:
-        step, states, ms, metrics = run(cards_mesh, start)
+        step, states, ms, raw_metrics = run(cards_mesh, start)
     launches = read()
-    check_run(states[-1], metrics, launches, ("halo_exchange_push", *REDUCE_ROUTE, "binned_segment_broadcast", "fold"),
-              label)
+    metrics = [{k: v.item() for k, v in m.items()} for m in raw_metrics]
+    check_run(states[-1], metrics, launches, ("halo_exchange_push", "mesh_psum", *REDUCE_ROUTE,
+                                              "binned_segment_broadcast", "fold"), label)
     cards = by_card(seen)
     pulls = {d: c.get("halo_exchange_rdma", 0) for d, c in cards.items() if c.get("halo_exchange_rdma")}
     pushes = {d: c.get("halo_exchange_push", 0) for d, c in cards.items()}
@@ -4590,21 +4703,189 @@ def cards_mesh_run(label, cfg, s0, meshes, bucketed, steps, ref_states, unet=Non
     profile = profiled_idle(lambda s: step(s, cfg), states[-1])
     row = dict(mesh=cards_mesh.shape, devices=[str(d) for d in cards_mesh.devices], bucketed=bucketed, steps=steps,
                step_ms=ms, median_step_ms=statistics.median(ms), one_card_step_ms=one_ms, routes=routes,
-               push_launches_per_step=launches["halo_exchange_push"] / steps, launches_by_card=cards,
+               push_launches_per_step=launches["halo_exchange_push"] / steps,
+               psum_launches_per_step=launches["mesh_psum"] / steps, launches_by_card=cards,
                iters={k: [m[f"{k}_iters"] for m in metrics] for k in ("density", "viscosity", "pressure")},
                bucket_lost=lost, bitwise_one_card=True, kernels_vs_plain_bitwise=True, vs_unsharded_by_step=errs,
                profiled_step=profile)
+    n = steps if replays is None else replays
+    row["replayed"] = cards_replayed(label, cfg, start, cards_mesh, bucketed, states[:n + 1], raw_metrics[:n], unet,
+                                     profile)
+    if simulate_calls:
+        row["simulate"] = cards_simulate(label, cfg, start, cards_mesh, bucketed, states, steps)
     del states, start
     torch.cuda.empty_cache()
     return row
 
 
+def cards_replayed(label, cfg, start, mesh, bucketed, eager, eager_metrics, unet, eager_profile):
+    """``make_step(cfg, mesh=<the cards>, bucketed=)`` from `start`: the
+    first call captures (one graph over the cards, launched on cuda:0,
+    each distributed solve one WHILE node a card), then one replay for
+    each eager step in `eager` (the four-card ``step_3d`` states from
+    `start`, `eager_metrics` theirs), each from the eager state before it:
+    bitwise the eager step (particles, t, step_idx, visc_mg, every
+    metric), no host sync in a replay (``set_sync_debug_mode("error")``),
+    no wrapper launch, and every card's iteration count of each solve
+    (the replicas of k the captured loops carry, read after the replay)
+    equal, and equal to the step's metric.  Returns the row: eager and
+    replayed ms a step, each card's idle share in a replay (the eager
+    step's profiled busy ms of the card over the replayed ms; the
+    profiler reports no kernel of a WHILE body), capture seconds, pool
+    bytes, top-level nodes, WHILE nodes and their bodies' nodes."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.step import make_step
+    from python_fluid_simulation_tpu_torch.ops.cuda_graph import captured_while
+    from python_fluid_simulation_tpu_torch.parallel import halo_rdma
+    from python_fluid_simulation_tpu_torch.solvers import cg
+
+    carried = []
+    real = cg.loop
+
+    def recording(carry, thresh, max_iter, iteration):  # a mesh step's loops are its distributed solves'
+        out = real(carry, thresh, max_iter, iteration)
+        carried.append(out.k)
+        return out
+
+    step = make_step(cfg, unet=unet, mesh=mesh, bucketed=bucketed)
+    nodes0 = captured_while.nodes
+    cg.loop = recording
+    try:
+        _, capture_event_ms, capture_host_ms = event_timed(lambda: step(start))
+    finally:
+        cg.loop = real
+    sync_all()
+    order = [s for s in ("density", "viscosity", "pressure") if s in mesh_solves(cfg)]
+    ks = dict(zip(order, carried[-len(order):]))  # the captured loops' (the warm-up's eager ones come first)
+    cards = halo_rdma.replica_devices(mesh)
+    rep = next(iter(step.replayers.values()))
+    cap = rep.captured[None]
+    while_nodes = captured_while.nodes - nodes0
+    if while_nodes != len(order) * len(cards) or len(cap.loop_nodes) != while_nodes or any(
+            [k.device for k in kk] != cards for kk in ks.values()):
+        raise AssertionError(f"{label}: {while_nodes} WHILE nodes, bodies {cap.loop_nodes}, for {order} over {cards}")
+    read = reset_counters()
+    ms, host_ms, iters = [], [], []
+    for i in range(len(eager_metrics)):
+        (st, m), e_ms, h_ms = event_timed(lambda: step(eager[i]), sync_error=True)
+        sync_all()
+        ms.append(e_ms)
+        host_ms.append(h_ms)
+        bad = state_differences(eager[i + 1], st) + metric_differences(eager_metrics[i], m)
+        if bad:
+            raise AssertionError(f"{label} replay {i}: differs from the eager four-card step in {bad}")
+        by_solve = {s: [int(k) for k in ks[s]] for s in order}
+        if any(len(set(v)) != 1 or v[0] != int(m[f"{s}_iters"]) for s, v in by_solve.items()):
+            raise AssertionError(f"{label} replay {i}: iterations by card {by_solve}, metrics "
+                                 f"{[int(m[f'{s}_iters']) for s in order]}")
+        iters.append(by_solve)
+    launched = read()
+    if any(launched.values()):
+        raise AssertionError(f"{label}: wrapper launches during the replays {launched}")
+    median = statistics.median(ms)
+    busy = {d: c["busy_ms_without_spins"] for d, c in eager_profile["cards"].items()}
+    out = dict(replays=len(ms), bitwise_the_eager_four_card_step=True, sync_debug_mode_error=True,
+               replayed_ms=ms, replayed_host_ms=host_ms, median_replayed_ms=median,
+               iters_by_card=iters,
+               idle_share_by_card={d: 1.0 - b / median for d, b in busy.items()},
+               idle_share_from="1 - each card's busy ms in the profiled eager step, the spinning kernels left out "
+                               "(SPIN_KERNELS), over the median replayed ms",
+               capture_seconds=cap.seconds, capture_call_event_ms=capture_event_ms,
+               capture_call_host_ms=capture_host_ms, graph_pool_bytes=cap.pool_bytes, graph_nodes=cap.nodes,
+               while_nodes=while_nodes, loop_body_nodes=list(cap.loop_nodes))
+    del step, rep, cap
+    torch.cuda.empty_cache()
+    return out
+
+
+def cards_simulate(label, cfg, start, mesh, bucketed, eager, steps):
+    """``simulate(mesh=<the cards>, bucketed=)`` twice from `start`, `steps`
+    steps a call: one capture by one replayer, the first call's state
+    bitwise the eager four-card steps', ``bucket_lost`` 0."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.engine.step import simulate
+
+    held = simulate.capture
+    held.clear()
+    captures, replayers = held.captures, held.replayers
+    sync_all()
+    t0 = time.perf_counter()
+    first, _ = simulate(start, cfg, steps, mesh=mesh, bucketed=bucketed)
+    sync_all()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, m2 = simulate(first, cfg, steps, mesh=mesh, bucketed=bucketed)
+    sync_all()
+    second_s = time.perf_counter() - t0
+    bad = state_differences(eager[steps], first)
+    made = (held.captures - captures, held.replayers - replayers)
+    lost = [int(v) for v in m2["bucket_lost"]] if bucketed else []
+    if bad or made != (1, 1) or any(lost):
+        raise AssertionError(f"{label} simulate(mesh=<cards>): differs from the eager steps in {bad}; {made[0]} "
+                             f"captures by {made[1]} replayers; lost {lost}")
+    out = dict(calls=2, steps_per_call=steps, captures=1, first_call_s=first_s, second_call_s=second_s,
+               second_call_ms_per_step=second_s / steps * 1e3, bitwise_the_eager_steps=True,
+               capture_seconds=held.replayer.captured[None].seconds)
+    held.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cards_cli(tmp):
+    """``run.main --scene buckling --mesh 4 [--bucketed]`` on a host of
+    four cards: the run prints the cards' layout (slot i on cuda:i), takes
+    `CARDS_CLI_STEPS` steps in blocks of `CARDS_CLI_BLOCK` with one
+    capture, and a run resumed from the first block's checkpoint ends
+    bitwise the uninterrupted run, with one capture."""
+    import shutil
+
+    from python_fluid_simulation_tpu_torch.engine.step import simulate
+
+    out = {}
+    for bucketed in (False, True):
+        key = "bucketed" if bucketed else "sharded"
+        full, resumed, mid = (os.path.join(tmp, f"{key}_{n}") for n in ("full", "resumed", "from_mid"))
+        flags = ["--scene", "buckling", "--mesh", str(CARDS), *(["--bucketed"] if bucketed else []),
+                 "--max-steps", str(CARDS_CLI_STEPS), "--block", str(CARDS_CLI_BLOCK),
+                 "--checkpoint-every", str(CARDS_CLI_BLOCK)]
+        seconds, rate, text, captures, replayers = run_cli([*flags, "--out", full, "--metrics"])
+        with open(os.path.join(full, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        layout = f"{CARDS} cards (cuda:0..cuda:{CARDS - 1})"
+        if (captures, replayers) != (1, 1) or layout not in text or len(recs) != CARDS_CLI_STEPS or (
+                bucketed and any(r["bucket_lost"] for r in recs)):
+            raise AssertionError(f"cli --mesh {CARDS} {key}: {captures} captures by {replayers} replayers, "
+                                 f"{len(recs)} steps logged, layout line present: {layout in text}")
+        capture_s = simulate.capture.replayer.captured[None].seconds
+        os.makedirs(mid)
+        for name in ("config.json", f"state_{CARDS_CLI_BLOCK}.npz"):
+            shutil.copy(os.path.join(full, "ckpt", name), os.path.join(mid, name))
+        r_seconds, r_rate, _, r_captures, r_replayers = run_cli([*flags, "--out", resumed, "--resume", mid])
+        want = npz_leaves(os.path.join(full, "ckpt", f"state_{CARDS_CLI_STEPS}.npz"))
+        got = npz_leaves(os.path.join(resumed, "ckpt", f"state_{CARDS_CLI_STEPS}.npz"))
+        differ = [i for i, (a, b) in enumerate(zip(got, want)) if a.dtype != b.dtype or a.tobytes() != b.tobytes()]
+        if differ or (r_captures, r_replayers) != (1, 1):
+            raise AssertionError(f"cli --mesh {CARDS} {key} resumed: leaves {differ} differ; {r_captures} captures")
+        out[key] = dict(layout=layout, steps=CARDS_CLI_STEPS, block=CARDS_CLI_BLOCK, seconds=seconds,
+                        cli_steps_per_s=rate, captures=captures, capture_seconds=capture_s,
+                        iters=[[r[f"{k}_iters"] for k in ("density", "viscosity", "pressure")] for r in recs],
+                        resume=dict(from_step=CARDS_CLI_BLOCK, seconds=r_seconds, cli_steps_per_s=r_rate,
+                                    captures=r_captures, bitwise_the_uninterrupted_run=True))
+        simulate.capture.clear()
+    return out
+
+
 def cards_path2(unet_sd):
-    """Path 2 on four cards (`cards_mesh_run` each): the flagship sharded
-    on 4 slots and (2, 2), bucketed on 4 slots and (2, 2),
-    ``coiling_config(504)`` sharded on 4 slots, the flagship in
-    'unet_warm' bucketed on (2, 2) with the full-width UNet; then
-    ``make_step(mesh=<four cards>)`` refusing capture, and the push."""
+    """Path 2 on four cards (`cards_mesh_run` each, eager and through
+    ``make_step(mesh=<four cards>)``): the flagship sharded and bucketed on
+    4 slots and (2, 2) (the bucketed ×4 also through two ``simulate``
+    calls), ``coiling_config(504)`` sharded on 4 slots, the flagship in
+    'unet_warm' bucketed on (2, 2) with the full-width UNet; then the CLI
+    with ``--mesh 4`` and ``--mesh 4 --bucketed`` over the cards."""
+    import tempfile
+
     import torch
 
     from python_fluid_simulation_tpu_torch.engine.scenes import (
@@ -4613,10 +4894,9 @@ def cards_path2(unet_sd):
         coiling_config,
         coiling_scene,
     )
-    from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, make_step, step_3d
+    from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
     from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
-    from python_fluid_simulation_tpu_torch.parallel import halo_rdma
-    from python_fluid_simulation_tpu_torch.parallel.mesh import cuda_devices, make_mesh, make_mesh2d, shard_state
+    from python_fluid_simulation_tpu_torch.parallel.mesh import cuda_devices, make_mesh, make_mesh2d
 
     cards = cuda_devices(CARDS)
     meshes = {"4": (make_mesh(CARDS, devices=cards), make_mesh(CARDS)),
@@ -4636,25 +4916,8 @@ def cards_path2(unet_sd):
     for bucketed in (False, True):
         for name, pair in meshes.items():
             label = f"flagship_{'bucketed' if bucketed else 'sharded'}_{name}"
-            rows[label] = cards_mesh_run(label, cfg, s0, pair, bucketed, CARDS_STEPS, ref)
-
-    # the captured step over four cards stays refused, as does the push under capture
-    try:
-        make_step(cfg, mesh=meshes["4"][0])(shard_state(s0, meshes["4"][0]))
-    except NotImplementedError as e:
-        rows["make_step_four_cards"] = str(e)
-    else:
-        raise AssertionError("make_step(mesh=<four cards>) captured a step")
-    blocks = [torch.zeros((4, 64), device=d) for d in cards]
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            halo_rdma.halo_exchange_rdma(meshes["4"][0], blocks, "x")
-    except NotImplementedError as e:
-        rows["push_under_capture"] = str(e)
-    else:
-        raise AssertionError("the push across cards was recorded into a CUDA graph")
-    del graph, blocks
+            rows[label] = cards_mesh_run(label, cfg, s0, pair, bucketed, CARDS_STEPS, ref,
+                                         simulate_calls=bucketed and name == "4")
 
     cfg_w = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, viscosity_mode="unet_warm"))
     unet = UNet3D(width=UNET_WIDTH).eval()
@@ -4673,6 +4936,8 @@ def cards_path2(unet_sd):
                                                 ref)
     del ref, s504
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["cli"] = cards_cli(tmp)
     return rows
 
 
@@ -4734,10 +4999,64 @@ def cards_halo():
     return rows
 
 
+def cards_psum():
+    """The cross-card sum over 2 and 4 cards (slot i on cuda:i, one launch
+    a card on its current stream), 1, 2 and 3 dots: `PSUM_REPS` calls with
+    changing partials each bitwise the plain slot-order sum on every
+    card; CUDA-event ms a call eagerly (host-bound: one launch a card) and
+    replayed, `PSUM_TIMED` calls back to back in one graph over the cards
+    (``graph_capture``), timed by CUDA events on cuda:0: the device's ms an
+    all-reduce, beside the NVLink bound of the bytes it sends."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops.cuda_graph import graph_capture
+    from python_fluid_simulation_tpu_torch.parallel import halo_rdma
+    from python_fluid_simulation_tpu_torch.parallel.mesh import cuda_devices, make_mesh
+
+    rows = []
+    for slots in (2, CARDS):
+        cards = cuda_devices(slots)
+        mesh = make_mesh(slots, devices=cards)
+        for dots in (1, 2, 3):
+            gen = torch.Generator(device="cuda:0").manual_seed(slots * 10 + dots)
+            parts = [tuple(torch.randn((), generator=gen, device="cuda:0").to(d) for _ in range(dots)) for d in cards]
+            bad = 0
+            for _ in range(PSUM_REPS):
+                for p in parts:
+                    for t in p:
+                        t.mul_(1.0001).add_(0.5)
+                got = halo_rdma.mesh_psum(mesh, parts)
+                want = halo_rdma.mesh_psum_plain(mesh, parts)
+                bad += sum(int((r.view(torch.int32) != w.view(torch.int32).to(r.device)).sum())
+                           for g, ws in zip(got, want) for r, w in zip(g, ws))
+            if bad:
+                raise AssertionError(f"mesh_psum over {slots} cards, {dots} dots: {bad} replicas differ")
+            sync_all()
+            graph = torch.cuda.CUDAGraph()
+            with graph_capture(graph, cards[0], cards, capture_error_mode="thread_local") as pools:
+                for _ in range(PSUM_TIMED):
+                    halo_rdma.mesh_psum(mesh, parts)
+            graph.replay()
+            sync_all()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            stop.record()
+            sync_all()
+            nbytes = slots * (slots - 1) * (dots + 1) * 4  # the partials and an arrival to every other card
+            rows.append(dict(cards=slots, dots=dots, calls=PSUM_REPS, bitwise_plain=True,
+                             eager_ms=cuda_time_ms(lambda: halo_rdma.mesh_psum(mesh, parts), PSUM_TIMED),
+                             replayed_ms=start.elapsed_time(stop) / PSUM_TIMED, nvlink_bytes=nbytes,
+                             nvlink_bound_ms=nbytes / slots / NVLINK_BYTES_PER_S * 1e3))
+            del graph, pools
+    return rows
+
+
 def cards_phase(unet_sd):
-    """The port on four cards: every card's nvidia-smi line, path 1 on
-    cuda:3, path 2 across the four cards, row 15's push timed across
-    cards.  Returns the phase's JSON."""
+    """The port on four cards: every card's nvidia-smi line, path 2
+    across the four cards (eager, captured, simulate, the CLI), row 15's
+    push and the cross-card sum timed across cards, path 1 on cuda:3.
+    Returns the phase's JSON."""
     import torch
 
     t0 = time.perf_counter()
@@ -4747,11 +5066,14 @@ def cards_phase(unet_sd):
     other = torch.device("cuda", CARDS - 1)
     out = {"phase": "cards", "nvidia_smi": smi, "count": torch.cuda.device_count()}
     t = time.perf_counter()
-    out["path1"] = dict(card=str(other), runs=cards_path1(other), seconds=time.perf_counter() - t)
+    out["path2"] = dict(runs=cards_path2(unet_sd), seconds=time.perf_counter() - t)
+    print(json.dumps({"cards_path2": out["path2"]}), flush=True)  # the longest part, kept if a later one fails
     t = time.perf_counter()
     out["halo"] = dict(rows=cards_halo(), seconds=time.perf_counter() - t)
     t = time.perf_counter()
-    out["path2"] = dict(runs=cards_path2(unet_sd), seconds=time.perf_counter() - t)
+    out["psum"] = dict(rows=cards_psum(), seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    out["path1"] = dict(card=str(other), runs=cards_path1(other), seconds=time.perf_counter() - t)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -5548,6 +5870,11 @@ def main(argv=()) -> int:
     halo_rows = halo_phase()
     emit({"phase": "halo", "rows": halo_rows, "seconds": time.perf_counter() - t0})
 
+    # -- the cross-card sum of the distributed dots, on slots of the card
+    t0 = time.perf_counter()
+    psum_rows = psum_phase()
+    emit({"phase": "psum", "rows": psum_rows, "seconds": time.perf_counter() - t0})
+
     # -- the sharded flagship step: 1D and (2, 2) meshes of the card
     t0 = time.perf_counter()
     s_mesh = buckling_scene(cfg, seed=0, device="cuda")
@@ -5679,6 +6006,12 @@ def main(argv=()) -> int:
             entry(name, source, "", dict(halo_row, max_abs_err=max(r["max_abs_err"] for r in halo_rows),
                                          ms=halo_row[route]["ms"]), halo_row["library_ms"]),
             device_ms=halo_row[route]["device_ms"], replaces="python_fluid_simulation_tpu/parallel/halo_rdma.py:133"))
+    # not a TPU kernel: the cross-card sum of the distributed dots, JAX's
+    # lax.psum (a 3-dot call over MESH_SLOTS slots of the card; on four
+    # cards it is path 2's, --cards)
+    psum_row = next(r for r in psum_rows if r["slots"] == MESH_SLOTS and r["dots"] == 3)
+    kernels.append(dict(entry("mesh_psum", "mesh_psum.cu", "", psum_row), device_ms=psum_row["device_ms"],
+                        replaces="python_fluid_simulation_tpu/parallel/halo.py:105"))
     # not a TPU kernel: the exit test of the captured CG loops, whose JAX
     # counterpart is the cond of lax.while_loop in the generic cg; its
     # plain version is the eager loop's host test; launched by the graph

@@ -19,6 +19,10 @@
 // One launch a slot, each on its slot's own stream (parallel/halo_rdma.py
 // enqueues every launch of an exchange before any of its completion events,
 // so no slot's launch queues behind another's).  Each launch:
+//   0. reads its slot's counters (device memory on the slot's own card):
+//      the exchanges along this axis so far and the blocks the slot has
+//      launched over them; this exchange's epoch is one more, and its
+//      receive target that block sum plus this launch's grid;
 //   1. copies its interior into out[1 : n + 1] and writes zeros into
 //      out[0] (first slot) and out[n + 1] (last slot);
 //   2. entry barrier: block 0 adds one to each live neighbour's arrival
@@ -30,15 +34,21 @@
 //      synchronises, and thread 0 adds one to the receiver's counter:
 //      receives are counted in units of blocks, and every block's share
 //      is fenced before its count moves;
-//   5. block 0 waits until each live receive counter reaches recv_target,
-//      the blocks a neighbour has launched over all of the mesh's
+//   5. block 0 waits until each live receive counter reaches the receive
+//      target, the blocks a neighbour has launched over all of this axis's
 //      exchanges so far (every slot of an exchange has the same grid, and
-//      the grid may change between exchanges, so the wrapper keeps the
-//      sum), so the launch ends only once both neighbours' planes have
-//      landed.
-// The epoch and the block sum are the mesh's: both grow with every
-// exchange and no counter is ever reset; comparisons are wrap-safe.
-//
+//      the grid may change between exchanges), so the launch ends only
+//      once both neighbours' planes have landed;
+//   6. the last of its blocks to finish (counted on the slot's third
+//      counter, which it sets back to 0) writes the epoch and the receive
+//      target back as the slot's counters: every block read them in step
+//      0 before it counted itself, and the next launch on the slot's
+//      stream reads them after this one has ended.
+// Both counters grow with every exchange and no counter is ever reset;
+// comparisons are wrap-safe.  They live in device memory, so a launch
+// recorded into a CUDA graph (or the body of a WHILE node) takes a fresh
+// epoch every time it runs, as an eager launch does.
+
 // Deadlock: the launches of an exchange spin on each other, so all must be
 // resident at once.  The grid is small (parallel/halo_rdma.py caps the
 // blocks of all launches of an exchange at half of what the card holds,
@@ -97,10 +107,24 @@ __device__ void wait_reach(const unsigned int* ctr, unsigned int target, int* er
   }
 }
 
+// The slot's own counters (on its card): the epoch and the block sum of the
+// last exchange, and the blocks of the running launch that have finished.
+constexpr int kEpoch = 0;
+constexpr int kBlocks = 1;
+constexpr int kFinished = 2;
+
 __global__ void __launch_bounds__(kThreads)
     halo_push_kernel(const __grid_constant__ Ring ring, const float* __restrict__ x,
-                     unsigned int* __restrict__ sem, int* __restrict__ err, int pos, int size,
-                     long long n, long long plane, unsigned int epoch, unsigned int recv_target) {
+                     unsigned int* __restrict__ sem, int* __restrict__ err, unsigned int* __restrict__ mine_ctr,
+                     int pos, int size, long long n, long long plane) {
+  // 0. this exchange's epoch and receive target
+  __shared__ unsigned int s_epoch, s_target;
+  if (threadIdx.x == 0) {
+    s_epoch = mine_ctr[kEpoch] + 1u;
+    s_target = mine_ctr[kBlocks] + gridDim.x;
+  }
+  __syncthreads();
+  const unsigned int epoch = s_epoch, recv_target = s_target;
   float* out = ring.out[pos];
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -149,6 +173,17 @@ __global__ void __launch_bounds__(kThreads)
     if (has_right) wait_reach(mine + kFromRight, recv_target, err, 3);
     __threadfence_system();
   }
+
+  // 6. the last block to finish advances the slot's counters
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(mine_ctr + kFinished, 1u) == gridDim.x - 1) {
+      mine_ctr[kEpoch] = epoch;
+      mine_ctr[kBlocks] = recv_target;
+      mine_ctr[kFinished] = 0u;
+      __threadfence();
+    }
+  }
 }
 
 }  // namespace
@@ -184,18 +219,17 @@ extern "C" int pfs_enable_peer(int peer) {
 
 // One slot's launch (on a stream of the current device, the slot's).  outs: host array of the ring's `size` output
 // pointers, by ring position; sem: this ring's 3 * size counters; err: the
-// mesh's error word; epoch: the mesh's exchange count, this one included;
-// recv_target: the blocks a slot has launched over those exchanges.
-extern "C" int pfs_halo_exchange(const void* x, const void* outs, void* sem, void* err, int pos,
-                                 int size, long long n, long long plane, unsigned int epoch,
-                                 unsigned int recv_target, int grid, void* stream) {
+// axis's error word; counters: the slot's own three (epoch, block sum,
+// finished blocks) on its device.
+extern "C" int pfs_halo_exchange(const void* x, const void* outs, void* sem, void* err, void* counters, int pos,
+                                 int size, long long n, long long plane, int grid, void* stream) {
   if (size < 1 || size > kMaxRing || pos < 0 || pos >= size || n < 1 || plane < 1 || grid < 1)
     return (int)cudaErrorInvalidValue;
   Ring ring;
   const uint64_t* table = static_cast<const uint64_t*>(outs);
   for (int i = 0; i < kMaxRing; ++i) ring.out[i] = i < size ? reinterpret_cast<float*>(table[i]) : nullptr;
   halo_push_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      ring, static_cast<const float*>(x), static_cast<unsigned int*>(sem), static_cast<int*>(err), pos,
-      size, n, plane, epoch, recv_target);
+      ring, static_cast<const float*>(x), static_cast<unsigned int*>(sem), static_cast<int*>(err),
+      static_cast<unsigned int*>(counters), pos, size, n, plane);
   return (int)cudaGetLastError();
 }

@@ -392,15 +392,17 @@ def pool_bytes(*pools) -> int:
 
 @dataclasses.dataclass
 class CapturedStep:
-    """One captured step: its graph and the private pool of its loop
-    bodies (held as long as the graph), the output tensors it writes on
-    every replay (state in `_state_tensors` order, and metrics), the
-    seconds the warm-up and the capture took, both pools' bytes after
-    capture, the graph's top-level nodes (a WHILE node once) and each
-    WHILE body's nodes, in the order the step records them."""
+    """One captured step: its graph and the private pools it keeps using
+    (its loop bodies' on the state's device, and one a further card of a
+    mesh over several; held as long as the graph), the output tensors it
+    writes on every replay (state in `_state_tensors` order, and metrics),
+    the seconds the warm-up and the capture took, every pool's bytes after
+    capture, the graph's top-level nodes on every card (a WHILE node once)
+    and each WHILE body's nodes, in the order the step records them (one
+    a card for each distributed solve of a mesh over several)."""
 
     graph: "torch.cuda.CUDAGraph"
-    body_pool: "torch.cuda.MemPool"
+    pools: list
     outputs: list
     metrics: Dict[str, torch.Tensor]
     seconds: float
@@ -422,18 +424,15 @@ class StepReplayer:
     geometry inside the graph.  The UNet's parameters are read in place
     too: updating them in place is seen by the next replay, replacing a
     parameter tensor needs a new replayer.  ``mesh`` and ``bucketed``
-    capture the sharded step (`step_3d`'s); every slot of the mesh must
-    be on one device, the one a graph records."""
+    capture the sharded step (`step_3d`'s); where the mesh's slots span
+    several cards the graph is one program over all of them
+    (``ops/cuda_graph.py::graph_capture``), launched on the state's card
+    (slot 0's), each distributed solve one WHILE node a card."""
 
     needs_geom = True  # the step reads a static geometry (`SimulateCapture` builds one where none is given)
 
     def __init__(self, cfg: SimConfig, like: SimState, geom: GeomCache | None = None, unet=None, mesh=None,
                  bucketed: bool = False):
-        if mesh is not None and len(set(mesh.devices)) > 1:
-            raise NotImplementedError(
-                f"a captured step needs every slot of the mesh on one device, got {mesh}: a CUDA graph records one "
-                "device's stream, and a WHILE body spanning cards is not ported (ROADMAP queue 1 item 7, \"More than "
-                "one card\": the captured form); step such a mesh eagerly with step_3d(mesh=)")
         self.cfg, self.geom, self.unet, self.mesh, self.bucketed = cfg, geom, unet, mesh, bucketed
         # visc_mg int32, whatever it came as (a scene's is a Python 0)
         self.inputs = [torch.empty_like(t) for t in _state_tensors(like)[:-1]]
@@ -477,11 +476,12 @@ class StepReplayer:
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         loops = len(captured_while.body_nodes)
-        with graph_capture(graph, dev, capture_error_mode="thread_local") as body_pool:
+        devices = self.mesh.devices if self.mesh is not None else ()
+        with graph_capture(graph, dev, devices, capture_error_mode="thread_local") as pools:
             out, metrics = self.run(state, branch)
         torch.cuda.synchronize(dev)
-        return CapturedStep(graph, body_pool, _state_tensors(out), metrics, time.perf_counter() - t0,
-                            pool_bytes(graph.pool(), body_pool.id), graph_capture.nodes,
+        return CapturedStep(graph, pools, _state_tensors(out), metrics, time.perf_counter() - t0,
+                            pool_bytes(graph.pool(), *(p.id for p in pools)), graph_capture.nodes,
                             tuple(captured_while.body_nodes[loops:]))
 
     def replay(self, branch: bool | None) -> CapturedStep:
@@ -549,8 +549,10 @@ def make_step(cfg: SimConfig, unet=None, mesh=None, bucketed: bool = False):
     the step is `step_3d`'s sharded step, captured the same way: its
     distributed solves are WHILE nodes, and it reads no 'auto' flag (the
     mesh's viscosity solve is the distributed Jacobi-PCG).  A mesh whose
-    slots span several CUDA devices raises NotImplementedError at the
-    first call on a CUDA state (its eager step is `step_3d(mesh=)`)."""
+    slots span several cards (``make_mesh(n, devices=cuda_devices(n))``)
+    is captured as one graph over them, replayed from slot 0's card, each
+    distributed solve one WHILE node a card, every replay bitwise the
+    eager ``step_3d(mesh=)``."""
     _check_supported(cfg, unet, mesh=mesh, bucketed=bucketed)
     replayed = replaying_step(cfg, unet=unet, replayer=functools.partial(StepReplayer, mesh=mesh, bucketed=bucketed))
 

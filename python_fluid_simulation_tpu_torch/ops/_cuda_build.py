@@ -48,7 +48,8 @@ _SIGNATURES = {
     "pfs_binned_broadcast": [_P, _P, _L, _I, _I, _P, _P],
     "pfs_fold": [_P] * 4 + [_I] * 9 + [_P, _F, _F, _I, _I, _P],
     "pfs_halo_grid_cap": [_P, _P],
-    "pfs_halo_exchange": [_P] * 4 + [_I, _I, _L, _L, ctypes.c_uint, ctypes.c_uint, _I, _P],
+    "pfs_halo_exchange": [_P] * 5 + [_I, _I, _L, _L, _I, _P],
+    "pfs_mesh_psum": [_P] * 6 + [_I, _I, _I, _P],
     "pfs_halo_pull": [_P, _I, _L, _L, _I, _P],
     "pfs_enable_peer": [_I],
     "pfs_while_begin": [_P] * 6 + [_I, _P],

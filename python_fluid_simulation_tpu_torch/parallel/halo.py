@@ -6,16 +6,19 @@ grid, exchanges one-cell halos with its mesh neighbours (``ppermute``)
 and reduces CG dots with ``psum``.  Here one process drives the slots of
 a `parallel.mesh.Mesh`: a sharded field is the list of its slot blocks,
 `halo_exchange` frames every block with its neighbours' edges, and
-`psum_dot` sums the slots' fp32 partial dots on slot 0's device in slot
-order.  Each slot's blocks live on its own device (card i for slot i of
-a mesh over the cards), so a dot's partials, the scalars of the carry
-(`_scalar_on`) and every exchange cross cards once an iteration.
-Width-1 exchanges along array axis 0 of CUDA blocks take the halo
-kernels (``parallel/halo_rdma.py``: one pull launch a device, or the push
-over NVLink where a ring spans devices); every other exchange, and every
-exchange of CPU blocks, takes the plain route (peer copies between
-cards), as every exchange but that one keeps ``ppermute`` in the JAX
-package.
+`psum_dots` sums the slots' fp32 partial dots in slot order, into one
+replica a distinct device of the mesh (on slot 0's device where every
+slot shares it; on a mesh over several cards every card gets the same
+bits from ``parallel/halo_rdma.py::mesh_psum``, as ``psum`` leaves the
+total on every JAX device).  Each slot's blocks live on its own device
+(card i for slot i of a mesh over the cards).  Width-1 exchanges of CUDA
+blocks along array axis 0 take the halo kernels (``parallel/
+halo_rdma.py``: one pull launch a device, or the push over NVLink where a
+ring spans devices), and so do width-1 exchanges along another axis whose
+rings span devices (the push over that axis moved to the front); every
+other exchange, and every exchange of CPU blocks, takes the plain route
+(slices and ``torch.cat``), as every exchange but that one keeps
+``ppermute`` in the JAX package.
 
 The CG loops (`distributed_cell_poisson`, `distributed_coupled_cg`) are
 the JAX package's: x0 = 0 for the cell solves, the fp32 threshold
@@ -24,14 +27,14 @@ k < max_iter, delta != 0, and the guarded alpha and beta, in the JAX
 package's order of operations (not ``solvers/cg.py::cg_iteration``'s).
 Each is an init (`cell_poisson_setup`, `coupled_cg_setup`) and one
 iteration over a `solvers/cg.py::CGCarry` of per-slot (and per-field)
-blocks, looped by ``solvers/cg.py::loop``: eagerly the exit is tested on
-the host once per iteration; while the current stream is being captured
-into a CUDA graph (``engine/step.py::make_step`` with a mesh) the
-iteration is recorded once as the body of a WHILE node whose test runs
-on the device, the carry in buffers of its own.  A captured loop needs
-every slot on one device (a graph records one device's stream): a mesh
-over several cards runs eagerly and raises under capture (ROADMAP queue
-1 item 7, "More than one card": the captured form).
+blocks and per-device replicas of delta, res and k, looped by
+``solvers/cg.py::loop``: eagerly the exit is tested on the host once per
+iteration, from the first replica; while the current stream is being
+captured into a CUDA graph (``engine/step.py::make_step`` with a mesh)
+the iteration is recorded once, as the bodies of one WHILE node a device
+whose tests run on the device, each on that device's replicas (the same
+bits on every card, so every loop exits on the same iteration, as each
+JAX device's ``while_loop`` does), the carry in buffers of its own.
 """
 
 from __future__ import annotations
@@ -57,8 +60,13 @@ def halo_exchange(mesh: Mesh, blocks: Sequence[torch.Tensor], axis_name: str, wi
     halo is the high edge of the low neighbour, the trailing halo the low
     edge of the high neighbour, zeros at the domain's ends.
     """
-    if width == 1 and array_axis == 0 and blocks[0].ndim >= 2 and blocks[0].device.type == "cuda":
-        return halo_rdma.halo_exchange_rdma(mesh, blocks, axis_name)
+    if width == 1 and blocks[0].ndim >= 2 and blocks[0].device.type == "cuda":
+        if array_axis == 0:
+            return halo_rdma.halo_exchange_rdma(mesh, blocks, axis_name)
+        if halo_rdma.halo_route(mesh, axis_name) == "push":  # rings across cards: no copy leaves a card's own stream
+            moved = halo_rdma.halo_exchange_push(mesh, [b.movedim(array_axis, 0).contiguous() for b in blocks],
+                                                 axis_name)
+            return [o.movedim(0, array_axis).contiguous() for o in moved]
     out = [None] * len(blocks)
     for ring in mesh.rings(axis_name):
         for pos, s in enumerate(ring):
@@ -76,17 +84,53 @@ def halo_exchange(mesh: Mesh, blocks: Sequence[torch.Tensor], axis_name: str, wi
     return out
 
 
+def _partial(x, y) -> torch.Tensor:
+    """One slot's fp32 partial of <x, y>, each a block or a tuple of
+    blocks."""
+    xs = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+    ys = tuple(y) if isinstance(y, (tuple, list)) else (y,)
+    return tree_dot(xs, ys)
+
+
 def psum_dot(a: Sequence, b: Sequence) -> torch.Tensor:
     """Distributed <a, b>: a[s], b[s] are slot s's block (or tuple of
     blocks); the slots' fp32 partials are summed on slot 0's device in
     slot order."""
     total = None
     for x, y in zip(a, b):
-        xs = tuple(x) if isinstance(x, (tuple, list)) else (x,)
-        ys = tuple(y) if isinstance(y, (tuple, list)) else (y,)
-        part = tree_dot(xs, ys)
+        part = _partial(x, y)
         total = part if total is None else total + part.to(total.device)
     return total
+
+
+def psum_dots(mesh: Mesh, *pairs) -> List[tuple]:
+    """Each pair's distributed dot (`psum_dot`'s slot-order sum), as its
+    replicas, one a distinct device of the mesh in the order of their
+    first slots (``halo_rdma.replica_devices``): the sum on the one
+    device where every slot shares it, else ``halo_rdma.mesh_psum`` (one
+    launch a slot for up to three dots)."""
+    parts = [tuple(_partial(a[s], b[s]) for a, b in pairs) for s in range(mesh.size)]
+    if len(set(mesh.devices)) > 1:
+        return halo_rdma.mesh_psum(mesh, parts)
+    out = []
+    for j in range(len(pairs)):
+        total = parts[0][j]
+        for p in parts[1:]:
+            total = total + p[j]
+        out.append((total,))
+    return out
+
+
+def _replica_index(mesh: Mesh) -> List[int]:
+    """Each slot's replica: the index of its device in
+    ``halo_rdma.replica_devices``."""
+    devices = halo_rdma.replica_devices(mesh)
+    return [devices.index(d) for d in mesh.devices]
+
+
+def _guarded_div(num, den) -> tuple:
+    """where(den != 0, num / den, 0) of each replica."""
+    return tuple(torch.where(d != 0, a / d, torch.zeros_like(d)) for a, d in zip(num, den))
 
 
 def sharded_pressure_matvec(mesh: Mesh, w_faces, lphi):
@@ -202,10 +246,6 @@ def converged_threshold(tol: float, rel_tol: float, res0):
     return threshold(*squared_tols(tol, rel_tol), res0)
 
 
-def _scalar_on(t, dev):
-    return t if t.device == dev else t.to(dev)
-
-
 def _unpad(x, shape):
     for a, want in enumerate(shape):
         if x.shape[a] != want:
@@ -213,21 +253,12 @@ def _unpad(x, shape):
     return x.contiguous()
 
 
-def _solve_loop(mesh: Mesh, carry: CGCarry, thresh, max_iter: int, iteration) -> CGCarry:
-    """``solvers/cg.py::loop`` of a distributed iteration; under capture
-    every slot must be on the one device the graph records."""
-    if len(set(mesh.devices)) > 1 and cg.capturing(thresh.device):
-        raise NotImplementedError(
-            f"a captured distributed solve needs every slot on one device, got {mesh}: a CUDA graph records one "
-            "device's stream (ROADMAP queue 1 item 7, \"More than one card\": the captured form)")
-    return cg.loop(carry, thresh, max_iter, iteration)
-
-
 def cell_poisson_setup(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: float = 1e-3, rel_tol: float = 1e-3):
     """The distributed Jacobi-PCG of `distributed_cell_poisson` before its
     loop: (carry, res0, thresh, iteration, finish).  The carry holds each
-    slot's block of x (0), r and d, delta, res (res0) and a device int32
-    k (0) on slot 0's device; ``iteration(carry)`` is one iteration (k
+    slot's block of x (0), r and d, and delta, res (res0) and a device
+    int32 k (0) as tuples of replicas, one a distinct device of the mesh
+    (res0 and thresh too); ``iteration(carry)`` is one iteration (k
     passed through); ``finish(x blocks)`` is the global x."""
     pairs = _mesh_spatial(mesh)
     spec = _block_spec(pairs, b.ndim)
@@ -240,7 +271,7 @@ def cell_poisson_setup(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: float =
     offs = [tuple(off) for off, _ in coefs]
     coef_ls = [split(c) for _, c in coefs]
     lshape = tuple(b_l[0].shape)
-    devs = mesh.devices
+    rep = _replica_index(mesh)
     n = mesh.size
 
     def matvec(p_l):
@@ -256,17 +287,14 @@ def cell_poisson_setup(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: float =
     def iteration(c: CGCarry) -> CGCarry:
         x, r, d, delta, _, k = c
         q = matvec(d)
-        dq = psum_dot(d, q)
-        alpha = torch.where(dq != 0, delta / dq, torch.zeros_like(dq))
-        a_s = [_scalar_on(alpha, dev) for dev in devs]
-        x = [x[s] + a_s[s] * d[s] for s in range(n)]
-        r = [r[s] - a_s[s] * q[s] for s in range(n)]
+        (dq,) = psum_dots(mesh, (d, q))
+        alpha = _guarded_div(delta, dq)
+        x = [x[s] + alpha[rep[s]] * d[s] for s in range(n)]
+        r = [r[s] - alpha[rep[s]] * q[s] for s in range(n)]
         z = [r[s] / pd_l[s] for s in range(n)]
-        nd = psum_dot(r, z)
-        res = psum_dot(r, r)
-        beta = torch.where(delta != 0, nd / delta, torch.zeros_like(nd))
-        b_s = [_scalar_on(beta, dev) for dev in devs]
-        d = [z[s] + b_s[s] * d[s] for s in range(n)]
+        nd, res = psum_dots(mesh, (r, z), (r, r))
+        beta = _guarded_div(nd, delta)
+        d = [z[s] + beta[rep[s]] * d[s] for s in range(n)]
         return CGCarry(x, r, d, nd, res, k)
 
     def finish(x):
@@ -274,12 +302,16 @@ def cell_poisson_setup(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: float =
 
     r = list(b_l)
     z = [r[s] / pd_l[s] for s in range(n)]
-    delta = psum_dot(r, z)
-    res0 = psum_dot(r, r)
-    thresh = converged_threshold(tol, rel_tol, res0)
-    x = [torch.zeros_like(t) for t in b_l]
-    k = torch.zeros((), dtype=torch.int32, device=res0.device)
-    return CGCarry(x, r, z, delta, res0, k), res0, thresh, iteration, finish
+    delta, res0 = psum_dots(mesh, (r, z), (r, r))
+    return _carry(tol, rel_tol, [torch.zeros_like(t) for t in b_l], r, z, delta, res0) + (iteration, finish)
+
+
+def _carry(tol, rel_tol, x, r, z, delta, res0):
+    """(the carry before the first iteration, res0, thresh), each scalar
+    a tuple of replicas."""
+    thresh = tuple(converged_threshold(tol, rel_tol, t) for t in res0)
+    k = tuple(torch.zeros((), dtype=torch.int32, device=t.device) for t in res0)
+    return CGCarry(x, r, z, delta, res0, k), res0, thresh
 
 
 def distributed_cell_poisson(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: float = 1e-3,
@@ -297,8 +329,8 @@ def distributed_cell_poisson(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: f
     """
     carry, res0, thresh, iteration, finish = cell_poisson_setup(mesh, b, diag, coefs, precond_diag, tol=tol,
                                                                 rel_tol=rel_tol)
-    carry = _solve_loop(mesh, carry, thresh, max_iter, iteration)
-    return finish(carry.x), carry.k, carry.res, res0
+    carry = cg.loop(carry, thresh, max_iter, iteration)
+    return finish(carry.x), carry.k[0], carry.res[0], res0[0]
 
 
 def sharded_cell_poisson_cg(mesh: Mesh, b, diag, coefs, precond_diag, *, tol: float = 1e-3,
@@ -321,7 +353,7 @@ def coupled_cg_setup(mesh: Mesh, b_faces, x0_faces, diags, per_axis_terms, preco
     common = {arr_axis: _padded_extent(max(s[arr_axis] for s in shapes), n_dev) for _, arr_axis, n_dev in pairs}
     spec = _block_spec(pairs, len(shapes[0]))
     n = mesh.size
-    devs = mesh.devices
+    rep = _replica_index(mesh)
 
     def split(v, fill=0.0):
         for arr_axis, target in common.items():
@@ -352,24 +384,22 @@ def coupled_cg_setup(mesh: Mesh, b_faces, x0_faces, diags, per_axis_terms, preco
                 outs[a][s] = outs[a][s] + c_l[s] * sample(q, rest_off, tgt, 0.0)
         return outs
 
-    def gdot(us, vs):
-        return psum_dot([tuple(u[s] for u in us) for s in range(n)], [tuple(v[s] for v in vs) for s in range(n)])
+    def slots(us):  # per field and slot -> per slot, a tuple of fields
+        return [tuple(u[s] for u in us) for s in range(n)]
 
     def axpy(alpha, xs, ys):  # per field and slot: ys + alpha * xs
-        a_s = [_scalar_on(alpha, dev) for dev in devs]
-        return [[ys[f][s] + a_s[s] * xs[f][s] for s in range(n)] for f in range(d)]
+        return [[ys[f][s] + alpha[rep[s]] * xs[f][s] for s in range(n)] for f in range(d)]
 
     def iteration(c: CGCarry) -> CGCarry:
         x, r, dd, delta, _, k = c
         q = matvec(dd)
-        dq = gdot(dd, q)
-        alpha = torch.where(dq != 0, delta / dq, torch.zeros_like(dq))
+        (dq,) = psum_dots(mesh, (slots(dd), slots(q)))
+        alpha = _guarded_div(delta, dq)
         x = axpy(alpha, dd, x)
-        r = axpy(-alpha, q, r)
+        r = axpy(tuple(-a for a in alpha), q, r)
         z = [[r[f][s] / pds[f][s] for s in range(n)] for f in range(d)]
-        nd = gdot(r, z)
-        res = gdot(r, r)
-        beta = torch.where(delta != 0, nd / delta, torch.zeros_like(nd))
+        nd, res = psum_dots(mesh, (slots(r), slots(z)), (slots(r), slots(r)))
+        beta = _guarded_div(nd, delta)
         dd = axpy(beta, dd, z)
         return CGCarry(x, r, dd, nd, res, k)
 
@@ -379,11 +409,8 @@ def coupled_cg_setup(mesh: Mesh, b_faces, x0_faces, diags, per_axis_terms, preco
     q0 = matvec(x0s)
     r = [[bs[f][s] - q0[f][s] for s in range(n)] for f in range(d)]
     z = [[r[f][s] / pds[f][s] for s in range(n)] for f in range(d)]
-    delta = gdot(r, z)
-    res0 = gdot(r, r)
-    thresh = converged_threshold(tol, rel_tol, res0)
-    k = torch.zeros((), dtype=torch.int32, device=res0.device)
-    return CGCarry(x0s, r, z, delta, res0, k), res0, thresh, iteration, finish
+    delta, res0 = psum_dots(mesh, (slots(r), slots(z)), (slots(r), slots(r)))
+    return _carry(tol, rel_tol, x0s, r, z, delta, res0) + (iteration, finish)
 
 
 def distributed_coupled_cg(mesh: Mesh, b_faces, x0_faces, diags, per_axis_terms, precond_diags, *,
@@ -403,5 +430,5 @@ def distributed_coupled_cg(mesh: Mesh, b_faces, x0_faces, diags, per_axis_terms,
     """
     carry, res0, thresh, iteration, finish = coupled_cg_setup(mesh, b_faces, x0_faces, diags, per_axis_terms,
                                                               precond_diags, tol=tol, rel_tol=rel_tol)
-    carry = _solve_loop(mesh, carry, thresh, max_iter, iteration)
-    return finish(carry.x), carry.k, carry.res, res0
+    carry = cg.loop(carry, thresh, max_iter, iteration)
+    return finish(carry.x), carry.k[0], carry.res[0], res0[0]

@@ -18,37 +18,42 @@ The route comes from the mesh's devices alone (`halo_route`):
   (slots, n + 2, ...) allocation, handed back as per-slot views.
 * **push** (a ring spans devices, as on a mesh over several cards;
   `halo_exchange_push`): ``csrc/halo_rdma.cu``, one launch a slot, each
-  on its own card and stream, the pushes to a neighbour on another card
-  peer stores over NVLink, the counters system-scope atomics on slot 0's
-  card (`peer_pairs`: every such pair gets peer access at the first
-  exchange, and a pair without it raises); the streams
-  wait on an event of the caller's stream, every launch of the exchange
-  is enqueued before any completion event (so no launch queues behind
-  another slot's), then the caller's stream waits on every slot's event,
-  so the allocator cannot reuse a buffer while a slot still writes it.
-  The kernels push their edge planes through the table of the ring's
-  output pointers (all allocated before the first launch) and count on
-  the mesh's semaphore buffer (``parallel/mesh.py::Mesh``); only push
-  exchanges advance the mesh's epoch.  Exchanges on one mesh are ordered
+  on its own card and stream (`slot_launches`), the pushes to a neighbour
+  on another card peer stores over NVLink, the counters system-scope
+  atomics on slot 0's card (`peer_pairs`: every such pair gets peer
+  access at the first exchange, and a pair without it raises); every
+  launch of the exchange is enqueued before any completion event (so no
+  launch queues behind another slot's), and the caller's stream waits on
+  every slot's, so the allocator cannot reuse a buffer while a slot
+  still writes it.  The kernels push their edge planes through the table
+  of the ring's output pointers (all allocated before the first launch)
+  and count on the axis's semaphore buffer (``parallel/mesh.py::
+  Mesh.push_state``); each slot keeps its epoch and block sum along the
+  axis in device memory and its launch advances them, so an exchange
+  recorded into a CUDA graph (a WHILE body of the distributed solves)
+  runs with a fresh epoch every time.  Exchanges on one mesh are ordered
   through the caller's stream: call them from one stream, as every
   caller here does.
 
-Under CUDA graph capture (the sharded step's captured loops) the pull
-records its launch once: the table holds the addresses the recording
+Under CUDA graph capture (the sharded step's captured loops) each route
+records its launches once: the tables hold the addresses the recording
 saw, which are the loop's carried buffers and the body pool's, fixed for
-every replay, and ``halo_exchange_rdma.launches`` counts recordings, not
-replays (a replayed step's launches follow from its iterations).  The
-push takes a host epoch a replay would repeat stale, and raises under
-capture (ROADMAP queue 1 item 7, "More than one card": its captured
-form is not ported).
+every replay, and the counters count recordings, not replays (a replayed
+step's launches follow from its iterations).
 
-On CPU blocks either wrapper runs the plain version (slices, ``.to()``,
-``torch.cat``).
+`mesh_psum` is the cross-card sum of the distributed solves' dots
+(``csrc/mesh_psum.cu``, one launch a slot on its slot's stream): every
+card gets the slot-order sum of every slot's partials, bit for bit
+`mesh_psum_plain`'s (the sum on slot 0's device, copied to every card).
+
+On CPU blocks every wrapper runs its plain version (slices, ``.to()``,
+``torch.cat``, fp32 adds in slot order).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 from typing import List, Sequence
 
@@ -90,17 +95,30 @@ def pull_plan(mesh, axis_name: str):
     return list(by_device.items())
 
 
-def peer_pairs(mesh, axis_name: str):
+def peer_pairs(mesh, axis_name: str = None):
     """The (device, peer) pairs of distinct devices whose kernels a push
     exchange along `axis_name` lets write the peer's memory: each ring's
     neighbours both ways (each pushes a plane into the other's output),
-    and every slot's device towards slot 0's, which holds the counters."""
-    pairs = set()
-    for ring in mesh.rings(axis_name):
-        for a, b in zip(ring, ring[1:]):
-            pairs |= {(mesh.devices[a], mesh.devices[b]), (mesh.devices[b], mesh.devices[a])}
-    pairs |= {(d, mesh.devices[0]) for d in mesh.devices}
+    and every slot's device towards slot 0's, which holds the counters;
+    without an axis, the cross-card sum's: every pair both ways (each
+    slot stores its partials into every slot's buffer)."""
+    if axis_name is None:
+        pairs = {(a, b) for a in mesh.devices for b in mesh.devices}
+    else:
+        pairs = set()
+        for ring in mesh.rings(axis_name):
+            for a, b in zip(ring, ring[1:]):
+                pairs |= {(mesh.devices[a], mesh.devices[b]), (mesh.devices[b], mesh.devices[a])}
+        pairs |= {(d, mesh.devices[0]) for d in mesh.devices}
     return sorted(((a, b) for a, b in pairs if a != b), key=str)
+
+
+def _open_peers(mesh, pairs):
+    """Peer access for every pair not yet opened for this mesh."""
+    for dev, peer in pairs:
+        if (dev, peer) not in mesh.open_peers:
+            cuda_halo.enable_peer_access(dev, peer)
+            mesh.open_peers.add((dev, peer))
 
 
 def _plan(mesh, axis_name: str):
@@ -110,8 +128,7 @@ def _plan(mesh, axis_name: str):
     if plan is None:
         route = halo_route(mesh, axis_name)
         if route == "push":
-            for dev, peer in peer_pairs(mesh, axis_name):
-                cuda_halo.enable_peer_access(dev, peer)
+            _open_peers(mesh, peer_pairs(mesh, axis_name))
         plan = mesh.halo_plans[axis_name] = (route, pull_plan(mesh, axis_name) if route == "pull" else None)
     return plan
 
@@ -184,6 +201,34 @@ def halo_exchange_rdma(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x
 halo_exchange_rdma.launches = 0  # one a device an exchange (the pull route), as recorded: not a graph's replays
 
 
+@contextlib.contextmanager
+def slot_launches(mesh):
+    """Yield one stream a slot to launch on: its device's current stream
+    where the slot is the only one of its device (every slot of a mesh
+    over the cards), else a stream of the slot's own (`Mesh.slot_streams`,
+    one set for each set of the devices' current streams: a side stream
+    joins the capture of the stream it forks from, so the top level of a
+    graph and the WHILE bodies each get streams of their own), which
+    starts after its device's current stream has done the caller's work
+    so far and which every device's current stream waits for on leaving
+    (`Mesh.halo_events`).  The caller enqueues every launch inside."""
+    current = {d: torch.cuda.current_stream(d) for d in dict.fromkeys(mesh.devices)}
+    if len(current) == mesh.size:
+        yield [current[d] for d in mesh.devices]
+        return
+    streams = mesh.slot_streams(tuple(st.cuda_stream for st in current.values()))
+    ready, done = mesh.halo_events()
+    for dev, ev in ready.items():
+        ev.record(current[dev])
+    for s, st in enumerate(streams):
+        st.wait_event(ready[mesh.devices[s]])
+    yield streams
+    for s, st in enumerate(streams):
+        done[s].record(st)
+    for s, dev in enumerate(mesh.devices):
+        current[dev].wait_event(done[s])
+
+
 def halo_exchange_push(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x") -> List[torch.Tensor]:
     """`halo_exchange_rdma` by remote push, one launch a slot on its own
     card and stream: the route of rings that span devices, and callable
@@ -191,10 +236,6 @@ def halo_exchange_push(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x
     plain device pointers).  CPU blocks run the plain version."""
     if all(b.device.type == "cpu" for b in blocks):
         return halo_exchange_rdma_plain(mesh, blocks, axis_name)
-    if torch.cuda.is_current_stream_capturing():
-        raise NotImplementedError(
-            "halo_exchange_push under CUDA graph capture: its epoch is a host counter that a replay would repeat "
-            "stale (ROADMAP queue 1 item 7, \"More than one card\": its captured form is not ported)")
     shape = _check_blocks("halo_exchange_push", mesh, blocks)
     _plan(mesh, axis_name)  # the pairs' peer access, once a mesh and axis
     rings = mesh.rings(axis_name)
@@ -205,31 +246,79 @@ def halo_exchange_push(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x
     # allocation (which may synchronise the device) between two launches
     # that spin on each other
     outs = [torch.empty((n + 2,) + shape[1:], dtype=torch.float32, device=b.device) for b in blocks]
-    streams = mesh.slot_streams()
-    ready, done = mesh.halo_events()
-    sem = mesh.halo_semaphores()
+    sem, counters = mesh.push_state(axis_name)
     # one grid for every launch (the counters count blocks), sized for the
     # device that holds the most of the exchange's spinning launches
     per_device = collections.Counter(mesh.devices)
     grid = min(cuda_halo.grid_size(n * plane, k, dev) for dev, k in per_device.items())
-    epoch, recv_target = mesh.next_exchange(grid)
     tables = [np.array([outs[s].data_ptr() for s in ring], dtype=np.uint64) for ring in rings]
     err_ptr = sem.data_ptr() + 4 * 3 * mesh.size
-    for dev, ev in ready.items():
-        ev.record(torch.cuda.current_stream(dev))
-    for s, st in enumerate(streams):
-        st.wait_event(ready[mesh.devices[s]])
-    for r, (ring, table) in enumerate(zip(rings, tables)):
-        sem_ptr = sem.data_ptr() + 4 * 3 * len(ring) * r
-        for pos, s in enumerate(ring):
-            cuda_halo.launch(blocks[s], outs[s], table, sem_ptr, err_ptr, pos, n, plane, epoch, recv_target, grid,
-                             streams[s])
-            halo_exchange_push.launches += 1
-    for s, st in enumerate(streams):
-        done[s].record(st)
-    for s, dev in enumerate(mesh.devices):
-        torch.cuda.current_stream(dev).wait_event(done[s])
+    with slot_launches(mesh) as streams:
+        for r, (ring, table) in enumerate(zip(rings, tables)):
+            sem_ptr = sem.data_ptr() + 4 * 3 * len(ring) * r
+            for pos, s in enumerate(ring):
+                cuda_halo.launch(blocks[s], outs[s], table, sem_ptr, err_ptr, counters[s], pos, n, plane, grid,
+                                 streams[s])
+                halo_exchange_push.launches += 1
     return outs
 
 
-halo_exchange_push.launches = 0  # one a slot an exchange (the push route)
+halo_exchange_push.launches = 0  # one a slot an exchange (the push route), as recorded
+
+
+def mesh_psum_plain(mesh, parts) -> List[tuple]:
+    """Plain PyTorch version of `mesh_psum`: each dot's partials summed
+    on slot 0's device in slot order, ((p0 + p1) + p2) + ..., then copied
+    to every distinct device of the mesh (its replicas, in the order of
+    `replica_devices`)."""
+    devices = replica_devices(mesh)
+    totals = []
+    for j in range(len(parts[0])):
+        total = parts[0][j]
+        for s in range(1, len(parts)):
+            total = total + parts[s][j].to(total.device)
+        totals.append(total)
+    return [tuple(t.to(d) for d in devices) for t in totals]
+
+
+def replica_devices(mesh) -> List[torch.device]:
+    """The mesh's distinct devices in the order of their first slots: one
+    replica of every scalar the distributed solves carry each."""
+    return list(dict.fromkeys(mesh.devices))
+
+
+def mesh_psum(mesh, parts) -> List[tuple]:
+    """The distributed dots of a mesh whose slots span devices: parts[s]
+    is slot s's tuple of 1 to 3 fp32 0-dim partials (on its device); for
+    each dot, its replicas, one a distinct device (`replica_devices`),
+    each the slot-order sum of the slots' partials, the same bits.  CUDA
+    partials launch ``csrc/mesh_psum.cu`` once a slot on the slot's
+    stream (the replica of a device is its first slot's total), with no
+    fallback; CPU partials take `mesh_psum_plain`."""
+    if len(parts) != mesh.size or len({len(p) for p in parts}) != 1:
+        raise ValueError(f"mesh_psum: {len(parts)} slots' partials of {sorted({len(p) for p in parts})} dots for "
+                         f"{mesh.size} slots")
+    if all(t.device.type == "cpu" for p in parts for t in p):
+        return mesh_psum_plain(mesh, parts)
+    dots = len(parts[0])
+    if dots > cuda_halo.MAX_PSUM_DOTS or mesh.size > cuda_halo.MAX_PSUM_SLOTS:
+        raise ValueError(f"mesh_psum: at most {cuda_halo.MAX_PSUM_DOTS} dots over {cuda_halo.MAX_PSUM_SLOTS} slots")
+    for s, (p, dev) in enumerate(zip(parts, mesh.devices)):
+        if any(t.device != dev or t.dtype != torch.float32 or t.dim() != 0 for t in p):
+            raise ValueError(f"mesh_psum: slot {s} needs 0-dim float32 partials on {dev}")
+    _open_peers(mesh, peer_pairs(mesh))
+    recv, state = mesh.psum_state()
+    recv_table = np.array([b.data_ptr() for b in recv], dtype=np.uint64)
+    arrive_table = np.array([t.data_ptr() for t in state], dtype=np.uint64)
+    outs = [tuple(torch.empty((), dtype=torch.float32, device=dev) for _ in range(dots)) for dev in mesh.devices]
+    with slot_launches(mesh) as streams:
+        for s in range(mesh.size):
+            cuda_halo.psum(recv_table, arrive_table, parts[s], outs[s], state[s], s, streams[s])
+            mesh_psum.launches += 1
+    first = {}
+    for s, dev in enumerate(mesh.devices):
+        first.setdefault(dev, s)
+    return [tuple(outs[first[dev]][j] for dev in replica_devices(mesh)) for j in range(dots)]
+
+
+mesh_psum.launches = 0  # one a slot a call, as recorded

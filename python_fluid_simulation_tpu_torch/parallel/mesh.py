@@ -52,13 +52,17 @@ class Mesh:
     (i, k) of an (x, z) mesh is ``devices[i * sz + k]``); ``shape`` maps
     each axis name to its extent, as JAX's ``Mesh.shape`` does.
 
-    The halo kernels' per-mesh state lives here and is made at first
-    use: each axis's route and pull launches (``halo_plans``), and for the
-    push route one stream a CUDA slot, the events that order those streams
-    against the caller's, and the semaphore buffer (3 counters a slot and
-    an error word) with the epoch and the block sum the kernels count to
-    (both grow with every push exchange, so no counter is ever reset).
-    Two meshes share none of it.
+    The mesh kernels' per-mesh state lives here and is made at first use
+    (outside any CUDA graph capture): each axis's route and pull launches
+    (``halo_plans``); where a device holds several slots, one stream a
+    slot and the events that order those streams against the caller's
+    (the push and the cross-card sum);
+    for the push route each axis's semaphore buffer (3 counters a slot and
+    an error word) and each slot's own counters along it (the epoch and
+    the block sum the kernels count to, in device memory: they grow with
+    every exchange, so no counter is ever reset, and a replayed launch
+    advances them as an eager one does); for the cross-card sum each
+    slot's receive buffer and counters.  Two meshes share none of it.
     """
 
     def __init__(self, devices: Sequence, axis_names: Sequence[str], extents: Sequence[int]):
@@ -71,11 +75,11 @@ class Mesh:
             raise ValueError(f"{len(self.devices)} slots do not fill a {tuple(extents)} mesh")
         self.size = len(self.devices)
         self.halo_plans = {}  # axis name -> (route, pull launches): parallel/halo_rdma.py
-        self._streams = None
+        self.open_peers = set()  # (device, peer) pairs given peer access for this mesh's kernels
+        self._streams = {}
         self._events = None
-        self._sem = None
-        self._epoch = 0
-        self._blocks = 0
+        self._push = {}
+        self._psum = None
 
     def __repr__(self):
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
@@ -94,14 +98,15 @@ class Mesh:
 
     # -- the push route's per-mesh state (CUDA slots only)
 
-    def slot_streams(self) -> List[torch.cuda.Stream]:
-        """One stream a slot, never shared by two slots of this mesh."""
-        if self._streams is None:
+    def slot_streams(self, key=None) -> List[torch.cuda.Stream]:
+        """One stream a slot, never shared by two slots of this mesh: one
+        set for each ``key`` (the caller's current streams)."""
+        if key not in self._streams:
             streams = [torch.cuda.Stream(device=d) for d in self.devices]
             if len({s.cuda_stream for s in streams}) != len(streams):
                 raise RuntimeError(f"{self}: two slots were handed the same stream")
-            self._streams = streams
-        return self._streams
+            self._streams[key] = streams
+        return self._streams[key]
 
     def halo_events(self):
         """({device: event}, [event a slot]): the caller's streams are
@@ -112,23 +117,37 @@ class Mesh:
                             [torch.cuda.Event() for _ in self.devices])
         return self._events
 
-    def halo_semaphores(self) -> torch.Tensor:
-        """int32 (3 * size + 1,) on slot 0's device, zero at first use:
-        per slot (by ring, then position in the ring) the arrival count
-        and the receive counts from the left and from the right; then the
-        error word a timed-out wait writes."""
-        if self._sem is None:
-            self._sem = torch.zeros(3 * self.size + 1, dtype=torch.int32, device=self.devices[0])
-        return self._sem
+    def _fresh(self, what: str):
+        """Refuse to make device state under capture (a graph would own
+        its memory and zero it on every replay)."""
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{self}: its {what} are made at first use outside a CUDA graph capture: run the "
+                               "exchange (or the step) once eagerly first")
 
-    def next_exchange(self, grid: int):
-        """(epoch, recv_target) of a new exchange whose launches have
-        `grid` blocks each: the exchanges so far, this one included, and
-        the blocks a slot has launched over them (mod 2^32): what each
-        slot's arrival and receive counters reach from one neighbour."""
-        self._epoch = (self._epoch + 1) & 0xFFFFFFFF
-        self._blocks = (self._blocks + grid) & 0xFFFFFFFF
-        return self._epoch, self._blocks
+    def push_state(self, axis_name: str):
+        """(sem, counters) of the push route along `axis_name`, zero at
+        first use: sem int32 (3 * size + 1,) on slot 0's device, per slot
+        (by ring, then position in the ring) the arrival count and the
+        receive counts from the left and from the right, then the error
+        word a timed-out wait writes; counters one int32 (3,) a slot on
+        its device, the slot's epoch, block sum and finished blocks."""
+        if axis_name not in self._push:
+            self._fresh("push counters")
+            self._push[axis_name] = (torch.zeros(3 * self.size + 1, dtype=torch.int32, device=self.devices[0]),
+                                     [torch.zeros(3, dtype=torch.int32, device=d) for d in self.devices])
+        return self._push[axis_name]
+
+    def psum_state(self):
+        """(recv, state) of the cross-card sum, zero at first use: one
+        float32 (2 * 3 * size,) receive buffer a slot (two halves of up
+        to three dots by slot) and one int32 (3,) a slot (its arrival
+        count, its epoch and its error word), each on its slot's
+        device."""
+        if self._psum is None:
+            self._fresh("cross-card sum buffers")
+            self._psum = ([torch.zeros(6 * self.size, dtype=torch.float32, device=d) for d in self.devices],
+                          [torch.zeros(3, dtype=torch.int32, device=d) for d in self.devices])
+        return self._psum
 
 
 def cuda_devices(n: int) -> List[torch.device]:

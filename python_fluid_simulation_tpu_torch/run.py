@@ -21,8 +21,10 @@ device) or ``cpu``, where every kernel runs its plain PyTorch version.
 The 2D scenes (``dam_break_2d``, ``droplet_2d``) run ``engine/step2d.py::
 simulate_2d`` on ``SimConfig2D()``'s defaults, as the JAX CLI does; they
 take no ``--mesh`` and have no surface for ``--export-obj``.  ``--mesh N
-[--bucketed]`` runs the sharded step on N slots of the device (through
-``simulate``, so on CUDA one capture a run), with ``--bucketed`` the
+[--bucketed]`` runs the sharded step on N slots (through ``simulate``, so
+on CUDA one capture a run): slot i on ``cuda:i`` where the process sees
+at least N cards, as the JAX CLI shards over N devices, else all N on the
+one device (`mesh_layout`); with ``--bucketed`` the
 particles bucketed by x-slab (``parallel/particles.py``); a resumed
 bucketed run keeps its checkpoint's layout where that is already
 bucketed over N slots (the JAX CLI re-buckets), so it continues the
@@ -65,8 +67,8 @@ def build_argparser():
                    help="with --mesh: spatially-bucketed particle sharding (per-slot residency + bounded exchange) "
                         "instead of index sharding")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard the 3D step over an N-slot mesh of the device (grid slab-decomposed along x, "
-                        "distributed solves)")
+                   help="shard the 3D step over an N-slot mesh (grid slab-decomposed along x, distributed "
+                        "solves): one slot a card where there are N cards, else N slots of the device")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the state lives and the steps run")
     return p
@@ -135,6 +137,16 @@ def load_unet(args, device):
     return model.to(device).eval()
 
 
+def mesh_layout(n: int, device: str, device_count: int):
+    """The slots of ``--mesh n``: (``make_mesh`` keyword arguments, the
+    layout as the run prints it).  On CUDA with at least n cards, slot i
+    on ``cuda:i`` (JAX's ``make_mesh(n)`` over the first n devices); else
+    every slot on ``device``."""
+    if device == "cuda" and device_count >= n:
+        return dict(devices=[f"cuda:{i}" for i in range(n)]), f"{n} cards (cuda:0..cuda:{n - 1})"
+    return dict(device=device), f"{n} slots of {device}"
+
+
 def refuse_flags(args):
     """Exit with the JAX CLI's message for flags that do not go together."""
     if args.bucketed and not (args.mesh and args.mesh > 1):
@@ -180,7 +192,8 @@ def main(argv=None):
     if args.mesh and args.mesh > 1:
         from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, shard_state
 
-        mesh = make_mesh(args.mesh, device)
+        kw, layout = mesh_layout(args.mesh, device, torch.cuda.device_count() if device == "cuda" else 0)
+        mesh = make_mesh(args.mesh, **kw)
         state = shard_state(state, mesh)
         if args.bucketed:
             from python_fluid_simulation_tpu_torch.parallel.particles import (
@@ -201,10 +214,9 @@ def main(argv=None):
                                         cell_size=g.cell_size)
                 state = dataclasses.replace(state, particles=bucket_particles(state.particles, mesh, spec, g.bound_min,
                                                                               g.cell_size))
-            print(f"bucket-sharded over {args.mesh} slots of {device} (cap {spec.cap}/slot, exchange "
-                  f"{spec.exchange_cap})")
+            print(f"bucket-sharded over {layout} (cap {spec.cap}/slot, exchange {spec.exchange_cap})")
         else:
-            print(f"spatially sharded over {args.mesh} slots of {device}")
+            print(f"spatially sharded over {layout}")
 
     unet = None
     if not two_d and cfg.solver.viscosity_mode in ("unet", "unet_warm"):

@@ -19,7 +19,10 @@ the body of a WHILE node whose test runs on the device
 ``lax.while_loop`` keeps it there.  Both count the iterations in a device
 int32 ``k``.  Non-convergence is reported in `SolveStats`, not raised.
 `loop` runs any such body either way; the distributed solves
-(``parallel/halo.py``) loop their own bodies through it.
+(``parallel/halo.py``) loop their own bodies through it, their delta,
+res, k and threshold tuples of replicas, one a device: the host loop
+tests the first, and under capture each device gets a WHILE node of its
+own that tests its replicas.
 """
 
 from __future__ import annotations
@@ -109,7 +112,8 @@ def _leaves(t) -> list:
 
 def captured_loop(carry: CGCarry, thresh, max_iter: int, iteration: Callable) -> CGCarry:
     """The loop of ``iteration`` (carry -> carry, ``k`` passed through) as
-    a WHILE node of the graph being captured: the carry goes to buffers of
+    a WHILE node of the graph being captured (one a device where delta,
+    res, k and thresh are tuples of replicas): the carry goes to buffers of
     its own (x0 is the caller's, and without a preconditioner d is r and
     res is delta), which each recorded iteration overwrites in place.  x,
     r and d may nest (a slot's blocks, a field's slots)."""
@@ -129,16 +133,22 @@ def _captured_loop(carry: CGCarry, thresh, max_iter: int, matvec, precond) -> CG
     return captured_loop(carry, thresh, max_iter, lambda c: cg_iteration(c, matvec, precond))
 
 
+def _first(t):
+    return t[0] if isinstance(t, tuple) else t
+
+
 def loop(carry: CGCarry, thresh, max_iter: int, iteration: Callable) -> CGCarry:
     """``while res >= thresh and k < max_iter and delta != 0: carry =
-    iteration(carry); k += 1``: on the host eagerly, as a WHILE node
+    iteration(carry); k += 1``: on the host eagerly (from the first
+    replica where the scalars are replicated), as WHILE nodes
     (`captured_loop`) while the current stream is being captured."""
-    if capturing(thresh.device):
+    if capturing(_first(thresh).device):
         return captured_loop(carry, thresh, max_iter, iteration)
     n = 0
-    while n < max_iter and bool((carry.res >= thresh) & (carry.delta != 0)):
+    while n < max_iter and bool((_first(carry.res) >= _first(thresh)) & (_first(carry.delta) != 0)):
         carry = iteration(carry)
-        carry = carry._replace(k=carry.k + 1)
+        k = carry.k
+        carry = carry._replace(k=tuple(kk + 1 for kk in k) if isinstance(k, tuple) else k + 1)
         n += 1
     return carry
 

@@ -24,8 +24,10 @@ and the factored distributed PCG loops, on CPU.
   1D and a (2, 2) CPU mesh, the host loop is bitwise the loop it
   replaced (copied below), and the captured loop's in-place carry, its
   WHILE node stood in by a host loop, is bitwise the host loop; both
-  return the iterations as a device int32.  A captured loop over a mesh
-  of several devices raises.
+  return the iterations as a device int32.  Over a mesh of two devices
+  the captured solves run one loop a device (the host stand-in checks
+  that every device's exit test agrees) and return the eager solve's
+  bits.
 """
 
 import jax
@@ -224,6 +226,11 @@ def test_mesh_make_step_equals_simulate_bitwise(case):
 # the factored distributed loops
 # ---------------------------------------------------------------------------
 
+def _scalar_on(t, dev):
+    """The old loops' copy of a scalar to a slot's device."""
+    return t if t.device == dev else t.to(dev)
+
+
 def _old_cell_poisson(mesh, b, diag, coefs, precond_diag, *, tol=1e-3, rel_tol=1e-3, max_iter=600):
     """`halo.distributed_cell_poisson` as it was before its loop was split
     into an init and an iteration."""
@@ -262,14 +269,14 @@ def _old_cell_poisson(mesh, b, diag, coefs, precond_diag, *, tol=1e-3, rel_tol=1
         q = matvec(d)
         dq = halo.psum_dot(d, q)
         alpha = torch.where(dq != 0, delta / dq, torch.zeros_like(dq))
-        a_s = [halo._scalar_on(alpha, dev) for dev in devs]
+        a_s = [_scalar_on(alpha, dev) for dev in devs]
         x = [x[s] + a_s[s] * d[s] for s in range(n)]
         r = [r[s] - a_s[s] * q[s] for s in range(n)]
         z = [r[s] / pd_l[s] for s in range(n)]
         nd = halo.psum_dot(r, z)
         res = halo.psum_dot(r, r)
         beta = torch.where(delta != 0, nd / delta, torch.zeros_like(nd))
-        b_s = [halo._scalar_on(beta, dev) for dev in devs]
+        b_s = [_scalar_on(beta, dev) for dev in devs]
         d = [z[s] + b_s[s] * d[s] for s in range(n)]
         delta = nd
         k += 1
@@ -322,7 +329,7 @@ def _old_coupled_cg(mesh, b_faces, x0_faces, diags, per_axis_terms, precond_diag
         return halo.psum_dot([tuple(u[s] for u in us) for s in range(n)], [tuple(v[s] for v in vs) for s in range(n)])
 
     def axpy(alpha, xs, ys):
-        a_s = [halo._scalar_on(alpha, dev) for dev in devs]
+        a_s = [_scalar_on(alpha, dev) for dev in devs]
         return [[ys[f][s] + a_s[s] * xs[f][s] for s in range(n)] for f in range(d)]
 
     q0 = matvec(x0s)
@@ -350,11 +357,24 @@ def _old_coupled_cg(mesh, b_faces, x0_faces, diags, per_axis_terms, precond_diag
 
 
 def _host_while(body, k, res, thresh, delta, max_iter):
-    """The WHILE node's semantics on the host: the test before the first
-    body and after each one, k + 1 after each body."""
-    while bool((res >= thresh) & (k < max_iter) & (delta != 0)):
+    """The WHILE nodes' semantics on the host: each scalar a tensor, or a
+    tuple of replicas with one node a device, all running one recorded
+    body; every node's test before the first body and after each one
+    (every node must agree, or the bodies would part), k + 1 after each
+    body.  Records the nodes of each loop in ``_host_while.loops``."""
+    ks, ress, threshs, deltas = (t if isinstance(t, tuple) else (t,) for t in (k, res, thresh, delta))
+    _host_while.loops.append(len(ks))
+    while True:
+        go = {bool((r >= t) & (kk < max_iter) & (d != 0)) for kk, r, t, d in zip(ks, ress, threshs, deltas)}
+        assert len(go) == 1, "the per-device loops disagree on their exit"
+        if not go.pop():
+            break
         body()
-        k.add_(1)
+        for kk in ks:
+            kk.add_(1)
+
+
+_host_while.loops = []
 
 
 NN = (10, 8, 7)  # x and z extents that divide neither mesh (padded blocks)
@@ -436,19 +456,36 @@ def test_factored_distributed_loops_are_the_old_loops_bitwise(kind, solver, max_
         assert torch.equal(run[2], want[2]) and torch.equal(run[3], want[3]), label
 
 
-def test_captured_distributed_loop_needs_one_device(monkeypatch):
-    """Under capture a mesh whose slots sit on two devices raises, in the
-    loop and in the step's replayer; eagerly it solves."""
-    two = Mesh(["cpu", "cpu:0"], ("x",), (2,))
-    args, kw = _cell_args()
-    x, iters, _, _ = halo.distributed_cell_poisson(two, *args, **kw)
-    assert int(iters) > 0
+@pytest.mark.parametrize("solver", ["cell", "coupled"])
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+def test_captured_distributed_loop_runs_one_loop_a_device(kind, solver, monkeypatch):
+    """A mesh whose slots sit on two devices ('cpu' and 'cpu:0' are two
+    devices to a mesh; the 2D mesh puts each x pair on one of them): under
+    capture each distributed solve runs one loop a device, each on that
+    device's replicas of the scalars, and returns x, the iterations, the
+    residual and res0 bit for bit the eager solve's; the step's replayer
+    takes the mesh."""
+    if kind == "1d":
+        mesh = Mesh(["cpu", "cpu:0"], ("x",), (2,))
+    else:
+        mesh = Mesh(["cpu", "cpu", "cpu:0", "cpu:0"], ("x", "z"), (2, 2))
+    if solver == "cell":
+        args, kw = _cell_args()
+        solve = halo.distributed_cell_poisson
+    else:
+        args, kw = _coupled_args(mesh)
+        solve = halo.distributed_coupled_cg
+    eager = solve(mesh, *args, **kw)
     monkeypatch.setattr(cg_mod, "capturing", lambda device: True)
-    with pytest.raises(NotImplementedError, match="More than one card"):
-        halo.distributed_cell_poisson(two, *args, **kw)
+    monkeypatch.setattr(cg_mod, "captured_while", _host_while)
+    _host_while.loops.clear()
+    captured = solve(mesh, *args, **kw)
+    assert _host_while.loops == [2]  # one loop, one node a device
+    assert int(eager[1]) > 0 and captured[1].dtype == torch.int32 and int(captured[1]) == int(eager[1])
+    assert all(torch.equal(a, b) for a, b in zip(_flat(captured[0]), _flat(eager[0])))
+    assert torch.equal(captured[2], eager[2]) and torch.equal(captured[3], eager[3])
     cfg = buckling_config(dx=DX)
-    with pytest.raises(NotImplementedError, match="More than one card"):
-        StepReplayer(cfg, buckling_scene(cfg, device="cpu"), mesh=two)
+    assert StepReplayer(cfg, buckling_scene(cfg, device="cpu"), mesh=mesh).mesh is mesh
 
 
 # ---------------------------------------------------------------------------
