@@ -147,14 +147,15 @@ Phases, each printing one JSON line:
               bitwise) at 24M faces; the live route on every reduce and
               fold of the step (as in kernels_coil; the level set's dense
               route folds a 4.0 GB table)
-  main_504    504: 3 'auto' steps from the scene (Jacobi branch), then 3
+  main_504    504: 4 'auto' steps from the scene (Jacobi branch; the
+              third counted, see bytes), then 3
               'auto' steps from visc_mg = 2 (the lean branch), counters
               reset before each run; the Poisson PCG and the lean route
               launched, one tail launch a lean V-cycle, solves converged,
               the first lean step bitwise
               repeatable and within STEP_TOL of the same step on the card
-              with every kernel swapped for its plain version; the same
-              step on the CPU reported (not asserted), peak memory
+              with every kernel swapped for its plain version, peak
+              memory
   mesh_504    504 sharded over 4 slots from the same scene: 1 warm-up + 2
               timed steps with the counters reset just before; the halo
               kernel launched, solves converged, |dx| < 2e-4 and |dv| < 2e-3
@@ -201,7 +202,8 @@ Phases, each printing one JSON line:
               Poisson PCG (density, pressure) and the
               coupled PCG (18M faces) on the step's systems vs their plain
               versions, with times and bounds
-  main_256    256: 1 warm-up + 2 timed steps with the counters reset just
+  main_256    256: 1 warm-up + 2 timed steps (+ the counted third, see
+              bytes) with the counters reset just
               before; the scan route with the live placement, the
               live-cell Poisson PCG and the coupled PCG launched, the
               serial reduce not, solves converged, particles finite,
@@ -283,7 +285,7 @@ Phases, each printing one JSON line:
               the generic CG loops as WHILE nodes): on the flagship 1
               warm-up of each side, then 10 eager steps (step_3d, the
               geometry built inside) and 10 replays from the same state;
-              3 of each on the flagship in 'unet', 'unet_warm' (seeded
+              2 of each on the flagship in 'unet', 'unet_warm' (seeded
               weights) and jacobi_precond=False, 128^3, coiling 256 and
               504 'auto' from the state after 2 steps with the carried
               flag forced to 0 and to 2 (both branches), and 256; 5 on the
@@ -299,6 +301,22 @@ Phases, each printing one JSON line:
               and replayed alone); the WHILE node's test kernel against
               the host loop on edge cases, its ms a launch beside the
               host test's
+  bytes       one line a configuration: the bytes of one
+              eager step each main run already takes (its third, counted
+              by utils/step_bytes.py::step_bytes: every aten op by one
+              rule, every hand kernel by its own count, simulate's copies
+              around a replay; left out of the run's timed steps) for the
+              flagship, 128^3, coiling 'auto', 504 'auto' (Jacobi), 256
+              and the flagship 'unet': GB a step, the kernels' share, the
+              ten largest per-op entries, step_bytes_model's GB for the
+              same iterations, and roofline() of the count over the graph
+              phase's replayed ms a step (achieved GB/s, hbm_util <= 1
+              asserted, impl_overhead_x); the counted step builds its
+              geometry inside, as those replays do; for the flagship and
+              128^3 the CPU's count of the same step from the same state
+              (card vs CPU step) beside the card's, both iteration lists
+              and the per-op entries that differ, the two counts asserted
+              equal where the iterations agree
   cli         the port's CLI (run.main, in a temporary directory): the
               flagship, 30 steps in blocks of 15 with --metrics,
               --snapshot-pickle, --export-obj, --export-html and
@@ -362,9 +380,11 @@ Phases, each printing one JSON line:
               one CUDA graph, the three distributed solves as WHILE
               nodes): the flagship sharded and bucketed on make_mesh(4)
               and (2, 2), 'unet' and 'unet_warm' (full-width UNet) on
-              both meshes and 'unet_warm' bucketed on (2, 2), and
+              both meshes and 'unet_warm' bucketed on (2, 2),
               coiling_config(504) sharded on 4 slots and bucketed on 2 and
-              on (2, 2), 3 steps each as in graph: 1 warm-up of each
+              on (2, 2), and the moving box (moving_box_config(1/32), its
+              geometry rebuilt on the mesh every step) sharded on 4
+              slots, 2 steps each, as in graph: 1 warm-up of each
               side, eager steps and replays from the same state bitwise
               (particles, t, step_idx, visc_mg, every metric, bucket_lost
               0), the replays under set_sync_debug_mode("error"), one
@@ -392,7 +412,8 @@ Phases, each printing one JSON line:
               its ms a call eagerly and replayed (200 calls in one graph
               over the cards); path 2, slot i on cuda:i: the flagship
               sharded and bucketed on 4 slots and (2, 2), 504 sharded on
-              4, 'unet_warm' bucketed on (2, 2), 3 steps each (504: 2),
+              4, 'unet_warm' bucketed on (2, 2), the moving box
+              (moving_box_config(1/64)) sharded on 4, 3 steps each (504: 2),
               bitwise the same mesh layout on cuda:0 and the plain-kernel
               steps on the cards, within 2e-4 / 2e-3 of the unsharded
               step by mass, bucket_lost 0, every x ring pushing and no
@@ -458,36 +479,34 @@ CHECKED_STEPS = (0, 1, 2)  # step 0 solves no viscosity; 1 and 2 do
 FLAGSHIP = ((48, 80, 48), 89648)  # grid, particles
 RES_128 = 128
 SHAPE_128 = ((77, 128, 77), 356256)
-STEPS_128 = 6  # 1 warm-up + 5 timed
+STEPS_128 = 6  # 1 warm-up + 5 timed (4 where one is counted)
 CHECKED_STEP_128 = 2  # the third step, card vs CPU
+# bytes: the third step of a main run is counted (utils/step_bytes.py::
+# step_bytes: bitwise the same step, seconds slower) and left out of its
+# timed steps
+COUNTED_STEP = 2
 RES_COIL = 256
 SHAPE_COIL = ((64, 256, 64), 73644)
 STEPS_COIL = 6  # 1 warm-up + 5 timed, per preconditioner
 CHECKED_STEP_COIL = 2  # the third step, card vs CPU
 RES_504 = 504
 SHAPE_504 = ((126, 504, 126), 465868)
-STEPS_504 = 3  # per run: 'auto' from the scene, then 'auto' from visc_mg = 2
+STEPS_504 = 3  # 'auto' from visc_mg = 2: 1 warm-up + 2 timed
+STEPS_504_AUTO = 4  # 'auto' from the scene: 1 warm-up + 2 timed + the counted step
 SWEEP_PLANES = (8, 16, 32, 63, 126)  # x planes of the 504 pressure system: 0.5M-8.0M cells
 SWEEP_ITERS = 50
-# bytes the Poisson PCG (csrc/poisson_pcg.cu) moves a live cell an
-# iteration: A reads the list entry, diag, 6 coefficients, r, pd and
-# d_old and writes d and q (13 floats); B reads the entry, x, d, r, q and
-# pd and writes x and r (8); the neighbours' r, pd and d_old counted as
-# cache hits
-POISSON_LIVE_BYTES = (13 + 8) * 4
 # fp32 operations a face of the geometry-recompute matvec: the diagonal
 # (6 products, 6 sums, s_mu * extra, + center, * v: 15) and 4 a coupling
 # (sign*factor * s_mu, * vol, * v, +)
 GEOM_MV_OPS = {False: 15 + 4 * 14, True: 15 + 4 * 6}
-# the materialised coupled matvec: a face reads its diagonal, 14
-# coefficients and v once and writes q once; 15 products and 14 sums
-COUPLED_FLOATS_PER_FACE = 17
+# the materialised coupled matvec: 15 products and 14 sums a face (its
+# bytes: ops/cuda_stencils.py::coupled_stencil_bytes)
 COUPLED_OPS_PER_FACE = 29
 STEPS_NOJAC = 6  # flagship, jacobi_precond=False: 1 warm-up + 5 timed
 STEPS_OPTION = 3  # the other runs of the new options
 RES_256 = 256
 SHAPE_256 = ((154, 256, 154), 2903629)
-STEPS_256 = 3  # 1 warm-up + 2 timed
+STEPS_256 = 4  # 1 warm-up + 2 timed + the counted step
 # the kernels of the reduce route every step's reduces take: the scan, then
 # the live placement (ops/scatter.py::segment_reduce_cf: the live form)
 REDUCE_ROUTE = ("seg_scan_sorted", "binned_segment_place_live")
@@ -554,9 +573,11 @@ HALO_FIELDS = (
 # the captured step (graph phase): the flagship's eager and replayed steps,
 # the other configurations', and the moving box's
 GRAPH_STEPS = 10
-GRAPH_CHECK_STEPS = 3
+GRAPH_CHECK_STEPS = 2  # the other configurations (cut from 3 for the one-card time limit)
 MOVING_STEPS = 5
 MOVING_DX = 1.0 / 64
+MOVING_MESH_DX = 1.0 / 32  # graph_mesh: the moving box on make_mesh(4), 32^3 cells (one-card time limit)
+MOVING_MESH_STEPS = 2
 # the CLI (cli phase): the flagship in blocks, resumed from its middle
 # checkpoint, and coiling; the captures a run counted
 CLI_STEPS = 30
@@ -574,9 +595,9 @@ BUCKET_STEPS = 3
 BUCKET_504_SLOTS = 2  # coiling_config(504): nx = 126 is not a multiple of 4
 BUCKET_504_STEPS = 2
 BUCKET_2D = (2, 2)  # the (x, z) mesh of the bucketed and learned mesh runs: flagship slabs 24 x 24, 504 63 x 63
-GRAPH_MESH_STEPS = 3  # graph_mesh: eager and replayed steps of each flagship mesh configuration
-GRAPH_MESH_UNET_STEPS = 3  # the learned modes under a mesh
-GRAPH_MESH_504_STEPS = 3  # coiling_config(504) under a mesh
+GRAPH_MESH_STEPS = 2  # graph_mesh: eager and replayed steps of each flagship mesh configuration (cut from 3)
+GRAPH_MESH_UNET_STEPS = 2  # the learned modes under a mesh (cut from 3)
+GRAPH_MESH_504_STEPS = 2  # coiling_config(504) under a mesh (cut from 3)
 MESH_LEARNED_STEPS = 3
 BUCKET_MASS_STEP = 1e-6  # masses m (1 + 1e-6 i): distinct in fp32 (89,648 and 465,868 particles, within 9% / 47% of m)
 CLI_2D_STEPS = 3
@@ -587,6 +608,7 @@ HALO_TIMED = 50
 CARDS = 4
 CARDS_STEPS = 3
 CARDS_504_STEPS = 2
+CARDS_MOVING_DX = 1.0 / 64  # path 2: the moving box sharded over the four cards, 64^3 cells
 CARDS_HALO_SLOTS = (2, 4)
 CARDS_HALO_REPS = 100
 CARDS_CLI_STEPS = 10  # run.main --mesh 4 [--bucketed] over the cards: 2 blocks, resumed from the first
@@ -831,6 +853,10 @@ def plain_mg_routes():
 
 
 def bound(nbytes, ops):
+    """A kernel's least time: its bytes (each read once, each written
+    once: the package's own count of the kernel, `utils/step_bytes.py`'s
+    `counted_bytes` formulas) over the card's memory rate, its fp32
+    operations over the card's fp32 rate."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     return dict(bytes=nbytes, ops=ops, bytes_ms=bytes_ms, ops_ms=ops_ms)
@@ -861,6 +887,7 @@ def cell_kernel_phase(systems):
     from python_fluid_simulation_tpu_torch.ops.cuda_stencils import (
         cell_poisson_pcg,
         cell_poisson_pcg_plain,
+        poisson_io_bytes,
     )
 
     rows = []
@@ -876,7 +903,7 @@ def cell_kernel_phase(systems):
         init_ms = cuda_time_ms(lambda: cell_poisson_pcg(*args, **dict(kw, max_iter=0)), 20)
         plain_ms = cuda_time_ms(lambda: cell_poisson_pcg_plain(*args, **kw), 2)
         live = poisson_live(b, None, diag, coefs, pd, ms, int(it_k), init_ms)
-        nbytes = (9 + 1) * b.numel() * 4  # b, diag, 6 coefs, pd read once; x written once
+        nbytes = poisson_io_bytes(b.numel(), False)  # b, diag, 6 coefs, pd read once; x written once
         err, rel = max_err(x_k, x_p)
         rows.append(dict(
             system=label, shape=list(b.shape), iters=int(it_k), plain_iters=int(it_p),
@@ -941,6 +968,8 @@ def poisson_live(b, x0, diag, coefs, pd, ms, iters, init_ms):
     kernel's ms an iteration (with and without its init, a max_iter=0
     solve) beside its active floor, POISSON_LIVE_BYTES * Na over the
     card's memory rate."""
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import POISSON_LIVE_BYTES
+
     na, _ = kernel_live_cells(b, x0, diag, coefs, pd)
     return dict(live_cells=na, live_fraction=na / b.numel(), init_ms=init_ms, ms_per_iter=ms / max(iters, 1),
                 ms_per_iter_after_init=(ms - init_ms) / max(iters, 1),
@@ -1074,11 +1103,9 @@ def coupled_floor(b, sphi_c, vol_c):
     """Row 2's streaming floor an iteration: the geometry read once and 12
     passes over the N faces ((G + 12 N) * 4 bytes over the card's memory
     rate), as csrc/coupled_visc_pcg.cu streams them."""
-    from python_fluid_simulation_tpu_torch.ops.cuda_cg import SPHI_CLASSES, VOL_CLASSES
+    from python_fluid_simulation_tpu_torch.ops.cuda_cg import coupled_pcg_iter_bytes, geometry_elements
 
-    n = sum(t.numel() for t in b)
-    n_geom = sum(vol_c[c].numel() for c in VOL_CLASSES) + sum(sphi_c[c].numel() for c in SPHI_CLASSES)
-    return (n_geom + 12 * n) * 4 / HBM_BYTES_PER_S * 1e3
+    return coupled_pcg_iter_bytes(geometry_elements(sphi_c, vol_c), sum(t.numel() for t in b)) / HBM_BYTES_PER_S * 1e3
 
 
 def coupled_kernel_phase(system):
@@ -1089,10 +1116,10 @@ def coupled_kernel_phase(system):
     import torch
 
     from python_fluid_simulation_tpu_torch.ops.cuda_cg import (
-        SPHI_CLASSES,
-        VOL_CLASSES,
+        coupled_pcg_io_bytes,
         coupled_visc_pcg,
         coupled_visc_pcg_plain,
+        geometry_elements,
     )
 
     (b, x0, pd, sphi_c, vol_c, s_mu), kw = system
@@ -1112,8 +1139,7 @@ def coupled_kernel_phase(system):
         raise AssertionError(f"coupled_visc_pcg: iterations {int(it_k)} vs plain {int(it_p)}")
     ms = cuda_time_ms(lambda: coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, **kw), 20)
     n = sum(t.numel() for t in b)
-    n_geom = sum(vol_c[c].numel() for c in VOL_CLASSES) + sum(sphi_c[c].numel() for c in SPHI_CLASSES)
-    nbytes = (3 * n + n + n_geom) * 4  # b, x0, pd and geometry read once; x written once
+    nbytes = coupled_pcg_io_bytes(geometry_elements(sphi_c, vol_c), n)  # b, x0, pd, geometry read; x written
     ops = (int(it_k) * FACE_OPS_PER_ITER + FACE_OPS_PER_ITER) * n
     return dict(
         system="viscosity", shapes=[list(t.shape) for t in b], iters=int(it_k),
@@ -1129,7 +1155,11 @@ def stencil_phase(cell):
     """7-point matvec on the density and pressure systems (p = b)."""
     import torch
 
-    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec, stencil_matvec_plain
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import (
+        stencil_matvec,
+        stencil_matvec_bytes,
+        stencil_matvec_plain,
+    )
 
     rows = []
     for label, (b, (diag, coefs, _)) in cell:
@@ -1143,7 +1173,7 @@ def stencil_phase(cell):
             ms=cuda_time_ms(lambda: stencil_matvec(diag, coefs, b), 50),
             device_ms=device_ms(lambda: stencil_matvec(diag, coefs, b), 200),
             plain_ms=cuda_time_ms(lambda: stencil_matvec_plain(diag, coefs, b), 20),
-            **bound(9 * 4 * n, STENCIL_OPS * n),  # 8 fields read, q written
+            **bound(stencil_matvec_bytes(n), STENCIL_OPS * n),  # 8 fields read, q written
         ))
     return rows
 
@@ -1160,6 +1190,8 @@ def tail_bound(tail):
     0, each level's 7 stencil fields read once (the workspace is the
     function's own); operations: each level's chains, 7 child sums a coarse
     cell, a prolongation's add a fine cell."""
+    from python_fluid_simulation_tpu_torch.ops.cuda_mg import tail_bytes
+
     n0 = math.prod(tail.fine_shape)
     ns = [lv.diag.numel() for lv in tail.levels]
     big_l, n_s = len(ns), tail.n_smooth
@@ -1170,7 +1202,7 @@ def tail_bound(tail):
             ops += chain_ops(n, tail.coarse_iters, True, False)
         else:
             ops += chain_ops(n, n_s, True, True) + n + chain_ops(n, n_s, False, False)
-    return bound(4 * (3 * n0 + 7 * sum(ns)), ops)
+    return bound(tail_bytes(tail), ops)
 
 
 def tail_model():
@@ -1338,7 +1370,7 @@ def binned_phase(reduces, broadcasts):
             # (M, C) output whatever the layout asked for
             library_ms=cuda_time_ms(lambda: torch.segment_reduce(
                 vals, red, offsets=offs, axis=0, unsafe=True, initial=float(fill)), 5),
-            **bound(live * c * 4 + k * 8 + m * c * 4, live * c),
+            **bound(cbn.reduce_bytes(live, k, c, m), live * c),
         ))
     dev = device_times({i: functools.partial(cbn.serial_reduce, *args, **kw)
                         for i, (_, args, kw, _) in enumerate(reduces)}, 20)
@@ -1373,7 +1405,7 @@ def broadcast_phase(broadcasts):
             # one torch.index_select on ids clamped beforehand (it does
             # not zero the out-of-range rows)
             library_ms=cuda_time_ms(lambda: torch.index_select(table, 0, clamped), 5),
-            **bound(k * 8 + used * c * 4 + k * c * 4, 0),
+            **bound(cbn.broadcast_bytes(k, used, c), 0),
         ))
     return rows
 
@@ -1426,7 +1458,7 @@ def reduce_bound(vals, ids, m):
     offs = cbn._offsets(ids, m)
     live = int(offs[-1] - offs[0])
     nonempty = int((offs[1:] > offs[:-1]).sum())
-    return dict(live_rows=live, nonempty_segments=nonempty), bound(live * c * 4 + k * 8 + m * c * 4, live * c)
+    return dict(live_rows=live, nonempty_segments=nonempty), bound(cbn.reduce_bytes(live, k, c, m), live * c)
 
 
 def live_route_bound(vals, ids, m, s):
@@ -1438,7 +1470,7 @@ def live_route_bound(vals, ids, m, s):
     k, c = vals.shape
     offs = cbn._offsets(ids, m)
     live = int(offs[-1] - offs[0])
-    return bound(live * c * 4 + k * 8 + s * c * 4 + m * 4, live * c)
+    return bound(cbn.live_route_bytes(live, k, s, c, m), live * c)
 
 
 def route_sweep(size, reduces):
@@ -1506,7 +1538,7 @@ def scan_route_phase(reduces):
                 bitwise=True, max_abs_err=0.0,
                 ms=cuda_time_ms(lambda: cuda_scan.seg_scan_sorted(vals, same, op), 10),
                 plain_ms=cuda_time_ms(lambda: cuda_scan.seg_scan_sorted_plain(vals, same, op), 2),
-                **bound(2 * k * c * 4 + k, k * c)),
+                **bound(cuda_scan.scan_bytes(k, c), k * c)),
             # row 11: the scan route as the step calls it (flags, scan, live
             # placement), the live route's bound
             scan_reduce=dict(
@@ -1635,6 +1667,7 @@ def geom_matvec_phase(system):
         coupled_matvec_geom,
         coupled_matvec_plain,
         flat_geometry,
+        geom_matvec_bytes,
     )
 
     (b, x0, pd, sphi_c, vol_c, s_mu), _ = system
@@ -1649,7 +1682,7 @@ def geom_matvec_phase(system):
             same_axis_only=same, shapes=[list(t.shape) for t in x0], bitwise=True, max_abs_err=0.0,
             ms=cuda_time_ms(lambda: coupled_matvec_geom(sphi_c, vol_c, s_mu, x0, same_axis_only=same, geom=geom), 50),
             plain_ms=cuda_time_ms(lambda: coupled_matvec_plain(sphi_c, vol_c, s_mu, x0, same), 5),
-            **bound((geom.numel() + 2 * n) * 4, GEOM_MV_OPS[same] * n),  # geometry, v read; q written
+            **bound(geom_matvec_bytes(geom.numel(), n), GEOM_MV_OPS[same] * n),  # geometry, v read; q written
         ))
     return rows
 
@@ -1668,7 +1701,11 @@ def batched_vcycle_phase(system):
     V-cycle, kernels vs plain versions."""
     import torch
 
-    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec, stencil_matvec_plain
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import (
+        stencil_matvec,
+        stencil_matvec_bytes,
+        stencil_matvec_plain,
+    )
     from python_fluid_simulation_tpu_torch.solvers import multigrid, viscosity
 
     (b, _, _, sphi_c, vol_c, s_mu), _ = system
@@ -1684,7 +1721,7 @@ def batched_vcycle_phase(system):
         shape=list(bk.shape), bitwise=True,
         ms=cuda_time_ms(lambda: stencil_matvec(top.diag, top.coefs, bk), 50),
         plain_ms=cuda_time_ms(lambda: stencil_matvec_plain(top.diag, top.coefs, bk), 20),
-        **bound(9 * 4 * bk.numel(), STENCIL_OPS * bk.numel()),
+        **bound(stencil_matvec_bytes(bk.numel()), STENCIL_OPS * bk.numel()),
     )
     with recorded_tails() as got:
         z_k = mg(b)
@@ -1845,9 +1882,9 @@ def fold_phase(folds):
             library_ms=cuda_time_ms(library, 5),
             # the map and the folded channels' nonempty columns read once, the
             # grid written once; a combine a nonempty entry
-            **bound(m * 4 + s * c * 4 + n_out * 4, s * c),
+            **bound(cuda_fold.fold_bytes(table, out_shape), s * c),
             dense_table_bytes=dense.numel() * 4,
-            dense_bound_ms=(dense.numel() + n_out) * 4 / HBM_BYTES_PER_S * 1e3,
+            dense_bound_ms=cuda_fold.fold_bytes(dense, out_shape) / HBM_BYTES_PER_S * 1e3,
         ))
         del idx, vals, dense, dargs, out_k
         torch.cuda.empty_cache()
@@ -1920,7 +1957,7 @@ def live_reduce_phase(reduces, folds):
                 vals, cbn._OPS[op], offsets=offs, axis=0, unsafe=True, initial=float(fill)), 5),
             # the live placement: the ids and the S last rows read, the S
             # columns and the map written; a combine an entry
-            **bound(k * 8 + 2 * s * c * 4 + m * 4, s * c),
+            **bound(cbn.place_live_bytes(k, s, c, m), s * c),
             # the live route (scan + placement): `live_route_bound`
             route_bytes_ms=route_bnd["bytes_ms"], route_ops_ms=route_bnd["ops_ms"],
             dense_bound_ms=(s * c * 4 + k * 8 + m * c * 4) / HBM_BYTES_PER_S * 1e3,
@@ -1994,7 +2031,7 @@ def prepared_matvec_phase(cell):
     step's systems (p = b) vs the plain version: bitwise; with the CSR
     library yardstick; the kernel's and the library's device ms beside
     their event ms."""
-    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec_plain
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import stencil_matvec_bytes, stencil_matvec_plain
     from python_fluid_simulation_tpu_torch.solvers import pressure
 
     rows = []
@@ -2008,7 +2045,7 @@ def prepared_matvec_phase(cell):
             system=label, shape=list(b.shape), bitwise=True, max_abs_err=0.0,
             ms=cuda_time_ms(lambda: mv(b), 50), device_ms=device_ms(lambda: mv(b), 200),
             plain_ms=cuda_time_ms(lambda: stencil_matvec_plain(diag, coefs, b), 20),
-            **bound(9 * 4 * n, STENCIL_OPS * n), **stencil_library(diag, coefs, b, q_k),
+            **bound(stencil_matvec_bytes(n), STENCIL_OPS * n), **stencil_library(diag, coefs, b, q_k),
         ))
     return rows
 
@@ -2109,6 +2146,7 @@ def fused_kernel_phase(systems):
         cell_poisson_pcg,
         fused_poisson_pcg,
         fused_poisson_pcg_plain,
+        poisson_io_bytes,
     )
 
     rows = []
@@ -2125,7 +2163,7 @@ def fused_kernel_phase(systems):
         init_ms = cuda_time_ms(lambda: fused_poisson_pcg(*args, **dict(kw, max_iter=0)), 10)
         live = poisson_live(b, x0, diag, coefs, pd, ms, int(it_k), init_ms)
         # b, (x0,) diag, 6 coefs, pd read once; x written once
-        nbytes = (9 + (x0 is not None) + 1) * b.numel() * 4
+        nbytes = poisson_io_bytes(b.numel(), x0 is not None)
         row = dict(
             system=label, shape=list(b.shape), x0=x0 is not None, zero_x0=x0 is None or not bool(x0.any()),
             iters=int(it_k), plain_iters=int(it_p),
@@ -2148,7 +2186,7 @@ def poisson_sweep(b, diag, coefs, pd, planes):
     fewer cells, the fluid column included), at most SWEEP_ITERS
     iterations (tol 0): ms an iteration against the cell count and the
     kernel's live cells Na, beside the active floor."""
-    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import cell_poisson_pcg
+    from python_fluid_simulation_tpu_torch.ops.cuda_stencils import POISSON_LIVE_BYTES, cell_poisson_pcg
 
     fixed = dict(tol=0.0, rel_tol=0.0, max_iter=SWEEP_ITERS)
     rows = []
@@ -2266,38 +2304,70 @@ def reset_counters():
     return read
 
 
-def run_steps(step_3d, state, cfg, geom, n, keep):
+def counted_step(count, state, cfg):
+    """The step from `state` under the package's byte counter
+    (``step_bytes``, the keywords ``count["kw"]``), with the geometry
+    built inside the step as the `graph` phase's replays (``make_step``)
+    build it, so the count is the work of the replay its ms are of: its
+    bytes, the kernels' bytes and share, the ten largest entries of its
+    per-op table, the table and its iterations go to ``count``, with its
+    host ms; returns (state, metrics), bitwise the uncounted step's with
+    a prebuilt geometry."""
+    import torch
+
+    from python_fluid_simulation_tpu_torch.utils.roofline import step_bytes
+
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    got = step_bytes(state, cfg, **count.get("kw", {}))
+    torch.cuda.synchronize()
+    count.update(ms=(time.perf_counter() - ts) * 1e3, bytes=got.steps[0], kernel_bytes=got.kernel_bytes,
+                 kernel_share=got.kernel_share, top_ops=got.top(10), table=got.table,
+                 iters={k: int(got.metrics[0][f"{k}_iters"]) for k in ("density", "viscosity", "pressure")})
+    return got.state, got.metrics[0]
+
+
+def run_steps(step_3d, state, cfg, geom, n, keep, count=None):
     """n steps, each timed on the host clock to a synchronize; returns the
-    final state, the first `keep` + 1 states, step ms and metrics."""
+    final state, the first `keep` + 1 states, step ms and metrics.  With a
+    ``count`` dict step COUNTED_STEP is `counted_step`'s instead, left out
+    of the step ms."""
     import torch
 
     states, step_ms, metrics = [state], [], []
-    for _ in range(n):
-        ts = time.perf_counter()
-        state, m = step_3d(state, cfg, geom=geom)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - ts) * 1e3)
+    for i in range(n):
+        if count is not None and i == COUNTED_STEP:
+            state, m = counted_step(count, state, cfg)
+        else:
+            ts = time.perf_counter()
+            state, m = step_3d(state, cfg, geom=geom)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
         if len(states) <= keep:
             states.append(state)
         metrics.append({k: v.item() for k, v in m.items()})
     return state, states, step_ms, metrics
 
 
-def run_coil(step_3d, state, cfg, geom, n, keep):
+def run_coil(step_3d, state, cfg, geom, n, keep, count=None):
     """`run_steps` that also records the viscosity branch each step took
     (MG while the carried flag is set, for 'auto'), read before the
     step's clock starts."""
     import torch
 
     states, step_ms, metrics, branch = [state], [], [], []
-    for _ in range(n):
+    for i in range(n):
         mg = cfg.solver.viscosity_precond == "mg" or int(torch.as_tensor(state.visc_mg)) > 0
         branch.append("mg" if mg else "jacobi")
-        torch.cuda.synchronize()
-        ts = time.perf_counter()
-        state, m = step_3d(state, cfg, geom=geom)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - ts) * 1e3)
+        if count is not None and i == COUNTED_STEP:
+            state, m = counted_step(count, state, cfg)
+            count["branch"] = branch[-1]
+        else:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            state, m = step_3d(state, cfg, geom=geom)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
         if len(states) <= keep:
             states.append(state)
         metrics.append({k: v.item() for k, v in m.items()})
@@ -2319,10 +2389,68 @@ def check_run(state, metrics, launches, need, label):
                 raise AssertionError(f"{label} step {i}: {solver} solve did not converge: {m}")
 
 
-def card_vs_cpu(step_3d, before, after, cfg, label):
+# bytes: the graph phase's row of each counted configuration ({branch}: the
+# counted step's 'auto' branch)
+GRAPH_ROW = {"flagship": "flagship", "128": "128", "coiling_256_auto": "coil_256_auto_{branch}",
+             "coiling_504_auto": "coil_504_auto_{branch}", "256": "256", "flagship_unet": "flagship_unet"}
+
+
+def bytes_phase(counts, shapes, graph_rows, kind, smi):
+    """One row a counted configuration: the counted step's bytes (the
+    package's ``step_bytes``: every aten op and hand kernel of the eager
+    step, with simulate's copies around a replay), the kernels' share, its
+    ten largest per-op entries, ``step_bytes_model``'s bytes for its
+    iterations, and ``roofline`` of the count over the configuration's
+    replayed ms a step (the `graph` phase's median): achieved GB/s,
+    ``hbm_util`` (asserted <= 1: a count the card could not have moved in
+    that time over-counts) and ``impl_overhead_x``.  Where the CPU counted
+    the same step from the same state (flagship, 128^3): both counts,
+    both iteration lists, and the per-op entries that differ; where the
+    iterations agree the counts must be equal (asserted)."""
+    from python_fluid_simulation_tpu_torch.utils.roofline import roofline
+
+    rows = []
+    for label, count in counts.items():
+        graph_label = GRAPH_ROW[label].format(branch=count.get("branch"))
+        ms = graph_rows[graph_label]["median_graph_ms"]
+        res, particles = shapes[label]
+        roof = roofline(res, particles, {f"{k}_iters": v for k, v in count["iters"].items()}, ms, kind,
+                        measured_bytes_per_step=count["bytes"])
+        if "hbm_util" not in roof or not roof["hbm_util"] <= 1.0:
+            raise AssertionError(f"bytes {label}: {count['bytes']} bytes in {ms} ms: {roof}")
+        row = dict(phase="bytes", config=label, nvidia_smi=smi, counted_step=COUNTED_STEP,
+                   counted_bytes=count["bytes"], counted_gb_per_step=count["bytes"] / 1e9,
+                   kernel_bytes=count["kernel_bytes"], kernel_share=count["kernel_share"], top_ops=count["top_ops"],
+                   modeled_gb_per_step=roof["modeled_gb_per_step"], replayed_ms=ms,
+                   replayed_from=f"graph {graph_label}", iters=count["iters"], roofline=roof,
+                   counted_step_ms=count["ms"])
+        cpu = count.get("cpu")
+        if cpu is not None:
+            names = set(count["table"]) | set(cpu["table"])
+            diff = {n: [count["table"].get(n), cpu["table"].get(n)] for n in sorted(names)
+                    if count["table"].get(n) != cpu["table"].get(n)}
+            row["card_vs_cpu"] = dict(card_bytes=count["bytes"], cpu_bytes=cpu["bytes"],
+                                      equal=count["bytes"] == cpu["bytes"], card_iters=count["iters"],
+                                      cpu_iters=cpu["iters"], iters_equal=count["iters"] == cpu["iters"],
+                                      table_differences=diff, cpu_counted_step_ms=cpu["ms"])
+            if count["iters"] == cpu["iters"] and count["bytes"] != cpu["bytes"]:
+                raise AssertionError(f"bytes {label}: the card counted {count['bytes']}, the CPU {cpu['bytes']} "
+                                     f"with the same iterations {count['iters']}; per-op differences {diff}")
+        rows.append(row)
+    return rows
+
+
+def card_vs_cpu(step_3d, before, after, cfg, label, count=None):
+    """The step from the card's state `before` on the CPU against the
+    card's `after`, within STEP_TOL; returns the errors.  With a ``count``
+    dict the CPU step is `counted_step`'s, as the card's counted step."""
     from python_fluid_simulation_tpu_torch.convert import state_from_numpy, state_to_numpy
 
-    cpu_state, _ = step_3d(state_from_numpy(state_to_numpy(before), device="cpu"), cfg)
+    start = state_from_numpy(state_to_numpy(before), device="cpu")
+    if count is None:
+        cpu_state, _ = step_3d(start, cfg)
+    else:
+        cpu_state, _ = counted_step(count, start, cfg)
     cpu, card = state_to_numpy(cpu_state), state_to_numpy(after)
     err = {k: float(abs(card[k] - cpu[k]).max()) for k in STEP_TOL}
     for k, tol in STEP_TOL.items():
@@ -2361,6 +2489,7 @@ def coupled_stencil_phase(system):
     them, kernel vs plain version (bitwise), with the CSR library
     yardstick."""
     from python_fluid_simulation_tpu_torch.ops.cuda_stencils import (
+        coupled_stencil_bytes,
         coupled_stencil_matvec,
         coupled_stencil_matvec_plain,
         pack_coupled_stencil,
@@ -2381,7 +2510,7 @@ def coupled_stencil_phase(system):
         plain_ms=cuda_time_ms(lambda: coupled_stencil_matvec_plain(diags, per_axis, x0), 5),
         # diag and 14 coefficients a face and v read once, q written once;
         # 15 products and 14 sums a face
-        **bound(COUPLED_FLOATS_PER_FACE * 4 * n, COUPLED_OPS_PER_FACE * n),
+        **bound(coupled_stencil_bytes(n), COUPLED_OPS_PER_FACE * n),
     )
     del diags, per_axis
     row.update(coupled_library(sphi_c, vol_c, s_mu, x0, q_k))
@@ -2575,9 +2704,11 @@ def warm_start_phase(line, coupled):
         VOL_CLASSES,
         coupled_matvec_geom,
         coupled_matvec_plain,
+        coupled_pcg_io_bytes,
         coupled_visc_pcg,
         coupled_visc_pcg_plain,
         flat_geometry,
+        geom_matvec_bytes,
     )
     from python_fluid_simulation_tpu_torch.solvers.viscosity import rescaled_warm_start
 
@@ -2618,7 +2749,7 @@ def warm_start_phase(line, coupled):
     _, it_cold, *_ = coupled_visc_pcg(b, ext, pd, sphi_c, vol_c, s_mu, **kw)
     n = sum(t.numel() for t in b)
     n_geom = geom.numel()
-    nbytes = (3 * n + n + n_geom) * 4  # b, x0, pd and geometry read once; x written once
+    nbytes = coupled_pcg_io_bytes(n_geom, n)  # b, x0, pd and geometry read once; x written once
     ops = (int(it_k) * FACE_OPS_PER_ITER + FACE_OPS_PER_ITER) * n
     pcg_ms = cuda_time_ms(lambda: coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, **kw), 20)
     return dict(
@@ -2626,7 +2757,7 @@ def warm_start_phase(line, coupled):
         residual_norm=dict(x0=r_x0, ext=r_ext, warm_unscaled=r_warm),
         matvec=dict(bitwise=True, max_abs_err=0.0,
                     ms=cuda_time_ms(lambda: mv_k(p), 50), plain_ms=cuda_time_ms(lambda: mv_p(p), 5),
-                    **bound((n_geom + 2 * n) * 4, GEOM_MV_OPS[False] * n),
+                    **bound(geom_matvec_bytes(n_geom, n), GEOM_MV_OPS[False] * n),
                     **coupled_library(sphi_c, vol_c, s_mu, p, mv_k(p))),
         line_search_ms=cuda_time_ms(lambda: rescaled_warm_start(mv_k, b, ext, warm), 20),
         coupled_visc_pcg=dict(
@@ -2697,7 +2828,7 @@ def halo_phase():
             plane = math.prod(bshape[1:])
             blocks = [torch.randn(bshape, generator=gen, device="cuda") for _ in range(slots)]
             row = dict(field=name, global_shape=list(shape), slots=slots, block=list(bshape), exchanges=HALO_REPS,
-                       max_abs_err=0.0, **bound(slots * (2 * n + 2) * plane * 4, 0),
+                       max_abs_err=0.0, **bound(halo_rdma.halo_bytes(slots, n, plane), 0),
                        nvlink_plane_bytes=plane * 4, nvlink_bound_ms=plane * 4 / NVLINK_BYTES_PER_S * 1e3)
             for route, (call, counter, per_exchange) in routes.items():
                 before = counter.launches
@@ -4242,7 +4373,7 @@ def psum_phase():
             if int(bad) or launched != PSUM_REPS * slots:
                 raise AssertionError(f"mesh_psum over {slots} slots, {dots} dots: {int(bad)} sums differ, "
                                      f"{launched} launches")
-            nbytes = slots * (2 * slots * dots * 4 + slots * 4 + 2 * dots * 4)
+            nbytes = halo_rdma.psum_bytes(slots, dots)
             row = dict(slots=slots, dots=dots, calls=PSUM_REPS, max_abs_err=0.0, launches_per_call=slots,
                        ms=cuda_time_ms(lambda: halo_rdma.mesh_psum(mesh, parts), PSUM_TIMED),
                        plain_ms=cuda_time_ms(lambda: halo_rdma.mesh_psum_plain(mesh, parts), PSUM_TIMED),
@@ -4262,11 +4393,12 @@ def graph_mesh_phase(smi, unet_sd):
     sharded and bucketed on ``make_mesh(4)`` and ``make_mesh2d((2, 2))``,
     ``coiling_config(504)`` sharded on 4 slots and bucketed on 2 and on
     (2, 2), the flagship with the full-width UNet in 'unet' and
-    'unet_warm' on both meshes and 'unet_warm' bucketed on (2, 2); ms a
-    step of each, capture seconds, pool bytes, WHILE nodes, halo launches
-    a replayed step.  Then ``simulate(mesh=, bucketed=True)``: two calls,
-    one capture, the first bitwise the eager steps; the push captured and
-    replayed (`push_captured`)."""
+    'unet_warm' on both meshes and 'unet_warm' bucketed on (2, 2), the
+    moving box (its geometry rebuilt on the mesh every step) sharded on 4
+    slots; ms a step of each, capture seconds, pool bytes, WHILE nodes,
+    halo launches a replayed step.  Then ``simulate(mesh=,
+    bucketed=True)``: two calls, one capture, the first bitwise the eager
+    steps; the push captured and replayed (`push_captured`)."""
     import torch
 
     from python_fluid_simulation_tpu_torch.engine.scenes import (
@@ -4274,6 +4406,8 @@ def graph_mesh_phase(smi, unet_sd):
         buckling_scene,
         coiling_config,
         coiling_scene,
+        moving_box_config,
+        moving_box_scene,
     )
     from python_fluid_simulation_tpu_torch.engine.step import simulate
     from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
@@ -4356,6 +4490,9 @@ def graph_mesh_phase(smi, unet_sd):
         run(label, cfg504, s504, mesh, bucketed, GRAPH_MESH_504_STEPS)
     del s504
     torch.cuda.empty_cache()
+    cfg_mb = moving_box_config(dx=MOVING_MESH_DX)
+    run("moving_box_sharded_4", cfg_mb, moving_box_scene(cfg_mb, seed=0, device="cuda"), make_mesh(MESH_SLOTS), False,
+        MOVING_MESH_STEPS)
     rows["push_captured"] = push_captured()
     rows["nvidia_smi"] = smi
     return rows, test_launches, launches_by
@@ -4772,7 +4909,7 @@ def cards_replayed(label, cfg, start, mesh, bucketed, eager, eager_metrics, unet
         sync_all()
         ms.append(e_ms)
         host_ms.append(h_ms)
-        bad = state_differences(eager[i + 1], st) + metric_differences(eager_metrics[i], m)
+        bad = state_differences(eager[i + 1], st, solid=cfg.moving_solid) + metric_differences(eager_metrics[i], m)
         if bad:
             raise AssertionError(f"{label} replay {i}: differs from the eager four-card step in {bad}")
         by_solve = {s: [int(k) for k in ks[s]] for s in order}
@@ -4882,8 +5019,9 @@ def cards_path2(unet_sd):
     ``make_step(mesh=<four cards>)``): the flagship sharded and bucketed on
     4 slots and (2, 2) (the bucketed ×4 also through two ``simulate``
     calls), ``coiling_config(504)`` sharded on 4 slots, the flagship in
-    'unet_warm' bucketed on (2, 2) with the full-width UNet; then the CLI
-    with ``--mesh 4`` and ``--mesh 4 --bucketed`` over the cards."""
+    'unet_warm' bucketed on (2, 2) with the full-width UNet, the moving box
+    (``moving_box_config(1/64)``) sharded on 4 slots; then the CLI with
+    ``--mesh 4`` and ``--mesh 4 --bucketed`` over the cards."""
     import tempfile
 
     import torch
@@ -4893,6 +5031,8 @@ def cards_path2(unet_sd):
         buckling_scene,
         coiling_config,
         coiling_scene,
+        moving_box_config,
+        moving_box_scene,
     )
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
     from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
@@ -4935,6 +5075,14 @@ def cards_path2(unet_sd):
     rows["coil_504_sharded_4"] = cards_mesh_run("504 sharded 4", cfg504, s504, meshes["4"], False, CARDS_504_STEPS,
                                                 ref)
     del ref, s504
+    torch.cuda.empty_cache()
+
+    cfg_mb = moving_box_config(dx=CARDS_MOVING_DX)
+    s_mb = unique_masses(moving_box_scene(cfg_mb, seed=0, device="cuda:0"))
+    ref = unsharded(cfg_mb, s_mb, CARDS_STEPS)
+    rows["moving_box_sharded_4"] = cards_mesh_run("moving box sharded 4", cfg_mb, s_mb, meshes["4"], False,
+                                                  CARDS_STEPS, ref)
+    del ref, s_mb
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         rows["cli"] = cards_cli(tmp)
@@ -4985,7 +5133,7 @@ def cards_halo():
                 "pull_one_card": functools.partial(halo.halo_exchange, one, base, "x"),
             }
             row = dict(field=name, global_shape=list(shape), slots=slots, block=list(bshape), exchanges=CARDS_HALO_REPS,
-                       mismatched_elements=0, **bound(slots * (2 * n + 2) * plane * 4, 0),
+                       mismatched_elements=0, **bound(halo_rdma.halo_bytes(slots, n, plane), 0),
                        nvlink_plane_bytes=plane * 4, nvlink_bound_ms=plane * 4 / NVLINK_BYTES_PER_S * 1e3,
                        ms={k: cuda_time_ms(f, HALO_TIMED) for k, f in calls.items()})
             for k, f in calls.items():
@@ -5174,7 +5322,9 @@ def main(argv=()) -> int:
     read_counts = reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state, states, step_ms, metrics = run_steps(step_3d, state0, cfg, geom, 11, max(CHECKED_STEPS) + 1)
+    counts = {"flagship": {}}  # bytes: the counted steps of the main runs, by configuration
+    state, states, step_ms, metrics = run_steps(step_3d, state0, cfg, geom, 11, max(CHECKED_STEPS) + 1,
+                                                count=counts["flagship"])
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     check_run(state, metrics, launches, ("cell_poisson_pcg", "coupled_visc_pcg", *REDUCE_ROUTE,
@@ -5188,12 +5338,15 @@ def main(argv=()) -> int:
     # each checked step on the card vs the same step on the CPU (plain
     # versions) from the card's state before it
     tc = time.perf_counter()
-    step_err = {i: card_vs_cpu(step_3d, states[i], states[i + 1], cfg, f"flagship step {i}") for i in CHECKED_STEPS}
+    counts["flagship"]["cpu"] = {}
+    step_err = {i: card_vs_cpu(step_3d, states[i], states[i + 1], cfg, f"flagship step {i}",
+                               counts["flagship"]["cpu"] if i == COUNTED_STEP else None) for i in CHECKED_STEPS}
     cpu_seconds = time.perf_counter() - tc
     del states, state, state0, geom
     timed = step_ms[1:]
     emit({"phase": "main", "grid": list(cfg.grid.res), "particles": n_particles,
           "warmup_step_ms": step_ms[0], "step_ms": timed, "median_step_ms": statistics.median(timed),
+          "counted_step": COUNTED_STEP, "counted_step_ms": counts["flagship"]["ms"],
           "iters": {s: [m[f"{s}_iters"] for m in metrics] for s in ("density", "viscosity", "pressure")},
           "launches": launches, "max_memory_allocated": peak,
           "first_step_bitwise_repeatable": step_repeatable,
@@ -5251,9 +5404,10 @@ def main(argv=()) -> int:
     read_counts = reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    counts["128"] = {}
     with counted_tails() as cycles128:
         state, states, step_ms128, metrics128 = run_steps(step_3d, s128, cfg128, geom128, STEPS_128,
-                                                          CHECKED_STEP_128 + 1)
+                                                          CHECKED_STEP_128 + 1, count=counts["128"])
     launches128 = read_counts()
     check_one_tail_a_cycle(launches128, cycles128[0], "128^3")
     peak128 = torch.cuda.max_memory_allocated()
@@ -5265,13 +5419,15 @@ def main(argv=()) -> int:
         if not (getattr(again.particles, k).cpu().numpy() == first[k]).all():
             raise AssertionError(f"128^3: the first step run twice differs in {k}")
     tc = time.perf_counter()
+    counts["128"]["cpu"] = {}
     err128 = card_vs_cpu(step_3d, states[CHECKED_STEP_128], states[CHECKED_STEP_128 + 1], cfg128,
-                         f"128^3 step {CHECKED_STEP_128}")
+                         f"128^3 step {CHECKED_STEP_128}", counts["128"]["cpu"])
     cpu128 = time.perf_counter() - tc
     del states, state
     timed128 = step_ms128[1:]
     emit({"phase": "main_128", "grid": list(cfg128.grid.res), "particles": n128,
           "warmup_step_ms": step_ms128[0], "step_ms": timed128, "median_step_ms": statistics.median(timed128),
+          "counted_step": COUNTED_STEP, "counted_step_ms": counts["128"]["ms"],
           "iters": {s: [m[f"{s}_iters"] for m in metrics128] for s in ("density", "viscosity", "pressure")},
           "launches": launches128, "vcycles": cycles128[0], "max_memory_allocated": peak128,
           "first_step_bitwise_repeatable": True,
@@ -5329,10 +5485,12 @@ def main(argv=()) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     runs, launches_by_run, cycles_by_run = {}, {}, {}
+    counts["coiling_256_auto"] = {}
     for label, run_cfg in (("auto", cfgc), ("mg", cfg_mg)):
         read_counts = reset_counters()
         with counted_tails() as cycles:
-            runs[label] = run_coil(step_3d, sc, run_cfg, geomc, STEPS_COIL, CHECKED_STEP_COIL + 1)
+            runs[label] = run_coil(step_3d, sc, run_cfg, geomc, STEPS_COIL, CHECKED_STEP_COIL + 1,
+                                   count=counts["coiling_256_auto"] if label == "auto" else None)
         launches_by_run[label], cycles_by_run[label] = read_counts(), cycles[0]
     # 'auto' with the flag set takes its MG branch: from the 'auto' run's
     # state after 2 steps (the first two steps from rest solve nothing)
@@ -5378,6 +5536,7 @@ def main(argv=()) -> int:
     coil_state2 = runs["auto"][1][2]  # for 'auto' with jacobi_precond=False
     del runs
     emit({"phase": "main_coil", "grid": list(cfgc.grid.res), "particles": nc, "runs": coil_out,
+          "counted_step": ["auto", COUNTED_STEP], "counted_step_ms": counts["coiling_256_auto"]["ms"],
           "launches": launches_by_run, "vcycles": cycles_by_run, "max_memory_allocated": peakc,
           "first_mg_step_bitwise_repeatable": True,
           "cpu_steps_seconds": cpuc, "card_vs_cpu": errc, "step_tol": STEP_TOL,
@@ -5445,7 +5604,9 @@ def main(argv=()) -> int:
     torch.cuda.reset_peak_memory_stats()
     runs504, launches_by_run504 = {}, {}
     read_counts = reset_counters()
-    runs504["auto"] = run_coil(step_3d, s504, cfg504, geom504, STEPS_504, 2)
+    counts["coiling_504_auto"] = {}
+    runs504["auto"] = run_coil(step_3d, s504, cfg504, geom504, STEPS_504_AUTO, max(2, STEPS_MESH_504),
+                               count=counts["coiling_504_auto"])
     launches_by_run504["auto"] = read_counts()
     read_counts = reset_counters()
     with counted_tails() as cycles504:
@@ -5475,18 +5636,8 @@ def main(argv=()) -> int:
     # the first lean step held against the same step on the card with every
     # kernel swapped for its plain version
     tc = time.perf_counter()
-    err504, plain_after = card_vs_plain(step_3d, before, first, cfg504, geom504, "504 first lean-MG step")
+    err504, _ = card_vs_plain(step_3d, before, first, cfg504, geom504, "504 first lean-MG step")
     plain504 = time.perf_counter() - tc
-    # reported, not asserted: the same step on the CPU (~100-120 s, ~18 GB
-    # of host memory); its APIC rows differ from both card steps by more
-    # than STEP_TOL at a few free-surface particles (PERF.md)
-    tc = time.perf_counter()
-    cpu_after, _ = step_3d(state_from_numpy(state_to_numpy(before), device="cpu"), cfg504)
-    cpu504 = time.perf_counter() - tc
-    cpu_np = state_to_numpy(cpu_after)
-    vs_cpu504 = {"card": step_diff(state_to_numpy(first), cpu_np),
-                 "plain_on_card": step_diff(state_to_numpy(plain_after), cpu_np)}
-    del plain_after, cpu_after, cpu_np
     launches504 = {name: sum(lr[name] for lr in launches_by_run504.values()) for name in launches_by_run504["auto"]}
     out504 = {}
     for label, (_, _, step_ms504, metrics504, branch) in runs504.items():
@@ -5497,13 +5648,15 @@ def main(argv=()) -> int:
             visc_rel_residual=[m["viscosity_rel_residual"] for m in metrics504],
         )
     auto504 = runs504["auto"]  # the unsharded 'auto' run from the scene, for mesh_504
+    auto504_metrics = auto504[3][:STEPS_MESH_504]  # its steps the mesh run also takes
     del runs504, before, first
     emit({"phase": "main_504", "grid": list(cfg504.grid.res), "particles": n504, "runs": out504,
+          "counted_step": ["auto", COUNTED_STEP], "counted_step_ms": counts["coiling_504_auto"]["ms"],
           "launches": launches_by_run504, "lean_vcycles": cycles504[0], "max_memory_allocated": peak504,
           "first_lean_step_bitwise_repeatable": True,
           "check": "the first lean-MG step vs the same step on the card with every kernel swapped for its plain version",
           "plain_step_seconds": plain504, "card_vs_plain_on_card": err504,
-          "reported_vs_cpu": vs_cpu504, "cpu_step_seconds": cpu504, "step_tol": STEP_TOL,
+          "step_tol": STEP_TOL,
           "seconds": time.perf_counter() - t0})
 
     # -- the sharded 504 step on a 1D mesh of MESH_SLOTS slots of the card,
@@ -5520,13 +5673,11 @@ def main(argv=()) -> int:
     peak_m504 = torch.cuda.max_memory_allocated()
     check_run(state, metrics_m504, launches_m504, ("halo_exchange_rdma", "fold", *REDUCE_ROUTE,
                                                    "binned_segment_broadcast"), "504 mesh")
-    ref504 = auto504[0]  # the unsharded state after the same STEPS_504 steps
-    if STEPS_MESH_504 != STEPS_504:
-        raise AssertionError("mesh_504 compares with main_504's 'auto' run: take as many steps")
+    ref504 = auto504[1][STEPS_MESH_504]  # the unsharded state after as many steps
     dx504 = float((state.particles.x[:n504] - ref504.particles.x).abs().max())
     dv504 = float((state.particles.v[:n504] - ref504.particles.v).abs().max())
     if not (dx504 < MESH_DX and dv504 < MESH_DV):
-        raise AssertionError(f"504 mesh vs unsharded after {STEPS_504} steps: |dx| {dx504}, |dv| {dv504}")
+        raise AssertionError(f"504 mesh vs unsharded after {STEPS_MESH_504} steps: |dx| {dx504}, |dv| {dv504}")
     # the unsharded second step's own viscosity system, solved by the
     # coupled PCG kernel and distributed on the same slots: the sharded
     # run's exits move with its (rounding-level different) systems, a
@@ -5569,10 +5720,10 @@ def main(argv=()) -> int:
           "max_memory_allocated": peak_m504, "launches": launches_m504,
           "halo_launches_per_step": launches_m504["halo_exchange_rdma"] / STEPS_MESH_504,
           "iters": {k: [m[f"{k}_iters"] for m in metrics_m504] for k in ("density", "viscosity", "pressure")},
-          "unsharded_iters": {k: [m[f"{k}_iters"] for m in auto504[3]] for k in ("density", "viscosity", "pressure")},
+          "unsharded_iters": {k: [m[f"{k}_iters"] for m in auto504_metrics] for k in ("density", "viscosity", "pressure")},
           # the viscosity exits (||r||^2 and over ||r0||^2), sharded then unsharded
-          "visc_residual": [[m["viscosity_residual"] for m in run] for run in (metrics_m504, auto504[3])],
-          "visc_rel_residual": [[m["viscosity_rel_residual"] for m in run] for run in (metrics_m504, auto504[3])],
+          "visc_residual": [[m["viscosity_residual"] for m in run] for run in (metrics_m504, auto504_metrics)],
+          "visc_rel_residual": [[m["viscosity_rel_residual"] for m in run] for run in (metrics_m504, auto504_metrics)],
           "vs_unsharded": {"dx": dx504, "dv": dv504, "bars": [MESH_DX, MESH_DV]},
           "unsharded_second_step_viscosity_system": same_system,
           "profile": {k: prof_m504[k] for k in ("step_ms", "device_busy_ms_per_step", "device_idle_share",
@@ -5736,7 +5887,9 @@ def main(argv=()) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     read_counts = reset_counters()
-    state, states, step_ms256, metrics256 = run_steps(step_3d, s256, cfg256, geom256, STEPS_256, STEPS_256)
+    counts["256"] = {}
+    state, states, step_ms256, metrics256 = run_steps(step_3d, s256, cfg256, geom256, STEPS_256, STEPS_256,
+                                                      count=counts["256"])
     launches256 = read_counts()
     peak256 = torch.cuda.max_memory_allocated()
     check_run(state, metrics256, launches256, ("fused_poisson_pcg", "coupled_visc_pcg", *REDUCE_ROUTE,
@@ -5758,6 +5911,7 @@ def main(argv=()) -> int:
     del states, state, s256, geom256
     emit({"phase": "main_256", "grid": list(cfg256.grid.res), "particles": n256,
           "warmup_step_ms": step_ms256[0], "step_ms": timed256, "median_step_ms": statistics.median(timed256),
+          "counted_step": COUNTED_STEP, "counted_step_ms": counts["256"]["ms"],
           "iters": {k: [m[f"{k}_iters"] for m in metrics256] for k in ("density", "viscosity", "pressure")},
           "launches": launches256, "max_memory_allocated": peak256, "first_step_bitwise_repeatable": True,
           "check": f"step {STEPS_256 - 1} vs the same step on the card with every kernel swapped for its plain version",
@@ -5809,13 +5963,19 @@ def main(argv=()) -> int:
     for mode, run_cfg in (("unet", cfg_unet), ("unet_warm", cfg_warm)):
         events, remove_hooks = unet_forward_events(unet)
         read_counts = reset_counters()
-        state, states, ms_u, metrics_u = run_steps(step_unet, s_u, run_cfg, geom, STEPS_UNET, STEPS_UNET)
+        unet_count = {"kw": {"unet": unet}} if mode == "unet" else None
+        if unet_count is not None:
+            counts["flagship_unet"] = unet_count
+        state, states, ms_u, metrics_u = run_steps(step_unet, s_u, run_cfg, geom, STEPS_UNET, STEPS_UNET,
+                                                   count=unet_count)
         launches_unet[mode] = read_counts()
         remove_hooks()
         torch.cuda.synchronize()
         forward_ms = [start.elapsed_time(stop) for start, stop in events]
         if len(forward_ms) != STEPS_UNET:
             raise AssertionError(f"{mode}: {len(forward_ms)} UNet forwards in {STEPS_UNET} steps")
+        if unet_count is not None:  # the counted step's forward, as its step ms, left out
+            forward_ms.pop(COUNTED_STEP)
         need = ("cell_poisson_pcg", *REDUCE_ROUTE, "binned_segment_broadcast", "fold")
         if mode == "unet_warm":
             need += ("coupled_visc_pcg", "coupled_matvec_geom")
@@ -5845,6 +6005,7 @@ def main(argv=()) -> int:
                 f / s for f, s in zip(forward_ms[1:], timed)),
             iters={k: [m[f"{k}_iters"] for m in metrics_u] for k in ("density", "viscosity", "pressure")},
             apic_viscosity_iters_from_same_states=apic_iters, first_step_bitwise_repeatable=True,
+            counted_step=COUNTED_STEP if unet_count is not None else None,
             check=f"step {CHECKED_STEP_UNET} vs the same step on the card with every kernel swapped for its plain "
                   "version (the UNet on the card in both)",
             card_vs_plain_on_card=err_u, reported_vs_cpu=vs_cpu, cpu_step_seconds=cpu_u)
@@ -5890,6 +6051,14 @@ def main(argv=()) -> int:
     graph_rows, while_launches, while_row = graph_phase(unet_sd)
     emit({"phase": "graph", "nvidia_smi": smi, "runs": graph_rows, "while_node": while_row,
           "seconds": time.perf_counter() - t0})
+
+    # -- bytes: each counted step of the main runs against its
+    #    configuration's replayed ms a step
+    t0 = time.perf_counter()
+    shapes = {"flagship": FLAGSHIP, "128": SHAPE_128, "coiling_256_auto": SHAPE_COIL, "coiling_504_auto": SHAPE_504,
+              "256": SHAPE_256, "flagship_unet": FLAGSHIP}
+    for row in bytes_phase(counts, shapes, graph_rows, kind, smi):
+        emit(dict(row, seconds=time.perf_counter() - t0))
 
     # -- the CLI: run.main on the flagship (blocks, every output, resume
     #    bitwise, one capture a run), coiling 'auto', and the unit APIs

@@ -56,6 +56,7 @@ import torch
 from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
 from python_fluid_simulation_tpu_torch.ops.cuda_scan import MAX_CHANNELS as SCAN_CHANNELS
 from python_fluid_simulation_tpu_torch.ops.cuda_scan import combine, seg_scan_sorted, seg_scan_sorted_plain
+from python_fluid_simulation_tpu_torch.utils.step_bytes import counted_bytes
 
 _OPS = {"add": "sum", "min": "min"}
 
@@ -136,6 +137,44 @@ MAX_SEGMENTS = 2**31 - 1
 MAX_CHANNELS = (2**31 - 1) // 256
 
 
+def live_rows(sorted_ids, num_segments: int) -> int:
+    """Rows whose id lies in [0, M): the rows a reduce reads."""
+    offs = _offsets(sorted_ids, num_segments)
+    return int(offs[-1] - offs[0])
+
+
+def reduce_bytes(live: int, k: int, c: int, m: int) -> int:
+    """A dense reduce's traffic (row 10): the live rows and the K int64
+    ids read once, the (M, C) table written once."""
+    return live * c * 4 + k * 8 + m * c * 4
+
+
+def place_live_bytes(k: int, s: int, c: int, m: int) -> int:
+    """`place_live`'s traffic (row 11's placement): the ids and the S
+    nonempty segments' last rows read, their S columns and the (M,) map
+    written."""
+    return k * 8 + 2 * s * c * 4 + m * 4
+
+
+def live_route_bytes(live: int, k: int, s: int, c: int, m: int) -> int:
+    """The scan route's function (`scan_reduce`: scan, then the live
+    placement) as one: the live rows and the ids read once, the S columns
+    and the map written once."""
+    return live * c * 4 + k * 8 + s * c * 4 + m * 4
+
+
+def broadcast_bytes(k: int, used: int, c: int) -> int:
+    """`segment_broadcast`'s traffic (row 12): the K int64 ids and the
+    used table rows read once, the (K, C) rows written once."""
+    return k * 8 + used * c * 4 + k * c * 4
+
+
+def used_rows(table, sorted_ids) -> int:
+    """Distinct in-range table rows a broadcast reads."""
+    m = table.shape[0]
+    return int(torch.unique_consecutive(sorted_ids[(sorted_ids >= 0) & (sorted_ids < m)]).numel())
+
+
 def _check_extents(name, m, c):
     if not (0 <= m <= MAX_SEGMENTS and 0 < c <= MAX_CHANNELS):
         raise ValueError(f"{name}: at most {MAX_SEGMENTS} segments of at most {MAX_CHANNELS} channels, got {m} x {c}")
@@ -163,6 +202,8 @@ def segment_reduce(vals, sorted_ids, num_segments: int, op: str = "add", fill: f
     return table if channels_first else table.t().contiguous()
 
 
+@counted_bytes(lambda out, vals, sorted_ids, num_segments, **_: reduce_bytes(
+    live_rows(sorted_ids, num_segments), vals.shape[0], vals.shape[1], int(num_segments)))
 def serial_reduce(vals, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0, channels_first: bool = False):
     """The serial route: on CUDA one launch of the serial reduce kernel."""
     if vals.device.type == "cpu":
@@ -229,6 +270,8 @@ def place_live_plain(scanned, sorted_ids, num_segments: int, op: str = "add", fi
 LIVE_TILE = 512  # segments a live-placement tile covers (kLiveTile, csrc/binned_segment.cu)
 
 
+@counted_bytes(lambda out, scanned, num_segments, **_: place_live_bytes(
+    scanned.shape[0], int((out.slot >= 0).sum()), scanned.shape[1], int(num_segments)))
 def place_live(scanned, sorted_ids, num_segments: int, op: str = "add", fill: float = 0.0) -> LiveTable:
     """`place_live_plain`; on CUDA one cooperative launch of the live
     placement kernel, for at most `SCAN_CHANNELS` channels.  The table has
@@ -273,6 +316,8 @@ def scan_reduce_plain(vals, sorted_ids, num_segments: int, op: str = "add", fill
                             fill)
 
 
+@counted_bytes(lambda out, table, sorted_ids: broadcast_bytes(sorted_ids.shape[0], used_rows(table, sorted_ids),
+                                                            table.shape[1]))
 def segment_broadcast(table, sorted_ids):
     """``out[i] = table[sorted_ids[i]]`` for a (M, C) table: (K, C)."""
     if table.device.type == "cpu":

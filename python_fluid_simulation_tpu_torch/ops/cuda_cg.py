@@ -57,6 +57,7 @@ import torch
 from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
 from python_fluid_simulation_tpu_torch.ops.indexing import face_parity, sample
 from python_fluid_simulation_tpu_torch.solvers.cg import cg
+from python_fluid_simulation_tpu_torch.utils.step_bytes import counted_bytes
 
 VOL_CLASSES = ((0, 0, 1), (0, 1, 0), (0, 1, 1), (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1))
 SPHI_CLASSES = ((0, 1, 1), (1, 0, 1), (1, 1, 0))
@@ -292,6 +293,37 @@ def _geometry_size(n: tuple) -> int:
     return sum(int(np.prod(class_shape(c, n))) for c in VOL_CLASSES + SPHI_CLASSES)
 
 
+def geometry_elements(sphi_c, vol_c) -> int:
+    """Entries of the 10 geometry classes the coupled kernels read."""
+    return sum(vol_c[c].numel() for c in VOL_CLASSES) + sum(sphi_c[c].numel() for c in SPHI_CLASSES)
+
+
+def geom_matvec_bytes(n_geom: int, faces: int) -> int:
+    """`coupled_matvec_geom`'s traffic (either form): the geometry and v
+    read, q written."""
+    return (n_geom + 2 * faces) * 4
+
+
+def coupled_pcg_io_bytes(n_geom: int, faces: int) -> int:
+    """The coupled PCG's inputs read once and output written once: b, x0,
+    pd and the geometry read, x written."""
+    return (4 * faces + n_geom) * 4
+
+
+def coupled_pcg_iter_bytes(n_geom: int, faces: int) -> int:
+    """The coupled PCG's streaming floor an iteration, as
+    ``csrc/coupled_visc_pcg.cu`` streams it: the geometry read once and 12
+    passes over the faces."""
+    return (n_geom + 12 * faces) * 4
+
+
+def coupled_visc_pcg_bytes(b, sphi_c, vol_c, iters) -> int:
+    """A coupled PCG solve's traffic (row 2): `coupled_pcg_io_bytes`, then
+    `coupled_pcg_iter_bytes` an iteration."""
+    faces, n_geom = sum(t.numel() for t in b), geometry_elements(sphi_c, vol_c)
+    return coupled_pcg_io_bytes(n_geom, faces) + int(iters) * coupled_pcg_iter_bytes(n_geom, faces)
+
+
 def flat_geometry(sphi_c, vol_c):
     """The 10 geometry classes concatenated in the kernels' order (7 vol,
     then 3 sphi); build it once per solve and pass it to
@@ -299,6 +331,7 @@ def flat_geometry(sphi_c, vol_c):
     return _flat([vol_c[c] for c in VOL_CLASSES] + [sphi_c[c] for c in SPHI_CLASSES])
 
 
+@counted_bytes(lambda q, vs, **_: geom_matvec_bytes(_geometry_size(_grid_of(vs)), sum(v.numel() for v in vs)))
 def coupled_matvec_geom(sphi_c, vol_c, s_mu, vs, *, same_axis_only: bool = False, geom=None):
     """q = A v for the coupled viscosity operator (or, with
     ``same_axis_only``, its block-diagonal part), coefficients rebuilt
@@ -342,6 +375,7 @@ coupled_matvec_geom.launches = 0
 coupled_matvec_geom.same_axis_launches = 0  # of them, the block-diagonal form
 
 
+@counted_bytes(lambda out, b, sphi_c, vol_c, **_: coupled_visc_pcg_bytes(b, sphi_c, vol_c, out[1]))
 def coupled_visc_pcg(b, x0, pd, sphi_c, vol_c, s_mu, *, tol, rel_tol, max_iter):
     """Coupled viscosity Jacobi-PCG from x0 on the three face arrays.
 

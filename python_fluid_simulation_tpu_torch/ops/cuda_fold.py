@@ -42,6 +42,7 @@ import torch
 from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
 from python_fluid_simulation_tpu_torch.ops.cuda_binned import LiveTable
 from python_fluid_simulation_tpu_torch.ops.indexing import sample
+from python_fluid_simulation_tpu_torch.utils.step_bytes import counted_bytes
 
 MAX_SHIFTS = 5  # shifts per axis the kernel takes
 MAX_TARGETS = 1 << 30  # the kernel indexes targets in 32 bits
@@ -158,6 +159,18 @@ def lift_2d(seg, axis_shifts, out_shape):
     return seg3, [(0,)] + [tuple(a) for a in axis_shifts], (1,) + tuple(int(n) for n in out_shape)
 
 
+def fold_bytes(seg, out_shape) -> int:
+    """A fold's traffic (row 14): of a live table the map and the folded
+    channels' S nonempty columns read once, of a dense table every entry;
+    the targets written once."""
+    n_out = int(np.prod([int(n) for n in out_shape]))
+    if isinstance(seg, LiveTable):
+        s = int((seg.slot >= 0).sum())
+        return seg.slot.numel() * 4 + s * len(seg.channels) * 4 + n_out * 4
+    return (seg.numel() + n_out) * 4
+
+
+@counted_bytes(lambda out, seg, out_shape, **_: fold_bytes(seg, out_shape))
 def fold(seg, axis_shifts, out_shape: Sequence[int], combine: str = "add", fill=0.0) -> torch.Tensor:
     """The fold of `fold_plain`; on CUDA one kernel launch.
 

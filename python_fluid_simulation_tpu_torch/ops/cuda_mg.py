@@ -50,6 +50,7 @@ import torch
 
 from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
 from python_fluid_simulation_tpu_torch.ops.cuda_stencils import batched, check_field, check_stencil, stencil_matvec_plain
+from python_fluid_simulation_tpu_torch.utils.step_bytes import counted_bytes
 
 # Levels of at most this many cells (B x X x Y x Z) run inside one block
 # of the tail kernel, the larger ones across the grid.  Measured on an
@@ -235,6 +236,14 @@ def launch_tail(tail: VcycleTail, x, r, block_level: int):
     return out
 
 
+def tail_bytes(tail: VcycleTail) -> int:
+    """One tail call's traffic (row 9, a cycle): x and r read and the
+    output written at level 0, each level's 7 stencil fields read once
+    (the workspace is the function's own)."""
+    return 4 * (3 * int(np.prod(tail.fine_shape)) + 7 * sum(lv.diag.numel() for lv in tail.levels))
+
+
+@counted_bytes(lambda out, tail, **_: tail_bytes(tail))
 def vcycle_tail(tail: VcycleTail, x, r):
     """x + P e1 (see `vcycle_tail_plain`) for the level-0 iterate x and
     residual r, fields (X, Y, Z) or a stack (B, X, Y, Z)."""

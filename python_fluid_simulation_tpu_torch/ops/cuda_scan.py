@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
+from python_fluid_simulation_tpu_torch.utils.step_bytes import counted_bytes
 
 OPS = ("add", "min")
 MAX_CHANNELS = 256  # a 32-row tile of C channels fills the kernel's 32 KB of shared memory
@@ -63,6 +64,13 @@ def seg_scan_sorted_plain(vals: torch.Tensor, same: torch.Tensor, op: str = "add
     return out
 
 
+def scan_bytes(k: int, c: int) -> int:
+    """`seg_scan_sorted`'s traffic (row 13): each value read once and
+    written once, the K one-byte flags read once."""
+    return 2 * k * c * 4 + k
+
+
+@counted_bytes(lambda out, vals, **_: scan_bytes(*vals.shape))
 def seg_scan_sorted(vals: torch.Tensor, same: torch.Tensor, op: str = "add") -> torch.Tensor:
     """Inclusive segmented scan of (K, C) rows; on CUDA one kernel call
     (a tile pass and a carry pass) for at most `MAX_CHANNELS` channels."""

@@ -54,10 +54,46 @@ from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
 from python_fluid_simulation_tpu_torch.ops import cuda_cg
 from python_fluid_simulation_tpu_torch.ops.indexing import sample, shift
 from python_fluid_simulation_tpu_torch.solvers.cg import cg, threshold
+from python_fluid_simulation_tpu_torch.utils.step_bytes import counted_bytes
 
 # coefficient offsets in the order the kernel reads them
 OFFSETS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
 _PART_CAP = 3 * 8192
+# bytes the Poisson PCG (csrc/poisson_pcg.cu) moves a live cell an
+# iteration: A reads the list entry, diag, 6 coefficients, r, pd and
+# d_old and writes d and q (13 floats); B reads the entry, x, d, r, q and
+# pd and writes x and r (8); the neighbours' r, pd and d_old counted as
+# cache hits
+POISSON_LIVE_BYTES = (13 + 8) * 4
+# the materialised coupled matvec: a face reads its diagonal, 14
+# coefficients and v once and writes q once
+COUPLED_FLOATS_PER_FACE = 17
+
+
+def stencil_matvec_bytes(n: int) -> int:
+    """`stencil_matvec`'s traffic on n cells: 8 fields read (diag, 6
+    coefficients, p), q written."""
+    return 9 * 4 * n
+
+
+def poisson_io_bytes(n: int, reads_x0: bool) -> int:
+    """A Poisson PCG solve's inputs read once and its output written once
+    on n cells: b, diag, 6 coefficients and pd (and x0 where one is read)
+    read, x written."""
+    return (10 + int(reads_x0)) * n * 4
+
+
+def poisson_pcg_bytes(b, x0, diag, coefs, iters) -> int:
+    """A Poisson PCG solve's traffic (rows 1 and 3): its inputs and
+    output once (`poisson_io_bytes`), then `POISSON_LIVE_BYTES` a live cell
+    (`poisson_live_cells_plain`, the kernel's own list) an iteration."""
+    na = poisson_live_cells_plain(b, x0, diag, coefs).numel()
+    return poisson_io_bytes(b.numel(), x0 is not None) + int(iters) * POISSON_LIVE_BYTES * na
+
+
+def coupled_stencil_bytes(faces: int) -> int:
+    """`coupled_stencil_matvec`'s traffic on `faces` faces."""
+    return COUPLED_FLOATS_PER_FACE * 4 * faces
 
 
 def squared_tols(tol: float, rel_tol: float):
@@ -140,6 +176,7 @@ def batched(shape):
     return tuple(shape) if len(shape) == 4 else (1, *shape)
 
 
+@counted_bytes(lambda q, diag, coefs, p: stencil_matvec_bytes(p.numel()))
 def stencil_matvec(diag, coefs, p):
     """q = A p for the 7-point system (diag, coefs in `OFFSETS` order);
     neighbours outside the grid read 0.  p is (X, Y, Z) or a stack
@@ -197,6 +234,7 @@ def _poisson_pcg(name, b, x0, diag, coefs, pd, tol2, rel2, max_iter):
     return x, iters, res, res0, threshold(tol2, rel2, res0)
 
 
+@counted_bytes(lambda out, b, diag, coefs, **_: poisson_pcg_bytes(b, None, diag, coefs, out[1]))
 def cell_poisson_pcg(b, diag, coefs, pd, *, tol, rel_tol, max_iter):
     """Jacobi-PCG solve of the 7-point system (diag, coefs) from x0 = 0
     (``make_stencil_cg``'s semantics): on CUDA tensors one launch of
@@ -218,6 +256,7 @@ def cell_poisson_pcg(b, diag, coefs, pd, *, tol, rel_tol, max_iter):
 cell_poisson_pcg.launches = 0
 
 
+@counted_bytes(lambda out, b, x0, diag, coefs, **_: poisson_pcg_bytes(b, x0, diag, coefs, out[1]))
 def fused_poisson_pcg(b, x0, diag, coefs, pd, *, tol, rel_tol, max_iter):
     """Jacobi-PCG solve of the 7-point system (diag, coefs) from x0, for
     big grids (the blocked TPU PCG's semantics): on CUDA tensors one
@@ -296,6 +335,7 @@ def pack_coupled_stencil(diags, per_axis) -> CoupledStencil:
     )
 
 
+@counted_bytes(lambda q, vs, **_: coupled_stencil_bytes(sum(v.numel() for v in vs)))
 def coupled_stencil_matvec(diags, per_axis, vs, *, packed: CoupledStencil | None = None):
     """q = A v, vs = (vx, vy, vz), with the operator's diagonals and
     coefficient fields as ``viscosity_term_fields`` builds them.  On CUDA

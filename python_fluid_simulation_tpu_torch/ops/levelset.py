@@ -48,9 +48,13 @@ def compute_fluid_levelset(
     the particle's 5^d-cell neighbourhood with border clamping
     (:270-288).  Zero-mass particles (padding) contribute nothing.
     ``sort_info`` rides an existing bias-0 home-cell sort
-    (`transfers.make_sort_info`): the clipped home-cell key below is a
-    monotone map of its key, so the borrowed order keeps these ids
-    non-decreasing.
+    (`transfers.make_sort_info`), re-sorted stably by the clipped
+    home-cell key: the clip keeps the borrowed order only while every
+    home cell lies inside the grid (a particle beyond the last x plane
+    clips onto it after rows of a larger y), and the segment reduce needs
+    non-decreasing ids (its kernel reads them as tile boundaries).  The
+    JAX package keeps the borrowed order (``ops/levelset.py:70-75``), so
+    there a cell whose rows the clip splits takes the min of one run.
     """
     d = px.shape[-1]
     r = gdx * 0.5 * math.sqrt(float(d)) * 1.02
@@ -73,6 +77,9 @@ def compute_fluid_levelset(
                 pm_s > 0, sorted_ids,
                 size + torch.arange(k, dtype=sorted_ids.dtype, device=px.device),
             )
+        sorted_ids, perm = torch.sort(sorted_ids, stable=True)
+        px_s, gi_s = px_s[perm], gi_s[perm]
+        pm_s = None if pm_s is None else pm_s[perm]
     else:
         gi = torch.minimum(torch.clamp(torch.floor((px - bmin) / h).to(torch.int32), min=0), hi)
         idx = padding_dump_ids(_flat_index(gi, res), pm, res)

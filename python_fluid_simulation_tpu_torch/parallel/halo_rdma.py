@@ -61,6 +61,25 @@ import numpy as np
 import torch
 
 from python_fluid_simulation_tpu_torch.ops import cuda_halo
+from python_fluid_simulation_tpu_torch.utils.step_bytes import counted_bytes
+
+
+def halo_bytes(slots: int, n: int, plane: int) -> int:
+    """An exchange's traffic (row 15) over `slots` blocks of n planes of
+    `plane` floats: every block read once, every framed (n + 2)-plane
+    output written once."""
+    return slots * (2 * n + 2) * plane * 4
+
+
+def exchange_bytes(blocks) -> int:
+    """`halo_bytes` of an exchange of these blocks."""
+    return halo_bytes(len(blocks), blocks[0].shape[0], math.prod(blocks[0].shape[1:]))
+
+
+def psum_bytes(slots: int, dots: int) -> int:
+    """A cross-card sum's traffic: every slot's partials stored into every
+    slot's buffer and read back once, and the arrival counters."""
+    return slots * (2 * slots * dots * 4 + slots * 4 + 2 * dots * 4)
 
 
 def halo_exchange_rdma_plain(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x") -> List[torch.Tensor]:
@@ -171,6 +190,7 @@ def _check_blocks(name, mesh, blocks):
     return shape
 
 
+@counted_bytes(lambda out, blocks, **_: exchange_bytes(blocks))
 def halo_exchange_rdma(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x") -> List[torch.Tensor]:
     """Exchange one plane along array axis 0 with both ring neighbours of
     every slot along mesh axis ``axis_name``.  ``blocks``: one a slot, in
@@ -229,6 +249,7 @@ def slot_launches(mesh):
         current[dev].wait_event(done[s])
 
 
+@counted_bytes(lambda out, blocks, **_: exchange_bytes(blocks))
 def halo_exchange_push(mesh, blocks: Sequence[torch.Tensor], axis_name: str = "x") -> List[torch.Tensor]:
     """`halo_exchange_rdma` by remote push, one launch a slot on its own
     card and stream: the route of rings that span devices, and callable
@@ -287,6 +308,7 @@ def replica_devices(mesh) -> List[torch.device]:
     return list(dict.fromkeys(mesh.devices))
 
 
+@counted_bytes(lambda out, parts, **_: psum_bytes(len(parts), len(parts[0])))
 def mesh_psum(mesh, parts) -> List[tuple]:
     """The distributed dots of a mesh whose slots span devices: parts[s]
     is slot s's tuple of 1 to 3 fp32 0-dim partials (on its device); for

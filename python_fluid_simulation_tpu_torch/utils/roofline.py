@@ -17,11 +17,17 @@ viscosity PCG iteration ~(15 + 2) Nf; the transfers are each a sort
 static geometry is built outside the step and not counted.  A floor,
 not an exact count: utilisations are meaningful to ~+-30%.
 
-JAX's ``hlo_bytes_per_step`` (XLA's cost analysis of a compiled
-program) has no counterpart here.
+The measured count that ``roofline(measured_bytes_per_step=)`` takes
+comes from `step_bytes` (``utils/step_bytes.py``, re-exported here), the
+counterpart of JAX's ``hlo_bytes_per_step``: where JAX asks XLA's cost
+analysis of the compiled program (a while-loop body counted once), the
+port counts the bytes of every aten op and hand kernel of eager steps,
+every solver iteration included.
 """
 
 from __future__ import annotations
+
+from python_fluid_simulation_tpu_torch.utils.step_bytes import step_bytes  # noqa: F401
 
 # Published device-memory peak (GB/s) by device kind, as
 # ``torch.cuda.get_device_name`` names it: the H100 SXM part (NVIDIA's

@@ -16,25 +16,45 @@ package, on CPU.
   ``moving_solid`` equals the host-driven loop that advances the body and
   re-evaluates the solid between static-geometry steps, and the body
   moves.
+* the moving box under a mesh: 2 steps of ``moving_box_config(1/16)``
+  (16^3 cells, 4,356 particles, the geometry rebuilt on the mesh every
+  step) on the port's ``make_mesh(2, "cpu")``, sharded and bucketed,
+  against JAX's bucketed ``step_3d(mesh=)`` over 2 of the 8 CPU devices
+  (jitted through ``make_step``: its eager call cannot place the odd dual
+  lattice over 2 slots; one JAX program, ~15-25 s to compile, holds both
+  layouts, which differ from it by rounding) from the same particles,
+  with ``ops/scatter.py::
+  segment_sum_sorted`` replaced inside the test by the exact
+  ``jax.ops.segment_sum`` (as ``tests/test_torch_mesh_step.py`` does):
+  particles matched by (unique) mass within |dx| < 2e-4 m and |dv| <
+  2e-3 m/s, the rigid bodies within 1e-6, no particle lost; and the
+  port's ``make_step(mesh=)`` bitwise its ``step_3d(mesh=)``.
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec
 import numpy as np
 import pytest
 import torch
 
 from python_fluid_simulation_tpu_torch.convert import state_from_numpy
 from python_fluid_simulation_tpu_torch.engine.scenes import moving_box_config, moving_box_scene
-from python_fluid_simulation_tpu_torch.engine.step import simulate, step_3d
+from python_fluid_simulation_tpu.ops import scatter as j_scatter
+from python_fluid_simulation_tpu_torch.engine.step import make_step, simulate, step_3d
 from python_fluid_simulation_tpu_torch.ops import sdf as sdf3d
 from python_fluid_simulation_tpu_torch.ops.indexing import grid_positions
+from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh
 from python_fluid_simulation_tpu_torch.state import SimState, SolidState
 
 torch.set_num_threads(1)
 
 STEPS = 3
+MESH_STEPS = 2
+MESH_DX = 1.0 / 16
+DX_BAR, DV_BAR = 2e-4, 2e-3  # tests/test_torch_mesh_step.py's (the JAX package's sharded-vs-single bars)
 
 
 @pytest.mark.parametrize("as_tensor", [False, True])
@@ -124,3 +144,87 @@ def test_moving_solid_matches_host_driven_stepping():
     y1 = float(out.solid.rb[1, 2, 3])
     assert y1 < y0 - 1e-3, (y0, y1)
     assert np.all(np.isfinite(out.particles.x.numpy()))
+
+
+def _numpy_state(s):
+    return {k: np.asarray(v) for k, v in {
+        "x": s.particles.x, "v": s.particles.v, "c": s.particles.c, "m": s.particles.m,
+        "phi": s.solid.phi, "sv": s.solid.v, "rb": s.solid.rb, "t": s.t, "step_idx": s.step_idx}.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_run():
+    """JAX's moving box on ``make_mesh(2)``, bucketed: the start state
+    (unique masses m (1 + 1e-4 i)), its particles bucketed, and the state
+    after `MESH_STEPS` steps, as numpy, with the exact segment sum; the
+    particles it lost."""
+    from python_fluid_simulation_tpu.engine.scenes import moving_box_config as j_cfg_of
+    from python_fluid_simulation_tpu.engine.scenes import moving_box_scene as j_scene
+    from python_fluid_simulation_tpu.engine.step import make_step as j_make_step
+    from python_fluid_simulation_tpu.parallel import mesh as j_mesh
+    from python_fluid_simulation_tpu.parallel import particles as j_part
+
+    j_cfg = j_cfg_of(dx=MESH_DX)
+    g = j_cfg.grid
+    j_state = j_scene(j_cfg)
+    n = j_state.particles.x.shape[0]
+    m = np.asarray(j_state.particles.m) * (1.0 + 1e-4 * np.arange(n, dtype=np.float32))
+    j_state = j_state._replace(particles=j_state.particles._replace(m=jnp.asarray(m)), visc_mg=jnp.int32(0),
+                               t=jnp.float32(j_state.t), step_idx=jnp.int32(j_state.step_idx))
+    jm = j_mesh.make_mesh(2)
+    j_state = j_mesh.shard_state(j_state, jm)
+    # the scalars replicated over the mesh, as the step returns them: the
+    # second step reuses the first one's program
+    rep = NamedSharding(jm, PartitionSpec())
+    j_state = j_state._replace(**{k: jax.device_put(getattr(j_state, k), rep) for k in ("visc_mg", "t", "step_idx")})
+    start = _numpy_state(jax.device_get(j_state))
+    spec = j_part.make_bucket_spec(2, g.res[0], n, positions=np.asarray(j_state.particles.x), bound_min=g.bound_min,
+                                   cell_size=g.cell_size)
+    s = j_state._replace(particles=j_part.bucket_particles(j_state.particles, jm, spec, g.bound_min, g.cell_size))
+    bucketed_start = _numpy_state(jax.device_get(s))
+    lost = 0
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_scatter, "segment_sum_sorted", lambda vals, ids, num_segments, widen=False:
+                   jax.ops.segment_sum(vals, ids, num_segments=num_segments, indices_are_sorted=True))
+        jax.clear_caches()  # no step traced before the patch may be reused
+        try:
+            step = j_make_step(j_cfg, mesh=jm, bucketed=True)
+            for _ in range(MESH_STEPS):
+                s, metrics = step(s)
+                lost += int(metrics["bucket_lost"])
+        finally:
+            jax.clear_caches()
+    return {False: start, True: bucketed_start}, _numpy_state(jax.device_get(s)), lost
+
+
+def _by_mass(d):
+    live = d["m"] > 0
+    order = np.argsort(d["m"][live])
+    return {k: d[k][live][order] for k in ("x", "v", "m")}
+
+
+@pytest.mark.parametrize("bucketed", [False, True], ids=["sharded", "bucketed"])
+def test_moving_box_under_a_mesh_matches_jax(jax_mesh_run, bucketed):
+    starts, want, j_lost = jax_mesh_run
+    start = starts[bucketed]
+    cfg = moving_box_config(dx=MESH_DX)
+    mesh = make_mesh(2, "cpu")
+    state = state_from_numpy(start, device="cpu")
+    stepped = make_step(cfg, mesh=mesh, bucketed=bucketed)
+    s, via_step, lost = state, state, 0
+    for _ in range(MESH_STEPS):
+        s, m = step_3d(s, cfg, mesh=mesh, bucketed=bucketed)
+        via_step, m_step = stepped(via_step)
+        lost += int(m.get("bucket_lost", torch.zeros(()))) + j_lost
+        for k in ("x", "v", "c", "m"):
+            assert torch.equal(getattr(via_step.particles, k), getattr(s.particles, k)), k
+        assert torch.equal(via_step.solid.rb, s.solid.rb)
+        assert all(torch.equal(m[k], m_step[k]) for k in m)
+    assert lost == 0
+    got, ref = _by_mass(_numpy_state(s)), _by_mass(want)
+    np.testing.assert_array_equal(got["m"], ref["m"])  # the same particle set
+    assert float(np.abs(got["x"] - ref["x"]).max()) < DX_BAR
+    assert float(np.abs(got["v"] - ref["v"]).max()) < DV_BAR
+    np.testing.assert_allclose(s.solid.rb.numpy(), want["rb"], atol=1e-6)
+    assert float(s.solid.rb[1, 2, 3]) < float(start["rb"][1, 2, 3]) - 1e-3  # the box sank
+    assert float(s.t) == pytest.approx(float(want["t"]), rel=1e-6)
