@@ -155,7 +155,15 @@ Phases, each printing one JSON line:
               the first lean step bitwise
               repeatable and within STEP_TOL of the same step on the card
               with every kernel swapped for its plain version, peak
-              memory
+              memory; where that step's card and CPU part (ROADMAP
+              queue 3 item 2): both its level sets again on the CPU from
+              the card's own positions, bitwise the card's with the root
+              taken in float64, and the port's CPU level set within an
+              ulp of the root and one of the value where PyTorch's CPU
+              fp32 sqrt is off (cells counted); the pressure
+              coefficients from the card's level set, card vs CPU
+              bitwise; the card's sqrt against the correctly rounded
+              root on 4M inputs, exact (seconds)
   mesh_504    504 sharded over 4 slots from the same scene: 1 warm-up + 2
               timed steps with the counters reset just before; the halo
               kernel launched, solves converged, |dx| < 2e-4 and |dv| < 2e-3
@@ -431,7 +439,16 @@ Phases, each printing one JSON line:
               bucketed flagship ×4 (one capture, bitwise the eager
               steps); run.main --mesh 4 and --mesh 4 --bucketed over the
               cards, 10 steps in blocks of 5, one capture a run, resumed
-              from the step-5 checkpoint bitwise
+              from the step-5 checkpoint bitwise; the profiler's
+              fault, reproduced without any kernel of the port
+              (WHILE_REPRO_CU, each case in a process of its own): a
+              graph over 2 cards with one WHILE node a card and a
+              trivial body profiles its replay with the right counts in
+              a fresh process (asserted), and faults with an illegal
+              address where a profiler session ran before the graph was
+              made (reported; so are the same without WHILE nodes and
+              on one card, which profile), which is why a replay's idle
+              share is still inferred from the eager step
 
 The last lines are the ``nvidia-smi`` line, a ``{"kernels": [...]}``
 line, and ``{"ok": true, "device": {...}}``; the "done" phase prints the
@@ -2233,6 +2250,106 @@ def lean_precond_phase(system):
         levels=[list(lv.diag.shape) for lv in pre.inner.levels], bitwise=True, max_abs_err=0.0,
         ms=cuda_time_ms(lambda: pre(b), 5), plain_ms=plain_ms, setup_ms=cuda_time_ms(build, 2), tail=tail_row,
     )
+
+
+@contextlib.contextmanager
+def recorded_levelsets():
+    """Record every `compute_fluid_levelset` call of the step (its
+    positions, masses, the borrowed sort and the card's result)."""
+    from python_fluid_simulation_tpu_torch.engine import step as step_mod
+
+    calls, real = [], step_mod.compute_fluid_levelset
+
+    def rec(px, res, bound_min, cell_size, gdx, pm=None, sort_info=None):
+        out = real(px, res, bound_min, cell_size, gdx, pm=pm, sort_info=sort_info)
+        calls.append(dict(px=px, pm=pm, sort_info=sort_info, out=out))
+        return out
+
+    step_mod.compute_fluid_levelset = rec
+    try:
+        yield calls
+    finally:
+        step_mod.compute_fluid_levelset = real
+
+
+class _RootInFloat64:
+    """``torch`` with ``sqrt`` taken in float64 and rounded once: the
+    correctly rounded root, as the card's and JAX's sqrt give it."""
+
+    def __getattr__(self, name):
+        import torch
+
+        return getattr(torch, name)
+
+    @staticmethod
+    def sqrt(t):
+        import torch
+
+        return torch.sqrt(t.double()).to(t.dtype)
+
+
+def levelset_card_vs_cpu(calls, cfg, geom, n_sqrt=1 << 22):
+    """The first lean 504 step's card and CPU part (ROADMAP queue 3 item
+    2) at the bottom of the falling column, where the pressure diagonal
+    takes the level set through the ghost-fluid fraction. Here, from the
+    card's own inputs: each recorded level set of the step on the CPU with
+    the root taken in float64, bitwise the card's; the port's CPU level set
+    from the same positions, apart only where PyTorch's CPU fp32 sqrt is
+    one ulp off the correctly rounded root (cells counted, each within an
+    ulp of the root and one of the value, which the subtraction of the
+    radius rounds); the pressure system's coefficients from the card's
+    second level set on both devices, bitwise. Also the root alone on
+    seeded inputs: the card's sqrt exact (asserted), the CPU's counted."""
+    import numpy as np
+    import torch
+
+    from python_fluid_simulation_tpu_torch.ops import levelset
+    from python_fluid_simulation_tpu_torch.ops.transfers import SortInfo
+    from python_fluid_simulation_tpu_torch.solvers.pressure import pressure_coefficients
+
+    g = cfg.grid
+    rows = []
+    for i, c in enumerate(calls):
+        si = c["sort_info"]
+        cpu_si = None if si is None else SortInfo(si.sorted_ids.cpu(), si.order.cpu(), si.ext, si.px_sorted.cpu())
+        args = (c["px"].cpu(), g.res, g.bound_min, g.cell_size, g.dx)
+        kw = dict(pm=None if c["pm"] is None else c["pm"].cpu(), sort_info=cpu_si)
+        t = time.perf_counter()
+        port_cpu = levelset.compute_fluid_levelset(*args, **kw)
+        cpu_s = time.perf_counter() - t
+        levelset.torch = _RootInFloat64()
+        try:
+            rounded = levelset.compute_fluid_levelset(*args, **kw)
+        finally:
+            levelset.torch = torch
+        card = c["out"].cpu()
+        off = card != port_cpu
+        root = (card + float(g.dx) * 0.5 * math.sqrt(3.0) * 1.02)[off].numpy()
+        rows.append(dict(call=i, cells=card.numel(), card_vs_rounded_root_differ=int((card != rounded).sum()),
+                         card_vs_port_cpu_differ=int(off.sum()),
+                         card_vs_port_cpu_max_abs=float((card - port_cpu).abs().max()), cpu_seconds=cpu_s))
+        if rows[-1]["card_vs_rounded_root_differ"]:
+            raise AssertionError(f"504 level set {i}: card vs the correctly rounded root differ: {rows[-1]}")
+        # one ulp of the root, and one of the value the radius is subtracted to
+        ulps = np.spacing(np.abs(root).astype(np.float32)) + np.spacing(np.abs(card[off].numpy()))
+        if not (np.abs((card - port_cpu)[off].numpy()) <= ulps).all():
+            raise AssertionError(f"504 level set {i}: card vs the port's CPU apart by more than an ulp of the root "
+                                 "and one of the value")
+    lphi = calls[-1]["out"]
+    coef_card = pressure_coefficients(geom.w_faces, lphi)
+    coef_cpu = pressure_coefficients([w.cpu() for w in geom.w_faces], lphi.cpu())
+    pairs = [(coef_card[0], coef_cpu[0]), (coef_card[2], coef_cpu[2])]
+    pairs += [(a, b) for (_, a), (_, b) in zip(coef_card[1], coef_cpu[1])]
+    coef_differ = sum(int((a.cpu() != b).sum()) for a, b in pairs)
+    if coef_differ:
+        raise AssertionError(f"504 pressure coefficients, card vs CPU from the card's level set: {coef_differ} differ")
+    x = torch.rand(n_sqrt, generator=torch.Generator().manual_seed(0), dtype=torch.float32) * 1e-4
+    exact = torch.sqrt(x.double()).float()
+    sqrt = dict(inputs=n_sqrt, card_off=int((torch.sqrt(x.cuda()).cpu() != exact).sum()),
+                cpu_off=int((torch.sqrt(x) != exact).sum()))
+    if sqrt["card_off"]:
+        raise AssertionError(f"the card's fp32 sqrt against the correctly rounded root: {sqrt}")
+    return dict(levelsets=rows, pressure_coefficients_bitwise=True, sqrt_vs_float64_root=sqrt)
 
 
 def card_vs_plain(step_3d, before, after, cfg, geom, label):
@@ -5200,6 +5317,184 @@ def cards_psum():
     return rows
 
 
+# A graph over the cards with one WHILE node a card and a trivial body,
+# built from this source alone (no kernel of the port): the profiler's
+# illegal address on a replay over the cards, reproduced (profiler_repro).
+WHILE_REPRO_CU = r"""
+#include <cuda_runtime.h>
+__global__ void repro_test(cudaGraphConditionalHandle h, int* k, int n, int step) {
+  const int kk = *k + step;
+  if (step) *k = kk;
+  cudaGraphSetConditional(h, kk < n ? 1u : 0u);
+}
+__global__ void repro_body(int* x) { x[threadIdx.x] += 1; }
+extern "C" int repro_peer(int peer) {
+  cudaError_t e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) { cudaGetLastError(); e = cudaSuccess; }
+  return e;
+}
+extern "C" int repro_body_launch(void* stream, void* x) {
+  repro_body<<<1, 32, 0, (cudaStream_t)stream>>>((int*)x);
+  return cudaGetLastError();
+}
+// a WHILE node after the first test on `stream`; its body is then captured on body_stream
+extern "C" int repro_while_begin(void* stream, void* body_stream, void* k, int n, unsigned long long* hout) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaStreamCaptureStatus st; cudaGraph_t g; const cudaGraphNode_t* deps; size_t nd;
+  cudaError_t e = cudaStreamGetCaptureInfo(s, &st, nullptr, &g, &deps, &nd);
+  if (e) return e;
+  cudaGraphConditionalHandle h;
+  if ((e = cudaGraphConditionalHandleCreate(&h, g, 0, 0))) return e;
+  repro_test<<<1, 1, 0, s>>>(h, (int*)k, n, 0);
+  if ((e = cudaGetLastError())) return e;
+  if ((e = cudaStreamGetCaptureInfo(s, &st, nullptr, &g, &deps, &nd))) return e;
+  cudaGraphNodeParams p = {};
+  p.type = cudaGraphNodeTypeConditional;
+  p.conditional.handle = h; p.conditional.type = cudaGraphCondTypeWhile; p.conditional.size = 1;
+  cudaGraphNode_t node;
+  if ((e = cudaGraphAddNode(&node, g, deps, nd, &p))) return e;
+  if ((e = cudaStreamUpdateCaptureDependencies(s, &node, 1, cudaStreamSetCaptureDependencies))) return e;
+  if ((e = cudaStreamBeginCaptureToGraph((cudaStream_t)body_stream, p.conditional.phGraph_out[0], nullptr, nullptr,
+                                         0, cudaStreamCaptureModeThreadLocal))) return e;
+  *hout = h;
+  return 0;
+}
+extern "C" int repro_while_end(void* body_stream, unsigned long long h, void* k, int n) {
+  cudaStream_t s = (cudaStream_t)body_stream;
+  repro_test<<<1, 1, 0, s>>>((cudaGraphConditionalHandle)h, (int*)k, n, 1);
+  cudaError_t e = cudaGetLastError();
+  cudaGraph_t body;
+  cudaError_t e2 = cudaStreamEndCapture(s, &body);
+  return e ? e : e2;
+}
+"""
+# (cards, WHILE nodes, a profiler session before the graph is made)
+WHILE_REPRO_CASES = ((2, True, False), (2, True, True), (2, False, True), (1, True, True))
+WHILE_REPRO_ITERS = 5
+
+
+def while_repro_library() -> str:
+    """The repro's source compiled once (nvcc, sm_90a) into the port's
+    build directory; returns the library's path."""
+    import hashlib
+
+    from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
+
+    key = hashlib.sha256((WHILE_REPRO_CU + " ".join(cb.ARCH_FLAGS)).encode()).hexdigest()[:16]
+    out = os.path.join(os.path.dirname(cb.__file__), os.pardir, "_build", f"while_repro_{key}.so")
+    out = os.path.normpath(out)
+    if not os.path.exists(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        src = out[:-3] + ".cu"
+        with open(src, "w") as f:
+            f.write(WHILE_REPRO_CU)
+        subprocess.run([cb._nvcc(), *cb.ARCH_FLAGS, "-O2", "-shared", "-Xcompiler", "-fPIC", src, "-o", out + ".tmp"],
+                       check=True, capture_output=True)
+        os.replace(out + ".tmp", out)
+    return out
+
+
+def while_repro_run(cards: int, whiles: bool, profiled_before: bool) -> dict:
+    """One graph over `cards` cards (the capture on cuda:0, every other
+    card's stream forked from it): on each card a counter kernel, inside
+    one WHILE node of WHILE_REPRO_ITERS iterations where `whiles`. With
+    `profiled_before` a profiler session (one kernel a card) runs before
+    the graph is made. Then one replay unprofiled and one under
+    torch.profiler (CPU and CUDA activities, as `profiled_idle`), each
+    from zeroed counters, every card synchronised; returns the counts
+    and the profile's device events."""
+    import ctypes
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    lib = ctypes.CDLL(while_repro_library())
+    devs = [torch.device("cuda", i) for i in range(cards)]
+    if profiled_before:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            for d in devs:
+                torch.ones(1000, device=d).sum().item()
+    for i in range(cards):
+        with torch.cuda.device(i):
+            for j in range(cards):
+                if j != i and lib.repro_peer(j):
+                    raise RuntimeError(f"peer access cuda:{i} -> cuda:{j}")
+    k = [torch.zeros((), dtype=torch.int32, device=d) for d in devs]
+    x = [torch.zeros(32, dtype=torch.int32, device=d) for d in devs]
+    cap = [torch.cuda.Stream(device=d) for d in devs]
+    body = [torch.cuda.Stream(device=d) for d in devs]
+    ptr = ctypes.c_void_p
+    sync = lambda: [torch.cuda.synchronize(d) for d in devs]  # noqa: E731
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(0), torch.cuda.graph(graph, stream=cap[0]):
+        fork = torch.cuda.Event()
+        fork.record(cap[0])
+        for st in cap[1:]:
+            st.wait_event(fork)
+        for i, d in enumerate(devs):
+            with torch.cuda.device(d):
+                if whiles:
+                    h = ctypes.c_ulonglong(0)
+                    if lib.repro_while_begin(ptr(cap[i].cuda_stream), ptr(body[i].cuda_stream), ptr(k[i].data_ptr()),
+                                             WHILE_REPRO_ITERS, ctypes.byref(h)):
+                        raise RuntimeError("WHILE node")
+                    lib.repro_body_launch(ptr(body[i].cuda_stream), ptr(x[i].data_ptr()))
+                    if lib.repro_while_end(ptr(body[i].cuda_stream), h, ptr(k[i].data_ptr()), WHILE_REPRO_ITERS):
+                        raise RuntimeError("WHILE body")
+                elif lib.repro_body_launch(ptr(cap[i].cuda_stream), ptr(x[i].data_ptr())):
+                    raise RuntimeError("body launch")
+        for st in cap[1:]:
+            done = torch.cuda.Event()
+            done.record(st)
+            cap[0].wait_event(done)
+
+    def replay():
+        for t in (*k, *x):
+            t.zero_()
+        sync()
+        graph.replay()
+        sync()
+        return [int(t[0]) for t in x]
+
+    want = [WHILE_REPRO_ITERS if whiles else 1] * cards
+    unprofiled = replay()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = replay()
+    kernels = sorted({e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.name.startswith("repro_")})
+    return dict(unprofiled_counts=unprofiled, profiled_counts=profiled, right=unprofiled == profiled == want,
+                profiled_kernels=kernels)
+
+
+def profiler_repro_phase() -> list:
+    """Each of WHILE_REPRO_CASES in a process of its own (a fault ends
+    the CUDA context): its exit code, the result, and the CUDA error it
+    printed. The case without an earlier profiler session must profile
+    its replay with the right counts; the others are reported."""
+    rows = []
+    while_repro_library()  # built once, before the children start
+    for cards, whiles, before in WHILE_REPRO_CASES:
+        code = ("import json, chip_smoke; "
+                f"print(json.dumps(chip_smoke.while_repro_run({cards}, {whiles}, {before})), flush=True)")
+        t = time.perf_counter()
+        try:
+            r = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
+                               capture_output=True, text=True, timeout=180)
+            rc, out, err = r.returncode, r.stdout, r.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, out, err = "timeout", e.stdout or "", e.stderr or ""
+        result = next((json.loads(ln) for ln in reversed(str(out).splitlines()) if ln.startswith("{")), None)
+        error = next((ln.strip() for ln in str(err).splitlines() if "CUDA error" in ln or "Error" in ln), None)
+        row = dict(cards=cards, while_nodes=whiles, profiler_session_before=before, rc=rc, result=result,
+                   error=error, seconds=time.perf_counter() - t)
+        rows.append(row)
+        print(json.dumps({"profiler_repro": row}), flush=True)
+        if not before and not (rc == 0 and result and result["right"]):
+            raise AssertionError(f"profiler repro, no earlier session: {row}")
+    return rows
+
+
 def cards_phase(unet_sd):
     """The port on four cards: every card's nvidia-smi line, path 2
     across the four cards (eager, captured, simulate, the CLI), row 15's
@@ -5222,6 +5517,8 @@ def cards_phase(unet_sd):
     out["psum"] = dict(rows=cards_psum(), seconds=time.perf_counter() - t)
     t = time.perf_counter()
     out["path1"] = dict(card=str(other), runs=cards_path1(other), seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    out["profiler_repro"] = dict(cases=profiler_repro_phase(), seconds=time.perf_counter() - t)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -5628,11 +5925,14 @@ def main(argv=()) -> int:
             raise AssertionError(f"504 {label}: the viscosity solve took {branch}")
     # the first lean-MG step again, bit for bit
     before, first = runs504["auto_from_visc_mg_2"][1][0], runs504["auto_from_visc_mg_2"][1][1]
-    again, _ = step_3d(before, cfg504, geom=geom504)
+    with recorded_levelsets() as levelsets504:
+        again, _ = step_3d(before, cfg504, geom=geom504)
     for k in ("x", "v", "c"):
         if not torch.equal(getattr(again.particles, k), getattr(first.particles, k)):
             raise AssertionError(f"504: the first lean-MG step run twice differs in {k}")
     del again
+    levelset504 = levelset_card_vs_cpu(levelsets504, cfg504, geom504)
+    del levelsets504
     # the first lean step held against the same step on the card with every
     # kernel swapped for its plain version
     tc = time.perf_counter()
@@ -5653,7 +5953,7 @@ def main(argv=()) -> int:
     emit({"phase": "main_504", "grid": list(cfg504.grid.res), "particles": n504, "runs": out504,
           "counted_step": ["auto", COUNTED_STEP], "counted_step_ms": counts["coiling_504_auto"]["ms"],
           "launches": launches_by_run504, "lean_vcycles": cycles504[0], "max_memory_allocated": peak504,
-          "first_lean_step_bitwise_repeatable": True,
+          "first_lean_step_bitwise_repeatable": True, "levelset_card_vs_cpu": levelset504,
           "check": "the first lean-MG step vs the same step on the card with every kernel swapped for its plain version",
           "plain_step_seconds": plain504, "card_vs_plain_on_card": err504,
           "step_tol": STEP_TOL,

@@ -168,7 +168,9 @@ def step_3d(
     # -- dt selection (cell 13 :4572-4576)
     if cfg.dt_mode == "cfl":
         vmax = torch.amax(torch.sqrt(torch.sum(p.v**2, dim=-1)))
-        cfl_dt = g.dx / torch.clamp(vmax, min=1e-10)
+        # a true division, as JAX's dx / max(vmax, 1e-10): PyTorch evaluates
+        # `float / tensor` as tensor.reciprocal() * float, two roundings
+        cfl_dt = torch.div(g.dx, torch.clamp(vmax, min=1e-10))
         dt = torch.clamp(torch.minimum(cfl_dt, torch.clamp(cfg.duration - state.t, min=1e-6)), max=ph.dt)
     else:
         dt = const(ph.dt, f32, dev)

@@ -164,7 +164,7 @@ def step_2d(state: SimState, cfg: SimConfig2D) -> Tuple[SimState, Dict[str, torc
 
     if cfg.dt_mode == "cfl":
         vmax = torch.amax(torch.sqrt(torch.sum(p.v**2, dim=-1)))
-        dt = torch.minimum(const(ph.dt, torch.float32, dev), g.dx / torch.clamp(vmax, min=1e-10))
+        dt = torch.minimum(const(ph.dt, torch.float32, dev), torch.div(g.dx, torch.clamp(vmax, min=1e-10)))
     else:
         dt = const(ph.dt, torch.float32, dev)
 
