@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase; the cards phase needs 4 cards
     python3 chip_smoke.py --cards    # the build and the cards phase alone (4 cards)
+    python3 chip_smoke.py --cpu-root # the build and the card vs CPU steps by the CPU's root
 
 Drives ``python_fluid_simulation_tpu_torch`` (never JAX) through its
 main paths and checks every CUDA kernel of them against its plain
@@ -24,7 +25,7 @@ PyTorch version on the card:
   (``jacobi_precond=False``: generic CG over the 7-point and the
   materialised coupled matvec kernels) on the flagship, the 128^3 step
   and coiling 'auto', and the dt-scaled pressure assembly
-  (``pressure_dt_scaled``) on the flagship;
+  (``pressure_dt_scaled``) on the flagship and at 128^3;
 * the largest particle count: ``scaled_buckling_config(256)``
   (154x256x154 = 6.1M cells, 2,903,629 particles, Jacobi cell solves
   through the live-cell Poisson PCG, Jacobi viscosity PCG at 18M faces),
@@ -41,7 +42,8 @@ PyTorch version on the card:
   bf16 (cuDNN forward and backward, deterministic), and the capture ->
   train -> eval pipeline (``models/train_unet_prod.py``) at small counts;
 * the sharded step (``step_3d(mesh=)``): the flagship on a 1D mesh of 4
-  slots and on a (2, 2) (x, z) mesh, and ``coiling_config(504)`` on 4
+  slots and on a (2, 2) (x, z) mesh, and ``coiling_config(504)``,
+  ``scaled_buckling_config(128)`` and ``coiling_config(256)`` on 4
   slots, every slot on the one card (the three solves distributed over
   the slots' blocks, every width-1 axis-0 halo through the halo pull
   kernel, one launch an exchange on the caller's stream; the push kernel
@@ -157,13 +159,12 @@ Phases, each printing one JSON line:
               with every kernel swapped for its plain version, peak
               memory; where that step's card and CPU part (ROADMAP
               queue 3 item 2): both its level sets again on the CPU from
-              the card's own positions, bitwise the card's with the root
-              taken in float64, and the port's CPU level set within an
-              ulp of the root and one of the value where PyTorch's CPU
-              fp32 sqrt is off (cells counted); the pressure
-              coefficients from the card's level set, card vs CPU
-              bitwise; the card's sqrt against the correctly rounded
-              root on 4M inputs, exact (seconds)
+              the card's own positions, the port's bitwise the card's
+              (every root of the port correctly rounded on both
+              devices); the pressure coefficients from the card's level
+              set, card vs CPU bitwise; the card's sqrt and the port's
+              CPU root against the correctly rounded root on 4M inputs,
+              exact, PyTorch's CPU fp32 sqrt counted (seconds)
   mesh_504    504 sharded over 4 slots from the same scene: 1 warm-up + 2
               timed steps with the counters reset just before; the halo
               kernel launched, solves converged, |dx| < 2e-4 and |dv| < 2e-3
@@ -189,7 +190,11 @@ Phases, each printing one JSON line:
               STEP_TOL, vs the same step on the card with every kernel
               swapped for its plain version), flagship pressure_dt_scaled
               (3 steps, step 3 checked the same way), 128^3
-              jacobi_precond=False (3 steps) and coiling 'auto'
+              jacobi_precond=False (3 steps), 128^3 pressure_dt_scaled
+              (3 steps: the generic CG with the V-cycle divided by s; the
+              blocked matvec, the tail, the coupled PCG and the scatter
+              kernels launched, no Poisson PCG kernel; step 1 checked as
+              the flagship's step 3) and coiling 'auto'
               jacobi_precond=False (2 steps from the 'auto' run's state
               after 2 steps: the Jacobi branch over the materialised
               matvec); counters reset before each run, solves converged
@@ -282,12 +287,14 @@ Phases, each printing one JSON line:
               the plain slot-order sum; event and device ms beside the
               plain version's and the byte bound (and the NVLink bound of
               the same bytes)
-  mesh        flagship sharded on a 1D mesh of 4 slots and a (2, 2) mesh, 3
-              steps each with the counters reset just before: the halo
-              kernel launched and no PCG kernel, solves converged, every
-              step bitwise (x, v, c) the same steps with the plain halo
-              patched in, and |dx| < 2e-4, |dv| < 2e-3 against the
-              unsharded step on the card; iterations of both printed
+  mesh        flagship sharded on a 1D mesh of 4 slots and a (2, 2) mesh,
+              128^3 and coiling_config(256) on 4 slots, 3 steps each with
+              the counters reset just before: the halo kernel launched and
+              no PCG kernel, solves converged, every step bitwise (x, v,
+              c) the same steps with the plain halo patched in, and |dx|
+              < 2e-4, |dv| < 2e-3 against the unsharded step on the card
+              with the Jacobi preconditioners (the distributed solves are
+              Jacobi-PCG); iterations of both printed
   graph       the step as one captured program (engine/step.py::
               make_step: a CUDA graph a state's shapes and 'auto' branch,
               the generic CG loops as WHILE nodes): on the flagship 1
@@ -390,7 +397,8 @@ Phases, each printing one JSON line:
               and (2, 2), 'unet' and 'unet_warm' (full-width UNet) on
               both meshes and 'unet_warm' bucketed on (2, 2),
               coiling_config(504) sharded on 4 slots and bucketed on 2 and
-              on (2, 2), and the moving box (moving_box_config(1/32), its
+              on (2, 2), 128^3 and coiling_config(256) sharded on 4
+              slots, and the moving box (moving_box_config(1/32), its
               geometry rebuilt on the mesh every step) sharded on 4
               slots, 2 steps each, as in graph: 1 warm-up of each
               side, eager steps and replays from the same state bitwise
@@ -419,12 +427,13 @@ Phases, each printing one JSON line:
               dots, 200 calls each bitwise the plain sum on every card,
               its ms a call eagerly and replayed (200 calls in one graph
               over the cards); path 2, slot i on cuda:i: the flagship
-              sharded and bucketed on 4 slots and (2, 2), 504 sharded on
-              4, 'unet_warm' bucketed on (2, 2), the moving box
+              sharded and bucketed on 4 slots and (2, 2), 504 and 128^3
+              sharded on 4, 'unet_warm' bucketed on (2, 2), the moving box
               (moving_box_config(1/64)) sharded on 4, 3 steps each (504: 2),
               bitwise the same mesh layout on cuda:0 and the plain-kernel
               steps on the cards, within 2e-4 / 2e-3 of the unsharded
-              step by mass, bucket_lost 0, every x ring pushing and no
+              step by mass (128^3: the unsharded step with the Jacobi
+              preconditioners), bucket_lost 0, every x ring pushing and no
               pull; eager ms, each card's idle share and the copies of
               one profiled step; then each of them through
               make_step(mesh=<four cards>) (one CUDA graph over the cards,
@@ -2272,38 +2281,21 @@ def recorded_levelsets():
         step_mod.compute_fluid_levelset = real
 
 
-class _RootInFloat64:
-    """``torch`` with ``sqrt`` taken in float64 and rounded once: the
-    correctly rounded root, as the card's and JAX's sqrt give it."""
-
-    def __getattr__(self, name):
-        import torch
-
-        return getattr(torch, name)
-
-    @staticmethod
-    def sqrt(t):
-        import torch
-
-        return torch.sqrt(t.double()).to(t.dtype)
-
-
 def levelset_card_vs_cpu(calls, cfg, geom, n_sqrt=1 << 22):
     """The first lean 504 step's card and CPU part (ROADMAP queue 3 item
     2) at the bottom of the falling column, where the pressure diagonal
     takes the level set through the ghost-fluid fraction. Here, from the
-    card's own inputs: each recorded level set of the step on the CPU with
-    the root taken in float64, bitwise the card's; the port's CPU level set
-    from the same positions, apart only where PyTorch's CPU fp32 sqrt is
-    one ulp off the correctly rounded root (cells counted, each within an
-    ulp of the root and one of the value, which the subtraction of the
-    radius rounds); the pressure system's coefficients from the card's
-    second level set on both devices, bitwise. Also the root alone on
-    seeded inputs: the card's sqrt exact (asserted), the CPU's counted."""
-    import numpy as np
+    card's own inputs: each recorded level set of the step on the CPU
+    bitwise the card's (the port's roots are correctly rounded on both
+    devices: `ops/indexing.py::rounded_sqrt`); the pressure system's
+    coefficients from the card's second level set on both devices,
+    bitwise. Also the root alone on seeded inputs: the card's sqrt and
+    the CPU's `rounded_sqrt` exact (asserted), PyTorch's CPU fp32 sqrt
+    counted."""
     import torch
 
     from python_fluid_simulation_tpu_torch.ops import levelset
+    from python_fluid_simulation_tpu_torch.ops.indexing import rounded_sqrt
     from python_fluid_simulation_tpu_torch.ops.transfers import SortInfo
     from python_fluid_simulation_tpu_torch.solvers.pressure import pressure_coefficients
 
@@ -2317,24 +2309,11 @@ def levelset_card_vs_cpu(calls, cfg, geom, n_sqrt=1 << 22):
         t = time.perf_counter()
         port_cpu = levelset.compute_fluid_levelset(*args, **kw)
         cpu_s = time.perf_counter() - t
-        levelset.torch = _RootInFloat64()
-        try:
-            rounded = levelset.compute_fluid_levelset(*args, **kw)
-        finally:
-            levelset.torch = torch
         card = c["out"].cpu()
-        off = card != port_cpu
-        root = (card + float(g.dx) * 0.5 * math.sqrt(3.0) * 1.02)[off].numpy()
-        rows.append(dict(call=i, cells=card.numel(), card_vs_rounded_root_differ=int((card != rounded).sum()),
-                         card_vs_port_cpu_differ=int(off.sum()),
+        rows.append(dict(call=i, cells=card.numel(), card_vs_port_cpu_differ=int((card != port_cpu).sum()),
                          card_vs_port_cpu_max_abs=float((card - port_cpu).abs().max()), cpu_seconds=cpu_s))
-        if rows[-1]["card_vs_rounded_root_differ"]:
-            raise AssertionError(f"504 level set {i}: card vs the correctly rounded root differ: {rows[-1]}")
-        # one ulp of the root, and one of the value the radius is subtracted to
-        ulps = np.spacing(np.abs(root).astype(np.float32)) + np.spacing(np.abs(card[off].numpy()))
-        if not (np.abs((card - port_cpu)[off].numpy()) <= ulps).all():
-            raise AssertionError(f"504 level set {i}: card vs the port's CPU apart by more than an ulp of the root "
-                                 "and one of the value")
+        if rows[-1]["card_vs_port_cpu_differ"]:
+            raise AssertionError(f"504 level set {i}: card vs the port's CPU level set differ: {rows[-1]}")
     lphi = calls[-1]["out"]
     coef_card = pressure_coefficients(geom.w_faces, lphi)
     coef_cpu = pressure_coefficients([w.cpu() for w in geom.w_faces], lphi.cpu())
@@ -2346,10 +2325,75 @@ def levelset_card_vs_cpu(calls, cfg, geom, n_sqrt=1 << 22):
     x = torch.rand(n_sqrt, generator=torch.Generator().manual_seed(0), dtype=torch.float32) * 1e-4
     exact = torch.sqrt(x.double()).float()
     sqrt = dict(inputs=n_sqrt, card_off=int((torch.sqrt(x.cuda()).cpu() != exact).sum()),
-                cpu_off=int((torch.sqrt(x) != exact).sum()))
-    if sqrt["card_off"]:
-        raise AssertionError(f"the card's fp32 sqrt against the correctly rounded root: {sqrt}")
-    return dict(levelsets=rows, pressure_coefficients_bitwise=True, sqrt_vs_float64_root=sqrt)
+                rounded_sqrt_cpu_off=int((rounded_sqrt(x) != exact).sum()),
+                torch_sqrt_cpu_off=int((torch.sqrt(x) != exact).sum()))
+    if sqrt["card_off"] or sqrt["rounded_sqrt_cpu_off"]:
+        raise AssertionError(f"fp32 roots against the correctly rounded root: {sqrt}")
+    return dict(levelsets=rows, levelsets_bitwise=True, pressure_coefficients_bitwise=True,
+                sqrt_vs_float64_root=sqrt)
+
+
+ROOT_MODULES = ("ops.levelset", "ops.sdf", "engine.step", "parallel.particles")  # the 3D step's roots
+
+
+def cpu_root_phase():
+    """The full-size card-vs-CPU step comparisons (ROADMAP queue 3 items 1,
+    2 and 6) with the CPU's roots taken two ways: as the port takes them
+    (`ops/indexing.py::rounded_sqrt`, the correctly rounded root) and as
+    PyTorch's CPU fp32 ``torch.sqrt`` gives them (patched into every module
+    of the 3D step that takes a root).  Each step runs from the card's
+    state on the card and on the CPU (the geometry built inside): the
+    flagship's third step, the 128^3 third step, and coiling_config(504)'s
+    first lean-MG step ('auto' from the state after 2 steps with the flag
+    forced to 2, as main_504 takes it).  Per root: max |d| of x, v and
+    the APIC rows and the particles whose rows differ by more than
+    STEP_TOL; nothing asserted but the CPU steps' finite values."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from python_fluid_simulation_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from python_fluid_simulation_tpu_torch.engine.scenes import (
+        buckling_config,
+        buckling_scene,
+        coiling_config,
+        coiling_scene,
+        scaled_buckling_config,
+    )
+    from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
+
+    modules = [importlib.import_module(f"python_fluid_simulation_tpu_torch.{m}") for m in ROOT_MODULES]
+    out = {}
+    for label, cfg, scene, warm, flag in (("flagship_step_2", buckling_config(), buckling_scene, 2, None),
+                                          ("128_step_2", scaled_buckling_config(RES_128), buckling_scene, 2, None),
+                                          ("coil_504_first_lean_step", coiling_config(RES_504), coiling_scene, 2, 2)):
+        t0 = time.perf_counter()
+        state = scene(cfg, seed=0, device="cuda")
+        geom = build_geom_cache(state.solid)
+        for _ in range(warm):
+            state, _ = step_3d(state, cfg, geom=geom)
+        if flag is not None:
+            state = dataclasses.replace(state, visc_mg=flag)
+        card, _ = step_3d(state, cfg, geom=geom)
+        card = state_to_numpy(card)
+        start = state_to_numpy(state)
+        del state, geom
+        torch.cuda.empty_cache()
+        row = {}
+        for root, patches in (("rounded_sqrt", []), ("torch_sqrt", [(m, "rounded_sqrt", torch.sqrt) for m in modules])):
+            tc = time.perf_counter()
+            with patched(patches):
+                cpu, _ = step_3d(state_from_numpy(start, device="cpu"), cfg)
+            cpu = state_to_numpy(cpu)
+            if not all(bool(np.isfinite(cpu[k]).all()) for k in STEP_TOL):
+                raise AssertionError(f"cpu_root {label} {root}: non-finite particles")
+            row[root] = dict(step_diff(card, cpu), cpu_step_seconds=time.perf_counter() - tc)
+        row["card_vs_cpu_moved_with_the_root"] = any(row["rounded_sqrt"][k] != row["torch_sqrt"][k]
+                                                     for k in (*STEP_TOL, "particles_rows_over_tol"))
+        out[label] = dict(row, grid=list(cfg.grid.res), particles=int(start["x"].shape[0]),
+                          seconds=time.perf_counter() - t0)
+    return out
 
 
 def card_vs_plain(step_3d, before, after, cfg, geom, label):
@@ -2693,6 +2737,34 @@ def step_vs_cpu_or_plain(step_3d, before, after, cfg, geom, label):
     return out
 
 
+def dt_scaled_128(step_3d, s128, cfg128, geom128):
+    """BASELINE.json's config 3, the dt-scaled pressure at 128^3: its cell
+    solves are the generic CG over the blocked matvec with the V-cycle
+    divided by s (`solvers/pressure.py::solve_cell_poisson`).
+    `STEPS_OPTION` steps from the scene with the counters reset just
+    before: the blocked matvec, the V-cycle's tail, the coupled PCG and
+    the scatter kernels launched, no Poisson PCG kernel, solves
+    converged; the first step against the CPU, or where that misses
+    STEP_TOL, against the same step on the card with every kernel swapped
+    for its plain version (`step_vs_cpu_or_plain`).  Returns (row,
+    launches)."""
+    cfg = dataclasses.replace(cfg128, solver=dataclasses.replace(cfg128.solver, pressure_dt_scaled=True))
+    read_counts = reset_counters()
+    state, states, step_ms, metrics = run_steps(step_3d, s128, cfg, geom128, STEPS_OPTION, 1)
+    launches = read_counts()
+    check_run(state, metrics, launches, ("stencil_matvec", "mg_vcycle_tail", "coupled_visc_pcg", *REDUCE_ROUTE,
+                                         "binned_segment_broadcast", "fold"), "128^3 pressure_dt_scaled")
+    for name in ("cell_poisson_pcg", "fused_poisson_pcg"):
+        if launches[name]:
+            raise AssertionError(f"128^3 pressure_dt_scaled: {name} was launched ({launches[name]} times)")
+    timed = step_ms[1:]
+    row = dict(warmup_step_ms=step_ms[0], step_ms=timed, median_step_ms=statistics.median(timed),
+               iters={k: [m[f"{k}_iters"] for m in metrics] for k in ("density", "viscosity", "pressure")},
+               step_0=step_vs_cpu_or_plain(step_3d, states[0], states[1], cfg, geom128,
+                                           "128^3 pressure_dt_scaled step 0"))
+    return row, launches
+
+
 def unet_ops(unet, box):
     """Operations of one forward at the (N, C, D, H, W) box, counted from
     the layers: 2 a multiply-add of every conv and transposed conv (k2, s2:
@@ -2986,62 +3058,104 @@ def halo_phase():
     return rows
 
 
-def mesh_phase(step_3d, cfg, state0, geom):
-    """The sharded flagship step on a 1D mesh of `MESH_SLOTS` slots and a
-    (2, 2) mesh, `STEPS_MESH` steps each with the counters reset just
-    before: the halo kernel launched and no PCG kernel (the solves are the
-    distributed ones), solves converged; every step bitwise (x, v, c) the
-    same steps with the plain halo route patched in, and within
-    MESH_DX / MESH_DV of the unsharded step on the card."""
+def mesh_phase(step_3d, runs):
+    """The sharded step, each of `runs` (label prefix, configuration, start
+    state, geometry, the meshes, the unsharded reference's configuration):
+    the flagship on a 1D mesh of `MESH_SLOTS` slots and a (2, 2) mesh,
+    128^3 and coiling_config(256) on `MESH_SLOTS` slots; `STEPS_MESH`
+    steps each with the counters reset just before: the halo kernel
+    launched and no PCG kernel (the solves are the distributed ones),
+    solves converged; every step bitwise (x, v, c) the same steps with the
+    plain halo route patched in, and within MESH_DX / MESH_DV of the
+    unsharded step on the card.  The distributed cell solve is Jacobi-PCG
+    and the distributed viscosity solve Jacobi-PCG whatever the
+    configuration's preconditioners say, so the unsharded reference takes
+    the reference configuration (the Jacobi preconditioners)."""
     import torch
     from python_fluid_simulation_tpu_torch.parallel import halo_rdma
-    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, make_mesh2d, shard_state
+    from python_fluid_simulation_tpu_torch.parallel.mesh import shard_state
 
-    n = int(state0.particles.x.shape[0])
-    ref = [state0]
-    ref_iters = {k: [] for k in ("density", "viscosity", "pressure")}
-    for _ in range(STEPS_MESH):
-        st, m = step_3d(ref[-1], cfg, geom=geom)
-        ref.append(st)
-        for k in ref_iters:
-            ref_iters[k].append(int(m[f"{k}_iters"]))
     out, launches_by = {}, {}
-    for label, mesh in (("1d_4", make_mesh(MESH_SLOTS)), ("2d_2x2", make_mesh2d((2, 2)))):
-        step_m = functools.partial(step_3d, mesh=mesh)
-        start = shard_state(state0, mesh)
-        read = reset_counters()
-        state, states, step_ms, metrics = run_steps(step_m, start, cfg, geom, STEPS_MESH, STEPS_MESH)
-        launches = read()
-        check_run(state, metrics, launches, ("halo_exchange_rdma", *REDUCE_ROUTE, "binned_segment_broadcast", "fold"),
-                  f"flagship mesh {label}")
-        pcg = {k: launches[k] for k in ("cell_poisson_pcg", "fused_poisson_pcg", "coupled_visc_pcg") if launches[k]}
-        if pcg:
-            raise AssertionError(f"flagship mesh {label}: the solves launched {pcg}")
-        with patched([(halo_rdma, "halo_exchange_rdma", halo_rdma.halo_exchange_rdma_plain)]):
-            read_plain = reset_counters()
-            plain = [start]
-            for _ in range(STEPS_MESH):
-                plain.append(step_m(plain[-1], cfg, geom=geom)[0])
-            if read_plain()["halo_exchange_rdma"]:
-                raise AssertionError(f"flagship mesh {label}: the plain halo run launched the kernel")
-        errs = []
-        for i in range(1, STEPS_MESH + 1):
-            for k in ("x", "v", "c"):
-                if not torch.equal(getattr(states[i].particles, k), getattr(plain[i].particles, k)):
-                    raise AssertionError(f"flagship mesh {label} step {i - 1}: kernel vs plain halo differ in {k}")
-            dx = float((states[i].particles.x[:n] - ref[i].particles.x).abs().max())
-            dv = float((states[i].particles.v[:n] - ref[i].particles.v).abs().max())
-            if not (dx < MESH_DX and dv < MESH_DV):
-                raise AssertionError(f"flagship mesh {label} step {i - 1} vs unsharded: |dx| {dx}, |dv| {dv}")
-            errs.append({"dx": dx, "dv": dv})
-        out[label] = dict(
-            mesh=mesh.shape, step_ms=step_ms, halo_launches_per_step=launches["halo_exchange_rdma"] / STEPS_MESH,
-            kernel_vs_plain_halo_bitwise=True, vs_unsharded_by_step=errs,
-            iters={k: [m[f"{k}_iters"] for m in metrics] for k in ("density", "viscosity", "pressure")},
-            unsharded_iters=ref_iters)
-        launches_by[label] = launches
-        del state, states, plain, start
+    for prefix, cfg, state0, geom, meshes, ref_cfg in runs:
+        n = int(state0.particles.x.shape[0])
+        ref = [state0]
+        ref_iters = {k: [] for k in ("density", "viscosity", "pressure")}
+        for _ in range(STEPS_MESH):
+            st, m = step_3d(ref[-1], ref_cfg, geom=geom)
+            ref.append(st)
+            for k in ref_iters:
+                ref_iters[k].append(int(m[f"{k}_iters"]))
+        for name, mesh in meshes.items():
+            label = f"{prefix}{name}"
+            step_m = functools.partial(step_3d, mesh=mesh)
+            start = shard_state(state0, mesh)
+            read = reset_counters()
+            state, states, step_ms, metrics = run_steps(step_m, start, cfg, geom, STEPS_MESH, STEPS_MESH)
+            launches = read()
+            check_run(state, metrics, launches,
+                      ("halo_exchange_rdma", *REDUCE_ROUTE, "binned_segment_broadcast", "fold"), f"mesh {label}")
+            pcg = {k: launches[k] for k in ("cell_poisson_pcg", "fused_poisson_pcg", "coupled_visc_pcg") if launches[k]}
+            if pcg:
+                raise AssertionError(f"mesh {label}: the solves launched {pcg}")
+            with patched([(halo_rdma, "halo_exchange_rdma", halo_rdma.halo_exchange_rdma_plain)]):
+                read_plain = reset_counters()
+                plain = [start]
+                for _ in range(STEPS_MESH):
+                    plain.append(step_m(plain[-1], cfg, geom=geom)[0])
+                if read_plain()["halo_exchange_rdma"]:
+                    raise AssertionError(f"mesh {label}: the plain halo run launched the kernel")
+            errs = []
+            for i in range(1, STEPS_MESH + 1):
+                for k in ("x", "v", "c"):
+                    if not torch.equal(getattr(states[i].particles, k), getattr(plain[i].particles, k)):
+                        raise AssertionError(f"mesh {label} step {i - 1}: kernel vs plain halo differ in {k}")
+                dx = float((states[i].particles.x[:n] - ref[i].particles.x).abs().max())
+                dv = float((states[i].particles.v[:n] - ref[i].particles.v).abs().max())
+                if not (dx < MESH_DX and dv < MESH_DV):
+                    raise AssertionError(f"mesh {label} step {i - 1} vs unsharded: |dx| {dx}, |dv| {dv}")
+                errs.append({"dx": dx, "dv": dv})
+            out[label] = dict(
+                grid=list(cfg.grid.res), particles=n, mesh=mesh.shape, step_ms=step_ms,
+                halo_launches_per_step=launches["halo_exchange_rdma"] / STEPS_MESH,
+                kernel_vs_plain_halo_bitwise=True, vs_unsharded_by_step=errs,
+                iters={k: [m[f"{k}_iters"] for m in metrics] for k in ("density", "viscosity", "pressure")},
+                unsharded_iters=ref_iters, unsharded_precond=[ref_cfg.solver.precond, ref_cfg.solver.viscosity_precond])
+            launches_by[label] = launches
+            del state, states, plain, start
+        del ref
+        torch.cuda.empty_cache()
     return out, launches_by
+
+
+def mesh_runs(cfg, geom, state0):
+    """`mesh_phase`'s runs: the flagship on `make_mesh(MESH_SLOTS)` and
+    (2, 2) (labels "1d_4", "2d_2x2"), 128^3 and coiling_config(256) on
+    `make_mesh(MESH_SLOTS)`; each with its unsharded reference's
+    configuration (the Jacobi preconditioners).  Yields one run at a time,
+    so each configuration's states go before the next is made."""
+    from python_fluid_simulation_tpu_torch.engine.scenes import (
+        buckling_scene,
+        coiling_config,
+        coiling_scene,
+        scaled_buckling_config,
+    )
+    from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache
+    from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, make_mesh2d
+
+    yield "", cfg, state0, geom, {"1d_4": make_mesh(MESH_SLOTS), "2d_2x2": make_mesh2d((2, 2))}, cfg
+    for prefix, make_cfg, scene in (("128_", lambda: scaled_buckling_config(RES_128), buckling_scene),
+                                    ("coil_256_", lambda: coiling_config(RES_COIL), coiling_scene)):
+        c = make_cfg()
+        s0 = scene(c, seed=0, device="cuda")
+        yield prefix, c, s0, build_geom_cache(s0.solid), {"1d_4": make_mesh(MESH_SLOTS)}, jacobi_solves(c)
+
+
+def jacobi_solves(cfg):
+    """`cfg` with the Jacobi cell and viscosity preconditioners: the
+    unsharded step the sharded one (distributed Jacobi-PCG solves) is held
+    to."""
+    return dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, precond="jacobi",
+                                                                 viscosity_precond="jacobi"))
 
 
 def train_step_events(model, optimizer):
@@ -4509,7 +4623,8 @@ def graph_mesh_phase(smi, unet_sd):
     against graph, bitwise, with no host sync in a replay, on the flagship
     sharded and bucketed on ``make_mesh(4)`` and ``make_mesh2d((2, 2))``,
     ``coiling_config(504)`` sharded on 4 slots and bucketed on 2 and on
-    (2, 2), the flagship with the full-width UNet in 'unet' and
+    (2, 2), ``scaled_buckling_config(128)`` and ``coiling_config(256)``
+    sharded on 4 slots, the flagship with the full-width UNet in 'unet' and
     'unet_warm' on both meshes and 'unet_warm' bucketed on (2, 2), the
     moving box (its geometry rebuilt on the mesh every step) sharded on 4
     slots; ms a step of each, capture seconds, pool bytes, WHILE nodes,
@@ -4525,6 +4640,7 @@ def graph_mesh_phase(smi, unet_sd):
         coiling_scene,
         moving_box_config,
         moving_box_scene,
+        scaled_buckling_config,
     )
     from python_fluid_simulation_tpu_torch.engine.step import simulate
     from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
@@ -4607,6 +4723,9 @@ def graph_mesh_phase(smi, unet_sd):
         run(label, cfg504, s504, mesh, bucketed, GRAPH_MESH_504_STEPS)
     del s504
     torch.cuda.empty_cache()
+    for label, c, scene in (("128_sharded_4", scaled_buckling_config(RES_128), buckling_scene),
+                            ("coil_256_sharded_4", coiling_config(RES_COIL), coiling_scene)):
+        run(label, c, scene(c, seed=0, device="cuda"), make_mesh(MESH_SLOTS), False, GRAPH_MESH_STEPS)
     cfg_mb = moving_box_config(dx=MOVING_MESH_DX)
     run("moving_box_sharded_4", cfg_mb, moving_box_scene(cfg_mb, seed=0, device="cuda"), make_mesh(MESH_SLOTS), False,
         MOVING_MESH_STEPS)
@@ -5135,7 +5254,9 @@ def cards_path2(unet_sd):
     """Path 2 on four cards (`cards_mesh_run` each, eager and through
     ``make_step(mesh=<four cards>)``): the flagship sharded and bucketed on
     4 slots and (2, 2) (the bucketed ×4 also through two ``simulate``
-    calls), ``coiling_config(504)`` sharded on 4 slots, the flagship in
+    calls), ``coiling_config(504)`` and ``scaled_buckling_config(128)``
+    (held to the unsharded step with the Jacobi preconditioners) sharded
+    on 4 slots, the flagship in
     'unet_warm' bucketed on (2, 2) with the full-width UNet, the moving box
     (``moving_box_config(1/64)``) sharded on 4 slots; then the CLI with
     ``--mesh 4`` and ``--mesh 4 --bucketed`` over the cards."""
@@ -5150,6 +5271,7 @@ def cards_path2(unet_sd):
         coiling_scene,
         moving_box_config,
         moving_box_scene,
+        scaled_buckling_config,
     )
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
     from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
@@ -5192,6 +5314,13 @@ def cards_path2(unet_sd):
     rows["coil_504_sharded_4"] = cards_mesh_run("504 sharded 4", cfg504, s504, meshes["4"], False, CARDS_504_STEPS,
                                                 ref)
     del ref, s504
+    torch.cuda.empty_cache()
+
+    cfg128 = scaled_buckling_config(RES_128)
+    s128 = unique_masses(buckling_scene(cfg128, seed=0, device="cuda:0"))
+    ref = unsharded(jacobi_solves(cfg128), s128, CARDS_STEPS)
+    rows["128_sharded_4"] = cards_mesh_run("128^3 sharded 4", cfg128, s128, meshes["4"], False, CARDS_STEPS, ref)
+    del ref, s128
     torch.cuda.empty_cache()
 
     cfg_mb = moving_box_config(dx=CARDS_MOVING_DX)
@@ -5570,6 +5699,13 @@ def main(argv=()) -> int:
           "sources": [p.name for p in _cuda_build.sources()], "ptxas": ptxas,
           "redesigned_kernel_resources": kernel_resources(info.log),
           "seconds": time.perf_counter() - t0})
+
+    if "--cpu-root" in argv:  # python3 chip_smoke.py --cpu-root: the card vs CPU steps by the CPU's root
+        emit({"phase": "cpu_root", "nvidia_smi": smi, "runs": cpu_root_phase(), "step_tol": STEP_TOL})
+        emit({"phase": "done", "seconds": time.perf_counter() - t_all})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+        return 0
 
     if cards_only:  # python3 chip_smoke.py --cards: the cards phase alone
         if count < CARDS:
@@ -6120,7 +6256,10 @@ def main(argv=()) -> int:
               ("coupled_stencil_matvec", "stencil_matvec", "mg_vcycle_tail") + every_path, "128^3 jacobi_precond=False")
     refuse("128^3 jacobi_precond=False", launches_opt["128_nojac"], ("coupled_visc_pcg",))
     opt_out["128_nojac"] = summary(ms128_nj, metrics128_nj)
-    del state, s128, geom128
+    del state
+
+    opt_out["128_dt_scaled"], launches_opt["128_dt_scaled"] = dt_scaled_128(step_3d, s128, cfg128, geom128)
+    del s128, geom128
 
     cfgc_nj = with_solver(cfgc, jacobi_precond=False)
     read_counts = reset_counters()
@@ -6340,7 +6479,7 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     s_mesh = buckling_scene(cfg, seed=0, device="cuda")
     geom = build_geom_cache(s_mesh.solid)
-    mesh_out, launches_mesh = mesh_phase(step_3d, cfg, s_mesh, geom)
+    mesh_out, launches_mesh = mesh_phase(step_3d, mesh_runs(cfg, geom, s_mesh))
     del s_mesh, geom
     emit({"phase": "mesh", "grid": list(cfg.grid.res), "particles": n_particles, "runs": mesh_out,
           "launches": launches_mesh, "bars": [MESH_DX, MESH_DV], "seconds": time.perf_counter() - t0})

@@ -81,7 +81,7 @@ from python_fluid_simulation_tpu_torch.ops.boundary import apply_boundary_condit
 from python_fluid_simulation_tpu_torch.ops.cuda_graph import captured_while, graph_capture
 from python_fluid_simulation_tpu_torch.ops.extrapolate import extrapolate
 from python_fluid_simulation_tpu_torch.ops.fractions import compute_solid_frac_3d
-from python_fluid_simulation_tpu_torch.ops.indexing import const, grid_positions, merge_parity, split_parity
+from python_fluid_simulation_tpu_torch.ops.indexing import const, grid_positions, merge_parity, rounded_sqrt, split_parity
 from python_fluid_simulation_tpu_torch.ops.levelset import compute_fluid_levelset
 from python_fluid_simulation_tpu_torch.ops.transfers import g2p_all, make_sort_info, p2g_all
 from python_fluid_simulation_tpu_torch.solvers.density import density_solve_3d
@@ -167,7 +167,7 @@ def step_3d(
 
     # -- dt selection (cell 13 :4572-4576)
     if cfg.dt_mode == "cfl":
-        vmax = torch.amax(torch.sqrt(torch.sum(p.v**2, dim=-1)))
+        vmax = torch.amax(rounded_sqrt(torch.sum(p.v**2, dim=-1)))
         # a true division, as JAX's dx / max(vmax, 1e-10): PyTorch evaluates
         # `float / tensor` as tensor.reciprocal() * float, two roundings
         cfl_dt = torch.div(g.dx, torch.clamp(vmax, min=1e-10))
@@ -342,7 +342,7 @@ def step_3d(
 
     metrics = {
         "dt": dt,
-        "max_speed": torch.amax(torch.sqrt(torch.sum(pv**2, dim=-1))),
+        "max_speed": torch.amax(rounded_sqrt(torch.sum(pv**2, dim=-1))),
         "density_iters": dres.stats.iters,
         "density_residual": dres.stats.residual,
         "density_rel_residual": _rel(dres.stats),

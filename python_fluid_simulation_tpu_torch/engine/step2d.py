@@ -43,7 +43,7 @@ from python_fluid_simulation_tpu_torch.ops import sdf2d
 from python_fluid_simulation_tpu_torch.ops.boundary import apply_boundary_condition
 from python_fluid_simulation_tpu_torch.ops.extrapolate import extrapolate
 from python_fluid_simulation_tpu_torch.ops.fractions import compute_solid_frac_2d
-from python_fluid_simulation_tpu_torch.ops.indexing import const, grid_positions
+from python_fluid_simulation_tpu_torch.ops.indexing import const, grid_positions, rounded_sqrt
 from python_fluid_simulation_tpu_torch.ops.levelset import compute_fluid_levelset, compute_fluid_volume
 from python_fluid_simulation_tpu_torch.ops.transfers import g2p_axis, p2g_axis
 from python_fluid_simulation_tpu_torch.solvers.density import density_solve_2d
@@ -163,7 +163,7 @@ def step_2d(state: SimState, cfg: SimConfig2D) -> Tuple[SimState, Dict[str, torc
     sphi, sv = state.solid.phi, state.solid.v
 
     if cfg.dt_mode == "cfl":
-        vmax = torch.amax(torch.sqrt(torch.sum(p.v**2, dim=-1)))
+        vmax = torch.amax(rounded_sqrt(torch.sum(p.v**2, dim=-1)))
         dt = torch.minimum(const(ph.dt, torch.float32, dev), torch.div(g.dx, torch.clamp(vmax, min=1e-10)))
     else:
         dt = const(ph.dt, torch.float32, dev)

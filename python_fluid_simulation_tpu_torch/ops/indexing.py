@@ -16,6 +16,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from python_fluid_simulation_tpu_torch.utils.step_bytes import counted_bytes, op_bytes
+
 
 @functools.lru_cache(maxsize=None)
 def const(values, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -24,6 +26,24 @@ def const(values, dtype=torch.float32, device=None) -> torch.Tensor:
     Python values on a GPU would be a blocking host-to-device copy at
     every call.  Callers must not modify it."""
     return torch.tensor(values, dtype=dtype, device=device)
+
+
+# counted as the one aten sqrt the card runs, so both routes count the same
+@counted_bytes(lambda out, x: op_bytes(torch.ops.aten.sqrt.default, (x,), {}, out), name="aten.sqrt.default")
+def rounded_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of an fp32 (or fp64) tensor.
+
+    On a CUDA tensor this is ``torch.sqrt``: the card's fp32 root is
+    correctly rounded.  PyTorch's CPU fp32 root (its vectorised build) is
+    one ulp off on ~0.7% of inputs, where ``jnp.sqrt`` and ``numpy.sqrt``
+    are exact, so on a CPU tensor the root is taken in float64 and rounded
+    once to the input's dtype.  That double rounding is exact: float64
+    carries 53 bits, at least 2 * 24 + 2, and a square root rounded to
+    such a format and then to fp32 is the fp32 root rounded once.  The
+    tensor's device picks the route."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
 def sample(a: torch.Tensor, offsets: Sequence[int], target_shape: Sequence[int], fill=0.0):

@@ -15,7 +15,7 @@ from typing import Sequence
 
 import torch
 
-from python_fluid_simulation_tpu_torch.ops.indexing import const
+from python_fluid_simulation_tpu_torch.ops.indexing import const, rounded_sqrt
 from python_fluid_simulation_tpu_torch.ops.scatter import (
     fold_scattered_sep,
     home_ids_extended,
@@ -98,7 +98,7 @@ def compute_fluid_levelset(
         gii = torch.clamp(gi_s[:, ax][:, None] + offsets[None, :, ax], 0, int(res[ax]) - 1)
         cd = (gii.to(px.dtype) + 0.5) * cell_size[ax] + bound_min[ax] - px_s[:, ax][:, None]
         dist2 = cd * cd if dist2 is None else dist2 + cd * cd
-    vals = torch.sqrt(dist2) - r
+    vals = rounded_sqrt(dist2) - r
     if pm_s is not None:
         vals = torch.where(pm_s[:, None] > 0, vals, background)
     seg_cf = segment_reduce_cf(vals, sorted_ids, size, tuple(res), "min", background)

@@ -30,6 +30,8 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from python_fluid_simulation_tpu_torch.ops.indexing import rounded_sqrt
+
 _FAR = 100.0  # reference seeds min-distance searches at 100 (sdf3D.py:228)
 
 
@@ -140,7 +142,7 @@ def _decode(rb: torch.Tensor):
 
 
 def _norm(v):
-    return torch.sqrt(torch.sum(v * v, dim=-1))
+    return rounded_sqrt(torch.sum(v * v, dim=-1))
 
 
 def _rot_cols(v, R):
@@ -192,11 +194,11 @@ def _cylinder_sd(p_local, params):
     y = p_local[..., 1]
     y_clip = torch.minimum(torch.maximum(y, -hh), hh)
     above_below = torch.abs(y) > hh
-    sd_r = torch.sqrt(p_local[..., 0] ** 2 + p_local[..., 2] ** 2) - r
+    sd_r = rounded_sqrt(p_local[..., 0] ** 2 + p_local[..., 2] ** 2) - r
     dy = torch.abs(y_clip - y)
     inside_sd = torch.maximum(sd_r, torch.maximum(y - hh, -(y + hh)))
     sd_neg = torch.where(above_below, dy, inside_sd)
-    sd_pos = torch.where(above_below, torch.sqrt(sd_r**2 + dy**2), sd_r)
+    sd_pos = torch.where(above_below, rounded_sqrt(sd_r**2 + dy**2), sd_r)
     return torch.where(sd_r < 0, sd_neg, sd_pos)
 
 
@@ -280,7 +282,7 @@ def _project_cylinder(points, t_b, R_b, params_b, flip_b):
     hh = params_b[1] * 0.5
     y = p[:, 1]
     y_clip = torch.minimum(torch.maximum(y, -hh), hh)
-    radial = torch.sqrt(p[:, 0] ** 2 + p[:, 2] ** 2)
+    radial = rounded_sqrt(p[:, 0] ** 2 + p[:, 2] ** 2)
     sd_r = radial - r
     at_cap = torch.abs(y) >= hh
     safe_radial = torch.clamp(radial, min=1e-12)

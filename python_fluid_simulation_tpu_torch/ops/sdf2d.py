@@ -27,6 +27,8 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from python_fluid_simulation_tpu_torch.ops.indexing import rounded_sqrt
+
 _FAR = 100.0  # min-distance searches start at 100, as in 3D
 
 _TYPE_CODES = {"sphere": 0, "box": 2}
@@ -91,7 +93,7 @@ def _decode(rb: torch.Tensor):
 
 
 def _norm(v):
-    return torch.sqrt(torch.sum(v * v, dim=-1))
+    return rounded_sqrt(torch.sum(v * v, dim=-1))
 
 
 def eval_per_body_2d(rb: torch.Tensor, points: torch.Tensor) -> torch.Tensor:

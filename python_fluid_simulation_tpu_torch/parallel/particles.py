@@ -47,7 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from python_fluid_simulation_tpu_torch.ops.indexing import const
+from python_fluid_simulation_tpu_torch.ops.indexing import const, rounded_sqrt
 from python_fluid_simulation_tpu_torch.ops.scatter import (
     fold_scattered_sep,
     segment_broadcast_sorted,
@@ -467,7 +467,7 @@ def sharded_fluid_levelset(p_x, p_m, mesh: Mesh, spec: BucketSpec, gres, bound_m
             gii = torch.clamp(gi_s[:, ax][:, None] + offs[None, :, ax], 0, int(gres[ax]) - 1)
             cd = (gii.to(px.dtype) + 0.5) * cell_size[ax] + bound_min[ax] - px_s[:, ax][:, None]
             dist2 = cd * cd if dist2 is None else dist2 + cd * cd
-        vals = torch.where(pm_s[:, None] > 0, torch.sqrt(dist2) - r, background)
+        vals = torch.where(pm_s[:, None] > 0, rounded_sqrt(dist2) - r, background)
         seg = segment_reduce_cf(vals, sorted_ids, W * math.prod(ny_nz), (W,) + ny_nz, "min", background)
         exts.append(_fold_extended(seg, [tuple(range(-2, 3))] * d, (W + 4,) + ny_nz, "min", background))
     return _gather(mesh, _x_halo_fold(exts, 2, "min", background)[0])

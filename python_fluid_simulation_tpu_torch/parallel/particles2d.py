@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from python_fluid_simulation_tpu_torch.ops.indexing import const
+from python_fluid_simulation_tpu_torch.ops.indexing import const, rounded_sqrt
 from python_fluid_simulation_tpu_torch.ops.scatter import segment_broadcast_sorted, segment_reduce_cf
 from python_fluid_simulation_tpu_torch.ops.transfers import (
     SortInfo,
@@ -343,7 +343,7 @@ def sharded_fluid_levelset_2d(p_x, p_m, mesh: Mesh, spec: BucketSpec2D, gres, bo
             gii = torch.clamp(gi_s[:, ax][:, None] + offs[None, :, ax], 0, int(gres[ax]) - 1)
             cd = (gii.to(px.dtype) + 0.5) * cell_size[ax] + bound_min[ax] - px_s[:, ax][:, None]
             dist2 = cd * cd if dist2 is None else dist2 + cd * cd
-        vals = torch.where(pm_s[:, None] > 0, torch.sqrt(dist2) - r, background)
+        vals = torch.where(pm_s[:, None] > 0, rounded_sqrt(dist2) - r, background)
         seg = segment_reduce_cf(vals, sorted_ids, wx * ny * wz, (wx, ny, wz), "min", background)
         exts.append(_fold_extended(seg, [tuple(range(-2, 3))] * d, (wx + 4, ny, wz + 4), "min", background,
                                    noclip_axes=(0, 2)))

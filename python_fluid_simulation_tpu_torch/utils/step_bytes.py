@@ -240,12 +240,13 @@ def active_counter() -> ByteCounter | None:
     return None
 
 
-def counted_bytes(formula):
+def counted_bytes(formula, name: str | None = None):
     """Decorator of a routed kernel wrapper.  Outside a counter the call
     is the wrapper's, untouched.  Under one (outermost wrapper only) the
     aten ops inside are not counted and ``formula(result, **arguments)``
     (the wrapper's arguments by name, defaults applied) is added as the
-    kernel's bytes, on either route."""
+    kernel's bytes, on either route, under the table entry `name` (by
+    default the kernel's, ``KERNEL_PREFIX`` + the wrapper's name)."""
 
     def wrap(fn):
         sig = inspect.signature(fn)
@@ -263,7 +264,7 @@ def counted_bytes(formula):
                 nbytes = int(formula(out, **bound.arguments))
             finally:
                 counter.inside -= 1
-            counter.add(KERNEL_PREFIX + fn.__name__, nbytes)
+            counter.add(name or KERNEL_PREFIX + fn.__name__, nbytes)
             return out
 
         return routed

@@ -241,6 +241,19 @@ def test_nested_wrapper_counts_once():
     assert all(v[0] == 1 for k, v in table.items() if k.startswith("kernel:"))
 
 
+def test_rounded_sqrt_counts_as_the_cards_one_sqrt():
+    """`rounded_sqrt` takes the root in float64 on the CPU; it counts as
+    the one fp32 aten sqrt the card runs (read once, written once), so the
+    card and the CPU count a step the same."""
+    from python_fluid_simulation_tpu_torch.ops.indexing import rounded_sqrt
+
+    x = torch.rand(1000, dtype=torch.float32)
+    _, table, total = _counted(lambda: rounded_sqrt(x))
+    _, want_table, want = _counted(lambda: torch.sqrt(x))
+    assert table == want_table == {"aten.sqrt.default": [1, 2 * 1000 * F4]}
+    assert total == want
+
+
 # -- a step ---------------------------------------------------------------
 
 @pytest.fixture(scope="module")

@@ -38,8 +38,15 @@ within about one ulp of its threshold:
   velocities by 1 / h = 128.  That needs a 128^3 step and is not
   repeated here.
 
-Tolerances: the rows bound of the step tests, 1e-3 1/s; the home cell
-and the floor's side exactly.
+And one difference that was the port's: PyTorch's CPU fp32 square root
+is one ulp off the correctly rounded root on ~0.7% of inputs, so the
+port's CPU level sets parted from JAX's eager ones at a few cells.  The
+port now takes every root through ``ops/indexing.py::rounded_sqrt``; the
+root and the level sets (the coarse scene's, the bucketed slots', the 2D
+one) are held to numpy's and JAX's eager ones bit for bit.
+
+Tolerances: the rows bound of the step tests, 1e-3 1/s; the home cell,
+the floor's side, the roots and the level sets exactly.
 """
 
 import itertools
@@ -217,52 +224,96 @@ def test_mass_floor_face_decided_by_one_ulp(which, monkeypatch):
 # the falling column, where a cell centre lies 2.1e-5 m inside the
 # surface, the ghost-fluid fraction phi / (phi - nphi) of its air faces
 # turns that into 7.9e-4 of the pressure diagonal, 3.5e-5 m/s of the face
-# velocities and 3.8e-3 1/s of the APIC rows.  On the same positions the
-# two devices' level sets also part by one ulp of the root where
-# PyTorch's CPU fp32 sqrt (its AVX512 build) is one ulp off the correctly
-# rounded root, which the card's sqrt and JAX's are not; taking the CPU's
-# root in float64 leaves those rows where they are (3.78e-3, the same 11
-# particles).
+# velocities and 3.8e-3 1/s of the APIC rows.
+#
+# On the way: PyTorch's CPU fp32 sqrt (its AVX512 build) is one ulp off
+# the correctly rounded root on ~0.7% of inputs, which the card's sqrt,
+# JAX's and numpy's are not.  The port's roots go through
+# `ops/indexing.py::rounded_sqrt` (on the CPU the root in float64, rounded
+# once), so its CPU level sets are JAX's eager ones bit for bit, and the
+# card's.
+
+
+def test_rounded_sqrt_is_correctly_rounded():
+    """`rounded_sqrt` on the CPU against numpy's root (correctly rounded)
+    and the float64 root rounded once, on 4M seeded fp32 inputs: half in
+    [0, 1e-2) (squared distances of the level set at the flagship), half
+    log-uniform over 2^-60 to 2^60, and the edge values; bitwise."""
+    from python_fluid_simulation_tpu_torch.ops.indexing import rounded_sqrt
+
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        rng.random(2_000_000) * 1e-2,
+        np.exp2(rng.uniform(-60.0, 60.0, 2_000_000)),
+        [0.0, 1.0, 4.0, np.finfo(np.float32).tiny, np.finfo(np.float32).max, np.inf],
+    ]).astype(np.float32)
+    got = rounded_sqrt(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.sqrt(x))
+    np.testing.assert_array_equal(got.numpy(), torch.sqrt(torch.from_numpy(x).double()).float().numpy())
+    assert rounded_sqrt(torch.from_numpy(x[:10]).double()).dtype == torch.float64
 
 
 def test_levelset_parts_from_jax_only_where_the_cpu_sqrt_is_off():
     """The coarse scene's level set: the port on the CPU against JAX's eager
-    ops (the same formula, op by op).  They part at a few cells, each by one
-    ulp of the root and one of the value (the radius subtracted), and at exactly the cells where the port's root is not the
-    correctly rounded one: recomputing the port's distances with the root
-    taken in float64 gives JAX's level set bitwise."""
+    ops (the same formula, op by op).  They parted at a few cells, each by
+    one ulp of the root, exactly where PyTorch's CPU fp32 root is not the
+    correctly rounded one; with the port's roots correctly rounded
+    (`rounded_sqrt`) they are equal bit for bit."""
     from python_fluid_simulation_tpu.ops.levelset import compute_fluid_levelset as j_levelset
     from python_fluid_simulation_tpu_torch.engine.scenes import buckling_config, buckling_scene
     from python_fluid_simulation_tpu_torch.ops import levelset as p_levelset
 
     cfg = buckling_config(dx=0.05)
     g = cfg.grid
-    x, m = (t for t in (buckling_scene(cfg, device="cpu").particles.x, buckling_scene(cfg, device="cpu").particles.m))
+    p = buckling_scene(cfg, device="cpu").particles
     args = (g.res, g.bound_min, g.cell_size, g.dx)
-    want = np.asarray(j_levelset(jnp.asarray(x.numpy()), *args, pm=jnp.asarray(m.numpy())))
-    got = p_levelset.compute_fluid_levelset(x, *args, pm=m).numpy()
-    differ = got != want
-    assert 0 < differ.sum() <= 0.01 * got.size
-    # one ulp of the root |x - centre| and one of the value the radius is
-    # subtracted to
-    root = want[differ] + np.float32(g.dx * 0.5 * np.sqrt(3.0) * 1.02)
-    assert (np.abs(got - want)[differ] <= np.spacing(np.abs(root)) + np.spacing(np.abs(want[differ]))).all()
+    want = np.asarray(j_levelset(jnp.asarray(p.x.numpy()), *args, pm=jnp.asarray(p.m.numpy())))
+    got = p_levelset.compute_fluid_levelset(p.x, *args, pm=p.m).numpy()
+    assert (got < 3.0 * g.dx).sum() > 100  # cells near the liquid
+    np.testing.assert_array_equal(got, want)
 
-    class RoundedRoot:  # torch with the root taken in float64, rounded once
-        def __getattr__(self, name):
-            return getattr(torch, name)
 
-        @staticmethod
-        def sqrt(t):
-            return torch.sqrt(t.double()).to(t.dtype)
+@pytest.mark.parametrize("case", ["bucketed_slots", "2d"])
+def test_levelsets_bitwise_jax_eager(case):
+    """The bucketed slot level set (`parallel/particles.py::
+    sharded_fluid_levelset`: each of 8 slots' scatter-min over its slab,
+    the spill planes min-folded into the neighbours) at
+    tests/test_torch_bucketed.py's inputs, and the 2D level set of the dam
+    break at tests/test_torch_2d.py's size (24x24 cells), on the CPU:
+    bitwise JAX's eager level set of the same particles (a min is exact,
+    so the slabs change nothing).  JAX's compiled programs are not the
+    reference here: they contract ``cd * cd + dist2`` into fused
+    multiply-adds."""
+    from python_fluid_simulation_tpu.ops.levelset import compute_fluid_levelset as j_levelset
+    from python_fluid_simulation_tpu_torch.ops.levelset import compute_fluid_levelset
 
-    real = p_levelset.torch
-    p_levelset.torch = RoundedRoot()
-    try:
-        rounded = p_levelset.compute_fluid_levelset(x, *args, pm=m).numpy()
-    finally:
-        p_levelset.torch = real
-    np.testing.assert_array_equal(rounded, want)
+    if case == "bucketed_slots":
+        from python_fluid_simulation_tpu_torch.parallel import particles as part
+        from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh
+        from tests.test_torch_bucketed import BMIN, GRES, H, _inputs, _tp
+
+        mesh = make_mesh(8, "cpu")
+        arrs, _ = _inputs()
+        spec = part.make_bucket_spec(8, GRES[0], arrs[0].shape[0])
+        p = part.bucket_particles(_tp(arrs), mesh, spec, BMIN, H)
+        assert int((p.m == 0).sum()) > 0  # the slots' padding rows
+        args = (GRES, BMIN, H, H[0])
+        got = part.sharded_fluid_levelset(p.x, p.m, mesh, spec, *args).numpy()
+    else:
+        from python_fluid_simulation_tpu_torch.config import GridConfig2D, PhysicsConfig, SolverConfig
+        from python_fluid_simulation_tpu_torch.engine.step2d import SimConfig2D, dam_break_scene_2d
+
+        cfg, state = dam_break_scene_2d(SimConfig2D(
+            grid=GridConfig2D(bound_min=(0.0, 0.0), bound_size=(1.0, 1.0), dx=1.0 / 24),
+            physics=PhysicsConfig(mu=0.5, dt=1.0 / 120.0), solver=SolverConfig(max_iter=600),
+            particle_dx=1.0 / 48), device="cpu")
+        g, p = cfg.grid, state.particles
+        args = (g.res, g.bound_min, g.cell_size, g.dx)
+        got = compute_fluid_levelset(p.x, *args, pm=p.m).numpy()
+    want = np.asarray(j_levelset(jnp.asarray(p.x.numpy()), *args, pm=jnp.asarray(p.m.numpy())))
+    assert (got < 3.0 * args[3]).sum() > 100  # cells near the liquid
+    np.testing.assert_array_equal(got, want)
 
 
 # lphi of cell (61, 276, 59) and of its six face neighbours (+x, -x, +y,
