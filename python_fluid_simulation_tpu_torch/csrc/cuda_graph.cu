@@ -22,10 +22,40 @@
 //
 // What bounds it: one thread, four scalar loads and a store an iteration,
 // latency only (the body's kernels dwarf it).
+//
+// The same library holds the step's phase clock (`pfs_stamp`,
+// utils/timers.py): a one-thread kernel that reads the device's global
+// nanosecond timer and adds the time since the previous stamp to the
+// accumulators it is given, in one int64 buffer a card:
+//
+//   d = now - buf[0];  buf[ns_a] += d;  buf[ns_b] += d;  buf[count] += 1;
+//   buf[iters] += *k;  buf[1] += *k * body_nodes;  buf[0] = now
+//
+// (a negative slot, or a null k, skips its term; utils/timers.py::
+// stamp_plain is the same arithmetic on the host, and the buffer's
+// layout).  Recorded into a graph, each stamp is a kernel node, so every
+// replay adds its phases' device time with no host involvement.
 
 #include <cuda_runtime.h>
 
 namespace {
+
+__global__ void stamp_kernel(long long* buf, int ns_a, int ns_b, int count, const int* k, int iters,
+                             long long body_nodes) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  const long long t = static_cast<long long>(now);
+  const long long d = t - buf[0];
+  if (ns_a >= 0) buf[ns_a] += d;
+  if (ns_b >= 0) buf[ns_b] += d;
+  if (count >= 0) buf[count] += 1;
+  if (k != nullptr) {
+    const long long kk = *k;
+    buf[iters] += kk;
+    buf[1] += kk * body_nodes;  // utils/timers.py::NODES
+  }
+  buf[0] = t;
+}
 
 __global__ void while_test_kernel(cudaGraphConditionalHandle handle, int* k, const float* res,
                                   const float* thresh, const float* delta, int max_iter, int step) {
@@ -100,6 +130,14 @@ extern "C" int pfs_while_end(void* body_stream, const unsigned long long* handle
     *body_nodes = n;
   }
   return (int)(launch != cudaSuccess ? launch : e);
+}
+
+// One stamp on `stream` (see the top of this file); k may be null.
+extern "C" int pfs_stamp(void* stream, void* buf, int ns_a, int ns_b, int count, const void* k, int iters,
+                         long long body_nodes) {
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<long long*>(buf), ns_a, ns_b, count,
+                                                               static_cast<const int*>(k), iters, body_nodes);
+  return (int)cudaGetLastError();
 }
 
 // The top-level nodes of the graph being captured on `stream` so far (a

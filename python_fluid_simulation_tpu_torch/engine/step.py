@@ -62,6 +62,12 @@ a CUDA graph and replayed (the generic CG loops, and with a mesh the
 distributed solves, as WHILE nodes with a device-side exit test,
 ``solvers/cg.py``, ``parallel/halo.py``); on the CPU they run the eager
 ``step_3d``.
+
+``step_3d`` stamps its phases on the state's card
+(``utils/timers.py``: one one-thread kernel node a phase boundary in a
+replay), and the replay loop records each call in
+``utils/timers.py::RECORDER``'s ring, with host spans while a profiler
+records.
 """
 
 from __future__ import annotations
@@ -69,7 +75,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Dict, Tuple
+import weakref
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -88,6 +95,7 @@ from python_fluid_simulation_tpu_torch.solvers.density import density_solve_3d
 from python_fluid_simulation_tpu_torch.solvers.pressure import pressure_solve_3d
 from python_fluid_simulation_tpu_torch.solvers.viscosity import viscosity_solve_3d
 from python_fluid_simulation_tpu_torch.state import Particles, SimState, SolidState
+from python_fluid_simulation_tpu_torch.utils.timers import RECORDER, span, step_clock
 
 _FACE_BIAS = ((0.0, 0.5, 0.5), (0.5, 0.0, 0.5), (0.5, 0.5, 0.0))
 
@@ -164,6 +172,7 @@ def step_3d(
     if unet is not None and next(unet.parameters()).device != dev:
         raise ValueError(f"the UNet's parameters are on {next(unet.parameters()).device}, the state on {dev}")
     f32 = torch.float32
+    stamp = step_clock(dev)  # the phases' device clock (utils/timers.py)
 
     # -- dt selection (cell 13 :4572-4576)
     if cfg.dt_mode == "cfl":
@@ -174,6 +183,7 @@ def step_3d(
         dt = torch.clamp(torch.minimum(cfl_dt, torch.clamp(cfg.duration - state.t, min=1e-6)), max=ph.dt)
     else:
         dt = const(ph.dt, f32, dev)
+    stamp("dt")
 
     # -- moving bodies: advance each body's translation by its velocity
     #    row and re-evaluate the solid level set and the geometry for this
@@ -217,6 +227,7 @@ def step_3d(
             bspec = spec_from_state(p.x.shape[0], mesh.size, g.res[0])
         p, lost = rebucket(Particles(x=px, v=p.v, c=p.c, m=p.m), mesh, bspec, g.bound_min, g.cell_size)
         px = p.x
+    stamp("advect")
 
     # -- density/position projection (:4587-4590): one bias-0 cell sort
     #    serves the level set, the mass/volume scatter and the
@@ -228,6 +239,7 @@ def step_3d(
         lphi = compute_fluid_levelset(px, g.res, g.bound_min, g.cell_size, g.dx, pm=p.m, sort_info=sort1)
     else:
         lphi = sharded_fluid_levelset(px, p.m, mesh, bspec, g.res, g.bound_min, g.cell_size, g.dx)
+    stamp("levelset")
     dres = density_solve_3d(
         ph.rho, dt, px, p.m, cfg.particle_dx**3, geom.sphi_c, lphi, geom.w_faces,
         g.bound_min, g.cell_size, tol=sol.tol, rel_tol=sol.rel_tol, max_iter=sol.max_iter,
@@ -239,6 +251,7 @@ def step_3d(
         p, lost2 = rebucket(Particles(x=px, v=p.v, c=p.c, m=p.m), mesh, bspec, g.bound_min, g.cell_size)
         px = p.x
         lost = lost + lost2
+    stamp("density")
 
     # -- level-set rebuild (:4593) + merged P2G and fluid-volume classes
     #    (:4597-4604) over one shared sort, reused by G2P
@@ -263,6 +276,7 @@ def step_3d(
 
     # -- gravity (:4608)
     gv[1] = gv[1] + ph.gravity * dt
+    stamp("p2g")
 
     # -- viscosity (:4611-4642); 'auto' takes MG while the hysteresis flag
     #    carried from the previous step is set (read on the host, once)
@@ -298,6 +312,7 @@ def step_3d(
         visc_resid = vres.stats.residual
         visc_rel = vres.stats.residual / torch.clamp(vres.stats.initial_residual, min=1e-30)
         visc_conv = vres.stats.converged
+    stamp("viscosity")
 
     # -- pressure projection (:4648)
     pres = pressure_solve_3d(
@@ -306,19 +321,23 @@ def step_3d(
         jacobi_precond=sol.jacobi_precond, dt_scale=dt if sol.pressure_dt_scaled else None, mesh=mesh,
     )
     gv = list(pres.v_faces)
+    stamp("pressure")
 
     # -- extrapolate 2 iterations, valid = mass > 0 (:4652)
     for a in range(3):
         gv[a], _ = extrapolate(gv[a], gm[a] > 0, 2)
+    stamp("extrapolate")
 
     # -- boundary conditions (:4655)
     gv = apply_boundary_condition(gv, gm, geom.sphi_c, geom.sv_c, g.dx, mass_floor=mass_floor)
+    stamp("boundary")
 
     # -- G2P (:4660) over P2G's cell sort (positions unchanged since)
     if bspec is None:
         pv, pc = g2p_all(gv, g.res, _FACE_BIAS, g.bound_min, g.cell_size, sort_info)
     else:
         pv, pc = sharded_g2p_all(gv, mesh, bspec, g.res, _FACE_BIAS, g.bound_min, g.cell_size, sort_info)
+    stamp("g2p")
 
     # -- viscosity-preconditioner hysteresis (0 Jacobi, 1 MG entered on
     #    cost, 2 MG entered on non-convergence, sticky)
@@ -360,6 +379,7 @@ def step_3d(
         metrics["bucket_lost"] = lost
     if capture_ml:
         metrics["ml_pair"] = ml_pair
+    stamp("finish")
     return new_state, metrics
 
 
@@ -401,7 +421,10 @@ class CapturedStep:
     the seconds the warm-up and the capture took, every pool's bytes after
     capture, the graph's top-level nodes on every card (a WHILE node once)
     and each WHILE body's nodes, in the order the step records them (one
-    a card for each distributed solve of a mesh over several)."""
+    a card for each distributed solve of a mesh over several), the phase
+    stamps among the top-level nodes and each loop's slot in
+    ``utils/timers.py::RECORDER.loops`` (None where unstamped), given back
+    when the capture is dropped."""
 
     graph: "torch.cuda.CUDAGraph"
     pools: list
@@ -411,6 +434,13 @@ class CapturedStep:
     pool_bytes: int
     nodes: int
     loop_nodes: Tuple[int, ...]
+    stamps: int = 0
+    loop_slots: Tuple[Optional[int], ...] = ()
+
+    @property
+    def counted(self) -> bool:
+        """Whether every loop is stamped, so that its nodes are counted."""
+        return None not in self.loop_slots
 
 
 class StepReplayer:
@@ -454,7 +484,8 @@ class StepReplayer:
         """The step's graph for an 'auto' branch, captured at first use
         from what the input buffers hold then."""
         if branch not in self.captured:
-            self.captured[branch] = self._capture(branch)
+            with span("pfs_capture"):
+                self.captured[branch] = self._capture(branch)
         return self.captured[branch]
 
     def run(self, state: SimState, branch):
@@ -477,20 +508,29 @@ class StepReplayer:
             self.run(state, branch)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        loops = len(captured_while.body_nodes)
+        loops, stamps = len(captured_while.body_nodes), RECORDER.stamps
         devices = self.mesh.devices if self.mesh is not None else ()
-        with graph_capture(graph, dev, devices, capture_error_mode="thread_local") as pools:
-            out, metrics = self.run(state, branch)
+        try:
+            with graph_capture(graph, dev, devices, capture_error_mode="thread_local") as pools:
+                out, metrics = self.run(state, branch)
+        except BaseException:
+            RECORDER.release(captured_while.slots[loops:])
+            raise
         torch.cuda.synchronize(dev)
-        return CapturedStep(graph, pools, _state_tensors(out), metrics, time.perf_counter() - t0,
-                            pool_bytes(graph.pool(), *(p.id for p in pools)), graph_capture.nodes,
-                            tuple(captured_while.body_nodes[loops:]))
+        cap = CapturedStep(graph, pools, _state_tensors(out), metrics, time.perf_counter() - t0,
+                           pool_bytes(graph.pool(), *(p.id for p in pools)), graph_capture.nodes,
+                           tuple(captured_while.body_nodes[loops:]), RECORDER.stamps - stamps,
+                           tuple(captured_while.slots[loops:]))
+        weakref.finalize(cap, RECORDER.release, cap.loop_slots)
+        return cap
 
     def replay(self, branch: bool | None) -> CapturedStep:
         cap = self.graph(branch)
-        with torch.cuda.device(self.inputs[0].device):
+        dev = self.inputs[0].device
+        with span("pfs_replay"), torch.cuda.device(dev):
             cap.graph.replay()
         self.replays += 1
+        RECORDER.replayed(dev, cap.nodes - cap.stamps, cap.counted)
         return cap
 
     def advance(self, cap: CapturedStep):
@@ -515,18 +555,28 @@ def replaying_step(cfg: SimConfig, geom: GeomCache | None = None, unet=None, rep
     another step), and every call copies the state into its inputs,
     reads the 'auto' flag on the host where the configuration has one,
     replays that branch's graph and returns clones that no later replay
-    writes.  ``step.replayers`` holds the captures."""
+    writes.  ``step.replayers`` holds the captures.  Each call is one
+    step in ``utils/timers.py::RECORDER``'s ring (a ``pfs_step`` span
+    while a profiler records)."""
     replayers: Dict[tuple, StepReplayer] = {}
 
     def step(state: SimState):
-        ts = _state_tensors(state)
-        key = tuple((tuple(t.shape), t.dtype, t.device) for t in ts[:-1])
-        if key not in replayers:
-            replayers[key] = replayer(cfg, state, geom=geom, unet=unet)
-        rep = replayers[key]
-        rep.load(state)
-        cap = rep.replay(rep.branch(state.visc_mg))
-        return rep.result(cap, state), {k: v.clone() for k, v in cap.metrics.items()}
+        with RECORDER.call("step", state.particles.x.device, 1):
+            with span("pfs_replayer_for"):
+                ts = _state_tensors(state)
+                key = tuple((tuple(t.shape), t.dtype, t.device) for t in ts[:-1])
+                if key not in replayers:
+                    replayers[key] = replayer(cfg, state, geom=geom, unet=unet)
+                rep = replayers[key]
+            with span("pfs_load"):
+                rep.load(state)
+            with span("pfs_branch"):
+                branch = rep.branch(state.visc_mg)
+            cap = rep.replay(branch)
+            with span("pfs_result"):
+                out = rep.result(cap, state)
+            with span("pfs_metrics"):
+                return out, {k: v.clone() for k, v in cap.metrics.items()}
 
     step.replayers = replayers
     return step
@@ -623,17 +673,24 @@ class SimulateCapture:
         replay's state copied into the next's inputs on the device: (the
         last state, as tensors no later replay writes; each step's metrics,
         cloned)."""
-        rep = self.replayer_for(cfg, state, geom, unet, mesh, bucketed)
+        with span("pfs_replayer_for"):
+            rep = self.replayer_for(cfg, state, geom, unet, mesh, bucketed)
         before = len(rep.captured)
-        rep.load(state)
+        with span("pfs_load"):
+            rep.load(state)
         history = []
         for i in range(num_steps):
             if i:
-                rep.advance(cap)
-            cap = rep.replay(rep.branch(rep.inputs[-1]))
-            history.append({k: v.clone() for k, v in cap.metrics.items()})
+                with span("pfs_advance"):
+                    rep.advance(cap)
+            with span("pfs_branch"):
+                branch = rep.branch(rep.inputs[-1])
+            cap = rep.replay(branch)
+            with span("pfs_metrics"):
+                history.append({k: v.clone() for k, v in cap.metrics.items()})
         self.captures += len(rep.captured) - before
-        return rep.result(cap, state), history
+        with span("pfs_result"):
+            return rep.result(cap, state), history
 
     def clear(self):
         self.replayer, self._key = None, None
@@ -660,18 +717,21 @@ def simulate(state: SimState, cfg: SimConfig, num_steps: int, geom: GeomCache | 
     each branch once.  The returned state and metrics are tensors no
     later replay writes.  A ``mesh`` (``bucketed`` with it, the particles
     bucketed as `step_3d` takes them) is captured the same way, one graph
-    (`make_step`'s).  On the CPU the steps run eagerly."""
+    (`make_step`'s).  On the CPU the steps run eagerly.  Each call is
+    recorded in ``utils/timers.py::RECORDER``'s ring (a ``pfs_simulate``
+    span while a profiler records)."""
     if bucketed and mesh is None:
         raise ValueError("bucketed mode needs a mesh")
     history = []
-    if num_steps > 0 and state.particles.x.device.type == "cuda":
-        state, history = simulate.capture.run(state, cfg, num_steps, geom, unet, mesh, bucketed)
-    else:
-        if geom is None and not cfg.moving_solid:
-            geom = build_geom_cache(state.solid, mesh)
-        for _ in range(num_steps):
-            state, m = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh, bucketed=bucketed)
-            history.append(m)
+    with RECORDER.call("simulate", state.particles.x.device, max(num_steps, 0)):
+        if num_steps > 0 and state.particles.x.device.type == "cuda":
+            state, history = simulate.capture.run(state, cfg, num_steps, geom, unet, mesh, bucketed)
+        else:
+            if geom is None and not cfg.moving_solid:
+                geom = build_geom_cache(state.solid, mesh)
+            for _ in range(num_steps):
+                state, m = step_3d(state, cfg, geom=geom, unet=unet, mesh=mesh, bucketed=bucketed)
+                history.append(m)
     return state, stack_metrics(history)
 
 

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "pfs_while_begin": [_P] * 6 + [_I, _P],
     "pfs_while_end": [_P] * 6 + [_I, _I, _P],
     "pfs_capture_nodes": [_P, _P],
+    "pfs_stamp": [_P, _P, _I, _I, _I, _P, _I, _L],
 }
 
 

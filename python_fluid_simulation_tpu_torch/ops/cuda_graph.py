@@ -12,7 +12,9 @@ allocations go to private pools that `graph_capture` makes for the graph
 and the caller holds as long as the graph, so no replay writes memory
 that the caching allocator has handed to anyone else.  Its plain version
 is the host test of the eager loop (``solvers/cg.py::cg``), which the CPU
-takes.
+takes.  Inside a stamped step, the loop on the capture's own card gets a
+phase stamp just before its node and one just after it, which reads its
+iterations (``utils/timers.py``: loop counters).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import functools
 import torch
 
 from python_fluid_simulation_tpu_torch.ops import _cuda_build as cb
+from python_fluid_simulation_tpu_torch.utils.timers import RECORDER
 
 _CAPTURES: list = []  # {device: its loop bodies' pool, or None where its allocations are routed already}, innermost last
 
@@ -118,7 +121,8 @@ def captured_while(body, k, res, thresh, delta, max_iter: int):
     leave its results in place, in tensors made before this call (``res``
     and ``delta`` among them): the graph runs the same recorded work on
     the same memory every iteration.  Each test kernel adds one to its
-    ``k`` after each body."""
+    ``k`` after each body.  The loop on the capture's own card is stamped
+    (`RECORDER.loop_begin` / `loop_end`) where a stamped step is open."""
     loops = list(zip(*(t if isinstance(t, tuple) else (t,) for t in (k, res, thresh, delta))))
     devices = []
     for kk, rr, tt, dd in loops:
@@ -135,6 +139,7 @@ def captured_while(body, k, res, thresh, delta, max_iter: int):
         raise RuntimeError(f"captured_while: the loops' devices {[str(d) for d in devices]} are not being captured "
                            "by graph_capture")
     lib = cb.LIB.get()
+    home = next(iter(_CAPTURES[-1]))
     begun = []
     recorded = False
     try:
@@ -144,10 +149,11 @@ def captured_while(body, k, res, thresh, delta, max_iter: int):
             with torch.cuda.device(dev):
                 if not torch.cuda.is_current_stream_capturing():
                     raise RuntimeError(f"captured_while: the current stream of {dev} is not being captured")
+                stamped = RECORDER.loop_begin(dev) if dev == home else None
                 cb.check(lib.pfs_while_begin(torch.cuda.current_stream(dev).cuda_stream,
                                              body_stream(dev.index).cuda_stream, *args, ctypes.byref(handle)),
                          "while node")
-            begun.append((dev, handle, args))
+            begun.append((dev, handle, args, stamped, kk))
         with contextlib.ExitStack() as stack:
             here = torch.cuda.current_device()
             for dev in devices:
@@ -159,7 +165,7 @@ def captured_while(body, k, res, thresh, delta, max_iter: int):
         recorded = True
     finally:
         errs = []
-        for dev, handle, args in begun:
+        for dev, handle, args, stamped, kk in begun:
             nodes = ctypes.c_ulonglong(0)
             with torch.cuda.device(dev):
                 err = lib.pfs_while_end(body_stream(dev.index).cuda_stream, ctypes.byref(handle), *args,
@@ -168,9 +174,15 @@ def captured_while(body, k, res, thresh, delta, max_iter: int):
             if recorded and not err:
                 captured_while.nodes += 1
                 captured_while.body_nodes.append(nodes.value)
+                captured_while.slots.append(stamped)
+                if stamped is not None:
+                    RECORDER.loop_end(dev, stamped, kk, nodes.value)
+            elif stamped is not None:
+                RECORDER.release((stamped,))
     for err in errs:
         cb.check(err, "while node body")
 
 
 captured_while.nodes = 0  # WHILE nodes recorded (a replay runs each one's test kernel once an iteration)
 captured_while.body_nodes = []  # the nodes of each body recorded, in order (its test kernel among them)
+captured_while.slots = []  # each loop's phase-clock slot (utils/timers.py), None where unstamped, in the same order

@@ -34,21 +34,17 @@ it (``engine/step.py::replaying_step``, with the geometry built once as
 here: the first warm-up step captures it, each step copies the state in,
 reads the 'auto' flag where there is one, replays and clones the state
 out; with ``--mesh`` the sharded or bucketed step, its distributed
-solves as WHILE nodes, no flag read); the ranges below are recorded at
-capture and are empty in its replays, where the kernels are still
-reported by name (but for the kernels of a WHILE body, which the
-profiler does not report: the busy time and launches leave them out),
-and the JSON line adds the capture's seconds, its pools' bytes and its
-nodes.  Every fold
-call is a ``pfs_fold`` range in the profile, every live placement of a
-segment reduce (``ops/cuda_binned.py::place_live``) a ``pfs_place`` range,
-every multigrid V-cycle application a ``pfs_vcycle`` range (the cell
-solves' and the batched viscosity preconditioner's, and the lean route's
-inner cycle), every learned-operator call
-(features, network, extraction) a ``pfs_unet_delta_v`` range.  3 warm-up steps, then ``--steps``
-steps timed on the host clock without the profiler, then ``--steps``
-steps under ``torch.profiler`` (CPU + CUDA activities).  Prints one JSON
-line with the step times, the device busy time (the union of the CUDA
+solves as WHILE nodes, no flag read); the kernels are reported by name
+(but for the kernels of a WHILE body, which the profiler does not
+report: the busy time and launches leave them out), and the JSON line
+adds the capture's seconds, its pools' bytes and its nodes.  3 warm-up
+steps, then ``--steps`` steps timed on the host clock without the
+profiler, then ``--steps`` steps under ``torch.profiler`` (CPU + CUDA
+activities).  Prints one JSON line with the program's own phase clocks
+over the unprofiled steps (``utils/timers.py``: each phase's device ms a
+step, the particles and grids layer's, the solvers', the WHILE nodes',
+and with ``--graph`` the graph nodes executed a step), the step times,
+the device busy time (the union of the CUDA
 kernel and memcpy/memset intervals: kernels on several streams, as the
 halo push route's slots, overlap), the idle
 share, the CUDA runtime calls per step (kernel launches, cooperative
@@ -97,9 +93,7 @@ def profile_steps(step, state, steps: int):
     busy ms a step (the union of the kernel and memcpy/memset intervals,
     the ``pfs_*`` ranges left out), the idle share, the CUDA runtime calls
     and device events a step, the port's own kernels' launches and device
-    ms a step, the ``pfs_fold`` / ``pfs_place`` / ``pfs_vcycle`` /
-    ``pfs_unet_delta_v`` ranges, and the top
-    operators by device and by host time."""
+    ms a step, and the top operators by device and by host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -140,20 +134,8 @@ def profile_steps(step, state, steps: int):
             for a in rows
         ]
 
-    def ranges(name):
-        return [{"calls": a.count / steps, "host_ms": a.cpu_time_total / 1e3 / steps,
-                 "device_ms": a.device_time_total / 1e3 / steps} for a in avgs if a.key == name]
-
     busy_ms = busy_us / 1e3 / steps
     summary = {
-        # the folds' and the live placements' ranges: host time (CPU
-        # total) and the device time of the kernels they launched, per step
-        "fold_per_step": ranges("pfs_fold"),
-        "place_per_step": ranges("pfs_place"),
-        # the multigrid V-cycle applications' range
-        "vcycle_per_step": ranges("pfs_vcycle"),
-        # the learned operator's range (features, network, extraction)
-        "unet_delta_v_per_step": ranges("pfs_unet_delta_v"),
         "steps": steps,
         # each profiled step's solver iterations (read after the window)
         "solver_iters": {k: [int(m[k]) for m in metrics] for k in ("density_iters", "viscosity_iters", "pressure_iters")
@@ -190,7 +172,6 @@ def bucketed_particles(state, cfg, mesh):
 
 def main() -> int:
     import torch
-    from torch.profiler import record_function
 
     from python_fluid_simulation_tpu_torch.engine.scenes import (
         buckling_config,
@@ -203,9 +184,8 @@ def main() -> int:
     from python_fluid_simulation_tpu_torch.engine import step as step_mod
     from python_fluid_simulation_tpu_torch.engine.step import build_geom_cache, step_3d
     from python_fluid_simulation_tpu_torch.models.unet3d import UNet3D
-    from python_fluid_simulation_tpu_torch.ops import cuda_binned, cuda_fold, scatter
     from python_fluid_simulation_tpu_torch.parallel.mesh import make_mesh, make_mesh2d, shard_state
-    from python_fluid_simulation_tpu_torch.solvers import pressure, viscosity
+    from python_fluid_simulation_tpu_torch.utils.timers import RECORDER, phases_summary
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("buckling", "coiling"), default="buckling")
@@ -245,47 +225,6 @@ def main() -> int:
         unet = UNet3D(width=64, dtype=torch.bfloat16 if args.unet_bf16 else torch.float32)
         unet.load_state_dict(unet_state_dict_from_flax(random_flax_unet_params(64, seed=0)))
         unet = unet.to("cuda").eval()
-
-    def fold_range(*a, **kw):
-        with record_function("pfs_fold"):
-            return cuda_fold.fold(*a, **kw)
-
-    place_live = cuda_binned.place_live
-
-    # wraps: the range carries place_live's attributes, so the launch count
-    # place_live keeps under its module name stays an attribute to add to
-    @functools.wraps(place_live)
-    def place_range(*a, **kw):
-        with record_function("pfs_place"):
-            return place_live(*a, **kw)
-
-    unet_delta_v = step_mod.unet_delta_v
-
-    def unet_range(*a, **kw):
-        with record_function("pfs_unet_delta_v"):
-            return unet_delta_v(*a, **kw)
-
-    def vcycle_ranges(make):
-        """`make` (a preconditioner factory) with each application of what
-        it returns in a ``pfs_vcycle`` range."""
-        @functools.wraps(make)
-        def build(*a, **kw):
-            pre = make(*a, **kw)
-
-            @functools.wraps(pre)
-            def apply(r):
-                with record_function("pfs_vcycle"):
-                    return pre(r)
-
-            return apply
-
-        return build
-
-    scatter.fold = fold_range
-    cuda_binned.place_live = place_range
-    pressure.make_mg_preconditioner = vcycle_ranges(pressure.make_mg_preconditioner)
-    viscosity.make_batched_mg_preconditioner = vcycle_ranges(viscosity.make_batched_mg_preconditioner)
-    step_mod.unet_delta_v = unet_range
     mesh = None
     if args.mesh:
         sx, _, sz = args.mesh.partition("x")
@@ -306,12 +245,16 @@ def main() -> int:
     for _ in range(3):
         state, _ = step(state)
     torch.cuda.synchronize()
+    clocks = RECORDER.read(state.particles.x.device)
     plain_ms = []
     for _ in range(args.steps):
         t0 = time.perf_counter()
         state, _ = step(state)
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
+    clocks = RECORDER.read(state.particles.x.device).minus(clocks)
+    clocks.steps = args.steps  # the eager step is in no recorded call
+    phases = phases_summary(clocks, state.particles.x.device)
 
     state, summary, avgs = profile_steps(step, state, args.steps)
     captures = [c for r in getattr(step, "replayers", {}).values() for c in r.captured.values()]
@@ -337,6 +280,11 @@ def main() -> int:
         "loop_body_nodes": [list(c.loop_nodes) for c in captures],
         "visc_mg_after": int(torch.as_tensor(state.visc_mg)),
         "unprofiled_step_ms": plain_ms,
+        # the program's phase clocks over the unprofiled steps (device ms a
+        # step; `between` is the time between two steps' stamps)
+        "phase_ms_per_step": phases["phase_ms_per_step"],
+        **{k: phases[k] for k in ("grid_ms_per_step", "solve_ms_per_step", "while_ms_per_step")},
+        "nodes_per_step": phases["nodes_per_step"] if args.graph else None,
         # the particles after every step of the run, for comparing two
         # builds' runs from the same scene bit for bit
         "particles_sha256": hashlib.sha256(b"".join(

@@ -62,7 +62,13 @@ def build_argparser():
                         "cell 14)")
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--resume", default=None, help="a checkpoint directory; its latest step is restored")
-    p.add_argument("--profile-dir", default=None, help="write a torch.profiler Chrome trace of the run here")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the run here (trace.json), with the step's own phase "
+                        "clocks (phases.json): each phase's device ms a step (between, dt, advect, levelset, density, "
+                        "p2g, viscosity, pressure, extrapolate, boundary, g2p, finish: one-thread stamp kernels at "
+                        "the phase boundaries of the replayed graph), the WHILE loops' runs and iterations (counted "
+                        "on the device), graph nodes executed a step, and the names of the host spans the trace "
+                        "holds (pfs_simulate a block, pfs_replay a cudaGraphLaunch, ...; utils/timers.py)")
     p.add_argument("--bucketed", action="store_true",
                    help="with --mesh: spatially-bucketed particle sharding (per-slot residency + bounded exchange) "
                         "instead of index sharding")

@@ -41,7 +41,7 @@ from python_fluid_simulation_tpu_torch.utils.io import (
     triangulate_levelset,
 )
 from python_fluid_simulation_tpu_torch.utils.metrics import MetricsLogger, summarize
-from python_fluid_simulation_tpu_torch.utils.timers import PhaseTimer, profiler_trace
+from python_fluid_simulation_tpu_torch.utils.timers import CLOCKS, SPANS, profiler_trace
 from python_fluid_simulation_tpu_torch.utils.viewer import export_html_replay
 
 torch.set_num_threads(1)
@@ -319,20 +319,27 @@ def test_roofline_h100_peak():
 
 
 def test_phase_timer_and_profiler_trace(tmp_path):
-    timer = PhaseTimer()
-    x = torch.ones(100)
-    for _ in range(2):
-        with timer.phase("add", block_on={"y": [x + 1]}):
-            x = x + 1
-    assert timer.counts["add"] == 2 and timer.means_ms()["add"] >= 0 and "add" in timer.report()
-    off = PhaseTimer(enabled=False)
-    with off.phase("add"):
-        pass
-    assert not off.totals
+    """``profiler_trace`` (the CLI's ``--profile-dir``) writes the Chrome
+    trace, which holds the replay loop's ``pfs_simulate`` span, and
+    ``phases.json``: the step's phase clocks over the calls inside it (on
+    the CPU the host's clock), per step, and the spans' names."""
+    from python_fluid_simulation_tpu_torch.engine.scenes import buckling_scene
+    from python_fluid_simulation_tpu_torch.engine.step import simulate
+
     with profiler_trace(None):
         pass
+    cfg = buckling_config(dx=0.05)
+    state = buckling_scene(cfg, device="cpu")
+    simulate(state, cfg, 1)  # outside the scope: not in phases.json
     with profiler_trace(str(tmp_path / "prof")):
-        torch.ones(10).sum()
+        simulate(state, cfg, 2)
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
-    assert trace["traceEvents"]
-    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    assert "pfs_simulate" in {e.get("name") for e in trace["traceEvents"]}
+    phases = json.loads((tmp_path / "prof" / "phases.json").read_text())
+    card = phases["cards"]["cpu"]
+    assert card["steps"] == 2 and card["calls"] == 1 and card["clock"] == "host perf_counter_ns"
+    assert list(card["phase_ms_per_step"]) == list(CLOCKS)
+    assert all(v >= 0 for v in card["phase_ms_per_step"].values())
+    assert card["grid_ms_per_step"] + card["solve_ms_per_step"] == pytest.approx(
+        sum(v for k, v in card["phase_ms_per_step"].items() if k != "between"))
+    assert card["nodes_per_step"] == 0 and card["loops"] == [] and phases["spans"] == SPANS
